@@ -1,0 +1,444 @@
+"""Smoke test of the PyTorch/CUDA port on one NVIDIA H100.
+
+    python3 chip_smoke.py
+
+Drives ``repro_torch`` (never the JAX package) on the card:
+
+1. environment: torch version, the card's name and power limit, TF32 off;
+2. builds the three CUDA kernels from src/repro_torch/kernels/csrc with
+   nvcc for sm_90a;
+3. holds each kernel against its plain PyTorch version at the main
+   path's shapes plus a GQA shape (gather exact; attention within 2e-2
+   in bf16 and 2e-5 in f32), and times the kernel, the plain version and
+   one PyTorch call computing the same function, with CUDA events;
+4. serves 6 agents x 3 rounds of full-width qwen1.5-0.5b (bf16, random
+   weights from a seed) through the port's ServingSystem, asserting that
+   every round finished, both read sides were used and all three
+   kernels launched; then the blocking arm must give identical tokens,
+   and a third run under torch.profiler says where the time goes;
+5. f32 token identity at full width: ServingSystem against the port's
+   cache-free reference (full forward, then decode);
+6. prints the ``kernels`` JSON line, then the contract line
+   ``{"ok": true, "device": {...}}`` last.
+
+Any failed check raises, so the script exits non-zero and prints no
+result.  Without a CUDA card it exits non-zero at once.
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, os.path.join(REPO, "src"))
+
+HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
+PEAK_FLOPS = {torch.bfloat16: 989e12,   # dense tensor-core bf16
+              torch.float32: 67e12}     # f32 outside the tensor cores
+TOLS = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+AGENT_ROUNDS = ((1024, 32), (128, 32), (128, 32))
+
+
+# ---------------------------------------------------------------------------
+# timing and bounds
+# ---------------------------------------------------------------------------
+
+
+def time_ms(fn, reps: int = 25, warmup: int = 3) -> float:
+    """Median device time of one call, CUDA events around each call.
+    Before every timed call the 50 MB L2 is flushed (the main path finds
+    its inputs cold) and the stream is kept busy for about a millisecond
+    (``torch.cuda._sleep``), so the host has enqueued the whole call
+    before the start event fires: the time is device time, without the
+    host's launch overhead."""
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(reps):
+        flush.zero_()
+        torch.cuda._sleep(2_000_000)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def bound(nbytes: float, flops: float, dtype) -> tuple:
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = flops / PEAK_FLOPS.get(dtype, PEAK_FLOPS[torch.float32])
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def max_err(got, want, tol: float):
+    """max |got - want|, and whether every element is within
+    tol + tol * |want| (test_kernels.py's atol = rtol = tol)."""
+    d = (got.float() - want.float()).abs()
+    ok = bool((d <= tol + tol * want.float().abs()).all())
+    return float(d.max()), ok
+
+
+# ---------------------------------------------------------------------------
+# phase 3: kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+
+def gather_cases(cfg, rng):
+    from repro_torch.engines.kvio import kv_row_bytes
+    from repro_torch.kernels import kv_layer_gather, ref
+    # the round-2 install: 1056 context tokens -> 16 full 64-token pages
+    # of (layers, 64, row_bytes) uint8 FullBlocks
+    n, pt, row = 16, 64, kv_row_bytes(cfg)
+    pool = torch.from_numpy(rng.integers(
+        0, 256, (n, cfg.n_layers, pt, row), dtype=np.uint8)).cuda()
+    table = torch.arange(n, dtype=torch.int32, device="cuda")
+    layer = cfg.n_layers // 2
+    got = kv_layer_gather(pool, table, layer=layer)
+    want = ref.kv_layer_gather_ref(pool, table, layer=layer)
+    if not torch.equal(got, want):
+        raise AssertionError("kv_layer_gather is not bit-exact")
+    tl = table.long()
+    b_ms, b_by = bound(2 * n * pt * row, 0, torch.uint8)
+    return [dict(
+        shapes=dict(pool=list(pool.shape), table=[n], dtype="uint8"),
+        max_abs_err=0.0,
+        ms=time_ms(lambda: kv_layer_gather(pool, table, layer=layer)),
+        plain_ms=time_ms(lambda: ref.kv_layer_gather_ref(pool, table,
+                                                         layer=layer)),
+        library_ms=time_ms(lambda: pool[tl, layer]),
+        bound_ms=b_ms, bound_by=b_by)]
+
+
+def _flash_case(rng, *, hq, hkv, dh, sq, kv_len, S, dtype):
+    """The PE's append at the main path's layout: q (1, sq, hq, dh) and a
+    padded (1, S, hkv, dh) cache, passed as (b, h, s, dh) views."""
+    from repro_torch.kernels import flash_attention, ref
+    f = lambda *s: torch.from_numpy(
+        rng.standard_normal(s).astype(np.float32)).to("cuda", dtype)
+    q = f(1, sq, hq, dh).transpose(1, 2)
+    k = f(1, S, hkv, dh).transpose(1, 2)
+    v = f(1, S, hkv, dh).transpose(1, 2)
+    kv_lens = torch.tensor([kv_len], dtype=torch.int32, device="cuda")
+    got = flash_attention(q, k, v, kv_lens=kv_lens)
+    want = ref.flash_attention_ref(q, k, v, kv_lens=kv_lens)
+    err, ok = max_err(got, want, TOLS[dtype])
+    if not ok:
+        raise AssertionError(f"flash_attention off by {err} at hq={hq} "
+                             f"hkv={hkv} sq={sq} kv_len={kv_len} {dtype}")
+    # yardstick: SDPA with an explicit mask over the same keys
+    g = hq // hkv
+    ke, ve = (x.repeat_interleave(g, dim=1) for x in (k, v))
+    pos = kv_len - sq + torch.arange(sq, device="cuda")
+    cols = torch.arange(S, device="cuda")
+    mask = (cols[None, :] <= pos[:, None]) & (cols[None, :] < kv_len)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    isz = q.element_size()
+    pairs = sum(kv_len - sq + i + 1 for i in range(sq))
+    b_ms, b_by = bound(2 * sq * hq * dh * isz + 2 * kv_len * hkv * dh * isz,
+                       4 * dh * hq * pairs, dtype)
+    return dict(
+        shapes=dict(q=[1, hq, sq, dh], kv=[1, hkv, S, dh], kv_len=kv_len,
+                    dtype=str(dtype).replace("torch.", "")),
+        max_abs_err=err,
+        ms=time_ms(lambda: flash_attention(q, k, v, kv_lens=kv_lens)),
+        plain_ms=time_ms(lambda: ref.flash_attention_ref(q, k, v,
+                                                         kv_lens=kv_lens)),
+        library_ms=time_ms(lambda: sdpa(q, ke, ve, attn_mask=mask)),
+        bound_ms=b_ms, bound_by=b_by)
+
+
+def flash_cases(cfg, rng):
+    h, dh, bf = cfg.n_heads, cfg.head_dim, torch.bfloat16
+    return [
+        # round 2 append: 128 new tokens over a 1056-token prefix
+        _flash_case(rng, hq=h, hkv=cfg.n_kv_heads, dh=dh, sq=128,
+                    kv_len=1184, S=2048, dtype=bf),
+        # round 1 prefill: 1024 tokens, no prefix
+        _flash_case(rng, hq=h, hkv=cfg.n_kv_heads, dh=dh, sq=1024,
+                    kv_len=1024, S=2048, dtype=bf),
+        _flash_case(rng, hq=h, hkv=h // 4, dh=dh, sq=128, kv_len=1184,
+                    S=2048, dtype=bf),                       # GQA g = 4
+        _flash_case(rng, hq=h, hkv=cfg.n_kv_heads, dh=dh, sq=128,
+                    kv_len=1184, S=2048, dtype=torch.float32),
+    ]
+
+
+def _paged_case(rng, *, hq, hkv, dh, b, S, lengths, dtype):
+    """The DE's decode at the main path's layout: the padded (b, S, hkv,
+    dh) cache viewed as 64-token pages with an arange block table."""
+    from repro_torch.kernels import paged_attention, ref
+    pt = 64
+    f = lambda *s: torch.from_numpy(
+        rng.standard_normal(s).astype(np.float32)).to("cuda", dtype)
+    g = hq // hkv
+    q = f(b, hkv, g, dh)
+    kc, vc = f(b, S, hkv, dh), f(b, S, hkv, dh)
+    kp, vp = (x.view(b * S // pt, pt, hkv, dh) for x in (kc, vc))
+    table = torch.arange(b * S // pt, dtype=torch.int32,
+                         device="cuda").view(b, S // pt)
+    lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    got = paged_attention(q, kp, vp, table, lens)
+    want = ref.paged_attention_ref(q, kp, vp, table, lens)
+    err, ok = max_err(got, want, TOLS[dtype])
+    if not ok:
+        raise AssertionError(f"paged_attention off by {err} at hkv={hkv} "
+                             f"g={g} {dtype}")
+    qs = q.reshape(b, hq, 1, dh)
+    ke, ve = (x.transpose(1, 2).repeat_interleave(g, dim=1)
+              for x in (kc, vc))
+    mask = (torch.arange(S, device="cuda")[None, :] <
+            lens[:, None].long())[:, None, None, :]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    isz = q.element_size()
+    tot = int(sum(lengths))
+    b_ms, b_by = bound(2 * b * hq * dh * isz + 2 * tot * hkv * dh * isz,
+                       4 * dh * hq * tot, dtype)
+    return dict(
+        shapes=dict(q=[b, hkv, g, dh], pool=list(kp.shape),
+                    lengths=list(lengths),
+                    dtype=str(dtype).replace("torch.", "")),
+        max_abs_err=err,
+        ms=time_ms(lambda: paged_attention(q, kp, vp, table, lens)),
+        plain_ms=time_ms(lambda: ref.paged_attention_ref(q, kp, vp, table,
+                                                         lens)),
+        library_ms=time_ms(lambda: sdpa(qs, ke, ve, attn_mask=mask)),
+        bound_ms=b_ms, bound_by=b_by)
+
+
+def paged_cases(cfg, rng):
+    h, dh, bf = cfg.n_heads, cfg.head_dim, torch.bfloat16
+    # 8 slots mid-round-3: contexts of 1300..1376 tokens
+    lengths = [int(x) for x in rng.integers(1300, 1377, 8)]
+    return [
+        _paged_case(rng, hq=h, hkv=cfg.n_kv_heads, dh=dh, b=8, S=2048,
+                    lengths=lengths, dtype=bf),
+        _paged_case(rng, hq=h, hkv=h // 4, dh=dh, b=8, S=2048,
+                    lengths=lengths, dtype=bf),              # GQA g = 4
+        _paged_case(rng, hq=h, hkv=cfg.n_kv_heads, dh=dh, b=8, S=2048,
+                    lengths=lengths, dtype=torch.float32),
+    ]
+
+
+# ---------------------------------------------------------------------------
+# phases 4 and 5: serving
+# ---------------------------------------------------------------------------
+
+
+def serve(cfg, params, trajs, device, **kw):
+    from repro_torch.serving import ServingSystem
+    system = ServingSystem(cfg, params, device=device, **kw)
+    if device != "cpu":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sessions = system.run_offline(trajs)
+    if device != "cpu":
+        torch.cuda.synchronize()
+    return system, sessions, time.perf_counter() - t0
+
+
+def serving_phase(cfg, device="cuda", rounds=AGENT_ROUNDS, n_agents=6,
+                  block_tokens=64, max_seq=2048):
+    """Returns (stats, launches, wall_s, tokens_per_s, blocking_wall_s)."""
+    from repro_torch import kernels
+    from repro_torch.models import init_params
+    from repro_torch.sim.traces import Round, Trajectory
+    params = init_params(cfg, seed=0, device=device)
+    trajs = lambda: [Trajectory(i, [Round(*r) for r in rounds])
+                     for i in range(n_agents)]
+    kw = dict(n_pe=1, n_de=1, mode="dualpath", block_tokens=block_tokens,
+              max_seq=max_seq, de_slots=8)
+    kernels.reset_launch_counts()
+    system, sessions, wall = serve(cfg, params, trajs(), device, **kw)
+    launches = kernels.launch_counts()
+    st = system.stats()
+    assert all(s.rounds_done == len(rounds) for s in sessions), \
+        "a round did not finish"
+    assert st["store_reads"] > 0, "no FullBlock was read back"
+    assert st["read_bytes_pe_side"] > 0 and st["read_bytes_de_side"] > 0, \
+        "both read sides must be used"
+    if device != "cpu":
+        assert all(n > 0 for n in launches.values()), \
+            f"a kernel of the main path never launched: {launches}"
+    _, sessions_b, wall_b = serve(cfg, params, trajs(), device,
+                                  pipelined=False, **kw)
+    assert [s.context for s in sessions] == \
+        [s.context for s in sessions_b], "blocking arm diverged"
+    return st, launches, wall, st["gen_tokens"] / wall, wall_b
+
+
+def profile_phase(cfg, rounds=AGENT_ROUNDS, n_agents=6, top=8):
+    """Where the time goes: the serving phase's pipelined run once more,
+    under torch.profiler tracing the card only.  Returns (real wall s,
+    device-busy s summed over kernels and copies, [(name, device ms,
+    calls)] of the top entries)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import init_params
+    from repro_torch.sim.traces import Round, Trajectory
+    params = init_params(cfg, seed=0, device="cuda")
+    trajs = [Trajectory(i, [Round(*r) for r in rounds])
+             for i in range(n_agents)]
+    kw = dict(n_pe=1, n_de=1, mode="dualpath", block_tokens=64,
+              max_seq=2048, de_slots=8)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        _, _, wall = serve(cfg, params, trajs, "cuda", **kw)
+    short = lambda key: key.removeprefix("void ").replace(
+        "(anonymous namespace)::", "").split("<")[0].split("(")[0][:60]
+    rows = [(short(e.key), e.self_device_time_total / 1e3, e.count)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+    rows.sort(key=lambda r: -r[1])
+    busy = sum(ms for _, ms, _ in rows) / 1e3
+    return wall, busy, rows[:top]
+
+
+def reference_contexts(cfg, params, rounds, seed_tid, device):
+    """The port's cache-free reference: full forward per round for the
+    first token, then decode, as tests/test_serving.py's oracle."""
+    from repro_torch.models import (append_step, decode_step, forward,
+                                    init_decode_state)
+    rng = np.random.default_rng(1000 + seed_tid)
+    context = []
+    for a, g in rounds:
+        prompt = context + list(rng.integers(2, cfg.vocab_size, size=a))
+        toks = torch.tensor([prompt], dtype=torch.long, device=device)
+        logits, _ = forward(params, cfg, toks)
+        cur = int(torch.argmax(logits[0, -1]))
+        gen = [cur]
+        st = init_decode_state(cfg, 1, len(prompt) + g + 4, device)
+        append_step(params, cfg, toks, st,
+                    torch.zeros(1, dtype=torch.long, device=device))
+        for i in range(g - 1):
+            lg, st = decode_step(
+                params, cfg, torch.tensor([cur], device=device), st,
+                torch.tensor([len(prompt) + i], device=device))
+            cur = int(torch.argmax(lg[0]))
+            gen.append(cur)
+        context = prompt + gen
+    return context
+
+
+def identity_phase(cfg, device="cuda", rounds=((256, 8), (64, 8), (64, 8)),
+                   block_tokens=64, max_seq=512):
+    from repro_torch.models import init_params
+    from repro_torch.sim.traces import Round, Trajectory
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32",
+                                kv_cache_dtype="float32")
+    params = init_params(cfg32, seed=1, device=device)
+    system, sessions, _ = serve(
+        cfg32, params, [Trajectory(0, [Round(*r) for r in rounds])], device,
+        n_pe=1, n_de=1, block_tokens=block_tokens, max_seq=max_seq,
+        de_slots=2)
+    want = reference_contexts(cfg32, params, rounds, 0, device)
+    got = sessions[0].context
+    if got != want:
+        first = next(i for i, (a, b) in enumerate(zip(got, want)) if a != b)
+        raise AssertionError(f"f32 serving diverged from the cache-free "
+                             f"reference at token {first}")
+    assert system.stats()["store_reads"] > 0
+    return len(got)
+
+
+# ---------------------------------------------------------------------------
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this smoke "
+              "runs only on a CUDA card", file=sys.stderr)
+        return 2
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build
+
+    # 1. environment
+    print(f"torch {torch.__version__} cuda {torch.version.cuda}")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    print(card)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    # 2. build
+    t0 = time.perf_counter()
+    build.build()
+    print(f"build: {time.perf_counter() - t0:.1f} s")
+    for name in build.SOURCES:
+        log = build.BUILD_DIR / f"{name}.log"
+        if log.exists():
+            for line in log.read_text().splitlines():
+                if "registers" in line or "spill" in line:
+                    print(f"  {name}: {line.strip()}")
+
+    # 3. kernels against their plain versions
+    cfg = get_config("qwen1.5-0.5b")
+    rng = np.random.default_rng(0)
+    cases = {"kv_layer_gather": gather_cases(cfg, rng),
+             "flash_attention": flash_cases(cfg, rng),
+             "paged_attention": paged_cases(cfg, rng)}
+    for name, cs in cases.items():
+        for c in cs:
+            print(f"{name} {json.dumps(c['shapes'])}: err {c['max_abs_err']:.3g}"
+                  f" kernel {c['ms']:.4f} ms plain {c['plain_ms']:.4f} ms "
+                  f"library {c['library_ms']:.4f} ms bound {c['bound_ms']:.4f}"
+                  f" ms ({c['bound_by']})")
+
+    # 4. serving at full width, bf16
+    st, launches, wall, tps, wall_b = serving_phase(cfg)
+    print("serving stats:", json.dumps(st))
+    print(f"serving: {wall:.3f} s real wall (pipelined), {wall_b:.3f} s "
+          f"(blocking), {tps:.1f} generated tokens/s, launches {launches}")
+
+    wall_p, busy, rows = profile_phase(cfg)
+    print(f"where the time goes (profiled pipelined run): {wall_p:.3f} s "
+          f"wall, {busy:.3f} s device busy ({100 * busy / wall_p:.1f} %)")
+    for name, ms, calls in rows:
+        print(f"  {ms:9.1f} ms {calls:7d} calls  {name}")
+
+    # 5. f32 token identity with the cache-free reference
+    n = identity_phase(cfg)
+    print(f"f32 identity: {n} context tokens equal the cache-free reference")
+
+    # 6. kernels line, then the contract line
+    meta = {
+        "kv_layer_gather": ("src/repro_torch/kernels/csrc/kv_gather.cu",
+                            "src/repro/kernels/kv_gather.py:30"),
+        "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                            "src/repro/kernels/flash_attention.py:107"),
+        "paged_attention": ("src/repro_torch/kernels/csrc/paged_attention.cu",
+                            "src/repro/kernels/paged_attention.py:76"),
+    }
+    line = []
+    for name, cs in cases.items():
+        main_case = cs[0]
+        line.append(dict(
+            name=name, route="cuda", source=meta[name][0],
+            replaces=meta[name][1], launches=launches[name],
+            max_abs_err=max(c["max_abs_err"] for c in cs),
+            ms=main_case["ms"], kernel_ms=main_case["ms"],
+            plain_ms=main_case["plain_ms"], bound_ms=main_case["bound_ms"],
+            bound_by=main_case["bound_by"],
+            library_ms=main_case["library_ms"], shapes=main_case["shapes"],
+            cases=cs))
+    print(json.dumps({"kernels": line}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,85 @@
+"""Conversion between the JAX reference's trees and the port's, plus
+parity helpers for the tests that compare the two packages.
+
+The bridge takes the JAX trees as numpy (``jax.tree.map(np.asarray,
+tree)``), so this module imports neither ``jax`` nor ``repro``.
+``torch.from_numpy`` rejects ``ml_dtypes.bfloat16``, so bf16 arrays go
+through their uint16 bits: ``np.asarray(x).view(np.uint16)`` and then
+``.view(torch.bfloat16)``.  The reference stacks block parameters along a
+leading layer axis; the port keeps one dict per layer, so the blocks are
+unstacked here.
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+
+
+def to_torch(x, device="cpu") -> torch.Tensor:
+    """numpy array (bf16 included) -> torch tensor on ``device``."""
+    a = np.asarray(x)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16).copy()).view(
+            torch.bfloat16).to(device)
+    return torch.from_numpy(a.copy()).to(device)
+
+
+def to_numpy(t: torch.Tensor) -> np.ndarray:
+    """torch tensor -> numpy; bf16 becomes float32 (exactly)."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        t = t.float()
+    return t.numpy()
+
+
+def _convert(tree, device):
+    if isinstance(tree, dict):
+        return {k: _convert(v, device) for k, v in tree.items()}
+    return to_torch(tree, device)
+
+
+def _unstack(tree, i: int):
+    if isinstance(tree, dict):
+        return {k: _unstack(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
+def params_from_jax(np_tree: Dict, cfg: ModelConfig, device="cpu") -> Dict:
+    """The reference's ``init_params`` tree (as numpy) -> the port's
+    parameters (dense family: ``blocks`` unstacked into a list)."""
+    out = {k: _convert(v, device) for k, v in np_tree.items()
+           if k != "blocks"}
+    out["blocks"] = [_convert(_unstack(np_tree["blocks"], i), device)
+                     for i in range(cfg.n_layers)]
+    return out
+
+
+def state_from_jax(np_state: Dict, device="cpu") -> Dict:
+    """Decode state: both packages use {"kv": {"k","v": (L,b,S,hkv,dh)}}."""
+    return _convert(np_state, device)
+
+
+def _as_np(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        return to_numpy(x)
+    return np.asarray(x)
+
+
+def assert_exact(a, b) -> None:
+    """Ints and bytes: equal in shape and in every bit."""
+    a, b = _as_np(a), _as_np(b)
+    assert a.shape == b.shape, (a.shape, b.shape)
+    assert a.dtype == b.dtype, (a.dtype, b.dtype)
+    np.testing.assert_array_equal(a.view(np.uint8), b.view(np.uint8))
+
+
+def assert_close(a, b, tol: float) -> None:
+    """Floats: compared in float32 within ``tol`` absolute and relative."""
+    a = _as_np(a).astype(np.float32)
+    b = _as_np(b).astype(np.float32)
+    assert a.shape == b.shape, (a.shape, b.shape)
+    np.testing.assert_allclose(a, b, atol=tol, rtol=tol)

@@ -1,0 +1,112 @@
+"""Intra-engine scheduling (port of ``repro.core.intra``, paper §6.2):
+compute-quota batch packing for the prefill engine.
+
+Each item of a forward batch is (cached, bsz): ``cached`` tokens have KV
+already, ``bsz`` tokens are computed.  Predicted attention time is
+affine in the theoretical attention FLOPs
+
+    F(cached, bsz) = 4 · n_heads · head_dim · bsz · (cached + (bsz+1)/2)
+
+summed over layers; the straddling request is chunked by binary search.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import List, Sequence, Tuple
+
+from repro_torch.configs.base import ModelConfig
+
+
+@dataclass
+class AttnTimeModel:
+    """t(flops) = base_overhead + flops / effective_flops_per_s."""
+
+    effective_flops: float
+    base_overhead_s: float = 30e-6  # per-layer launch overhead
+
+    @classmethod
+    def from_config(cls, cfg: ModelConfig, peak_flops: float = 197e12,
+                    attn_efficiency: float = 0.35):
+        """The reference's modelled constants, kept as they are so the
+        port packs prompts into the same chunks as the reference.  They
+        are a packing model, not a property of the card the port runs
+        on."""
+        return cls(effective_flops=peak_flops * attn_efficiency)
+
+    def seconds(self, flops: float) -> float:
+        return self.base_overhead_s + flops / self.effective_flops
+
+
+def attn_flops_per_layer(cfg: ModelConfig, cached: int, bsz: int) -> float:
+    """Theoretical attention FLOPs for one layer of a (cached, bsz) item."""
+    return 4.0 * cfg.n_heads * cfg.head_dim * bsz * (cached + (bsz + 1) / 2.0)
+
+
+def attn_flops(cfg: ModelConfig, items: Sequence[Tuple[int, int]]) -> float:
+    n_attn = sum(1 for k in cfg.layer_kinds() if k != "ssm")
+    per_layer = sum(attn_flops_per_layer(cfg, c, b) for c, b in items)
+    return per_layer * max(n_attn, 1)
+
+
+@dataclass
+class PrefillWork:
+    """Mutable prefill progress of one request on a PE."""
+
+    rid: int
+    cached: int                     # tokens whose KV exists already
+    remaining: int                  # append tokens still to compute
+
+    def advance(self, bsz: int):
+        self.cached += bsz
+        self.remaining -= bsz
+
+
+@dataclass
+class BatchItem:
+    rid: int
+    cached: int
+    bsz: int
+    chunked: bool = False           # True if this is a partial (chunked) fill
+
+
+class QuotaPacker:
+    """FIFO packing under a compute quota with binary-search chunking."""
+
+    def __init__(self, cfg: ModelConfig, time_model: AttnTimeModel,
+                 quota_s: float = 0.300, min_chunk: int = 16):
+        self.cfg = cfg
+        self.time_model = time_model
+        self.quota_s = quota_s
+        self.min_chunk = min_chunk
+
+    def predict_batch_seconds(self, items: Sequence[Tuple[int, int]]) -> float:
+        return self.time_model.seconds(attn_flops(self.cfg, items))
+
+    def pack(self, fifo: List[PrefillWork]) -> List[BatchItem]:
+        """Select the next forward batch; mutates ``fifo`` (consumed work
+        is advanced, fully-prefilled requests are removed)."""
+        batch: List[BatchItem] = []
+        items: List[Tuple[int, int]] = []
+        while fifo:
+            w = fifo[0]
+            cand = items + [(w.cached, w.remaining)]
+            if self.predict_batch_seconds(cand) <= self.quota_s:
+                items.append((w.cached, w.remaining))
+                batch.append(BatchItem(w.rid, w.cached, w.remaining))
+                w.advance(w.remaining)
+                fifo.pop(0)
+                continue
+            # straddling request: binary search the largest bsz' that fits
+            lo, hi = 0, w.remaining
+            while lo < hi:
+                mid = (lo + hi + 1) // 2
+                if self.predict_batch_seconds(
+                        items + [(w.cached, mid)]) <= self.quota_s:
+                    lo = mid
+                else:
+                    hi = mid - 1
+            if lo >= self.min_chunk:
+                batch.append(BatchItem(w.rid, w.cached, lo, chunked=True))
+                w.advance(lo)
+            break
+        return batch

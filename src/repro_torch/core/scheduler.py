@@ -1,0 +1,263 @@
+"""Adaptive request scheduler (port of ``repro.core.scheduler``, paper §6.1).
+
+* **PE scheduling (Algorithm 1)** — FIFO queue; engines classified per
+  fetch into C1 (tok_e > β), C2 (read_q ≤ α ∧ tok_e ≤ β) and C3
+  (read_q > α ∧ tok_e ≤ β); requests go to argmin-tok in C2, else C3,
+  else the fetch ends.
+* **DE scheduling phase 1** — the global queue drains into per-group
+  private queues, each request to the group with minimum Σ tok_e.
+* **DE scheduling phase 2** — within a group, bounded by aggregate free
+  HBM; threshold Z = 1.05·(Σ_{r∈R} len_r + Σ_e tok_e)/|E|; the low-token
+  class (tok_e + len ≤ Z) by min seq_e, else min tok_e.
+* **Read-path selection** — the side with the shorter disk reading
+  queue; with ``split_reads`` the hit is water-filled across both sides.
+
+The arithmetic is the reference's, so both packages make the same
+decisions on the same lengths.  Drains, hedged reads, engine failure,
+DRAM-tier partitions, SLO classes and the round-robin baseline arrive
+with the slices that port those features.
+"""
+from __future__ import annotations
+
+from collections import deque
+from dataclasses import dataclass
+from typing import Deque, Dict, List, Optional, Sequence, Tuple
+
+EngineId = Tuple[int, int]          # (node_id, local_rank)
+
+
+@dataclass
+class Request:
+    rid: int
+    cached_tokens: int              # KV-hit tokens (loaded, not computed)
+    new_tokens: int                 # appended tokens (prefill compute)
+    gen_tokens: int                 # expected generation length
+    arrival: float = 0.0
+    # filled by the scheduler:
+    pe: Optional[EngineId] = None
+    de: Optional[EngineId] = None
+    read_path: Optional[str] = None   # 'pe' | 'de'
+    read_split: float = 1.0           # fraction read on `read_path` side
+
+    @property
+    def prompt_tokens(self) -> int:
+        return self.cached_tokens + self.new_tokens
+
+    @property
+    def hbm_tokens(self) -> int:
+        """KV residency a DE must reserve (prompt + generated)."""
+        return self.prompt_tokens + self.gen_tokens
+
+    @property
+    def pe_read_frac(self) -> float:
+        """Fraction of hit bytes entering via the PE side."""
+        if self.read_path is None:
+            return 0.0
+        if self.read_path == "pe":
+            return self.read_split
+        return 1.0 - self.read_split
+
+    def read_tokens_by_side(self) -> Dict[str, int]:
+        """Hit tokens charged to each side's disk reading queue: PE gets
+        floor(cached * pe_frac), DE the remainder."""
+        pe_t = int(self.cached_tokens * self.pe_read_frac)
+        return {"pe": pe_t, "de": self.cached_tokens - pe_t}
+
+    def hit_blocks_by_side(self, n_blocks: int) -> Dict[str, int]:
+        """Block-granular hit partition: the leading ``pe`` blocks are
+        read via the PE-side storage NIC, the rest via the DE side."""
+        if n_blocks <= 0 or not self.cached_tokens:
+            return {"pe": 0, "de": max(n_blocks, 0)}
+        tok = self.read_tokens_by_side()
+        rem_tok = tok["pe"] + tok["de"]
+        k_pe = int(round(n_blocks * tok["pe"] / rem_tok)) if rem_tok else 0
+        return {"pe": k_pe, "de": n_blocks - k_pe}
+
+
+@dataclass
+class EngineState:
+    """Scheduler-side view of one engine (refreshed by fetch reports)."""
+
+    engine: EngineId
+    node: int
+    kind: str                       # 'pe' | 'de'
+    group: int
+    seq: int = 0                    # unfinished requests
+    tok: int = 0                    # unfinished tokens
+    read_q: int = 0                 # node disk reading queue (tokens)
+    free_hbm_tokens: int = 0        # decode engines only
+
+
+@dataclass
+class Assignment:
+    request: Request
+    engine: EngineId
+
+
+class Scheduler:
+    """Central request scheduler.  ``alpha``: short-reading-queue
+    threshold [tokens]; ``beta``: unfinished-token limit [tokens]."""
+
+    def __init__(self, alpha: int, beta: int, *, z_factor: float = 1.05,
+                 split_reads: bool = False):
+        self.alpha = alpha
+        self.beta = beta
+        self.z_factor = z_factor
+        self.split_reads = split_reads
+        # read-path tie-breaker: the first tie goes to the PE side
+        self._tie_toggle = False
+        self.engines: Dict[EngineId, EngineState] = {}
+        self.pe_queue: Deque[Request] = deque()
+        self.de_global_queue: Deque[Request] = deque()
+        self.de_private: Dict[int, Deque[Request]] = {}
+        self._groups: Dict[int, List[EngineId]] = {}
+
+    def register_engine(self, engine: EngineId, *, node: int, kind: str,
+                        group: int) -> EngineState:
+        st = EngineState(engine=engine, node=node, kind=kind, group=group)
+        self.engines[engine] = st
+        self._groups.setdefault(group, []).append(engine)
+        if kind == "de":
+            self.de_private.setdefault(group, deque())
+        return st
+
+    def groups(self, kind: str) -> Dict[int, List[EngineId]]:
+        return {g: es for g, es in self._groups.items()
+                if es and self.engines[es[0]].kind == kind}
+
+    def submit(self, req: Request):
+        self.pe_queue.append(req)
+        self.de_global_queue.append(req)
+
+    # -- PE scheduling: Algorithm 1 ----------------------------------------
+    def _classify_pe(self, engines: Sequence[EngineState]):
+        c2 = [e for e in engines
+              if e.read_q <= self.alpha and e.tok <= self.beta]
+        c3 = [e for e in engines
+              if e.read_q > self.alpha and e.tok <= self.beta]
+        return c2, c3
+
+    def on_pe_fetch(self, group: int,
+                    reports: Optional[Dict[EngineId, Tuple[int, int, int]]] = None
+                    ) -> List[Assignment]:
+        """Leader-engine fetch for a PE group; ``reports`` refreshes
+        (seq, tok, read_q) per engine."""
+        members = [self.engines[e] for e in self._groups[group]]
+        self._apply_reports(members, reports)
+        out: List[Assignment] = []
+        while self.pe_queue:
+            c2, c3 = self._classify_pe(members)
+            pool = c2 if c2 else c3
+            if not pool:
+                break
+            req = self.pe_queue.popleft()
+            pe = min(pool, key=lambda e: e.tok)
+            req.pe = pe.engine
+            pe.tok += req.prompt_tokens
+            pe.seq += 1
+            out.append(Assignment(req, pe.engine))
+        return out
+
+    # -- DE scheduling -----------------------------------------------------
+    def de_phase1(self):
+        """Drain the global DE queue into per-group private queues."""
+        if not self.de_global_queue:
+            return
+        gtok = {g: sum(self.engines[e].tok for e in es)
+                for g, es in self.groups("de").items()}
+        if not gtok:
+            return
+        while self.de_global_queue:
+            req = self.de_global_queue.popleft()
+            g = min(gtok, key=gtok.get)
+            self.de_private[g].append(req)
+            gtok[g] += req.prompt_tokens
+
+    def on_de_fetch(self, group: int,
+                    reports: Optional[Dict[EngineId, Tuple[int, int, int, int]]] = None
+                    ) -> List[Assignment]:
+        """Two-phase DE scheduling; phase 1 runs on every fetch."""
+        self.de_phase1()
+        members = [self.engines[e] for e in self._groups[group]]
+        self._apply_reports(members, reports)
+        queue = self.de_private[group]
+        free = {e.engine: e.free_hbm_tokens for e in members}
+        # R: FIFO prefix fitting aggregate free HBM
+        total_free = sum(free.values())
+        acc, r_len = 0, []
+        for r in queue:
+            if acc + r.hbm_tokens > total_free:
+                break
+            acc += r.hbm_tokens
+            r_len.append(r.prompt_tokens)
+        n_engines = max(len(members), 1)
+        z = self.z_factor * ((sum(r_len) +
+                              sum(e.tok for e in members)) / n_engines)
+        out: List[Assignment] = []
+        while queue:
+            req = queue[0]
+            fits = [e for e in members if free[e.engine] >= req.hbm_tokens]
+            if not fits:
+                break
+            low = [e for e in fits if e.tok + req.prompt_tokens <= z]
+            de = min(low, key=lambda e: e.seq) if low \
+                else min(fits, key=lambda e: e.tok)
+            queue.popleft()
+            req.de = de.engine
+            de.tok += req.prompt_tokens
+            de.seq += 1
+            free[de.engine] -= req.hbm_tokens
+            de.free_hbm_tokens = free[de.engine]
+            out.append(Assignment(req, de.engine))
+        return out
+
+    # -- read-path selection (§6.1) ----------------------------------------
+    def _water_fill_frac(self, pe_q: int, de_q: int, h: int) -> float:
+        """PE share x of ``h`` tokens equalising both sides' queue drain
+        times: pe_q + x·h = de_q + (1−x)·h, clamped to [0, 1]."""
+        return min(1.0, max(0.0, (de_q - pe_q + h) / (2.0 * h)))
+
+    def _shorter_queue_side(self, pe_q: int, de_q: int) -> str:
+        if pe_q == de_q:
+            # ties alternate: a fixed preference overloads one side
+            self._tie_toggle = not self._tie_toggle
+            return "pe" if self._tie_toggle else "de"
+        return "pe" if pe_q < de_q else "de"
+
+    def choose_read_path(self, req: Request) -> str:
+        assert req.pe is not None and req.de is not None, req.rid
+        pe_q = self.engines[req.pe].read_q
+        de_q = self.engines[req.de].read_q
+        if self.split_reads and req.cached_tokens:
+            frac_pe = self._water_fill_frac(pe_q, de_q, req.cached_tokens)
+            req.read_path = "pe" if frac_pe >= 0.5 else "de"
+            req.read_split = max(frac_pe, 1.0 - frac_pe)
+        else:
+            req.read_path = self._shorter_queue_side(pe_q, de_q)
+            req.read_split = 1.0
+        tokens = req.read_tokens_by_side()
+        self.engines[req.pe].read_q += tokens["pe"]
+        self.engines[req.de].read_q += tokens["de"]
+        return req.read_path
+
+    # -- completion hooks --------------------------------------------------
+    def on_read_done(self, engine: EngineId, tokens: int):
+        st = self.engines[engine]
+        st.read_q = max(0, st.read_q - tokens)
+
+    def on_request_done(self, engine: EngineId, req: Request):
+        st = self.engines[engine]
+        st.seq = max(0, st.seq - 1)
+        st.tok = max(0, st.tok - req.prompt_tokens)
+        if st.kind == "de":
+            st.free_hbm_tokens += req.hbm_tokens
+
+    def _apply_reports(self, members, reports):
+        if not reports:
+            return
+        for st in members:
+            if st.engine in reports:
+                vals = reports[st.engine]
+                st.seq, st.tok, st.read_q = vals[0], vals[1], vals[2]
+                if len(vals) > 3:
+                    st.free_hbm_tokens = vals[3]

@@ -1,0 +1,182 @@
+"""KV state ↔ FullBlock bytes, slot utilities and the layerwise stream
+(port of ``repro.engines.kvio``).
+
+The engines keep decode state as padded device buffers
+``{"kv": {"k","v": (L, b, S, hkv, dh)}}``; storage holds host FullBlocks
+``(L, tokens, row_bytes)`` uint8 with row = k ‖ v, byte for byte the
+reference's layout.  :func:`layer_stream` is layerwise loading (paper
+§4.1): the hit FullBlocks go to the card once per install, and each
+layer's LayerBlock stream is gathered there by the ``kv_layer_gather``
+kernel, with the next layer's gather already submitted on the
+TrafficManager while the current layer is installed.
+"""
+from __future__ import annotations
+
+from typing import Dict, Iterator, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.traffic import TrafficClass, TrafficManager
+from repro_torch.kernels import kv_layer_gather
+from repro_torch.models.model import init_decode_state
+from repro_torch.models.params import require_ported
+
+
+def batch_axes_of_state(cfg: ModelConfig):
+    """Tree matching the decode state with each leaf's batch axis."""
+    s3 = init_decode_state(cfg, 3, 8, device="meta")
+    s4 = init_decode_state(cfg, 4, 8, device="meta")
+
+    def find(a, b):
+        if isinstance(a, dict):
+            return {k: find(a[k], b[k]) for k in a}
+        return next(i for i, (x, y) in enumerate(zip(a.shape, b.shape))
+                    if x != y)
+
+    return find(s3, s4)
+
+
+def _tree_map(fn, *trees):
+    if isinstance(trees[0], dict):
+        return {k: _tree_map(fn, *(t[k] for t in trees)) for k in trees[0]}
+    return fn(*trees)
+
+
+def slot_get(state, axes, slot: int):
+    """A copy of one sequence's state (batch size 1)."""
+    return _tree_map(lambda a, ax: a.narrow(ax, slot, 1).clone(), state, axes)
+
+
+def slot_set(state, axes, slot: int, sub):
+    """Write ``sub`` into ``slot`` of ``state`` in place; returns state."""
+    _tree_map(lambda a, ax, s: a.narrow(ax, slot, 1).copy_(s),
+              state, axes, sub)
+    return state
+
+
+# ---------------------------------------------------------------------------
+# attention-layer enumeration (canonical layer order for serialisation)
+# ---------------------------------------------------------------------------
+
+
+def _kv_rows(cfg: ModelConfig) -> List[Tuple[str, tuple]]:
+    """(state_key, stack_index) per attention layer, in layer order."""
+    require_ported(cfg)
+    return [("kv", (li,)) for li in range(cfg.n_layers)]
+
+
+def kv_row_bytes(cfg: ModelConfig, dtype_bytes: int = 2) -> int:
+    return 2 * cfg.n_kv_heads * cfg.head_dim * dtype_bytes
+
+
+def n_attn_layers(cfg: ModelConfig) -> int:
+    return cfg.n_layers
+
+
+def _as_bytes(t: torch.Tensor) -> torch.Tensor:
+    """(..., T, hkv, dh) -> (..., T, hkv·dh·itemsize) uint8 view."""
+    t = t.contiguous()
+    return t.view(torch.uint8).reshape(*t.shape[:-2], -1)
+
+
+def serialize_kv(cfg: ModelConfig, state, slot: int, t0: int,
+                 t1: int) -> np.ndarray:
+    """-> (n_attn_layers, t1-t0, row_bytes) uint8, row = k ‖ v: built on
+    the device, copied to the host once."""
+    _kv_rows(cfg)
+    k = state["kv"]["k"][:, slot, t0:t1]
+    v = state["kv"]["v"][:, slot, t0:t1]
+    return torch.cat([_as_bytes(k), _as_bytes(v)], dim=-1).cpu().numpy()
+
+
+def serialize_kv_layer(cfg: ModelConfig, state, slot: int, t0: int,
+                       t1: int, layer: int) -> np.ndarray:
+    """One attention layer's KV rows -> (t1-t0, row_bytes) uint8."""
+    key, idx = _kv_rows(cfg)[layer]
+    comp = state[key]
+    k = comp["k"][idx + (slot, slice(t0, t1))]
+    v = comp["v"][idx + (slot, slice(t0, t1))]
+    return torch.cat([_as_bytes(k), _as_bytes(v)], dim=-1).cpu().numpy()
+
+
+def _rows_to_kv(cfg: ModelConfig, rows: torch.Tensor, dtype: torch.dtype):
+    """(..., T, row_bytes) uint8 -> k, v (..., T, hkv, dh) of ``dtype``,
+    viewed in place on the rows' device (no copy)."""
+    half = rows.shape[-1] // 2
+    shape = (*rows.shape[:-1], cfg.n_kv_heads, cfg.head_dim)
+    k = rows[..., :half].view(dtype).view(shape)
+    v = rows[..., half:].view(dtype).view(shape)
+    return k, v
+
+
+def deserialize_kv_layer(cfg: ModelConfig, state, slot: int, t0: int,
+                         layer: int, rows):
+    """Write one layer's (T, row_bytes) uint8 rows (a device tensor, or
+    host numpy) into the state in place — the per-LayerBlock placement
+    step of layerwise loading.  Returns the state."""
+    key, idx = _kv_rows(cfg)[layer]
+    comp = state[key]
+    dev = comp["k"].device
+    rows = torch.as_tensor(rows, device=dev)
+    k, v = _rows_to_kv(cfg, rows, comp["k"].dtype)
+    t = k.shape[0]
+    comp["k"][idx + (slot, slice(t0, t0 + t))] = k
+    comp["v"][idx + (slot, slice(t0, t0 + t))] = v
+    return state
+
+
+def deserialize_kv(cfg: ModelConfig, state, slot: int, t0: int,
+                   kv_bytes: np.ndarray):
+    """Write (L, T, row_bytes) uint8 into the padded state in place, all
+    layers in one host-to-device copy.  Returns the state."""
+    n_l = len(_kv_rows(cfg))
+    assert kv_bytes.shape[0] == n_l, (kv_bytes.shape[0], n_l)
+    comp = state["kv"]
+    rows = torch.as_tensor(kv_bytes, device=comp["k"].device)
+    k, v = _rows_to_kv(cfg, rows, comp["k"].dtype)
+    t = k.shape[1]
+    comp["k"][:, slot, t0:t0 + t] = k
+    comp["v"][:, slot, t0:t0 + t] = v
+    return state
+
+
+# ---------------------------------------------------------------------------
+# layerwise double-buffered delivery (paper §4.1)
+# ---------------------------------------------------------------------------
+
+
+def layer_stream(cfg: ModelConfig, blocks: List[np.ndarray],
+                 tm: Optional[TrafficManager] = None,
+                 tclass: TrafficClass = TrafficClass.KV_TRANSFER,
+                 device="cuda") -> Iterator[Tuple[int, torch.Tensor]]:
+    """Double-buffered per-layer LayerBlock stream from FullBlock pages.
+
+    ``blocks``: the request's hit FullBlocks, each (L, page_tokens,
+    row_bytes) uint8.  The stacked pool moves to ``device`` once; yields
+    ``(layer, rows)`` with ``rows`` a (n_blocks·page_tokens, row_bytes)
+    uint8 tensor on ``device`` from the gather kernel.  Layer i+1's
+    gather is submitted to the TrafficManager before layer i is
+    yielded, so at most two layer buffers are live."""
+    n_l = n_attn_layers(cfg)
+    if not blocks or n_l == 0:
+        return
+    pool = torch.from_numpy(np.stack(blocks)).to(device)  # (n, L, pt, row)
+    n, _, pt, row = pool.shape
+    table = torch.arange(n, dtype=torch.int32, device=pool.device)
+    layer_bytes = int(n * pt * row)
+    if tm is None:
+        tm = TrafficManager()
+    buf: Dict[int, torch.Tensor] = {}
+
+    def fetch(layer: int):
+        buf[layer] = kv_layer_gather(pool, table,
+                                     layer=layer).reshape(n * pt, row)
+
+    tm.submit(lambda: fetch(0), layer_bytes, tclass)
+    for li in range(n_l):
+        tm.drain()                            # layer li has landed
+        if li + 1 < n_l:                      # layer li+1 goes in flight
+            tm.submit(lambda nxt=li + 1: fetch(nxt), layer_bytes, tclass)
+        yield li, buf.pop(li)

@@ -1,0 +1,24 @@
+"""The port's hand-written Hopper kernels and their plain versions.
+
+Each wrapper launches its CUDA kernel for CUDA tensors (or raises) and
+computes its plain PyTorch version (``ref``) for CPU tensors, and counts
+its launches in ``<wrapper>.launches``.
+"""
+from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.kv_gather import kv_layer_gather
+from repro_torch.kernels.paged_attention import paged_attention
+
+WRAPPERS = (kv_layer_gather, flash_attention, paged_attention)
+
+
+def reset_launch_counts() -> None:
+    for fn in WRAPPERS:
+        fn.launches = 0
+
+
+def launch_counts() -> dict:
+    return {fn.__name__: fn.launches for fn in WRAPPERS}
+
+
+__all__ = ["flash_attention", "kv_layer_gather", "paged_attention",
+           "reset_launch_counts", "launch_counts"]

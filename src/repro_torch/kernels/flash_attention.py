@@ -1,0 +1,93 @@
+"""Prefix-append flash attention — the prefill compute pattern.
+
+q (b, hq, sq, dh), the append chunk, attends over k, v (b, hkv, skv, dh),
+prefix || append, with query i of row b at global position
+``kv_lens[b] - sq + i`` (``kv_lens`` defaults to ``skv`` for every row,
+the Pallas kernel's contract).  Keys at or past ``kv_lens[b]`` are
+padding.  On CUDA tensors this launches ``csrc/flash_attention.cu``, the
+Hopper kernel that replaces the Pallas ``flash_attention``
+(``repro/kernels/flash_attention.py:107``); on CPU tensors it computes
+the plain version.
+
+The CUDA path takes strided views: any tensor whose last dim is
+contiguous, so the model passes its (b, s, h, dh) activations and caches
+transposed, without a copy.  The output is allocated (b, sq, hq, dh) in
+memory and returned as its (b, hq, sq, dh) view, so the model's
+transpose back is free.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import build, ref
+
+HEAD_DIMS = (32, 64, 128)
+MAX_GROUP = 64     # query heads per kv head that fit one block's rows
+
+
+@functools.cache
+def _fn():
+    fn = build.library("flash_attention").flash_attention
+    fn.argtypes = ([ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 5 +
+                   [ctypes.c_int] * 5 +
+                   [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float,
+                    ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                    ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, softcap: float = 0.0,
+                    window: int = 0,
+                    kv_lens: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """q (b,hq,sq,dh); k,v (b,hkv,skv,dh); kv_lens (b,) int32 or None.
+    Returns (b,hq,sq,dh)."""
+    b, hq, sq, dh = q.shape
+    _, hkv, skv, _ = k.shape
+    if hq % hkv or v.shape != k.shape or k.shape[0] != b \
+            or k.shape[3] != dh:
+        raise ValueError(f"flash_attention: shapes q {tuple(q.shape)} "
+                         f"k {tuple(k.shape)} v {tuple(v.shape)}")
+    if q.device.type == "cpu":
+        return ref.flash_attention_ref(q, k, v, causal=causal,
+                                       softcap=softcap, window=window,
+                                       kv_lens=kv_lens)
+    args = (q, k, v) if kv_lens is None else (q, k, v, kv_lens)
+    build.require_cuda("flash_attention", *args)
+    if q.dtype not in build.ATTN_DTYPES or k.dtype != q.dtype \
+            or v.dtype != q.dtype:
+        raise ValueError(f"flash_attention: dtypes {q.dtype} {k.dtype} "
+                         f"{v.dtype}; need one of float32, bfloat16")
+    if dh not in HEAD_DIMS or hq // hkv > MAX_GROUP:
+        raise ValueError(f"flash_attention: head dim {dh} (need one of "
+                         f"{HEAD_DIMS}) or group {hq // hkv} > {MAX_GROUP}")
+    if any(t.stride(-1) != 1 for t in (q, k, v)):
+        raise ValueError("flash_attention: the head dim must be contiguous")
+    if kv_lens is not None:
+        if kv_lens.dtype != torch.int32 or kv_lens.shape != (b,):
+            raise ValueError("flash_attention: kv_lens must be (b,) int32")
+        kv_lens = kv_lens.contiguous()
+    out = torch.empty((b, sq, hq, dh), dtype=q.dtype,
+                      device=q.device).transpose(1, 2)
+    if b == 0 or sq == 0:
+        return out
+    strides = (ctypes.c_longlong * 12)(
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3])
+    rc = _fn()(build.ATTN_DTYPES[q.dtype], dh, q.data_ptr(), k.data_ptr(),
+               v.data_ptr(), out.data_ptr(),
+               None if kv_lens is None else kv_lens.data_ptr(),
+               b, hq, hkv, sq, skv, strides, 1.0 / math.sqrt(dh),
+               float(softcap), int(causal), int(window),
+               build.stream_of(q))
+    build.check(rc, "flash_attention")
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0

@@ -1,0 +1,80 @@
+"""Paged decode attention.
+
+One new token per sequence attends over its pages: q (b, hkv, g, dh),
+K/V pools (n_pages, page_tokens, hkv, dh), block_table (b, max_pages)
+int32 and lengths (b,) int32 valid tokens per sequence.  On CUDA tensors
+this launches ``csrc/paged_attention.cu``, the Hopper kernel that
+replaces the Pallas ``paged_attention``
+(``repro/kernels/paged_attention.py:76``); on CPU tensors it computes the
+plain version.  No sliding window, as in the Pallas kernel.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+
+import torch
+
+from repro_torch.kernels import build, ref
+
+HEAD_DIMS = (32, 64, 128)
+MAX_GROUP = 16     # query heads per kv head held in one block's registers
+
+
+@functools.cache
+def _fn():
+    fn = build.library("paged_attention").paged_attention
+    fn.argtypes = ([ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 6 +
+                   [ctypes.c_int] * 5 +
+                   [ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
+                    v_pool: torch.Tensor, block_table: torch.Tensor,
+                    lengths: torch.Tensor, *,
+                    softcap: float = 0.0) -> torch.Tensor:
+    """q (b,hkv,g,dh); pools (n_pages,pt,hkv,dh); block_table
+    (b,max_pages) i32; lengths (b,) i32 -> (b,hkv,g,dh)."""
+    b, hkv, g, dh = q.shape
+    n_pages, pt, _, _ = k_pool.shape
+    max_pages = block_table.shape[1]
+    if v_pool.shape != k_pool.shape or k_pool.shape[2:] != (hkv, dh) \
+            or block_table.shape[0] != b or lengths.shape != (b,):
+        raise ValueError(f"paged_attention: shapes q {tuple(q.shape)} "
+                         f"pool {tuple(k_pool.shape)} table "
+                         f"{tuple(block_table.shape)} lengths "
+                         f"{tuple(lengths.shape)}")
+    if q.device.type == "cpu":
+        return ref.paged_attention_ref(q, k_pool, v_pool, block_table,
+                                       lengths, softcap=softcap)
+    build.require_cuda("paged_attention", q, k_pool, v_pool, block_table,
+                       lengths)
+    if q.dtype not in build.ATTN_DTYPES or k_pool.dtype != q.dtype \
+            or v_pool.dtype != q.dtype:
+        raise ValueError(f"paged_attention: dtypes {q.dtype} "
+                         f"{k_pool.dtype} {v_pool.dtype}")
+    if block_table.dtype != torch.int32 or lengths.dtype != torch.int32:
+        raise ValueError("paged_attention: block_table and lengths must "
+                         "be int32")
+    if dh not in HEAD_DIMS or not 0 < g <= MAX_GROUP:
+        raise ValueError(f"paged_attention: head dim {dh} (need one of "
+                         f"{HEAD_DIMS}) or group {g} > {MAX_GROUP}")
+    q, k_pool, v_pool = q.contiguous(), k_pool.contiguous(), \
+        v_pool.contiguous()
+    block_table, lengths = block_table.contiguous(), lengths.contiguous()
+    out = torch.empty_like(q)
+    if b == 0:
+        return out
+    rc = _fn()(build.ATTN_DTYPES[q.dtype], dh, q.data_ptr(),
+               k_pool.data_ptr(), v_pool.data_ptr(), block_table.data_ptr(),
+               lengths.data_ptr(), out.data_ptr(), b, hkv, g, pt, max_pages,
+               1.0 / math.sqrt(dh), float(softcap), build.stream_of(q))
+    build.check(rc, "paged_attention")
+    paged_attention.launches += 1
+    return out
+
+
+paged_attention.launches = 0

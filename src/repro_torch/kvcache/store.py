@@ -1,0 +1,65 @@
+"""KV-Cache storage (port of ``repro.kvcache.store``).
+
+FullBlocks in, FullBlocks out, with byte accounting.  Storage sits off
+the card, so a FullBlock is a host numpy array ``(layers, block_tokens,
+row_bytes)`` uint8: persisting is a device-to-host copy and the
+layerwise install moves the hit blocks to the card once per request.
+"""
+from __future__ import annotations
+
+import itertools
+import threading
+from typing import Dict, List, Sequence
+
+import numpy as np
+
+from repro_torch.core.blocks import BlockLayout
+
+
+class KVStore:
+    """Abstract FullBlock store with read/write byte accounting."""
+
+    def __init__(self, layout: BlockLayout):
+        self.layout = layout
+        self._refs = itertools.count(1)
+        self.bytes_read = 0
+        self.bytes_written = 0
+
+    def alloc_ref(self) -> int:
+        return next(self._refs)
+
+    def write_block(self, ref: int, block) -> None:
+        self.bytes_written += self.layout.full_block_bytes
+        self._put(ref, block)
+
+    def read_block(self, ref: int):
+        self.bytes_read += self.layout.full_block_bytes
+        return self._get(ref)
+
+    def read_blocks(self, refs: Sequence[int]) -> List:
+        return [self.read_block(r) for r in refs]
+
+    def _put(self, ref, block):  # pragma: no cover - abstract
+        raise NotImplementedError
+
+    def _get(self, ref):  # pragma: no cover - abstract
+        raise NotImplementedError
+
+
+class MemoryKVStore(KVStore):
+    """In-memory FullBlock store."""
+
+    def __init__(self, layout: BlockLayout):
+        super().__init__(layout)
+        self._data: Dict[int, np.ndarray] = {}
+        self._lock = threading.Lock()
+
+    def _put(self, ref: int, block: np.ndarray):
+        assert block.shape == self.layout.full_block_shape(), (
+            block.shape, self.layout.full_block_shape())
+        with self._lock:
+            self._data[ref] = block
+
+    def _get(self, ref: int) -> np.ndarray:
+        with self._lock:
+            return self._data[ref]

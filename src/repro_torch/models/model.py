@@ -1,0 +1,161 @@
+"""Model assembly for the dense family (port of ``repro.models.model``).
+
+* ``forward``       — full sequence; optionally returns the KV it made.
+* ``decode_step``   — one token per sequence against a decode state.
+* ``append_step``   — prefill an appended chunk against existing padded
+                      caches (the engine's prefill step).
+
+Decode state layout is the reference's: ``{"kv": {"k", "v": (L, b, S,
+hkv, dh)}}``.  Where the reference scans over stacked layers, the port
+loops over ``params["blocks"]``.  ``decode_step`` and ``append_step``
+write the new tokens' K/V into the state's buffers in place and return
+the same state object: the reference returns fresh arrays, the port
+saves a copy of the whole cache per step.  Writes past the cache raise
+(JAX would drop them silently).
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.device import resolve
+from repro_torch.models import layers
+from repro_torch.models.layers import rms_norm
+from repro_torch.models.params import require_ported
+
+
+def embed(params, cfg: ModelConfig, tokens):
+    """Token ids (b, s) -> (b, s, d)."""
+    h = params["embed"]["tok"][tokens]
+    if cfg.embed_scale != 1.0:
+        # the scale rounds to the activation dtype first, as in JAX
+        h = h * torch.tensor(cfg.embed_scale, dtype=h.dtype, device=h.device)
+    return h
+
+
+def logits_from_hidden(params, cfg: ModelConfig, h):
+    """The product runs in the parameter dtype and is cast to f32
+    afterwards, as the reference does (``model.py:59-62``)."""
+    h = rms_norm(h, params["final_norm"], cfg.rms_norm_eps)
+    if cfg.tie_embeddings:
+        out = h @ params["embed"]["tok"].T
+    else:
+        out = h @ params["lm_head"]
+    return layers._softcap(out.float(), cfg.final_logit_softcap)
+
+
+def _block(p, cfg: ModelConfig, h, attn_fn):
+    """One transformer block; ``attn_fn(p_attn, xn)`` is the attention
+    flavour (full, append or decode)."""
+    xn = rms_norm(h, p["ln1"], cfg.rms_norm_eps)
+    attn = attn_fn(p["attn"], xn)
+    if cfg.post_attn_norm:
+        attn = rms_norm(attn, p["ln1b"], cfg.rms_norm_eps)
+    h = h + attn * cfg.ffn_mult
+    xn = rms_norm(h, p["ln2"], cfg.rms_norm_eps)
+    f = layers.ffn(p["ffn"], cfg, xn)
+    if cfg.post_attn_norm:
+        f = rms_norm(f, p["ln2b"], cfg.rms_norm_eps)
+    return h + f * cfg.ffn_mult
+
+
+def _check_fits(lengths, s: int, max_seq: int) -> None:
+    top = int(lengths.max()) + s if lengths.numel() else 0
+    if top > max_seq:
+        raise IndexError(f"writing up to position {top} past the cache "
+                         f"length {max_seq}")
+
+
+def forward(params, cfg: ModelConfig, tokens, *, return_state: bool = False,
+            last_only: bool = False):
+    """Full-sequence forward over tokens (b, s).  Returns (logits,
+    state_or_None); the state holds the exact-length KV (L, b, s, hkv, dh)."""
+    require_ported(cfg)
+    s = tokens.shape[1]
+    positions = torch.arange(s, device=tokens.device)
+    h = embed(params, cfg, tokens)
+    ks, vs = [], []
+
+    def full(p, x):
+        q, k, v = layers.gqa_qkv(p, cfg, x, positions)
+        if return_state:
+            ks.append(k)
+            vs.append(v)
+        o = layers.attend(q, k, v, causal=cfg.causal,
+                          softcap=cfg.attn_logit_softcap)
+        return layers.attn_out(p, o)
+
+    for blk in params["blocks"]:
+        h = _block(blk, cfg, h, full)
+    state = {"kv": {"k": torch.stack(ks), "v": torch.stack(vs)}} \
+        if return_state else None
+    if last_only:
+        h = h[:, -1:]
+    return logits_from_hidden(params, cfg, h), state
+
+
+def init_decode_state(cfg: ModelConfig, batch: int, max_seq: int,
+                      device="cuda") -> Dict:
+    """Zero decode caches on ``device`` (``"meta"`` gives shapes only)."""
+    require_ported(cfg)
+    dev = torch.device("meta") if str(device) == "meta" else resolve(device)
+    shape = (cfg.n_layers, batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
+    dtype = getattr(torch, cfg.kv_cache_dtype)
+    return {"kv": {"k": torch.zeros(shape, dtype=dtype, device=dev),
+                   "v": torch.zeros(shape, dtype=dtype, device=dev)}}
+
+
+def decode_step(params, cfg: ModelConfig, tokens, state, lengths):
+    """One decode step.  tokens (b,) int; lengths (b,) = tokens already
+    cached.  Writes each token's K/V at index ``lengths`` and attends over
+    ``lengths + 1``.  Returns (logits (b, vocab), state)."""
+    require_ported(cfg)
+    kc_all, vc_all = state["kv"]["k"], state["kv"]["v"]
+    lengths = lengths.to(torch.long)
+    _check_fits(lengths, 1, kc_all.shape[2])
+    bidx = torch.arange(tokens.shape[0], device=tokens.device)
+    h = embed(params, cfg, tokens[:, None])
+    for li, blk in enumerate(params["blocks"]):
+        kc, vc = kc_all[li], vc_all[li]
+
+        def dec(p, x):
+            q, k, v = layers.gqa_qkv(p, cfg, x, lengths[:, None])
+            kc[bidx, lengths] = k[:, 0].to(kc.dtype)
+            vc[bidx, lengths] = v[:, 0].to(vc.dtype)
+            o = layers.decode_attend(q, kc, vc, lengths + 1,
+                                     softcap=cfg.attn_logit_softcap)
+            return layers.attn_out(p, o)
+
+        h = _block(blk, cfg, h, dec)
+    return logits_from_hidden(params, cfg, h)[:, 0], state
+
+
+def append_step(params, cfg: ModelConfig, tokens, state, lengths):
+    """Prefill an append chunk against existing decode state.
+
+    tokens (b, s_app) int; lengths (b,) = tokens already cached.  Writes
+    the chunk's K/V at [lengths, lengths + s_app).  Returns (logits
+    (b, s_app, vocab), state)."""
+    require_ported(cfg)
+    kc_all, vc_all = state["kv"]["k"], state["kv"]["v"]
+    b, s = tokens.shape
+    lengths = lengths.to(torch.long)
+    _check_fits(lengths, s, kc_all.shape[2])
+    bidx = torch.arange(b, device=tokens.device)[:, None]
+    positions = lengths[:, None] + torch.arange(s, device=tokens.device)
+    h = embed(params, cfg, tokens)
+    for li, blk in enumerate(params["blocks"]):
+        kc, vc = kc_all[li], vc_all[li]
+
+        def app(p, x):
+            q, k, v = layers.gqa_qkv(p, cfg, x, positions)
+            kc[bidx, positions] = k.to(kc.dtype)
+            vc[bidx, positions] = v.to(vc.dtype)
+            o = layers.append_attend(q, kc, vc, lengths,
+                                     softcap=cfg.attn_logit_softcap)
+            return layers.attn_out(p, o)
+
+        h = _block(blk, cfg, h, app)
+    return logits_from_hidden(params, cfg, h), state

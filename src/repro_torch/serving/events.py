@@ -1,0 +1,160 @@
+"""Serving runtime scaffolding (port of ``repro.serving.events``).
+
+* :class:`ReqState` — a round's lifecycle ``SCHEDULED → READING →
+  PREFILL → PD_TRANSFER → DECODE → PERSIST → DONE``.
+* :class:`VirtualClock` — the runtime's clock, advanced per tick by
+  *modelled* seconds from :class:`ServingTimeModel`: ``max(transfer,
+  compute)`` pipelined, ``transfer + compute`` blocking.  The port runs
+  the same model as the reference, so its ``wall_s`` is a modelled
+  number on both packages; real seconds on the card are measured
+  around the run by its caller.
+* :class:`RoundMetrics` + :func:`latency_summary` — per-round TTFT /
+  TTST / TPOT on that clock.
+"""
+from __future__ import annotations
+
+from collections import defaultdict
+from dataclasses import dataclass
+from enum import Enum
+from typing import Dict, Iterable, Optional, Sequence, Tuple
+
+import numpy as np
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.intra import attn_flops
+from repro_torch.sim.spec import HOPPER_NODE, ModelSimSpec, NodeSpec
+
+
+class ReqState(Enum):
+    """Lifecycle of one round (request) through the serving runtime."""
+
+    SCHEDULED = "scheduled"      # submitted, awaiting (PE, DE) + read path
+    READING = "reading"          # storage read legs in flight
+    PREFILL = "prefill"          # hit KV installed, in the PE's fifo
+    PD_TRANSFER = "pd_transfer"  # prompt state PE→DE on the compute net
+    DECODE = "decode"            # slot-batched decode on the DE
+    PERSIST = "persist"          # new FullBlocks persisting to storage
+    DONE = "done"
+
+
+@dataclass
+class RoundMetrics:
+    """Timestamps of one round on the runtime's clock (-1 = not yet),
+    stamped at the end of the tick they occur in."""
+
+    rid: int
+    gen_tokens: int
+    submit_t: float
+    read_done_t: float = -1.0
+    prefill_done_t: float = -1.0     # first token ready (TTFT)
+    first_decode_t: float = -1.0
+    second_token_t: float = -1.0     # TTST
+    done_t: float = -1.0
+
+    @property
+    def finished(self) -> bool:
+        return self.done_t >= 0
+
+    @property
+    def ttft(self) -> float:
+        return self.prefill_done_t - self.submit_t
+
+    @property
+    def ttst(self) -> Optional[float]:
+        if self.second_token_t < 0:
+            return None
+        return self.second_token_t - self.submit_t
+
+    @property
+    def tpot(self) -> Optional[float]:
+        """Time per output token over the decode phase (gen > 1 only)."""
+        if self.gen_tokens <= 1 or self.first_decode_t < 0:
+            return None
+        return (self.done_t - self.first_decode_t) / (self.gen_tokens - 1)
+
+
+def latency_summary(metrics: Iterable[RoundMetrics]) -> dict:
+    """TTFT/TTST/TPOT summary over finished rounds (NaN when none)."""
+    done = [m for m in metrics if m.finished]
+    ttfts = [m.ttft for m in done if m.prefill_done_t >= 0]
+    ttsts = [m.ttst for m in done if m.ttst is not None]
+    tpots = [m.tpot for m in done if m.tpot is not None]
+    pct = lambda xs, q: float(np.percentile(xs, q)) if xs else float("nan")
+    mean = lambda xs: float(np.mean(xs)) if xs else float("nan")
+    return dict(
+        finished_rounds=len(done),
+        ttft_mean=mean(ttfts), ttft_p99=pct(ttfts, 99),
+        ttst_mean=mean(ttsts),
+        tpot_mean=mean(tpots), tpot_p99=pct(tpots, 99),
+    )
+
+
+class VirtualClock:
+    """The runtime's clock [s], advanced by modelled durations."""
+
+    def __init__(self):
+        self.now = 0.0
+
+    def advance(self, dt: float) -> float:
+        if dt > 0:
+            self.now += dt
+        return self.now
+
+
+class TickIo:
+    """Per-tick transfer-seconds ledger, bucketed by physical resource
+    (``("snic", node)``, ``("cn", node)``): distinct buckets drain
+    concurrently (pipelined charges their max), the blocking runtime
+    serialises them (charges their sum)."""
+
+    def __init__(self):
+        self.buckets: Dict[tuple, float] = defaultdict(float)
+
+    def add(self, bucket: tuple, seconds: float) -> None:
+        if seconds > 0:
+            self.buckets[bucket] += seconds
+
+    def parallel_seconds(self) -> float:
+        return max(self.buckets.values(), default=0.0)
+
+    def serial_seconds(self) -> float:
+        return sum(self.buckets.values())
+
+
+@dataclass
+class ServingTimeModel:
+    """Modelled durations for the serving clock: NIC bandwidths for
+    transfers, the analytic FLOP and byte forms for compute."""
+
+    cfg: ModelConfig
+    node: NodeSpec
+    spec: ModelSimSpec
+
+    @classmethod
+    def for_model(cls, cfg: ModelConfig) -> "ServingTimeModel":
+        return cls(cfg=cfg, node=HOPPER_NODE,
+                   spec=ModelSimSpec.from_config(cfg))
+
+    def snic_seconds(self, nbytes: float) -> float:
+        return nbytes / self.node.snic_bw
+
+    def cn_seconds(self, nbytes: float) -> float:
+        return nbytes / self.node.cnic_bw
+
+    def pe_step_seconds(self, items: Sequence[Tuple[int, int]]) -> float:
+        """One PE forward batch over ``(cached, bsz)`` items."""
+        if not items:
+            return 0.0
+        a = attn_flops(self.cfg, items)
+        lin = self.spec.linear_flops_per_token() * sum(b for _, b in items)
+        return (a + lin) / (self.node.gpu.flops * self.node.gpu.mfu_prefill)
+
+    def de_step_seconds(self, ctxs: Sequence[int]) -> float:
+        """One slot-batched decode step over active context lengths."""
+        if not ctxs:
+            return 0.0
+        kv = sum(self.spec.decode_step_bytes(c) for c in ctxs)
+        w = self.spec.active_param_bytes_resident(1)
+        fl = sum(self.spec.decode_step_flops(c) for c in ctxs)
+        return max((kv + w) / (self.node.gpu.hbm_bw * self.node.gpu.mbu_decode),
+                   fl / (self.node.gpu.flops * self.node.gpu.mfu_prefill))

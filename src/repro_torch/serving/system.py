@@ -1,0 +1,532 @@
+"""DualPath serving system: scheduler + engines + storage, end to end
+(port of ``repro.serving.system``, offline runtime).
+
+Per round (paper Fig. 4), as a lifecycle state machine:
+
+  SCHEDULED    client computes the trie hit for ``context ‖ append``
+               (§A.4); the scheduler assigns (PE, DE) and a read path
+  READING      the chosen side(s)' TrafficManagers carry the FullBlock
+               reads (storage→PE directly, or storage→DE→network→PE)
+  PREFILL      PE installs the hit KV layerwise on the card and runs
+               quota-packed chunked prefill over the append
+  PD_TRANSFER  prompt state PE→DE, one submission per attention layer
+  DECODE       DE decodes ``gen`` tokens greedily, slot-batched
+  PERSIST      newly filled FullBlocks and trie entries persist (§A.5)
+
+Two runtimes share every mechanism: **pipelined** (default; reads, PD
+transfers and persists stay in flight across engine compute and land at
+the tick's poll, the clock charging ``max(transfer, compute)``) and
+**blocking** (``pipelined=False``; every submission drains inline, the
+clock charging ``transfer + compute``).  Both generate identical tokens
+and identical byte accounting.  The clock is modelled (see
+``serving/events.py``).
+
+This slice serves the dense family with ``mode`` dualpath or basic,
+``split_reads``, ``layerwise`` on and off, and any number of PEs, DEs and
+groups.  DRAM tiers and prefetch, faults and hedging, elastic roles, the
+SLO layer, the tracer, ``run_online`` and the collective network model
+arrive with later slices of the port.
+"""
+from __future__ import annotations
+
+import itertools
+from collections import deque
+from dataclasses import dataclass, field
+from typing import Dict, Iterator, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.blocks import layout_for
+from repro_torch.core.scheduler import Request, Scheduler
+from repro_torch.core.traffic import TrafficClass, TrafficManager
+from repro_torch.device import resolve
+from repro_torch.engines import kvio
+from repro_torch.engines.runtime import (DecodeEngine, EngineRequest,
+                                         PrefillEngine)
+from repro_torch.kvcache.store import MemoryKVStore
+from repro_torch.kvcache.trie import BlockTrie
+from repro_torch.models.params import require_ported
+from repro_torch.serving import events
+from repro_torch.serving.events import (ReqState, RoundMetrics,
+                                        ServingTimeModel, TickIo,
+                                        VirtualClock)
+from repro_torch.sim.traces import Trajectory
+
+
+@dataclass
+class AgentSession:
+    traj: Trajectory
+    rng: np.random.Generator
+    context: List[int] = field(default_factory=list)
+    next_round: int = 0
+    rounds_done: int = 0
+    current: Optional[EngineRequest] = None
+
+    def done(self) -> bool:
+        return self.next_round >= self.traj.n_rounds and self.current is None
+
+
+class ServingSystem:
+    def __init__(self, cfg: ModelConfig, params, *, n_pe: int = 1,
+                 n_de: int = 1, mode: str = "dualpath",
+                 block_tokens: int = 16, max_seq: int = 512,
+                 de_slots: int = 8, split_reads: bool = False,
+                 layerwise: bool = True,
+                 pe_group_size: Optional[int] = None,
+                 de_group_size: Optional[int] = None,
+                 pipelined: bool = True, device="cuda"):
+        assert mode in ("dualpath", "basic")
+        require_ported(cfg)
+        if max_seq % block_tokens:
+            raise ValueError(f"max_seq {max_seq} must be a multiple of "
+                             f"block_tokens {block_tokens}")
+        self.device = resolve(device)
+        weights_dev = params["embed"]["tok"].device
+        if weights_dev.type != self.device.type:
+            raise ValueError(f"parameters live on {weights_dev}, the system "
+                             f"was asked to run on {self.device}")
+        self.cfg = cfg
+        self.params = params
+        self.mode = mode
+        self.max_seq = max_seq
+        self.pipelined = pipelined
+        # the FullBlock row holds the KV cache's real itemsize (the
+        # reference assumes 2 bytes, which only bf16 KV satisfies)
+        kv_itemsize = torch.empty(
+            (), dtype=getattr(torch, cfg.kv_cache_dtype)).element_size()
+        self.layout = layout_for(cfg, block_tokens, kv_itemsize)
+        self.store = MemoryKVStore(self.layout)
+        self.trie = BlockTrie(block_tokens)
+        self.sched = Scheduler(alpha=1 << 30, beta=1 << 30,
+                               split_reads=split_reads)
+        self.time_model = ServingTimeModel.for_model(cfg)
+        self.clock = VirtualClock()
+        self.metrics: Dict[int, RoundMetrics] = {}
+        # engine groups: ``*_group_size`` engines per scheduler group
+        # (default: one group spanning all engines of that kind)
+        self.pes: Dict[Tuple[int, int], PrefillEngine] = {}
+        self.des: Dict[Tuple[int, int], DecodeEngine] = {}
+        pe_gsz = max(int(pe_group_size or n_pe), 1)
+        de_gsz = max(int(de_group_size or n_de), 1)
+        for i in range(n_pe):
+            eid = (i, 0)
+            self.sched.register_engine(eid, node=i, kind="pe",
+                                       group=i // pe_gsz)
+            self.pes[eid] = PrefillEngine(eid, cfg, params, max_seq,
+                                          layerwise=layerwise,
+                                          device=self.device)
+        for j in range(n_de):
+            eid = (n_pe + j, 0)
+            st = self.sched.register_engine(eid, node=n_pe + j, kind="de",
+                                            group=1000 + j // de_gsz)
+            de = DecodeEngine(eid, cfg, params, self.store, self.trie,
+                              self.layout, max_seq, n_slots=de_slots,
+                              device=self.device)
+            st.free_hbm_tokens = de_slots * max_seq
+            de.defer_persist = pipelined
+            self.des[eid] = de
+        self._rid = itertools.count()
+        self._pending_admit: deque = deque()
+        self._inflight: Dict[int, EngineRequest] = {}
+        self._install_ready: List[EngineRequest] = []
+        self._pd_queue: List[EngineRequest] = []
+        # milestones are stamped after the tick's clock advance
+        self._pending_stamps: List[Tuple[RoundMetrics, str]] = []
+        self._tick_io = TickIo()
+        self._tick_compute = 0.0
+        self._submit_seconds_seen = 0.0
+        self.read_bytes_by_side = {"pe": 0, "de": 0}
+        self.n_split_reads = 0
+        self.gen_tokens_done = 0
+
+    def _all_tms(self) -> Iterator[TrafficManager]:
+        for pe in self.pes.values():
+            yield pe.tm
+        for de in self.des.values():
+            yield de.tm
+
+    # ------------------------------------------------------------------
+    def _submit_round(self, sess: AgentSession):
+        rnd = sess.traj.rounds[sess.next_round]
+        # host numpy draws, as the reference, so token streams compare
+        # across the two packages
+        append = list(sess.rng.integers(2, self.cfg.vocab_size,
+                                        size=rnd.append))
+        prompt = sess.context + append
+        hit, refs = self.trie.match(prompt)
+        req = Request(rid=next(self._rid), cached_tokens=hit,
+                      new_tokens=len(prompt) - hit, gen_tokens=rnd.gen,
+                      arrival=self.clock.now)
+        er = EngineRequest(req=req, context_tokens=prompt[:hit],
+                           append_tokens=prompt[hit:], hit_refs=refs,
+                           session=sess, lifecycle=ReqState.SCHEDULED)
+        sess.current = er
+        sess.next_round += 1
+        self._inflight[req.rid] = er
+        self.metrics[req.rid] = RoundMetrics(rid=req.rid, gen_tokens=rnd.gen,
+                                             submit_t=self.clock.now)
+        self.sched.submit(req)
+
+    # ------------------------------------------------------------------
+    # scheduling: group fetches + read-path decisions (tick phase 1)
+    # ------------------------------------------------------------------
+    def _fetch_groups(self):
+        """Leader fetch for every group: DE groups first (HBM
+        reservation), then PE groups, as in the simulator."""
+        for gid, members in self.sched.groups("de").items():
+            reports = {eid: (sum(s is not None for s in self.des[eid].slots),
+                             sum(int(n) for n in self.des[eid].lengths),
+                             0, self.des[eid].free_slots * self.max_seq)
+                       for eid in members}
+            self.sched.on_de_fetch(gid, reports)
+        for gid, members in self.sched.groups("pe").items():
+            reports = {eid: (len(self.pes[eid].fifo),
+                             sum(w.remaining for w, _ in self.pes[eid].fifo),
+                             0)
+                       for eid in members}
+            self.sched.on_pe_fetch(gid, reports)
+
+    def _schedule_tick(self) -> int:
+        self._fetch_groups()
+        # decide every ready request's path first (read queues build up
+        # across the batch of decisions), then read
+        ready = []
+        for er in list(self._inflight.values()):
+            req = er.req
+            if req.pe is None or req.de is None or req.read_path is not None:
+                continue
+            if self.mode == "basic":
+                req.read_path = "pe"
+                self.sched.engines[req.pe].read_q += req.cached_tokens
+            else:
+                self.sched.choose_read_path(req)
+            ready.append(er)
+        for er in ready:
+            er.lifecycle = ReqState.READING
+            if self.pipelined:
+                self._issue_read(er)
+            else:
+                self._do_read(er)
+        return len(ready)
+
+    # ------------------------------------------------------------------
+    # the read, split into issue/complete halves
+    # ------------------------------------------------------------------
+    def _read_transfers(self, er: EngineRequest
+                        ) -> List[Tuple[TrafficManager, callable, int]]:
+        """Issue half of a read: store accesses and byte accounting now;
+        returns ``(tm, thunk, nbytes)`` descriptors whose execution models
+        the bytes landing in the PE's buffers.  A split read partitions
+        the hit FullBlocks by page: the PE side reads the leading pages,
+        the DE side the trailing ones, and only the DE share crosses the
+        compute network."""
+        req = er.req
+        pe = self.pes[req.pe]
+        de_tm = self.des[req.de].tm
+        pe_node, de_node = req.pe[0], req.de[0]
+        out: List[Tuple[TrafficManager, callable, int]] = []
+        n = len(er.hit_refs)
+        part = req.hit_blocks_by_side(n)
+        k_pe = part["pe"]
+        segs = [("pe", er.hit_refs[:k_pe], 0),
+                ("de", er.hit_refs[k_pe:], k_pe)]
+        if part["pe"] and part["de"]:
+            self.n_split_reads += 1
+        er.read_payload = [None] * n
+        payload = er.read_payload
+        for side, refs, lo in segs:
+            if not refs:
+                continue
+            node = pe_node if side == "pe" else de_node
+            blocks = self.store.read_blocks(refs)
+            nbytes = sum(b.nbytes for b in blocks)
+            self._tick_io.add(("snic", node),
+                              self.time_model.snic_seconds(nbytes))
+            self.read_bytes_by_side[side] += nbytes
+            out.append((pe.tm if side == "pe" else de_tm,
+                        lambda blocks=blocks, lo=lo:
+                        payload.__setitem__(slice(lo, lo + len(blocks)),
+                                            blocks),
+                        nbytes))
+            if side == "de":
+                # DE buffer -> PE over the compute network (layerwise)
+                self._tick_io.add(("cn", pe_node),
+                                  self.time_model.cn_seconds(nbytes))
+                out.append((pe.tm, lambda: None, nbytes))
+        return out
+
+    def _do_read(self, er: EngineRequest):
+        """Blocking read: every transfer drains inline."""
+        for tm, fn, nbytes in self._read_transfers(er):
+            tm.submit(fn, nbytes, TrafficClass.KV_TRANSFER)
+            tm.drain()
+        self._read_complete(er)
+
+    def _issue_read(self, er: EngineRequest) -> int:
+        """Pipelined read: submit every transfer and flush each involved
+        TrafficManager once; the request becomes install-ready when all
+        of them have landed at a poll."""
+        transfers = self._read_transfers(er)
+        by_tm: Dict[int, Tuple[TrafficManager, list]] = {}
+        for tm, fn, nbytes in transfers:
+            by_tm.setdefault(id(tm), (tm, []))[1].append((fn, nbytes))
+        if not by_tm:
+            self._install_ready.append(er)
+            return 0
+        pending = [len(by_tm)]
+
+        def tm_done():
+            pending[0] -= 1
+            if pending[0] == 0:
+                self._install_ready.append(er)
+
+        for tm, items in by_tm.values():
+            for fn, nbytes in items:
+                tm.submit(fn, nbytes, TrafficClass.KV_TRANSFER)
+            tm.flush(on_complete=tm_done)
+        return len(transfers)
+
+    def _read_complete(self, er: EngineRequest):
+        """Completion half: release the read-queue charge and install the
+        hit KV on the PE (layerwise, through the gather kernel)."""
+        req = er.req
+        tokens = req.read_tokens_by_side()
+        for side in ("pe", "de"):
+            if tokens[side]:
+                self.sched.on_read_done(req.pe if side == "pe" else req.de,
+                                        tokens[side])
+        self._stamp(req.rid, "read_done_t")
+        er.lifecycle = ReqState.PREFILL
+        self.pes[req.pe].install_hit_kv(
+            er, [b for b in er.read_payload if b is not None])
+
+    # ------------------------------------------------------------------
+    # engine phases
+    # ------------------------------------------------------------------
+    def _step_pes(self) -> int:
+        act = 0
+        pe_max = 0.0
+        for pe in self.pes.values():
+            before = pe.prefill_tokens
+            done = pe.step()
+            pe_max = max(pe_max,
+                         self.time_model.pe_step_seconds(pe.last_step_items))
+            act += (pe.prefill_tokens - before) + len(done)
+            for er in done:
+                self.sched.on_request_done(er.req.pe, er.req)
+                self._stamp(er.req.rid, "prefill_done_t")
+                er.lifecycle = ReqState.PD_TRANSFER
+                self._queue_pd_transfer(er)
+        self._tick_compute += pe_max
+        return act
+
+    def _queue_pd_transfer(self, er: EngineRequest):
+        # PE -> DE prompt-state transfer, one submission per attention
+        # layer (the byte count is the reference's: 2-byte KV)
+        n_l = max(kvio.n_attn_layers(self.cfg), 1)
+        nbytes = er.req.prompt_tokens * self.cfg.kv_bytes_per_token()
+        de_tm = self.des[er.req.de].tm
+        per_layer, rem = divmod(nbytes, n_l)
+        for li in range(n_l):
+            de_tm.submit(lambda: None,
+                         per_layer + (rem if li == n_l - 1 else 0),
+                         TrafficClass.KV_TRANSFER)
+        self._tick_io.add(("cn", er.req.de[0]),
+                          self.time_model.cn_seconds(nbytes))
+        if self.pipelined:
+            self._pd_queue.append(er)
+            de_tm.flush(on_complete=lambda er=er:
+                        setattr(er, "pd_ready", True))
+        else:
+            de_tm.drain()
+            self._pending_admit.append(er)
+
+    def _collect_pd(self) -> int:
+        """Move PD-complete requests to the admission queue in the order
+        their prefills finished."""
+        still: List[EngineRequest] = []
+        n = 0
+        for er in self._pd_queue:
+            if er.pd_ready:
+                er.pd_ready = False
+                self._pending_admit.append(er)
+                n += 1
+            else:
+                still.append(er)
+        self._pd_queue = still
+        return n
+
+    def _admit_pending(self) -> int:
+        n = 0
+        still = deque()
+        while self._pending_admit:
+            er = self._pending_admit.popleft()
+            de = self.des[er.req.de]
+            if de.free_slots:
+                er.lifecycle = ReqState.DECODE
+                de.admit(er)
+                n += 1
+            else:
+                still.append(er)
+        self._pending_admit = still
+        return n
+
+    def _step_des(self) -> int:
+        act = 0
+        de_max = 0.0
+        for de in self.des.values():
+            active_before = [er for er in de.slots if er is not None]
+            steps0 = de.decode_steps
+            b0 = de.tm.bytes[TrafficClass.KV_TRANSFER]
+            finished = de.step()
+            de_max = max(de_max,
+                         self.time_model.de_step_seconds(de.last_step_ctxs))
+            act += (de.decode_steps - steps0) + len(finished)
+            persist_b = de.tm.bytes[TrafficClass.KV_TRANSFER] - b0
+            self._tick_io.add(("snic", de.eid[0]),
+                              self.time_model.snic_seconds(persist_b))
+            for er in active_before:
+                m = self.metrics[er.req.rid]
+                if m.first_decode_t < 0:
+                    self._stamp(er.req.rid, "first_decode_t")
+                if len(er.generated) >= 2 and m.second_token_t < 0:
+                    self._stamp(er.req.rid, "second_token_t")
+            for er in finished:
+                self.sched.on_request_done(er.req.de, er.req)
+                self._stamp(er.req.rid, "done_t")
+            if self.pipelined:
+                pend, de.pending_persist = de.pending_persist, []
+                if pend:
+                    for er, _ in pend:
+                        er.lifecycle = ReqState.PERSIST
+
+                    def persists_done(pend=pend):
+                        for er, fin in pend:
+                            if fin is not None:
+                                fin()
+                            self._finish_round(er)
+
+                    de.tm.flush(on_complete=persists_done)
+            else:
+                for er in finished:
+                    self._finish_round(er)
+        self._tick_compute += de_max
+        return act
+
+    def _finish_round(self, er: EngineRequest):
+        """Round completion (after the persist landed): the session's
+        context rolls forward and its next round submits."""
+        sess = er.session
+        sess.context = er.context_tokens + er.append_tokens + er.generated
+        sess.rounds_done += 1
+        sess.current = None
+        er.lifecycle = ReqState.DONE
+        self.gen_tokens_done += len(er.generated)
+        del self._inflight[er.req.rid]
+        if sess.next_round < sess.traj.n_rounds:
+            self._submit_round(sess)
+
+    # ------------------------------------------------------------------
+    # the tick
+    # ------------------------------------------------------------------
+    def _poll_all(self) -> int:
+        """Complete every in-flight transfer (tick phase 4)."""
+        n = 0
+        progress = True
+        while progress:
+            progress = False
+            for tm in self._all_tms():
+                if tm.queued:
+                    tm.flush()
+                k = tm.poll()
+                if k:
+                    progress = True
+                    n += k
+        return n
+
+    def _run_installs(self) -> int:
+        """Install the hit KV of read-complete requests in rid order (the
+        blocking runtime's install order)."""
+        ready, self._install_ready = self._install_ready, []
+        ready.sort(key=lambda er: er.req.rid)
+        for er in ready:
+            self._read_complete(er)
+        return len(ready)
+
+    def _stamp(self, rid: int, field_name: str):
+        """Defer a milestone to the end of the current tick, after the
+        clock charges the tick's modelled seconds."""
+        self._pending_stamps.append((self.metrics[rid], field_name))
+
+    def _flush_stamps(self):
+        now = self.clock.now
+        for m, fld in self._pending_stamps:
+            if getattr(m, fld) < 0:
+                setattr(m, fld, now)
+        self._pending_stamps = []
+
+    def _submit_overhead_delta(self) -> float:
+        tot = sum(tm.submitted_seconds for tm in self._all_tms())
+        d = tot - self._submit_seconds_seen
+        self._submit_seconds_seen = tot
+        return d
+
+    def _tick(self) -> int:
+        """One tick; returns an activity count (0 = idle)."""
+        self._tick_io = TickIo()
+        self._tick_compute = 0.0
+        act = 0
+        if self.pipelined:
+            act += self._schedule_tick()     # 1. decide + issue reads
+            act += self._step_pes()          # 2. prefill compute
+            act += self._step_des()          # 3. decode compute
+            act += self._poll_all()          # 4. transfer completions
+            act += self._run_installs()      # 5. hit-KV installs
+            self._collect_pd()
+            act += self._admit_pending()     # 6. DE admissions
+            dt = max(self._tick_io.parallel_seconds(), self._tick_compute)
+        else:
+            act += self._schedule_tick()
+            act += self._step_pes()
+            act += self._admit_pending()
+            act += self._step_des()
+            dt = self._tick_io.serial_seconds() + self._tick_compute
+        self.clock.advance(dt + self._submit_overhead_delta())
+        self._flush_stamps()
+        return act
+
+    def run_offline(self, trajectories: List[Trajectory],
+                    max_iters: int = 100000) -> List[AgentSession]:
+        sessions = [AgentSession(t, np.random.default_rng(1000 + t.tid))
+                    for t in trajectories]
+        for s in sessions:
+            self._submit_round(s)
+        for _ in range(max_iters):
+            if all(s.done() for s in sessions):
+                break
+            self._tick()
+        else:
+            raise RuntimeError("serving system did not converge")
+        return sessions
+
+    def stats(self) -> dict:
+        """The reference's ``stats()`` keys that this slice produces,
+        under the same names (``wall_s`` is modelled seconds)."""
+        return dict(
+            store_reads=self.store.bytes_read,
+            store_writes=self.store.bytes_written,
+            read_bytes_pe_side=self.read_bytes_by_side["pe"],
+            read_bytes_de_side=self.read_bytes_by_side["de"],
+            split_reads=self.n_split_reads,
+            trie_blocks=self.trie.n_blocks,
+            prefill_tokens=sum(p.prefill_tokens for p in self.pes.values()),
+            decode_steps=sum(d.decode_steps for d in self.des.values()),
+            gen_tokens=self.gen_tokens_done,
+            wall_s=self.clock.now,
+            doorbells=sum(tm.doorbells for tm in self._all_tms()),
+            submitted_seconds=sum(tm.submitted_seconds
+                                  for tm in self._all_tms()),
+            **events.latency_summary(self.metrics.values()),
+        )

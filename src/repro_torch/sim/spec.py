@@ -1,0 +1,83 @@
+"""Hardware and model descriptors for the serving clock (port of
+``repro.sim.spec``).
+
+``HOPPER_NODE`` is the paper's testbed as the reference models it (8
+engines, 400 Gb/s compute and storage NICs, 500 GB/s DRAM, data-sheet
+H100 peaks).  The serving runtime's clock charges modelled seconds from
+these numbers; they are inputs to a model, not measurements.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+
+from repro_torch.configs.base import ModelConfig
+
+
+@dataclass(frozen=True)
+class GPUSpec:
+    flops: float                 # effective dense FLOP/s for inference dtype
+    hbm_bw: float                # bytes/s
+    hbm_bytes: float
+    mfu_prefill: float = 0.55    # achievable fraction during prefill
+    mbu_decode: float = 0.70     # achievable HBM-bandwidth fraction in decode
+
+
+HOPPER_GPU = GPUSpec(flops=990e12, hbm_bw=3.35e12, hbm_bytes=80e9)
+
+
+@dataclass(frozen=True)
+class NodeSpec:
+    g: int                       # engines per node
+    cnic_bw: float               # per-engine compute-NIC bandwidth [B/s]
+    snic_bw: float               # per-node storage-NIC bandwidth [B/s]
+    dram_bw: float               # per-node DRAM bandwidth [B/s]
+    gpu: GPUSpec = field(default_factory=lambda: HOPPER_GPU)
+
+
+# 400 Gbps = 50 GB/s
+HOPPER_NODE = NodeSpec(g=8, cnic_bw=50e9, snic_bw=50e9, dram_bw=500e9,
+                       gpu=HOPPER_GPU)
+
+
+@dataclass(frozen=True)
+class ModelSimSpec:
+    """Analytic per-token quantities of a dense model."""
+
+    name: str
+    n_layers: int
+    kv_bytes_per_token: int          # loadable KV bytes per context token
+    active_params: float             # active parameter count
+    n_heads: int
+    qk_head_dim: int
+    total_param_bytes: float = 0.0   # full weight bytes
+
+    @classmethod
+    def from_config(cls, cfg: ModelConfig, kv_dtype_bytes: int = 2,
+                    param_dtype_bytes: int = 2) -> "ModelSimSpec":
+        return cls(
+            name=cfg.name,
+            n_layers=cfg.n_layers,
+            kv_bytes_per_token=cfg.kv_bytes_per_token(kv_dtype_bytes),
+            active_params=cfg.active_param_count(),
+            n_heads=max(cfg.n_heads, 1),
+            qk_head_dim=max(cfg.head_dim, 1),
+            total_param_bytes=cfg.param_count() * param_dtype_bytes,
+        )
+
+    def active_param_bytes_resident(self, group_size: int) -> float:
+        """Weight bytes one engine touches per decode step."""
+        return self.total_param_bytes / max(group_size, 1)
+
+    def linear_flops_per_token(self) -> float:
+        return 2.0 * self.active_params
+
+    def attn_flops_per_token(self, ctx: int) -> float:
+        """Attention FLOPs for one new token at context length ctx."""
+        return 4.0 * self.n_layers * self.n_heads * self.qk_head_dim * ctx
+
+    def decode_step_flops(self, ctx: int) -> float:
+        return self.linear_flops_per_token() + self.attn_flops_per_token(ctx)
+
+    def decode_step_bytes(self, ctx: int) -> float:
+        """HBM bytes touched per decode step per sequence (KV read)."""
+        return self.kv_bytes_per_token * ctx

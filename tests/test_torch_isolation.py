@@ -1,0 +1,86 @@
+"""The port stands alone: no JAX, nothing of ``repro``, no silent CPU.
+
+* Importing every ``repro_torch`` module in a fresh interpreter leaves
+  neither ``jax`` nor any ``repro``/``repro.*`` module in sys.modules.
+* No source file of the port says ``import jax``, ``from jax``,
+  ``import repro`` or ``from repro.``.
+* An entry point called without ``device=`` on a machine without CUDA
+  raises instead of running on the CPU.
+"""
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+SRC = Path(__file__).resolve().parent.parent / "src"
+PKG = SRC / "repro_torch"
+
+_IMPORT_ALL = """
+import importlib, pkgutil, sys
+import repro_torch
+names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                                "repro_torch.")]
+for n in names:
+    importlib.import_module(n)
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.") or m == "repro"
+             or m.startswith("repro."))
+print(len(names), bad)
+"""
+
+
+def test_importing_every_module_pulls_in_no_jax_and_no_repro():
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], env=env,
+                         capture_output=True, text=True, timeout=120,
+                         check=True).stdout.split(maxsplit=1)
+    assert int(out[0]) >= 20, out          # every module was imported
+    assert out[1].strip() == "[]", out[1]
+
+
+_FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|repro)(\.|\s|$)",
+                        re.MULTILINE)
+
+
+def test_no_source_file_imports_jax_or_repro():
+    files = sorted(PKG.rglob("*.py")) + [SRC.parent / "chip_smoke.py"]
+    assert len(files) >= 20
+    offenders = [str(f) for f in files
+                 if _FORBIDDEN.search(f.read_text())]
+    assert offenders == []
+
+
+def test_entry_points_without_device_raise_without_cuda(monkeypatch):
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_decode_state, init_params
+    from repro_torch.serving import ServingSystem
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = get_config("qwen1.5-0.5b").reduced()
+    with pytest.raises(RuntimeError, match="cuda"):
+        init_params(cfg)
+    with pytest.raises(RuntimeError, match="cuda"):
+        init_decode_state(cfg, 1, 16)
+    params = init_params(cfg, device="cpu")
+    with pytest.raises(RuntimeError, match="cuda"):
+        ServingSystem(cfg, params)
+
+
+def test_cuda_path_raises_on_cpu_only_arguments():
+    """A kernel wrapper never quietly falls back: mixed devices raise."""
+    from repro_torch.kernels import build
+    with pytest.raises(ValueError):
+        build.require_cuda("k", torch.zeros(1))
+
+
+def test_unported_families_raise_with_their_slice():
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    cfg = dataclasses.replace(get_config("qwen1.5-0.5b").reduced(),
+                              family="ssm")
+    with pytest.raises(NotImplementedError, match="SSM"):
+        init_params(cfg, device="cpu")

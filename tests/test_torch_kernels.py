@@ -1,0 +1,148 @@
+"""The port's kernel plain versions against the JAX Pallas kernels.
+
+The Pallas kernels run in interpret mode on the CPU, as
+tests/test_kernels.py runs them; the port's wrappers, given CPU tensors,
+compute their plain PyTorch versions (the CUDA kernels are held against
+those same plain versions on the card by chip_smoke.py).  Inputs are made
+with numpy from a seed and handed to both packages.
+
+Tolerances are tests/test_kernels.py's: 2e-5 in float32 (two softmax
+implementations summing in different orders) and 2e-2 in bfloat16 (one
+bf16 rounding of p and of the output).  The gather must be exact.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ops
+from repro.models.layers import append_attend as jax_append_attend
+from repro_torch import kernels
+from repro_torch.bridge import assert_close, assert_exact, to_torch
+from repro_torch.kernels import ref
+
+# tiny CPU tensors: extra intra-op threads only contend with the other
+# test workers
+torch.set_num_threads(1)
+
+TOLS = {"float32": 2e-5, "bfloat16": 2e-2}
+
+
+def _pair(rng, shape, dtype):
+    """The same values as a JAX array and a torch tensor of ``dtype``
+    (bf16 rounds from the same float32 in both)."""
+    x = rng.standard_normal(shape).astype(np.float32)
+    j = jnp.asarray(x).astype(dtype)
+    return j, to_torch(np.asarray(j))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,hq,hkv,sq,skv,dh,bq,bk", [
+    (1, 4, 4, 64, 64, 64, 32, 32),       # MHA square
+    (2, 8, 2, 32, 256, 64, 32, 64),      # GQA append (short q, long kv)
+    (1, 8, 1, 17, 130, 32, 16, 64),      # g = 8, ragged (padding paths)
+])
+def test_flash_plain_matches_pallas(dtype, b, hq, hkv, sq, skv, dh, bq, bk):
+    rng = np.random.default_rng(0)
+    qj, qt = _pair(rng, (b, hq, sq, dh), dtype)
+    kj, kt = _pair(rng, (b, hkv, skv, dh), dtype)
+    vj, vt = _pair(rng, (b, hkv, skv, dh), dtype)
+    want = ops.flash_attention(qj, kj, vj, block_q=bq, block_k=bk)
+    got = kernels.flash_attention(qt, kt, vt)
+    assert got.dtype == qt.dtype
+    assert_close(got, np.asarray(want.astype(jnp.float32)), TOLS[dtype])
+
+
+@pytest.mark.parametrize("softcap,window,causal", [
+    (30.0, 0, True), (0.0, 64, True), (50.0, 48, True), (0.0, 0, False)])
+def test_flash_plain_softcap_window_noncausal(softcap, window, causal):
+    rng = np.random.default_rng(1)
+    qj, qt = _pair(rng, (1, 4, 96, 64), "float32")
+    kj, kt = _pair(rng, (1, 2, 160, 64), "float32")
+    vj, vt = _pair(rng, (1, 2, 160, 64), "float32")
+    want = ops.flash_attention(qj, kj, vj, softcap=softcap, window=window,
+                               causal=causal, block_q=32, block_k=32)
+    got = kernels.flash_attention(qt, kt, vt, softcap=softcap, window=window,
+                                  causal=causal)
+    assert_close(got, np.asarray(want), 3e-5)   # test_kernels.py's 3e-5
+
+
+def test_flash_kv_lens_is_ragged_append_attend():
+    """Per-row kv_lens covers the model's ragged append (layers.py:213):
+    the flash contract with kv_lens = lengths + s_app over the padded
+    cache equals JAX append_attend, and kv_lens = skv everywhere is the
+    Pallas contract exactly."""
+    rng = np.random.default_rng(2)
+    b, s_app, hq, hkv, S, dh = 2, 5, 8, 2, 40, 32
+    qj, qt = _pair(rng, (b, s_app, hq, dh), "float32")
+    kj, kt = _pair(rng, (b, S, hkv, dh), "float32")
+    vj, vt = _pair(rng, (b, S, hkv, dh), "float32")
+    lengths = np.array([3, 21], np.int32)
+    want = jax_append_attend(qj, kj, vj, jnp.asarray(lengths))
+    got = kernels.flash_attention(
+        qt.transpose(1, 2), kt.transpose(1, 2), vt.transpose(1, 2),
+        kv_lens=torch.from_numpy(lengths + s_app)).transpose(1, 2)
+    assert_close(got, np.asarray(want), 2e-5)
+    full = torch.full((b,), S, dtype=torch.int32)
+    q2 = qt.transpose(1, 2)
+    k2, v2 = kt.transpose(1, 2), vt.transpose(1, 2)
+    assert torch.equal(kernels.flash_attention(q2, k2, v2, kv_lens=full),
+                       kernels.flash_attention(q2, k2, v2))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,hkv,g,dh,npool,pt,npages", [
+    (2, 4, 2, 64, 16, 16, 6),
+    (1, 1, 8, 128, 8, 32, 4),
+    (3, 2, 1, 32, 32, 8, 10),
+])
+def test_paged_plain_matches_pallas(dtype, b, hkv, g, dh, npool, pt, npages):
+    rng = np.random.default_rng(3)
+    qj, qt = _pair(rng, (b, hkv, g, dh), dtype)
+    kj, kt = _pair(rng, (npool, pt, hkv, dh), dtype)
+    vj, vt = _pair(rng, (npool, pt, hkv, dh), dtype)
+    tbl = rng.integers(0, npool, (b, npages)).astype(np.int32)
+    lengths = rng.integers(1, npages * pt, (b,)).astype(np.int32)
+    want = ops.paged_attention(qj, kj, vj, jnp.asarray(tbl),
+                               jnp.asarray(lengths))
+    got = kernels.paged_attention(qt, kt, vt, torch.from_numpy(tbl),
+                                  torch.from_numpy(lengths))
+    assert_close(got, np.asarray(want.astype(jnp.float32)), TOLS[dtype])
+
+
+@pytest.mark.parametrize("dtype", ["uint8", "bfloat16", "float32"])
+def test_gather_plain_matches_pallas_exactly(dtype):
+    rng = np.random.default_rng(4)
+    npool, nl, pt, feat, n = 8, 4, 16, 32, 5
+    if dtype == "uint8":
+        pool_np = rng.integers(0, 255, (npool, nl, pt, feat)).astype(np.uint8)
+        pool_j = jnp.asarray(pool_np)
+    else:
+        pool_j = jnp.asarray(rng.standard_normal(
+            (npool, nl, pt, feat)).astype(np.float32)).astype(dtype)
+    pool_t = to_torch(np.asarray(pool_j))
+    tbl = rng.choice(npool, n, replace=False).astype(np.int32)
+    for layer in (0, nl - 1):
+        want = ops.kv_layer_gather(pool_j, jnp.asarray(tbl), layer=layer)
+        got = kernels.kv_layer_gather(pool_t, torch.from_numpy(tbl),
+                                      layer=layer)
+        assert_exact(got.view(torch.uint8) if dtype != "uint8" else got,
+                     np.asarray(want).view(np.uint8))
+
+
+def test_cpu_wrappers_compute_plain_versions_without_counting():
+    """On CPU tensors every wrapper returns its plain version and counts
+    no launch: a launch count means the CUDA kernel ran."""
+    kernels.reset_launch_counts()
+    rng = np.random.default_rng(5)
+    q = torch.from_numpy(rng.standard_normal((1, 2, 4, 32)).astype(np.float32))
+    k = torch.from_numpy(rng.standard_normal((1, 2, 9, 32)).astype(np.float32))
+    assert torch.equal(kernels.flash_attention(q, k, k),
+                       ref.flash_attention_ref(q, k, k))
+    pool = torch.arange(2 * 3 * 4 * 16, dtype=torch.uint8).view(2, 3, 4, 16)
+    tbl = torch.tensor([1, 0], dtype=torch.int32)
+    assert torch.equal(kernels.kv_layer_gather(pool, tbl, layer=2),
+                       pool[[1, 0], 2])
+    with pytest.raises(IndexError):
+        kernels.kv_layer_gather(pool, tbl, layer=3)
+    assert set(kernels.launch_counts().values()) == {0}

@@ -1,0 +1,97 @@
+"""The port's KV serialisation against the JAX reference's.
+
+FullBlocks are bytes, so every comparison here is exact: a state bridged
+from JAX must serialise to the same bytes in both packages, and JAX-made
+FullBlocks installed through the port's layerwise stream (the gather
+kernel's plain version on the CPU) must rebuild the JAX state bit for bit.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_config as jax_get_config
+from repro.engines import kvio as jax_kvio
+from repro.models import init_decode_state as jax_init_state
+from repro.models import init_params as jax_init_params
+from repro.models.model import append_step as jax_append
+from repro_torch import bridge
+from repro_torch.configs import get_config
+from repro_torch.engines import kvio
+from repro_torch.models import init_decode_state
+
+# tiny CPU tensors: extra intra-op threads only contend with the other
+# test workers
+torch.set_num_threads(1)
+
+B, T, CAP, PT = 2, 16, 24, 8
+
+
+@pytest.fixture(scope="module")
+def jax_state():
+    """A JAX decode state holding T tokens of real KV in both slots."""
+    cfg = jax_get_config("qwen1.5-0.5b").reduced()
+    params = jax_init_params(cfg, jax.random.PRNGKey(0))
+    toks = np.random.default_rng(0).integers(0, cfg.vocab_size, (B, T))
+    st = jax_init_state(cfg, B, CAP)
+    _, st = jax_append(params, cfg, jnp.asarray(toks, jnp.int32), st,
+                       jnp.zeros((B,), jnp.int32))
+    return cfg, st
+
+
+def test_serialize_is_byte_identical_to_jax(jax_state):
+    jcfg, jst = jax_state
+    cfg = get_config("qwen1.5-0.5b").reduced()
+    st = bridge.state_from_jax(jax.tree.map(np.asarray, jst))
+    for slot in range(B):
+        want = jax_kvio.serialize_kv(jcfg, jst, slot, 0, T)
+        got = kvio.serialize_kv(cfg, st, slot, 0, T)
+        assert got.dtype == np.uint8
+        bridge.assert_exact(got, want)
+        bridge.assert_exact(kvio.serialize_kv_layer(cfg, st, slot, 4, 12, 2),
+                            jax_kvio.serialize_kv_layer(jcfg, jst, slot, 4,
+                                                        12, 2))
+    assert kvio.kv_row_bytes(cfg) == jax_kvio.kv_row_bytes(jcfg)
+
+
+@pytest.mark.parametrize("layerwise", [True, False])
+def test_jax_fullblocks_install_to_the_jax_state(jax_state, layerwise):
+    """JAX FullBlocks -> the port's install (layerwise through
+    layer_stream + deserialize_kv_layer, or bulk deserialize_kv) -> the
+    bridged JAX state, exactly."""
+    jcfg, jst = jax_state
+    cfg = get_config("qwen1.5-0.5b").reduced()
+    kv = jax_kvio.serialize_kv(jcfg, jst, 1, 0, T)          # (L, T, row)
+    blocks = [np.ascontiguousarray(kv[:, i:i + PT]) for i in range(0, T, PT)]
+    st = init_decode_state(cfg, 1, CAP, device="cpu")
+    if layerwise:
+        layers = []
+        for li, rows in kvio.layer_stream(cfg, blocks, device="cpu"):
+            assert isinstance(rows, torch.Tensor) and rows.shape == (T, kv.shape[2])
+            layers.append(li)
+            kvio.deserialize_kv_layer(cfg, st, 0, 0, li, rows)
+        assert layers == list(range(cfg.n_layers))
+    else:
+        kvio.deserialize_kv(cfg, st, 0, 0, np.concatenate(blocks, axis=1))
+    for key in ("k", "v"):
+        want = np.asarray(jst["kv"][key][:, 1:2, :T]).view(np.uint16)
+        got = st["kv"][key][:, :, :T].view(torch.int16).numpy()
+        np.testing.assert_array_equal(got.view(np.uint16), want)
+        assert not st["kv"][key][:, :, T:].any()
+
+
+def test_slot_get_set_roundtrip():
+    cfg = get_config("qwen1.5-0.5b").reduced()
+    st = init_decode_state(cfg, 3, 16, device="cpu")
+    axes = kvio.batch_axes_of_state(cfg)
+    assert axes == {"kv": {"k": 1, "v": 1}}
+    rnd = {"kv": {k: torch.randn(v.shape).to(v.dtype)
+                  for k, v in st["kv"].items()}}
+    sub = kvio.slot_get(rnd, axes, 1)
+    kvio.slot_set(st, axes, 2, sub)
+    sub2 = kvio.slot_get(st, axes, 2)
+    for k in ("k", "v"):
+        assert torch.equal(sub["kv"][k], sub2["kv"][k])
+        assert torch.equal(st["kv"][k][:, 2], rnd["kv"][k][:, 1])
+        assert not st["kv"][k][:, :2].any()
