@@ -1,24 +1,35 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA H100.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                  # the smoke, phases 1-7
+    python3 chip_smoke.py --persist-ab 10  # offline serving, old persist
+                                           # against the scatter's
 
 Drives ``repro_torch`` (never the JAX package) on the card:
 
 1. environment: torch version, the card's name and power limit, TF32 off;
-2. builds the three CUDA kernels from src/repro_torch/kernels/csrc with
-   nvcc for sm_90a;
+2. builds the four CUDA kernels from src/repro_torch/kernels/csrc with
+   nvcc for sm_90a, one nvcc process per source, all at once;
 3. holds each kernel against its plain PyTorch version at the main
-   path's shapes plus a GQA shape (gather exact; attention within 2e-2
-   in bf16 and 2e-5 in f32), and times the kernel, the plain version and
-   one PyTorch call computing the same function, with CUDA events;
+   paths' shapes plus another shape (gather and scatter bit-exact;
+   attention within 2e-2 in bf16 and 2e-5 in f32), and times the kernel,
+   the plain version and one PyTorch call computing the same function,
+   with CUDA events; then times the round-1 persist (16 FullBlocks) the
+   old way (layer-major bytes, a host slice per block) against the
+   scatter's block-major pool, host time and D2H device time;
 4. serves 6 agents x 3 rounds of full-width qwen1.5-0.5b (bf16, random
-   weights from a seed) through the port's ServingSystem, asserting that
-   every round finished, both read sides were used and all three
-   kernels launched; then the blocking arm must give identical tokens,
-   and a third run under torch.profiler says where the time goes;
-5. f32 token identity at full width: ServingSystem against the port's
+   weights from a seed) offline through the port's ServingSystem,
+   asserting that every round finished, both read sides were used and
+   all four kernels launched (the scatter in every persist); then the
+   blocking arm must give identical tokens, and a third run under
+   torch.profiler says where the time goes;
+5. serves 3 agents x 4 rounds online (Poisson arrivals, think gaps on
+   the modelled clock) at full width and depth, with a DRAM tier on
+   each node and the think-time prefetcher, asserting that every
+   round finished, all four kernels launched, the tiers hit, prefetched
+   and evicted, and the blocking arm gave identical tokens;
+6. f32 token identity at full width: ServingSystem against the port's
    cache-free reference (full forward, then decode);
-6. prints the ``kernels`` JSON line, then the contract line
+7. prints the ``kernels`` JSON line, then the contract line
    ``{"ok": true, "device": {...}}`` last.
 
 Any failed check raises, so the script exits non-zero and prints no
@@ -44,6 +55,18 @@ PEAK_FLOPS = {torch.bfloat16: 989e12,   # dense tensor-core bf16
               torch.float32: 67e12}     # f32 outside the tensor cores
 TOLS = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 AGENT_ROUNDS = ((1024, 32), (128, 32), (128, 32))
+# online: (append, gen, think seconds before the round).  The tier holds
+# 18 FullBlocks per node: more than one round-1 context (16 blocks), less
+# than the round-3 context it is warmed with (21), so warm-up evicts and
+# the prefetcher stages blocks back; a 0.5 s think gap (the mean arrival
+# gap) lets an agent's prefix survive until its next round, so rounds
+# hit.  Spread arrivals decode about one agent at a time, and a decode
+# step costs host time per layer, so the agent count sets the phase's
+# real time: 3 agents keep it near one offline run per arm
+ONLINE_ROUNDS = ((1024, 32, 0.0), (128, 32, 0.5), (128, 32, 0.5),
+                 (128, 32, 0.5))
+ONLINE_AGENTS = 3
+ONLINE_TIER_BLOCKS = 18
 
 
 # ---------------------------------------------------------------------------
@@ -119,6 +142,125 @@ def gather_cases(cfg, rng):
                                                          layer=layer)),
         library_ms=time_ms(lambda: pool[tl, layer]),
         bound_ms=b_ms, bound_by=b_by)]
+
+
+def _scatter_case(pool, table, stream, layer):
+    from repro_torch.kernels import kv_layer_scatter, ref
+    want = ref.kv_layer_scatter_ref(pool.clone(), table, stream, layer=layer)
+    got = kv_layer_scatter(pool, table, stream, layer=layer)
+    if got is not pool or not torch.equal(got, want):
+        raise AssertionError("kv_layer_scatter is not bit-exact in place")
+    n, pt, feat = stream.shape
+    tl = table.long()
+    b_ms, b_by = bound(2 * n * pt * feat * stream.element_size(), 0,
+                       torch.uint8)
+    return dict(
+        shapes=dict(pool=list(pool.shape), table=[n],
+                    dtype=str(pool.dtype).replace("torch.", "")),
+        max_abs_err=0.0,
+        ms=time_ms(lambda: kv_layer_scatter(pool, table, stream,
+                                            layer=layer)),
+        plain_ms=time_ms(lambda: ref.kv_layer_scatter_ref(
+            pool, table, stream, layer=layer)),
+        library_ms=time_ms(lambda: pool[:, layer].index_copy_(0, tl,
+                                                              stream)),
+        bound_ms=b_ms, bound_by=b_by)
+
+
+def scatter_cases(cfg, rng):
+    from repro_torch.engines.kvio import kv_row_bytes
+    # the round-1 persist: 16 new 64-token FullBlocks, (layers, 64,
+    # row_bytes) uint8 each, built block-major one layer at a time
+    n, pt, row = 16, 64, kv_row_bytes(cfg)
+    u8 = lambda *s: torch.from_numpy(
+        rng.integers(0, 256, s, dtype=np.uint8)).cuda()
+    main = _scatter_case(u8(n, cfg.n_layers, pt, row),
+                         torch.arange(n, dtype=torch.int32, device="cuda"),
+                         u8(n, pt, row), cfg.n_layers // 2)
+    # a bf16 pool of 48 pages, 16 of them written through a permuted table
+    bf = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(
+        np.float32)).to("cuda", torch.bfloat16)
+    perm = torch.from_numpy(rng.permutation(48)[:n].astype(np.int32)).cuda()
+    other = _scatter_case(bf(48, cfg.n_layers, pt, row // 2), perm,
+                          bf(n, pt, row // 2), cfg.n_layers - 1)
+    return [main, other]
+
+
+def persist_blocks_old(cfg, state, slot, b0, b1, bt):
+    """The DE's persist before the scatter: the layer-major bytes of
+    FullBlocks ``b0 .. b1-1`` in one host copy, then a contiguous host
+    copy of each block's strided slice."""
+    from repro_torch.engines import kvio
+    kv = kvio.serialize_kv(cfg, state, slot, b0 * bt, b1 * bt)
+    return [np.ascontiguousarray(kv[:, i * bt:(i + 1) * bt])
+            for i in range(b1 - b0)]
+
+
+def persist_ab(cfg, reps=8):
+    """The round-1 persist (16 new FullBlocks of one slot of an 8-slot,
+    2048-token bf16 decode state) two ways, in alternation: ``old`` is
+    :func:`persist_blocks_old`, ``new`` is ``serialize_blocks`` (scatter
+    into a block-major pool, one copy).  Every rep's blocks stay alive,
+    as the store keeps them.  Returns {way: (median host ms per persist,
+    D2H device ms per persist under torch.profiler)}; raises if the two
+    ways' blocks differ."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.engines import kvio
+    from repro_torch.models import init_decode_state
+    n, bt, slot = 16, 64, 3
+    state = init_decode_state(cfg, 8, 2048, "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for t in state["kv"].values():
+        t.copy_(torch.randn(t.shape, generator=gen, device="cuda",
+                            dtype=t.dtype))
+    ways = {"old": persist_blocks_old, "new": kvio.serialize_blocks}
+    a, b = (fn(cfg, state, slot, 0, n, bt) for fn in ways.values())
+    if not all(np.array_equal(x, y) for x, y in zip(a, b)):
+        raise AssertionError("serialize_blocks differs from serialize_kv")
+    kept, host = [], {w: [] for w in ways}
+    torch.cuda.synchronize()
+    for _ in range(reps):
+        for w, fn in ways.items():
+            t0 = time.perf_counter()
+            kept.append(fn(cfg, state, slot, 0, n, bt))
+            host[w].append((time.perf_counter() - t0) * 1e3)
+    out = {}
+    for w, fn in ways.items():
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                kept.append(fn(cfg, state, slot, 0, n, bt))
+        d2h = sum(e.self_device_time_total for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA and "DtoH" in e.key)
+        out[w] = (float(np.median(host[w])), d2h / 1e3 / reps)
+    return out
+
+
+def persist_serving_ab(cfg, pairs=10):
+    """Phase 4's offline serving (pipelined) with the DE persisting the
+    old way and the scatter way, in one process, pairs alternating which
+    way runs first, after one unmeasured pair.  Returns {way: [real wall
+    s, ...]}.  Run with ``python3 chip_smoke.py --persist-ab [pairs]``."""
+    from repro_torch.engines import kvio
+    from repro_torch.models import init_params
+    from repro_torch.sim.traces import Round, Trajectory
+    params = init_params(cfg, seed=0, device="cuda")
+    ways = {"old": persist_blocks_old, "new": kvio.serialize_blocks}
+    walls = {w: [] for w in ways}
+    try:
+        for i in range(pairs + 1):
+            for w in (("old", "new") if i % 2 else ("new", "old")):
+                kvio.serialize_blocks = ways[w]
+                trajs = [Trajectory(a, [Round(*r) for r in AGENT_ROUNDS])
+                         for a in range(6)]
+                _, _, wall = serve(cfg, params, trajs, "cuda", n_pe=1,
+                                   n_de=1, mode="dualpath", block_tokens=64,
+                                   max_seq=2048, de_slots=8)
+                if i:
+                    walls[w].append(wall)
+    finally:
+        kvio.serialize_blocks = ways["new"]
+    return walls
 
 
 def _flash_case(rng, *, hq, hkv, dh, sq, kv_len, S, dtype):
@@ -304,6 +446,75 @@ def profile_phase(cfg, rounds=AGENT_ROUNDS, n_agents=6, top=8):
     return wall, busy, rows[:top]
 
 
+def online_run(cfg, params, device="cuda", *, pipelined=True,
+               rounds=ONLINE_ROUNDS, n_agents=ONLINE_AGENTS,
+               tier_blocks=ONLINE_TIER_BLOCKS, mean_gap_s=0.5,
+               block_tokens=64, max_seq=2048):
+    """One online run: ``n_agents`` trajectories of ``rounds`` arriving
+    at Poisson times, a DRAM tier of ``tier_blocks`` FullBlocks per node,
+    agentic-TTL eviction and the think-time prefetcher.  Returns (system,
+    sessions, real wall s)."""
+    from repro_torch.core.config import TierConfig
+    from repro_torch.engines.kvio import kv_row_bytes
+    from repro_torch.serving import ServingSystem
+    from repro_torch.sim.traces import Round, Trajectory
+    arrivals = np.cumsum(np.random.default_rng(7).exponential(
+        mean_gap_s, n_agents)).tolist()
+    trajs = [Trajectory(i, [Round(*r) for r in rounds])
+             for i in range(n_agents)]
+    # bf16 KV: a FullBlock is layers x block_tokens x (k ‖ v row) bytes
+    tier_bytes = tier_blocks * cfg.n_layers * block_tokens * kv_row_bytes(cfg)
+    system = ServingSystem(
+        cfg, params, device=device, pipelined=pipelined, n_pe=1, n_de=1,
+        mode="dualpath", block_tokens=block_tokens, max_seq=max_seq,
+        de_slots=8, tier=TierConfig(dram_tier_bytes=tier_bytes,
+                                    tier_policy="agentic-ttl", prefetch=True))
+    if device != "cpu":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sessions = system.run_online(trajs, arrivals)
+    if device != "cpu":
+        torch.cuda.synchronize()
+    return system, sessions, time.perf_counter() - t0
+
+
+def tier_counters(system) -> dict:
+    """The online phase's tier counters in FullBlocks, which do not
+    depend on the model's width or depth."""
+    fb = system.layout.full_block_bytes
+    st = system.stats()
+    return {k: st[k] / fb for k in ("dram_hit_bytes", "tier_prefetch_bytes",
+                                    "tier_evicted_bytes", "store_reads")}
+
+
+def online_phase(cfg, device="cuda", **kw):
+    """Online serving at full depth (see :func:`online_run`): every round
+    finishes, all four kernels launch, the tiers hit, prefetch and evict,
+    and the blocking arm gives the pipelined arm's tokens.  Returns
+    (stats, launches, wall_s, tokens_per_s, blocking_wall_s, tier
+    counters in FullBlocks)."""
+    from repro_torch import kernels
+    from repro_torch.models import init_params
+    params = init_params(cfg, seed=0, device=device)
+    kernels.reset_launch_counts()
+    system, sessions, wall = online_run(cfg, params, device, **kw)
+    launches = kernels.launch_counts()
+    st, blocks = system.stats(), tier_counters(system)
+    n_rounds = len(kw.get("rounds", ONLINE_ROUNDS))
+    assert all(s.rounds_done == n_rounds for s in sessions), \
+        "an online round did not finish"
+    for k, v in blocks.items():
+        assert v > 0, f"online phase: {k} is 0"
+    if device != "cpu":
+        assert all(n > 0 for n in launches.values()), \
+            f"a kernel of the online path never launched: {launches}"
+    _, sessions_b, wall_b = online_run(cfg, params, device, pipelined=False,
+                                       **kw)
+    assert [s.context for s in sessions] == \
+        [s.context for s in sessions_b], "online blocking arm diverged"
+    return st, launches, wall, st["gen_tokens"] / wall, wall_b, blocks
+
+
 def reference_contexts(cfg, params, rounds, seed_tid, device):
     """The port's cache-free reference: full forward per round for the
     first token, then decode, as tests/test_serving.py's oracle."""
@@ -362,6 +573,17 @@ def main() -> int:
     from repro_torch.configs import get_config
     from repro_torch.kernels import build
 
+    if sys.argv[1:2] == ["--persist-ab"]:
+        print(subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            check=True).stdout.strip())
+        build.build()
+        pairs = int(sys.argv[2]) if len(sys.argv) > 2 else 10
+        print(json.dumps(persist_serving_ab(get_config("qwen1.5-0.5b"),
+                                            pairs)))
+        return 0
+
     # 1. environment
     print(f"torch {torch.__version__} cuda {torch.version.cuda}")
     card = subprocess.run(
@@ -387,6 +609,7 @@ def main() -> int:
     cfg = get_config("qwen1.5-0.5b")
     rng = np.random.default_rng(0)
     cases = {"kv_layer_gather": gather_cases(cfg, rng),
+             "kv_layer_scatter": scatter_cases(cfg, rng),
              "flash_attention": flash_cases(cfg, rng),
              "paged_attention": paged_cases(cfg, rng)}
     for name, cs in cases.items():
@@ -395,6 +618,10 @@ def main() -> int:
                   f" kernel {c['ms']:.4f} ms plain {c['plain_ms']:.4f} ms "
                   f"library {c['library_ms']:.4f} ms bound {c['bound_ms']:.4f}"
                   f" ms ({c['bound_by']})")
+    persist = persist_ab(cfg)
+    for way, (host_ms, d2h_ms) in persist.items():
+        print(f"persist of 16 FullBlocks, {way} way: {host_ms:.3f} ms host "
+              f"(median), {d2h_ms:.3f} ms D2H device time per persist")
 
     # 4. serving at full width, bf16
     st, launches, wall, tps, wall_b = serving_phase(cfg)
@@ -408,14 +635,26 @@ def main() -> int:
     for name, ms, calls in rows:
         print(f"  {ms:9.1f} ms {calls:7d} calls  {name}")
 
-    # 5. f32 token identity with the cache-free reference
+    # 5. online serving with DRAM tiers and the think-time prefetcher
+    st_o, launches_o, wall_o, tps_o, wall_ob, blocks_o = online_phase(cfg)
+    print("online stats:", json.dumps(st_o))
+    print(f"online: {wall_o:.3f} s real wall (pipelined), {wall_ob:.3f} s "
+          f"(blocking), {tps_o:.1f} generated tokens/s, launches "
+          f"{launches_o}; tier of {ONLINE_TIER_BLOCKS} FullBlocks per node, "
+          f"in FullBlocks: {json.dumps(blocks_o)}; modelled seconds: wall "
+          f"{st_o['wall_s']:.4f}, ttft_p99 {st_o['ttft_p99']:.4f}, "
+          f"tpot_mean {st_o['tpot_mean']:.6f}")
+
+    # 6. f32 token identity with the cache-free reference
     n = identity_phase(cfg)
     print(f"f32 identity: {n} context tokens equal the cache-free reference")
 
-    # 6. kernels line, then the contract line
+    # 7. kernels line, then the contract line
     meta = {
         "kv_layer_gather": ("src/repro_torch/kernels/csrc/kv_gather.cu",
                             "src/repro/kernels/kv_gather.py:30"),
+        "kv_layer_scatter": ("src/repro_torch/kernels/csrc/kv_scatter.cu",
+                             "src/repro/kernels/kv_gather.py:61"),
         "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                             "src/repro/kernels/flash_attention.py:107"),
         "paged_attention": ("src/repro_torch/kernels/csrc/paged_attention.cu",
@@ -427,12 +666,16 @@ def main() -> int:
         line.append(dict(
             name=name, route="cuda", source=meta[name][0],
             replaces=meta[name][1], launches=launches[name],
+            launches_by_path=dict(offline=launches[name],
+                                  online=launches_o[name]),
             max_abs_err=max(c["max_abs_err"] for c in cs),
             ms=main_case["ms"], kernel_ms=main_case["ms"],
             plain_ms=main_case["plain_ms"], bound_ms=main_case["bound_ms"],
             bound_by=main_case["bound_by"],
             library_ms=main_case["library_ms"], shapes=main_case["shapes"],
             cases=cs))
+    line[1]["persist_ms"] = {w: dict(host_ms=h, d2h_ms=d)
+                             for w, (h, d) in persist.items()}
     print(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -11,11 +11,13 @@
   class (tok_e + len ≤ Z) by min seq_e, else min tok_e.
 * **Read-path selection** — the side with the shorter disk reading
   queue; with ``split_reads`` the hit is water-filled across both sides.
+  With DRAM tiers the side whose tier holds the longer resident prefix
+  serves that prefix from DRAM and the cold remainder is routed as above.
 
 The arithmetic is the reference's, so both packages make the same
 decisions on the same lengths.  Drains, hedged reads, engine failure,
-DRAM-tier partitions, SLO classes and the round-robin baseline arrive
-with the slices that port those features.
+network congestion, SLO classes and the round-robin baseline arrive with
+the slices that port those features.
 """
 from __future__ import annotations
 
@@ -38,6 +40,12 @@ class Request:
     de: Optional[EngineId] = None
     read_path: Optional[str] = None   # 'pe' | 'de'
     read_split: float = 1.0           # fraction read on `read_path` side
+    # DRAM-tier serving (kvcache/tiers.py): ``dram_tokens`` hit tokens
+    # sit in the ``dram_side`` node's DRAM tier and never touch a storage
+    # NIC; ``snic_tokens`` is the explicit per-side partition of the rest
+    dram_side: Optional[str] = None   # 'pe' | 'de'
+    dram_tokens: int = 0
+    snic_tokens: Optional[Dict[str, int]] = None
 
     @property
     def prompt_tokens(self) -> int:
@@ -50,7 +58,14 @@ class Request:
 
     @property
     def pe_read_frac(self) -> float:
-        """Fraction of hit bytes entering via the PE side."""
+        """Fraction of hit bytes entering via the PE side (tier + SNIC);
+        with a DRAM-tier hit the explicit token partition decides."""
+        if self.snic_tokens is not None:
+            if not self.cached_tokens:
+                return 0.0
+            pe_total = self.snic_tokens["pe"] + \
+                (self.dram_tokens if self.dram_side == "pe" else 0)
+            return pe_total / self.cached_tokens
         if self.read_path is None:
             return 0.0
         if self.read_path == "pe":
@@ -58,20 +73,28 @@ class Request:
         return 1.0 - self.read_split
 
     def read_tokens_by_side(self) -> Dict[str, int]:
-        """Hit tokens charged to each side's disk reading queue: PE gets
-        floor(cached * pe_frac), DE the remainder."""
+        """Hit tokens charged to each side's disk reading queue: the SNIC
+        share per side under an explicit partition (tier tokens enter no
+        queue); otherwise PE gets floor(cached * pe_frac), DE the rest."""
+        if self.snic_tokens is not None:
+            return dict(self.snic_tokens)
         pe_t = int(self.cached_tokens * self.pe_read_frac)
         return {"pe": pe_t, "de": self.cached_tokens - pe_t}
 
     def hit_blocks_by_side(self, n_blocks: int) -> Dict[str, int]:
-        """Block-granular hit partition: the leading ``pe`` blocks are
-        read via the PE-side storage NIC, the rest via the DE side."""
+        """Block-granular hit partition: the leading ``tier`` blocks come
+        from the ``dram_side`` node's DRAM tier, the next ``pe`` blocks
+        via the PE-side storage NIC, the rest via the DE side."""
         if n_blocks <= 0 or not self.cached_tokens:
-            return {"pe": 0, "de": max(n_blocks, 0)}
+            return {"tier": 0, "pe": 0, "de": max(n_blocks, 0)}
+        # exact: the trie hit is whole blocks and dram_tokens a whole-block
+        # prefix of it
+        k_tier = (self.dram_tokens * n_blocks) // self.cached_tokens
         tok = self.read_tokens_by_side()
+        rem_blocks = n_blocks - k_tier
         rem_tok = tok["pe"] + tok["de"]
-        k_pe = int(round(n_blocks * tok["pe"] / rem_tok)) if rem_tok else 0
-        return {"pe": k_pe, "de": n_blocks - k_pe}
+        k_pe = int(round(rem_blocks * tok["pe"] / rem_tok)) if rem_tok else 0
+        return {"tier": k_tier, "pe": k_pe, "de": rem_blocks - k_pe}
 
 
 @dataclass
@@ -224,10 +247,58 @@ class Scheduler:
             return "pe" if self._tie_toggle else "de"
         return "pe" if pe_q < de_q else "de"
 
-    def choose_read_path(self, req: Request) -> str:
+    def _finalise_partition(self, req: Request, side: str, t: int,
+                            snic: Dict[str, int]) -> str:
+        """Install a tier/SNIC hit partition on the request, derive its
+        (read_path, read_split) majority view and charge both sides'
+        disk reading queues their SNIC share."""
+        req.dram_side, req.dram_tokens = side, t
+        req.snic_tokens = snic
+        pe_total = snic["pe"] + (t if side == "pe" else 0)
+        de_total = snic["de"] + (t if side == "de" else 0)
+        if pe_total == de_total:
+            req.read_path = side
+        else:
+            req.read_path = "pe" if pe_total > de_total else "de"
+        major = pe_total if req.read_path == "pe" else de_total
+        req.read_split = major / req.cached_tokens
+        self.engines[req.pe].read_q += snic["pe"]
+        self.engines[req.de].read_q += snic["de"]
+        return req.read_path
+
+    def choose_read_path(self, req: Request,
+                         tier_tokens: Optional[Dict[str, int]] = None
+                         ) -> str:
+        """``tier_tokens``: the hit tokens resident as a prefix in each
+        side's DRAM tier (None without tiers)."""
         assert req.pe is not None and req.de is not None, req.rid
         pe_q = self.engines[req.pe].read_q
         de_q = self.engines[req.de].read_q
+        if tier_tokens and req.cached_tokens:
+            t_pe = min(tier_tokens.get("pe", 0), req.cached_tokens)
+            t_de = min(tier_tokens.get("de", 0), req.cached_tokens)
+        else:
+            t_pe = t_de = 0
+        if t_pe or t_de:
+            # prefer the side whose tier holds the longer prefix; the cold
+            # remainder is routed by queue depth like a tier-less read (a
+            # small warm prefix must not drag it onto a backlogged NIC)
+            if t_pe > t_de:
+                side, t = "pe", t_pe
+            elif t_de > t_pe:
+                side, t = "de", t_de
+            else:
+                side, t = self._shorter_queue_side(pe_q, de_q), t_pe
+            rem = req.cached_tokens - t
+            snic = {"pe": 0, "de": 0}
+            if rem:
+                if self.split_reads:
+                    frac_pe = self._water_fill_frac(pe_q, de_q, rem)
+                    snic["pe"] = int(rem * frac_pe)
+                    snic["de"] = rem - snic["pe"]
+                else:
+                    snic[self._shorter_queue_side(pe_q, de_q)] = rem
+            return self._finalise_partition(req, side, t, snic)
         if self.split_reads and req.cached_tokens:
             frac_pe = self._water_fill_frac(pe_q, de_q, req.cached_tokens)
             req.read_path = "pe" if frac_pe >= 0.5 else "de"

@@ -4,7 +4,9 @@
 The engines keep decode state as padded device buffers
 ``{"kv": {"k","v": (L, b, S, hkv, dh)}}``; storage holds host FullBlocks
 ``(L, tokens, row_bytes)`` uint8 with row = k ‖ v, byte for byte the
-reference's layout.  :func:`layer_stream` is layerwise loading (paper
+reference's layout.  :func:`serialize_blocks` is the DE's persist, which
+writes each layer into its FullBlock pages with the ``kv_layer_scatter``
+kernel.  :func:`layer_stream` is layerwise loading (paper
 §4.1): the hit FullBlocks go to the card once per install, and each
 layer's LayerBlock stream is gathered there by the ``kv_layer_gather``
 kernel, with the next layer's gather already submitted on the
@@ -19,7 +21,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.traffic import TrafficClass, TrafficManager
-from repro_torch.kernels import kv_layer_gather
+from repro_torch.kernels import kv_layer_gather, kv_layer_scatter
 from repro_torch.models.model import init_decode_state
 from repro_torch.models.params import require_ported
 
@@ -84,11 +86,38 @@ def _as_bytes(t: torch.Tensor) -> torch.Tensor:
 def serialize_kv(cfg: ModelConfig, state, slot: int, t0: int,
                  t1: int) -> np.ndarray:
     """-> (n_attn_layers, t1-t0, row_bytes) uint8, row = k ‖ v: built on
-    the device, copied to the host once."""
+    the device, copied to the host once.  Off the serving path: the
+    reference's layer-major persist layout, kept for the byte-identity
+    tests and as the baseline of chip_smoke.py's persist comparison."""
+    return _kv_bytes(cfg, state, slot, t0, t1).cpu().numpy()
+
+
+def _kv_bytes(cfg: ModelConfig, state, slot: int, t0: int,
+              t1: int) -> torch.Tensor:
+    """(n_attn_layers, t1-t0, row_bytes) uint8 on the state's device."""
     _kv_rows(cfg)
     k = state["kv"]["k"][:, slot, t0:t1]
     v = state["kv"]["v"][:, slot, t0:t1]
-    return torch.cat([_as_bytes(k), _as_bytes(v)], dim=-1).cpu().numpy()
+    return torch.cat([_as_bytes(k), _as_bytes(v)], dim=-1)
+
+
+def serialize_blocks(cfg: ModelConfig, state, slot: int, b0: int, b1: int,
+                     block_tokens: int) -> np.ndarray:
+    """FullBlocks ``b0 .. b1-1`` of one slot -> (b1-b0, n_attn_layers,
+    block_tokens, row_bytes) uint8, block-major, row = k ‖ v: the DE's
+    persist.  The layer-major byte view is built on the device once and
+    each layer's LayerBlock stream goes into its FullBlock pages through
+    the ``kv_layer_scatter`` kernel; the block-major pool then comes to
+    the host in one copy, so every FullBlock is a contiguous ``[i]``."""
+    n, bt = b1 - b0, block_tokens
+    rows = _kv_bytes(cfg, state, slot, b0 * bt, b1 * bt)    # (L, n·bt, row)
+    n_l, _, row = rows.shape
+    pool = torch.empty((n, n_l, bt, row), dtype=torch.uint8,
+                       device=rows.device)
+    table = torch.arange(n, dtype=torch.int32, device=rows.device)
+    for li in range(n_l):
+        kv_layer_scatter(pool, table, rows[li].view(n, bt, row), layer=li)
+    return pool.cpu().numpy()
 
 
 def serialize_kv_layer(cfg: ModelConfig, state, slot: int, t0: int,

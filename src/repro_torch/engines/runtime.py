@@ -7,8 +7,10 @@
   ``model.append_step`` (the flash kernel) against a per-request padded
   state.
 * ``DecodeEngine`` — slot-batched decode through ``model.decode_step``
-  (the paged kernel); each newly filled FullBlock persists to storage and
-  enters the trie (paper: persist per 64-token block).
+  (the paged kernel); each newly filled FullBlock persists to storage
+  (``kvio.serialize_blocks``, the scatter kernel) and enters the trie
+  (paper: persist per 64-token block).  Its store is the node's DRAM
+  tier when the system has one (write-through and tier warm-up).
 
 Transfers ride each engine's TrafficManager as
 ``TrafficClass.KV_TRANSFER``.
@@ -51,6 +53,9 @@ class EngineRequest:
     lifecycle: Any = None
     read_payload: List[Optional[np.ndarray]] = field(default_factory=list)
     pd_ready: bool = False
+    # (node, refs) of the DRAM-tier prefix pinned from the path decision
+    # until the read copies it out
+    tier_pinned: Optional[Tuple[int, List[int]]] = None
 
     @property
     def prompt_len(self) -> int:
@@ -210,8 +215,9 @@ class DecodeEngine:
 
     # -- persistence (per full block, as in the paper) --------------------
     def _persist(self, slot: int, er: EngineRequest):
-        """Serialise the slot's new blocks now (the slot may be re-admitted
-        before deferred writes land) and submit the storage writes; with
+        """Serialise the slot's new blocks now, through the scatter kernel
+        into a pool of their own (the slot may be re-admitted before
+        deferred writes land), and submit the storage writes; with
         ``defer_persist`` the writes and the trie insert wait in
         ``pending_persist`` for the system's flush."""
         full_tokens = er.context_tokens + er.append_tokens + er.generated
@@ -222,12 +228,11 @@ class DecodeEngine:
             if self.defer_persist:
                 self.pending_persist.append((er, None))
             return
-        kv_bytes = kvio.serialize_kv(self.cfg, self.state, slot,
-                                     start_block * bt, n_blocks * bt)
+        blocks = kvio.serialize_blocks(self.cfg, self.state, slot,
+                                       start_block, n_blocks, bt)
         new_refs = [self.store.alloc_ref()
                     for _ in range(n_blocks - start_block)]
-        for i, ref in enumerate(new_refs):
-            blk = np.ascontiguousarray(kv_bytes[:, i * bt:(i + 1) * bt])
+        for ref, blk in zip(new_refs, blocks):
             self.tm.submit(lambda r=ref, b=blk: self.store.write_block(r, b),
                            blk.nbytes, TrafficClass.KV_TRANSFER)
         finalize = lambda toks=full_tokens[:n_blocks * bt], refs=new_refs: \

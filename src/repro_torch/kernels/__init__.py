@@ -6,9 +6,11 @@ its launches in ``<wrapper>.launches``.
 """
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.kv_gather import kv_layer_gather
+from repro_torch.kernels.kv_scatter import kv_layer_scatter
 from repro_torch.kernels.paged_attention import paged_attention
 
-WRAPPERS = (kv_layer_gather, flash_attention, paged_attention)
+WRAPPERS = (kv_layer_gather, kv_layer_scatter, flash_attention,
+            paged_attention)
 
 
 def reset_launch_counts() -> None:
@@ -20,5 +22,5 @@ def launch_counts() -> dict:
     return {fn.__name__: fn.launches for fn in WRAPPERS}
 
 
-__all__ = ["flash_attention", "kv_layer_gather", "paged_attention",
-           "reset_launch_counts", "launch_counts"]
+__all__ = ["flash_attention", "kv_layer_gather", "kv_layer_scatter",
+           "paged_attention", "reset_launch_counts", "launch_counts"]

@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the three kernels (port of
+"""Plain PyTorch versions of the four kernels (port of
 ``repro.kernels.ref``).
 
 Each wrapper computes these for CPU tensors; the tests hold them against
@@ -67,3 +67,9 @@ def paged_attention_ref(q, k_pool, v_pool, block_table, lengths, *,
 
 def kv_layer_gather_ref(pool, table, *, layer: int):
     return pool[table.to(torch.long), layer]
+
+
+def kv_layer_scatter_ref(pool, table, stream, *, layer: int):
+    """In place: ``pool[table[i], layer] = stream[i]``; returns pool."""
+    pool[table.to(torch.long), layer] = stream
+    return pool

@@ -4,6 +4,7 @@ FullBlocks in, FullBlocks out, with byte accounting.  Storage sits off
 the card, so a FullBlock is a host numpy array ``(layers, block_tokens,
 row_bytes)`` uint8: persisting is a device-to-host copy and the
 layerwise install moves the hit blocks to the card once per request.
+A node's DRAM tier (``kvcache/tiers.py``) sits in front of this store.
 """
 from __future__ import annotations
 
@@ -38,6 +39,12 @@ class KVStore:
 
     def read_blocks(self, refs: Sequence[int]) -> List:
         return [self.read_block(r) for r in refs]
+
+    def peek(self, ref: int):
+        """Payload access with no byte accounting: warming a DRAM tier
+        with blocks that already moved through the node (the DE's whole
+        context at round end) must not charge the storage NIC again."""
+        return self._get(ref)
 
     def _put(self, ref, block):  # pragma: no cover - abstract
         raise NotImplementedError

@@ -8,15 +8,21 @@
   the same model as the reference, so its ``wall_s`` is a modelled
   number on both packages; real seconds on the card are measured
   around the run by its caller.
-* :class:`RoundMetrics` + :func:`latency_summary` — per-round TTFT /
-  TTST / TPOT on that clock.
+* :class:`EventLoop` — timed events (online arrivals, inter-round think
+  gaps) on a heap over that clock; the clock jumps over idle gaps
+  instead of sleeping.  The same clock stamps the DRAM tiers, so a TTL
+  means modelled seconds.
+* :class:`RoundMetrics` + :func:`latency_summary` /
+  :func:`slo_attainment` — per-round TTFT / TTST / TPOT on that clock.
 """
 from __future__ import annotations
 
+import heapq
+import itertools
 from collections import defaultdict
 from dataclasses import dataclass
 from enum import Enum
-from typing import Dict, Iterable, Optional, Sequence, Tuple
+from typing import Callable, Dict, Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -89,8 +95,28 @@ def latency_summary(metrics: Iterable[RoundMetrics]) -> dict:
     )
 
 
+def slo_attainment(metrics: Iterable[RoundMetrics], ttft_slo_s: float,
+                   tpot_slo_s: float) -> float:
+    """Fraction of finished rounds meeting both the TTFT and the TPOT
+    SLO (a round with one output token has no TPOT and is judged on
+    TTFT alone); NaN when no round finished."""
+    done = [m for m in metrics if m.finished]
+    if not done:
+        return float("nan")
+    ok = 0
+    for m in done:
+        if m.ttft > ttft_slo_s:
+            continue
+        t = m.tpot
+        if t is not None and t > tpot_slo_s:
+            continue
+        ok += 1
+    return ok / len(done)
+
+
 class VirtualClock:
-    """The runtime's clock [s], advanced by modelled durations."""
+    """The runtime's clock [s]: work advances it by modelled durations,
+    idle periods jump it to the next timed event."""
 
     def __init__(self):
         self.now = 0.0
@@ -100,10 +126,48 @@ class VirtualClock:
             self.now += dt
         return self.now
 
+    def jump_to(self, t: float) -> float:
+        if t > self.now:
+            self.now = t
+        return self.now
+
+
+class EventLoop:
+    """Timed-event heap over a :class:`VirtualClock` (arrivals and
+    think-gap round submissions in online serving)."""
+
+    def __init__(self, clock: VirtualClock):
+        self.clock = clock
+        self._heap: List[Tuple[float, int, Callable[[], None]]] = []
+        self._seq = itertools.count()
+
+    def at(self, t: float, fn: Callable[[], None]) -> None:
+        heapq.heappush(self._heap, (t, next(self._seq), fn))
+
+    def after(self, dt: float, fn: Callable[[], None]) -> None:
+        self.at(self.clock.now + max(dt, 0.0), fn)
+
+    @property
+    def pending(self) -> int:
+        return len(self._heap)
+
+    def next_time(self) -> Optional[float]:
+        return self._heap[0][0] if self._heap else None
+
+    def fire_due(self) -> int:
+        """Run every event scheduled at or before ``clock.now``."""
+        n = 0
+        while self._heap and self._heap[0][0] <= self.clock.now:
+            _, _, fn = heapq.heappop(self._heap)
+            fn()
+            n += 1
+        return n
+
 
 class TickIo:
     """Per-tick transfer-seconds ledger, bucketed by physical resource
-    (``("snic", node)``, ``("cn", node)``): distinct buckets drain
+    (``("snic", node)``, ``("cn", node)``, ``("dram", node)``): distinct
+    buckets drain
     concurrently (pipelined charges their max), the blocking runtime
     serialises them (charges their sum)."""
 
@@ -131,8 +195,9 @@ class ServingTimeModel:
     spec: ModelSimSpec
 
     @classmethod
-    def for_model(cls, cfg: ModelConfig) -> "ServingTimeModel":
-        return cls(cfg=cfg, node=HOPPER_NODE,
+    def for_model(cls, cfg: ModelConfig,
+                  node: Optional[NodeSpec] = None) -> "ServingTimeModel":
+        return cls(cfg=cfg, node=node or HOPPER_NODE,
                    spec=ModelSimSpec.from_config(cfg))
 
     def snic_seconds(self, nbytes: float) -> float:
@@ -140,6 +205,9 @@ class ServingTimeModel:
 
     def cn_seconds(self, nbytes: float) -> float:
         return nbytes / self.node.cnic_bw
+
+    def dram_seconds(self, nbytes: float) -> float:
+        return nbytes / self.node.dram_bw
 
     def pe_step_seconds(self, items: Sequence[Tuple[int, int]]) -> float:
         """One PE forward batch over ``(cached, bsz)`` items."""

@@ -6,12 +6,14 @@ Per round (paper Fig. 4), as a lifecycle state machine:
   SCHEDULED    client computes the trie hit for ``context ‖ append``
                (§A.4); the scheduler assigns (PE, DE) and a read path
   READING      the chosen side(s)' TrafficManagers carry the FullBlock
-               reads (storage→PE directly, or storage→DE→network→PE)
+               reads (storage→PE directly, or storage→DE→network→PE;
+               DRAM-tier prefixes skip the storage NIC)
   PREFILL      PE installs the hit KV layerwise on the card and runs
                quota-packed chunked prefill over the append
   PD_TRANSFER  prompt state PE→DE, one submission per attention layer
   DECODE       DE decodes ``gen`` tokens greedily, slot-batched
-  PERSIST      newly filled FullBlocks and trie entries persist (§A.5)
+  PERSIST      newly filled FullBlocks (the scatter kernel) and trie
+               entries persist (§A.5), through the DE node's DRAM tier
 
 Two runtimes share every mechanism: **pipelined** (default; reads, PD
 transfers and persists stay in flight across engine compute and land at
@@ -21,11 +23,18 @@ clock charging ``transfer + compute``).  Both generate identical tokens
 and identical byte accounting.  The clock is modelled (see
 ``serving/events.py``).
 
+``run_offline`` drives all sessions from t=0; ``run_online(trajectories,
+arrivals)`` adds arrivals and inter-round think gaps on the clock.  With
+``tier=TierConfig(dram_tier_bytes=...)`` every node has a DRAM tier over
+the store (``kvcache/tiers.py``): the DE persists through its node's tier
+(write-through), each finished round warms that tier with its context,
+and the think-time prefetcher stages evicted blocks back.
+
 This slice serves the dense family with ``mode`` dualpath or basic,
-``split_reads``, ``layerwise`` on and off, and any number of PEs, DEs and
-groups.  DRAM tiers and prefetch, faults and hedging, elastic roles, the
-SLO layer, the tracer, ``run_online`` and the collective network model
-arrive with later slices of the port.
+``split_reads``, ``layerwise`` on and off, any number of PEs, DEs and
+groups, offline or online, with or without DRAM tiers and prefetch.
+Faults and hedging, elastic roles, the SLO layer, the tracer and the
+collective network model arrive with later slices of the port.
 """
 from __future__ import annotations
 
@@ -39,6 +48,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.blocks import layout_for
+from repro_torch.core.config import TierConfig
 from repro_torch.core.scheduler import Request, Scheduler
 from repro_torch.core.traffic import TrafficClass, TrafficManager
 from repro_torch.device import resolve
@@ -46,12 +56,14 @@ from repro_torch.engines import kvio
 from repro_torch.engines.runtime import (DecodeEngine, EngineRequest,
                                          PrefillEngine)
 from repro_torch.kvcache.store import MemoryKVStore
+from repro_torch.kvcache.tiers import DramTier, ThinkTimePrefetcher
 from repro_torch.kvcache.trie import BlockTrie
 from repro_torch.models.params import require_ported
 from repro_torch.serving import events
-from repro_torch.serving.events import (ReqState, RoundMetrics,
+from repro_torch.serving.events import (EventLoop, ReqState, RoundMetrics,
                                         ServingTimeModel, TickIo,
                                         VirtualClock)
+from repro_torch.sim.spec import NodeSpec
 from repro_torch.sim.traces import Trajectory
 
 
@@ -76,7 +88,8 @@ class ServingSystem:
                  layerwise: bool = True,
                  pe_group_size: Optional[int] = None,
                  de_group_size: Optional[int] = None,
-                 pipelined: bool = True, device="cuda"):
+                 pipelined: bool = True, node: Optional[NodeSpec] = None,
+                 tier: Optional[TierConfig] = None, device="cuda"):
         assert mode in ("dualpath", "basic")
         require_ported(cfg)
         if max_seq % block_tokens:
@@ -101,9 +114,26 @@ class ServingSystem:
         self.trie = BlockTrie(block_tokens)
         self.sched = Scheduler(alpha=1 << 30, beta=1 << 30,
                                split_reads=split_reads)
-        self.time_model = ServingTimeModel.for_model(cfg)
+        self.time_model = ServingTimeModel.for_model(cfg, node)
         self.clock = VirtualClock()
+        self.loop = EventLoop(self.clock)
         self.metrics: Dict[int, RoundMetrics] = {}
+        self._online = False
+        # node-local DRAM tiers over the store: reads they serve never
+        # reach the store (= the storage NIC).  Their timestamps are the
+        # modelled clock, so an agentic-ttl TTL means modelled seconds.
+        tcfg = tier or TierConfig()
+        self.tiers: Dict[int, DramTier] = {}
+        if tcfg.dram_tier_bytes:
+            for node_id in range(n_pe + n_de):
+                t = DramTier(tcfg.dram_tier_bytes, policy=tcfg.tier_policy,
+                             ttl_s=tcfg.tier_ttl_s, backing=self.store)
+                # the DE persists through the plain store interface,
+                # which passes no time: the tier asks the clock
+                t.clock_fn = lambda: self.clock.now
+                self.tiers[node_id] = t
+        self.prefetcher = ThinkTimePrefetcher() \
+            if (tcfg.prefetch and self.tiers) else None
         # engine groups: ``*_group_size`` engines per scheduler group
         # (default: one group spanning all engines of that kind)
         self.pes: Dict[Tuple[int, int], PrefillEngine] = {}
@@ -121,9 +151,11 @@ class ServingSystem:
             eid = (n_pe + j, 0)
             st = self.sched.register_engine(eid, node=n_pe + j, kind="de",
                                             group=1000 + j // de_gsz)
-            de = DecodeEngine(eid, cfg, params, self.store, self.trie,
-                              self.layout, max_seq, n_slots=de_slots,
-                              device=self.device)
+            # the DE persists through its node's tier when there is one
+            de = DecodeEngine(eid, cfg, params,
+                              self.tiers.get(n_pe + j, self.store),
+                              self.trie, self.layout, max_seq,
+                              n_slots=de_slots, device=self.device)
             st.free_hbm_tokens = de_slots * max_seq
             de.defer_persist = pipelined
             self.des[eid] = de
@@ -138,6 +170,7 @@ class ServingSystem:
         self._tick_compute = 0.0
         self._submit_seconds_seen = 0.0
         self.read_bytes_by_side = {"pe": 0, "de": 0}
+        self.dram_bytes_by_side = {"pe": 0, "de": 0}
         self.n_split_reads = 0
         self.gen_tokens_done = 0
 
@@ -167,6 +200,8 @@ class ServingSystem:
         self._inflight[req.rid] = er
         self.metrics[req.rid] = RoundMetrics(rid=req.rid, gen_tokens=rnd.gen,
                                              submit_t=self.clock.now)
+        for tier in self.tiers.values():
+            tier.note_alive(sess.traj.tid, now=self.clock.now)
         self.sched.submit(req)
 
     # ------------------------------------------------------------------
@@ -201,7 +236,22 @@ class ServingSystem:
                 req.read_path = "pe"
                 self.sched.engines[req.pe].read_q += req.cached_tokens
             else:
-                self.sched.choose_read_path(req)
+                tier_tokens = None
+                bt = self.layout.block_tokens
+                if self.tiers and er.hit_refs:
+                    tier_tokens = {
+                        side: self.tiers[eid[0]].resident_prefix(
+                            er.hit_refs) * bt
+                        for side, eid in (("pe", req.pe), ("de", req.de))}
+                self.sched.choose_read_path(req, tier_tokens=tier_tokens)
+                if req.dram_tokens:
+                    # pin the tier-resident prefix now: the reads of other
+                    # ready requests admit (and may evict) blocks before
+                    # this one's turn
+                    node = (req.pe if req.dram_side == "pe" else req.de)[0]
+                    prefix = er.hit_refs[:req.dram_tokens // bt]
+                    self.tiers[node].pin(prefix)
+                    er.tier_pinned = (node, prefix)
             ready.append(er)
         for er in ready:
             er.lifecycle = ReqState.READING
@@ -216,35 +266,60 @@ class ServingSystem:
     # ------------------------------------------------------------------
     def _read_transfers(self, er: EngineRequest
                         ) -> List[Tuple[TrafficManager, callable, int]]:
-        """Issue half of a read: store accesses and byte accounting now;
-        returns ``(tm, thunk, nbytes)`` descriptors whose execution models
-        the bytes landing in the PE's buffers.  A split read partitions
-        the hit FullBlocks by page: the PE side reads the leading pages,
-        the DE side the trailing ones, and only the DE share crosses the
-        compute network."""
+        """Issue half of a read: store and tier accesses and byte
+        accounting now; returns ``(tm, thunk, nbytes)`` descriptors whose
+        execution models the bytes landing in the PE's buffers.  The hit
+        FullBlocks split by page: the DRAM-tier prefix (if any) comes from
+        its node's tier, then the PE side's storage reads, then the DE
+        side's; only what the DE side reads crosses the compute network.
+        With tiers, storage reads go through the reading node's tier
+        (misses are admitted, stray resident blocks serve from DRAM)."""
         req = er.req
         pe = self.pes[req.pe]
         de_tm = self.des[req.de].tm
         pe_node, de_node = req.pe[0], req.de[0]
+        tmod = self.time_model
         out: List[Tuple[TrafficManager, callable, int]] = []
         n = len(er.hit_refs)
+        tid = er.session.traj.tid
         part = req.hit_blocks_by_side(n)
-        k_pe = part["pe"]
-        segs = [("pe", er.hit_refs[:k_pe], 0),
-                ("de", er.hit_refs[k_pe:], k_pe)]
+        k_tier, k_pe = part["tier"], part["pe"]
+        segs = [("tier", req.dram_side, er.hit_refs[:k_tier], 0),
+                ("snic", "pe", er.hit_refs[k_tier:k_tier + k_pe], k_tier),
+                ("snic", "de", er.hit_refs[k_tier + k_pe:], k_tier + k_pe)]
+        # a split read means both storage NICs served this request
         if part["pe"] and part["de"]:
             self.n_split_reads += 1
         er.read_payload = [None] * n
         payload = er.read_payload
-        for side, refs, lo in segs:
+        for kind, side, refs, lo in segs:
             if not refs:
                 continue
             node = pe_node if side == "pe" else de_node
-            blocks = self.store.read_blocks(refs)
+            if kind == "tier":
+                # pinned since the path decision: every ref is resident
+                blocks = self.tiers[node].read_blocks(
+                    refs, owner=tid, now=self.clock.now)
+                hit_b = sum(b.nbytes for b in blocks)
+                self.dram_bytes_by_side[side] += hit_b
+                self._tick_io.add(("dram", node), tmod.dram_seconds(hit_b))
+            elif node in self.tiers:
+                tier = self.tiers[node]
+                m0, h0 = tier.miss_bytes, tier.dram_hit_bytes
+                blocks = tier.read_blocks(refs, owner=tid,
+                                          now=self.clock.now)
+                miss_b = tier.miss_bytes - m0
+                hit_b = tier.dram_hit_bytes - h0
+                self.read_bytes_by_side[side] += miss_b
+                self.dram_bytes_by_side[side] += hit_b
+                self._tick_io.add(("snic", node), tmod.snic_seconds(miss_b))
+                self._tick_io.add(("dram", node), tmod.dram_seconds(hit_b))
+            else:
+                blocks = self.store.read_blocks(refs)
+                nb = sum(b.nbytes for b in blocks)
+                self._tick_io.add(("snic", node), tmod.snic_seconds(nb))
+                self.read_bytes_by_side[side] += nb
             nbytes = sum(b.nbytes for b in blocks)
-            self._tick_io.add(("snic", node),
-                              self.time_model.snic_seconds(nbytes))
-            self.read_bytes_by_side[side] += nbytes
             out.append((pe.tm if side == "pe" else de_tm,
                         lambda blocks=blocks, lo=lo:
                         payload.__setitem__(slice(lo, lo + len(blocks)),
@@ -255,6 +330,11 @@ class ServingSystem:
                 self._tick_io.add(("cn", pe_node),
                                   self.time_model.cn_seconds(nbytes))
                 out.append((pe.tm, lambda: None, nbytes))
+        if er.tier_pinned is not None:
+            # the tier segment is copied out: the pin has done its job
+            node, prefix = er.tier_pinned
+            self.tiers[node].unpin(prefix)
+            er.tier_pinned = None
         return out
 
     def _do_read(self, er: EngineRequest):
@@ -417,7 +497,8 @@ class ServingSystem:
 
     def _finish_round(self, er: EngineRequest):
         """Round completion (after the persist landed): the session's
-        context rolls forward and its next round submits."""
+        context rolls forward, tier warm-up and prefetch run, and the next
+        round submits: at once offline, after its think gap online."""
         sess = er.session
         sess.context = er.context_tokens + er.append_tokens + er.generated
         sess.rounds_done += 1
@@ -425,8 +506,43 @@ class ServingSystem:
         er.lifecycle = ReqState.DONE
         self.gen_tokens_done += len(er.generated)
         del self._inflight[er.req.rid]
+        if self.tiers:
+            self._round_finished_tier(sess, er.req.de[0])
         if sess.next_round < sess.traj.n_rounds:
-            self._submit_round(sess)
+            think = sess.traj.rounds[sess.next_round].think
+            if self._online and think > 0:
+                self.loop.after(think, lambda s=sess: self._submit_round(s))
+            else:
+                self._submit_round(sess)
+
+    def _round_finished_tier(self, sess: AgentSession, de_node: int):
+        """Inter-round tier maintenance, at the start of the think gap.
+
+        1. Warm the decode node's tier with the round's full context:
+           those blocks just passed through that node's DRAM (the PD
+           transfer in, the persists out), so admission moves no storage
+           bytes (``store.peek``).
+        2. Think-time prefetch: the next round's hit is the trie match of
+           the current context; blocks that capacity pressure evicted are
+           read back through the store (real storage-NIC bytes, paid in
+           the idle gap)."""
+        tid = sess.traj.tid
+        tier = self.tiers[de_node]
+        now = self.clock.now
+        if sess.next_round >= sess.traj.n_rounds:
+            # a finished trajectory is never hit again (§A.4)
+            for t in self.tiers.values():
+                t.note_done(tid)
+            return
+        _, refs = self.trie.match(sess.context)
+        # tail first: the leading blocks end most recent, so LRU trims
+        # the tail and the servable prefix survives
+        for r in reversed(refs):
+            tier.admit(r, self.layout.full_block_bytes, owner=tid,
+                       payload=self.store.peek(r), now=now)
+        if self.prefetcher is not None:
+            for r in self.prefetcher.plan(tier, refs):
+                tier.prefetch_block(r, owner=tid, now=now)
 
     # ------------------------------------------------------------------
     # the tick
@@ -501,6 +617,7 @@ class ServingSystem:
                     max_iters: int = 100000) -> List[AgentSession]:
         sessions = [AgentSession(t, np.random.default_rng(1000 + t.tid))
                     for t in trajectories]
+        self._online = False
         for s in sessions:
             self._submit_round(s)
         for _ in range(max_iters):
@@ -511,9 +628,41 @@ class ServingSystem:
             raise RuntimeError("serving system did not converge")
         return sessions
 
+    def run_online(self, trajectories: List[Trajectory],
+                   arrivals: List[float],
+                   max_iters: int = 1000000) -> List[AgentSession]:
+        """Online serving: trajectory i starts at ``arrivals[i]`` seconds
+        on the modelled clock and each round waits its think gap
+        (``Round.think``).  The clock jumps over idle gaps instead of
+        sleeping, so a low arrival rate costs no real time."""
+        if len(arrivals) != len(trajectories):
+            raise ValueError("run_online needs one arrival per trajectory")
+        sessions = [AgentSession(t, np.random.default_rng(1000 + t.tid))
+                    for t in trajectories]
+        self._online = True
+        try:
+            for s, t0 in zip(sessions, arrivals):
+                self.loop.at(float(t0), lambda s=s: self._submit_round(s))
+            for _ in range(max_iters):
+                self.loop.fire_due()
+                if all(s.done() for s in sessions) and not self.loop.pending:
+                    break
+                if self._tick() == 0:
+                    nt = self.loop.next_time()
+                    if nt is None:
+                        raise RuntimeError(
+                            "serving runtime stalled with no pending events")
+                    self.clock.jump_to(nt)
+            else:
+                raise RuntimeError("serving system did not converge")
+        finally:
+            self._online = False
+        return sessions
+
     def stats(self) -> dict:
         """The reference's ``stats()`` keys that this slice produces,
         under the same names (``wall_s`` is modelled seconds)."""
+        tiers = list(self.tiers.values())
         return dict(
             store_reads=self.store.bytes_read,
             store_writes=self.store.bytes_written,
@@ -529,4 +678,18 @@ class ServingSystem:
             submitted_seconds=sum(tm.submitted_seconds
                                   for tm in self._all_tms()),
             **events.latency_summary(self.metrics.values()),
+            # DRAM tiers (zeros without them)
+            dram_hit_bytes=sum(t.dram_hit_bytes for t in tiers),
+            dram_bytes_pe_side=self.dram_bytes_by_side["pe"],
+            dram_bytes_de_side=self.dram_bytes_by_side["de"],
+            tier_miss_bytes=sum(t.miss_bytes for t in tiers),
+            tier_prefetch_bytes=sum(t.prefetch_bytes for t in tiers),
+            tier_evicted_bytes=sum(t.evicted_bytes for t in tiers),
         )
+
+    def slo_attainment(self, ttft_slo_s: float = 4.0,
+                       tpot_slo_s: float = 0.050) -> float:
+        """Fraction of finished rounds meeting both SLOs (paper §7.4
+        defaults: TTFT ≤ 4 s, TPOT ≤ 50 ms, in modelled seconds)."""
+        return events.slo_attainment(self.metrics.values(), ttft_slo_s,
+                                     tpot_slo_s)

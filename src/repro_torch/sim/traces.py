@@ -1,8 +1,11 @@
 """Agent trajectories (port of ``Round`` and ``Trajectory`` from
 ``repro.sim.traces``).  Each round appends ``append`` tokens to the full
 previous context and generates ``gen``; everything but the append hits
-the KV-Cache.  Think times and the synthetic Table-2 dataset generator
-arrive with the online-serving and simulator slices."""
+the KV-Cache (hits only within a trajectory, §A.4).  ``think`` is the
+inter-round gap before a round's submission in online serving.  The
+synthetic Table-2 dataset generator arrives with the slice that drives
+it (a benchmark or the simulator).
+"""
 from __future__ import annotations
 
 from dataclasses import dataclass
@@ -13,6 +16,9 @@ from typing import List
 class Round:
     append: int
     gen: int
+    # seconds between the previous round's completion and this round's
+    # submission (tool execution); 0 for the first round
+    think: float = 0.0
 
 
 @dataclass

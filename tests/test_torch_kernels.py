@@ -8,7 +8,8 @@ with numpy from a seed and handed to both packages.
 
 Tolerances are tests/test_kernels.py's: 2e-5 in float32 (two softmax
 implementations summing in different orders) and 2e-2 in bfloat16 (one
-bf16 rounding of p and of the output).  The gather must be exact.
+bf16 rounding of p and of the output).  The gather and the scatter must
+be exact.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -130,6 +131,41 @@ def test_gather_plain_matches_pallas_exactly(dtype):
                      np.asarray(want).view(np.uint8))
 
 
+@pytest.mark.parametrize("dtype", ["uint8", "bfloat16", "float32"])
+def test_scatter_plain_matches_pallas_exactly(dtype):
+    """pool[table[i], layer] = stream[i] with a permuted distinct table:
+    the plain version equals the Pallas kernel (interpret mode) byte for
+    byte, and the CPU wrapper writes the given pool in place, returns it
+    and counts no launch."""
+    rng = np.random.default_rng(6)
+    npool, nl, pt, feat, n = 8, 4, 16, 32, 5
+    if dtype == "uint8":
+        pool_j = jnp.asarray(rng.integers(0, 255, (npool, nl, pt, feat)
+                                          ).astype(np.uint8))
+        stream_j = jnp.asarray(rng.integers(0, 255, (n, pt, feat)
+                                            ).astype(np.uint8))
+    else:
+        pool_j, stream_j = (jnp.asarray(rng.standard_normal(shape).astype(
+            np.float32)).astype(dtype)
+            for shape in ((npool, nl, pt, feat), (n, pt, feat)))
+    tbl = rng.permutation(npool)[:n].astype(np.int32)
+    as_u8 = lambda t: t.view(torch.uint8) if dtype != "uint8" else t
+    kernels.reset_launch_counts()
+    for layer in (0, nl - 1):
+        want = ops.kv_layer_scatter(pool_j.copy(), jnp.asarray(tbl),
+                                    stream_j, layer=layer)
+        pool_t = to_torch(np.asarray(pool_j))
+        stream_t = to_torch(np.asarray(stream_j))
+        plain = ref.kv_layer_scatter_ref(pool_t.clone(), torch.from_numpy(tbl),
+                                         stream_t, layer=layer)
+        assert_exact(as_u8(plain), np.asarray(want).view(np.uint8))
+        got = kernels.kv_layer_scatter(pool_t, torch.from_numpy(tbl),
+                                       stream_t, layer=layer)
+        assert got is pool_t
+        assert_exact(as_u8(pool_t), np.asarray(want).view(np.uint8))
+    assert kernels.kv_layer_scatter.launches == 0
+
+
 def test_cpu_wrappers_compute_plain_versions_without_counting():
     """On CPU tensors every wrapper returns its plain version and counts
     no launch: a launch count means the CUDA kernel ran."""
@@ -145,4 +181,13 @@ def test_cpu_wrappers_compute_plain_versions_without_counting():
                        pool[[1, 0], 2])
     with pytest.raises(IndexError):
         kernels.kv_layer_gather(pool, tbl, layer=3)
+    stream = torch.full((2, 4, 16), 7, dtype=torch.uint8)
+    before = pool.clone()
+    assert kernels.kv_layer_scatter(pool, tbl, stream, layer=1) is pool
+    assert (pool[:, 1] == 7).all()
+    assert torch.equal(pool[:, 0::2], before[:, 0::2])
+    with pytest.raises(IndexError):
+        kernels.kv_layer_scatter(pool, tbl, stream, layer=3)
+    with pytest.raises(ValueError):
+        kernels.kv_layer_scatter(pool, tbl, stream[:1], layer=0)
     assert set(kernels.launch_counts().values()) == {0}

@@ -1,7 +1,9 @@
 """The port's KV serialisation against the JAX reference's.
 
 FullBlocks are bytes, so every comparison here is exact: a state bridged
-from JAX must serialise to the same bytes in both packages, and JAX-made
+from JAX must serialise to the same bytes in both packages (the persist's
+``serialize_blocks`` through the scatter kernel's plain version on the
+CPU, too), and JAX-made
 FullBlocks installed through the port's layerwise stream (the gather
 kernel's plain version on the CPU) must rebuild the JAX state bit for bit.
 """
@@ -53,6 +55,62 @@ def test_serialize_is_byte_identical_to_jax(jax_state):
                             jax_kvio.serialize_kv_layer(jcfg, jst, slot, 4,
                                                         12, 2))
     assert kvio.kv_row_bytes(cfg) == jax_kvio.kv_row_bytes(jcfg)
+
+
+@pytest.mark.parametrize("b0,b1", [(0, 2), (1, 2), (0, 1)])
+def test_serialize_blocks_is_byte_identical_to_jax_fullblocks(jax_state,
+                                                              b0, b1):
+    """The scatter-built persist: FullBlock i equals the reference's
+    per-block slice of ``serialize_kv``, byte for byte, and is a
+    contiguous (L, PT, row) array of its own."""
+    jcfg, jst = jax_state
+    cfg = get_config("qwen1.5-0.5b").reduced()
+    st = bridge.state_from_jax(jax.tree.map(np.asarray, jst))
+    for slot in range(B):
+        got = kvio.serialize_blocks(cfg, st, slot, b0, b1, PT)
+        kv = jax_kvio.serialize_kv(jcfg, jst, slot, b0 * PT, b1 * PT)
+        assert got.shape == (b1 - b0, kv.shape[0], PT, kv.shape[2])
+        for i in range(b1 - b0):
+            assert got[i].flags.c_contiguous
+            bridge.assert_exact(got[i], np.ascontiguousarray(
+                kv[:, i * PT:(i + 1) * PT]))
+
+
+def test_deferred_persist_keeps_the_snapshot_of_its_round(jax_state):
+    """The DE serialises at persist time: a slot overwritten (re-admitted)
+    before the deferred writes land leaves the persisted FullBlocks as
+    they were when the round finished."""
+    from repro_torch.core.blocks import layout_for
+    from repro_torch.core.scheduler import Request
+    from repro_torch.engines.runtime import DecodeEngine, EngineRequest
+    from repro_torch.kvcache.store import MemoryKVStore
+    from repro_torch.kvcache.trie import BlockTrie
+    jcfg, jst = jax_state
+    cfg = get_config("qwen1.5-0.5b").reduced()
+    layout = layout_for(cfg, PT, 2)
+    store = MemoryKVStore(layout)
+    de = DecodeEngine((1, 0), cfg, None, store, BlockTrie(PT), layout, CAP,
+                      n_slots=B, device="cpu")
+    de.state = bridge.state_from_jax(jax.tree.map(np.asarray, jst))
+    de.defer_persist = True
+    er = EngineRequest(req=Request(rid=0, cached_tokens=0, new_tokens=T,
+                                   gen_tokens=0),
+                       context_tokens=[], append_tokens=list(range(T)))
+    de._persist(1, er)
+    assert store.bytes_written == 0                  # writes not landed
+    sub = kvio.slot_get(de.state, de.axes, 1)
+    kvio.slot_set(de.state, de.axes, 1,
+                  {"kv": {k: torch.ones_like(v)
+                          for k, v in sub["kv"].items()}})
+    de.tm.drain()
+    (_, fin), = de.pending_persist
+    fin()
+    hit, refs = de.trie.match(list(range(T)))
+    assert hit == T and len(refs) == T // PT
+    kv = jax_kvio.serialize_kv(jcfg, jst, 1, 0, T)
+    for i, ref in enumerate(refs):
+        bridge.assert_exact(store.read_block(ref), np.ascontiguousarray(
+            kv[:, i * PT:(i + 1) * PT]))
 
 
 @pytest.mark.parametrize("layerwise", [True, False])
