@@ -3,6 +3,8 @@
     python3 chip_smoke.py                  # the smoke, phases 1-7
     python3 chip_smoke.py --persist-ab 10  # offline serving, old persist
                                            # against the scatter's
+    python3 chip_smoke.py --split-sweep    # the attention kernels' split
+                                           # plans, timed at other aims
 
 Drives ``repro_torch`` (never the JAX package) on the card:
 
@@ -10,10 +12,13 @@ Drives ``repro_torch`` (never the JAX package) on the card:
 2. builds the four CUDA kernels from src/repro_torch/kernels/csrc with
    nvcc for sm_90a, one nvcc process per source, all at once;
 3. holds each kernel against its plain PyTorch version at the main
-   paths' shapes plus another shape (gather and scatter bit-exact;
-   attention within 2e-2 in bf16 and 2e-5 in f32), and times the kernel,
-   the plain version and one PyTorch call computing the same function,
-   with CUDA events; then times the round-1 persist (16 FullBlocks) the
+   paths' shapes plus other shapes (gather and scatter bit-exact;
+   attention within 2e-2 in bf16 and 2e-5 in f32, at the edges of its
+   tiles, splits, pages and masks, and bit-identical over two calls),
+   and times the kernel, the plain version and one PyTorch call
+   computing the same function, with CUDA events (attention also with a
+   clean L2, and its main shapes split into their kernels under
+   torch.profiler); then times the round-1 persist (16 FullBlocks) the
    old way (layer-major bytes, a host slice per block) against the
    scatter's block-major pool, host time and D2H device time;
 4. serves 6 agents x 3 rounds of full-width qwen1.5-0.5b (bf16, random
@@ -67,6 +72,10 @@ ONLINE_ROUNDS = ((1024, 32, 0.0), (128, 32, 0.5), (128, 32, 0.5),
                  (128, 32, 0.5))
 ONLINE_AGENTS = 3
 ONLINE_TIER_BLOCKS = 18
+# profiler rows of the port's kernels, by wrapper: kernel-name prefixes
+KERNEL_ROWS = {"flash_attention": ("flash_",), "paged_attention": ("paged_",),
+               "kv_layer_gather": ("gather_kernel",),
+               "kv_layer_scatter": ("scatter_kernel",)}
 
 
 # ---------------------------------------------------------------------------
@@ -74,19 +83,27 @@ ONLINE_TIER_BLOCKS = 18
 # ---------------------------------------------------------------------------
 
 
-def time_ms(fn, reps: int = 25, warmup: int = 3) -> float:
+def time_ms(fn, reps: int = 25, warmup: int = 3, clean_l2: bool = False
+            ) -> float:
     """Median device time of one call, CUDA events around each call.
     Before every timed call the 50 MB L2 is flushed (the main path finds
     its inputs cold) and the stream is kept busy for about a millisecond
     (``torch.cuda._sleep``), so the host has enqueued the whole call
     before the start event fires: the time is device time, without the
-    host's launch overhead."""
+    host's launch overhead.  The flush writes 64 MB (the default),
+    which leaves L2 full of dirty lines that the call's own reads must
+    evict and write back; with ``clean_l2`` it reads 64 MB instead, so
+    the call finds L2 cold but clean, as a decode step finds it after the
+    previous layer's reads."""
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
     for _ in range(warmup):
         fn()
     times = []
     for _ in range(reps):
-        flush.zero_()
+        if clean_l2:
+            flush.max()
+        else:
+            flush.zero_()
         torch.cuda._sleep(2_000_000)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
@@ -96,6 +113,28 @@ def time_ms(fn, reps: int = 25, warmup: int = 3) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+def short_name(key: str) -> str:
+    """A profiler kernel name without namespace, template and signature."""
+    return key.removeprefix("void ").replace("(anonymous namespace)::",
+                                             "").split("<")[0].split("(")[0]
+
+
+def kernel_parts(fn, reps: int = 20) -> dict:
+    """Device ms per call of each kernel that ``fn`` launches (split and
+    combine kernels apart), under torch.profiler, warm: back-to-back
+    calls, so inputs that fit in L2 stay there."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return {short_name(e.key): e.self_device_time_total / 1e3 / reps
+            for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
 
 
 def bound(nbytes: float, flops: float, dtype) -> tuple:
@@ -186,6 +225,61 @@ def scatter_cases(cfg, rng):
     return [main, other]
 
 
+def split_sweep(cfg, reps=2):
+    """The attention kernels' split plans at other aims than the
+    wrappers' constants, at the main path's shapes: paged
+    (BLOCKS_PER_SM, KEY_UNIT) and flash SPLIT_BLOCKS_PER_SM (0: never
+    split).  Each setting is timed (dirty and clean L2) ``reps`` times,
+    in forward then reverse order.  Returns printable lines."""
+    import importlib
+    from repro_torch.kernels import build, flash_attention, paged_attention
+    pm = importlib.import_module("repro_torch.kernels.paged_attention")
+    fm = importlib.import_module("repro_torch.kernels.flash_attention")
+    rng = np.random.default_rng(0)
+    f = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(
+        np.float32)).to("cuda", torch.bfloat16)
+    h, dh, n_sm = cfg.n_heads, cfg.head_dim, build.sm_count(0)
+    lengths = [int(x) for x in rng.integers(1300, 1377, 8)]
+    lines, keep = [], (pm.BLOCKS_PER_SM, pm.KEY_UNIT, fm.SPLIT_BLOCKS_PER_SM)
+    try:
+        for hkv in (cfg.n_kv_heads, h // 4):
+            b, S, g = 8, 2048, h // hkv
+            q, kc, vc = f(b, hkv, g, dh), f(b, S, hkv, dh), f(b, S, hkv, dh)
+            kp, vp = (x.view(b * S // 64, 64, hkv, dh) for x in (kc, vc))
+            table = torch.arange(b * S // 64, dtype=torch.int32,
+                                 device="cuda").view(b, S // 64)
+            lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+            call = lambda: paged_attention(q, kp, vp, table, lens)
+            aims = [(2, 128), (4, 128), (8, 128), (16, 64), (8, 256)]
+            for order in range(reps):
+                for bps, unit in aims if order % 2 == 0 else aims[::-1]:
+                    pm.BLOCKS_PER_SM, pm.KEY_UNIT = bps, unit
+                    lines.append(
+                        f"paged g={g} blocks/SM {bps} unit {unit} plan "
+                        f"{pm.plan(b, hkv, 64, S // 64, n_sm)}: "
+                        f"{time_ms(call):.4f} ms, clean L2 "
+                        f"{time_ms(call, clean_l2=True):.4f} ms")
+            pm.BLOCKS_PER_SM, pm.KEY_UNIT = keep[:2]
+        for sq, hkv, kl in ((128, cfg.n_kv_heads, 1184),
+                            (1024, cfg.n_kv_heads, 1024), (128, h // 4, 1184)):
+            q = f(1, sq, h, dh).transpose(1, 2)
+            k, v = (f(1, 2048, hkv, dh).transpose(1, 2) for _ in range(2))
+            lens = torch.tensor([kl], dtype=torch.int32, device="cuda")
+            call = lambda: flash_attention(q, k, v, kv_lens=lens)
+            aims = [0, 1, 2, 4]
+            for order in range(reps):
+                for aim in aims if order % 2 == 0 else aims[::-1]:
+                    fm.SPLIT_BLOCKS_PER_SM = aim
+                    lines.append(
+                        f"flash sq={sq} g={h // hkv} blocks/SM {aim} plan "
+                        f"{fm.plan(1, h, hkv, sq, 2048, n_sm)}: "
+                        f"{time_ms(call):.4f} ms, clean L2 "
+                        f"{time_ms(call, clean_l2=True):.4f} ms")
+    finally:
+        pm.BLOCKS_PER_SM, pm.KEY_UNIT, fm.SPLIT_BLOCKS_PER_SM = keep
+    return lines
+
+
 def persist_blocks_old(cfg, state, slot, b0, b1, bt):
     """The DE's persist before the scatter: the layer-major bytes of
     FullBlocks ``b0 .. b1-1`` in one host copy, then a contiguous host
@@ -263,80 +357,117 @@ def persist_serving_ab(cfg, pairs=10):
     return walls
 
 
-def _flash_case(rng, *, hq, hkv, dh, sq, kv_len, S, dtype):
-    """The PE's append at the main path's layout: q (1, sq, hq, dh) and a
-    padded (1, S, hkv, dh) cache, passed as (b, h, s, dh) views."""
+def _deterministic(call):
+    """Run ``call`` twice: the outputs must be equal bit for bit (the
+    split kernels merge partials in a fixed order, with no atomics)."""
+    a, b = call(), call()
+    if not torch.equal(a, b):
+        raise AssertionError("two calls gave different bits")
+    return a
+
+
+def _flash_case(rng, *, hq, hkv, dh, sq, kv_lens, S, dtype, causal=True,
+                softcap=0.0, window=0, parts=False):
+    """The PE's append at the main path's layout: q (b, sq, hq, dh) and a
+    padded (b, S, hkv, dh) cache, passed as (b, h, s, dh) views, with
+    per-row ``kv_lens``."""
     from repro_torch.kernels import flash_attention, ref
     f = lambda *s: torch.from_numpy(
         rng.standard_normal(s).astype(np.float32)).to("cuda", dtype)
-    q = f(1, sq, hq, dh).transpose(1, 2)
-    k = f(1, S, hkv, dh).transpose(1, 2)
-    v = f(1, S, hkv, dh).transpose(1, 2)
-    kv_lens = torch.tensor([kv_len], dtype=torch.int32, device="cuda")
-    got = flash_attention(q, k, v, kv_lens=kv_lens)
-    want = ref.flash_attention_ref(q, k, v, kv_lens=kv_lens)
+    b = len(kv_lens)
+    q = f(b, sq, hq, dh).transpose(1, 2)
+    k = f(b, S, hkv, dh).transpose(1, 2)
+    v = f(b, S, hkv, dh).transpose(1, 2)
+    lens = torch.tensor(kv_lens, dtype=torch.int32, device="cuda")
+    kw = dict(causal=causal, softcap=softcap, window=window, kv_lens=lens)
+    shapes = dict(q=[b, hq, sq, dh], kv=[b, hkv, S, dh],
+                  kv_len=kv_lens[0] if b == 1 else list(kv_lens),
+                  dtype=str(dtype).replace("torch.", ""))
+    shapes.update({n: x for n, x in (("causal", causal), ("softcap", softcap),
+                                     ("window", window))
+                   if x != dict(causal=True, softcap=0.0, window=0)[n]})
+    call = lambda: flash_attention(q, k, v, **kw)
+    got = _deterministic(call)
+    want = ref.flash_attention_ref(q, k, v, **kw)
     err, ok = max_err(got, want, TOLS[dtype])
     if not ok:
-        raise AssertionError(f"flash_attention off by {err} at hq={hq} "
-                             f"hkv={hkv} sq={sq} kv_len={kv_len} {dtype}")
-    # yardstick: SDPA with an explicit mask over the same keys
+        raise AssertionError(f"flash_attention off by {err} at {shapes}")
+    # the valid (query, key) pairs; the yardstick is SDPA with this mask
+    # over the same keys (it has no softcap)
+    ln = lens.long()
+    pos = (ln - sq)[:, None] + torch.arange(sq, device="cuda")
+    cols = torch.arange(S, device="cuda")
+    valid = (cols[None, None, :] < ln[:, None, None]).expand(b, sq, S)
+    if causal:
+        valid = valid & (cols <= pos[:, :, None])
+    if window > 0:
+        valid = valid & (pos[:, :, None] - cols < window)
     g = hq // hkv
     ke, ve = (x.repeat_interleave(g, dim=1) for x in (k, v))
-    pos = kv_len - sq + torch.arange(sq, device="cuda")
-    cols = torch.arange(S, device="cuda")
-    mask = (cols[None, :] <= pos[:, None]) & (cols[None, :] < kv_len)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     isz = q.element_size()
-    pairs = sum(kv_len - sq + i + 1 for i in range(sq))
-    b_ms, b_by = bound(2 * sq * hq * dh * isz + 2 * kv_len * hkv * dh * isz,
-                       4 * dh * hq * pairs, dtype)
+    keys = int(valid.any(dim=1).sum())     # keys some query needs
+    b_ms, b_by = bound(2 * b * sq * hq * dh * isz + 2 * keys * hkv * dh * isz,
+                       4 * dh * hq * int(valid.sum()), dtype)
     return dict(
-        shapes=dict(q=[1, hq, sq, dh], kv=[1, hkv, S, dh], kv_len=kv_len,
-                    dtype=str(dtype).replace("torch.", "")),
-        max_abs_err=err,
-        ms=time_ms(lambda: flash_attention(q, k, v, kv_lens=kv_lens)),
-        plain_ms=time_ms(lambda: ref.flash_attention_ref(q, k, v,
-                                                         kv_lens=kv_lens)),
-        library_ms=time_ms(lambda: sdpa(q, ke, ve, attn_mask=mask)),
+        shapes=shapes, max_abs_err=err,
+        ms=time_ms(call), ms_clean_l2=time_ms(call, clean_l2=True),
+        parts_ms=kernel_parts(call) if parts else None,
+        plain_ms=time_ms(lambda: ref.flash_attention_ref(q, k, v, **kw)),
+        library_ms=None if softcap else time_ms(
+            lambda: sdpa(q, ke, ve, attn_mask=valid[:, None])),
         bound_ms=b_ms, bound_by=b_by)
 
 
 def flash_cases(cfg, rng):
-    h, dh, bf = cfg.n_heads, cfg.head_dim, torch.bfloat16
+    h, kvh, dh, bf = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, torch.bfloat16
+    case = lambda **kw: _flash_case(rng, **{**dict(
+        hq=h, hkv=kvh, dh=dh, sq=128, kv_lens=[1184], S=2048, dtype=bf),
+        **kw})
     return [
-        # round 2 append: 128 new tokens over a 1056-token prefix
-        _flash_case(rng, hq=h, hkv=cfg.n_kv_heads, dh=dh, sq=128,
-                    kv_len=1184, S=2048, dtype=bf),
-        # round 1 prefill: 1024 tokens, no prefix
-        _flash_case(rng, hq=h, hkv=cfg.n_kv_heads, dh=dh, sq=1024,
-                    kv_len=1024, S=2048, dtype=bf),
-        _flash_case(rng, hq=h, hkv=h // 4, dh=dh, sq=128, kv_len=1184,
-                    S=2048, dtype=bf),                       # GQA g = 4
-        _flash_case(rng, hq=h, hkv=cfg.n_kv_heads, dh=dh, sq=128,
-                    kv_len=1184, S=2048, dtype=torch.float32),
+        case(parts=True),                # round 2 append: 128 new tokens
+                                         # over a 1056-token prefix
+        case(sq=1024, kv_lens=[1024], parts=True),   # round 1 prefill
+        case(hkv=h // 4, parts=True),    # GQA g = 4
+        case(dtype=torch.float32),
+        # edges of the tiles, the splits and the masks
+        case(kv_lens=[1184, 700]),       # b = 2, unequal kv_lens
+        case(sq=1),
+        case(sq=77),                     # not a multiple of a row tile
+        case(window=48, softcap=30.0),   # a window starting inside a tile
+        case(causal=False),
+        case(hkv=h // 8),                # g = 8
+        case(hkv=h // 16),               # g = 16
+        case(dh=128),
+        case(dh=32),
+        case(hkv=h // 4, kv_lens=[1184, 700], window=48, softcap=30.0,
+             dtype=torch.float32),
     ]
 
 
-def _paged_case(rng, *, hq, hkv, dh, b, S, lengths, dtype):
+def _paged_case(rng, *, hq, hkv, dh, S, lengths, dtype, pt=64,
+                parts=False):
     """The DE's decode at the main path's layout: the padded (b, S, hkv,
-    dh) cache viewed as 64-token pages with an arange block table."""
+    dh) cache viewed as ``pt``-token pages with an arange block table."""
     from repro_torch.kernels import paged_attention, ref
-    pt = 64
     f = lambda *s: torch.from_numpy(
         rng.standard_normal(s).astype(np.float32)).to("cuda", dtype)
-    g = hq // hkv
+    b, g = len(lengths), hq // hkv
     q = f(b, hkv, g, dh)
     kc, vc = f(b, S, hkv, dh), f(b, S, hkv, dh)
     kp, vp = (x.view(b * S // pt, pt, hkv, dh) for x in (kc, vc))
     table = torch.arange(b * S // pt, dtype=torch.int32,
                          device="cuda").view(b, S // pt)
     lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
-    got = paged_attention(q, kp, vp, table, lens)
+    shapes = dict(q=[b, hkv, g, dh], pool=list(kp.shape),
+                  lengths=list(lengths),
+                  dtype=str(dtype).replace("torch.", ""))
+    call = lambda: paged_attention(q, kp, vp, table, lens)
+    got = _deterministic(call)
     want = ref.paged_attention_ref(q, kp, vp, table, lens)
     err, ok = max_err(got, want, TOLS[dtype])
     if not ok:
-        raise AssertionError(f"paged_attention off by {err} at hkv={hkv} "
-                             f"g={g} {dtype}")
+        raise AssertionError(f"paged_attention off by {err} at {shapes}")
     qs = q.reshape(b, hq, 1, dh)
     ke, ve = (x.transpose(1, 2).repeat_interleave(g, dim=1)
               for x in (kc, vc))
@@ -348,11 +479,9 @@ def _paged_case(rng, *, hq, hkv, dh, b, S, lengths, dtype):
     b_ms, b_by = bound(2 * b * hq * dh * isz + 2 * tot * hkv * dh * isz,
                        4 * dh * hq * tot, dtype)
     return dict(
-        shapes=dict(q=[b, hkv, g, dh], pool=list(kp.shape),
-                    lengths=list(lengths),
-                    dtype=str(dtype).replace("torch.", "")),
-        max_abs_err=err,
-        ms=time_ms(lambda: paged_attention(q, kp, vp, table, lens)),
+        shapes=shapes, max_abs_err=err,
+        ms=time_ms(call), ms_clean_l2=time_ms(call, clean_l2=True),
+        parts_ms=kernel_parts(call) if parts else None,
         plain_ms=time_ms(lambda: ref.paged_attention_ref(q, kp, vp, table,
                                                          lens)),
         library_ms=time_ms(lambda: sdpa(qs, ke, ve, attn_mask=mask)),
@@ -360,16 +489,26 @@ def _paged_case(rng, *, hq, hkv, dh, b, S, lengths, dtype):
 
 
 def paged_cases(cfg, rng):
-    h, dh, bf = cfg.n_heads, cfg.head_dim, torch.bfloat16
+    h, kvh, dh, bf = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, torch.bfloat16
     # 8 slots mid-round-3: contexts of 1300..1376 tokens
     lengths = [int(x) for x in rng.integers(1300, 1377, 8)]
+    edges = [1, 63, 64, 65, 2048]
+    case = lambda **kw: _paged_case(rng, **{**dict(
+        hq=h, hkv=kvh, dh=dh, S=2048, lengths=lengths, dtype=bf), **kw})
     return [
-        _paged_case(rng, hq=h, hkv=cfg.n_kv_heads, dh=dh, b=8, S=2048,
-                    lengths=lengths, dtype=bf),
-        _paged_case(rng, hq=h, hkv=h // 4, dh=dh, b=8, S=2048,
-                    lengths=lengths, dtype=bf),              # GQA g = 4
-        _paged_case(rng, hq=h, hkv=cfg.n_kv_heads, dh=dh, b=8, S=2048,
-                    lengths=lengths, dtype=torch.float32),
+        case(parts=True),
+        case(hkv=h // 4, parts=True),    # GQA g = 4
+        case(dtype=torch.float32),
+        # edges of the splits and the pages
+        case(lengths=edges),
+        case(S=268, pt=4, lengths=[1, 100, 267, 268]),   # the f32 identity
+                                                         # phase's pages
+        case(hkv=h // 8),                # g = 8
+        case(hkv=h // 16),               # g = 16
+        case(dh=128),
+        case(hkv=h // 8, lengths=edges, dtype=torch.float32),
+        case(dh=128, S=268, pt=4, lengths=[1, 100, 267, 268],
+             dtype=torch.float32),
     ]
 
 
@@ -424,7 +563,8 @@ def profile_phase(cfg, rounds=AGENT_ROUNDS, n_agents=6, top=8):
     """Where the time goes: the serving phase's pipelined run once more,
     under torch.profiler tracing the card only.  Returns (real wall s,
     device-busy s summed over kernels and copies, [(name, device ms,
-    calls)] of the top entries)."""
+    calls, [(kernel, launches)])] of the top entries and the port's
+    kernels)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.models import init_params
@@ -436,14 +576,26 @@ def profile_phase(cfg, rounds=AGENT_ROUNDS, n_agents=6, top=8):
               max_seq=2048, de_slots=8)
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         _, _, wall = serve(cfg, params, trajs, "cuda", **kw)
-    short = lambda key: key.removeprefix("void ").replace(
-        "(anonymous namespace)::", "").split("<")[0].split("(")[0][:60]
-    rows = [(short(e.key), e.self_device_time_total / 1e3, e.count)
-            for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA]
-    rows.sort(key=lambda r: -r[1])
-    busy = sum(ms for _, ms, _ in rows) / 1e3
-    return wall, busy, rows[:top]
+    rows = {}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        name = short_name(e.key)[:60]
+        # a port kernel's launches (split + combine kernels) read as one
+        # row under its wrapper's name, calls counting its first kernel's
+        # launches (one per wrapper call); any other kernel is a row of
+        # its own, by its full name
+        group = next((w for w, prefixes in KERNEL_ROWS.items()
+                      if name.startswith(prefixes)), e.key)
+        _, ms, calls, parts = rows.get(group, (name, 0.0, 0, []))
+        rows[group] = (group if group in KERNEL_ROWS else name,
+                       ms + e.self_device_time_total / 1e3,
+                       max(calls, e.count), parts + [(name, e.count)])
+    rows = sorted(rows.values(), key=lambda r: -r[1])
+    busy = sum(r[1] for r in rows) / 1e3
+    # the top entries, and every port kernel's row wherever it ranks
+    return wall, busy, [r for i, r in enumerate(rows)
+                        if i < top or r[0] in KERNEL_ROWS]
 
 
 def online_run(cfg, params, device="cuda", *, pipelined=True,
@@ -573,6 +725,15 @@ def main() -> int:
     from repro_torch.configs import get_config
     from repro_torch.kernels import build
 
+    if sys.argv[1:2] == ["--split-sweep"]:
+        print(subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            check=True).stdout.strip())
+        build.build()
+        print("\n".join(split_sweep(get_config("qwen1.5-0.5b"))))
+        return 0
+
     if sys.argv[1:2] == ["--persist-ab"]:
         print(subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -614,10 +775,17 @@ def main() -> int:
              "paged_attention": paged_cases(cfg, rng)}
     for name, cs in cases.items():
         for c in cs:
+            lib = c["library_ms"]
             print(f"{name} {json.dumps(c['shapes'])}: err {c['max_abs_err']:.3g}"
                   f" kernel {c['ms']:.4f} ms plain {c['plain_ms']:.4f} ms "
-                  f"library {c['library_ms']:.4f} ms bound {c['bound_ms']:.4f}"
-                  f" ms ({c['bound_by']})")
+                  f"library {'n/a' if lib is None else f'{lib:.4f} ms'} "
+                  f"bound {c['bound_ms']:.4f} ms ({c['bound_by']}, "
+                  f"{100 * c['bound_ms'] / c['ms']:.1f} % of it)"
+                  + ("" if "ms_clean_l2" not in c else
+                     f"; clean L2 {c['ms_clean_l2']:.4f} ms")
+                  + ("" if not c.get("parts_ms") else
+                     "; warm " + ", ".join(f"{k} {v:.4f} ms"
+                                           for k, v in c["parts_ms"].items())))
     persist = persist_ab(cfg)
     for way, (host_ms, d2h_ms) in persist.items():
         print(f"persist of 16 FullBlocks, {way} way: {host_ms:.3f} ms host "
@@ -632,8 +800,10 @@ def main() -> int:
     wall_p, busy, rows = profile_phase(cfg)
     print(f"where the time goes (profiled pipelined run): {wall_p:.3f} s "
           f"wall, {busy:.3f} s device busy ({100 * busy / wall_p:.1f} %)")
-    for name, ms, calls in rows:
-        print(f"  {ms:9.1f} ms {calls:7d} calls  {name}")
+    for name, ms, calls, parts in rows:
+        kernels_of = "" if len(parts) < 2 else " = " + " + ".join(
+            f"{n} ({c})" for n, c in parts)
+        print(f"  {ms:9.1f} ms {calls:7d} calls  {name}{kernels_of}")
 
     # 5. online serving with DRAM tiers and the think-time prefetcher
     st_o, launches_o, wall_o, tps_o, wall_ob, blocks_o = online_phase(cfg)
@@ -670,6 +840,7 @@ def main() -> int:
                                   online=launches_o[name]),
             max_abs_err=max(c["max_abs_err"] for c in cs),
             ms=main_case["ms"], kernel_ms=main_case["ms"],
+            ms_clean_l2=main_case.get("ms_clean_l2"),
             plain_ms=main_case["plain_ms"], bound_ms=main_case["bound_ms"],
             bound_by=main_case["bound_by"],
             library_ms=main_case["library_ms"], shapes=main_case["shapes"],

@@ -108,3 +108,57 @@ def require_cuda(kernel: str, *tensors: torch.Tensor) -> None:
         if t.device != dev or t.device.type != "cuda":
             raise ValueError(f"{kernel}: tensors must share one CUDA "
                              f"device, got {[x.device for x in tensors]}")
+
+
+def require_aligned(kernel: str, ptrs: dict, strides: dict, itemsize: int,
+                    align: int = 16) -> None:
+    """Raise unless every data pointer in ``ptrs`` (name -> int) is
+    ``align``-byte aligned and every element stride in ``strides`` (name
+    -> tuple of ints) is a whole number of ``align`` bytes: the kernels'
+    16-byte loads (``cp.async``, ``uint4``) start at each row's first
+    element.  A pure function of the numbers, so it is tested without a
+    card."""
+    per = max(1, align // itemsize)
+    for name, p in ptrs.items():
+        if p % align:
+            raise ValueError(f"{kernel}: {name} starts at {p:#x}, not "
+                             f"{align}-byte aligned")
+    for name, st in strides.items():
+        bad = [x for x in st if x % per]
+        if bad:
+            raise ValueError(f"{kernel}: {name} strides {tuple(st)} are not "
+                             f"multiples of {per} elements ({align} bytes)")
+
+
+def split_plan(n_keys: int, n_tiles: int, target_blocks: int, *,
+               unit: int) -> tuple:
+    """How a split-K kernel cuts ``n_keys`` key positions: (n_split,
+    chunk), split s taking keys [s * chunk, (s + 1) * chunk).  Enough
+    splits that ``n_tiles * n_split`` reaches ``target_blocks`` where the
+    keys allow, ``chunk`` a multiple of ``unit``, and no split wholly past
+    the keys:
+    ``(n_split - 1) * chunk < n_keys <= n_split * chunk``.  Shapes only,
+    so the host never reads the device's lengths."""
+    if n_keys <= 0:
+        return 1, unit
+    want = max(1, -(-target_blocks // max(n_tiles, 1)))
+    chunk = -(-n_keys // want)
+    chunk = -(-chunk // unit) * unit
+    return -(-n_keys // chunk), chunk
+
+
+@functools.cache
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``index``."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def split_scratch(n_split: int, n_rows: int, dh: int,
+                  device: torch.device) -> tuple:
+    """(pm, pl, pacc) f32 scratch for ``n_split`` partials of ``n_rows``
+    rows, carved from one allocation; null pointers for one split."""
+    if n_split == 1:
+        return None, None, None
+    n = n_split * n_rows
+    buf = torch.empty(n * (dh + 2), dtype=torch.float32, device=device)
+    return buf[:n], buf[n:2 * n], buf[2 * n:]

@@ -1,9 +1,11 @@
-// Online-softmax pieces shared by flash_attention.cu and paged_attention.cu.
+// Pieces shared by flash_attention.cu and paged_attention.cu.
 //
-// Both kernels stage keys in tiles of 32 (one key per lane of a warp) in
-// shared memory as float32, and update one query row's running max m,
-// running sum l and f32 accumulator acc per tile, as the Pallas kernels
-// do per block: scores in f32, p cast to the V dtype before P.V
+// * dtype conversions and warp reductions;
+// * PTX wrappers for the bf16 tensor-core path and the vector loads:
+//   16-byte cp.async with zero fill, ldmatrix, mma.sync m16n8k16.
+// * combine_rows: the deterministic merge of key-split partials.
+//
+// Everywhere: scores in f32, p cast to the V dtype before P.V
 // (repro/kernels/flash_attention.py:89), rows without a valid key end
 // with l = 0 and are written as 0.
 #pragma once
@@ -11,11 +13,10 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 namespace attn {
 
-constexpr int TILE = 32;            // keys per staged tile = lanes per warp
-constexpr float NEG_BIG = -1e30f;   // initial running max (as in Pallas)
 constexpr unsigned FULL = 0xffffffffu;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
@@ -32,6 +33,87 @@ __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
 }
 
+constexpr float LOG2E = 1.4426950408889634f;
+
+// ---- PTX wrappers -------------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, bypassing L1; with ok false the 16 bytes are
+// zero-filled and src is not read (it must still be a valid address).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(ok ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// four 8x8 b16 matrices; lanes 8i..8i+7 give the row addresses of matrix i
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p))
+      : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
+                                              const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p))
+      : "memory");
+}
+
+// d += a (16x16 bf16, row) * b (16x8 bf16, col), f32 accumulate
+__device__ __forceinline__ void mma_bf16(float (&d)[4],
+                                         const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// two floats as a bf16x2 register, lo in the low half
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&h);
+}
+
+// 16 bytes of T as 16 / sizeof(T) floats
+__device__ __forceinline__ void unpack16(const uint4& u, float (&f)[4]) {
+  f[0] = __uint_as_float(u.x);
+  f[1] = __uint_as_float(u.y);
+  f[2] = __uint_as_float(u.z);
+  f[3] = __uint_as_float(u.w);
+}
+__device__ __forceinline__ void unpack16(const uint4& u, float (&f)[8]) {
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 x = __bfloat1622float2(h[i]);
+    f[2 * i] = x.x;
+    f[2 * i + 1] = x.y;
+  }
+}
+
 __device__ __forceinline__ float warp_max(float x) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(FULL, x, o));
@@ -44,83 +126,65 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-// Stage keys [t0, t0 + TILE) into ks (TILE x (DH + 1)) and vs (TILE x DH)
-// as f32; keys at or past n are zero.  NT threads cooperate (tid in
-// [0, NT)); row_off(t, ko, vo) gives the element offsets of key t's K and V
-// rows.  Each thread first loads a chunk of up to 16 K and 16 V elements,
-// raw, into registers (unrolled, so the loads are in flight together), and
-// only then converts and stores them: a load-convert-store loop makes the
-// global-memory latencies add up one after another.
-template <typename T, int DH, int NT, typename RowOff>
-__device__ __forceinline__ void stage_tile(const T* __restrict__ k,
-                                           const T* __restrict__ v,
-                                           RowOff row_off, int t0, int n,
-                                           int tid, float* ks, float* vs) {
-  constexpr int PER = TILE * DH / NT;   // elements per thread
-  constexpr int CHUNK = PER < 16 ? PER : 16;
-  static_assert(PER % CHUNK == 0, "tile must split evenly");
-  const T zero = from_f<T>(0.f);
+// ---- merge of key-split partials ------------------------------------------
+//
+// A kernel that splits a row's keys into n_split ranges writes, per split
+// s and row, the range's running max m (log2 domain), sum l and the
+// unnormalised f32 accumulator: pm[s * n_rows + row], pl[...],
+// pacc[(s * n_rows + row) * DH + d].  A split with no valid key writes
+// l = 0 and its m and acc are never read.  One warp merges one row: its
+// lanes read 32 splits' (m, l) at once, then it adds the splits' acc in
+// index order and sums l by a fixed shuffle tree (no atomics: the result
+// does not depend on the order the blocks ran in), and writes o at the
+// row's address: row =
+// (bb * nh + hh) * ni + i, element offset bb * ob + hh * oh + i * os.
+template <typename T, int DH>
+__device__ __forceinline__ void combine_rows(
+    const float* __restrict__ pm, const float* __restrict__ pl,
+    const float* __restrict__ pacc, T* __restrict__ o, long long n_rows,
+    int n_split, int nh, int ni, long long ob, long long oh, long long os) {
+  const long long row = (long long)blockIdx.x * (blockDim.x >> 5) +
+                        (threadIdx.x >> 5);
+  if (row >= n_rows) return;             // whole warps leave together
+  const int lane = threadIdx.x & 31;
+  // lane s reads split s's (m, l), 32 splits at a time, all in flight
+  float mx = -INFINITY;
+  for (int s0 = 0; s0 < n_split; s0 += 32) {
+    const int s = s0 + lane;
+    if (s < n_split && pl[s * n_rows + row] > 0.f)
+      mx = fmaxf(mx, pm[s * n_rows + row]);
+  }
+  mx = warp_max(mx);
+  float lsum = 0.f, a[DH / 32];
 #pragma unroll
-  for (int c = 0; c < PER; c += CHUNK) {
-    T kr[CHUNK], vr[CHUNK];
-#pragma unroll
-    for (int i = 0; i < CHUNK; ++i) {
-      const int idx = tid + (c + i) * NT;
-      const int t = t0 + idx / DH, d = idx % DH;
-      kr[i] = zero;
-      vr[i] = zero;
-      if (t < n) {
-        long long ko, vo;
-        row_off(t, ko, vo);
-        kr[i] = k[ko + d];
-        vr[i] = v[vo + d];
+  for (int e = 0; e < DH / 32; ++e) a[e] = 0.f;
+  for (int s0 = 0; s0 < n_split; s0 += 32) {
+    const int s = s0 + lane;
+    float c = 0.f;
+    if (s < n_split) {
+      const float l = pl[s * n_rows + row];
+      if (l > 0.f) {
+        c = exp2f(pm[s * n_rows + row] - mx);
+        lsum += l * c;
       }
     }
+    const int n = min(32, n_split - s0);
+#pragma unroll 4
+    for (int j = 0; j < n; ++j) {
+      const float cj = __shfl_sync(FULL, c, j);
+      if (cj == 0.f) continue;           // no valid key: acc is not read
+      const float* src = pacc + ((s0 + j) * n_rows + row) * DH;
 #pragma unroll
-    for (int i = 0; i < CHUNK; ++i) {
-      const int idx = tid + (c + i) * NT;
-      const int j = idx / DH, d = idx % DH;
-      ks[j * (DH + 1) + d] = to_f(kr[i]);
-      vs[j * DH + d] = to_f(vr[i]);
+      for (int e = 0; e < DH / 32; ++e) a[e] += src[lane + 32 * e] * cj;
     }
   }
-}
-
-// One query row (qrow: DH floats in shared memory) against one staged
-// tile.  Lane j owns key j: its K row starts at ks + j * (DH + 1) (the +1
-// pad puts the 32 lanes' reads in 32 distinct banks), its V row at
-// vs + j * DH.  Rows of keys past the end of the sequence must be zero
-// in ks/vs (the loaders fill them so), because p = 0 times a stale
-// non-finite value would still poison acc.  `valid` masks this lane's
-// key (padding, causality, window).  All 32 lanes must call together.
-template <typename T, int DH>
-__device__ __forceinline__ void row_update(const float* qrow,
-                                           const float* ks, const float* vs,
-                                           bool valid, float scale,
-                                           float softcap, float& m, float& l,
-                                           float (&acc)[DH / 32]) {
-  const int lane = threadIdx.x & 31;
-  const float* krow = ks + lane * (DH + 1);
-  float s = 0.f;
-#pragma unroll 16
-  for (int d = 0; d < DH; ++d) s = fmaf(qrow[d], krow[d], s);
-  s *= scale;
-  if (softcap > 0.f) s = tanhf(s / softcap) * softcap;
-  const float m_new = fmaxf(m, warp_max(valid ? s : -INFINITY));
-  const float p = valid ? expf(s - m_new) : 0.f;
-  const float corr = expf(m - m_new);
-  l = l * corr + warp_sum(p);
-  const float pv = to_f(from_f<T>(p));   // p in the V dtype for P.V
+  lsum = warp_sum(lsum);
+  const long long bb = row / ((long long)nh * ni);
+  const int hh = (int)((row / ni) % nh), i = (int)(row % ni);
+  T* dst = o + bb * ob + hh * oh + i * os;
+  const float inv = lsum > 0.f ? 1.f / lsum : 0.f;
 #pragma unroll
-  for (int i = 0; i < DH / 32; ++i) acc[i] *= corr;
-#pragma unroll 8
-  for (int j = 0; j < TILE; ++j) {
-    const float pj = __shfl_sync(FULL, pv, j);
-    const float* vrow = vs + j * DH + lane;
-#pragma unroll
-    for (int i = 0; i < DH / 32; ++i) acc[i] = fmaf(pj, vrow[32 * i], acc[i]);
-  }
-  m = m_new;
+  for (int e = 0; e < DH / 32; ++e) dst[lane + 32 * e] = from_f<T>(a[e] * inv);
 }
 
 }  // namespace attn

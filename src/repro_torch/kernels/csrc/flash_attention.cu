@@ -5,28 +5,56 @@
 // is the append chunk, k and v (b, hkv, skv, dh) hold prefix || append,
 // GQA groups g = hq / hkv fold into the rows of one block, query row i of
 // batch row b sits at global position kv_len_b - sq + i, keys at or past
-// kv_len_b are masked, optional causal mask, tanh softcap and sliding
-// window, online softmax with f32 m / l / acc, p cast to the V dtype
-// before P.V.  One addition: an optional per-row kv_lens (b,); without it
-// kv_len_b = skv for every row, which is the Pallas kernel exactly.  With
-// it, the model's append passes its padded cache (b, S, hkv, dh) whole.
+// kv_len_b are masked, optional causal mask, tanh softcap (before the
+// mask) and sliding window, online softmax with f32 m / l / acc, p cast to
+// the V dtype before P.V, rows without a valid key written as 0.  One
+// addition: an optional per-row kv_lens (b,); without it kv_len_b = skv
+// for every row, which is the Pallas kernel exactly.  With it, the
+// model's append passes its padded cache (b, S, hkv, dh) whole.  Tensors
+// are passed with element strides for their three leading dims (the last
+// dim contiguous), so the model hands over its (b, s, h, dh) activations
+// and caches as transposed views, without a copy.
 //
-// Tensors are passed with element strides for their three leading dims
-// (the last dim must be contiguous), so the model hands over its
-// (b, s, h, dh) activations and caches as transposed views, without a copy.
+// Bound: about 4 * dh flops per (query, key) pair against 2 * dh * 2
+// bytes of K/V per key; with 64 query rows per K/V read that is ~64
+// flops a byte, under the card's ~295 bf16 ridge, so bytes bound at the
+// main path's shapes (a 128-token append over a 1184-token prefix: 4.8 MB
+// of K/V, 1.4 us at 3.35 TB/s; the 1024-token prefill is ~2.2 GFLOP,
+// ~2 us of tensor-core peak).
 //
-// Bound: on the main path (a short chunk over a long prefix at dh 64) the
-// work is about 4 * dh flops per (query, key) pair against 2 * dh * 2
-// bytes of K/V per key, so with g query rows per K/V read it sits below the
-// card's flop:byte ridge: bytes bound at small sq * g, operations bound at
-// large.  Design for this first version: one block per (b, kv head, tile of
-// bq queries with their g rows; g * bq = ROWS = 16, or 64 when g > 16), K/V
-// tiles of 32 keys staged in shared memory as f32 and shared by the block's
-// 4 warps (each warp owns ROWS / 4 rows), loop bounds cut to the keys the
-// tile can see (causal end, window start, kv_len), scalar f32 FMAs.  Small
-// row tiles keep enough blocks in flight for a short append chunk (128
-// queries over 16 heads make 128 blocks).  Tensor cores (wgmma), TMA and
-// warp specialisation are later work.
+// bf16 design (flash_split_kernel): one block of 4 warps per (tile of 64
+// query rows = bq queries x g heads, kv head, batch row, key split).
+// Q.K^T and P.V run on the tensor cores, mma.sync.m16n8k16 bf16 with f32
+// accumulate, operands from shared memory through ldmatrix (.trans for
+// V); each warp owns 16 rows, and the online softmax works on the
+// accumulator fragments in registers (a row's 4 lanes reduce by
+// shuffles).  The S fragments, rounded to bf16, are P.V's A operand as
+// they stand: that rounding is the Pallas rule "p in the V dtype".  K/V
+// tiles of 64 keys stay bf16 in shared memory, loaded by 16-byte
+// cp.async.cg into a 2-stage ring (tile i+1 loads while tile i computes),
+// rows padded by 16 bytes so ldmatrix is free of bank conflicts; keys
+// past the block's range are zero-filled by the copy.  mma.sync rather
+// than wgmma: at these shapes the kernel is bytes bound and the
+// tensor-core work is a few microseconds at peak, so the 64-row warpgroup
+// product would not move the time; wgmma is for a shape that makes flops
+// the limit.  Loop bounds skip fully masked tiles (causal end, window
+// start, kv_len); masks are applied per score fragment.  When b * hkv *
+// query tiles is under one wave, the host splits the keys into n_split
+// ranges of `chunk` keys (from b, hq, sq, skv only: kv_lens stays on the
+// device); each split writes f32 partials (m, l, acc) to scratch, a split
+// with no valid key writes l = 0, and flash_combine_kernel merges the
+// splits in index order and writes bf16.  With one split the kernel
+// writes the output itself.
+//
+// f32 design (flash_f32_kernel, chosen by the dtype dispatch in the entry
+// point): the scalar path of the port's first version, kept because TF32
+// tensor cores would break the 2e-5 tolerance and it already beats SDPA
+// in f32: blocks of ROWS = 16 (or 64 when g > 16) rows, 32-key tiles
+// staged in shared memory as f32, scalar FMAs, one split.
+//
+// Each instantiation's shared-memory attribute is set once, at its first
+// launch, not per launch.  Times on the card against the bound and SDPA:
+// PERF.md.
 #include "attn_common.cuh"
 
 namespace {
@@ -41,6 +69,385 @@ struct Strides {
   long long qb, qh, qs, kb, kh, ks, vb, vh, vs, ob, oh, os;
 };
 
+// ---------------------------------------------------------------------------
+// bf16: tensor cores
+// ---------------------------------------------------------------------------
+
+using bf16 = __nv_bfloat16;
+constexpr int BK = 64;              // keys per K/V tile
+constexpr int STAGES = 2;
+
+template <int DH>
+__host__ __device__ constexpr int ld_elems() { return DH + 8; }  // smem row
+
+template <int DH>
+constexpr int split_smem_bytes() {
+  return (MAX_ROWS + 2 * STAGES * BK) * ld_elems<DH>() * (int)sizeof(bf16);
+}
+
+template <int DH>
+__global__ void __launch_bounds__(THREADS)
+flash_split_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                   const bf16* __restrict__ v, bf16* __restrict__ o,
+                   float* __restrict__ pm, float* __restrict__ pl,
+                   float* __restrict__ pacc, const int* __restrict__ kv_lens,
+                   int g, int bq, int sq, int skv, int chunk, int n_split,
+                   Strides st, float scale, float softcap, int causal,
+                   int window) {
+  constexpr int LD = ld_elems<DH>();
+  constexpr int CPR = DH / 8;            // 16-byte chunks per row
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* qsm = reinterpret_cast<bf16*>(smem_raw);   // MAX_ROWS x LD
+  bf16* ksm = qsm + MAX_ROWS * LD;                 // STAGES x BK x LD
+  bf16* vsm = ksm + STAGES * BK * LD;              // STAGES x BK x LD
+
+  const int qt = blockIdx.x / n_split, split = blockIdx.x % n_split;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int hq = gridDim.y * g;
+  const int i0 = qt * bq;                // first query of this tile
+  const int nq = min(bq, sq - i0);
+  const int rows = g * bq;               // row r = gi * bq + ri
+  int kv_len = kv_lens ? kv_lens[b] : skv;
+  kv_len = min(max(kv_len, 0), skv);
+  const int q_start = kv_len - sq;       // global position of query 0
+
+  // keys any row of this tile can see, cut to this split's range
+  int k_end = kv_len;
+  if (causal) k_end = min(k_end, q_start + i0 + nq);
+  const int k_beg = window > 0 ? max(0, q_start + i0 - window + 1) : 0;
+  const int lo = max(k_beg, split * chunk);
+  const int hi = min(k_end, split * chunk + chunk);
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  // the two rows this thread's accumulator fragments hold
+  const int wr[2] = {warp * 16 + (lane >> 2), warp * 16 + (lane >> 2) + 8};
+  const long long n_rows = (long long)gridDim.z * hq * sq;
+
+  if (lo >= hi) {                        // nothing visible in this split
+    if (n_split == 1) {
+      for (int idx = tid; idx < rows * DH; idx += THREADS) {
+        const int r = idx / DH, d = idx % DH, gi = r / bq, ri = r % bq;
+        if (ri < nq)
+          o[b * st.ob + (long long)(h * g + gi) * st.oh +
+            (long long)(i0 + ri) * st.os + d] = __float2bfloat16(0.f);
+      }
+    } else {
+      for (int r = tid; r < rows; r += THREADS) {
+        const int gi = r / bq, ri = r % bq;
+        if (ri >= nq) continue;
+        const long long pr = split * n_rows +
+                             ((long long)b * hq + h * g + gi) * sq + i0 + ri;
+        pm[pr] = -INFINITY;
+        pl[pr] = 0.f;
+      }
+    }
+    return;
+  }
+
+  // Q tile (rows past the tile's are zero-filled), then K/V tile 0: group 0
+  for (int c = tid; c < MAX_ROWS * CPR; c += THREADS) {
+    const int r = c / CPR, cc = c % CPR, gi = r / bq, ri = r % bq;
+    const bool ok = r < rows && ri < nq;
+    const bf16* src = ok ? q + b * st.qb + (long long)(h * g + gi) * st.qh +
+                               (long long)(i0 + ri) * st.qs + cc * 8
+                         : q;
+    cp_async16(qsm + r * LD + cc * 8, src, ok);
+  }
+  const bf16* kbase = k + b * st.kb + h * st.kh;
+  const bf16* vbase = v + b * st.vb + h * st.vh;
+  auto load_tile = [&](int t0, int stage) {
+    bf16* kd = ksm + stage * BK * LD;
+    bf16* vd = vsm + stage * BK * LD;
+    for (int c = tid; c < BK * CPR; c += THREADS) {
+      const int j = c / CPR, cc = c % CPR, t = t0 + j;
+      const bool ok = t < hi;
+      cp_async16(kd + j * LD + cc * 8,
+                 ok ? kbase + (long long)t * st.ks + cc * 8 : k, ok);
+      cp_async16(vd + j * LD + cc * 8,
+                 ok ? vbase + (long long)t * st.vs + cc * 8 : v, ok);
+    }
+  };
+  load_tile(lo, 0);
+  cp_async_commit();
+
+  // query positions of this thread's two rows
+  int pos[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) pos[i] = q_start + i0 + wr[i] % bq;
+
+  uint32_t qf[DH / 16][4];
+  float oacc[DH / 8][4];
+#pragma unroll
+  for (int d = 0; d < DH / 8; ++d)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) oacc[d][e] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+
+  const int n_tiles = (hi - lo + BK - 1) / BK;
+  for (int it = 0; it < n_tiles; ++it) {
+    if (it + 1 < n_tiles) load_tile(lo + (it + 1) * BK, (it + 1) % STAGES);
+    cp_async_commit();                   // (empty on the last tile)
+    cp_async_wait<1>();                  // tile it (and Q) have landed
+    __syncthreads();
+    if (it == 0) {
+#pragma unroll
+      for (int kk = 0; kk < DH / 16; ++kk) {
+        const int r = warp * 16 + (lane & 7) + (((lane >> 3) & 1) << 3);
+        const int c = kk * 16 + ((lane >> 4) << 3);
+        ldsm_x4(qf[kk], qsm + r * LD + c);
+      }
+    }
+    const bf16* kt = ksm + (it % STAGES) * BK * LD;
+    const bf16* vt = vsm + (it % STAGES) * BK * LD;
+    const int t0 = lo + it * BK;
+
+    // S = Q K^T: 16 rows x BK keys per warp, in BK / 8 fragments
+    float s[BK / 8][4];
+#pragma unroll
+    for (int nt = 0; nt < BK / 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < DH / 16; ++kk) {
+#pragma unroll
+      for (int j = 0; j < BK / 16; ++j) {
+        uint32_t bfr[4];
+        const int key = j * 16 + (lane & 7) + ((lane >> 4) << 3);
+        const int c = kk * 16 + (((lane >> 3) & 1) << 3);
+        ldsm_x4(bfr, kt + key * LD + c);
+        mma_bf16(s[2 * j], qf[kk], bfr[0], bfr[1]);
+        mma_bf16(s[2 * j + 1], qf[kk], bfr[2], bfr[3]);
+      }
+    }
+
+    // scale, softcap, mask (log2 domain), then the online softmax
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int nt = 0; nt < BK / 8; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = t0 + nt * 8 + 2 * (lane & 3) + (e & 1);
+        const int p_ = pos[e >> 1];
+        float x = s[nt][e] * scale;
+        if (softcap > 0.f) x = tanhf(x / softcap) * softcap;
+        bool ok = key < hi;
+        if (causal) ok = ok && key <= p_;
+        if (window > 0) ok = ok && p_ - key < window;
+        x = ok ? x * LOG2E : -INFINITY;
+        s[nt][e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      }
+    }
+    float mu[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(FULL, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(FULL, mx[i], 2));
+      const float m_new = fmaxf(m[i], mx[i]);
+      mu[i] = m_new == -INFINITY ? 0.f : m_new;
+      const float corr = exp2f(m[i] - mu[i]);
+      l[i] *= corr;
+#pragma unroll
+      for (int d = 0; d < DH / 8; ++d) {
+        oacc[d][2 * i] *= corr;
+        oacc[d][2 * i + 1] *= corr;
+      }
+      m[i] = m_new;
+    }
+#pragma unroll
+    for (int nt = 0; nt < BK / 8; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = exp2f(s[nt][e] - mu[e >> 1]);
+        l[e >> 1] += p;
+        s[nt][e] = p;
+      }
+    }
+
+    // O += P V: the S fragments of keys 16j..16j+15 are the A operand
+#pragma unroll
+    for (int j = 0; j < BK / 16; ++j) {
+      uint32_t a[4];
+      a[0] = pack_bf16(s[2 * j][0], s[2 * j][1]);
+      a[1] = pack_bf16(s[2 * j][2], s[2 * j][3]);
+      a[2] = pack_bf16(s[2 * j + 1][0], s[2 * j + 1][1]);
+      a[3] = pack_bf16(s[2 * j + 1][2], s[2 * j + 1][3]);
+#pragma unroll
+      for (int d = 0; d < DH / 16; ++d) {
+        uint32_t bfr[4];
+        const int key = j * 16 + (lane & 7) + (((lane >> 3) & 1) << 3);
+        const int c = d * 16 + ((lane >> 4) << 3);
+        ldsm_x4_trans(bfr, vt + key * LD + c);
+        mma_bf16(oacc[2 * d], a, bfr[0], bfr[1]);
+        mma_bf16(oacc[2 * d + 1], a, bfr[2], bfr[3]);
+      }
+    }
+    __syncthreads();                     // stage it % STAGES is free again
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(FULL, l[i], 1);
+    l[i] += __shfl_xor_sync(FULL, l[i], 2);
+    const int r = wr[i], gi = r / bq, ri = r % bq;
+    if (r >= rows || ri >= nq) continue;
+    const int col = 2 * (lane & 3);
+    if (n_split == 1) {
+      bf16* orow = o + b * st.ob + (long long)(h * g + gi) * st.oh +
+                   (long long)(i0 + ri) * st.os;
+      const float inv = l[i] > 0.f ? 1.f / l[i] : 0.f;
+#pragma unroll
+      for (int d = 0; d < DH / 8; ++d)
+        *reinterpret_cast<__nv_bfloat162*>(orow + d * 8 + col) =
+            __floats2bfloat162_rn(oacc[d][2 * i] * inv,
+                                  oacc[d][2 * i + 1] * inv);
+    } else {
+      const long long pr = split * n_rows +
+                           ((long long)b * hq + h * g + gi) * sq + i0 + ri;
+      float* arow = pacc + pr * DH;
+#pragma unroll
+      for (int d = 0; d < DH / 8; ++d)
+        *reinterpret_cast<float2*>(arow + d * 8 + col) =
+            make_float2(oacc[d][2 * i], oacc[d][2 * i + 1]);
+      if ((lane & 3) == 0) {
+        pm[pr] = m[i];
+        pl[pr] = l[i];
+      }
+    }
+  }
+}
+
+// one warp per output row (b, head, query): merges the splits' partials
+template <int DH>
+__global__ void __launch_bounds__(THREADS)
+flash_combine_kernel(const float* __restrict__ pm,
+                     const float* __restrict__ pl,
+                     const float* __restrict__ pacc, bf16* __restrict__ o,
+                     long long n_rows, int n_split, int hq, int sq,
+                     Strides st) {
+  combine_rows<bf16, DH>(pm, pl, pacc, o, n_rows, n_split, hq, sq, st.ob,
+                         st.oh, st.os);
+}
+
+template <int DH>
+int launch_bf16(const void* q, const void* k, const void* v, void* o,
+                float* pm, float* pl, float* pacc, const int* kv_lens, int b,
+                int hq, int hkv, int sq, int skv, int n_split, int chunk,
+                const Strides& st, float scale, float softcap, int causal,
+                int window, cudaStream_t stream) {
+  constexpr int smem = split_smem_bytes<DH>();
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      flash_split_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (attr != cudaSuccess) return (int)attr;
+  const int g = hq / hkv;
+  const int bq = max(1, MAX_ROWS / g);
+  const int n_qt = (sq + bq - 1) / bq;
+  dim3 grid(n_qt * n_split, hkv, b);
+  flash_split_kernel<DH><<<grid, THREADS, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<bf16*>(o), pm, pl, pacc,
+      kv_lens, g, bq, sq, skv, chunk, n_split, st, scale, softcap, causal,
+      window);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess || n_split == 1) return (int)e;
+  const long long n_rows = (long long)b * hq * sq;
+  const long long blocks = (n_rows + NWARPS - 1) / NWARPS;
+  flash_combine_kernel<DH><<<(unsigned)blocks, THREADS, 0, stream>>>(
+      pm, pl, pacc, static_cast<bf16*>(o), n_rows, n_split, hq, sq, st);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// f32: scalar FMAs.  Keys in tiles of 32 (one key per lane of a warp)
+// staged in shared memory as float32; one query row's running max m, sum
+// l and f32 accumulator acc updated per tile, as the Pallas kernel does
+// per block.
+// ---------------------------------------------------------------------------
+
+constexpr int TILE = 32;            // keys per staged tile = lanes per warp
+constexpr float NEG_BIG = -1e30f;   // initial running max (as in Pallas)
+
+// Stage keys [t0, t0 + TILE) into ks (TILE x (DH + 1)) and vs (TILE x DH)
+// as f32; keys at or past n are zero.  NT threads cooperate (tid in
+// [0, NT)); row_off(t, ko, vo) gives the element offsets of key t's K and V
+// rows.  Each thread first loads a chunk of up to 16 K and 16 V elements,
+// raw, into registers (unrolled, so the loads are in flight together), and
+// only then converts and stores them: a load-convert-store loop makes the
+// global-memory latencies add up one after another.
+template <typename T, int DH, int NT, typename RowOff>
+__device__ __forceinline__ void stage_tile(const T* __restrict__ k,
+                                           const T* __restrict__ v,
+                                           RowOff row_off, int t0, int n,
+                                           int tid, float* ks, float* vs) {
+  constexpr int PER = TILE * DH / NT;   // elements per thread
+  constexpr int CHUNK = PER < 16 ? PER : 16;
+  static_assert(PER % CHUNK == 0, "tile must split evenly");
+  const T zero = from_f<T>(0.f);
+#pragma unroll
+  for (int c = 0; c < PER; c += CHUNK) {
+    T kr[CHUNK], vr[CHUNK];
+#pragma unroll
+    for (int i = 0; i < CHUNK; ++i) {
+      const int idx = tid + (c + i) * NT;
+      const int t = t0 + idx / DH, d = idx % DH;
+      kr[i] = zero;
+      vr[i] = zero;
+      if (t < n) {
+        long long ko, vo;
+        row_off(t, ko, vo);
+        kr[i] = k[ko + d];
+        vr[i] = v[vo + d];
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < CHUNK; ++i) {
+      const int idx = tid + (c + i) * NT;
+      const int j = idx / DH, d = idx % DH;
+      ks[j * (DH + 1) + d] = to_f(kr[i]);
+      vs[j * DH + d] = to_f(vr[i]);
+    }
+  }
+}
+
+// One query row (qrow: DH floats in shared memory) against one staged
+// tile.  Lane j owns key j: its K row starts at ks + j * (DH + 1) (the +1
+// pad puts the 32 lanes' reads in 32 distinct banks), its V row at
+// vs + j * DH.  Rows of keys past the end of the sequence must be zero
+// in ks/vs (the loaders fill them so), because p = 0 times a stale
+// non-finite value would still poison acc.  `valid` masks this lane's
+// key (padding, causality, window).  All 32 lanes must call together.
+template <typename T, int DH>
+__device__ __forceinline__ void row_update(const float* qrow,
+                                           const float* ks, const float* vs,
+                                           bool valid, float scale,
+                                           float softcap, float& m, float& l,
+                                           float (&acc)[DH / 32]) {
+  const int lane = threadIdx.x & 31;
+  const float* krow = ks + lane * (DH + 1);
+  float s = 0.f;
+#pragma unroll 16
+  for (int d = 0; d < DH; ++d) s = fmaf(qrow[d], krow[d], s);
+  s *= scale;
+  if (softcap > 0.f) s = tanhf(s / softcap) * softcap;
+  const float m_new = fmaxf(m, warp_max(valid ? s : -INFINITY));
+  const float p = valid ? expf(s - m_new) : 0.f;
+  const float corr = expf(m - m_new);
+  l = l * corr + warp_sum(p);
+  const float pv = to_f(from_f<T>(p));   // p in the V dtype for P.V
+#pragma unroll
+  for (int i = 0; i < DH / 32; ++i) acc[i] *= corr;
+#pragma unroll 8
+  for (int j = 0; j < TILE; ++j) {
+    const float pj = __shfl_sync(FULL, pv, j);
+    const float* vrow = vs + j * DH + lane;
+#pragma unroll
+    for (int i = 0; i < DH / 32; ++i) acc[i] = fmaf(pj, vrow[32 * i], acc[i]);
+  }
+  m = m_new;
+}
+
+
 template <int DH, int ROWS>
 constexpr int smem_floats() {
   return ROWS * DH + TILE * (DH + 1) + TILE * DH;
@@ -48,11 +455,11 @@ constexpr int smem_floats() {
 
 template <typename T, int DH, int ROWS>
 __global__ void __launch_bounds__(THREADS)
-flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
-             const T* __restrict__ v, T* __restrict__ o,
-             const int* __restrict__ kv_lens, int g, int bq, int sq, int skv,
-             Strides st, float scale, float softcap, int causal,
-             int window) {
+flash_f32_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                 const T* __restrict__ v, T* __restrict__ o,
+                 const int* __restrict__ kv_lens, int g, int bq, int sq,
+                 int skv, Strides st, float scale, float softcap, int causal,
+                 int window) {
   constexpr int RPW = ROWS / NWARPS;     // rows per warp
   extern __shared__ float smem[];
   float* qs = smem;                      // ROWS x DH
@@ -133,82 +540,94 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int DH, int ROWS>
-int launch_rows(const void* q, const void* k, const void* v, void* o,
-                const int* kv_lens, int b, int hq, int hkv, int sq, int skv,
-                const Strides& st, float scale, float softcap, int causal,
-                int window, cudaStream_t stream) {
+
+template <int DH, int ROWS>
+int launch_f32_rows(const void* q, const void* k, const void* v, void* o,
+                    const int* kv_lens, int b, int hq, int hkv, int sq,
+                    int skv, const Strides& st, float scale, float softcap,
+                    int causal, int window, cudaStream_t stream) {
+  constexpr int smem = (int)sizeof(float) * smem_floats<DH, ROWS>();
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      flash_f32_kernel<float, DH, ROWS>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (attr != cudaSuccess) return (int)attr;
   const int g = hq / hkv;
   const int bq = max(1, ROWS / g);
-  const size_t smem = sizeof(float) * smem_floats<DH, ROWS>();
-  cudaError_t e = cudaFuncSetAttribute(
-      flash_kernel<T, DH, ROWS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (e != cudaSuccess) return (int)e;
   dim3 grid((sq + bq - 1) / bq, hkv, b);
-  flash_kernel<T, DH, ROWS><<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), kv_lens, g, bq, sq, skv,
-      st, scale, softcap, causal, window);
+  flash_f32_kernel<float, DH, ROWS><<<grid, THREADS, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), kv_lens, g, bq,
+      sq, skv, st, scale, softcap, causal, window);
   return (int)cudaGetLastError();
 }
 
-template <typename T, int DH>
-int launch(const void* q, const void* k, const void* v, void* o,
-           const int* kv_lens, int b, int hq, int hkv, int sq, int skv,
-           const Strides& st, float scale, float softcap, int causal,
-           int window, cudaStream_t stream) {
+template <int DH>
+int launch_f32(const void* q, const void* k, const void* v, void* o,
+               const int* kv_lens, int b, int hq, int hkv, int sq, int skv,
+               const Strides& st, float scale, float softcap, int causal,
+               int window, cudaStream_t stream) {
   if (hq / hkv <= 16)
-    return launch_rows<T, DH, 16>(q, k, v, o, kv_lens, b, hq, hkv, sq, skv,
-                                  st, scale, softcap, causal, window, stream);
-  return launch_rows<T, DH, MAX_ROWS>(q, k, v, o, kv_lens, b, hq, hkv, sq,
-                                      skv, st, scale, softcap, causal, window,
-                                      stream);
-}
-
-template <typename T>
-int dispatch_dh(int dh, const void* q, const void* k, const void* v, void* o,
-                const int* kv_lens, int b, int hq, int hkv, int sq, int skv,
-                const Strides& st, float scale, float softcap, int causal,
-                int window, cudaStream_t stream) {
-  switch (dh) {
-    case 32:
-      return launch<T, 32>(q, k, v, o, kv_lens, b, hq, hkv, sq, skv, st,
-                           scale, softcap, causal, window, stream);
-    case 64:
-      return launch<T, 64>(q, k, v, o, kv_lens, b, hq, hkv, sq, skv, st,
-                           scale, softcap, causal, window, stream);
-    case 128:
-      return launch<T, 128>(q, k, v, o, kv_lens, b, hq, hkv, sq, skv, st,
-                            scale, softcap, causal, window, stream);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+    return launch_f32_rows<DH, 16>(q, k, v, o, kv_lens, b, hq, hkv, sq, skv,
+                                   st, scale, softcap, causal, window,
+                                   stream);
+  return launch_f32_rows<DH, MAX_ROWS>(q, k, v, o, kv_lens, b, hq, hkv, sq,
+                                       skv, st, scale, softcap, causal,
+                                       window, stream);
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  strides: 12 element strides, the
-// (b, h, s) strides of q, k, v and o in that order.  kv_lens may be null.
-// Returns the launch's cudaError_t.
+// dtype: 0 = float32 (scalar path, one split), 1 = bfloat16 (tensor-core
+// path).  strides: 12 element strides, the (b, h, s) strides of q, k, v
+// and o in that order.  kv_lens may be null.  bf16 with n_split > 1:
+// pm and pl hold n_split * b * hq * sq floats and pacc dh times as many
+// (scratch the caller allocates), keys are split in ranges of `chunk`
+// (a multiple of 64), and the caller checked that q, k, v, o are 16-byte
+// aligned with strides that are multiples of 8 elements.  Returns the
+// first launch error (cudaError_t), 0 on success.
 extern "C" int flash_attention(int dtype, int dh, const void* q,
                                const void* k, const void* v, void* o,
+                               float* pm, float* pl, float* pacc,
                                const int* kv_lens, int b, int hq, int hkv,
-                               int sq, int skv, const long long* strides,
-                               float scale, float softcap, int causal,
-                               int window, cudaStream_t stream) {
+                               int sq, int skv, int n_split, int chunk,
+                               const long long* strides, float scale,
+                               float softcap, int causal, int window,
+                               cudaStream_t stream) {
   if (b <= 0 || sq <= 0) return 0;
-  if (hkv <= 0 || hq % hkv != 0 || hq / hkv > MAX_ROWS)
+  if (hkv <= 0 || hq % hkv != 0 || hq / hkv > MAX_ROWS || n_split <= 0 ||
+      (long long)n_split * chunk < skv || chunk % BK != 0)
     return (int)cudaErrorInvalidValue;
   Strides st{strides[0], strides[1], strides[2], strides[3],
              strides[4], strides[5], strides[6], strides[7],
              strides[8], strides[9], strides[10], strides[11]};
-  if (dtype == 0)
-    return dispatch_dh<float>(dh, q, k, v, o, kv_lens, b, hq, hkv, sq, skv,
-                              st, scale, softcap, causal, window, stream);
-  if (dtype == 1)
-    return dispatch_dh<__nv_bfloat16>(dh, q, k, v, o, kv_lens, b, hq, hkv,
-                                      sq, skv, st, scale, softcap, causal,
-                                      window, stream);
+  if (dtype == 0) {
+    if (n_split != 1) return (int)cudaErrorInvalidValue;
+    switch (dh) {
+      case 32: return launch_f32<32>(q, k, v, o, kv_lens, b, hq, hkv, sq,
+                                     skv, st, scale, softcap, causal, window,
+                                     stream);
+      case 64: return launch_f32<64>(q, k, v, o, kv_lens, b, hq, hkv, sq,
+                                     skv, st, scale, softcap, causal, window,
+                                     stream);
+      case 128: return launch_f32<128>(q, k, v, o, kv_lens, b, hq, hkv, sq,
+                                       skv, st, scale, softcap, causal,
+                                       window, stream);
+    }
+    return (int)cudaErrorInvalidValue;
+  }
+  if (dtype == 1) {
+    switch (dh) {
+      case 32: return launch_bf16<32>(q, k, v, o, pm, pl, pacc, kv_lens, b,
+                                      hq, hkv, sq, skv, n_split, chunk, st,
+                                      scale, softcap, causal, window, stream);
+      case 64: return launch_bf16<64>(q, k, v, o, pm, pl, pacc, kv_lens, b,
+                                      hq, hkv, sq, skv, n_split, chunk, st,
+                                      scale, softcap, causal, window, stream);
+      case 128: return launch_bf16<128>(q, k, v, o, pm, pl, pacc, kv_lens,
+                                        b, hq, hkv, sq, skv, n_split, chunk,
+                                        st, scale, softcap, causal, window,
+                                        stream);
+    }
+  }
   return (int)cudaErrorInvalidValue;
 }

@@ -4,161 +4,328 @@
 // (_paged_kernel :32, pallas_call :108).  Same contract: one query token
 // per sequence, q (b, hkv, g, dh), K/V pools (n_pages, page_tokens, hkv,
 // dh), block_table (b, max_pages) int32, lengths (b,) int32, optional
-// tanh softcap, online softmax with f32 m / l / acc, p cast to the V
-// dtype before P.V.  No sliding window, as in Pallas.  The Pallas grid
-// visits all max_pages pages and masks positions >= lengths[b]; this
-// kernel stops at ceil(lengths[b] / page_tokens) pages, which gives the
-// same result.
+// tanh softcap, scores in f32, p cast to the V dtype before P.V, a row
+// with no valid key written as 0.  No sliding window, as in Pallas.  The
+// Pallas grid visits all max_pages pages and masks positions >= lengths[b];
+// this kernel visits only keys below lengths[b], which gives the same
+// result.
 //
 // Bound: bytes.  Each step reads the sequence's K and V once
 // (2 * len * dh * itemsize per kv head) for 4 * g * dh flops per key, far
-// below the card's flop:byte ridge.  Design for this first version: one
-// block per (kv head, sequence); its warps (8 at dh <= 64, 4 at dh 128, as
-// shared memory allows) split the sequence's keys (warp w takes tiles w,
-// w + NWARPS, ...) so several tiles are in flight per block.  Each warp
-// stages its 32-key tile in its own shared-memory slot with coalesced loads
-// along dh (page ids come from the block table per key), keeps
-// online-softmax state for all g <= 16 rows, and the warps' partial
-// (m, l, acc) are merged in shared memory at the end.  Split-K across
-// blocks (flash-decoding) and vectorised loads are later work.
+// below the card's flop:byte ridge, so the design is about keeping many
+// 16-byte loads in flight on every SM.
+//
+// Design (flash-decoding): the host splits the max_pages * page_tokens
+// key positions into n_split ranges of `chunk` keys, counted in keys (any
+// page size works, pages of 4 tokens included), from shapes only: lengths
+// stays on the device.  One block of 4 warps per (split, kv head,
+// sequence); a split that starts at or past the sequence's length exits at
+// once, writing l = 0.  A block's 128 threads cover dh with 16-byte loads
+// (8 bf16 or 4 f32 per lane; at dh 64 in bf16, 8 lanes per key and 16 keys
+// per block step), and the block reads its range in one pass: each thread
+// issues the K and V loads of U keys together (U = 8 at g = 1; loads
+// unconditional and not kept in L1, so all 2U are in flight), page ids
+// from the block table, then updates every row's online softmax over
+// those keys in registers (q . k reduced over a key's lanes by shuffles,
+// p rounded to the V dtype before P.V).  At the end the key groups of a
+// warp merge by shuffles and the warps in warp order through shared
+// memory.  Registers are sized to the group by a template bucket (g = 1,
+// <= 4, <= 8, <= 16); q stays in registers as its raw 16 bytes per row.
+// paged_combine_kernel merges the splits' f32 partials (m, l, acc) in
+// split order, without atomics; with one split the block writes the
+// output itself.
+//
+// Layout: one block per kv head, not per sequence over all heads.  A
+// key's row for one head is dh * itemsize contiguous bytes (128 at the
+// main shape), whole 32-byte sectors, so per-head blocks lose no
+// coalescing.  Blocks over groups of heads, which read whole 2 KB token
+// rows, loads pipelined one step ahead and U = 16 were all slower on the
+// card, and launching the combine as a programmatic dependent of the
+// split kernel gained nothing (PERF.md).
+//
+// Each instantiation's shared-memory attribute is set once, at its first
+// launch, not per launch.
 #include "attn_common.cuh"
 
 namespace {
 
 using namespace attn;
 
+constexpr int THREADS = 128;
+constexpr int NWARPS = THREADS / 32;
 constexpr int MAXG = 16;            // query rows per (sequence, kv head)
 
-// warps per block: as many as the per-warp tile slots fit in shared memory
-template <int DH>
-__host__ __device__ constexpr int nwarps() { return DH <= 64 ? 8 : 4; }
-
-template <int DH>
+// shared memory, in floats: per warp and row, its (m, l, acc[DH]) after
+// the warp's key groups merged
+template <int G, int DH>
 __host__ __device__ constexpr int smem_floats() {
-  constexpr int NWARPS = nwarps<DH>();
-  // q rows, then one (K tile, V tile) slot per warp; the merge reuses the
-  // slots, which are larger than NWARPS * MAXG * (DH + 2)
-  return MAXG * DH + NWARPS * TILE * (2 * DH + 1);
+  return NWARPS * G * (DH + 2);
 }
 
-template <typename T, int DH>
-__global__ void __launch_bounds__(32 * nwarps<DH>())
-paged_kernel(const T* __restrict__ q, const T* __restrict__ kp,
-             const T* __restrict__ vp, const int* __restrict__ table,
-             const int* __restrict__ lengths, T* __restrict__ o, int hkv,
-             int g, int pt, int max_pages, float scale, float softcap) {
-  constexpr int NWARPS = nwarps<DH>();
-  constexpr int THREADS = 32 * NWARPS;
-  static_assert(NWARPS * MAXG * (DH + 2) <= NWARPS * TILE * (2 * DH + 1),
-                "merge buffer must fit in the tile slots");
-  extern __shared__ float smem[];
-  const int h = blockIdx.x, b = blockIdx.y;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  float* qs = smem;                                   // g x DH
-  float* slots = qs + MAXG * DH;
-  float* ks = slots + warp * TILE * (2 * DH + 1);     // TILE x (DH + 1)
-  float* vs = ks + TILE * (DH + 1);                   // TILE x DH
+// 16 bytes of K or V, read once per call: not kept in L1
+__device__ __forceinline__ uint4 load_kv(const void* p) {
+  uint4 r;
+  asm("ld.global.nc.L1::no_allocate.v4.u32 {%0, %1, %2, %3}, [%4];"
+      : "=r"(r.x), "=r"(r.y), "=r"(r.z), "=r"(r.w)
+      : "l"(p));
+  return r;
+}
 
-  const T* qb = q + ((long long)b * hkv + h) * g * DH;
-  for (int idx = threadIdx.x; idx < g * DH; idx += THREADS)
-    qs[idx] = to_f(qb[idx]);
+// q . k over this lane's E elements of the row (q as raw 16 bytes of T)
+template <typename T>
+__device__ __forceinline__ float dot16(const uint4& qraw,
+                                       const float (&kf)[16 / sizeof(T)]) {
+  float qf[16 / sizeof(T)];
+  unpack16(qraw, qf);
+  float d = 0.f;
+#pragma unroll
+  for (int e = 0; e < (int)(16 / sizeof(T)); ++e) d = fmaf(qf[e], kf[e], d);
+  return d;
+}
+
+template <typename T, int DH, int G>
+__global__ void __launch_bounds__(THREADS)
+paged_split_kernel(const T* __restrict__ q, const T* __restrict__ kp,
+                   const T* __restrict__ vp, const int* __restrict__ table,
+                   const int* __restrict__ lengths, T* __restrict__ o,
+                   float* __restrict__ pm, float* __restrict__ pl,
+                   float* __restrict__ pacc, int hkv, int g, int pt,
+                   int max_pages, int chunk, int n_split, float scale,
+                   float softcap) {
+  constexpr int E = 16 / (int)sizeof(T);   // elements per 16-byte load
+  constexpr int LPK = DH / E;              // lanes per key
+  constexpr int KPS = THREADS / LPK;       // keys per block step
+  constexpr int U = G == 1 ? 8 : G <= 4 ? 4 : 2;   // keys per thread-step
+  static_assert(LPK <= 32 && 32 % LPK == 0, "a key's lanes fit one warp");
+  extern __shared__ float smem[];          // NWARPS x G x (m, l, acc[DH])
+
+  const int split = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int kg = tid / LPK, dl = tid % LPK;
   const int len = min(max(lengths[b], 0), max_pages * pt);
+  const int lo = split * chunk, hi = min(lo + chunk, len);
+  const long long row0 = ((long long)b * hkv + h) * g;
+  const long long n_rows = (long long)gridDim.z * hkv * g;
+
+  if (hi <= lo) {                          // past the sequence's end
+    if (n_split == 1) {
+      for (int idx = tid; idx < g * DH; idx += THREADS)
+        o[row0 * DH + idx] = from_f<T>(0.f);
+    } else {
+      for (int r = tid; r < g; r += THREADS) {
+        pm[split * n_rows + row0 + r] = -INFINITY;
+        pl[split * n_rows + row0 + r] = 0.f;
+      }
+    }
+    return;
+  }
+
   const int* tb = table + (long long)b * max_pages;
-  auto row_off = [&](int t, long long& ko, long long& vo) {
-    const long long row = (long long)tb[t / pt] * pt + t % pt;
-    ko = vo = (row * hkv + h) * DH;
-  };
-  __syncthreads();
-
-  float m[MAXG], l[MAXG], acc[MAXG][DH / 32];
+  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+  uint4 qraw[G];                           // this lane's slice of each row
 #pragma unroll
-  for (int rr = 0; rr < MAXG; ++rr) {
-    m[rr] = NEG_BIG;
-    l[rr] = 0.f;
+  for (int r = 0; r < G; ++r)
+    qraw[r] = r < g ? *reinterpret_cast<const uint4*>(
+                          q + (row0 + r) * DH + dl * E)
+                    : zero;
+  float m[G], l[G], acc[G][E];
 #pragma unroll
-    for (int i = 0; i < DH / 32; ++i) acc[rr][i] = 0.f;
+  for (int r = 0; r < G; ++r) {
+    m[r] = -INFINITY;
+    l[r] = 0.f;
+#pragma unroll
+    for (int e = 0; e < E; ++e) acc[r][e] = 0.f;
   }
 
-  for (int t0 = warp * TILE; t0 < len; t0 += NWARPS * TILE) {
-    __syncwarp();                       // this warp's previous tile consumed
-    stage_tile<T, DH, 32>(kp, vp, row_off, t0, len, lane, ks, vs);
-    __syncwarp();
-    const bool valid = t0 + lane < len;
+  // One pass: each step loads U keys' K and V rows per thread together,
+  // then updates every row's online softmax over those U keys.  The loop
+  // is uniform across the block (shuffles below need whole warps).
+  for (int base = lo; base < hi; base += U * KPS) {
+    // unconditional loads, so all 2U are in flight together: a key past
+    // the range reads the range's first key instead and is masked below
+    uint4 kr[U], vr[U];
 #pragma unroll
-    for (int rr = 0; rr < MAXG; ++rr)
-      if (rr < g)
-        row_update<T, DH>(qs + rr * DH, ks, vs, valid, scale, softcap, m[rr],
-                          l[rr], acc[rr]);
+    for (int u = 0; u < U; ++u) {
+      int t = base + u * KPS + kg;
+      t = t < hi ? t : lo;
+      const long long off =
+          (((long long)tb[t / pt] * pt + t % pt) * hkv + h) * DH + dl * E;
+      kr[u] = load_kv(kp + off);
+      vr[u] = load_kv(vp + off);
+    }
+    float kf[U][E], vf[U][E];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      unpack16(kr[u], kf[u]);
+      unpack16(vr[u], vf[u]);
+    }
+#pragma unroll
+    for (int r = 0; r < G; ++r) {
+      if (r >= g) break;
+      float x[U], mx = -INFINITY;
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        float d = dot16<T>(qraw[r], kf[u]);
+#pragma unroll
+        for (int off = LPK / 2; off > 0; off >>= 1)
+          d += __shfl_xor_sync(FULL, d, off);
+        d *= scale;
+        if (softcap > 0.f) d = tanhf(d / softcap) * softcap;
+        x[u] = base + u * KPS + kg < hi ? d * LOG2E : -INFINITY;
+        mx = fmaxf(mx, x[u]);
+      }
+      const float m_new = fmaxf(m[r], mx);
+      const float mu = m_new == -INFINITY ? 0.f : m_new;
+      const float corr = exp2f(m[r] - mu);
+      l[r] *= corr;
+#pragma unroll
+      for (int e = 0; e < E; ++e) acc[r][e] *= corr;
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const float p = exp2f(x[u] - mu);
+        l[r] += p;
+        const float pv = to_f(from_f<T>(p));   // p in the V dtype
+#pragma unroll
+        for (int e = 0; e < E; ++e) acc[r][e] = fmaf(pv, vf[u][e], acc[r][e]);
+      }
+      m[r] = m_new;
+    }
   }
 
-  // merge the warps' partial softmax states
-  __syncthreads();                      // every warp is done with its slot
-  float* mb = slots;                    // [NWARPS][MAXG][DH + 2]
+  // merge the warp's key groups (lanes with the same dl), then write one
+  // (m, l, acc) per warp and row
 #pragma unroll
-  for (int rr = 0; rr < MAXG; ++rr) {
-    if (rr >= g) continue;
-    float* e = mb + (warp * MAXG + rr) * (DH + 2);
+  for (int r = 0; r < G; ++r) {
+    if (r >= g) break;
+    float mo = m[r];
+#pragma unroll
+    for (int off = LPK; off < 32; off <<= 1)
+      mo = fmaxf(mo, __shfl_xor_sync(FULL, mo, off));
+    const float c = exp2f(m[r] - (mo == -INFINITY ? 0.f : mo));
+    float lr = l[r] * c;
+#pragma unroll
+    for (int off = LPK; off < 32; off <<= 1)
+      lr += __shfl_xor_sync(FULL, lr, off);
+    float* dst = smem + (warp * G + r) * (DH + 2);
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+      float a = acc[r][e] * c;
+#pragma unroll
+      for (int off = LPK; off < 32; off <<= 1)
+        a += __shfl_xor_sync(FULL, a, off);
+      if (lane < LPK) dst[2 + dl * E + e] = a;
+    }
     if (lane == 0) {
-      e[0] = m[rr];
-      e[1] = l[rr];
+      dst[0] = mo;
+      dst[1] = lr;
     }
-#pragma unroll
-    for (int i = 0; i < DH / 32; ++i) e[2 + lane + 32 * i] = acc[rr][i];
   }
   __syncthreads();
-  T* ob = o + ((long long)b * hkv + h) * g * DH;
-  for (int rr = warp; rr < g; rr += NWARPS) {
-    float mx = NEG_BIG;
+
+  // merge the warps, in warp order
+  for (int idx = tid; idx < g * DH; idx += THREADS) {
+    const int r = idx / DH, d = idx % DH;
+    float mo = -INFINITY;
+#pragma unroll
     for (int w = 0; w < NWARPS; ++w)
-      mx = fmaxf(mx, mb[(w * MAXG + rr) * (DH + 2)]);
-    float lsum = 0.f, a[DH / 32];
+      mo = fmaxf(mo, smem[(w * G + r) * (DH + 2)]);
+    const float mu = mo == -INFINITY ? 0.f : mo;
+    float lsum = 0.f, a = 0.f;
 #pragma unroll
-    for (int i = 0; i < DH / 32; ++i) a[i] = 0.f;
     for (int w = 0; w < NWARPS; ++w) {
-      const float* e = mb + (w * MAXG + rr) * (DH + 2);
-      const float c = expf(e[0] - mx);
-      lsum += e[1] * c;
-#pragma unroll
-      for (int i = 0; i < DH / 32; ++i) a[i] += e[2 + lane + 32 * i] * c;
+      const float* src = smem + (w * G + r) * (DH + 2);
+      const float c = exp2f(src[0] - mu);
+      lsum += src[1] * c;
+      a += src[2 + d] * c;
     }
-#pragma unroll
-    for (int i = 0; i < DH / 32; ++i)
-      ob[rr * DH + lane + 32 * i] = from_f<T>(lsum > 0.f ? a[i] / lsum : 0.f);
+    if (n_split == 1) {
+      o[row0 * DH + idx] = from_f<T>(lsum > 0.f ? a / lsum : 0.f);
+    } else {
+      pacc[(split * n_rows + row0) * DH + idx] = a;
+      if (d == 0) {
+        pm[split * n_rows + row0 + r] = mo;
+        pl[split * n_rows + row0 + r] = lsum;
+      }
+    }
   }
 }
 
+// one warp per output row (sequence, kv head, group row)
 template <typename T, int DH>
+__global__ void __launch_bounds__(THREADS)
+paged_combine_kernel(const float* __restrict__ pm,
+                     const float* __restrict__ pl,
+                     const float* __restrict__ pacc, T* __restrict__ o,
+                     long long n_rows, int n_split) {
+  combine_rows<T, DH>(pm, pl, pacc, o, n_rows, n_split, 1, 1, DH, 0, 0);
+}
+
+template <typename T, int DH, int G>
 int launch(const void* q, const void* kp, const void* vp, const int* table,
-           const int* lengths, void* o, int b, int hkv, int g, int pt,
-           int max_pages, float scale, float softcap, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * smem_floats<DH>();
-  cudaError_t e = cudaFuncSetAttribute(
-      paged_kernel<T, DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  dim3 grid(hkv, b);
-  paged_kernel<T, DH><<<grid, 32 * nwarps<DH>(), smem, stream>>>(
+           const int* lengths, void* o, float* pm, float* pl, float* pacc,
+           int b, int hkv, int g, int pt, int max_pages, int n_split,
+           int chunk, float scale, float softcap, cudaStream_t stream) {
+  constexpr int smem = (int)sizeof(float) * smem_floats<G, DH>();
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      paged_split_kernel<T, DH, G>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (attr != cudaSuccess) return (int)attr;
+  dim3 grid(n_split, hkv, b);
+  paged_split_kernel<T, DH, G><<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(kp),
-      static_cast<const T*>(vp), table, lengths, static_cast<T*>(o), hkv, g,
-      pt, max_pages, scale, softcap);
+      static_cast<const T*>(vp), table, lengths, static_cast<T*>(o), pm, pl,
+      pacc, hkv, g, pt, max_pages, chunk, n_split, scale, softcap);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess || n_split == 1) return (int)e;
+  const long long n_rows = (long long)b * hkv * g;
+  const long long blocks = (n_rows + NWARPS - 1) / NWARPS;
+  paged_combine_kernel<T, DH><<<(unsigned)blocks, THREADS, 0, stream>>>(
+      pm, pl, pacc, static_cast<T*>(o), n_rows, n_split);
   return (int)cudaGetLastError();
+}
+
+template <typename T, int DH>
+int dispatch_g(const void* q, const void* kp, const void* vp,
+               const int* table, const int* lengths, void* o, float* pm,
+               float* pl, float* pacc, int b, int hkv, int g, int pt,
+               int max_pages, int n_split, int chunk, float scale,
+               float softcap, cudaStream_t stream) {
+  if (g == 1)
+    return launch<T, DH, 1>(q, kp, vp, table, lengths, o, pm, pl, pacc, b,
+                            hkv, g, pt, max_pages, n_split, chunk, scale,
+                            softcap, stream);
+  if (g <= 4)
+    return launch<T, DH, 4>(q, kp, vp, table, lengths, o, pm, pl, pacc, b,
+                            hkv, g, pt, max_pages, n_split, chunk, scale,
+                            softcap, stream);
+  if (g <= 8)
+    return launch<T, DH, 8>(q, kp, vp, table, lengths, o, pm, pl, pacc, b,
+                            hkv, g, pt, max_pages, n_split, chunk, scale,
+                            softcap, stream);
+  return launch<T, DH, MAXG>(q, kp, vp, table, lengths, o, pm, pl, pacc, b,
+                             hkv, g, pt, max_pages, n_split, chunk, scale,
+                             softcap, stream);
 }
 
 template <typename T>
 int dispatch_dh(int dh, const void* q, const void* kp, const void* vp,
-                const int* table, const int* lengths, void* o, int b, int hkv,
-                int g, int pt, int max_pages, float scale, float softcap,
-                cudaStream_t stream) {
+                const int* table, const int* lengths, void* o, float* pm,
+                float* pl, float* pacc, int b, int hkv, int g, int pt,
+                int max_pages, int n_split, int chunk, float scale,
+                float softcap, cudaStream_t stream) {
   switch (dh) {
     case 32:
-      return launch<T, 32>(q, kp, vp, table, lengths, o, b, hkv, g, pt,
-                           max_pages, scale, softcap, stream);
+      return dispatch_g<T, 32>(q, kp, vp, table, lengths, o, pm, pl, pacc, b,
+                               hkv, g, pt, max_pages, n_split, chunk,
+                               scale, softcap, stream);
     case 64:
-      return launch<T, 64>(q, kp, vp, table, lengths, o, b, hkv, g, pt,
-                           max_pages, scale, softcap, stream);
+      return dispatch_g<T, 64>(q, kp, vp, table, lengths, o, pm, pl, pacc, b,
+                               hkv, g, pt, max_pages, n_split, chunk,
+                               scale, softcap, stream);
     case 128:
-      return launch<T, 128>(q, kp, vp, table, lengths, o, b, hkv, g, pt,
-                            max_pages, scale, softcap, stream);
+      return dispatch_g<T, 128>(q, kp, vp, table, lengths, o, pm, pl, pacc,
+                                b, hkv, g, pt, max_pages, n_split, chunk,
+                                scale, softcap, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -167,22 +334,30 @@ int dispatch_dh(int dh, const void* q, const void* kp, const void* vp,
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  q, pools, table, lengths and o are
-// contiguous.  Returns the launch's cudaError_t.
+// contiguous, q and the pools 16-byte aligned (the caller checks).  Keys
+// are split in n_split ranges of `chunk` (n_split * chunk >= max_pages *
+// pt); with n_split > 1, pm and pl hold n_split * b * hkv * g floats and
+// pacc dh times as many (scratch the caller allocates).
+// Returns the first launch error (cudaError_t), 0 on success.
 extern "C" int paged_attention(int dtype, int dh, const void* q,
                                const void* k_pool, const void* v_pool,
                                const int* block_table, const int* lengths,
-                               void* o, int b, int hkv, int g, int pt,
-                               int max_pages, float scale, float softcap,
-                               cudaStream_t stream) {
+                               void* o, float* pm, float* pl, float* pacc,
+                               int b, int hkv, int g, int pt, int max_pages,
+                               int n_split, int chunk, float scale,
+                               float softcap, cudaStream_t stream) {
   if (b <= 0 || hkv <= 0) return 0;
-  if (g <= 0 || g > MAXG || pt <= 0) return (int)cudaErrorInvalidValue;
+  if (g <= 0 || g > MAXG || pt <= 0 || n_split <= 0 || chunk <= 0 ||
+      (long long)n_split * chunk < (long long)max_pages * pt)
+    return (int)cudaErrorInvalidValue;
   if (dtype == 0)
     return dispatch_dh<float>(dh, q, k_pool, v_pool, block_table, lengths,
-                              o, b, hkv, g, pt, max_pages, scale, softcap,
-                              stream);
+                              o, pm, pl, pacc, b, hkv, g, pt, max_pages,
+                              n_split, chunk, scale, softcap, stream);
   if (dtype == 1)
     return dispatch_dh<__nv_bfloat16>(dh, q, k_pool, v_pool, block_table,
-                                      lengths, o, b, hkv, g, pt, max_pages,
-                                      scale, softcap, stream);
+                                      lengths, o, pm, pl, pacc, b, hkv, g, pt,
+                                      max_pages, n_split, chunk, scale,
+                                      softcap, stream);
   return (int)cudaErrorInvalidValue;
 }

@@ -9,6 +9,14 @@ Hopper kernel that replaces the Pallas ``flash_attention``
 (``repro/kernels/flash_attention.py:107``); on CPU tensors it computes
 the plain version.
 
+In bf16 the kernel runs on the tensor cores and, when the grid of
+64-row query tiles is under one wave of the card's SMs, splits the keys
+into ranges (``build.split_plan``, from shapes only) whose f32 partials a
+second kernel merges: still one call, one launch count.  Its 16-byte
+copies need q, k, v 16-byte aligned with strides that are multiples of 8
+elements; the wrapper checks and raises.  float32 runs the scalar path in
+one split.
+
 The CUDA path takes strided views: any tensor whose last dim is
 contiguous, so the model passes its (b, s, h, dh) activations and caches
 transposed, without a copy.  The output is allocated (b, sq, hq, dh) in
@@ -28,13 +36,16 @@ from repro_torch.kernels import build, ref
 
 HEAD_DIMS = (32, 64, 128)
 MAX_GROUP = 64     # query heads per kv head that fit one block's rows
+ROWS = 64          # query rows (queries x group) per bf16 block
+KEY_TILE = 64      # keys per K/V tile; a split's range is a multiple
+SPLIT_BLOCKS_PER_SM = 4   # the split plan's aim, under one wave of tiles
 
 
 @functools.cache
 def _fn():
     fn = build.library("flash_attention").flash_attention
-    fn.argtypes = ([ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 5 +
-                   [ctypes.c_int] * 5 +
+    fn.argtypes = ([ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 8 +
+                   [ctypes.c_int] * 7 +
                    [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float,
                     ctypes.c_float, ctypes.c_int, ctypes.c_int,
                     ctypes.c_void_p])
@@ -77,13 +88,23 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                       device=q.device).transpose(1, 2)
     if b == 0 or sq == 0:
         return out
+    n_split, chunk = plan(b, hq, hkv, sq, skv,
+                          build.sm_count(q.get_device()),
+                          q.dtype == torch.bfloat16)
+    if q.dtype == torch.bfloat16:
+        build.require_aligned(
+            "flash_attention",
+            {n: t.data_ptr() for n, t in (("q", q), ("k", k), ("v", v))},
+            {n: t.stride()[:3] for n, t in (("q", q), ("k", k), ("v", v))},
+            q.element_size())
+    pm, pl, pacc = build.split_scratch(n_split, b * hq * sq, dh, q.device)
+    ptr = lambda t: None if t is None else t.data_ptr()
     strides = (ctypes.c_longlong * 12)(
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3])
     rc = _fn()(build.ATTN_DTYPES[q.dtype], dh, q.data_ptr(), k.data_ptr(),
-               v.data_ptr(), out.data_ptr(),
-               None if kv_lens is None else kv_lens.data_ptr(),
-               b, hq, hkv, sq, skv, strides, 1.0 / math.sqrt(dh),
-               float(softcap), int(causal), int(window),
+               v.data_ptr(), out.data_ptr(), ptr(pm), ptr(pl), ptr(pacc),
+               ptr(kv_lens), b, hq, hkv, sq, skv, n_split, chunk, strides,
+               1.0 / math.sqrt(dh), float(softcap), int(causal), int(window),
                build.stream_of(q))
     build.check(rc, "flash_attention")
     flash_attention.launches += 1
@@ -91,3 +112,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 flash_attention.launches = 0
+
+
+def plan(b: int, hq: int, hkv: int, sq: int, skv: int, n_sm: int,
+         bf16: bool = True) -> tuple:
+    """(n_split, chunk) of one call: bf16 splits the keys when the
+    ``b * hkv * ceil(sq / bq)`` query tiles are under one wave of ``n_sm``
+    SMs, aiming at ``SPLIT_BLOCKS_PER_SM`` blocks per SM; float32 never
+    splits."""
+    bq = max(1, ROWS // (hq // hkv))
+    n_tiles = b * hkv * -(-sq // bq)
+    target = SPLIT_BLOCKS_PER_SM * n_sm if bf16 and n_tiles < n_sm else 0
+    return build.split_plan(skv, n_tiles, target, unit=KEY_TILE)

@@ -7,6 +7,12 @@ this launches ``csrc/paged_attention.cu``, the Hopper kernel that
 replaces the Pallas ``paged_attention``
 (``repro/kernels/paged_attention.py:76``); on CPU tensors it computes the
 plain version.  No sliding window, as in the Pallas kernel.
+
+The kernel splits the ``max_pages * page_tokens`` key positions into
+ranges (``plan``, from shapes only: ``lengths`` stays on the device) and
+a second kernel merges the ranges' f32 partials: still one call, one
+launch count.  Its 16-byte loads need q and the pools 16-byte aligned;
+the wrapper checks and raises.
 """
 from __future__ import annotations
 
@@ -20,13 +26,15 @@ from repro_torch.kernels import build, ref
 
 HEAD_DIMS = (32, 64, 128)
 MAX_GROUP = 16     # query heads per kv head held in one block's registers
+BLOCKS_PER_SM = 8  # the split plan's aim
+KEY_UNIT = 128     # a split's keys are a multiple of this
 
 
 @functools.cache
 def _fn():
     fn = build.library("paged_attention").paged_attention
-    fn.argtypes = ([ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 6 +
-                   [ctypes.c_int] * 5 +
+    fn.argtypes = ([ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 9 +
+                   [ctypes.c_int] * 7 +
                    [ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
@@ -68,9 +76,18 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
     out = torch.empty_like(q)
     if b == 0:
         return out
+    build.require_aligned(
+        "paged_attention", {"q": q.data_ptr(), "k_pool": k_pool.data_ptr(),
+                            "v_pool": v_pool.data_ptr()}, {},
+        q.element_size())
+    n_split, chunk = plan(b, hkv, pt, max_pages,
+                          build.sm_count(q.get_device()))
+    pm, pl, pacc = build.split_scratch(n_split, b * hkv * g, dh, q.device)
+    ptr = lambda t: None if t is None else t.data_ptr()
     rc = _fn()(build.ATTN_DTYPES[q.dtype], dh, q.data_ptr(),
                k_pool.data_ptr(), v_pool.data_ptr(), block_table.data_ptr(),
-               lengths.data_ptr(), out.data_ptr(), b, hkv, g, pt, max_pages,
+               lengths.data_ptr(), out.data_ptr(), ptr(pm), ptr(pl),
+               ptr(pacc), b, hkv, g, pt, max_pages, n_split, chunk,
                1.0 / math.sqrt(dh), float(softcap), build.stream_of(q))
     build.check(rc, "paged_attention")
     paged_attention.launches += 1
@@ -78,3 +95,12 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
 
 
 paged_attention.launches = 0
+
+
+def plan(b: int, hkv: int, pt: int, max_pages: int, n_sm: int) -> tuple:
+    """(n_split, chunk) of one call: enough key splits for about
+    ``BLOCKS_PER_SM`` blocks per SM over the ``b * hkv`` (sequence, kv
+    head) blocks, in chunks of a multiple of ``KEY_UNIT`` keys (the best
+    of 2-16 blocks per SM and 64-688-key chunks on the card, PERF.md)."""
+    return build.split_plan(max_pages * pt, b * hkv, BLOCKS_PER_SM * n_sm,
+                            unit=KEY_UNIT)

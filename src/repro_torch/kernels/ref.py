@@ -1,5 +1,7 @@
 """Plain PyTorch versions of the four kernels (port of
-``repro.kernels.ref``).
+``repro.kernels.ref``), and of the key-split arithmetic of the two
+attention kernels (partials per key range, then the merge that their
+combine kernels compute).
 
 Each wrapper computes these for CPU tensors; the tests hold them against
 the JAX kernels, and ``chip_smoke.py`` holds the CUDA kernels against them
@@ -16,10 +18,9 @@ import torch
 NEG_INF = -1e30
 
 
-def flash_attention_ref(q, k, v, *, causal=True, softcap=0.0, window=0,
-                        kv_lens=None):
-    """q (b,hq,sq,dh); k,v (b,hkv,skv,dh); kv_lens (b,) or None (= skv).
-    Query i of row b sits at position kv_lens[b] - sq + i."""
+def _flash_scores(q, k, *, causal, softcap, window, kv_lens):
+    """Scaled, softcapped f32 scores (b, hkv, g, sq, skv) and the mask of
+    valid keys (b, sq, skv) of the flash contract."""
     b, hq, sq, dh = q.shape
     _, hkv, skv, _ = k.shape
     g = hq // hkv
@@ -38,15 +39,93 @@ def flash_attention_ref(q, k, v, *, causal=True, softcap=0.0, window=0,
         ok = ok & (cols[None, None, :] <= rows[:, :, None])
     if window > 0:
         ok = ok & ((rows[:, :, None] - cols[None, None, :]) < window)
+    return s, ok
+
+
+def flash_attention_ref(q, k, v, *, causal=True, softcap=0.0, window=0,
+                        kv_lens=None):
+    """q (b,hq,sq,dh); k,v (b,hkv,skv,dh); kv_lens (b,) or None (= skv).
+    Query i of row b sits at position kv_lens[b] - sq + i."""
+    b, hq, sq, dh = q.shape
+    s, ok = _flash_scores(q, k, causal=causal, softcap=softcap,
+                          window=window, kv_lens=kv_lens)
     s = torch.where(ok[:, None, None], s, NEG_INF)
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bngqk,bnkd->bngqd", p.to(v.dtype).float(), v.float())
     return o.reshape(b, hq, sq, dh).to(q.dtype)
 
 
-def paged_attention_ref(q, k_pool, v_pool, block_table, lengths, *,
-                        softcap=0.0):
-    """q (b,hkv,g,dh); pools (n,pt,hkv,dh); table (b,np); lengths (b,)."""
+def split_partials_ref(s, valid, v, chunk: int):
+    """Per key range, what a split-K attention kernel writes before the
+    merge.  s (n, r, K) f32 scores of r query rows of each of n heads,
+    valid (n, r, K) bool, v (n, K, dh); keys [i * chunk, (i + 1) * chunk)
+    form split i.  Returns (m, l, acc): m, l (n_split, n, r), acc
+    (n_split, n, r, dh) f32, with p = exp(s - m) over the split's valid
+    keys, l its sum, acc = p (in the V dtype) . v.  A split with no valid
+    key for a row has l = 0 there (and m = -inf, acc = 0)."""
+    out = ([], [], [])
+    for lo in range(0, s.shape[-1], chunk):
+        x = s[..., lo:lo + chunk].masked_fill(~valid[..., lo:lo + chunk],
+                                              float("-inf"))
+        m = x.amax(-1)
+        p = torch.exp(x - torch.where(torch.isinf(m), 0.0, m)[..., None])
+        acc = torch.einsum("nrk,nkd->nrd", p.to(v.dtype).float(),
+                           v[:, lo:lo + chunk].float())
+        for lst, t in zip(out, (m, p.sum(-1), acc)):
+            lst.append(t)
+    return tuple(torch.stack(lst) for lst in out)
+
+
+def combine_ref(m, l, acc):
+    """The combine kernels' merge of :func:`split_partials_ref`'s
+    partials, over the splits: rows with no valid key in any split are
+    0 (the kernels' contract)."""
+    has = l > 0
+    mx = torch.where(has, m, float("-inf")).amax(0)
+    mx = torch.where(torch.isinf(mx), 0.0, mx)
+    c = torch.where(has, torch.exp(m - mx), 0.0)
+    lsum = (l * c).sum(0)[..., None]
+    a = (acc * c[..., None]).sum(0)
+    return torch.where(lsum > 0, a / lsum.clamp_min(1e-30), 0.0)
+
+
+def flash_attention_split_ref(q, k, v, *, chunk: int, causal=True,
+                              softcap=0.0, window=0, kv_lens=None):
+    """:func:`flash_attention_ref` computed as the bf16 kernel does with
+    its keys split in ranges of ``chunk``: partials, then the merge."""
+    b, hq, sq, dh = q.shape
+    _, hkv, skv, _ = k.shape
+    g = hq // hkv
+    s, ok = _flash_scores(q, k, causal=causal, softcap=softcap,
+                          window=window, kv_lens=kv_lens)
+    n = b * hkv
+    parts = split_partials_ref(
+        s.reshape(n, g * sq, skv),
+        ok[:, None, None].expand(b, hkv, g, sq, skv).reshape(n, g * sq, skv),
+        v.reshape(n, skv, dh), chunk)
+    return combine_ref(*parts).reshape(b, hq, sq, dh).to(q.dtype)
+
+
+def paged_attention_split_ref(q, k_pool, v_pool, block_table, lengths, *,
+                              chunk: int, softcap=0.0):
+    """:func:`paged_attention_ref` computed as the kernel does with its
+    key positions split in ranges of ``chunk``: partials, then the
+    merge."""
+    b, hkv, g, dh = q.shape
+    s, valid, v = _paged_scores(q, k_pool, v_pool, block_table, lengths,
+                                softcap=softcap)
+    n, K = b * hkv, s.shape[-1]
+    parts = split_partials_ref(
+        s.reshape(n, g, K),
+        valid[:, None, None].expand(b, hkv, g, K).reshape(n, g, K),
+        v.transpose(1, 2).reshape(n, K, dh), chunk)
+    return combine_ref(*parts).reshape(b, hkv, g, dh).to(q.dtype)
+
+
+def _paged_scores(q, k_pool, v_pool, block_table, lengths, *, softcap):
+    """Scaled, softcapped f32 scores (b, hkv, g, K) over the K = max_pages
+    * pt key positions, the mask of valid positions (b, K) and the gathered
+    V (b, K, hkv, dh)."""
     b, hkv, g, dh = q.shape
     _, pt, _, _ = k_pool.shape
     np_ = block_table.shape[1]
@@ -59,6 +138,14 @@ def paged_attention_ref(q, k_pool, v_pool, block_table, lengths, *,
         s = torch.tanh(s / softcap) * softcap
     valid = torch.arange(np_ * pt, device=q.device)[None, :] < \
         lengths.to(torch.long)[:, None]
+    return s, valid, v
+
+
+def paged_attention_ref(q, k_pool, v_pool, block_table, lengths, *,
+                        softcap=0.0):
+    """q (b,hkv,g,dh); pools (n,pt,hkv,dh); table (b,np); lengths (b,)."""
+    s, valid, v = _paged_scores(q, k_pool, v_pool, block_table, lengths,
+                                softcap=softcap)
     s = torch.where(valid[:, None, None, :], s, NEG_INF)
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bngk,bknd->bngd", p.to(v.dtype).float(), v.float())

@@ -11,6 +11,8 @@ implementations summing in different orders) and 2e-2 in bfloat16 (one
 bf16 rounding of p and of the output).  The gather and the scatter must
 be exact.
 """
+import importlib
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -191,3 +193,165 @@ def test_cpu_wrappers_compute_plain_versions_without_counting():
     with pytest.raises(ValueError):
         kernels.kv_layer_scatter(pool, tbl, stream[:1], layer=0)
     assert set(kernels.launch_counts().values()) == {0}
+
+
+# ---------------------------------------------------------------------------
+# What surrounds the split-K kernels: the key-split arithmetic (the combine
+# kernels' plain version), the host's launch plan, the alignment checks
+# ---------------------------------------------------------------------------
+
+_flash_mod = importlib.import_module("repro_torch.kernels.flash_attention")
+_paged_mod = importlib.import_module("repro_torch.kernels.paged_attention")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("pt,chunk", [(4, 8), (4, 64), (16, 24), (1, 5)])
+def test_paged_split_ref_matches_unsplit_and_pallas(dtype, pt, chunk):
+    """Partials over key ranges of ``chunk`` then the merge equal the
+    unsplit plain version and the Pallas kernel (interpret mode), at
+    ragged lengths around the range and page edges."""
+    rng = np.random.default_rng(7)
+    b, hkv, g, dh, npages = 6, 2, 4, 32, 80 // pt
+    npool = b * npages
+    qj, qt = _pair(rng, (b, hkv, g, dh), dtype)
+    kj, kt = _pair(rng, (npool, pt, hkv, dh), dtype)
+    vj, vt = _pair(rng, (npool, pt, hkv, dh), dtype)
+    tbl = rng.permutation(npool).reshape(b, npages).astype(np.int32)
+    lengths = np.array([1, chunk - 1, chunk, chunk + 1, 63, npages * pt],
+                       np.int32).clip(1, npages * pt)
+    args = (qt, kt, vt, torch.from_numpy(tbl), torch.from_numpy(lengths))
+    got = ref.paged_attention_split_ref(*args, chunk=chunk)
+    assert got.dtype == qt.dtype
+    assert_close(got, ref.paged_attention_ref(*args).float().numpy(),
+                 TOLS[dtype])
+    want = ops.paged_attention(qj, kj, vj, jnp.asarray(tbl),
+                               jnp.asarray(lengths))
+    assert_close(got, np.asarray(want.astype(jnp.float32)), TOLS[dtype])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("softcap,window,causal,sq,chunk", [
+    (0.0, 0, True, 17, 64), (30.0, 48, True, 40, 32),
+    (0.0, 0, False, 33, 64), (0.0, 0, True, 1, 16)])
+def test_flash_split_ref_matches_unsplit_and_pallas(dtype, softcap, window,
+                                                    causal, sq, chunk):
+    rng = np.random.default_rng(8)
+    b, hq, hkv, skv, dh = 2, 8, 2, 150, 32
+    qj, qt = _pair(rng, (b, hq, sq, dh), dtype)
+    kj, kt = _pair(rng, (b, hkv, skv, dh), dtype)
+    vj, vt = _pair(rng, (b, hkv, skv, dh), dtype)
+    kw = dict(causal=causal, softcap=softcap, window=window)
+    got = ref.flash_attention_split_ref(qt, kt, vt, chunk=chunk, **kw)
+    assert_close(got, ref.flash_attention_ref(qt, kt, vt, **kw).float()
+                 .numpy(), TOLS[dtype])
+    want = ops.flash_attention(qj, kj, vj, block_q=16, block_k=32, **kw)
+    assert_close(got, np.asarray(want.astype(jnp.float32)),
+                 3e-5 if dtype == "float32" else TOLS[dtype])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_split_ref_ragged_kv_lens(dtype):
+    """Per-row kv_lens with ranges that straddle each row's end: the
+    split arithmetic equals the unsplit plain version."""
+    rng = np.random.default_rng(9)
+    _, qt = _pair(rng, (3, 4, 9, 64), dtype)
+    _, kt = _pair(rng, (3, 4, 200, 64), dtype)
+    _, vt = _pair(rng, (3, 4, 200, 64), dtype)
+    lens = torch.tensor([9, 64, 200], dtype=torch.int32)
+    for chunk in (64, 128):
+        got = ref.flash_attention_split_ref(qt, kt, vt, chunk=chunk,
+                                            kv_lens=lens, window=40)
+        want = ref.flash_attention_ref(qt, kt, vt, kv_lens=lens, window=40)
+        assert_close(got, want.float().numpy(), TOLS[dtype])
+
+
+def test_combine_ignores_splits_without_valid_keys():
+    """A split with no valid key (l = 0) does not enter the merge, and a
+    row with no valid key at all comes out as 0, the kernels' contract."""
+    s = torch.tensor([[[1.0, 2.0, 3.0, 4.0], [0.5, 0.5, 0.5, 0.5]]])
+    valid = torch.tensor([[[True, True, False, False],
+                           [False, False, False, False]]])
+    v = torch.arange(8, dtype=torch.float32).view(1, 4, 2)
+    m, l, acc = ref.split_partials_ref(s, valid, v, 2)
+    assert l[1].eq(0).all() and l[0, 0, 1] == 0
+    out = ref.combine_ref(m, l, acc)
+    p = torch.softmax(torch.tensor([1.0, 2.0]), 0)
+    assert torch.allclose(out[0, 0], p @ v[0, :2])
+    assert torch.equal(out[0, 1], torch.zeros(2))
+
+
+@pytest.mark.parametrize("pt", [1, 4, 16, 64])
+def test_paged_plan_puts_every_key_in_exactly_one_split(pt):
+    """For any page size, page count and grid, split i takes keys [i *
+    chunk, (i + 1) * chunk): every key position below max_pages * pt lands
+    in exactly one split and no split lies wholly past the keys."""
+    for max_pages in (1, 2, 3, 31, 32, 67, 129, 512):
+        for b, hkv, n_sm in ((1, 1, 132), (8, 16, 132), (2, 16, 132),
+                             (64, 16, 132), (3, 2, 7)):
+            n_keys = max_pages * pt
+            n_split, chunk = _paged_mod.plan(b, hkv, pt, max_pages, n_sm)
+            assert chunk > 0 and chunk % _paged_mod.KEY_UNIT == 0
+            split_of = np.arange(n_keys) // chunk
+            assert split_of.max() == n_split - 1       # none past the keys
+            assert np.bincount(split_of, minlength=n_split).min() > 0
+            assert n_split * chunk >= n_keys > (n_split - 1) * chunk
+
+
+@pytest.mark.parametrize("g", [1, 4, 16, 64])
+def test_flash_plan_puts_every_key_in_exactly_one_split(g):
+    for skv in (1, 63, 64, 65, 130, 2048, 5000):
+        for b, hkv, sq in ((1, 16 // min(g, 16), 128), (2, 1, 1),
+                           (4, 8, 1024), (1, 1, 77)):
+            for bf16 in (True, False):
+                n_split, chunk = _flash_mod.plan(b, hkv * g, hkv, sq, skv,
+                                                 132, bf16)
+                assert chunk % _flash_mod.KEY_TILE == 0
+                assert n_split * chunk >= skv > (n_split - 1) * chunk
+                if not bf16:
+                    assert n_split == 1
+
+
+def test_plans_at_the_main_path_shapes():
+    """The append (32 query tiles) splits so the grid fills 132 SMs; the
+    1024-token prefill (256 tiles) does not split; the decode of 8
+    sequences x 16 kv heads splits 2048 key positions 8 ways, with GQA
+    g = 4 (4 kv heads) 16 ways."""
+    assert _flash_mod.plan(1, 16, 16, 128, 2048, 132) == (16, 128)
+    assert _flash_mod.plan(1, 16, 16, 1024, 2048, 132) == (1, 2048)
+    assert _flash_mod.plan(1, 16, 16, 128, 2048, 132, False) == (1, 2048)
+    assert _paged_mod.plan(8, 16, 64, 32, 132) == (8, 256)
+    assert _paged_mod.plan(8, 4, 64, 32, 132) == (16, 128)
+    assert _paged_mod.plan(2, 16, 4, 67, 132) == (3, 128)
+
+
+def test_require_aligned_raises_on_misalignment():
+    from repro_torch.kernels import build
+    build.require_aligned("k", {"q": 0x7f0000000100}, {"q": (8192, 64, 1024)},
+                          2)
+    build.require_aligned("k", {"q": 0x10}, {"q": (4, 12)}, 4)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        build.require_aligned("k", {"q": 0x7f0000000102}, {}, 2)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        build.require_aligned("k", {"q": 0x100}, {"q": (8192, 68, 1028)}, 2)
+    with pytest.raises(ValueError, match="multiples of 4"):
+        build.require_aligned("k", {"q": 0x100}, {"q": (6,)}, 4)
+
+
+def test_main_path_views_pass_the_alignment_check():
+    """The model's attention operands, transposed views of contiguous
+    (b, s, h, dh) activations and of one layer of the stacked padded
+    cache, satisfy the bf16 kernel's 16-byte rule; a view one element in
+    does not."""
+    from repro_torch.kernels import build
+    q = torch.empty(2, 128, 16, 64, dtype=torch.bfloat16).transpose(1, 2)
+    kc_all = torch.empty(3, 2, 2048, 16, 64, dtype=torch.bfloat16)
+    k = kc_all[1].transpose(1, 2)
+    ts = {"q": q, "k": k}
+    build.require_aligned("flash_attention",
+                          {n: t.data_ptr() for n, t in ts.items()},
+                          {n: t.stride()[:3] for n, t in ts.items()}, 2)
+    off = kc_all[1].view(-1)[1:].view(-1)[:2048 * 16 * 64].view(
+        1, 2048, 16, 64)
+    with pytest.raises(ValueError):
+        build.require_aligned("flash_attention", {"k": off.data_ptr()},
+                              {"k": off.stride()[:3]}, 2)
