@@ -12,26 +12,30 @@ Drives ``repro_torch`` (never the JAX package) on the card:
 2. builds the four CUDA kernels from src/repro_torch/kernels/csrc with
    nvcc for sm_90a, one nvcc process per source, all at once;
 3. holds each kernel against its plain PyTorch version at the main
-   paths' shapes plus other shapes (gather and scatter bit-exact;
+   paths' shapes plus other shapes (gather and scatter bit-exact, at the
+   installs' and the persists' shapes, one page, short chunks, bf16 and
+   f32 pools through permuted tables, the first and last layer;
    attention within 2e-2 in bf16 and 2e-5 in f32, at the edges of its
-   tiles, splits, pages and masks, and bit-identical over two calls),
-   and times the kernel, the plain version and one PyTorch call
-   computing the same function, with CUDA events (attention also with a
-   clean L2, and its main shapes split into their kernels under
-   torch.profiler); then times the round-1 persist (16 FullBlocks) the
-   old way (layer-major bytes, a host slice per block) against the
-   scatter's block-major pool, host time and D2H device time;
+   tiles, splits, pages and masks; every kernel bit-identical over two
+   calls), and times the kernel, the plain version and one PyTorch call
+   computing the same function, with CUDA events (also with a clean L2,
+   and split into their kernels under torch.profiler); times the main
+   gather and its indexing alternately, beside an empty kernel; then the
+   round-1 persist (16 FullBlocks) the old way (layer-major bytes, a
+   host slice per block) against the scatter's block-major pool, host
+   time and D2H device time;
 4. serves 6 agents x 3 rounds of full-width qwen1.5-0.5b (bf16, random
    weights from a seed) offline through the port's ServingSystem,
    asserting that every round finished, both read sides were used and
-   all four kernels launched (the scatter in every persist); then the
+   all four kernels launched (the scatter once per persist); then the
    blocking arm must give identical tokens, and a third run under
    torch.profiler says where the time goes;
 5. serves 3 agents x 4 rounds online (Poisson arrivals, think gaps on
    the modelled clock) at full width and depth, with a DRAM tier on
    each node and the think-time prefetcher, asserting that every
-   round finished, all four kernels launched, the tiers hit, prefetched
-   and evicted, and the blocking arm gave identical tokens;
+   round finished, all four kernels launched (the scatter once per
+   persist), the tiers hit, prefetched and evicted, and the blocking arm
+   gave identical tokens;
 6. f32 token identity at full width: ServingSystem against the port's
    cache-free reference (full forward, then decode);
 7. prints the ``kernels`` JSON line, then the contract line
@@ -157,72 +161,156 @@ def max_err(got, want, tol: float):
 # ---------------------------------------------------------------------------
 
 
-def gather_cases(cfg, rng):
-    from repro_torch.engines.kvio import kv_row_bytes
+def _device_bytes(shape, dtype, gen):
+    """Random finite values of ``dtype`` made on the card from ``gen``."""
+    if dtype == torch.uint8:
+        return torch.randint(0, 256, shape, dtype=dtype, device="cuda",
+                             generator=gen)
+    return torch.randn(shape, device="cuda", generator=gen).to(dtype)
+
+
+def _copy_times(call, plain, library, nbytes):
+    """The copy kernels' timings: dirty and clean L2, the kernels under
+    torch.profiler, the plain version, the library call (dirty and clean
+    L2), the bound."""
+    b_ms, b_by = bound(nbytes, 0, torch.uint8)
+    return dict(ms=time_ms(call), ms_clean_l2=time_ms(call, clean_l2=True),
+                parts_ms=kernel_parts(call), plain_ms=time_ms(plain),
+                library_ms=time_ms(library),
+                library_ms_clean_l2=time_ms(library, clean_l2=True),
+                bound_ms=b_ms, bound_by=b_by)
+
+
+def _pool_and_table(rng, gen, *, n, n_pool, n_layers, pt, feat, dtype):
+    """A random (n_pool, n_layers, pt, feat) pool and an int32 table of n
+    distinct pages: an arange when the pool has n pages, else a
+    permutation."""
+    pool = _device_bytes((n_pool, n_layers, pt, feat), dtype, gen)
+    ids = np.arange(n) if n_pool == n else rng.permutation(n_pool)[:n]
+    return pool, torch.from_numpy(ids.astype(np.int32)).cuda()
+
+
+def _gather_case(rng, gen, *, n, n_layers, layer, pt=64, feat,
+                 dtype=torch.uint8, n_pool=None):
     from repro_torch.kernels import kv_layer_gather, ref
-    # the round-2 install: 1056 context tokens -> 16 full 64-token pages
-    # of (layers, 64, row_bytes) uint8 FullBlocks
-    n, pt, row = 16, 64, kv_row_bytes(cfg)
-    pool = torch.from_numpy(rng.integers(
-        0, 256, (n, cfg.n_layers, pt, row), dtype=np.uint8)).cuda()
-    table = torch.arange(n, dtype=torch.int32, device="cuda")
-    layer = cfg.n_layers // 2
-    got = kv_layer_gather(pool, table, layer=layer)
-    want = ref.kv_layer_gather_ref(pool, table, layer=layer)
-    if not torch.equal(got, want):
-        raise AssertionError("kv_layer_gather is not bit-exact")
+    pool, table = _pool_and_table(rng, gen, n=n, n_pool=n_pool or n,
+                                  n_layers=n_layers, pt=pt, feat=feat,
+                                  dtype=dtype)
+    shapes = dict(pool=list(pool.shape), table=[n], layer=layer,
+                  dtype=str(dtype).replace("torch.", ""))
+    call = lambda: kv_layer_gather(pool, table, layer=layer)
+    got = _deterministic(call)
+    if not torch.equal(got, ref.kv_layer_gather_ref(pool, table,
+                                                    layer=layer)):
+        raise AssertionError(f"kv_layer_gather is not bit-exact at {shapes}")
     tl = table.long()
-    b_ms, b_by = bound(2 * n * pt * row, 0, torch.uint8)
-    return [dict(
-        shapes=dict(pool=list(pool.shape), table=[n], dtype="uint8"),
-        max_abs_err=0.0,
-        ms=time_ms(lambda: kv_layer_gather(pool, table, layer=layer)),
-        plain_ms=time_ms(lambda: ref.kv_layer_gather_ref(pool, table,
-                                                         layer=layer)),
-        library_ms=time_ms(lambda: pool[tl, layer]),
-        bound_ms=b_ms, bound_by=b_by)]
+    return dict(shapes=shapes, max_abs_err=0.0, **_copy_times(
+        call, lambda: ref.kv_layer_gather_ref(pool, table, layer=layer),
+        lambda: pool[tl, layer], 2 * got.numel() * got.element_size()))
 
 
-def _scatter_case(pool, table, stream, layer):
+def gather_cases(cfg, rng):
+    """The install's gathers: the round-2 install (1056 context tokens ->
+    16 full 64-token pages of (layers, 64, row_bytes) uint8 FullBlocks)
+    first, the round-3 install (19 pages), then the edges: one page, a
+    slab of two chunks with a short last one (4-token pages of 10252-
+    byte rows), bf16 and f32 pools of 48 pages through a permuted table,
+    the first and the last layer."""
+    from repro_torch.engines.kvio import kv_row_bytes
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    L, row = cfg.n_layers, kv_row_bytes(cfg)
+    case = lambda **kw: _gather_case(rng, gen, **{**dict(
+        n=16, n_layers=L, layer=L // 2, feat=row), **kw})
+    return [case(), case(n=19), case(n=1, layer=0),
+            case(pt=4, feat=10252, layer=L - 1),
+            case(n_pool=48, feat=row // 2, dtype=torch.bfloat16, layer=0),
+            case(n_pool=48, feat=row // 4, dtype=torch.float32,
+                 layer=L - 1)]
+
+
+def gather_against_indexing(cfg, rounds: int = 10) -> dict:
+    """The round-2 install's gather (16 pages, one layer) and the
+    indexing that computes the same, ``pool[tl, layer]``, each timed by
+    ``time_ms`` with the writing and the clean flush, alternately for
+    ``rounds`` rounds (the order reversed every other round), beside an
+    empty kernel: the harness's floor.  Returns {name: {"dirty": [ms per
+    round], "clean": [...]}}."""
+    from repro_torch.engines.kvio import kv_row_bytes
+    from repro_torch.kernels import kv_layer_gather
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    L, row = cfg.n_layers, kv_row_bytes(cfg)
+    pool = _device_bytes((16, L, 64, row), torch.uint8, gen)
+    table = torch.arange(16, dtype=torch.int32, device="cuda")
+    tl = table.long()
+    calls = {"gather": lambda: kv_layer_gather(pool, table, layer=L // 2),
+             "indexing": lambda: pool[tl, L // 2],
+             "empty kernel": lambda: torch.cuda._sleep(0)}
+    out = {k: {"dirty": [], "clean": []} for k in calls}
+    for r in range(rounds):
+        for k in (list(calls) if r % 2 == 0 else list(calls)[::-1]):
+            out[k]["dirty"].append(time_ms(calls[k]))
+            out[k]["clean"].append(time_ms(calls[k], clean_l2=True))
+    return out
+
+
+def _scatter_case(rng, gen, *, n, n_layers, layer, pt=64, feat,
+                  dtype=torch.uint8, n_pool=None):
+    """``layer`` an int (stream (n, pt, feat)) or a range (stream
+    (len, n, pt, feat)); the kernel writes the pool in place, equal to
+    the plain version, and a second call on a copy of the first's input
+    gives the same bytes."""
     from repro_torch.kernels import kv_layer_scatter, ref
-    want = ref.kv_layer_scatter_ref(pool.clone(), table, stream, layer=layer)
-    got = kv_layer_scatter(pool, table, stream, layer=layer)
-    if got is not pool or not torch.equal(got, want):
-        raise AssertionError("kv_layer_scatter is not bit-exact in place")
-    n, pt, feat = stream.shape
+    pool, table = _pool_and_table(rng, gen, n=n, n_pool=n_pool or n,
+                                  n_layers=n_layers, pt=pt, feat=feat,
+                                  dtype=dtype)
+    multi = isinstance(layer, range)
+    stream = _device_bytes(((len(layer),) if multi else ()) + (n, pt, feat),
+                           dtype, gen)
+    shapes = dict(pool=list(pool.shape), table=[n],
+                  layer=[layer.start, layer.stop] if multi else layer,
+                  dtype=str(dtype).replace("torch.", ""))
+    base = pool.clone()
+    want = ref.kv_layer_scatter_ref(base.clone(), table, stream, layer=layer)
+    call = lambda: kv_layer_scatter(pool, table, stream, layer=layer)
+    if call() is not pool or not torch.equal(pool, want):
+        raise AssertionError(f"kv_layer_scatter is not bit-exact in place "
+                             f"at {shapes}")
+    if not torch.equal(kv_layer_scatter(base, table, stream, layer=layer),
+                       pool):
+        raise AssertionError(f"two calls gave different bits at {shapes}")
+    del base, want
     tl = table.long()
-    b_ms, b_by = bound(2 * n * pt * feat * stream.element_size(), 0,
-                       torch.uint8)
-    return dict(
-        shapes=dict(pool=list(pool.shape), table=[n],
-                    dtype=str(pool.dtype).replace("torch.", "")),
-        max_abs_err=0.0,
-        ms=time_ms(lambda: kv_layer_scatter(pool, table, stream,
-                                            layer=layer)),
-        plain_ms=time_ms(lambda: ref.kv_layer_scatter_ref(
-            pool, table, stream, layer=layer)),
-        library_ms=time_ms(lambda: pool[:, layer].index_copy_(0, tl,
-                                                              stream)),
-        bound_ms=b_ms, bound_by=b_by)
+    if multi:
+        dst, src = pool[:, layer.start:layer.stop], stream.transpose(0, 1)
+    else:
+        dst, src = pool[:, layer], stream
+    return dict(shapes=shapes, max_abs_err=0.0, **_copy_times(
+        call, lambda: ref.kv_layer_scatter_ref(pool, table, stream,
+                                               layer=layer),
+        lambda: dst.index_copy_(0, tl, src),
+        2 * stream.numel() * stream.element_size()))
 
 
 def scatter_cases(cfg, rng):
+    """The persist's scatters: one layer of the round-1 persist (16 new
+    64-token FullBlocks of (layers, 64, row_bytes) uint8) first, then the
+    whole persists of rounds 1, 2 and 3 (16, 3 and 2 blocks, every layer
+    in one launch, as ``kvio.serialize_blocks`` calls it), then the
+    edges: one page, 4-token pages of 10252-byte rows (two chunks, the
+    last short) over layers 3 .. L - 1, bf16 and f32 pools of 48 pages through a permuted table, the
+    first and the last layer."""
     from repro_torch.engines.kvio import kv_row_bytes
-    # the round-1 persist: 16 new 64-token FullBlocks, (layers, 64,
-    # row_bytes) uint8 each, built block-major one layer at a time
-    n, pt, row = 16, 64, kv_row_bytes(cfg)
-    u8 = lambda *s: torch.from_numpy(
-        rng.integers(0, 256, s, dtype=np.uint8)).cuda()
-    main = _scatter_case(u8(n, cfg.n_layers, pt, row),
-                         torch.arange(n, dtype=torch.int32, device="cuda"),
-                         u8(n, pt, row), cfg.n_layers // 2)
-    # a bf16 pool of 48 pages, 16 of them written through a permuted table
-    bf = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(
-        np.float32)).to("cuda", torch.bfloat16)
-    perm = torch.from_numpy(rng.permutation(48)[:n].astype(np.int32)).cuda()
-    other = _scatter_case(bf(48, cfg.n_layers, pt, row // 2), perm,
-                          bf(n, pt, row // 2), cfg.n_layers - 1)
-    return [main, other]
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    L, row = cfg.n_layers, kv_row_bytes(cfg)
+    case = lambda **kw: _scatter_case(rng, gen, **{**dict(
+        n=16, n_layers=L, layer=L // 2, feat=row), **kw})
+    return [case(), case(layer=range(L)), case(n=3, layer=range(L)),
+            case(n=2, layer=range(L)), case(n=1, layer=0),
+            case(pt=4, feat=10252, layer=range(3, L)),
+            case(n_pool=48, feat=row // 2, dtype=torch.bfloat16,
+                 layer=L - 1),
+            case(n_pool=48, feat=row // 4, dtype=torch.float32,
+                 layer=range(L))]
 
 
 def split_sweep(cfg, reps=2):
@@ -529,9 +617,38 @@ def serve(cfg, params, trajs, device, **kw):
     return system, sessions, time.perf_counter() - t0
 
 
+class PersistCounter:
+    """Counts the DE's persists (``kvio.serialize_blocks`` calls) while
+    it is entered."""
+
+    def __enter__(self):
+        from repro_torch.engines import kvio
+        self.kvio, self.fn, self.n = kvio, kvio.serialize_blocks, 0
+
+        def counted(*args, **kw):
+            self.n += 1
+            return self.fn(*args, **kw)
+
+        kvio.serialize_blocks = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.kvio.serialize_blocks = self.fn
+
+
+def check_launches(launches: dict, persists: int, path: str) -> None:
+    """Every kernel of the path launched, the scatter once per persist."""
+    assert all(n > 0 for n in launches.values()), \
+        f"a kernel of the {path} path never launched: {launches}"
+    assert launches["kv_layer_scatter"] == persists > 0, \
+        f"{path}: {launches['kv_layer_scatter']} scatter launches for " \
+        f"{persists} persists"
+
+
 def serving_phase(cfg, device="cuda", rounds=AGENT_ROUNDS, n_agents=6,
                   block_tokens=64, max_seq=2048):
-    """Returns (stats, launches, wall_s, tokens_per_s, blocking_wall_s)."""
+    """Returns (stats, launches, wall_s, tokens_per_s, blocking_wall_s,
+    persists)."""
     from repro_torch import kernels
     from repro_torch.models import init_params
     from repro_torch.sim.traces import Round, Trajectory
@@ -541,7 +658,8 @@ def serving_phase(cfg, device="cuda", rounds=AGENT_ROUNDS, n_agents=6,
     kw = dict(n_pe=1, n_de=1, mode="dualpath", block_tokens=block_tokens,
               max_seq=max_seq, de_slots=8)
     kernels.reset_launch_counts()
-    system, sessions, wall = serve(cfg, params, trajs(), device, **kw)
+    with PersistCounter() as persists:
+        system, sessions, wall = serve(cfg, params, trajs(), device, **kw)
     launches = kernels.launch_counts()
     st = system.stats()
     assert all(s.rounds_done == len(rounds) for s in sessions), \
@@ -550,13 +668,12 @@ def serving_phase(cfg, device="cuda", rounds=AGENT_ROUNDS, n_agents=6,
     assert st["read_bytes_pe_side"] > 0 and st["read_bytes_de_side"] > 0, \
         "both read sides must be used"
     if device != "cpu":
-        assert all(n > 0 for n in launches.values()), \
-            f"a kernel of the main path never launched: {launches}"
+        check_launches(launches, persists.n, "offline")
     _, sessions_b, wall_b = serve(cfg, params, trajs(), device,
                                   pipelined=False, **kw)
     assert [s.context for s in sessions] == \
         [s.context for s in sessions_b], "blocking arm diverged"
-    return st, launches, wall, st["gen_tokens"] / wall, wall_b
+    return st, launches, wall, st["gen_tokens"] / wall, wall_b, persists.n
 
 
 def profile_phase(cfg, rounds=AGENT_ROUNDS, n_agents=6, top=8):
@@ -641,15 +758,17 @@ def tier_counters(system) -> dict:
 
 def online_phase(cfg, device="cuda", **kw):
     """Online serving at full depth (see :func:`online_run`): every round
-    finishes, all four kernels launch, the tiers hit, prefetch and evict,
-    and the blocking arm gives the pipelined arm's tokens.  Returns
-    (stats, launches, wall_s, tokens_per_s, blocking_wall_s, tier
-    counters in FullBlocks)."""
+    finishes, all four kernels launch (the scatter once per persist), the
+    tiers hit, prefetch and evict, and the blocking arm gives the
+    pipelined arm's tokens.  Returns (stats, launches, wall_s,
+    tokens_per_s, blocking_wall_s, tier counters in FullBlocks,
+    persists)."""
     from repro_torch import kernels
     from repro_torch.models import init_params
     params = init_params(cfg, seed=0, device=device)
     kernels.reset_launch_counts()
-    system, sessions, wall = online_run(cfg, params, device, **kw)
+    with PersistCounter() as persists:
+        system, sessions, wall = online_run(cfg, params, device, **kw)
     launches = kernels.launch_counts()
     st, blocks = system.stats(), tier_counters(system)
     n_rounds = len(kw.get("rounds", ONLINE_ROUNDS))
@@ -658,13 +777,13 @@ def online_phase(cfg, device="cuda", **kw):
     for k, v in blocks.items():
         assert v > 0, f"online phase: {k} is 0"
     if device != "cpu":
-        assert all(n > 0 for n in launches.values()), \
-            f"a kernel of the online path never launched: {launches}"
+        check_launches(launches, persists.n, "online")
     _, sessions_b, wall_b = online_run(cfg, params, device, pipelined=False,
                                        **kw)
     assert [s.context for s in sessions] == \
         [s.context for s in sessions_b], "online blocking arm diverged"
-    return st, launches, wall, st["gen_tokens"] / wall, wall_b, blocks
+    return (st, launches, wall, st["gen_tokens"] / wall, wall_b, blocks,
+            persists.n)
 
 
 def reference_contexts(cfg, params, rounds, seed_tid, device):
@@ -779,23 +898,32 @@ def main() -> int:
             print(f"{name} {json.dumps(c['shapes'])}: err {c['max_abs_err']:.3g}"
                   f" kernel {c['ms']:.4f} ms plain {c['plain_ms']:.4f} ms "
                   f"library {'n/a' if lib is None else f'{lib:.4f} ms'} "
-                  f"bound {c['bound_ms']:.4f} ms ({c['bound_by']}, "
+                  + ("" if "library_ms_clean_l2" not in c else
+                     f"(clean L2 {c['library_ms_clean_l2']:.4f} ms) ")
+                  + f"bound {c['bound_ms']:.4f} ms ({c['bound_by']}, "
                   f"{100 * c['bound_ms'] / c['ms']:.1f} % of it)"
                   + ("" if "ms_clean_l2" not in c else
                      f"; clean L2 {c['ms_clean_l2']:.4f} ms")
                   + ("" if not c.get("parts_ms") else
                      "; warm " + ", ".join(f"{k} {v:.4f} ms"
                                            for k, v in c["parts_ms"].items())))
+    alternating = gather_against_indexing(cfg)
+    for k, flushes in alternating.items():
+        print(f"{k}, {len(flushes['dirty'])} alternating rounds, ms median "
+              "[min, max]: " + "; ".join(
+                  f"{f} {np.median(v):.4f} [{min(v):.4f}, {max(v):.4f}]"
+                  for f, v in flushes.items()))
     persist = persist_ab(cfg)
     for way, (host_ms, d2h_ms) in persist.items():
         print(f"persist of 16 FullBlocks, {way} way: {host_ms:.3f} ms host "
               f"(median), {d2h_ms:.3f} ms D2H device time per persist")
 
     # 4. serving at full width, bf16
-    st, launches, wall, tps, wall_b = serving_phase(cfg)
+    st, launches, wall, tps, wall_b, persists = serving_phase(cfg)
     print("serving stats:", json.dumps(st))
     print(f"serving: {wall:.3f} s real wall (pipelined), {wall_b:.3f} s "
-          f"(blocking), {tps:.1f} generated tokens/s, launches {launches}")
+          f"(blocking), {tps:.1f} generated tokens/s, launches {launches}, "
+          f"{persists} persists")
 
     wall_p, busy, rows = profile_phase(cfg)
     print(f"where the time goes (profiled pipelined run): {wall_p:.3f} s "
@@ -806,11 +934,12 @@ def main() -> int:
         print(f"  {ms:9.1f} ms {calls:7d} calls  {name}{kernels_of}")
 
     # 5. online serving with DRAM tiers and the think-time prefetcher
-    st_o, launches_o, wall_o, tps_o, wall_ob, blocks_o = online_phase(cfg)
+    st_o, launches_o, wall_o, tps_o, wall_ob, blocks_o, persists_o = \
+        online_phase(cfg)
     print("online stats:", json.dumps(st_o))
     print(f"online: {wall_o:.3f} s real wall (pipelined), {wall_ob:.3f} s "
           f"(blocking), {tps_o:.1f} generated tokens/s, launches "
-          f"{launches_o}; tier of {ONLINE_TIER_BLOCKS} FullBlocks per node, "
+          f"{launches_o}, {persists_o} persists; tier of {ONLINE_TIER_BLOCKS} FullBlocks per node, "
           f"in FullBlocks: {json.dumps(blocks_o)}; modelled seconds: wall "
           f"{st_o['wall_s']:.4f}, ttft_p99 {st_o['ttft_p99']:.4f}, "
           f"tpot_mean {st_o['tpot_mean']:.6f}")
@@ -847,6 +976,7 @@ def main() -> int:
             cases=cs))
     line[1]["persist_ms"] = {w: dict(host_ms=h, d2h_ms=d)
                              for w, (h, d) in persist.items()}
+    line[1]["persists_by_path"] = dict(offline=persists, online=persists_o)
     print(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

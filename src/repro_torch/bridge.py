@@ -7,7 +7,8 @@ tree)``), so this module imports neither ``jax`` nor ``repro``.
 through their uint16 bits: ``np.asarray(x).view(np.uint16)`` and then
 ``.view(torch.bfloat16)``.  The reference stacks block parameters along a
 leading layer axis; the port keeps one dict per layer, so the blocks are
-unstacked here.
+unstacked here.  Like every entry point of the port, each converter
+puts its tensors on the card unless the caller names the CPU.
 """
 from __future__ import annotations
 
@@ -17,10 +18,12 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.device import resolve
 
 
-def to_torch(x, device="cpu") -> torch.Tensor:
+def to_torch(x, device="cuda") -> torch.Tensor:
     """numpy array (bf16 included) -> torch tensor on ``device``."""
+    device = resolve(device)
     a = np.asarray(x)
     if a.dtype.name == "bfloat16":
         return torch.from_numpy(a.view(np.uint16).copy()).view(
@@ -48,9 +51,10 @@ def _unstack(tree, i: int):
     return tree[i]
 
 
-def params_from_jax(np_tree: Dict, cfg: ModelConfig, device="cpu") -> Dict:
+def params_from_jax(np_tree: Dict, cfg: ModelConfig, device="cuda") -> Dict:
     """The reference's ``init_params`` tree (as numpy) -> the port's
     parameters (dense family: ``blocks`` unstacked into a list)."""
+    device = resolve(device)
     out = {k: _convert(v, device) for k, v in np_tree.items()
            if k != "blocks"}
     out["blocks"] = [_convert(_unstack(np_tree["blocks"], i), device)
@@ -58,9 +62,9 @@ def params_from_jax(np_tree: Dict, cfg: ModelConfig, device="cpu") -> Dict:
     return out
 
 
-def state_from_jax(np_state: Dict, device="cpu") -> Dict:
+def state_from_jax(np_state: Dict, device="cuda") -> Dict:
     """Decode state: both packages use {"kv": {"k","v": (L,b,S,hkv,dh)}}."""
-    return _convert(np_state, device)
+    return _convert(np_state, resolve(device))
 
 
 def _as_np(x) -> np.ndarray:

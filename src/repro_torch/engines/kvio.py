@@ -5,9 +5,9 @@ The engines keep decode state as padded device buffers
 ``{"kv": {"k","v": (L, b, S, hkv, dh)}}``; storage holds host FullBlocks
 ``(L, tokens, row_bytes)`` uint8 with row = k ‖ v, byte for byte the
 reference's layout.  :func:`serialize_blocks` is the DE's persist, which
-writes each layer into its FullBlock pages with the ``kv_layer_scatter``
-kernel.  :func:`layer_stream` is layerwise loading (paper
-§4.1): the hit FullBlocks go to the card once per install, and each
+writes every layer into its FullBlock pages with one launch of the
+``kv_layer_scatter`` kernel.  :func:`layer_stream` is layerwise loading
+(paper §4.1): the hit FullBlocks go to the card once per install, and each
 layer's LayerBlock stream is gathered there by the ``kv_layer_gather``
 kernel, with the next layer's gather already submitted on the
 TrafficManager while the current layer is installed.
@@ -106,17 +106,18 @@ def serialize_blocks(cfg: ModelConfig, state, slot: int, b0: int, b1: int,
     """FullBlocks ``b0 .. b1-1`` of one slot -> (b1-b0, n_attn_layers,
     block_tokens, row_bytes) uint8, block-major, row = k ‖ v: the DE's
     persist.  The layer-major byte view is built on the device once and
-    each layer's LayerBlock stream goes into its FullBlock pages through
-    the ``kv_layer_scatter`` kernel; the block-major pool then comes to
-    the host in one copy, so every FullBlock is a contiguous ``[i]``."""
+    every layer's LayerBlock stream goes into its FullBlock pages in one
+    launch of the ``kv_layer_scatter`` kernel; the block-major pool then
+    comes to the host in one copy, so every FullBlock is a contiguous
+    ``[i]``."""
     n, bt = b1 - b0, block_tokens
     rows = _kv_bytes(cfg, state, slot, b0 * bt, b1 * bt)    # (L, n·bt, row)
     n_l, _, row = rows.shape
     pool = torch.empty((n, n_l, bt, row), dtype=torch.uint8,
                        device=rows.device)
     table = torch.arange(n, dtype=torch.int32, device=rows.device)
-    for li in range(n_l):
-        kv_layer_scatter(pool, table, rows[li].view(n, bt, row), layer=li)
+    kv_layer_scatter(pool, table, rows.view(n_l, n, bt, row),
+                     layer=range(n_l))
     return pool.cpu().numpy()
 
 

@@ -5,8 +5,9 @@ a request, gathered from the stacked FullBlock pool into a contiguous
 (n, page_tokens, feat) stream right before that layer is installed
 (paper §4.1).  On a CUDA tensor this launches ``csrc/kv_gather.cu``, the
 Hopper kernel that replaces the Pallas ``kv_layer_gather``
-(``repro/kernels/kv_gather.py:30``); on a CPU tensor it computes the
-plain version.  Bit-exact for every dtype.
+(``repro/kernels/kv_gather.py:30``), on the copy engine planned by
+``kv_copy``; on a CPU tensor it computes the plain version.  Bit-exact
+for every dtype.
 """
 from __future__ import annotations
 
@@ -15,7 +16,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels import build, ref
+from repro_torch.kernels import build, kv_copy, ref
 
 
 @functools.cache
@@ -23,6 +24,7 @@ def _fn():
     fn = build.library("kv_gather").kv_layer_gather
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                    ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
                    ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -37,24 +39,18 @@ def kv_layer_gather(pool: torch.Tensor, table: torch.Tensor, *,
         raise IndexError(f"layer {layer} outside [0, {n_layers})")
     if pool.device.type == "cpu":
         return ref.kv_layer_gather_ref(pool, table, layer=layer)
-    build.require_cuda("kv_layer_gather", pool, table)
-    if table.dtype != torch.int32 or table.dim() != 1:
-        raise ValueError("kv_layer_gather: table must be 1-D int32")
-    page_bytes = pt * feat * pool.element_size()
-    if page_bytes % 16 or pool.data_ptr() % 16:
-        raise ValueError("kv_layer_gather: pages must be whole 16-byte "
-                         f"vectors (page bytes {page_bytes})")
-    pool, table = pool.contiguous(), table.contiguous()
     n = table.shape[0]
     out = torch.empty((n, pt, feat), dtype=pool.dtype, device=pool.device)
+    slab = kv_copy.check_operands("kv_layer_gather", pool, out, table)
     if n == 0:
         return out
-    if n > 65535:
-        raise ValueError(f"kv_layer_gather: {n} pages exceed one grid")
+    chunk, n_chunks, grid = kv_copy.plan(n, slab,
+                                         build.sm_count(pool.device.index))
     # page ids outside [0, n_pool) trip the kernel's device-side assert
     # (reported at the next synchronisation, like PyTorch's indexing)
-    rc = _fn()(pool.data_ptr(), table.data_ptr(), out.data_ptr(), n,
-               page_bytes, n_pool, n_layers, layer, build.stream_of(pool))
+    rc = _fn()(pool.data_ptr(), table.data_ptr(), out.data_ptr(), n, slab,
+               n_pool, n_layers, layer, chunk, n_chunks, grid,
+               build.stream_of(pool))
     build.check(rc, "kv_layer_gather")
     kv_layer_gather.launches += 1
     return out

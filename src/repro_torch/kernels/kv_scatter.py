@@ -1,23 +1,28 @@
 """KV LayerBlock scatter — the persist-side data movement.
 
-``pool[table[i], layer] = stream[i]``, in place: one layer's LayerBlock
-stream written back into its FullBlock pages, the inverse of
-``kv_layer_gather``.  The DE's persist (``kvio.serialize_blocks``) calls
-it once per layer to turn the layer-major KV of a finished round into
-block-major FullBlocks.  On a CUDA tensor this launches
+``pool[table[i], layer] = stream[i]``, in place: LayerBlock streams
+written back into their FullBlock pages, the inverse of
+``kv_layer_gather``.  ``layer`` is one layer, with stream (n, pt, feat)
+(the Pallas contract), or a ``range`` of consecutive layers, with stream
+(len(range), n, pt, feat): the same function for each layer of the range,
+in one launch.  The DE's persist (``kvio.serialize_blocks``) calls it
+once with every layer to turn the layer-major KV of a finished round
+into block-major FullBlocks.  On a CUDA tensor this launches
 ``csrc/kv_scatter.cu``, the Hopper kernel that replaces the Pallas
-``kv_layer_scatter`` (``repro/kernels/kv_gather.py:61``); on a CPU
-tensor it computes the plain version.  Bit-exact for every dtype.  The
-table's ids must be distinct.
+``kv_layer_scatter`` (``repro/kernels/kv_gather.py:61``), on the copy
+engine planned by ``kv_copy``; on a CPU tensor it computes the
+plain version.  Bit-exact for every dtype.  The table's ids must be
+distinct.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Union
 
 import torch
 
-from repro_torch.kernels import build, ref
+from repro_torch.kernels import build, kv_copy, ref
 
 
 @functools.cache
@@ -25,45 +30,46 @@ def _fn():
     fn = build.library("kv_scatter").kv_layer_scatter
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                    ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+                   ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
 def kv_layer_scatter(pool: torch.Tensor, table: torch.Tensor,
-                     stream: torch.Tensor, *, layer: int) -> torch.Tensor:
+                     stream: torch.Tensor, *,
+                     layer: Union[int, range]) -> torch.Tensor:
     """pool (n_pool, layers, pt, feat); table (n,) int32, ids distinct;
-    stream (n, pt, feat) -> ``pool``, written in place (the port's form
-    of the Pallas kernel's input/output aliasing)."""
+    stream (n, pt, feat) for an int ``layer``, (len(layer), n, pt, feat)
+    for a range of consecutive layers -> ``pool``, written in place (the
+    port's form of the Pallas kernel's input/output aliasing)."""
     n_pool, n_layers, pt, feat = pool.shape
-    if not 0 <= layer < n_layers:
-        raise IndexError(f"layer {layer} outside [0, {n_layers})")
     n = table.shape[0]
-    if tuple(stream.shape) != (n, pt, feat) or stream.dtype != pool.dtype:
+    if isinstance(layer, range):
+        if layer.step != 1 or len(layer) == 0:
+            raise ValueError(f"kv_layer_scatter: {layer} is not a non-empty "
+                             "range of consecutive layers")
+        first, count, want = layer.start, len(layer), (len(layer), n, pt, feat)
+    else:
+        first, count, want = layer, 1, (n, pt, feat)
+    if not (0 <= first and first + count <= n_layers):
+        raise IndexError(f"layer {layer} outside [0, {n_layers})")
+    if tuple(stream.shape) != want or stream.dtype != pool.dtype:
         raise ValueError(f"kv_layer_scatter: stream {tuple(stream.shape)} "
-                         f"{stream.dtype} does not match ({n}, {pt}, "
-                         f"{feat}) {pool.dtype}")
+                         f"{stream.dtype} does not match {want} {pool.dtype}")
     if pool.device.type == "cpu":
         return ref.kv_layer_scatter_ref(pool, table, stream, layer=layer)
-    build.require_cuda("kv_layer_scatter", pool, table, stream)
-    if table.dtype != torch.int32 or table.dim() != 1:
-        raise ValueError("kv_layer_scatter: table must be 1-D int32")
-    if not pool.is_contiguous():
-        raise ValueError("kv_layer_scatter: the pool is written in place "
-                         "and must be contiguous")
-    stream, table = stream.contiguous(), table.contiguous()
-    page_bytes = pt * feat * pool.element_size()
-    if page_bytes % 16 or pool.data_ptr() % 16 or stream.data_ptr() % 16:
-        raise ValueError("kv_layer_scatter: pages must be whole 16-byte "
-                         f"vectors (page bytes {page_bytes})")
+    slab = kv_copy.check_operands("kv_layer_scatter", pool, stream, table)
     if n == 0:
         return pool
-    if n > 65535:
-        raise ValueError(f"kv_layer_scatter: {n} pages exceed one grid")
+    chunk, n_chunks, grid = kv_copy.plan(count * n, slab,
+                                         build.sm_count(pool.device.index))
     # page ids outside [0, n_pool) trip the kernel's device-side assert
     # (reported at the next synchronisation, like PyTorch's indexing)
     rc = _fn()(pool.data_ptr(), table.data_ptr(), stream.data_ptr(), n,
-               page_bytes, n_pool, n_layers, layer, build.stream_of(pool))
+               slab, n_pool, n_layers, first, count, chunk, n_chunks, grid,
+               build.stream_of(pool))
     build.check(rc, "kv_layer_scatter")
     kv_layer_scatter.launches += 1
     return pool

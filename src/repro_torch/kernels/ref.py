@@ -156,7 +156,13 @@ def kv_layer_gather_ref(pool, table, *, layer: int):
     return pool[table.to(torch.long), layer]
 
 
-def kv_layer_scatter_ref(pool, table, stream, *, layer: int):
-    """In place: ``pool[table[i], layer] = stream[i]``; returns pool."""
+def kv_layer_scatter_ref(pool, table, stream, *, layer):
+    """In place: ``pool[table[i], layer] = stream[i]``; returns pool.  For
+    a ``range`` of layers, stream (len(layer), n, pt, feat) and the same
+    for each layer of the range."""
+    if isinstance(layer, range):
+        for j, li in enumerate(layer):
+            kv_layer_scatter_ref(pool, table, stream[j], layer=li)
+        return pool
     pool[table.to(torch.long), layer] = stream
     return pool

@@ -55,6 +55,8 @@ def test_no_source_file_imports_jax_or_repro():
 
 
 def test_entry_points_without_device_raise_without_cuda(monkeypatch):
+    import numpy as np
+    from repro_torch import bridge
     from repro_torch.configs import get_config
     from repro_torch.models import init_decode_state, init_params
     from repro_torch.serving import ServingSystem
@@ -67,6 +69,17 @@ def test_entry_points_without_device_raise_without_cuda(monkeypatch):
     params = init_params(cfg, device="cpu")
     with pytest.raises(RuntimeError, match="cuda"):
         ServingSystem(cfg, params)
+    # the bridge carries the reference's weights and state across: on the
+    # card unless the CPU is named
+    blocks = {"w": np.zeros((cfg.n_layers, 2), np.float32)}
+    with pytest.raises(RuntimeError, match="cuda"):
+        bridge.to_torch(np.zeros(3, np.float32))
+    with pytest.raises(RuntimeError, match="cuda"):
+        bridge.params_from_jax({"embed": np.zeros(2, np.float32),
+                                "blocks": blocks}, cfg)
+    with pytest.raises(RuntimeError, match="cuda"):
+        bridge.state_from_jax({"kv": {"k": np.zeros(2, np.float32)}})
+    assert bridge.to_torch(np.ones(3, np.float32), "cpu").device.type == "cpu"
 
 
 def test_cuda_path_raises_on_cpu_only_arguments():

@@ -36,7 +36,7 @@ def _pair(rng, shape, dtype):
     (bf16 rounds from the same float32 in both)."""
     x = rng.standard_normal(shape).astype(np.float32)
     j = jnp.asarray(x).astype(dtype)
-    return j, to_torch(np.asarray(j))
+    return j, to_torch(np.asarray(j), "cpu")
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -123,7 +123,7 @@ def test_gather_plain_matches_pallas_exactly(dtype):
     else:
         pool_j = jnp.asarray(rng.standard_normal(
             (npool, nl, pt, feat)).astype(np.float32)).astype(dtype)
-    pool_t = to_torch(np.asarray(pool_j))
+    pool_t = to_torch(np.asarray(pool_j), "cpu")
     tbl = rng.choice(npool, n, replace=False).astype(np.int32)
     for layer in (0, nl - 1):
         want = ops.kv_layer_gather(pool_j, jnp.asarray(tbl), layer=layer)
@@ -156,8 +156,8 @@ def test_scatter_plain_matches_pallas_exactly(dtype):
     for layer in (0, nl - 1):
         want = ops.kv_layer_scatter(pool_j.copy(), jnp.asarray(tbl),
                                     stream_j, layer=layer)
-        pool_t = to_torch(np.asarray(pool_j))
-        stream_t = to_torch(np.asarray(stream_j))
+        pool_t = to_torch(np.asarray(pool_j), "cpu")
+        stream_t = to_torch(np.asarray(stream_j), "cpu")
         plain = ref.kv_layer_scatter_ref(pool_t.clone(), torch.from_numpy(tbl),
                                          stream_t, layer=layer)
         assert_exact(as_u8(plain), np.asarray(want).view(np.uint8))
@@ -166,6 +166,70 @@ def test_scatter_plain_matches_pallas_exactly(dtype):
         assert got is pool_t
         assert_exact(as_u8(pool_t), np.asarray(want).view(np.uint8))
     assert kernels.kv_layer_scatter.launches == 0
+
+
+def _bytes_pair(rng, shape, dtype):
+    """Random values of ``dtype`` as a JAX array and a CPU torch tensor."""
+    if dtype == "uint8":
+        x = jnp.asarray(rng.integers(0, 256, shape).astype(np.uint8))
+    else:
+        x = jnp.asarray(rng.standard_normal(shape).astype(
+            np.float32)).astype(dtype)
+    return x, to_torch(np.asarray(x), "cpu")
+
+
+@pytest.mark.parametrize("dtype", ["uint8", "bfloat16", "float32"])
+@pytest.mark.parametrize("layers", ["all", "sub"])
+def test_multi_layer_scatter_matches_pallas_per_layer(dtype, layers):
+    """A range of layers in one call is the Pallas kernel (interpret mode)
+    applied to each layer of the range: the plain version and the CPU
+    wrapper give its bytes, through a permuted distinct table on a pool
+    larger than the table, and the wrapper writes the given pool in
+    place, returns it and counts no launch."""
+    rng = np.random.default_rng(10)
+    npool, nl, pt, feat, n = 24, 6, 4, 48, 7
+    rng_layers = range(nl) if layers == "all" else range(2, 5)
+    pool_j, pool_t = _bytes_pair(rng, (npool, nl, pt, feat), dtype)
+    stream_j, stream_t = _bytes_pair(rng, (len(rng_layers), n, pt, feat),
+                                     dtype)
+    tbl = rng.permutation(npool)[:n].astype(np.int32)
+    want = pool_j.copy()
+    for j, li in enumerate(rng_layers):
+        want = ops.kv_layer_scatter(want, jnp.asarray(tbl), stream_j[j],
+                                    layer=li)
+    want = np.asarray(want).view(np.uint8)
+    as_u8 = lambda t: t.view(torch.uint8) if dtype != "uint8" else t
+    plain = ref.kv_layer_scatter_ref(pool_t.clone(), torch.from_numpy(tbl),
+                                     stream_t, layer=rng_layers)
+    assert_exact(as_u8(plain), want)
+    kernels.reset_launch_counts()
+    got = kernels.kv_layer_scatter(pool_t, torch.from_numpy(tbl), stream_t,
+                                   layer=rng_layers)
+    assert got is pool_t
+    assert_exact(as_u8(pool_t), want)
+    assert kernels.kv_layer_scatter.launches == 0
+
+
+def test_scatter_rejects_streams_and_ranges_that_do_not_match():
+    pool = torch.zeros((4, 3, 2, 16), dtype=torch.uint8)
+    tbl = torch.tensor([2, 0], dtype=torch.int32)
+    ok = torch.ones((3, 2, 2, 16), dtype=torch.uint8)
+    kernels.kv_layer_scatter(pool, tbl, ok, layer=range(3))
+    assert (pool[[2, 0]] == 1).all() and (pool[[1, 3]] == 0).all()
+    for bad in (ok[:2], ok[0], ok.view(torch.int8),
+                torch.ones((3, 2, 2, 8), dtype=torch.uint8)):
+        with pytest.raises(ValueError):
+            kernels.kv_layer_scatter(pool, tbl, bad, layer=range(3))
+    with pytest.raises(ValueError):        # one layer takes (n, pt, feat)
+        kernels.kv_layer_scatter(pool, tbl, ok, layer=0)
+    with pytest.raises(ValueError):        # not consecutive
+        kernels.kv_layer_scatter(pool, tbl, ok[:2], layer=range(0, 3, 2))
+    with pytest.raises(ValueError):        # empty
+        kernels.kv_layer_scatter(pool, tbl, ok[:0], layer=range(1, 1))
+    with pytest.raises(IndexError):
+        kernels.kv_layer_scatter(pool, tbl, ok[:2], layer=range(2, 4))
+    with pytest.raises(IndexError):
+        kernels.kv_layer_scatter(pool, tbl, ok[:2], layer=range(-1, 1))
 
 
 def test_cpu_wrappers_compute_plain_versions_without_counting():
@@ -355,3 +419,56 @@ def test_main_path_views_pass_the_alignment_check():
     with pytest.raises(ValueError):
         build.require_aligned("flash_attention", {"k": off.data_ptr()},
                               {"k": off.stride()[:3]}, 2)
+
+
+# ---------------------------------------------------------------------------
+# The copy engine's plan (csrc/kv_copy.cuh, kernels/kv_copy.py)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("pt", [4, 16, 64])
+@pytest.mark.parametrize("chunk_bytes", [32 << 10, 4096, 48])
+def test_copy_plan_puts_every_byte_in_exactly_one_chunk(monkeypatch, pt,
+                                                        chunk_bytes):
+    """Every byte of every slab lies in exactly one work item: the chunks
+    tile the slab, ``(n_chunks - 1) * chunk < slab <= n_chunks * chunk``
+    (the kernel's host check refuses any other plan), chunks are whole
+    16-byte vectors, only a slab's last chunk is short, and the grid
+    is within the items and the SMs, at 4-, 16- and 64-token pages of
+    rows that do and do not divide into chunks."""
+    from repro_torch.kernels import kv_copy
+    monkeypatch.setattr(kv_copy, "CHUNK_BYTES", chunk_bytes)
+    for row in (16, 4096, 10240, 10252, 8192 + 48):
+        slab = pt * row
+        for n_slabs, n_sm in ((1, 132), (3, 132), (16, 132), (384, 132),
+                              (5, 2)):
+            chunk, n_chunks, grid = kv_copy.plan(n_slabs, slab, n_sm)
+            assert chunk % 16 == 0 and chunk <= max(chunk_bytes, 16)
+            assert (n_chunks - 1) * chunk < slab <= n_chunks * chunk
+            assert 1 <= grid <= min(n_slabs * n_chunks,
+                                    n_sm * kv_copy.BLOCKS_PER_SM)
+            # chunk c of a slab covers [c * chunk, min((c + 1) * chunk,
+            # slab)): the last is the only short one, a whole number of
+            # 16-byte vectors, and none is empty
+            last = slab - (n_chunks - 1) * chunk
+            assert 0 < last <= chunk and last % 16 == 0
+
+
+def test_copy_plan_at_the_main_path_shapes():
+    """One layer of 16 (or 19) 64-token pages of 4096-byte rows is 128
+    (152) items of 32 KiB, a block each; the round-1 persist of 16 blocks
+    x 24 layers is 3072 items over 8 blocks per SM, the round-2 persist
+    (3 blocks) 576 items; a 4-token page of 4096-byte rows is one
+    chunk, of 10240-byte rows two even ones, of 10252-byte rows two with
+    the last 16 bytes short."""
+    from repro_torch.kernels import kv_copy
+    slab = 64 * 4096
+    assert kv_copy.plan(16, slab, 132) == (32768, 8, 128)
+    assert kv_copy.plan(19, slab, 132) == (32768, 8, 152)
+    assert kv_copy.plan(16 * 24, slab, 132) == (32768, 8, 1056)
+    assert kv_copy.plan(3 * 24, slab, 132) == (32768, 8, 576)
+    assert kv_copy.plan(1, 4 * 4096, 132) == (16384, 1, 1)
+    assert kv_copy.plan(16, 4 * 10240, 132) == (20480, 2, 32)
+    chunk, n_chunks, _ = kv_copy.plan(16, 4 * 10252, 132)
+    assert (chunk, n_chunks) == (20512, 2)
+    assert 4 * 10252 - (n_chunks - 1) * chunk == 20496   # the short last

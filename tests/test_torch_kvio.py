@@ -18,7 +18,7 @@ from repro.engines import kvio as jax_kvio
 from repro.models import init_decode_state as jax_init_state
 from repro.models import init_params as jax_init_params
 from repro.models.model import append_step as jax_append
-from repro_torch import bridge
+from repro_torch import bridge, kernels
 from repro_torch.configs import get_config
 from repro_torch.engines import kvio
 from repro_torch.models import init_decode_state
@@ -45,7 +45,8 @@ def jax_state():
 def test_serialize_is_byte_identical_to_jax(jax_state):
     jcfg, jst = jax_state
     cfg = get_config("qwen1.5-0.5b").reduced()
-    st = bridge.state_from_jax(jax.tree.map(np.asarray, jst))
+    st = bridge.state_from_jax(jax.tree.map(np.asarray, jst),
+                              device="cpu")
     for slot in range(B):
         want = jax_kvio.serialize_kv(jcfg, jst, slot, 0, T)
         got = kvio.serialize_kv(cfg, st, slot, 0, T)
@@ -65,7 +66,8 @@ def test_serialize_blocks_is_byte_identical_to_jax_fullblocks(jax_state,
     contiguous (L, PT, row) array of its own."""
     jcfg, jst = jax_state
     cfg = get_config("qwen1.5-0.5b").reduced()
-    st = bridge.state_from_jax(jax.tree.map(np.asarray, jst))
+    st = bridge.state_from_jax(jax.tree.map(np.asarray, jst),
+                              device="cpu")
     for slot in range(B):
         got = kvio.serialize_blocks(cfg, st, slot, b0, b1, PT)
         kv = jax_kvio.serialize_kv(jcfg, jst, slot, b0 * PT, b1 * PT)
@@ -74,6 +76,28 @@ def test_serialize_blocks_is_byte_identical_to_jax_fullblocks(jax_state,
             assert got[i].flags.c_contiguous
             bridge.assert_exact(got[i], np.ascontiguousarray(
                 kv[:, i * PT:(i + 1) * PT]))
+
+
+def test_serialize_blocks_scatters_every_layer_in_one_call(jax_state,
+                                                         monkeypatch):
+    """The persist is one scatter call over every layer (one kernel launch
+    on the card), with the layer-major rows as its (L, n, bt, row)
+    stream."""
+    cfg = get_config("qwen1.5-0.5b").reduced()
+    st = bridge.state_from_jax(jax.tree.map(np.asarray, jax_state[1]),
+                               device="cpu")
+    calls = []
+
+    def counting(pool, table, stream, *, layer):
+        calls.append((tuple(stream.shape), layer))
+        return kernels.kv_layer_scatter(pool, table, stream, layer=layer)
+
+    monkeypatch.setattr(kvio, "kv_layer_scatter", counting)
+    got = kvio.serialize_blocks(cfg, st, 1, 0, 2, PT)
+    row = kvio.kv_row_bytes(cfg)
+    assert calls == [((cfg.n_layers, 2, PT, row), range(cfg.n_layers))]
+    bridge.assert_exact(got[1], np.ascontiguousarray(
+        kvio.serialize_kv(cfg, st, 1, PT, 2 * PT)))
 
 
 def test_deferred_persist_keeps_the_snapshot_of_its_round(jax_state):
@@ -91,7 +115,8 @@ def test_deferred_persist_keeps_the_snapshot_of_its_round(jax_state):
     store = MemoryKVStore(layout)
     de = DecodeEngine((1, 0), cfg, None, store, BlockTrie(PT), layout, CAP,
                       n_slots=B, device="cpu")
-    de.state = bridge.state_from_jax(jax.tree.map(np.asarray, jst))
+    de.state = bridge.state_from_jax(jax.tree.map(np.asarray, jst),
+                                     device="cpu")
     de.defer_persist = True
     er = EngineRequest(req=Request(rid=0, cached_tokens=0, new_tokens=T,
                                    gen_tokens=0),

@@ -49,7 +49,8 @@ def models(request):
     tcfg = dataclasses.replace(get_config("qwen1.5-0.5b").reduced(),
                                param_dtype=dt, kv_cache_dtype=dt)
     jp = jax_init_params(jcfg, jax.random.PRNGKey(0))
-    tp = bridge.params_from_jax(jax.tree.map(np.asarray, jp), tcfg)
+    tp = bridge.params_from_jax(jax.tree.map(np.asarray, jp), tcfg,
+                                 device="cpu")
     toks = np.random.default_rng(0).integers(
         0, tcfg.vocab_size, (B, S)).astype(np.int32)
     return dt, jcfg, tcfg, jp, tp, toks

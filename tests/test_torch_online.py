@@ -63,7 +63,7 @@ def weights():
     jp = jax_init_params(jcfg, jax.random.PRNGKey(0))
     cfg = get_config("qwen1.5-0.5b").reduced()
     return jcfg, jp, cfg, bridge.params_from_jax(jax.tree.map(np.asarray, jp),
-                                                 cfg)
+                                                 cfg, device="cpu")
 
 
 @pytest.mark.parametrize("tier,split_reads", [

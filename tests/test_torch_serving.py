@@ -117,7 +117,8 @@ def test_matches_jax_serving_system():
     jses = jsys.run_offline([JaxTrajectory(i, [JaxRound(*r) for r in shape])
                              for i in range(4)])
     cfg = get_config("qwen1.5-0.5b").reduced()
-    tp = bridge.params_from_jax(jax.tree.map(np.asarray, jp), cfg)
+    tp = bridge.params_from_jax(jax.tree.map(np.asarray, jp), cfg,
+                                 device="cpu")
     tsys = ServingSystem(cfg, tp, device="cpu", **kw)
     tses = tsys.run_offline([Trajectory(i, [Round(*r) for r in shape])
                              for i in range(4)])
