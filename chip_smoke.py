@@ -1,6 +1,6 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA H100.
 
-    python3 chip_smoke.py                  # the smoke, phases 1-7
+    python3 chip_smoke.py                  # the smoke, phases 1-8
     python3 chip_smoke.py --persist-ab 10  # offline serving, old persist
                                            # against the scatter's
     python3 chip_smoke.py --split-sweep    # the attention kernels' split
@@ -17,7 +17,8 @@ Drives ``repro_torch`` (never the JAX package) on the card:
    f32 pools through permuted tables, the first and last layer;
    attention within 2e-2 in bf16 and 2e-5 in f32, at the edges of its
    tiles, splits, pages and masks; every kernel bit-identical over two
-   calls), and times the kernel, the plain version and one PyTorch call
+   calls; flash also at the chunked prefill's 256-token slices), and
+   times the kernel, the plain version and one PyTorch call
    computing the same function, with CUDA events (also with a clean L2,
    and split into their kernels under torch.profiler); times the main
    gather and its indexing alternately, beside an empty kernel; then the
@@ -36,9 +37,18 @@ Drives ``repro_torch`` (never the JAX package) on the card:
    round finished, all four kernels launched (the scatter once per
    persist), the tiers hit, prefetched and evicted, and the blocking arm
    gave identical tokens;
-6. f32 token identity at full width: ServingSystem against the port's
-   cache-free reference (full forward, then decode);
-7. prints the ``kernels`` JSON line, then the contract line
+6. the online SLO layer at full width and depth: 2 batch and 2
+   interactive agents arriving together behind an admission gate, with
+   256-token prefill slices and class order, the online phase's DRAM
+   tier and prefetcher, asserting that rounds were deferred (and, under
+   a second setting, rejected), every admitted round finished, slices
+   ran (the PREFILL_CHUNKED sub-state), flash launched once per layer of
+   every ``append_step``, all four kernels launched, and an interactive
+   round that arrived after a batch round reached its first token first;
+7. f32 token identity at full width: ServingSystem against the port's
+   cache-free reference (full forward, then decode), unchunked and with
+   the first round's prefill cut into slices;
+8. prints the ``kernels`` JSON line, then the contract line
    ``{"ok": true, "device": {...}}`` last.
 
 Any failed check raises, so the script exits non-zero and prints no
@@ -76,6 +86,15 @@ ONLINE_ROUNDS = ((1024, 32, 0.0), (128, 32, 0.5), (128, 32, 0.5),
                  (128, 32, 0.5))
 ONLINE_AGENTS = 3
 ONLINE_TIER_BLOCKS = 18
+# the SLO phase: two batch agents arrive at t = 0 and two interactive ones
+# just after, before the first prefill slice ends, so the first rounds
+# queue behind each other at the gate and in the PE fifo.  Arrivals are in
+# units of the modelled time one queued first round adds to the gate's
+# estimate (1.7 ms of the modelled clock at full width)
+SLO_ROUNDS = ((1024, 32, 0.0), (128, 32, 0.5), (128, 32, 0.5))
+SLO_CLASSES = ("batch", "batch", "interactive", "interactive")
+SLO_ARRIVALS = (0.0, 0.0, 0.01, 0.02)
+SLO_CHUNK = 256
 # profiler rows of the port's kernels, by wrapper: kernel-name prefixes
 KERNEL_ROWS = {"flash_attention": ("flash_",), "paged_attention": ("paged_",),
                "kv_layer_gather": ("gather_kernel",),
@@ -530,6 +549,11 @@ def flash_cases(cfg, rng):
         case(dh=32),
         case(hkv=h // 4, kv_lens=[1184, 700], window=48, softcap=30.0,
              dtype=torch.float32),
+        # the SLO phase's chunked prefill: a 1024-token append in
+        # SLO_CHUNK-token slices over a prefix growing by one slice a
+        # time; the last slice is timed as the main chunk shape
+        case(sq=SLO_CHUNK, kv_lens=[1024], parts=True),
+        *(case(sq=SLO_CHUNK, kv_lens=[n]) for n in (256, 512, 768)),
     ]
 
 
@@ -617,23 +641,30 @@ def serve(cfg, params, trajs, device, **kw):
     return system, sessions, time.perf_counter() - t0
 
 
-class PersistCounter:
-    """Counts the DE's persists (``kvio.serialize_blocks`` calls) while
-    it is entered."""
+class CallCounter:
+    """Counts the calls of ``module.name`` while it is entered."""
+
+    def __init__(self, module, name: str):
+        self.module, self.name, self.n = module, name, 0
 
     def __enter__(self):
-        from repro_torch.engines import kvio
-        self.kvio, self.fn, self.n = kvio, kvio.serialize_blocks, 0
+        self.fn = getattr(self.module, self.name)
 
         def counted(*args, **kw):
             self.n += 1
             return self.fn(*args, **kw)
 
-        kvio.serialize_blocks = counted
+        setattr(self.module, self.name, counted)
         return self
 
     def __exit__(self, *exc):
-        self.kvio.serialize_blocks = self.fn
+        setattr(self.module, self.name, self.fn)
+
+
+def persist_counter():
+    """Counts the DE's persists (``kvio.serialize_blocks`` calls)."""
+    from repro_torch.engines import kvio
+    return CallCounter(kvio, "serialize_blocks")
 
 
 def check_launches(launches: dict, persists: int, path: str) -> None:
@@ -658,7 +689,7 @@ def serving_phase(cfg, device="cuda", rounds=AGENT_ROUNDS, n_agents=6,
     kw = dict(n_pe=1, n_de=1, mode="dualpath", block_tokens=block_tokens,
               max_seq=max_seq, de_slots=8)
     kernels.reset_launch_counts()
-    with PersistCounter() as persists:
+    with persist_counter() as persists:
         system, sessions, wall = serve(cfg, params, trajs(), device, **kw)
     launches = kernels.launch_counts()
     st = system.stats()
@@ -715,36 +746,50 @@ def profile_phase(cfg, rounds=AGENT_ROUNDS, n_agents=6, top=8):
                         if i < top or r[0] in KERNEL_ROWS]
 
 
-def online_run(cfg, params, device="cuda", *, pipelined=True,
-               rounds=ONLINE_ROUNDS, n_agents=ONLINE_AGENTS,
-               tier_blocks=ONLINE_TIER_BLOCKS, mean_gap_s=0.5,
-               block_tokens=64, max_seq=2048):
-    """One online run: ``n_agents`` trajectories of ``rounds`` arriving
-    at Poisson times, a DRAM tier of ``tier_blocks`` FullBlocks per node,
-    agentic-TTL eviction and the think-time prefetcher.  Returns (system,
-    sessions, real wall s)."""
+def online_system(cfg, params, device="cuda", *, pipelined=True,
+                  tier_blocks=ONLINE_TIER_BLOCKS, block_tokens=64,
+                  max_seq=2048, slo=None):
+    """1 PE + 1 DE, dualpath, a DRAM tier of ``tier_blocks`` FullBlocks
+    per node, agentic-TTL eviction and the think-time prefetcher."""
     from repro_torch.core.config import TierConfig
     from repro_torch.engines.kvio import kv_row_bytes
     from repro_torch.serving import ServingSystem
+    # bf16 KV: a FullBlock is layers x block_tokens x (k ‖ v row) bytes
+    tier_bytes = tier_blocks * cfg.n_layers * block_tokens * kv_row_bytes(cfg)
+    return ServingSystem(
+        cfg, params, device=device, pipelined=pipelined, n_pe=1, n_de=1,
+        mode="dualpath", block_tokens=block_tokens, max_seq=max_seq,
+        de_slots=8, tier=TierConfig(dram_tier_bytes=tier_bytes,
+                                    tier_policy="agentic-ttl", prefetch=True),
+        slo=slo)
+
+
+def run_online_timed(system, trajs, arrivals, device):
+    """``system.run_online``, synchronised; returns (sessions, real wall
+    s)."""
+    if device != "cpu":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sessions = system.run_online(trajs, list(arrivals))
+    if device != "cpu":
+        torch.cuda.synchronize()
+    return sessions, time.perf_counter() - t0
+
+
+def online_run(cfg, params, device="cuda", *, pipelined=True,
+               rounds=ONLINE_ROUNDS, n_agents=ONLINE_AGENTS,
+               mean_gap_s=0.5, **kw):
+    """One online run: ``n_agents`` trajectories of ``rounds`` arriving
+    at Poisson times on :func:`online_system`.  Returns (system,
+    sessions, real wall s)."""
     from repro_torch.sim.traces import Round, Trajectory
     arrivals = np.cumsum(np.random.default_rng(7).exponential(
         mean_gap_s, n_agents)).tolist()
     trajs = [Trajectory(i, [Round(*r) for r in rounds])
              for i in range(n_agents)]
-    # bf16 KV: a FullBlock is layers x block_tokens x (k ‖ v row) bytes
-    tier_bytes = tier_blocks * cfg.n_layers * block_tokens * kv_row_bytes(cfg)
-    system = ServingSystem(
-        cfg, params, device=device, pipelined=pipelined, n_pe=1, n_de=1,
-        mode="dualpath", block_tokens=block_tokens, max_seq=max_seq,
-        de_slots=8, tier=TierConfig(dram_tier_bytes=tier_bytes,
-                                    tier_policy="agentic-ttl", prefetch=True))
-    if device != "cpu":
-        torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    sessions = system.run_online(trajs, arrivals)
-    if device != "cpu":
-        torch.cuda.synchronize()
-    return system, sessions, time.perf_counter() - t0
+    system = online_system(cfg, params, device, pipelined=pipelined, **kw)
+    sessions, wall = run_online_timed(system, trajs, arrivals, device)
+    return system, sessions, wall
 
 
 def tier_counters(system) -> dict:
@@ -767,7 +812,7 @@ def online_phase(cfg, device="cuda", **kw):
     from repro_torch.models import init_params
     params = init_params(cfg, seed=0, device=device)
     kernels.reset_launch_counts()
-    with PersistCounter() as persists:
+    with persist_counter() as persists:
         system, sessions, wall = online_run(cfg, params, device, **kw)
     launches = kernels.launch_counts()
     st, blocks = system.stats(), tier_counters(system)
@@ -784,6 +829,98 @@ def online_phase(cfg, device="cuda", **kw):
         [s.context for s in sessions_b], "online blocking arm diverged"
     return (st, launches, wall, st["gen_tokens"] / wall, wall_b, blocks,
             persists.n)
+
+
+def gate_estimates(cfg, params, device, append: int) -> tuple:
+    """The admission gate's TTFT estimates (modelled seconds) of a
+    first-round arrival (``append`` new tokens, no hit) into an empty
+    system and behind one queued arrival of the same size, from a probe
+    system's own gate and load signals."""
+    from repro_torch.core.config import SloConfig
+    from repro_torch.core.scheduler import Request
+    from repro_torch.serving import ServingSystem
+    probe = ServingSystem(cfg, params, device=device, block_tokens=64,
+                          max_seq=128, de_slots=1,
+                          slo=SloConfig(admission=True))
+    own = probe.time_model.pe_step_seconds([(0, append)])
+    empty = probe.gate.ttft_estimate(probe._elastic_signals(), 0.0, own)
+    probe.sched.pe_queue.append(Request(rid=-1, cached_tokens=0,
+                                        new_tokens=append, gen_tokens=1))
+    behind_one = probe.gate.ttft_estimate(probe._elastic_signals(), 0.0, own)
+    return empty, behind_one
+
+
+def slo_phase(cfg, device="cuda", rounds=SLO_ROUNDS, classes=SLO_CLASSES,
+              arrivals=SLO_ARRIVALS, chunk=SLO_CHUNK):
+    """The online SLO layer at full depth on :func:`online_system`: the
+    gate, ``chunk``-token prefill slices and class order.
+
+    The SLO sits half a queued round above the estimate behind one queued
+    first round, so the first two arrivals are admitted and the
+    interactive ones, which arrive while both wait, are deferred by the
+    time one first round's prefill takes; they come back while the second
+    batch round is being sliced and overtake it in the PE fifo.  A second
+    setting serves the first rounds alone with no deferral allowed: the
+    same arrivals are rejected.  Returns a dict of what it printed."""
+    from repro_torch import kernels
+    from repro_torch.core.config import SloConfig
+    from repro_torch.engines import runtime
+    from repro_torch.models import init_params
+    from repro_torch.sim.traces import Round, Trajectory
+    params = init_params(cfg, seed=0, device=device)
+    empty, behind_one = gate_estimates(cfg, params, device, rounds[0][0])
+    per_round = behind_one - empty
+    slo_s, defer_s = behind_one + 0.5 * per_round, per_round
+    trajs = lambda rs: [Trajectory(i, [Round(*r) for r in rs], slo_class=c)
+                        for i, c in enumerate(classes)]
+
+    def run(rs, **kw):
+        system = online_system(cfg, params, device, slo=SloConfig(
+            admission=True, admission_ttft_slo_s=slo_s,
+            admission_defer_s=defer_s, prefill_chunk_tokens=chunk,
+            class_aware=True, **kw))
+        states = []
+        system._set_state = lambda er, state, f=system._set_state: (
+            states.append((er.req.rid, state.name)), f(er, state))
+        _, wall = run_online_timed(
+            system, trajs(rs), [a * per_round for a in arrivals], device)
+        return system, wall, states
+
+    kernels.reset_launch_counts()
+    with persist_counter() as persists, \
+            CallCounter(runtime, "append_step") as appends:
+        system, wall, states = run(rounds)
+    launches = kernels.launch_counts()
+    st = system.stats()
+    metrics = list(system.metrics.values())
+    assert all(m.finished for m in metrics) and \
+        st["finished_rounds"] == st["admitted_rounds"] == len(metrics) > 0, \
+        "an admitted round did not finish"
+    assert st["deferred_rounds"] > 0, "the gate deferred no round"
+    assert st["prefill_chunks"] > 0 and \
+        any(s == "PREFILL_CHUNKED" for _, s in states), "no prefill slice"
+    overtakes = [(i.rid, b.rid) for i in metrics for b in metrics
+                 if i.slo_class == "interactive" and b.slo_class == "batch"
+                 and i.submit_t > b.submit_t
+                 and i.prefill_done_t < b.prefill_done_t]
+    assert overtakes, "no interactive round overtook an earlier batch round"
+    if device != "cpu":
+        check_launches(launches, persists.n, "slo")
+        assert launches["flash_attention"] == cfg.n_layers * appends.n, \
+            f"{launches['flash_attention']} flash launches for " \
+            f"{appends.n} append_step calls"
+    system_r, wall_r, _ = run(rounds[:1], admission_max_defers=0)
+    st_r = system_r.stats()
+    assert st_r["rejected_rounds"] > 0, "the gate rejected no round"
+    return dict(stats=st, launches=launches, persists=persists.n,
+                append_steps=appends.n, wall_s=wall,
+                tokens_per_s=st["gen_tokens"] / wall, overtakes=overtakes,
+                estimates_s=dict(empty=empty, behind_one=behind_one),
+                arrivals_s=[a * per_round for a in arrivals],
+                slo_s=slo_s, defer_s=defer_s, reject_wall_s=wall_r,
+                reject_stats={k: st_r[k] for k in (
+                    "admitted_rounds", "deferred_rounds", "rejected_rounds",
+                    "finished_rounds", "gen_tokens")})
 
 
 def reference_contexts(cfg, params, rounds, seed_tid, device):
@@ -813,24 +950,37 @@ def reference_contexts(cfg, params, rounds, seed_tid, device):
 
 
 def identity_phase(cfg, device="cuda", rounds=((256, 8), (64, 8), (64, 8)),
-                   block_tokens=64, max_seq=512):
+                   block_tokens=64, max_seq=512, chunk=96):
+    """f32 serving, unchunked and with ``chunk``-token prefill slices
+    (the first round's 256 tokens in three), must give the cache-free
+    reference's context.  Returns (context tokens, prefill slices of the
+    chunked run)."""
+    from repro_torch.core.config import SloConfig
     from repro_torch.models import init_params
     from repro_torch.sim.traces import Round, Trajectory
     cfg32 = dataclasses.replace(cfg, param_dtype="float32",
                                 kv_cache_dtype="float32")
     params = init_params(cfg32, seed=1, device=device)
-    system, sessions, _ = serve(
-        cfg32, params, [Trajectory(0, [Round(*r) for r in rounds])], device,
-        n_pe=1, n_de=1, block_tokens=block_tokens, max_seq=max_seq,
-        de_slots=2)
     want = reference_contexts(cfg32, params, rounds, 0, device)
-    got = sessions[0].context
-    if got != want:
-        first = next(i for i, (a, b) in enumerate(zip(got, want)) if a != b)
-        raise AssertionError(f"f32 serving diverged from the cache-free "
-                             f"reference at token {first}")
-    assert system.stats()["store_reads"] > 0
-    return len(got)
+    chunks = 0
+    for slo in (None, SloConfig(prefill_chunk_tokens=chunk)):
+        system, sessions, _ = serve(
+            cfg32, params, [Trajectory(0, [Round(*r) for r in rounds])],
+            device, n_pe=1, n_de=1, block_tokens=block_tokens,
+            max_seq=max_seq, de_slots=2, slo=slo)
+        got = sessions[0].context
+        if got != want:
+            first = next(i for i, (a, b) in enumerate(zip(got, want))
+                         if a != b)
+            raise AssertionError(
+                f"f32 serving{'' if slo is None else ' with prefill slices'}"
+                f" diverged from the cache-free reference at token {first}")
+        st = system.stats()
+        assert st["store_reads"] > 0
+        if slo is not None:
+            chunks = st["prefill_chunks"]
+            assert chunks > 0, "the f32 run was not sliced"
+    return len(want), chunks
 
 
 # ---------------------------------------------------------------------------
@@ -944,11 +1094,33 @@ def main() -> int:
           f"{st_o['wall_s']:.4f}, ttft_p99 {st_o['ttft_p99']:.4f}, "
           f"tpot_mean {st_o['tpot_mean']:.6f}")
 
-    # 6. f32 token identity with the cache-free reference
-    n = identity_phase(cfg)
-    print(f"f32 identity: {n} context tokens equal the cache-free reference")
+    # 6. the online SLO layer
+    slo = slo_phase(cfg)
+    st_s = slo["stats"]
+    print("slo stats:", json.dumps(st_s))
+    print(f"slo: {slo['wall_s']:.3f} s real wall, "
+          f"{slo['tokens_per_s']:.1f} generated tokens/s, launches "
+          f"{slo['launches']}, {slo['persists']} persists, "
+          f"{slo['append_steps']} append_step calls; modelled seconds: gate "
+          f"estimates {json.dumps(slo['estimates_s'])}, SLO "
+          f"{slo['slo_s']:.6f}, defer {slo['defer_s']:.6f}, arrivals "
+          f"{slo['arrivals_s']}, wall "
+          f"{st_s['wall_s']:.4f}; admitted {st_s['admitted_rounds']}, "
+          f"deferred {st_s['deferred_rounds']}, rejected "
+          f"{st_s['rejected_rounds']}, prefill slices "
+          f"{st_s['prefill_chunks']}; interactive over batch (rids) "
+          f"{slo['overtakes']}; latency_by_class (modelled s) "
+          f"{json.dumps(st_s['latency_by_class'])}")
+    print(f"slo, first rounds with no deferral allowed: "
+          f"{slo['reject_wall_s']:.3f} s real wall, "
+          f"{json.dumps(slo['reject_stats'])}")
 
-    # 7. kernels line, then the contract line
+    # 7. f32 token identity with the cache-free reference
+    n, chunks = identity_phase(cfg)
+    print(f"f32 identity: {n} context tokens equal the cache-free reference, "
+          f"unchunked and in {chunks} + 1 prefill slices")
+
+    # 8. kernels line, then the contract line
     meta = {
         "kv_layer_gather": ("src/repro_torch/kernels/csrc/kv_gather.cu",
                             "src/repro/kernels/kv_gather.py:30"),
@@ -966,7 +1138,8 @@ def main() -> int:
             name=name, route="cuda", source=meta[name][0],
             replaces=meta[name][1], launches=launches[name],
             launches_by_path=dict(offline=launches[name],
-                                  online=launches_o[name]),
+                                  online=launches_o[name],
+                                  slo=slo["launches"][name]),
             max_abs_err=max(c["max_abs_err"] for c in cs),
             ms=main_case["ms"], kernel_ms=main_case["ms"],
             ms_clean_l2=main_case.get("ms_clean_l2"),
@@ -976,7 +1149,8 @@ def main() -> int:
             cases=cs))
     line[1]["persist_ms"] = {w: dict(host_ms=h, d2h_ms=d)
                              for w, (h, d) in persist.items()}
-    line[1]["persists_by_path"] = dict(offline=persists, online=persists_o)
+    line[1]["persists_by_path"] = dict(offline=persists, online=persists_o,
+                                       slo=slo["persists"])
     print(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

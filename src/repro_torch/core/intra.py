@@ -8,11 +8,14 @@ affine in the theoretical attention FLOPs
     F(cached, bsz) = 4 · n_heads · head_dim · bsz · (cached + (bsz+1)/2)
 
 summed over layers; the straddling request is chunked by binary search.
+``chunk_tokens`` (the SLO layer's chunked prefill) also caps each
+request's slice of a batch, and the PE fifo can be ordered by SLO class
+(:func:`class_insert_index`).
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 from repro_torch.configs.base import ModelConfig
 
@@ -55,10 +58,27 @@ class PrefillWork:
     rid: int
     cached: int                     # tokens whose KV exists already
     remaining: int                  # append tokens still to compute
+    rank: int = 0                   # SLO-class rank (0 = interactive)
+    arrival: float = 0.0            # round arrival time (tie-break)
 
     def advance(self, bsz: int):
         self.cached += bsz
         self.remaining -= bsz
+
+    def key(self) -> Tuple[int, float, int]:
+        return (self.rank, self.arrival, self.rid)
+
+
+def class_insert_index(keys: Sequence[Tuple[int, float, int]],
+                       new_key: Tuple[int, float, int]) -> int:
+    """Stable insertion point for a class-aware prefill fifo: after the
+    last entry whose (rank, arrival, rid) key is <= ``new_key``.  An
+    interactive round may land ahead of a part-prefilled batch round,
+    which resumes from its own progress on a later pack."""
+    i = len(keys)
+    while i > 0 and keys[i - 1] > new_key:
+        i -= 1
+    return i
 
 
 @dataclass
@@ -70,14 +90,22 @@ class BatchItem:
 
 
 class QuotaPacker:
-    """FIFO packing under a compute quota with binary-search chunking."""
+    """FIFO packing under a compute quota with binary-search chunking.
+
+    ``chunk_tokens`` (SloConfig.prefill_chunk_tokens, raised to at least
+    ``min_chunk``) caps one request's slice of a batch whatever the
+    quota, and a capped slice closes the batch.  ``None`` packs by the
+    quota alone."""
 
     def __init__(self, cfg: ModelConfig, time_model: AttnTimeModel,
-                 quota_s: float = 0.300, min_chunk: int = 16):
+                 quota_s: float = 0.300, min_chunk: int = 16,
+                 chunk_tokens: Optional[int] = None):
         self.cfg = cfg
         self.time_model = time_model
         self.quota_s = quota_s
         self.min_chunk = min_chunk
+        self.chunk_tokens = None if chunk_tokens is None \
+            else max(int(chunk_tokens), min_chunk)
 
     def predict_batch_seconds(self, items: Sequence[Tuple[int, int]]) -> float:
         return self.time_model.seconds(attn_flops(self.cfg, items))
@@ -89,15 +117,23 @@ class QuotaPacker:
         items: List[Tuple[int, int]] = []
         while fifo:
             w = fifo[0]
-            cand = items + [(w.cached, w.remaining)]
+            take = w.remaining if self.chunk_tokens is None \
+                else min(w.remaining, self.chunk_tokens)
+            cand = items + [(w.cached, take)]
             if self.predict_batch_seconds(cand) <= self.quota_s:
-                items.append((w.cached, w.remaining))
-                batch.append(BatchItem(w.rid, w.cached, w.remaining))
-                w.advance(w.remaining)
-                fifo.pop(0)
-                continue
+                if take == w.remaining:
+                    items.append((w.cached, w.remaining))
+                    batch.append(BatchItem(w.rid, w.cached, w.remaining))
+                    w.advance(w.remaining)
+                    fifo.pop(0)
+                    continue
+                # a capped slice closes the batch, so the step (and the
+                # decode steps between slices) runs now
+                batch.append(BatchItem(w.rid, w.cached, take, chunked=True))
+                w.advance(take)
+                break
             # straddling request: binary search the largest bsz' that fits
-            lo, hi = 0, w.remaining
+            lo, hi = 0, take
             while lo < hi:
                 mid = (lo + hi + 1) // 2
                 if self.predict_batch_seconds(

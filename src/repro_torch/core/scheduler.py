@@ -14,10 +14,14 @@
   With DRAM tiers the side whose tier holds the longer resident prefix
   serves that prefix from DRAM and the cold remainder is routed as above.
 
+With ``class_aware`` (the SLO layer's priority classes) the global
+queues are ordered by (class rank, arrival, rid), so ``interactive``
+rounds overtake ``batch`` rounds at submission.
+
 The arithmetic is the reference's, so both packages make the same
 decisions on the same lengths.  Drains, hedged reads, engine failure,
-network congestion, SLO classes and the round-robin baseline arrive with
-the slices that port those features.
+network congestion and the round-robin baseline arrive with the slices
+that port those features.
 """
 from __future__ import annotations
 
@@ -35,6 +39,9 @@ class Request:
     new_tokens: int                 # appended tokens (prefill compute)
     gen_tokens: int                 # expected generation length
     arrival: float = 0.0
+    # SLO class (core/config.SloConfig): 'interactive' rounds overtake
+    # 'batch' rounds in every class-aware queue order
+    slo_class: str = "batch"
     # filled by the scheduler:
     pe: Optional[EngineId] = None
     de: Optional[EngineId] = None
@@ -46,6 +53,11 @@ class Request:
     dram_side: Optional[str] = None   # 'pe' | 'de'
     dram_tokens: int = 0
     snic_tokens: Optional[Dict[str, int]] = None
+
+    @property
+    def class_rank(self) -> int:
+        """Priority rank: interactive (0) ahead of batch (1)."""
+        return 0 if self.slo_class == "interactive" else 1
 
     @property
     def prompt_tokens(self) -> int:
@@ -109,6 +121,9 @@ class EngineState:
     tok: int = 0                    # unfinished tokens
     read_q: int = 0                 # node disk reading queue (tokens)
     free_hbm_tokens: int = 0        # decode engines only
+    # a draining engine admits no new work (elastic role flips); always
+    # False until the port has them
+    draining: bool = False
 
 
 @dataclass
@@ -122,11 +137,14 @@ class Scheduler:
     threshold [tokens]; ``beta``: unfinished-token limit [tokens]."""
 
     def __init__(self, alpha: int, beta: int, *, z_factor: float = 1.05,
-                 split_reads: bool = False):
+                 split_reads: bool = False, class_aware: bool = False):
         self.alpha = alpha
         self.beta = beta
         self.z_factor = z_factor
         self.split_reads = split_reads
+        # SLO classes: the queue order becomes (class rank, arrival, rid);
+        # off, the rank term is 0 and the order is submission order
+        self.class_aware = class_aware
         # read-path tie-breaker: the first tie goes to the PE side
         self._tie_toggle = False
         self.engines: Dict[EngineId, EngineState] = {}
@@ -148,9 +166,32 @@ class Scheduler:
         return {g: es for g, es in self._groups.items()
                 if es and self.engines[es[0]].kind == kind}
 
+    def admitting(self, kind: str) -> List[EngineState]:
+        """Engines of ``kind`` still accepting work (not draining)."""
+        return [st for st in self.engines.values()
+                if st.kind == kind and not st.draining]
+
+    def _order_key(self, r: Request):
+        """(class rank, arrival, rid) when class-aware, else (0, arrival,
+        rid), which is submission order."""
+        return (r.class_rank if self.class_aware else 0, r.arrival, r.rid)
+
+    def _priority_insert(self, q: Deque[Request], req: Request):
+        """Stable insert before the first lower-priority queued request
+        (FIFO within a class), scanning from the right."""
+        k = self._order_key(req)
+        idx = len(q)
+        while idx > 0 and self._order_key(q[idx - 1]) > k:
+            idx -= 1
+        q.insert(idx, req)
+
     def submit(self, req: Request):
-        self.pe_queue.append(req)
-        self.de_global_queue.append(req)
+        if not self.class_aware:
+            self.pe_queue.append(req)
+            self.de_global_queue.append(req)
+            return
+        self._priority_insert(self.pe_queue, req)
+        self._priority_insert(self.de_global_queue, req)
 
     # -- PE scheduling: Algorithm 1 ----------------------------------------
     def _classify_pe(self, engines: Sequence[EngineState]):

@@ -5,7 +5,9 @@
   layer by layer on the card (``kvio.layer_stream``, the gather kernel);
   the prompt is then prefilled in quota-packed chunks through
   ``model.append_step`` (the flash kernel) against a per-request padded
-  state.
+  state.  ``chunk_tokens`` caps each slice (chunked prefill) and
+  ``class_aware`` orders the fifo by SLO class, so an interactive round
+  may overtake a part-prefilled batch round.
 * ``DecodeEngine`` — slot-batched decode through ``model.decode_step``
   (the paged kernel); each newly filled FullBlock persists to storage
   (``kvio.serialize_blocks``, the scatter kernel) and enters the trie
@@ -26,7 +28,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.blocks import BlockLayout
 from repro_torch.core.intra import (AttnTimeModel, BatchItem, PrefillWork,
-                                    QuotaPacker)
+                                    QuotaPacker, class_insert_index)
 from repro_torch.core.scheduler import Request
 from repro_torch.core.traffic import TrafficClass, TrafficManager
 from repro_torch.engines import kvio
@@ -65,7 +67,8 @@ class EngineRequest:
 class PrefillEngine:
     def __init__(self, eid, cfg: ModelConfig, params, max_seq: int,
                  quota_s: float = 0.300, layerwise: bool = True,
-                 device="cuda"):
+                 chunk_tokens: Optional[int] = None,
+                 class_aware: bool = False, device="cuda"):
         self.eid = eid
         self.cfg = cfg
         self.params = params
@@ -74,12 +77,16 @@ class PrefillEngine:
         self.device = torch.device(device)
         self.tm = TrafficManager()
         self.packer = QuotaPacker(cfg, AttnTimeModel.from_config(cfg),
-                                  quota_s=quota_s)
+                                  quota_s=quota_s, chunk_tokens=chunk_tokens)
+        self.class_aware = class_aware
         self.fifo: List[Tuple[PrefillWork, EngineRequest]] = []
         self.prefill_tokens = 0
         # (cached, bsz) items of the batch the last step() executed — the
         # serving clock's compute-duration input
         self.last_step_items: List[Tuple[int, int]] = []
+        # requests whose last-step item was a partial (chunked) slice and
+        # whose prefill is unfinished: the PREFILL_CHUNKED sub-state
+        self.last_step_chunked: List[EngineRequest] = []
 
     # -- loading ---------------------------------------------------------
     def install_hit_kv(self, er: EngineRequest, payload: List[np.ndarray]):
@@ -100,14 +107,22 @@ class PrefillEngine:
                 kvio.deserialize_kv(self.cfg, er.state, 0, 0,
                                     kv_bytes[:, :hit])
         er.length = hit
-        work = PrefillWork(er.req.rid, hit, len(er.append_tokens))
-        self.fifo.append((work, er))
+        work = PrefillWork(er.req.rid, hit, len(er.append_tokens),
+                           rank=er.req.class_rank, arrival=er.req.arrival)
+        if self.class_aware:
+            # the TTFT wait accrues here, so the class order extends to
+            # the fifo
+            self.fifo.insert(class_insert_index(
+                [w.key() for w, _ in self.fifo], work.key()), (work, er))
+        else:
+            self.fifo.append((work, er))
 
     # -- compute ---------------------------------------------------------
     def step(self) -> List[EngineRequest]:
         """Run one quota-packed forward batch; returns requests whose
         prefill completed this step."""
         self.last_step_items = []
+        self.last_step_chunked = []
         if not self.fifo:
             return []
         works = [w for w, _ in self.fifo]
@@ -138,6 +153,8 @@ class PrefillEngine:
             if er.length == er.prompt_len:
                 er.first_token = int(torch.argmax(logits[0, -1]))
                 done.append(er)
+            elif bi.chunked:
+                self.last_step_chunked.append(er)
         return done
 
 

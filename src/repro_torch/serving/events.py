@@ -1,7 +1,9 @@
 """Serving runtime scaffolding (port of ``repro.serving.events``).
 
 * :class:`ReqState` — a round's lifecycle ``SCHEDULED → READING →
-  PREFILL → PD_TRANSFER → DECODE → PERSIST → DONE``.
+  PREFILL → PD_TRANSFER → DECODE → PERSIST → DONE``, with the chunked
+  prefill's ``PREFILL_CHUNKED`` sub-state between PREFILL and
+  PD_TRANSFER.
 * :class:`VirtualClock` — the runtime's clock, advanced per tick by
   *modelled* seconds from :class:`ServingTimeModel`: ``max(transfer,
   compute)`` pipelined, ``transfer + compute`` blocking.  The port runs
@@ -13,7 +15,8 @@
   instead of sleeping.  The same clock stamps the DRAM tiers, so a TTL
   means modelled seconds.
 * :class:`RoundMetrics` + :func:`latency_summary` /
-  :func:`slo_attainment` — per-round TTFT / TTST / TPOT on that clock.
+  :func:`latency_by_class` / :func:`slo_attainment` — per-round TTFT /
+  TTST / TPOT on that clock, overall and per SLO class.
 """
 from __future__ import annotations
 
@@ -37,6 +40,9 @@ class ReqState(Enum):
     SCHEDULED = "scheduled"      # submitted, awaiting (PE, DE) + read path
     READING = "reading"          # storage read legs in flight
     PREFILL = "prefill"          # hit KV installed, in the PE's fifo
+    # chunked prefill (SloConfig.prefill_chunk_tokens): a capped slice
+    # ran and the rest waits in the PE fifo for a later step
+    PREFILL_CHUNKED = "prefill_chunked"
     PD_TRANSFER = "pd_transfer"  # prompt state PE→DE on the compute net
     DECODE = "decode"            # slot-batched decode on the DE
     PERSIST = "persist"          # new FullBlocks persisting to storage
@@ -56,6 +62,7 @@ class RoundMetrics:
     first_decode_t: float = -1.0
     second_token_t: float = -1.0     # TTST
     done_t: float = -1.0
+    slo_class: str = "batch"
 
     @property
     def finished(self) -> bool:
@@ -93,6 +100,19 @@ def latency_summary(metrics: Iterable[RoundMetrics]) -> dict:
         ttst_mean=mean(ttsts),
         tpot_mean=mean(tpots), tpot_p99=pct(tpots, 99),
     )
+
+
+def latency_by_class(metrics: Iterable[RoundMetrics]) -> dict:
+    """One :func:`latency_summary` per SLO class; a class with no
+    finished round is left out (its all-NaN summary would never compare
+    equal)."""
+    ms = list(metrics)
+    out = {}
+    for c in ("interactive", "batch"):
+        sub = [m for m in ms if m.slo_class == c]
+        if any(m.finished for m in sub):
+            out[c] = latency_summary(sub)
+    return out
 
 
 def slo_attainment(metrics: Iterable[RoundMetrics], ttft_slo_s: float,

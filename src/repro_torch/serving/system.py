@@ -10,6 +10,8 @@ Per round (paper Fig. 4), as a lifecycle state machine:
                DRAM-tier prefixes skip the storage NIC)
   PREFILL      PE installs the hit KV layerwise on the card and runs
                quota-packed chunked prefill over the append
+  (PREFILL_CHUNKED)  with ``SloConfig.prefill_chunk_tokens``, a round
+               whose capped slice ran waits here for its next slice
   PD_TRANSFER  prompt state PE→DE, one submission per attention layer
   DECODE       DE decodes ``gen`` tokens greedily, slot-batched
   PERSIST      newly filled FullBlocks (the scatter kernel) and trie
@@ -30,10 +32,19 @@ the store (``kvcache/tiers.py``): the DE persists through its node's tier
 (write-through), each finished round warms that tier with its context,
 and the think-time prefetcher stages evicted blocks back.
 
+``slo=SloConfig(...)`` adds the online SLO layer: an admission gate in
+front of the scheduler (``core/admission.py``: online arrivals are
+admitted, deferred or rejected on a TTFT estimate from
+:meth:`ServingSystem._elastic_signals`), chunked prefill (capped slices,
+the PREFILL_CHUNKED sub-state, the ``prefill_chunks`` counter) and
+priority classes (``Trajectory.slo_class``; interactive rounds overtake
+batch rounds in the scheduler's queues and the PE fifo).  An all-default
+SloConfig changes nothing.
+
 This slice serves the dense family with ``mode`` dualpath or basic,
 ``split_reads``, ``layerwise`` on and off, any number of PEs, DEs and
-groups, offline or online, with or without DRAM tiers and prefetch.
-Faults and hedging, elastic roles, the SLO layer, the tracer and the
+groups, offline or online, with or without DRAM tiers, prefetch and the
+SLO layer.  Faults and hedging, elastic roles, the tracer and the
 collective network model arrive with later slices of the port.
 """
 from __future__ import annotations
@@ -48,7 +59,9 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.blocks import layout_for
-from repro_torch.core.config import TierConfig
+from repro_torch.core.admission import DEFER, REJECT, AdmissionGate
+from repro_torch.core.autoscale import LoadSignals
+from repro_torch.core.config import SloConfig, TierConfig
 from repro_torch.core.scheduler import Request, Scheduler
 from repro_torch.core.traffic import TrafficClass, TrafficManager
 from repro_torch.device import resolve
@@ -89,7 +102,8 @@ class ServingSystem:
                  pe_group_size: Optional[int] = None,
                  de_group_size: Optional[int] = None,
                  pipelined: bool = True, node: Optional[NodeSpec] = None,
-                 tier: Optional[TierConfig] = None, device="cuda"):
+                 tier: Optional[TierConfig] = None,
+                 slo: Optional[SloConfig] = None, device="cuda"):
         assert mode in ("dualpath", "basic")
         require_ported(cfg)
         if max_seq % block_tokens:
@@ -112,8 +126,10 @@ class ServingSystem:
         self.layout = layout_for(cfg, block_tokens, kv_itemsize)
         self.store = MemoryKVStore(self.layout)
         self.trie = BlockTrie(block_tokens)
+        scfg = self.slo_cfg = slo or SloConfig()
         self.sched = Scheduler(alpha=1 << 30, beta=1 << 30,
-                               split_reads=split_reads)
+                               split_reads=split_reads,
+                               class_aware=scfg.class_aware)
         self.time_model = ServingTimeModel.for_model(cfg, node)
         self.clock = VirtualClock()
         self.loop = EventLoop(self.clock)
@@ -144,9 +160,10 @@ class ServingSystem:
             eid = (i, 0)
             self.sched.register_engine(eid, node=i, kind="pe",
                                        group=i // pe_gsz)
-            self.pes[eid] = PrefillEngine(eid, cfg, params, max_seq,
-                                          layerwise=layerwise,
-                                          device=self.device)
+            self.pes[eid] = PrefillEngine(
+                eid, cfg, params, max_seq, layerwise=layerwise,
+                chunk_tokens=scfg.prefill_chunk_tokens,
+                class_aware=scfg.class_aware, device=self.device)
         for j in range(n_de):
             eid = (n_pe + j, 0)
             st = self.sched.register_engine(eid, node=n_pe + j, kind="de",
@@ -173,6 +190,10 @@ class ServingSystem:
         self.dram_bytes_by_side = {"pe": 0, "de": 0}
         self.n_split_reads = 0
         self.gen_tokens_done = 0
+        # the SLO layer: no gate without admission (arrivals then go
+        # straight to the scheduler); offline serving never consults it
+        self.gate = AdmissionGate(scfg) if scfg.admission else None
+        self.prefill_chunks = 0
 
     def _all_tms(self) -> Iterator[TrafficManager]:
         for pe in self.pes.values():
@@ -189,9 +210,31 @@ class ServingSystem:
                                         size=rnd.append))
         prompt = sess.context + append
         hit, refs = self.trie.match(prompt)
+        new_tokens = len(prompt) - hit
+        if self.gate is not None and self._online:
+            # the gate decides after the draws above, as the reference:
+            # a deferred attempt draws a fresh append when it comes back
+            read_s = self.time_model.snic_seconds(
+                hit * self.layout.n_layers *
+                self.layout.bytes_per_token_layer)
+            prefill_s = self.time_model.pe_step_seconds(
+                [(hit, max(new_tokens, 1))])
+            verdict = self.gate.decide(
+                (sess.traj.tid, sess.next_round),
+                self.gate.ttft_estimate(self._elastic_signals(), read_s,
+                                        prefill_s))
+            if verdict == DEFER:
+                self.loop.after(self.slo_cfg.admission_defer_s,
+                                lambda s=sess: self._submit_round(s))
+                return
+            if verdict == REJECT:
+                # load shedding: the session's trajectory ends here
+                sess.next_round = sess.traj.n_rounds
+                sess.current = None
+                return
         req = Request(rid=next(self._rid), cached_tokens=hit,
-                      new_tokens=len(prompt) - hit, gen_tokens=rnd.gen,
-                      arrival=self.clock.now)
+                      new_tokens=new_tokens, gen_tokens=rnd.gen,
+                      arrival=self.clock.now, slo_class=sess.traj.slo_class)
         er = EngineRequest(req=req, context_tokens=prompt[:hit],
                            append_tokens=prompt[hit:], hit_refs=refs,
                            session=sess, lifecycle=ReqState.SCHEDULED)
@@ -199,7 +242,8 @@ class ServingSystem:
         sess.next_round += 1
         self._inflight[req.rid] = er
         self.metrics[req.rid] = RoundMetrics(rid=req.rid, gen_tokens=rnd.gen,
-                                             submit_t=self.clock.now)
+                                             submit_t=self.clock.now,
+                                             slo_class=sess.traj.slo_class)
         for tier in self.tiers.values():
             tier.note_alive(sess.traj.tid, now=self.clock.now)
         self.sched.submit(req)
@@ -254,7 +298,7 @@ class ServingSystem:
                     er.tier_pinned = (node, prefix)
             ready.append(er)
         for er in ready:
-            er.lifecycle = ReqState.READING
+            self._set_state(er, ReqState.READING)
             if self.pipelined:
                 self._issue_read(er)
             else:
@@ -378,7 +422,7 @@ class ServingSystem:
                 self.sched.on_read_done(req.pe if side == "pe" else req.de,
                                         tokens[side])
         self._stamp(req.rid, "read_done_t")
-        er.lifecycle = ReqState.PREFILL
+        self._set_state(er, ReqState.PREFILL)
         self.pes[req.pe].install_hit_kv(
             er, [b for b in er.read_payload if b is not None])
 
@@ -394,10 +438,18 @@ class ServingSystem:
             pe_max = max(pe_max,
                          self.time_model.pe_step_seconds(pe.last_step_items))
             act += (pe.prefill_tokens - before) + len(done)
+            if self.slo_cfg.prefill_chunk_tokens is not None:
+                # a capped slice ran and the round waits in the fifo for
+                # its next; only with a cap, so unchunked runs keep the
+                # PREFILL-only lifecycle
+                for er in pe.last_step_chunked:
+                    self.prefill_chunks += 1
+                    if er.lifecycle != ReqState.PREFILL_CHUNKED:
+                        self._set_state(er, ReqState.PREFILL_CHUNKED)
             for er in done:
                 self.sched.on_request_done(er.req.pe, er.req)
                 self._stamp(er.req.rid, "prefill_done_t")
-                er.lifecycle = ReqState.PD_TRANSFER
+                self._set_state(er, ReqState.PD_TRANSFER)
                 self._queue_pd_transfer(er)
         self._tick_compute += pe_max
         return act
@@ -445,7 +497,7 @@ class ServingSystem:
             er = self._pending_admit.popleft()
             de = self.des[er.req.de]
             if de.free_slots:
-                er.lifecycle = ReqState.DECODE
+                self._set_state(er, ReqState.DECODE)
                 de.admit(er)
                 n += 1
             else:
@@ -480,7 +532,7 @@ class ServingSystem:
                 pend, de.pending_persist = de.pending_persist, []
                 if pend:
                     for er, _ in pend:
-                        er.lifecycle = ReqState.PERSIST
+                        self._set_state(er, ReqState.PERSIST)
 
                     def persists_done(pend=pend):
                         for er, fin in pend:
@@ -503,7 +555,7 @@ class ServingSystem:
         sess.context = er.context_tokens + er.append_tokens + er.generated
         sess.rounds_done += 1
         sess.current = None
-        er.lifecycle = ReqState.DONE
+        self._set_state(er, ReqState.DONE)
         self.gen_tokens_done += len(er.generated)
         del self._inflight[er.req.rid]
         if self.tiers:
@@ -570,6 +622,76 @@ class ServingSystem:
         for er in ready:
             self._read_complete(er)
         return len(ready)
+
+    def _set_state(self, er: EngineRequest, state: ReqState):
+        """Every lifecycle transition after submission goes through
+        here (the reference's tracer hooks in at this point)."""
+        er.lifecycle = state
+
+    def _elastic_signals(self) -> LoadSignals:
+        """The deployment's load in seconds of service per role, as the
+        reference computes it for its admission gate and elastic
+        controller (the compute network's congestion is 0 until the
+        port models it)."""
+        sched = self.sched
+        spec = self.time_model.spec
+        node = self.time_model.node
+        pe_rate = max(node.gpu.flops * node.gpu.mfu_prefill /
+                      max(spec.linear_flops_per_token(), 1.0), 1.0)
+        pe_queued = sum(r.new_tokens for r in sched.pe_queue)
+        pe_busy = sum(w.remaining for pe in self.pes.values()
+                      for w, _ in pe.fifo)
+        de_busy_tok = 0
+        n_active = 0
+        ctxs: List[float] = []
+        for de in self.des.values():
+            for slot, er in enumerate(de.slots):
+                if er is None:
+                    continue
+                n_active += 1
+                de_busy_tok += er.req.gen_tokens - len(er.generated)
+                ctxs.append(float(de.lengths[slot]))
+        de_q_tok = 0
+        for q in (sched.de_global_queue, *sched.de_private.values()):
+            for r in q:
+                de_q_tok += r.gen_tokens
+                ctxs.append(float(r.prompt_tokens))
+        n_ref = max(n_active / max(len(self.des), 1), 1.0)
+        ctx_ref = (sum(ctxs) / len(ctxs)) if ctxs else 1.0
+        kv_step = spec.decode_step_bytes(ctx_ref)
+        w = spec.active_param_bytes_resident(1)
+        de_rate = max(n_ref * node.gpu.hbm_bw * node.gpu.mbu_decode /
+                      max(n_ref * kv_step + w, 1.0), 1.0)
+        snic_tok_rate = max(node.snic_bw / max(spec.kv_bytes_per_token, 1),
+                            1.0)
+        pe_rq = sum(st.read_q for st in sched.admitting("pe"))
+        de_rq = sum(st.read_q for st in sched.admitting("de"))
+        dram_hit = sum(t.dram_hit_bytes for t in self.tiers.values())
+        denom = dram_hit + sum(self.read_bytes_by_side.values())
+        # interactive backlog, counted twice in the pressures; 0 unless
+        # class-aware
+        pe_q_int = de_q_int = 0.0
+        if sched.class_aware:
+            pe_q_int = sum(r.new_tokens for r in sched.pe_queue
+                           if r.class_rank == 0) / pe_rate
+            de_q_int = sum(r.gen_tokens
+                           for q in (sched.de_global_queue,
+                                     *sched.de_private.values())
+                           for r in q if r.class_rank == 0) / de_rate
+        return LoadSignals(
+            n_pe=len(sched.admitting("pe")),
+            n_de=len(sched.admitting("de")),
+            pe_queued_s=pe_queued / pe_rate,
+            pe_busy_s=pe_busy / pe_rate,
+            de_queued_s=de_q_tok / de_rate,
+            de_busy_s=de_busy_tok / de_rate,
+            pe_read_q_s=pe_rq / snic_tok_rate,
+            de_read_q_s=de_rq / snic_tok_rate,
+            net_congestion=0.0,
+            dram_hit_ratio=(dram_hit / denom) if denom else 0.0,
+            pe_queued_interactive_s=pe_q_int,
+            de_queued_interactive_s=de_q_int,
+        )
 
     def _stamp(self, rid: int, field_name: str):
         """Defer a milestone to the end of the current tick, after the
@@ -685,6 +807,12 @@ class ServingSystem:
             tier_miss_bytes=sum(t.miss_bytes for t in tiers),
             tier_prefetch_bytes=sum(t.prefetch_bytes for t in tiers),
             tier_evicted_bytes=sum(t.evicted_bytes for t in tiers),
+            # the SLO layer (without a gate every round was admitted)
+            **(self.gate.counters() if self.gate is not None else dict(
+                admitted_rounds=len(self.metrics), deferred_rounds=0,
+                rejected_rounds=0)),
+            prefill_chunks=self.prefill_chunks,
+            latency_by_class=events.latency_by_class(self.metrics.values()),
         )
 
     def slo_attainment(self, ttft_slo_s: float = 4.0,

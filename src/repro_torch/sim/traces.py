@@ -2,7 +2,8 @@
 ``repro.sim.traces``).  Each round appends ``append`` tokens to the full
 previous context and generates ``gen``; everything but the append hits
 the KV-Cache (hits only within a trajectory, §A.4).  ``think`` is the
-inter-round gap before a round's submission in online serving.  The
+inter-round gap before a round's submission in online serving, and
+``slo_class`` the priority class of every round of a trajectory.  The
 synthetic Table-2 dataset generator arrives with the slice that drives
 it (a benchmark or the simulator).
 """
@@ -25,6 +26,9 @@ class Round:
 class Trajectory:
     tid: int
     rounds: List[Round]
+    # SLO class carried onto every Request this trajectory submits
+    # (core/config.SloConfig class_aware): 'interactive' | 'batch'
+    slo_class: str = "batch"
 
     @property
     def n_rounds(self) -> int:
