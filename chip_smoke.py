@@ -1,6 +1,6 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA H100.
 
-    python3 chip_smoke.py                  # the smoke, phases 1-8
+    python3 chip_smoke.py                  # the smoke, phases 1-9
     python3 chip_smoke.py --persist-ab 10  # offline serving, old persist
                                            # against the scatter's
     python3 chip_smoke.py --split-sweep    # the attention kernels' split
@@ -45,10 +45,19 @@ Drives ``repro_torch`` (never the JAX package) on the card:
    ran (the PREFILL_CHUNKED sub-state), flash launched once per layer of
    every ``append_step``, all four kernels launched, and an interactive
    round that arrived after a batch round reached its first token first;
-7. f32 token identity at full width: ServingSystem against the port's
+7. chaos at full width and depth: phase 5's workload on 2 PEs + 2 DEs
+   with split reads, in four arms: (a) fault-free and traced (the trace
+   audit, the TTFT attribution against ``stats()``, the loading plans'
+   bytes against the read ledgers), (b) untraced (equal tokens and
+   ``stats()``), (c) a slow storage NIC and stragglers with hedged reads,
+   (d) a DE dies while it decodes a round and its rounds restart from the
+   persisted KV on the survivor (gather and flash run again, persists
+   land once); (c) and (d) give (a)'s tokens, store writes and trie
+   blocks (see :func:`chaos_phase`);
+8. f32 token identity at full width: ServingSystem against the port's
    cache-free reference (full forward, then decode), unchunked and with
    the first round's prefill cut into slices;
-8. prints the ``kernels`` JSON line, then the contract line
+9. prints the ``kernels`` JSON line, then the contract line
    ``{"ok": true, "device": {...}}`` last.
 
 Any failed check raises, so the script exits non-zero and prints no
@@ -748,20 +757,24 @@ def profile_phase(cfg, rounds=AGENT_ROUNDS, n_agents=6, top=8):
 
 def online_system(cfg, params, device="cuda", *, pipelined=True,
                   tier_blocks=ONLINE_TIER_BLOCKS, block_tokens=64,
-                  max_seq=2048, slo=None):
-    """1 PE + 1 DE, dualpath, a DRAM tier of ``tier_blocks`` FullBlocks
-    per node, agentic-TTL eviction and the think-time prefetcher."""
+                  max_seq=2048, n_pe=1, n_de=1, **kw):
+    """``n_pe`` PEs + ``n_de`` DEs (1 + 1 unless asked), dualpath, a DRAM
+    tier of ``tier_blocks`` FullBlocks per node, agentic-TTL eviction and
+    the think-time prefetcher; ``kw`` goes to the ServingSystem."""
     from repro_torch.core.config import TierConfig
     from repro_torch.engines.kvio import kv_row_bytes
     from repro_torch.serving import ServingSystem
-    # bf16 KV: a FullBlock is layers x block_tokens x (k ‖ v row) bytes
-    tier_bytes = tier_blocks * cfg.n_layers * block_tokens * kv_row_bytes(cfg)
+    # a FullBlock is layers x block_tokens x (k ‖ v row) bytes
+    itemsize = torch.empty((), dtype=getattr(
+        torch, cfg.kv_cache_dtype)).element_size()
+    tier_bytes = tier_blocks * cfg.n_layers * block_tokens * \
+        kv_row_bytes(cfg, itemsize)
     return ServingSystem(
-        cfg, params, device=device, pipelined=pipelined, n_pe=1, n_de=1,
-        mode="dualpath", block_tokens=block_tokens, max_seq=max_seq,
-        de_slots=8, tier=TierConfig(dram_tier_bytes=tier_bytes,
-                                    tier_policy="agentic-ttl", prefetch=True),
-        slo=slo)
+        cfg, params, device=device, pipelined=pipelined, n_pe=n_pe,
+        n_de=n_de, mode="dualpath", block_tokens=block_tokens,
+        max_seq=max_seq, de_slots=8,
+        tier=TierConfig(dram_tier_bytes=tier_bytes,
+                        tier_policy="agentic-ttl", prefetch=True), **kw)
 
 
 def run_online_timed(system, trajs, arrivals, device):
@@ -776,17 +789,25 @@ def run_online_timed(system, trajs, arrivals, device):
     return sessions, time.perf_counter() - t0
 
 
+def online_workload(rounds=ONLINE_ROUNDS, n_agents=ONLINE_AGENTS,
+                    mean_gap_s=0.5):
+    """``n_agents`` trajectories of ``rounds`` and their Poisson arrival
+    times (modelled seconds)."""
+    from repro_torch.sim.traces import Round, Trajectory
+    arrivals = np.cumsum(np.random.default_rng(7).exponential(
+        mean_gap_s, n_agents)).tolist()
+    trajs = [Trajectory(i, [Round(*r) for r in rounds])
+             for i in range(n_agents)]
+    return trajs, arrivals
+
+
 def online_run(cfg, params, device="cuda", *, pipelined=True,
                rounds=ONLINE_ROUNDS, n_agents=ONLINE_AGENTS,
                mean_gap_s=0.5, **kw):
     """One online run: ``n_agents`` trajectories of ``rounds`` arriving
     at Poisson times on :func:`online_system`.  Returns (system,
     sessions, real wall s)."""
-    from repro_torch.sim.traces import Round, Trajectory
-    arrivals = np.cumsum(np.random.default_rng(7).exponential(
-        mean_gap_s, n_agents)).tolist()
-    trajs = [Trajectory(i, [Round(*r) for r in rounds])
-             for i in range(n_agents)]
+    trajs, arrivals = online_workload(rounds, n_agents, mean_gap_s)
     system = online_system(cfg, params, device, pipelined=pipelined, **kw)
     sessions, wall = run_online_timed(system, trajs, arrivals, device)
     return system, sessions, wall
@@ -921,6 +942,255 @@ def slo_phase(cfg, device="cuda", rounds=SLO_ROUNDS, classes=SLO_CLASSES,
                 reject_stats={k: st_r[k] for k in (
                     "admitted_rounds", "deferred_rounds", "rejected_rounds",
                     "finished_rounds", "gen_tokens")})
+
+
+# ---------------------------------------------------------------------------
+# phase 7: chaos (faults, hedged reads, fail-stop recovery), traced
+# ---------------------------------------------------------------------------
+
+def chaos_run(cfg, params, device="cuda", *, tracer=None, faults=None,
+              hedge=False):
+    """Phase 5's online workload, tier and prefetcher on 2 PEs + 2 DEs
+    with split reads, optionally traced and under a FaultSchedule.  The
+    kernel launch counts are set to 0 just before the run and read just
+    after.  Returns a dict: system, tracer, requests (every Request the
+    scheduler got, in submission order), contexts, stats, launches,
+    persists, wall_s, tokens_per_s."""
+    from repro_torch import kernels
+    from repro_torch.core.config import ResilienceConfig
+    trajs, arrivals = online_workload()
+    system = online_system(
+        cfg, params, device, n_pe=2, n_de=2, split_reads=True,
+        tracer=tracer,
+        resilience=ResilienceConfig(faults=faults, hedge_reads=hedge))
+    requests = []
+    submit = system.sched.submit
+    system.sched.submit = lambda r: (requests.append(r), submit(r))
+    kernels.reset_launch_counts()
+    with persist_counter() as persists:
+        sessions, wall = run_online_timed(system, trajs, arrivals, device)
+    launches = kernels.launch_counts()
+    st = system.stats()
+    assert all(s.done() and s.rounds_done == len(ONLINE_ROUNDS)
+               for s in sessions), "a chaos round did not finish"
+    return dict(system=system, tracer=tracer, requests=requests,
+                contexts=[list(s.context) for s in sessions], stats=st,
+                launches=launches, persists=persists.n, wall_s=wall,
+                tokens_per_s=st["gen_tokens"] / wall)
+
+
+def same_value(a, b) -> bool:
+    """Equality with NaN equal to NaN, through dicts."""
+    if isinstance(a, dict) and isinstance(b, dict):
+        return a.keys() == b.keys() and all(same_value(a[k], b[k])
+                                            for k in a)
+    if isinstance(a, float) and isinstance(b, float) and a != a and b != b:
+        return True
+    return a == b
+
+
+def plan_against_reads(run) -> list:
+    """Per round: (plan, read, slack), each a {side: hit bytes} over the
+    side's storage NIC and DRAM tier.  ``plan`` is the round's loading
+    plan (``loading.plan_for`` on the request's own hit partition,
+    ``tier=Request.hit_bytes_partition``), ``read`` what the run's trace
+    shows the round read (``storage_read`` + ``tier_hit`` events), and
+    ``slack`` half a FullBlock and a token when both storage NICs served
+    the round, else 0: the runtime splits a read at whole FullBlocks and
+    the plan at tokens, and tests/test_torch_faults.py shows the JAX
+    reference's rounds a side apart by up to that rounding."""
+    from repro_torch.core import loading
+    layout = run["system"].layout
+    kv = layout.n_layers * layout.bytes_per_token_layer
+    read = {}
+    for track, name, _, args in run["tracer"].iter_events():
+        if name in ("storage_read", "tier_hit"):
+            side = read.setdefault(int(track.split("/", 1)[1]),
+                                   dict(pe=0, de=0))
+            side[args["side"]] += args["nbytes"]
+    out = []
+    for r in run["requests"]:
+        plan = dict(pe=0, de=0)
+        for leg in loading.plan_for(
+                r.read_path, r.read_split, r.cached_tokens * kv,
+                r.new_tokens * kv, r.gen_tokens * kv,
+                tier=r.hit_bytes_partition(kv)):
+            if leg.phase == "load":
+                for res in leg.resources:
+                    if res in ("pe_snic", "pe_tier", "de_snic", "de_tier"):
+                        plan[res[:2]] += leg.nbytes
+        tok = r.read_tokens_by_side()
+        slack = layout.full_block_bytes // 2 + kv \
+            if tok["pe"] and tok["de"] else 0
+        out.append((plan, read.get(r.rid, dict(pe=0, de=0)), slack))
+    return out
+
+
+def check_plans(run) -> dict:
+    """The plans' bytes against what a traced run read, as the reference
+    holds them: each round's plan carries exactly the hit bytes the round
+    read, and each side within the round's page-rounding slack; summed
+    over rounds, the plans equal the read ledgers (storage + tier) in
+    total.  Returns the sums per side, plan and ledger, and the rounds
+    that were split."""
+    rounds = plan_against_reads(run)
+    for i, (plan, read, slack) in enumerate(rounds):
+        assert sum(plan.values()) == sum(read.values()), \
+            f"round {i}: plan {plan}, read {read}"
+        for s in ("pe", "de"):
+            assert abs(plan[s] - read[s]) <= slack, \
+                f"round {i}, {s} side: plan {plan}, read {read}, " \
+                f"slack {slack}"
+    st = run["stats"]
+    plan = {s: sum(p[s] for p, _, _ in rounds) for s in ("pe", "de")}
+    got = {s: st[f"read_bytes_{s}_side"] + st[f"dram_bytes_{s}_side"]
+           for s in ("pe", "de")}
+    assert sum(got.values()) == sum(plan.values()), \
+        f"plans carry {plan} hit bytes, the ledgers hold {got}"
+    return dict(plan=plan, runtime=got,
+                split_rounds=sum(sl > 0 for _, _, sl in rounds))
+
+
+def death_time(tracer, requests) -> tuple:
+    """Where and when a DE dies: from a fault-free run's trace, the middle
+    of the longest ``decode`` span of a round that started from a cache
+    hit (so its recovery installs the hit again), and the DE that decoded
+    it.  Returns (modelled time, DE, rid)."""
+    by_rid = {r.rid: r for r in requests}
+    spans = [(t1 - t0, t0, t1, int(track.split("/", 1)[1]))
+             for track, _, t0, t1, _ in tracer.iter_spans("req/", "decode")]
+    spans = [sp for sp in spans if by_rid[sp[3]].cached_tokens > 0]
+    assert spans, "no round with a cache hit decoded"
+    _, t0, t1, rid = max(spans)
+    return t0 + 0.5 * (t1 - t0), by_rid[rid].de, rid
+
+
+def first_difference(cfg, params, want, got, device) -> dict:
+    """The first token where two runs' contexts differ, and the reference
+    model's logit margin (top-1 minus top-2) at that position of the
+    expected context."""
+    from repro_torch.models import forward
+    for agent, (a, b) in enumerate(zip(want, got)):
+        pos = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
+                   None)
+        if pos is None:
+            continue
+        toks = torch.tensor([a[:pos]], dtype=torch.long, device=device)
+        logits, _ = forward(params, cfg, toks, last_only=True)
+        top = torch.topk(logits[0, -1].float(), 2).values
+        return dict(agent=agent, position=pos, want=a[pos], got=b[pos],
+                    margin=float(top[0] - top[1]))
+    return {}
+
+
+def death_arm(cfg, params, device, base) -> dict:
+    """Arm (d): a DE dies while it decodes a round (the DE and the time
+    from ``base``'s trace, :func:`death_time`), traced.  Returns the run,
+    with the death time, the DE and the rid that was decoding."""
+    from repro_torch.obs import Tracer, audit_serving
+    from repro_torch.sim.faults import EngineDeath, FaultSchedule
+    t_death, victim, rid = death_time(base["tracer"], base["requests"])
+    run = chaos_run(cfg, params, device, tracer=Tracer(),
+                    faults=FaultSchedule(
+                        deaths=[EngineDeath(t_death, victim)]))
+    st, st_a = run["stats"], base["stats"]
+    assert st["engine_deaths"] == 1 and st["recovered_rounds"] > 0 and \
+        st["n_de_final"] == 1, "the death arm did not recover"
+    for k in ("store_writes", "trie_blocks"):
+        assert st[k] == st_a[k], f"death arm: {k} {st[k]} against {st_a[k]}"
+    assert st["store_reads"] >= st_a["store_reads"], "death arm read less"
+    audit_serving(run["system"], run["tracer"], check_persists=True)
+    recovered = list(run["tracer"].iter_events("recovered"))
+    assert len(recovered) == st["recovered_rounds"], \
+        f"{len(recovered)} recovered events, {st['recovered_rounds']} rounds"
+    run.update(t_death=t_death, victim=victim, decoding_rid=rid)
+    return run
+
+
+def chaos_phase(cfg, device="cuda") -> dict:
+    """Faults, hedged reads and fail-stop recovery at full width and
+    depth, on phase 5's workload over 2 PEs + 2 DEs with split reads.
+
+    (a) fault-free and traced: the trace audit (persists exactly once),
+        the TTFT attribution against ``stats()``, and the loading plans'
+        bytes against the read ledgers; (b) the same run untraced: equal
+        tokens and ``stats()``; (c) node 0's storage NIC 8x slower and
+        stragglers (p 0.4, 8x) with hedged reads: hedges moved tokens,
+        and the chaos invariants (every round finishes, tokens, store
+        writes, trie blocks and the hit bytes served equal (a)'s); (d) a
+        DE dies while it decodes a round: it recovers, persists
+        exactly once, reads at least as much, runs gather and flash more
+        than (a), its trace passes the audit with one ``recovered`` event
+        per recovered round, and gives (a)'s tokens (if a bf16 near-tie
+        flips a token, the first difference and its margin are reported
+        and the pair (a), (d) is run again in f32, where tokens must be
+        equal).  Returns a dict of what it printed."""
+    from repro_torch.models import init_params
+    from repro_torch.obs import (Tracer, attribute_ttft, audit_serving,
+                                 bottleneck_report)
+    from repro_torch.sim.faults import (FaultSchedule, SlowdownWindow,
+                                        StragglerModel)
+    params = init_params(cfg, seed=0, device=device)
+    out = {}
+    # (a) fault-free, traced
+    a = chaos_run(cfg, params, device, tracer=Tracer())
+    st_a, tr = a["stats"], a["tracer"]
+    audit = audit_serving(a["system"], tr, check_persists=True)
+    assert audit["persist_bytes"] == st_a["store_writes"]
+    rep = bottleneck_report(attribute_ttft(tr))
+    assert rep["n"] == st_a["finished_rounds"], (rep["n"], st_a)
+    assert rep["max_decomp_err_s"] < 1e-9, rep
+    assert abs(rep["ttft_mean_s"] - st_a["ttft_mean"]) <= 1e-9, rep
+    out["a"] = dict(run=a, audit=audit, report=rep, plans=check_plans(a),
+                    trace=dict(spans=sum(1 for _ in tr.iter_spans()),
+                               events=sum(1 for _ in tr.iter_events()),
+                               counters=len(tr.counters)))
+    # (b) the same run, untraced
+    b = chaos_run(cfg, params, device)
+    assert b["contexts"] == a["contexts"], "the untraced run's tokens differ"
+    diff = [k for k in st_a if not same_value(st_a[k], b["stats"][k])]
+    assert not diff and st_a.keys() == b["stats"].keys(), \
+        f"untraced stats differ: {diff}"
+    out["b"] = dict(run=b)
+    # (c) hedged reads under a slow storage NIC and stragglers
+    c = chaos_run(cfg, params, device, hedge=True, faults=FaultSchedule(
+        windows=[SlowdownWindow("snic", 0.0, 1e9, 8.0, node=0)],
+        straggler=StragglerModel(0.4, 8.0, seed=7)))
+    st_c = c["stats"]
+    assert st_c["hedged_reads"] > 0 and st_c["hedge_moved_tokens"] > 0, \
+        "no read was hedged"
+    assert c["contexts"] == a["contexts"], "the hedged arm's tokens differ"
+    for k in ("store_writes", "trie_blocks"):
+        assert st_c[k] == st_a[k], f"hedged arm: {k} {st_c[k]} != {st_a[k]}"
+    # every hit byte is served once, from storage or from a DRAM tier: a
+    # hedge moves blocks between sides, and so between the two sides'
+    # tiers, which changes how many of them storage serves (the reference
+    # does the same; tests/test_torch_faults.py shows it on both packages)
+    total = lambda st: sum(st[f"{k}_bytes_{s}_side"] for k in ("read", "dram")
+                           for s in ("pe", "de"))
+    assert total(st_c) == total(st_a), "the hedge changed the hit total"
+    out["c"] = dict(run=c)
+    # (d) a DE dies while it decodes
+    d = death_arm(cfg, params, device, a)
+    if device != "cpu":
+        for k in ("kv_layer_gather", "flash_attention"):
+            assert d["launches"][k] > a["launches"][k], \
+                f"recovery did not run {k} again: {d['launches'][k]} " \
+                f"against {a['launches'][k]}"
+    out["d"] = dict(run=d, first_difference=None, f32=None)
+    if d["contexts"] != a["contexts"]:
+        out["d"]["first_difference"] = first_difference(
+            cfg, params, a["contexts"], d["contexts"], device)
+        cfg32 = dataclasses.replace(cfg, param_dtype="float32",
+                                    kv_cache_dtype="float32")
+        params32 = init_params(cfg32, seed=0, device=device)
+        a32 = chaos_run(cfg32, params32, device, tracer=Tracer())
+        d32 = death_arm(cfg32, params32, device, a32)
+        assert d32["contexts"] == a32["contexts"], \
+            f"f32 death arm diverged: " + json.dumps(first_difference(
+                cfg32, params32, a32["contexts"], d32["contexts"], device))
+        out["d"]["f32"] = dict(a=a32, d=d32)
+    return out
 
 
 def reference_contexts(cfg, params, rounds, seed_tid, device):
@@ -1115,12 +1385,35 @@ def main() -> int:
           f"{slo['reject_wall_s']:.3f} s real wall, "
           f"{json.dumps(slo['reject_stats'])}")
 
-    # 7. f32 token identity with the cache-free reference
+    # 7. chaos: traced, hedged reads, a DE's fail-stop and its recovery
+    chaos = chaos_phase(cfg)
+    for arm, title in (("a", "fault-free, traced"), ("b", "untraced"),
+                       ("c", "hedged reads"), ("d", "a DE dies")):
+        r = chaos[arm]["run"]
+        print(f"chaos ({arm}) {title}: {r['wall_s']:.3f} s real wall, "
+              f"{r['tokens_per_s']:.1f} generated tokens/s, launches "
+              f"{r['launches']}, {r['persists']} persists; stats "
+              + json.dumps(r["stats"]))
+    ca, cd = chaos["a"], chaos["d"]["run"]
+    print(f"chaos (a): trace {json.dumps(ca['trace'])}; audit "
+          f"{json.dumps(ca['audit'])}; TTFT attribution (modelled s) "
+          f"{json.dumps(ca['report'])}; plans against the runtime "
+          f"{json.dumps(ca['plans'])}")
+    print(f"chaos (d): DE {list(cd['victim'])} dies at modelled "
+          f"{cd['t_death']!r} s while it decodes rid {cd['decoding_rid']}; "
+          f"recovered {cd['stats']['recovered_rounds']} rounds; bf16 tokens "
+          + ("equal (a)'s" if chaos["d"]["first_difference"] is None else
+             "differ from (a)'s at " + json.dumps(
+                 chaos["d"]["first_difference"]) + "; in f32 (a) and (d) "
+             "give equal tokens (death at modelled "
+             f"{chaos['d']['f32']['d']['t_death']!r} s)"))
+
+    # 8. f32 token identity with the cache-free reference
     n, chunks = identity_phase(cfg)
     print(f"f32 identity: {n} context tokens equal the cache-free reference, "
           f"unchunked and in {chunks} + 1 prefill slices")
 
-    # 8. kernels line, then the contract line
+    # 9. kernels line, then the contract line
     meta = {
         "kv_layer_gather": ("src/repro_torch/kernels/csrc/kv_gather.cu",
                             "src/repro/kernels/kv_gather.py:30"),
@@ -1139,7 +1432,9 @@ def main() -> int:
             replaces=meta[name][1], launches=launches[name],
             launches_by_path=dict(offline=launches[name],
                                   online=launches_o[name],
-                                  slo=slo["launches"][name]),
+                                  slo=slo["launches"][name],
+                                  chaos=ca["run"]["launches"][name],
+                                  chaos_death=cd["launches"][name]),
             max_abs_err=max(c["max_abs_err"] for c in cs),
             ms=main_case["ms"], kernel_ms=main_case["ms"],
             ms_clean_l2=main_case.get("ms_clean_l2"),
@@ -1150,7 +1445,9 @@ def main() -> int:
     line[1]["persist_ms"] = {w: dict(host_ms=h, d2h_ms=d)
                              for w, (h, d) in persist.items()}
     line[1]["persists_by_path"] = dict(offline=persists, online=persists_o,
-                                       slo=slo["persists"])
+                                       slo=slo["persists"],
+                                       chaos=ca["run"]["persists"],
+                                       chaos_death=cd["persists"])
     print(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

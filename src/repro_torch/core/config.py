@@ -2,11 +2,13 @@
 
 * :class:`TierConfig` — the node-local DRAM tier and the think-time
   prefetcher.
+* :class:`ResilienceConfig` — fault injection (``sim/faults.py``) and
+  hedged split reads.
 * :class:`SloConfig` — the online SLO layer: the admission gate,
   chunked prefill and priority classes.
 
-The reference's other groups (network, elastic, resilience) arrive with
-the slices that port those features.
+The reference's other groups (network, elastic) arrive with the slices
+that port those features.
 """
 from __future__ import annotations
 
@@ -25,6 +27,20 @@ class TierConfig:
     tier_policy: str = "lru"          # lru | agentic-ttl
     tier_ttl_s: Optional[float] = None  # None = policy default (120 s)
     prefetch: bool = False            # think-time prefetcher
+
+
+@dataclass
+class ResilienceConfig:
+    """Fault injection and hedged split reads.  ``faults`` is a
+    ``sim.faults.FaultSchedule``; None or an empty schedule leaves every
+    fault hook a no-op.  A read is hedged when one side's storage leg is
+    twice as slow as the other's or worse (``serving.system``'s
+    ``_HEDGE_MIN_SEVERITY``).  The reference's ``hedge_min_severity``
+    and ``hedge_threshold_s`` come with the simulator, the only caller
+    that sets them."""
+
+    faults: Optional[object] = None   # FaultSchedule (or None)
+    hedge_reads: bool = False
 
 
 @dataclass

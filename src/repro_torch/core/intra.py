@@ -33,8 +33,25 @@ class AttnTimeModel:
         """The reference's modelled constants, kept as they are so the
         port packs prompts into the same chunks as the reference.  They
         are a packing model, not a property of the card the port runs
-        on."""
+        on.  Calibrating to a card is :meth:`fit`, and opt-in."""
         return cls(effective_flops=peak_flops * attn_efficiency)
+
+    @classmethod
+    def fit(cls, samples: Sequence[Tuple[float, float]]):
+        """Least-squares fit of (flops, seconds) measurement pairs."""
+        n = len(samples)
+        sx = sum(f for f, _ in samples)
+        sy = sum(t for _, t in samples)
+        sxx = sum(f * f for f, _ in samples)
+        sxy = sum(f * t for f, t in samples)
+        denom = n * sxx - sx * sx
+        if denom == 0:
+            return cls(effective_flops=1e12)
+        slope = (n * sxy - sx * sy) / denom
+        intercept = (sy - slope * sx) / n
+        slope = max(slope, 1e-18)
+        return cls(effective_flops=1.0 / slope,
+                   base_overhead_s=max(intercept, 0.0))
 
     def seconds(self, flops: float) -> float:
         return self.base_overhead_s + flops / self.effective_flops

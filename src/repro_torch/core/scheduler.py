@@ -18,16 +18,26 @@ With ``class_aware`` (the SLO layer's priority classes) the global
 queues are ordered by (class rank, arrival, rid), so ``interactive``
 rounds overtake ``batch`` rounds at submission.
 
+Fault tolerance: ``rebalance_remainder`` hedges a straggling side's
+read share onto the healthy side (``loading.hedge_water_fill``);
+``fail_engine`` removes a dead engine, ``requeue_unstarted`` hands back
+its unstarted assignments and ``rebalance_de_private`` re-routes queued
+DE requests after the group topology changed.  The completion hooks
+forfeit the charges of a dead engine.  With a tracer attached, every
+read-path decision and every hedge records an event.
+
 The arithmetic is the reference's, so both packages make the same
-decisions on the same lengths.  Drains, hedged reads, engine failure,
-network congestion and the round-robin baseline arrive with the slices
-that port those features.
+decisions on the same lengths.  The elastic drain protocol, network
+congestion and the round-robin baseline arrive with the slices that port
+those features.
 """
 from __future__ import annotations
 
 from collections import deque
 from dataclasses import dataclass
 from typing import Deque, Dict, List, Optional, Sequence, Tuple
+
+from repro_torch.core.loading import hedge_water_fill
 
 EngineId = Tuple[int, int]          # (node_id, local_rank)
 
@@ -108,6 +118,19 @@ class Request:
         k_pe = int(round(rem_blocks * tok["pe"] / rem_tok)) if rem_tok else 0
         return {"tier": k_tier, "pe": k_pe, "de": rem_blocks - k_pe}
 
+    def hit_bytes_partition(self, kv_per_token: int) -> Optional[tuple]:
+        """(pe_snic, de_snic, pe_tier, de_tier) hit bytes, the ``tier``
+        argument of ``loading.plan_for``; None when the request carries
+        no explicit partition (its read_split applies)."""
+        if self.snic_tokens is None:
+            return None
+        return (self.snic_tokens["pe"] * kv_per_token,
+                self.snic_tokens["de"] * kv_per_token,
+                (self.dram_tokens if self.dram_side == "pe" else 0)
+                * kv_per_token,
+                (self.dram_tokens if self.dram_side == "de" else 0)
+                * kv_per_token)
+
 
 @dataclass
 class EngineState:
@@ -121,8 +144,8 @@ class EngineState:
     tok: int = 0                    # unfinished tokens
     read_q: int = 0                 # node disk reading queue (tokens)
     free_hbm_tokens: int = 0        # decode engines only
-    # a draining engine admits no new work (elastic role flips); always
-    # False until the port has them
+    # a draining engine admits no new work; only ``fail_engine`` sets it
+    # until the port has elastic role flips
     draining: bool = False
 
 
@@ -135,6 +158,10 @@ class Assignment:
 class Scheduler:
     """Central request scheduler.  ``alpha``: short-reading-queue
     threshold [tokens]; ``beta``: unfinished-token limit [tokens]."""
+
+    #: optional flight recorder (repro_torch.obs.Tracer), attached by the
+    #: owning runtime; None = untraced
+    tracer = None
 
     def __init__(self, alpha: int, beta: int, *, z_factor: float = 1.05,
                  split_reads: bool = False, class_aware: bool = False):
@@ -305,6 +332,12 @@ class Scheduler:
         req.read_split = major / req.cached_tokens
         self.engines[req.pe].read_q += snic["pe"]
         self.engines[req.de].read_q += snic["de"]
+        if self.tracer is not None:
+            self.tracer.event("sched", "read_path", rid=req.rid,
+                              path=req.read_path, split=req.read_split,
+                              tier_side=side, tier_tokens=t,
+                              pe_tokens=snic["pe"],
+                              de_tokens=snic["de"])
         return req.read_path
 
     def choose_read_path(self, req: Request,
@@ -350,15 +383,145 @@ class Scheduler:
         tokens = req.read_tokens_by_side()
         self.engines[req.pe].read_q += tokens["pe"]
         self.engines[req.de].read_q += tokens["de"]
+        if self.tracer is not None:
+            self.tracer.event("sched", "read_path", rid=req.rid,
+                              path=req.read_path, split=req.read_split,
+                              tier_side="", tier_tokens=0,
+                              pe_tokens=tokens["pe"],
+                              de_tokens=tokens["de"])
         return req.read_path
+
+    # -- hedged split reads --------------------------------------------------
+    def rebalance_remainder(self, req: Request, from_side: str,
+                            remaining_tokens: int, severity: float,
+                            healthy_backlog_tokens: int = 0) -> int:
+        """Hedge: ``from_side``'s read leg straggles (service-time ratio
+        ``severity`` >= 1 against the healthy side) with
+        ``remaining_tokens`` of its SNIC share unserved; move the
+        water-filled part of that remainder (``loading.hedge_water_fill``)
+        to the healthy side.  The request's SNIC partition becomes
+        explicit (tier tokens never move), the reading queues transfer
+        exactly the moved charge, and the (read_path, read_split) majority
+        view is re-derived.  Returns the moved token count (0 = no
+        hedge)."""
+        assert from_side in ("pe", "de"), from_side
+        to_side = "de" if from_side == "pe" else "pe"
+        tokens = req.read_tokens_by_side()
+        rem = max(0, min(int(remaining_tokens), tokens[from_side]))
+        moved = hedge_water_fill(rem, max(severity, 1.0),
+                                 max(int(healthy_backlog_tokens), 0))
+        if moved <= 0:
+            return 0
+        snic = {from_side: tokens[from_side] - moved,
+                to_side: tokens[to_side] + moved}
+        req.snic_tokens = snic
+        from_eng = req.pe if from_side == "pe" else req.de
+        to_eng = req.pe if to_side == "pe" else req.de
+        st_from = self.engines.get(from_eng)
+        if st_from is not None:
+            st_from.read_q = max(0, st_from.read_q - moved)
+        st_to = self.engines.get(to_eng)
+        if st_to is not None:
+            st_to.read_q += moved
+        # the majority view, as _finalise_partition derives it, without
+        # charging the queues again
+        t = req.dram_tokens
+        pe_total = snic["pe"] + (t if req.dram_side == "pe" else 0)
+        de_total = snic["de"] + (t if req.dram_side == "de" else 0)
+        if pe_total != de_total:
+            req.read_path = "pe" if pe_total > de_total else "de"
+        elif req.read_path not in ("pe", "de"):
+            req.read_path = to_side
+        major = pe_total if req.read_path == "pe" else de_total
+        if req.cached_tokens:
+            req.read_split = major / req.cached_tokens
+        if self.tracer is not None:
+            self.tracer.event("sched", "hedge", rid=req.rid,
+                              from_side=from_side, moved_tokens=moved)
+        return moved
+
+    # -- engine failure (fail-stop) -------------------------------------------
+    def requeue_unstarted(self, engine: EngineId, requests):
+        """Hand back ``engine``'s assigned requests whose read has not
+        begun (``read_path is None``): nothing physical happened for them
+        on this engine, so reassigning them is free.  ``requests`` is the
+        runtime's in-flight request set; returns the requests given back,
+        re-sorted into their queue in (class rank, arrival, rid) order."""
+        st = self.engines[engine]
+        back: List[Request] = []
+        for req in requests:
+            if req.read_path is not None:
+                continue
+            if st.kind == "pe" and req.pe == engine:
+                req.pe = None
+            elif st.kind == "de" and req.de == engine:
+                req.de = None
+                st.free_hbm_tokens += req.hbm_tokens
+            else:
+                continue
+            st.seq = max(0, st.seq - 1)
+            st.tok = max(0, st.tok - req.prompt_tokens)
+            back.append(req)
+        if back:
+            # an assigned request left its queue at assignment, so
+            # concatenate-and-sort restores the order without duplicates
+            if st.kind == "pe":
+                self.pe_queue = deque(sorted(
+                    list(self.pe_queue) + back, key=self._order_key))
+            else:
+                self.de_global_queue = deque(sorted(
+                    list(self.de_global_queue) + back,
+                    key=self._order_key))
+        return back
+
+    def rebalance_de_private(self):
+        """Pull every unassigned request out of the per-group private
+        queues back into the global queue (queue order), so the next
+        ``de_phase1`` routes them over the current group topology."""
+        pend = list(self.de_global_queue)
+        for q in self.de_private.values():
+            while q:
+                pend.append(q.popleft())
+        pend.sort(key=self._order_key)
+        self.de_global_queue = deque(pend)
+
+    def fail_engine(self, engine: EngineId) -> EngineState:
+        """Fail-stop removal: the engine admits nothing from now on, its
+        outstanding charges are forfeited (the runtime re-homes its
+        requests; the completion hooks swallow their late releases) and it
+        leaves the registry.  If its DE group has no admitting member
+        left, the group's private queue goes back to the global queue."""
+        st = self.engines[engine]
+        st.draining = True
+        if st.kind == "de":
+            members = [self.engines[e] for e in self._groups[st.group]]
+            if all(m.draining for m in members):
+                q = self.de_private.get(st.group)
+                while q:
+                    self.de_global_queue.appendleft(q.pop())
+        grp = self._groups[st.group]
+        grp.remove(engine)
+        if not grp:
+            del self._groups[st.group]
+            q = self.de_private.pop(st.group, None)
+            if q:
+                pend = sorted(list(self.de_global_queue) + list(q),
+                              key=self._order_key)
+                self.de_global_queue = deque(pend)
+        del self.engines[engine]
+        return st
 
     # -- completion hooks --------------------------------------------------
     def on_read_done(self, engine: EngineId, tokens: int):
-        st = self.engines[engine]
+        st = self.engines.get(engine)
+        if st is None:                 # engine failed: charge forfeited
+            return
         st.read_q = max(0, st.read_q - tokens)
 
     def on_request_done(self, engine: EngineId, req: Request):
-        st = self.engines[engine]
+        st = self.engines.get(engine)
+        if st is None:                 # engine failed: charge forfeited
+            return
         st.seq = max(0, st.seq - 1)
         st.tok = max(0, st.tok - req.prompt_tokens)
         if st.kind == "de":

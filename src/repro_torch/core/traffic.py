@@ -4,8 +4,10 @@ Transfers are queued per engine with a traffic class; ``flush`` posts the
 queue in arbiter order (model collectives first, FIFO within a class)
 and charges the modelled doorbell-batched submission cost, ``poll``
 executes the posted thunks and fires per-flush completion callbacks, and
-``drain`` is flush + poll until idle.  The reference's congestion pacing
-belongs to the compute-network model, which this slice does not port.
+``drain`` is flush + poll until idle.  With a tracer attached, every
+flush and every poll that completed something records an event.  The
+reference's congestion pacing belongs to the compute-network model, which
+is not ported yet: a flush here defers nothing.
 """
 from __future__ import annotations
 
@@ -30,10 +32,17 @@ class SubmitCostModel:
 
     rdma_wr_s: float = 1e-6          # one RDMA work request (mmio writes)
     rdma_doorbell_s: float = 0.3e-6  # one doorbell ring (amortisable)
+    cuda_memcpy_s: float = 6e-6      # paper: 5–7 µs per cudaMemcpyAsync
 
     def rdma_batch_seconds(self, n: int) -> float:
         """Doorbell batching: n WRs posted, one doorbell."""
         return n * self.rdma_wr_s + self.rdma_doorbell_s
+
+    def rdma_unbatched_seconds(self, n: int) -> float:
+        return n * (self.rdma_wr_s + self.rdma_doorbell_s)
+
+    def cuda_seconds(self, n: int) -> float:
+        return n * self.cuda_memcpy_s
 
 
 @dataclass(order=True)
@@ -50,6 +59,11 @@ class _QueuedTransfer:
 class TrafficManager:
     """Per-engine transfer orderer with an issue half (``flush``) and a
     completion half (``poll``), like an RDMA send queue."""
+
+    #: optional flight recorder (repro_torch.obs.Tracer) and track label,
+    #: attached by the owning runtime; None = untraced
+    tracer = None
+    track = "traffic"
 
     def __init__(self, cost: SubmitCostModel = SubmitCostModel(),
                  doorbell_batch: int = 32):
@@ -108,6 +122,10 @@ class TrafficManager:
                     t.cbs = []
                 t.cbs.append(countdown)
         self._inflight.extend(batch)
+        if self.tracer is not None:
+            self.tracer.event(self.track, "flush", posted=len(batch),
+                              deferred=0,
+                              posted_bytes=sum(t.nbytes for t in batch))
         return len(batch)
 
     def poll(self, max_n: Optional[int] = None) -> int:
@@ -123,6 +141,8 @@ class TrafficManager:
                 cbs, t.cbs = t.cbs, None
                 for cb in cbs or ():
                     cb()
+        if n and self.tracer is not None:
+            self.tracer.event(self.track, "poll", completed=n)
         return n
 
     @property

@@ -58,6 +58,11 @@ class EngineRequest:
     # (node, refs) of the DRAM-tier prefix pinned from the path decision
     # until the read copies it out
     tier_pinned: Optional[Tuple[int, List[int]]] = None
+    # re-homed after an engine death: every stale completion discards it
+    cancelled: bool = False
+    # the open lifecycle span (traced runs only): state name and start
+    span_state: Optional[str] = None
+    state_t0: Optional[float] = None
 
     @property
     def prompt_len(self) -> int:

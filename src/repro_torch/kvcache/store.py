@@ -5,6 +5,7 @@ the card, so a FullBlock is a host numpy array ``(layers, block_tokens,
 row_bytes)`` uint8: persisting is a device-to-host copy and the
 layerwise install moves the hit blocks to the card once per request.
 A node's DRAM tier (``kvcache/tiers.py``) sits in front of this store.
+``AccountingKVStore`` keeps the byte and call counters with no payloads.
 """
 from __future__ import annotations
 
@@ -25,16 +26,20 @@ class KVStore:
         self._refs = itertools.count(1)
         self.bytes_read = 0
         self.bytes_written = 0
+        self.reads = 0
+        self.writes = 0
 
     def alloc_ref(self) -> int:
         return next(self._refs)
 
     def write_block(self, ref: int, block) -> None:
         self.bytes_written += self.layout.full_block_bytes
+        self.writes += 1
         self._put(ref, block)
 
     def read_block(self, ref: int):
         self.bytes_read += self.layout.full_block_bytes
+        self.reads += 1
         return self._get(ref)
 
     def read_blocks(self, refs: Sequence[int]) -> List:
@@ -70,3 +75,14 @@ class MemoryKVStore(KVStore):
     def _get(self, ref: int) -> np.ndarray:
         with self._lock:
             return self._data[ref]
+
+
+class AccountingKVStore(KVStore):
+    """Byte-accounting-only store: counts reads and writes, keeps no
+    payload."""
+
+    def _put(self, ref, block):
+        pass
+
+    def _get(self, ref):
+        return None

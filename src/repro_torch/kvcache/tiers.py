@@ -109,6 +109,11 @@ class DramTier:
     (``alloc_ref`` / ``read_block`` / ``read_blocks`` / ``write_block``),
     so a decode engine persists through it unchanged."""
 
+    #: optional flight recorder (repro_torch.obs.Tracer) and track label,
+    #: attached by the owning runtime; None = untraced
+    tracer = None
+    track = "tier"
+
     def __init__(self, capacity_bytes: float, policy="lru",
                  backing=None, ttl_s: Optional[float] = None):
         self.capacity_bytes = float(capacity_bytes)
@@ -157,12 +162,17 @@ class DramTier:
     # pinning (in-flight requests)
     # ------------------------------------------------------------------
     def pin(self, refs: Iterable) -> None:
+        n_pinned = 0
         for r in refs:
             e = self._entries.get(r)
             if e is not None:
                 if e.pins == 0:
                     self._pinned_bytes += e.nbytes
                 e.pins += 1
+                n_pinned += 1
+        if n_pinned and self.tracer is not None:
+            self.tracer.event(self.track, "pin", n=n_pinned,
+                              pinned_bytes=self._pinned_bytes)
 
     def unpin(self, refs: Iterable) -> None:
         for r in refs:
@@ -253,6 +263,9 @@ class DramTier:
             self._by_owner.setdefault(owner, set()).add(ref)
         if prefetch:
             self.prefetch_bytes += nbytes
+            if self.tracer is not None:
+                self.tracer.event(self.track, "prefetch_admit",
+                                  nbytes=nbytes)
         return True
 
     def _reown(self, e: TierEntry, owner) -> None:
@@ -286,6 +299,10 @@ class DramTier:
         self.used_bytes -= e.nbytes
         self.evicted_bytes += e.nbytes
         self.evictions += 1
+        if self.tracer is not None:
+            self.tracer.event(self.track, "evict", nbytes=e.nbytes)
+            self.tracer.counter(f"{self.track}/occupancy",
+                                used_bytes=self.used_bytes)
         if e.owner is not None:
             held = self._by_owner.get(e.owner)
             if held is not None:

@@ -41,10 +41,26 @@ priority classes (``Trajectory.slo_class``; interactive rounds overtake
 batch rounds in the scheduler's queues and the PE fifo).  An all-default
 SloConfig changes nothing.
 
+``resilience=ResilienceConfig(faults=FaultSchedule(...))`` injects
+faults (``sim/faults.py``): slowdown windows and straggling read legs
+scale the clock's storage-NIC and compute-network seconds, and with
+``hedge_reads`` a read whose one side is degraded moves part of its share
+to the other side (``Scheduler.rebalance_remainder``).  An engine death
+fail-stops the engine at its modelled time: its unstarted assignments go
+back to the queues, and every round with state on it restarts under a
+new rid from the persisted KV (the trie match of the same prompt), so a
+block whose persist had not landed is persisted once by the recovery.
+
+``tracer=Tracer()`` records the run on the modelled clock
+(``repro_torch.obs``): lifecycle spans per request, storage reads, tier
+hits, persists, read-path and hedge decisions, tier and traffic events.
+With ``tracer=None`` every hook is a no-op.  ``stats()`` passes through
+the metric schema (``obs.schema.conforming``).
+
 This slice serves the dense family with ``mode`` dualpath or basic,
 ``split_reads``, ``layerwise`` on and off, any number of PEs, DEs and
-groups, offline or online, with or without DRAM tiers, prefetch and the
-SLO layer.  Faults and hedging, elastic roles, the tracer and the
+groups, offline or online, with or without DRAM tiers, prefetch, the SLO
+layer, faults and hedging, traced or not.  Elastic roles and the
 collective network model arrive with later slices of the port.
 """
 from __future__ import annotations
@@ -61,7 +77,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.blocks import layout_for
 from repro_torch.core.admission import DEFER, REJECT, AdmissionGate
 from repro_torch.core.autoscale import LoadSignals
-from repro_torch.core.config import SloConfig, TierConfig
+from repro_torch.core.config import ResilienceConfig, SloConfig, TierConfig
 from repro_torch.core.scheduler import Request, Scheduler
 from repro_torch.core.traffic import TrafficClass, TrafficManager
 from repro_torch.device import resolve
@@ -72,12 +88,23 @@ from repro_torch.kvcache.store import MemoryKVStore
 from repro_torch.kvcache.tiers import DramTier, ThinkTimePrefetcher
 from repro_torch.kvcache.trie import BlockTrie
 from repro_torch.models.params import require_ported
+from repro_torch.obs.schema import conforming
 from repro_torch.serving import events
 from repro_torch.serving.events import (EventLoop, ReqState, RoundMetrics,
                                         ServingTimeModel, TickIo,
                                         VirtualClock)
 from repro_torch.sim.spec import NodeSpec
 from repro_torch.sim.traces import Trajectory
+
+
+# lifecycle states in which a round's state is on its PE (the reference
+# lists the first three; a chunked round between slices is on the PE too)
+_ON_PE = (ReqState.SCHEDULED, ReqState.READING, ReqState.PREFILL,
+          ReqState.PREFILL_CHUNKED)
+
+# a hedged read moves work off a side whose storage leg is this many times
+# slower than the other's (the reference's ResilienceConfig default)
+_HEDGE_MIN_SEVERITY = 2.0
 
 
 @dataclass
@@ -102,7 +129,8 @@ class ServingSystem:
                  pe_group_size: Optional[int] = None,
                  de_group_size: Optional[int] = None,
                  pipelined: bool = True, node: Optional[NodeSpec] = None,
-                 tier: Optional[TierConfig] = None,
+                 tracer=None, tier: Optional[TierConfig] = None,
+                 resilience: Optional[ResilienceConfig] = None,
                  slo: Optional[SloConfig] = None, device="cuda"):
         assert mode in ("dualpath", "basic")
         require_ported(cfg)
@@ -194,12 +222,60 @@ class ServingSystem:
         # straight to the scheduler); offline serving never consults it
         self.gate = AdmissionGate(scfg) if scfg.admission else None
         self.prefill_chunks = 0
+        # fault injection: an empty schedule is normalised to None, so
+        # every fault hook is a no-op on the happy path
+        rcfg = resilience or ResilienceConfig()
+        faults = rcfg.faults
+        self.faults = faults if (faults is not None
+                                 and not faults.empty) else None
+        self.hedge_reads = rcfg.hedge_reads
+        self._deaths_pending = list(self.faults.deaths) \
+            if self.faults is not None else []
+        self.dead_engines: List[Tuple[int, int]] = []
+        self.recovered_rounds = 0
+        self.hedged_reads = 0
+        self.hedge_moved_tokens = 0
+        # the flight recorder: lifecycle spans close at the end of the
+        # tick (``_flush_stamps``), so span edges match the milestones
+        self.tracer = tracer
+        self._pending_states: List[Tuple[EngineRequest, ReqState]] = []
+        if tracer is not None:
+            tracer.bind_clock(lambda: self.clock.now)
+            if self.faults is not None:
+                tracer.annotate_faults(self.faults)
+            self.sched.tracer = tracer
+            for node_id, t in self.tiers.items():
+                t.tracer = tracer
+                t.track = f"tier/node{node_id}"
+            for eng in (*self.pes.values(), *self.des.values()):
+                eng.tm.tracer = tracer
+                eng.tm.track = f"traffic/node{eng.eid[0]}"
 
     def _all_tms(self) -> Iterator[TrafficManager]:
         for pe in self.pes.values():
             yield pe.tm
         for de in self.des.values():
             yield de.tm
+
+    # fault-aware service times: the schedule's multipliers compose onto
+    # the healthy time model; with no faults the base value is returned
+    def _snic_s(self, node: int, nbytes: float, rid: Optional[int] = None,
+                side: Optional[str] = None) -> float:
+        """Storage-NIC seconds on ``node``, slowed by any active window
+        and, for the read leg ``(rid, side)``, by its straggler draw.
+        Tier (DRAM) reads never come through here."""
+        s = self.time_model.snic_seconds(nbytes)
+        if self.faults is not None:
+            s *= self.faults.snic_factor(node, self.clock.now)
+            if rid is not None:
+                s *= self.faults.leg_factor(rid, side)
+        return s
+
+    def _cn_s(self, nbytes: float) -> float:
+        s = self.time_model.cn_seconds(nbytes)
+        if self.faults is not None:
+            s *= self.faults.net_factor(self.clock.now)
+        return s
 
     # ------------------------------------------------------------------
     def _submit_round(self, sess: AgentSession):
@@ -238,6 +314,7 @@ class ServingSystem:
         er = EngineRequest(req=req, context_tokens=prompt[:hit],
                            append_tokens=prompt[hit:], hit_refs=refs,
                            session=sess, lifecycle=ReqState.SCHEDULED)
+        self._trace_submit(er)
         sess.current = er
         sess.next_round += 1
         self._inflight[req.rid] = er
@@ -288,6 +365,8 @@ class ServingSystem:
                             er.hit_refs) * bt
                         for side, eid in (("pe", req.pe), ("de", req.de))}
                 self.sched.choose_read_path(req, tier_tokens=tier_tokens)
+                if self.hedge_reads and self.faults is not None:
+                    self._maybe_hedge(req)
                 if req.dram_tokens:
                     # pin the tier-resident prefix now: the reads of other
                     # ready requests admit (and may evict) blocks before
@@ -304,6 +383,39 @@ class ServingSystem:
             else:
                 self._do_read(er)
         return len(ready)
+
+    def _maybe_hedge(self, req: Request) -> int:
+        """Hedged split read: if one side's storage leg is degraded
+        (straggler draw and/or an active slowdown window on its node)
+        ``_HEDGE_MIN_SEVERITY`` times or more against the other, move part
+        of that side's share to the healthy side through
+        ``Scheduler.rebalance_remainder`` before the legs are built.
+        Tier-hit tokens never move."""
+        toks = req.read_tokens_by_side()
+        if not (toks["pe"] > 0 and toks["de"] > 0):
+            return 0
+        now = self.clock.now
+        f = {s: self.faults.leg_factor(req.rid, s) *
+             self.faults.snic_factor((req.pe if s == "pe" else req.de)[0],
+                                     now)
+             for s in ("pe", "de")}
+        for slow, fast in (("pe", "de"), ("de", "pe")):
+            if f[fast] <= 0 or f[slow] / f[fast] < _HEDGE_MIN_SEVERITY:
+                continue
+            healthy = req.pe if fast == "pe" else req.de
+            st = self.sched.engines.get(healthy)
+            # backlog ahead of this request on the healthy NIC: its
+            # reading queue less this request's own charge there
+            backlog = max((st.read_q if st is not None else 0)
+                          - toks[fast], 0)
+            moved = self.sched.rebalance_remainder(
+                req, slow, toks[slow], f[slow] / f[fast],
+                healthy_backlog_tokens=backlog)
+            if moved:
+                self.hedged_reads += 1
+                self.hedge_moved_tokens += moved
+            return moved
+        return 0
 
     # ------------------------------------------------------------------
     # the read, split into issue/complete halves
@@ -346,6 +458,9 @@ class ServingSystem:
                     refs, owner=tid, now=self.clock.now)
                 hit_b = sum(b.nbytes for b in blocks)
                 self.dram_bytes_by_side[side] += hit_b
+                if hit_b and self.tracer is not None:
+                    self.tracer.event(f"req/{req.rid}", "tier_hit",
+                                      side=side, nbytes=hit_b)
                 self._tick_io.add(("dram", node), tmod.dram_seconds(hit_b))
             elif node in self.tiers:
                 tier = self.tiers[node]
@@ -356,13 +471,27 @@ class ServingSystem:
                 hit_b = tier.dram_hit_bytes - h0
                 self.read_bytes_by_side[side] += miss_b
                 self.dram_bytes_by_side[side] += hit_b
-                self._tick_io.add(("snic", node), tmod.snic_seconds(miss_b))
+                if self.tracer is not None:
+                    if miss_b:
+                        self.tracer.event(f"req/{req.rid}", "storage_read",
+                                          side=side, nbytes=miss_b)
+                    if hit_b:
+                        self.tracer.event(f"req/{req.rid}", "tier_hit",
+                                          side=side, nbytes=hit_b)
+                self._tick_io.add(("snic", node),
+                                  self._snic_s(node, miss_b, rid=req.rid,
+                                               side=side))
                 self._tick_io.add(("dram", node), tmod.dram_seconds(hit_b))
             else:
                 blocks = self.store.read_blocks(refs)
                 nb = sum(b.nbytes for b in blocks)
-                self._tick_io.add(("snic", node), tmod.snic_seconds(nb))
+                self._tick_io.add(("snic", node),
+                                  self._snic_s(node, nb, rid=req.rid,
+                                               side=side))
                 self.read_bytes_by_side[side] += nb
+                if nb and self.tracer is not None:
+                    self.tracer.event(f"req/{req.rid}", "storage_read",
+                                      side=side, nbytes=nb)
             nbytes = sum(b.nbytes for b in blocks)
             out.append((pe.tm if side == "pe" else de_tm,
                         lambda blocks=blocks, lo=lo:
@@ -371,8 +500,7 @@ class ServingSystem:
                         nbytes))
             if side == "de":
                 # DE buffer -> PE over the compute network (layerwise)
-                self._tick_io.add(("cn", pe_node),
-                                  self.time_model.cn_seconds(nbytes))
+                self._tick_io.add(("cn", pe_node), self._cn_s(nbytes))
                 out.append((pe.tm, lambda: None, nbytes))
         if er.tier_pinned is not None:
             # the tier segment is copied out: the pin has done its job
@@ -416,15 +544,20 @@ class ServingSystem:
         """Completion half: release the read-queue charge and install the
         hit KV on the PE (layerwise, through the gather kernel)."""
         req = er.req
+        self._release_read_q(req)
+        self._stamp(req.rid, "read_done_t")
+        self._set_state(er, ReqState.PREFILL)
+        self.pes[req.pe].install_hit_kv(
+            er, [b for b in er.read_payload if b is not None])
+
+    def _release_read_q(self, req: Request):
+        """Release exactly what the path decision charged (with
+        ``split_reads`` the charge may span both sides)."""
         tokens = req.read_tokens_by_side()
         for side in ("pe", "de"):
             if tokens[side]:
                 self.sched.on_read_done(req.pe if side == "pe" else req.de,
                                         tokens[side])
-        self._stamp(req.rid, "read_done_t")
-        self._set_state(er, ReqState.PREFILL)
-        self.pes[req.pe].install_hit_kv(
-            er, [b for b in er.read_payload if b is not None])
 
     # ------------------------------------------------------------------
     # engine phases
@@ -465,8 +598,7 @@ class ServingSystem:
             de_tm.submit(lambda: None,
                          per_layer + (rem if li == n_l - 1 else 0),
                          TrafficClass.KV_TRANSFER)
-        self._tick_io.add(("cn", er.req.de[0]),
-                          self.time_model.cn_seconds(nbytes))
+        self._tick_io.add(("cn", er.req.de[0]), self._cn_s(nbytes))
         if self.pipelined:
             self._pd_queue.append(er)
             de_tm.flush(on_complete=lambda er=er:
@@ -481,6 +613,8 @@ class ServingSystem:
         still: List[EngineRequest] = []
         n = 0
         for er in self._pd_queue:
+            if er.cancelled:
+                continue               # re-homed after an engine death
             if er.pd_ready:
                 er.pd_ready = False
                 self._pending_admit.append(er)
@@ -495,6 +629,8 @@ class ServingSystem:
         still = deque()
         while self._pending_admit:
             er = self._pending_admit.popleft()
+            if er.cancelled:
+                continue               # re-homed after an engine death
             de = self.des[er.req.de]
             if de.free_slots:
                 self._set_state(er, ReqState.DECODE)
@@ -509,6 +645,7 @@ class ServingSystem:
         act = 0
         de_max = 0.0
         for de in self.des.values():
+            de_node = de.eid[0]
             active_before = [er for er in de.slots if er is not None]
             steps0 = de.decode_steps
             b0 = de.tm.bytes[TrafficClass.KV_TRANSFER]
@@ -517,8 +654,11 @@ class ServingSystem:
                          self.time_model.de_step_seconds(de.last_step_ctxs))
             act += (de.decode_steps - steps0) + len(finished)
             persist_b = de.tm.bytes[TrafficClass.KV_TRANSFER] - b0
-            self._tick_io.add(("snic", de.eid[0]),
-                              self.time_model.snic_seconds(persist_b))
+            if persist_b and self.tracer is not None:
+                self.tracer.event(f"engine/node{de_node}", "persist",
+                                  nbytes=persist_b)
+            self._tick_io.add(("snic", de_node),
+                              self._snic_s(de_node, persist_b))
             for er in active_before:
                 m = self.metrics[er.req.rid]
                 if m.first_decode_t < 0:
@@ -536,6 +676,8 @@ class ServingSystem:
 
                     def persists_done(pend=pend):
                         for er, fin in pend:
+                            if er.cancelled:
+                                continue   # engine died; the round re-runs
                             if fin is not None:
                                 fin()
                             self._finish_round(er)
@@ -619,14 +761,28 @@ class ServingSystem:
         blocking runtime's install order)."""
         ready, self._install_ready = self._install_ready, []
         ready.sort(key=lambda er: er.req.rid)
+        n = 0
         for er in ready:
+            if er.cancelled:
+                continue       # a re-homed request: charges already freed
+            n += 1
             self._read_complete(er)
-        return len(ready)
+        return n
 
     def _set_state(self, er: EngineRequest, state: ReqState):
-        """Every lifecycle transition after submission goes through
-        here (the reference's tracer hooks in at this point)."""
+        """Every lifecycle transition after submission goes through here.
+        With a tracer the previous state closes as a span on the
+        request's track at the end of the tick (``_flush_stamps``)."""
         er.lifecycle = state
+        if self.tracer is not None:
+            self._pending_states.append((er, state))
+
+    def _trace_submit(self, er: EngineRequest):
+        """Open the lifecycle span chain at submission itself, so the
+        first span starts at the metrics' ``submit_t``."""
+        if self.tracer is not None:
+            er.span_state = "scheduled"
+            er.state_t0 = self.clock.now
 
     def _elastic_signals(self) -> LoadSignals:
         """The deployment's load in seconds of service per role, as the
@@ -703,7 +859,18 @@ class ServingSystem:
         for m, fld in self._pending_stamps:
             if getattr(m, fld) < 0:
                 setattr(m, fld, now)
+                if fld == "prefill_done_t" and self.tracer is not None:
+                    # the TTFT endpoint (events.RoundMetrics.ttft)
+                    self.tracer.event(f"req/{m.rid}", "first_token")
         self._pending_stamps = []
+        for er, state in self._pending_states:
+            prev = er.span_state
+            t0 = er.state_t0 if er.state_t0 is not None else now
+            if prev is not None and now > t0:
+                self.tracer.span(f"req/{er.req.rid}", prev, t0, now)
+            er.span_state = state.name.lower()
+            er.state_t0 = now
+        self._pending_states.clear()
 
     def _submit_overhead_delta(self) -> float:
         tot = sum(tm.submitted_seconds for tm in self._all_tms())
@@ -711,11 +878,110 @@ class ServingSystem:
         self._submit_seconds_seen = tot
         return d
 
+    # ------------------------------------------------------------------
+    # engine failure (sim/faults.EngineDeath): fail-stop and re-home
+    # ------------------------------------------------------------------
+    def _fault_tick(self):
+        """Process every death whose time has come (before scheduling)."""
+        while self._deaths_pending and \
+                self._deaths_pending[0].t <= self.clock.now:
+            d = self._deaths_pending.pop(0)
+            self._engine_death(tuple(d.engine))
+
+    def _engine_death(self, eid: Tuple[int, int]):
+        """Fail-stop of engine ``eid``: unstarted assignments go back to
+        the queues whole, every round with state on the engine restarts
+        from the persisted KV (the trie holds every block persisted
+        before the death; blocks whose writes had not landed are
+        persisted once by the recovery), and the engine leaves the
+        scheduler so nothing routes to it."""
+        if eid not in self.pes and eid not in self.des:
+            return                     # already dead, or never existed
+        self.dead_engines.append(eid)
+        if self.tracer is not None:
+            kind = "pe" if eid in self.pes else "de"
+            self.tracer.event("faults/deaths", "engine_death",
+                              engine=list(eid), kind=kind)
+        self.sched.requeue_unstarted(
+            eid, [er.req for er in self._inflight.values()])
+        # a PE's part ends once the prompt state left for the DE (the PD
+        # transfer rides the DE's TrafficManager); a DE's lasts until the
+        # round's persist lands
+        for er in list(self._inflight.values()):
+            req = er.req
+            if req.de == eid or (req.pe == eid and er.lifecycle in _ON_PE):
+                self._resubmit_round(er)
+        self.sched.fail_engine(eid)
+        self.pes.pop(eid, None)
+        self.des.pop(eid, None)
+        # the group topology changed: re-route queued DE requests
+        self.sched.rebalance_de_private()
+
+    def _resubmit_round(self, er: EngineRequest):
+        """Cancel one re-homed round and restart it.  The old request is
+        marked ``cancelled`` so every stale completion discards it; its
+        scheduler charges are released by lifecycle state (the dead
+        engine's own are forfeited).  A fresh request under a new rid
+        restarts from the persisted prefix (the trie match of the same
+        prompt, no fresh draw) and inherits the round's metrics (same
+        ``submit_t``), so its latencies include the recovery.  Greedy
+        decode regenerates the same tokens."""
+        if er.cancelled:
+            return
+        er.cancelled = True
+        req = er.req
+        sess = er.session
+        if er.tier_pinned is not None:
+            node, prefix = er.tier_pinned
+            self.tiers[node].unpin(prefix)
+            er.tier_pinned = None
+        lc = er.lifecycle
+        if lc == ReqState.READING:
+            # the read never completed: its whole charge is still held
+            self._release_read_q(req)
+        if lc in _ON_PE and req.pe is not None:
+            self.sched.on_request_done(req.pe, req)
+            pe = self.pes.get(req.pe)
+            if pe is not None:
+                pe.fifo = [(w, e) for (w, e) in pe.fifo if e is not er]
+        if req.de is not None and (lc in _ON_PE or lc in (
+                ReqState.PD_TRANSFER, ReqState.DECODE)):
+            # the DE charge (seq, tok, HBM) is held from assignment until
+            # decode finishes
+            self.sched.on_request_done(req.de, req)
+        del self._inflight[req.rid]
+        prompt = er.context_tokens + er.append_tokens
+        hit, refs = self.trie.match(prompt)
+        if hit >= len(prompt):         # keep >= 1 token to prefill
+            hit = len(prompt) - 1
+            refs = refs[:hit // self.layout.block_tokens]
+        req2 = Request(rid=next(self._rid), cached_tokens=hit,
+                       new_tokens=len(prompt) - hit,
+                       gen_tokens=req.gen_tokens,
+                       arrival=req.arrival,   # the original queue priority
+                       slo_class=req.slo_class)
+        er2 = EngineRequest(req=req2, context_tokens=prompt[:hit],
+                            append_tokens=prompt[hit:], hit_refs=refs,
+                            session=sess, lifecycle=ReqState.SCHEDULED)
+        self._trace_submit(er2)
+        sess.current = er2
+        self._inflight[req2.rid] = er2
+        m = self.metrics.pop(req.rid)
+        m.rid = req2.rid
+        self.metrics[req2.rid] = m
+        self.recovered_rounds += 1
+        if self.tracer is not None:
+            self.tracer.event(f"req/{req2.rid}", "recovered",
+                              old_rid=req.rid, cached_tokens=hit)
+        self.sched.submit(req2)
+
     def _tick(self) -> int:
         """One tick; returns an activity count (0 = idle)."""
         self._tick_io = TickIo()
         self._tick_compute = 0.0
         act = 0
+        if self._deaths_pending:
+            self._fault_tick()
         if self.pipelined:
             act += self._schedule_tick()     # 1. decide + issue reads
             act += self._step_pes()          # 2. prefill compute
@@ -733,6 +999,8 @@ class ServingSystem:
             dt = self._tick_io.serial_seconds() + self._tick_compute
         self.clock.advance(dt + self._submit_overhead_delta())
         self._flush_stamps()
+        if self.tracer is not None:
+            self.tracer.counter("system/load", inflight=len(self._inflight))
         return act
 
     def run_offline(self, trajectories: List[Trajectory],
@@ -765,6 +1033,10 @@ class ServingSystem:
         try:
             for s, t0 in zip(sessions, arrivals):
                 self.loop.at(float(t0), lambda s=s: self._submit_round(s))
+            # wake-ups at death times, so an idle clock jump never lands
+            # past a death
+            for d in self._deaths_pending:
+                self.loop.at(float(d.t), lambda: None)
             for _ in range(max_iters):
                 self.loop.fire_due()
                 if all(s.done() for s in sessions) and not self.loop.pending:
@@ -783,9 +1055,11 @@ class ServingSystem:
 
     def stats(self) -> dict:
         """The reference's ``stats()`` keys that this slice produces,
-        under the same names (``wall_s`` is modelled seconds)."""
+        under the same names (``wall_s`` is modelled seconds), checked
+        against the metric schema.  The compute-network and elastic keys
+        come with the slices that port them."""
         tiers = list(self.tiers.values())
-        return dict(
+        return conforming(dict(
             store_reads=self.store.bytes_read,
             store_writes=self.store.bytes_written,
             read_bytes_pe_side=self.read_bytes_by_side["pe"],
@@ -807,13 +1081,20 @@ class ServingSystem:
             tier_miss_bytes=sum(t.miss_bytes for t in tiers),
             tier_prefetch_bytes=sum(t.prefetch_bytes for t in tiers),
             tier_evicted_bytes=sum(t.evicted_bytes for t in tiers),
+            n_pe_final=len(self.pes),
+            n_de_final=len(self.des),
+            # faults and hedging (zeros without them)
+            engine_deaths=len(self.dead_engines),
+            recovered_rounds=self.recovered_rounds,
+            hedged_reads=self.hedged_reads,
+            hedge_moved_tokens=self.hedge_moved_tokens,
             # the SLO layer (without a gate every round was admitted)
             **(self.gate.counters() if self.gate is not None else dict(
                 admitted_rounds=len(self.metrics), deferred_rounds=0,
                 rejected_rounds=0)),
             prefill_chunks=self.prefill_chunks,
             latency_by_class=events.latency_by_class(self.metrics.values()),
-        )
+        ), "serving")
 
     def slo_attainment(self, ttft_slo_s: float = 4.0,
                        tpot_slo_s: float = 0.050) -> float:

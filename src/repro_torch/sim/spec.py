@@ -5,12 +5,15 @@
 engines, 400 Gb/s compute and storage NICs, 500 GB/s DRAM, data-sheet
 H100 peaks).  The serving runtime's clock charges modelled seconds from
 these numbers; they are inputs to a model, not measurements.
+``REDUCED_TEST_NODE`` scales a node down to the ``reduced()`` models, so
+storage reads cost modelled seconds comparable to their compute.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.analysis import ClusterSpec
 
 
 @dataclass(frozen=True)
@@ -33,10 +36,18 @@ class NodeSpec:
     dram_bw: float               # per-node DRAM bandwidth [B/s]
     gpu: GPUSpec = field(default_factory=lambda: HOPPER_GPU)
 
+    def cluster_spec(self) -> ClusterSpec:
+        return ClusterSpec(g=self.g, B=self.cnic_bw,
+                           s=self.snic_bw / self.cnic_bw, M=self.dram_bw)
+
 
 # 400 Gbps = 50 GB/s
 HOPPER_NODE = NodeSpec(g=8, cnic_bw=50e9, snic_bw=50e9, dram_bw=500e9,
                        gpu=HOPPER_GPU)
+
+REDUCED_TEST_NODE = NodeSpec(
+    g=1, cnic_bw=2e6, snic_bw=1e6, dram_bw=20e6,
+    gpu=GPUSpec(flops=50e9, hbm_bw=5e9, hbm_bytes=1e9))
 
 
 @dataclass(frozen=True)
@@ -75,9 +86,22 @@ class ModelSimSpec:
         """Attention FLOPs for one new token at context length ctx."""
         return 4.0 * self.n_layers * self.n_heads * self.qk_head_dim * ctx
 
+    def prefill_flops(self, cached: int, bsz: int) -> float:
+        """Append ``bsz`` tokens on top of ``cached`` context."""
+        lin = self.linear_flops_per_token() * bsz
+        attn = 4.0 * self.n_layers * self.n_heads * self.qk_head_dim * \
+            bsz * (cached + (bsz + 1) / 2.0)
+        return lin + attn
+
     def decode_step_flops(self, ctx: int) -> float:
         return self.linear_flops_per_token() + self.attn_flops_per_token(ctx)
 
     def decode_step_bytes(self, ctx: int) -> float:
         """HBM bytes touched per decode step per sequence (KV read)."""
         return self.kv_bytes_per_token * ctx
+
+    def cache_compute_ratio(self, ctx: int, append: int) -> float:
+        """GB of KV to load per PFLOP of compute (paper Table 1)."""
+        load = self.kv_bytes_per_token * ctx
+        comp = self.prefill_flops(ctx, append)
+        return (load / 1e9) / (comp / 1e15)
