@@ -1,6 +1,6 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA H100.
 
-    python3 chip_smoke.py                  # the smoke, phases 1-9
+    python3 chip_smoke.py                  # the smoke, phases 1-10
     python3 chip_smoke.py --persist-ab 10  # offline serving, old persist
                                            # against the scatter's
     python3 chip_smoke.py --split-sweep    # the attention kernels' split
@@ -54,10 +54,20 @@ Drives ``repro_torch`` (never the JAX package) on the card:
    persisted KV on the survivor (gather and flash run again, persists
    land once); (c) and (d) give (a)'s tokens, store writes and trie
    blocks (see :func:`chaos_phase`);
-8. f32 token identity at full width: ServingSystem against the port's
+8. elastic roles and the compute network at full width and depth on 2
+   PEs + 2 DEs with split reads and phase 5's tier: (e) a prefill-heavy
+   wave then a decode-heavy wave with elastic role flips on: a DE
+   becomes a PE and PEs become DEs mid-run, the flipped-in engines
+   prefill and decode, a DE that leaves frees its decode state on the
+   card, every engine ends ACTIVE and no tier pin is left; (f) the same
+   with elastic off gives (e)'s tokens; (g) and (h) phase 5's workload
+   with model collectives on the compute network under the weighted-VL
+   and the FIFO arbiter: equal tokens, FIFO stalls the collectives
+   longer (see :func:`elastic_phase`);
+9. f32 token identity at full width: ServingSystem against the port's
    cache-free reference (full forward, then decode), unchunked and with
    the first round's prefill cut into slices;
-9. prints the ``kernels`` JSON line, then the contract line
+10. prints the ``kernels`` JSON line, then the contract line
    ``{"ok": true, "device": {...}}`` last.
 
 Any failed check raises, so the script exits non-zero and prints no
@@ -66,6 +76,7 @@ result.  Without a CUDA card it exits non-zero at once.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import os
 import subprocess
@@ -104,6 +115,19 @@ SLO_ROUNDS = ((1024, 32, 0.0), (128, 32, 0.5), (128, 32, 0.5))
 SLO_CLASSES = ("batch", "batch", "interactive", "interactive")
 SLO_ARRIVALS = (0.0, 0.0, 0.01, 0.02)
 SLO_CHUNK = 256
+# the elastic phase (modelled seconds): 12 prefill-heavy agents (a
+# 1536-token append, 1 token, then a 64-token round on the hit) arrive 4
+# ms apart, longer than one's prefill takes two PEs (~3 ms), so prefill
+# work is queued at every observation and the controller flips a DE to a
+# PE; 20 ms after the last, 8 decode-heavy agents (2 rounds of 64 tokens
+# in, 48 out) arrive together and the controller flips PEs to DEs, which
+# take the second rounds.  The controller observes every 2 ms
+ELASTIC_WAVE1 = dict(n=12, rounds=((1536, 1, 0.0), (64, 1, 0.0)),
+                     gap_s=0.004)
+ELASTIC_WAVE2 = dict(n=8, rounds=((64, 48, 0.0), (64, 48, 0.0)),
+                     after_s=0.02)
+ELASTIC = dict(reconfig_interval_s=0.002, reconfig_patience=2,
+               reconfig_idle_floor_s=1e-4)
 # profiler rows of the port's kernels, by wrapper: kernel-name prefixes
 KERNEL_ROWS = {"flash_attention": ("flash_",), "paged_attention": ("paged_",),
                "kv_layer_gather": ("gather_kernel",),
@@ -650,24 +674,37 @@ def serve(cfg, params, trajs, device, **kw):
     return system, sessions, time.perf_counter() - t0
 
 
-class CallCounter:
-    """Counts the calls of ``module.name`` while it is entered."""
+class MethodPatch:
+    """``owner.name`` (a module's function or a class's method) replaced
+    by ``wrap(original)`` while entered.  Patching a class, not an
+    instance, leaves no instance holding a closure over itself, so a
+    freed engine is freed at once."""
 
-    def __init__(self, module, name: str):
-        self.module, self.name, self.n = module, name, 0
+    def __init__(self, owner, name, wrap):
+        self.owner, self.name, self.wrap = owner, name, wrap
 
     def __enter__(self):
-        self.fn = getattr(self.module, self.name)
-
-        def counted(*args, **kw):
-            self.n += 1
-            return self.fn(*args, **kw)
-
-        setattr(self.module, self.name, counted)
+        self.orig = self.owner.__dict__[self.name]
+        setattr(self.owner, self.name, self.wrap(self.orig))
         return self
 
     def __exit__(self, *exc):
-        setattr(self.module, self.name, self.fn)
+        setattr(self.owner, self.name, self.orig)
+
+
+class CallCounter(MethodPatch):
+    """Counts the calls of ``module.name`` while it is entered."""
+
+    def __init__(self, module, name: str):
+        self.n = 0
+
+        def wrap(fn):
+            def counted(*args, **kw):
+                self.n += 1
+                return fn(*args, **kw)
+            return counted
+
+        super().__init__(module, name, wrap)
 
 
 def persist_counter():
@@ -949,20 +986,20 @@ def slo_phase(cfg, device="cuda", rounds=SLO_ROUNDS, classes=SLO_CLASSES,
 # ---------------------------------------------------------------------------
 
 def chaos_run(cfg, params, device="cuda", *, tracer=None, faults=None,
-              hedge=False):
+              hedge=False, **kw):
     """Phase 5's online workload, tier and prefetcher on 2 PEs + 2 DEs
     with split reads, optionally traced and under a FaultSchedule.  The
     kernel launch counts are set to 0 just before the run and read just
-    after.  Returns a dict: system, tracer, requests (every Request the
-    scheduler got, in submission order), contexts, stats, launches,
-    persists, wall_s, tokens_per_s."""
+    after; ``kw`` goes to the ServingSystem.  Returns a dict: system,
+    tracer, requests (every Request the scheduler got, in submission
+    order), contexts, stats, launches, persists, wall_s, tokens_per_s."""
     from repro_torch import kernels
     from repro_torch.core.config import ResilienceConfig
     trajs, arrivals = online_workload()
     system = online_system(
         cfg, params, device, n_pe=2, n_de=2, split_reads=True,
         tracer=tracer,
-        resilience=ResilienceConfig(faults=faults, hedge_reads=hedge))
+        resilience=ResilienceConfig(faults=faults, hedge_reads=hedge), **kw)
     requests = []
     submit = system.sched.submit
     system.sched.submit = lambda r: (requests.append(r), submit(r))
@@ -1193,6 +1230,247 @@ def chaos_phase(cfg, device="cuda") -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 8: elastic role flips and the compute network
+# ---------------------------------------------------------------------------
+
+
+def decode_state_bytes(cfg, slots: int, max_seq: int) -> int:
+    """Bytes of a DE's decode state, from ``init_decode_state``'s shapes."""
+    from repro_torch.models import init_decode_state
+    st = init_decode_state(cfg, slots, max_seq, "meta")
+    return sum(t.numel() * t.element_size() for t in st["kv"].values())
+
+
+def engine_counting():
+    """Patches of the engines' step, install and admit: an engine with a
+    ``smoke`` dict adds to it its kernel launches, its calls, and the
+    prefill tokens and decode steps they made."""
+    from repro_torch import kernels
+    from repro_torch.engines import runtime
+
+    def counting(key):
+        def wrap(orig):
+            def counted(self, *a, **kw):
+                box = getattr(self, "smoke", None)
+                if box is None:
+                    return orig(self, *a, **kw)
+                before = kernels.launch_counts()
+                work = [(k, getattr(self, k)) for k in
+                        ("prefill_tokens", "decode_steps") if hasattr(self, k)]
+                out = orig(self, *a, **kw)
+                for k, v in kernels.launch_counts().items():
+                    box[k] = box.get(k, 0) + v - before[k]
+                for k, v in work:
+                    box[k] = box.get(k, 0) + getattr(self, k) - v
+                box[key] = box.get(key, 0) + 1
+                return out
+            return counted
+        return wrap
+
+    return [MethodPatch(runtime.PrefillEngine, "step", counting("steps")),
+            MethodPatch(runtime.PrefillEngine, "install_hit_kv",
+                        counting("installs")),
+            MethodPatch(runtime.DecodeEngine, "step", counting("steps")),
+            MethodPatch(runtime.DecodeEngine, "admit", counting("admits"))]
+
+
+def flip_recording(flips: list, device):
+    """A patch of ``ServingSystem._finish_flip`` that appends, per flip,
+    its direction, engine, modelled time, the real host ms of the flip
+    (synchronised: a new DE allocates its decode state), the change of
+    ``torch.cuda.memory_allocated()`` across it, and the counts (see
+    :func:`engine_counting`) of the engine it brought in."""
+    from repro_torch.serving import ServingSystem
+    sync = (lambda: None) if device == "cpu" else torch.cuda.synchronize
+    allocated = (lambda: 0) if device == "cpu" else \
+        torch.cuda.memory_allocated
+
+    def wrap(orig):
+        def recorded(self, rec):
+            sync()
+            m0, t0 = allocated(), time.perf_counter()
+            orig(self, rec)
+            sync()
+            ms, m1 = 1e3 * (time.perf_counter() - t0), allocated()
+            eng = self.pes.get(rec.engine) or self.des.get(rec.engine)
+            eng.smoke = {}
+            flips.append(dict(
+                direction=f"{rec.from_kind}->{rec.to_kind}",
+                engine=list(rec.engine), t_modelled=self.clock.now,
+                host_ms=ms, allocated_delta=m1 - m0, counts=eng.smoke))
+        return recorded
+
+    return MethodPatch(ServingSystem, "_finish_flip", wrap)
+
+
+def collective_counting():
+    """A patch of ``ServingSystem._charge_collectives`` that sums on the
+    system the tokens whose collectives it charged."""
+    from repro_torch.serving import ServingSystem
+
+    def wrap(orig):
+        def counted(self, node, tokens):
+            if self.time_model.collectives is not None and tokens > 0:
+                self.smoke_coll_tokens = \
+                    getattr(self, "smoke_coll_tokens", 0) + tokens
+            return orig(self, node, tokens)
+        return counted
+
+    return MethodPatch(ServingSystem, "_charge_collectives", wrap)
+
+
+def elastic_workload():
+    """The elastic phase's trajectories and arrival times (modelled s)."""
+    from repro_torch.sim.traces import Round, Trajectory
+    w1, w2 = ELASTIC_WAVE1, ELASTIC_WAVE2
+    trajs = [Trajectory(i, [Round(*r) for r in w1["rounds"]])
+             for i in range(w1["n"])] + \
+        [Trajectory(100 + i, [Round(*r) for r in w2["rounds"]])
+         for i in range(w2["n"])]
+    t2 = w1["n"] * w1["gap_s"] + w2["after_s"]
+    return trajs, [i * w1["gap_s"] for i in range(w1["n"])] + [t2] * w2["n"]
+
+
+def elastic_run(cfg, params, device, enabled: bool) -> dict:
+    """The elastic workload on 2 PEs + 2 DEs with split reads and phase 5's
+    tier, role flips on or off; kernel launch counts set to 0 just before
+    the run and read just after.  Returns a dict: system, contexts,
+    stats, launches, persists, wall_s, tokens_per_s, flips (see
+    :func:`flip_recording`)."""
+    import contextlib
+    from repro_torch import kernels
+    from repro_torch.core.config import ElasticConfig
+    trajs, arrivals = elastic_workload()
+    system = online_system(cfg, params, device, n_pe=2, n_de=2,
+                           split_reads=True, elastic=ElasticConfig(
+                               enabled=enabled, **ELASTIC))
+    flips = []
+    with contextlib.ExitStack() as stack:
+        for patch in engine_counting():
+            stack.enter_context(patch)
+        stack.enter_context(flip_recording(flips, device))
+        persists = stack.enter_context(persist_counter())
+        kernels.reset_launch_counts()
+        sessions, wall = run_online_timed(system, trajs, arrivals, device)
+        launches = kernels.launch_counts()
+    st = system.stats()
+    assert all(s.done() and s.rounds_done == len(s.traj.rounds)
+               for s in sessions), "an elastic round did not finish"
+    return dict(system=system, contexts=[list(s.context) for s in sessions],
+                stats=st, launches=launches, persists=persists.n,
+                wall_s=wall, tokens_per_s=st["gen_tokens"] / wall,
+                flips=flips)
+
+
+def check_settled(system) -> None:
+    """Every engine ACTIVE, the engine maps equal to the scheduler's view,
+    no drain open, no tier pin left."""
+    from repro_torch.serving.events import EngineLifecycle
+    st = system.stats()
+    assert all(lc == EngineLifecycle.ACTIVE
+               for lc in system.engine_lifecycle.values()), \
+        {e: lc.name for e, lc in system.engine_lifecycle.items()}
+    kinds = {k: {e for e, s in system.sched.engines.items() if s.kind == k}
+             for k in ("pe", "de")}
+    assert set(system.pes) == kinds["pe"] and set(system.des) == kinds["de"]
+    assert st["n_pe_final"] == len(system.pes) and \
+        st["n_de_final"] == len(system.des)
+    assert not system.drains.active and not system._reconfig_ready
+    assert all(t.pinned_bytes() == 0 for t in system.tiers.values()), \
+        "a tier pin was left"
+
+
+def elastic_phase(cfg, device="cuda") -> dict:
+    """Elastic role flips and the compute network at full width and depth.
+
+    (e) :func:`elastic_workload` with role flips: at least one flip each
+        way; a flipped-in PE prefilled (flash) and a flipped-in DE admitted
+        and decoded a round (paged) and persisted (scatter); a DE→PE flip
+        freed exactly the decode state (``memory_allocated`` within 1 % of
+        its bytes from ``init_decode_state``'s shapes; a PE→DE flip
+        allocated it); every round finished, every engine ended ACTIVE
+        and no tier pin is left; all four kernels launched;
+    (f) the same with role flips off: (e)'s tokens (if a bf16 near-tie
+        flips a token, the first difference is reported and (e) and (f)
+        run again in f32, where tokens must be equal);
+    (g), (h) phase 5's workload on the same cluster with model collectives
+        on the compute network (``collective_group_size`` 8) under 'vl'
+        and 'fifo': equal tokens, both charge collectives, 'fifo' stalls
+        them longer, (g) ends congested; all four kernels launched in (g).
+    Returns a dict of what it printed."""
+    from repro_torch.core.config import NetworkConfig
+    from repro_torch.models import init_params
+    params = init_params(cfg, seed=0, device=device)
+    state_b = decode_state_bytes(cfg, 8, 2048)
+    out = dict(state_bytes=state_b)
+    e = elastic_run(cfg, params, device, True)
+    st = e["stats"]
+    by_dir = st["role_changes_by_direction"]
+    assert by_dir["de->pe"] >= 1 and by_dir["pe->de"] >= 1, by_dir
+    check_settled(e["system"])
+    for f in e["flips"]:
+        if device == "cpu":
+            continue
+        sign = -1 if f["direction"] == "de->pe" else 1
+        assert abs(sign * f["allocated_delta"] - state_b) <= 0.01 * state_b, \
+            f"{f['direction']} flip of {f['engine']} changed allocated " \
+            f"bytes by {f['allocated_delta']}, the decode state is {state_b}"
+    c_pe = [f["counts"] for f in e["flips"] if f["direction"] == "de->pe"]
+    c_de = [f["counts"] for f in e["flips"] if f["direction"] == "pe->de"]
+    assert any(c.get("prefill_tokens", 0) > 0 for c in c_pe), \
+        "no flipped-in PE prefilled"
+    assert any(c.get("admits", 0) > 0 and c.get("decode_steps", 0) > 0
+               for c in c_de), "no flipped-in DE decoded"
+    if device != "cpu":
+        check_launches(e["launches"], e["persists"], "elastic")
+        assert any(c.get("flash_attention", 0) > 0 for c in c_pe), \
+            "no flipped-in PE launched flash"
+        assert any(c.get("paged_attention", 0) > 0 and
+                   c.get("kv_layer_scatter", 0) > 0 for c in c_de), \
+            "no flipped-in DE launched paged and scatter"
+    f = elastic_run(cfg, params, device, False)
+    assert f["stats"]["role_changes"] == 0
+    out.update(e=e, f=f, first_difference=None, f32=None)
+    if e["contexts"] != f["contexts"]:
+        out["first_difference"] = first_difference(
+            cfg, params, f["contexts"], e["contexts"], device)
+        cfg32 = dataclasses.replace(cfg, param_dtype="float32",
+                                    kv_cache_dtype="float32")
+        params32 = init_params(cfg32, seed=0, device=device)
+        e32 = elastic_run(cfg32, params32, device, True)
+        f32 = elastic_run(cfg32, params32, device, False)
+        assert e32["contexts"] == f32["contexts"], \
+            "f32 elastic arm diverged: " + json.dumps(first_difference(
+                cfg32, params32, f32["contexts"], e32["contexts"], device))
+        out["f32"] = dict(e=e32["stats"], f=f32["stats"])
+        del e32, f32
+    with collective_counting():
+        for arm, arb in (("g", "vl"), ("h", "fifo")):
+            run = chaos_run(cfg, params, device, net=NetworkConfig(
+                net_arbiter=arb, collective_group_size=8))
+            tm = run["system"].time_model
+            tokens = getattr(run["system"], "smoke_coll_tokens", 0)
+            run["collective_tokens"] = tokens
+            run["collective_s"] = tm.collective_seconds(
+                tm.collectives.step_bytes(tokens))
+            out[arm] = run
+    g, h = out["g"], out["h"]
+    assert g["contexts"] == h["contexts"], "the arbiters' tokens differ"
+    assert g["collective_tokens"] > 0 and h["collective_tokens"] > 0, \
+        "no collective was charged"
+    assert h["stats"]["collective_stall_s"] > g["stats"]["collective_stall_s"], \
+        "fifo did not stall the collectives longer than vl"
+    assert g["stats"]["net_congestion"] > 0, "vl ended uncongested"
+    if device != "cpu":
+        check_launches(g["launches"], g["persists"], "network")
+    # the systems hold their decode states; keep the numbers only
+    for arm in ("e", "f", "g", "h"):
+        out[arm].pop("system")
+    gc.collect()
+    return out
+
+
 def reference_contexts(cfg, params, rounds, seed_tid, device):
     """The port's cache-free reference: full forward per round for the
     first token, then decode, as tests/test_serving.py's oracle."""
@@ -1408,12 +1686,45 @@ def main() -> int:
              "give equal tokens (death at modelled "
              f"{chaos['d']['f32']['d']['t_death']!r} s)"))
 
-    # 8. f32 token identity with the cache-free reference
+    # 8. elastic role flips and the compute network
+    el = elastic_phase(cfg)
+    for arm, title in (("e", "elastic on"), ("f", "elastic off"),
+                       ("g", "collectives, vl"), ("h", "collectives, fifo")):
+        r = el[arm]
+        s_ = r["stats"]
+        print(f"elastic ({arm}) {title}: {r['wall_s']:.3f} s real wall, "
+              f"{r['tokens_per_s']:.1f} generated tokens/s, flips "
+              f"{json.dumps(s_['role_changes_by_direction'])}, "
+              f"_finish_flip real host ms "
+              f"{[round(x['host_ms'], 3) for x in r.get('flips', [])]}, "
+              f"launches {r['launches']}, {r['persists']} persists; "
+              f"modelled seconds: wall {s_['wall_s']!r}, reconfig_drain_s "
+              f"{s_['reconfig_drain_s']!r}, collective_stall_s "
+              f"{s_['collective_stall_s']!r}, transfer_backlog_s "
+              f"{s_['transfer_backlog_s']!r}; net_congestion "
+              f"{s_['net_congestion']!r}, paced_flushes "
+              f"{s_['paced_flushes']}, deferred_wrs {s_['deferred_wrs']}"
+              + ("" if "collective_tokens" not in r else
+                 f", collectives over {r['collective_tokens']} tokens "
+                 f"({r['collective_s']!r} modelled s)")
+              + "; stats " + json.dumps(s_))
+    for x in el["e"]["flips"]:
+        print(f"elastic (e) flip {x['direction']} of {x['engine']} at "
+              f"modelled {x['t_modelled']!r} s: {x['host_ms']:.3f} ms real "
+              f"host, memory_allocated {x['allocated_delta']:+d} bytes "
+              f"(decode state {el['state_bytes']}); the engine it brought "
+              f"in: {json.dumps(x['counts'])}")
+    print("elastic: bf16 tokens of (e) and (f) " + (
+        "equal" if el["first_difference"] is None else
+        "differ at " + json.dumps(el["first_difference"]) +
+        "; in f32 (e) and (f) give equal tokens"))
+
+    # 9. f32 token identity with the cache-free reference
     n, chunks = identity_phase(cfg)
     print(f"f32 identity: {n} context tokens equal the cache-free reference, "
           f"unchunked and in {chunks} + 1 prefill slices")
 
-    # 9. kernels line, then the contract line
+    # 10. kernels line, then the contract line
     meta = {
         "kv_layer_gather": ("src/repro_torch/kernels/csrc/kv_gather.cu",
                             "src/repro/kernels/kv_gather.py:30"),
@@ -1434,7 +1745,9 @@ def main() -> int:
                                   online=launches_o[name],
                                   slo=slo["launches"][name],
                                   chaos=ca["run"]["launches"][name],
-                                  chaos_death=cd["launches"][name]),
+                                  chaos_death=cd["launches"][name],
+                                  elastic=el["e"]["launches"][name],
+                                  network=el["g"]["launches"][name]),
             max_abs_err=max(c["max_abs_err"] for c in cs),
             ms=main_case["ms"], kernel_ms=main_case["ms"],
             ms_clean_l2=main_case.get("ms_clean_l2"),
@@ -1447,7 +1760,9 @@ def main() -> int:
     line[1]["persists_by_path"] = dict(offline=persists, online=persists_o,
                                        slo=slo["persists"],
                                        chaos=ca["run"]["persists"],
-                                       chaos_death=cd["persists"])
+                                       chaos_death=cd["persists"],
+                                       elastic=el["e"]["persists"],
+                                       network=el["g"]["persists"])
     print(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -18,21 +18,32 @@ With ``class_aware`` (the SLO layer's priority classes) the global
 queues are ordered by (class rank, arrival, rid), so ``interactive``
 rounds overtake ``batch`` rounds at submission.
 
+Elastic role flips (core/autoscale.py drives them): ``begin_drain``
+stops admissions to an engine (a draining engine is left out of the PE
+classes, the DE fits and the phase-1 groups, and its side's reading
+queue looks a whole hit deeper to ``choose_read_path``),
+``requeue_unstarted`` hands back its unstarted assignments,
+``can_finish_drain`` says when its in-flight work is done and
+``finish_drain`` re-registers it under the other kind;
+``rebalance_de_private`` re-routes queued DE requests after the group
+topology changed.  ``choose_read_path`` also takes the compute network's
+congestion, which makes the DE side (whose reads cross the network) look
+deeper.
+
 Fault tolerance: ``rebalance_remainder`` hedges a straggling side's
 read share onto the healthy side (``loading.hedge_water_fill``);
-``fail_engine`` removes a dead engine, ``requeue_unstarted`` hands back
-its unstarted assignments and ``rebalance_de_private`` re-routes queued
-DE requests after the group topology changed.  The completion hooks
-forfeit the charges of a dead engine.  With a tracer attached, every
-read-path decision and every hedge records an event.
+``fail_engine`` removes a dead engine through ``begin_drain``'s queue
+hand-back.  The completion hooks forfeit the charges of a dead engine.
+With a tracer attached, every read-path decision and every hedge
+records an event.
 
 The arithmetic is the reference's, so both packages make the same
-decisions on the same lengths.  The elastic drain protocol, network
-congestion and the round-robin baseline arrive with the slices that port
-those features.
+decisions on the same lengths.  The round-robin baseline arrives with
+the simulator.
 """
 from __future__ import annotations
 
+import bisect
 from collections import deque
 from dataclasses import dataclass
 from typing import Deque, Dict, List, Optional, Sequence, Tuple
@@ -144,9 +155,7 @@ class EngineState:
     tok: int = 0                    # unfinished tokens
     read_q: int = 0                 # node disk reading queue (tokens)
     free_hbm_tokens: int = 0        # decode engines only
-    # a draining engine admits no new work; only ``fail_engine`` sets it
-    # until the port has elastic role flips
-    draining: bool = False
+    draining: bool = False          # admits no new work
 
 
 @dataclass
@@ -220,12 +229,68 @@ class Scheduler:
         self._priority_insert(self.pe_queue, req)
         self._priority_insert(self.de_global_queue, req)
 
+    # -- elastic role flips ---------------------------------------------------
+    def begin_drain(self, engine: EngineId) -> EngineState:
+        """Stop admitting to ``engine``; its in-flight work drains through
+        the completion hooks.  If this empties a DE group's admitting set,
+        the group's private queue goes back to the front of the global
+        queue (in order) for phase 1 to re-route."""
+        st = self.engines[engine]
+        if st.draining:
+            return st
+        st.draining = True
+        if st.kind == "de":
+            members = [self.engines[e] for e in self._groups[st.group]]
+            if all(m.draining for m in members):
+                q = self.de_private.get(st.group)
+                while q:
+                    self.de_global_queue.appendleft(q.pop())
+        return st
+
+    def can_finish_drain(self, engine: EngineId) -> bool:
+        """True once the draining engine holds no unfinished request and
+        no unfinished token.  ``read_q`` is not part of it: it tracks the
+        node's disk queue, which others keep busy, and a request's read
+        completes before its prefill."""
+        st = self.engines[engine]
+        return st.draining and st.seq == 0 and st.tok == 0
+
+    def finish_drain(self, engine: EngineId, *, kind: str, group: int,
+                     free_hbm_tokens: int = 0) -> EngineState:
+        """Flip the drained engine's role: it leaves its old group (an
+        emptied group is dropped) and is registered under
+        ``kind``/``group``.  A PE→DE→PE round trip restores the
+        scheduler's state exactly."""
+        st = self.engines[engine]
+        assert st.draining, f"{engine} was not draining"
+        assert st.seq == 0 and st.tok == 0, \
+            f"{engine} still has in-flight work"
+        old = self._groups[st.group]
+        old.remove(engine)
+        if not old:
+            del self._groups[st.group]
+            q = self.de_private.pop(st.group, None)
+            assert not q, f"drained group {st.group} still had queued work"
+        st.kind = kind
+        st.group = group
+        st.draining = False
+        # every charge of the engine's own requests is released; what is
+        # left is a stale node-backlog report of the old role
+        st.read_q = 0
+        st.free_hbm_tokens = free_hbm_tokens if kind == "de" else 0
+        # group members in engine-id order, as register_engine builds
+        # them, so min() tie-breaks do not depend on flip history
+        bisect.insort(self._groups.setdefault(group, []), engine)
+        if kind == "de":
+            self.de_private.setdefault(group, deque())
+        return st
+
     # -- PE scheduling: Algorithm 1 ----------------------------------------
     def _classify_pe(self, engines: Sequence[EngineState]):
-        c2 = [e for e in engines
-              if e.read_q <= self.alpha and e.tok <= self.beta]
-        c3 = [e for e in engines
-              if e.read_q > self.alpha and e.tok <= self.beta]
+        c2 = [e for e in engines if not e.draining
+              and e.read_q <= self.alpha and e.tok <= self.beta]
+        c3 = [e for e in engines if not e.draining
+              and e.read_q > self.alpha and e.tok <= self.beta]
         return c2, c3
 
     def on_pe_fetch(self, group: int,
@@ -254,8 +319,11 @@ class Scheduler:
         """Drain the global DE queue into per-group private queues."""
         if not self.de_global_queue:
             return
+        # a group whose every member drains cannot admit: requests routed
+        # there would wait for the flip
         gtok = {g: sum(self.engines[e].tok for e in es)
-                for g, es in self.groups("de").items()}
+                for g, es in self.groups("de").items()
+                if any(not self.engines[e].draining for e in es)}
         if not gtok:
             return
         while self.de_global_queue:
@@ -287,7 +355,8 @@ class Scheduler:
         out: List[Assignment] = []
         while queue:
             req = queue[0]
-            fits = [e for e in members if free[e.engine] >= req.hbm_tokens]
+            fits = [e for e in members
+                    if not e.draining and free[e.engine] >= req.hbm_tokens]
             if not fits:
                 break
             low = [e for e in fits if e.tok + req.prompt_tokens <= z]
@@ -341,13 +410,22 @@ class Scheduler:
         return req.read_path
 
     def choose_read_path(self, req: Request,
-                         tier_tokens: Optional[Dict[str, int]] = None
-                         ) -> str:
+                         tier_tokens: Optional[Dict[str, int]] = None,
+                         net_congestion: float = 0.0) -> str:
         """``tier_tokens``: the hit tokens resident as a prefix in each
-        side's DRAM tier (None without tiers)."""
+        side's DRAM tier (None without tiers).  ``net_congestion`` in
+        [0, 1] is the compute network's back-pressure: only DE-side reads
+        cross the PE↔DE link, so the DE side's queue looks
+        ``congestion · hit`` tokens deeper."""
         assert req.pe is not None and req.de is not None, req.rid
         pe_q = self.engines[req.pe].read_q
         de_q = self.engines[req.de].read_q
+        # a draining side must empty, not refill: it looks a whole hit
+        # deeper, so the read goes to the surviving side
+        if self.engines[req.pe].draining:
+            pe_q += req.cached_tokens
+        if self.engines[req.de].draining:
+            de_q += req.cached_tokens
         if tier_tokens and req.cached_tokens:
             t_pe = min(tier_tokens.get("pe", 0), req.cached_tokens)
             t_de = min(tier_tokens.get("de", 0), req.cached_tokens)
@@ -366,19 +444,22 @@ class Scheduler:
             rem = req.cached_tokens - t
             snic = {"pe": 0, "de": 0}
             if rem:
+                bias = int(net_congestion * rem)
                 if self.split_reads:
-                    frac_pe = self._water_fill_frac(pe_q, de_q, rem)
+                    frac_pe = self._water_fill_frac(pe_q, de_q + bias, rem)
                     snic["pe"] = int(rem * frac_pe)
                     snic["de"] = rem - snic["pe"]
                 else:
-                    snic[self._shorter_queue_side(pe_q, de_q)] = rem
+                    snic[self._shorter_queue_side(pe_q, de_q + bias)] = rem
             return self._finalise_partition(req, side, t, snic)
+        bias = int(net_congestion * req.cached_tokens)
         if self.split_reads and req.cached_tokens:
-            frac_pe = self._water_fill_frac(pe_q, de_q, req.cached_tokens)
+            frac_pe = self._water_fill_frac(pe_q, de_q + bias,
+                                            req.cached_tokens)
             req.read_path = "pe" if frac_pe >= 0.5 else "de"
             req.read_split = max(frac_pe, 1.0 - frac_pe)
         else:
-            req.read_path = self._shorter_queue_side(pe_q, de_q)
+            req.read_path = self._shorter_queue_side(pe_q, de_q + bias)
             req.read_split = 1.0
         tokens = req.read_tokens_by_side()
         self.engines[req.pe].read_q += tokens["pe"]
@@ -486,19 +567,14 @@ class Scheduler:
         self.de_global_queue = deque(pend)
 
     def fail_engine(self, engine: EngineId) -> EngineState:
-        """Fail-stop removal: the engine admits nothing from now on, its
-        outstanding charges are forfeited (the runtime re-homes its
-        requests; the completion hooks swallow their late releases) and it
-        leaves the registry.  If its DE group has no admitting member
-        left, the group's private queue goes back to the global queue."""
+        """Fail-stop removal, the involuntary form of a drain: the engine
+        admits nothing from now on (``begin_drain``, with its queue
+        hand-back), its outstanding charges are forfeited (the runtime
+        re-homes its requests; the completion hooks swallow their late
+        releases) and it leaves the registry."""
         st = self.engines[engine]
-        st.draining = True
-        if st.kind == "de":
-            members = [self.engines[e] for e in self._groups[st.group]]
-            if all(m.draining for m in members):
-                q = self.de_private.get(st.group)
-                while q:
-                    self.de_global_queue.appendleft(q.pop())
+        if not st.draining:
+            self.begin_drain(engine)
         grp = self._groups[st.group]
         grp.remove(engine)
         if not grp:

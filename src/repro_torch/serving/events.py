@@ -17,6 +17,11 @@
 * :class:`RoundMetrics` + :func:`latency_summary` /
   :func:`latency_by_class` / :func:`slo_attainment` — per-round TTFT /
   TTST / TPOT on that clock, overall and per SLO class.
+* :class:`EngineLifecycle` — an engine's state under elastic role flips
+  and fail-stop deaths.
+* :class:`ServingTimeModel` — the modelled durations, with the finite
+  compute network: per-step model collectives contend with KV transfers
+  on each node's compute-NIC link under the configured arbiter.
 """
 from __future__ import annotations
 
@@ -31,6 +36,8 @@ import numpy as np
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.intra import attn_flops
+from repro_torch.network import (CollectiveVolumeModel, drain_times,
+                                 kv_share_when_contended)
 from repro_torch.sim.spec import HOPPER_NODE, ModelSimSpec, NodeSpec
 
 
@@ -47,6 +54,20 @@ class ReqState(Enum):
     DECODE = "decode"            # slot-batched decode on the DE
     PERSIST = "persist"          # new FullBlocks persisting to storage
     DONE = "done"
+
+
+class EngineLifecycle(Enum):
+    """Lifecycle of one engine.  A role flip (core/autoscale.py) moves it
+    ACTIVE → DRAINING (no admissions; in-flight rounds finish) →
+    RECONFIGURING (drained; the other role's weights reloading over the
+    node's storage NIC) → ACTIVE under the other kind.  With elastic off
+    every engine stays ACTIVE.  DEAD is the fail-stop end
+    (sim/faults.EngineDeath)."""
+
+    ACTIVE = "active"
+    DRAINING = "draining"
+    RECONFIGURING = "reconfiguring"
+    DEAD = "dead"
 
 
 @dataclass
@@ -208,23 +229,52 @@ class TickIo:
 @dataclass
 class ServingTimeModel:
     """Modelled durations for the serving clock: NIC bandwidths for
-    transfers, the analytic FLOP and byte forms for compute."""
+    transfers, the analytic FLOP and byte forms for compute.
+    ``collectives`` (None: an infinite compute network) gives the model
+    collectives' volume per token; ``net_arbiter`` is how KV transfers
+    and collectives share a contended link: 'vl' (the paper's weighted-VL
+    arbiter) or 'fifo' (class-blind sharing, the ablation)."""
 
     cfg: ModelConfig
     node: NodeSpec
     spec: ModelSimSpec
+    net_arbiter: str = "vl"
+    collectives: Optional[CollectiveVolumeModel] = None
 
     @classmethod
     def for_model(cls, cfg: ModelConfig,
-                  node: Optional[NodeSpec] = None) -> "ServingTimeModel":
+                  node: Optional[NodeSpec] = None,
+                  net_arbiter: str = "vl",
+                  collective_group_size: int = 0) -> "ServingTimeModel":
+        coll = CollectiveVolumeModel.from_config(cfg, collective_group_size) \
+            if collective_group_size > 1 else None
         return cls(cfg=cfg, node=node or HOPPER_NODE,
-                   spec=ModelSimSpec.from_config(cfg))
+                   spec=ModelSimSpec.from_config(cfg),
+                   net_arbiter=net_arbiter, collectives=coll)
 
     def snic_seconds(self, nbytes: float) -> float:
         return nbytes / self.node.snic_bw
 
-    def cn_seconds(self, nbytes: float) -> float:
+    def cn_seconds(self, nbytes: float, coll_bytes: float = 0.0) -> float:
+        """Seconds for ``nbytes`` of KV traffic on the compute network;
+        with ``coll_bytes`` of collectives contending, the KV completion
+        time under the arbiter (:func:`network.drain_times`)."""
+        kv_s = nbytes / self.node.cnic_bw
+        if coll_bytes <= 0:
+            return kv_s
+        kv_done, _ = drain_times(kv_s, coll_bytes / self.node.cnic_bw,
+                                 kv_share_when_contended(self.net_arbiter))
+        return kv_done
+
+    def collective_seconds(self, nbytes: float) -> float:
+        """Uncontended service time of collective traffic on the link."""
         return nbytes / self.node.cnic_bw
+
+    def cn_drain(self, kv_s: float, coll_s: float) -> Tuple[float, float]:
+        """(kv_done, coll_done) of KV and collective service seconds
+        contending on one link under the arbiter."""
+        return drain_times(kv_s, coll_s,
+                           kv_share_when_contended(self.net_arbiter))
 
     def dram_seconds(self, nbytes: float) -> float:
         return nbytes / self.node.dram_bw

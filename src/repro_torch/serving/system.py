@@ -51,17 +51,37 @@ back to the queues, and every round with state on it restarts under a
 new rid from the persisted KV (the trie match of the same prompt), so a
 block whose persist had not landed is persisted once by the recovery.
 
+``elastic=ElasticConfig(enabled=True, ...)`` flips engine roles at run
+time (``core/autoscale.py``): once per ``reconfig_interval_s`` the
+controller observes the load per role and may propose a flip; the victim
+stops admitting (DRAINING), its in-flight rounds finish, its unstarted
+ones go back to the queues, the other role's weights reload over the
+node's storage NIC (RECONFIGURING, charged to the clock) and a new
+engine object of the other kind takes its id (a new DE allocates its
+decode state on the card, a DE that leaves frees it); the node's DRAM
+tier is kept across the flip.
+
+``net=NetworkConfig(collective_group_size=g)`` with ``g > 1`` models
+the finite compute network: every PE and DE step puts its model
+collectives on the stepping node's compute-NIC link, where they contend
+with that tick's KV transfers under ``net_arbiter`` ('vl' or 'fifo'):
+collectives that finish late stall compute (``collective_stall_s``),
+KV that finishes late is backlog (``transfer_backlog_s``), and the
+collectives' share of the traffic is the congestion that biases the next
+read-path decisions and paces KV work requests.
+
 ``tracer=Tracer()`` records the run on the modelled clock
 (``repro_torch.obs``): lifecycle spans per request, storage reads, tier
-hits, persists, read-path and hedge decisions, tier and traffic events.
-With ``tracer=None`` every hook is a no-op.  ``stats()`` passes through
-the metric schema (``obs.schema.conforming``).
+hits, persists, read-path and hedge decisions, controller proposals,
+``reconfig`` spans, tier and traffic events.  With ``tracer=None`` every
+hook is a no-op.  ``stats()`` passes through the metric schema
+(``obs.schema.conforming``) and has every key of the reference's.
 
 This slice serves the dense family with ``mode`` dualpath or basic,
 ``split_reads``, ``layerwise`` on and off, any number of PEs, DEs and
 groups, offline or online, with or without DRAM tiers, prefetch, the SLO
-layer, faults and hedging, traced or not.  Elastic roles and the
-collective network model arrive with later slices of the port.
+layer, faults and hedging, elastic roles and the collective network,
+traced or not.
 """
 from __future__ import annotations
 
@@ -76,8 +96,12 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.blocks import layout_for
 from repro_torch.core.admission import DEFER, REJECT, AdmissionGate
-from repro_torch.core.autoscale import LoadSignals
-from repro_torch.core.config import ResilienceConfig, SloConfig, TierConfig
+from repro_torch.core.autoscale import (DE_TO_PE, DRAIN_POLICIES,
+                                        DrainTracker, LoadSignals,
+                                        PDController, pick_victim)
+from repro_torch.core.config import (ElasticConfig, NetworkConfig,
+                                     ResilienceConfig, SloConfig,
+                                     TierConfig)
 from repro_torch.core.scheduler import Request, Scheduler
 from repro_torch.core.traffic import TrafficClass, TrafficManager
 from repro_torch.device import resolve
@@ -90,7 +114,8 @@ from repro_torch.kvcache.trie import BlockTrie
 from repro_torch.models.params import require_ported
 from repro_torch.obs.schema import conforming
 from repro_torch.serving import events
-from repro_torch.serving.events import (EventLoop, ReqState, RoundMetrics,
+from repro_torch.serving.events import (EngineLifecycle, EventLoop,
+                                        ReqState, RoundMetrics,
                                         ServingTimeModel, TickIo,
                                         VirtualClock)
 from repro_torch.sim.spec import NodeSpec
@@ -130,6 +155,8 @@ class ServingSystem:
                  de_group_size: Optional[int] = None,
                  pipelined: bool = True, node: Optional[NodeSpec] = None,
                  tracer=None, tier: Optional[TierConfig] = None,
+                 net: Optional[NetworkConfig] = None,
+                 elastic: Optional[ElasticConfig] = None,
                  resilience: Optional[ResilienceConfig] = None,
                  slo: Optional[SloConfig] = None, device="cuda"):
         assert mode in ("dualpath", "basic")
@@ -158,7 +185,12 @@ class ServingSystem:
         self.sched = Scheduler(alpha=1 << 30, beta=1 << 30,
                                split_reads=split_reads,
                                class_aware=scfg.class_aware)
-        self.time_model = ServingTimeModel.for_model(cfg, node)
+        # ``collective_group_size > 1`` puts model collectives on the
+        # compute network and makes its clock charges contention-aware
+        ncfg = net or NetworkConfig()
+        self.time_model = ServingTimeModel.for_model(
+            cfg, node, net_arbiter=ncfg.net_arbiter,
+            collective_group_size=ncfg.collective_group_size)
         self.clock = VirtualClock()
         self.loop = EventLoop(self.clock)
         self.metrics: Dict[int, RoundMetrics] = {}
@@ -182,28 +214,42 @@ class ServingSystem:
         # (default: one group spanning all engines of that kind)
         self.pes: Dict[Tuple[int, int], PrefillEngine] = {}
         self.des: Dict[Tuple[int, int], DecodeEngine] = {}
+        self._layerwise = layerwise
+        self._de_slots = de_slots
         pe_gsz = max(int(pe_group_size or n_pe), 1)
         de_gsz = max(int(de_group_size or n_de), 1)
         for i in range(n_pe):
             eid = (i, 0)
             self.sched.register_engine(eid, node=i, kind="pe",
                                        group=i // pe_gsz)
-            self.pes[eid] = PrefillEngine(
-                eid, cfg, params, max_seq, layerwise=layerwise,
-                chunk_tokens=scfg.prefill_chunk_tokens,
-                class_aware=scfg.class_aware, device=self.device)
+            self.pes[eid] = self._new_pe(eid)
         for j in range(n_de):
             eid = (n_pe + j, 0)
             st = self.sched.register_engine(eid, node=n_pe + j, kind="de",
                                             group=1000 + j // de_gsz)
-            # the DE persists through its node's tier when there is one
-            de = DecodeEngine(eid, cfg, params,
-                              self.tiers.get(n_pe + j, self.store),
-                              self.trie, self.layout, max_seq,
-                              n_slots=de_slots, device=self.device)
             st.free_hbm_tokens = de_slots * max_seq
-            de.defer_persist = pipelined
-            self.des[eid] = de
+            self.des[eid] = self._new_de(eid)
+        # elastic role flips: the controller and the drain tracker exist
+        # when elastic is off too, so stats() always has their columns
+        ecfg = elastic or ElasticConfig()
+        if ecfg.drain_policy not in DRAIN_POLICIES:
+            raise ValueError(f"unknown drain_policy {ecfg.drain_policy!r}")
+        self.elastic = bool(ecfg)
+        self.reconfig_interval_s = ecfg.reconfig_interval_s
+        self.drain_policy = ecfg.drain_policy
+        self.drains = DrainTracker()
+        self.controller = PDController(
+            hi=ecfg.reconfig_hi, lo=ecfg.reconfig_lo,
+            patience=ecfg.reconfig_patience,
+            cooldown_s=ecfg.reconfig_cooldown_s,
+            idle_floor_s=ecfg.reconfig_idle_floor_s)
+        self.engine_lifecycle: Dict[Tuple[int, int], EngineLifecycle] = {
+            eid: EngineLifecycle.ACTIVE for eid in (*self.pes, *self.des)}
+        self._next_gid = itertools.count(5000)
+        self._next_obs_t = ecfg.reconfig_interval_s
+        self._drain_rotation = 0
+        self._reconfig_ready: List = []   # drained DrainRecords to flip
+        self.reconfig_weight_bytes = 0.0
         self._rid = itertools.count()
         self._pending_admit: deque = deque()
         self._inflight: Dict[int, EngineRequest] = {}
@@ -213,6 +259,12 @@ class ServingSystem:
         self._pending_stamps: List[Tuple[RoundMetrics, str]] = []
         self._tick_io = TickIo()
         self._tick_compute = 0.0
+        # collective seconds per node's compute-NIC link this tick, and
+        # the interference totals (zeros without collectives)
+        self._tick_coll: Dict[int, float] = {}
+        self.collective_stall_s = 0.0
+        self.transfer_backlog_s = 0.0
+        self.net_congestion = 0.0
         self._submit_seconds_seen = 0.0
         self.read_bytes_by_side = {"pe": 0, "de": 0}
         self.dram_bytes_by_side = {"pe": 0, "de": 0}
@@ -244,6 +296,7 @@ class ServingSystem:
             if self.faults is not None:
                 tracer.annotate_faults(self.faults)
             self.sched.tracer = tracer
+            self.controller.tracer = tracer
             for node_id, t in self.tiers.items():
                 t.tracer = tracer
                 t.track = f"tier/node{node_id}"
@@ -364,7 +417,9 @@ class ServingSystem:
                         side: self.tiers[eid[0]].resident_prefix(
                             er.hit_refs) * bt
                         for side, eid in (("pe", req.pe), ("de", req.de))}
-                self.sched.choose_read_path(req, tier_tokens=tier_tokens)
+                self.sched.choose_read_path(
+                    req, tier_tokens=tier_tokens,
+                    net_congestion=self.net_congestion)
                 if self.hedge_reads and self.faults is not None:
                     self._maybe_hedge(req)
                 if req.dram_tokens:
@@ -562,6 +617,16 @@ class ServingSystem:
     # ------------------------------------------------------------------
     # engine phases
     # ------------------------------------------------------------------
+    def _charge_collectives(self, node: int, tokens: int) -> None:
+        """A step's model collectives over ``tokens`` land on the stepping
+        node's compute-NIC link, where they contend with that link's KV
+        traffic (``_apply_net_contention``)."""
+        coll = self.time_model.collectives
+        if coll is None or tokens <= 0:
+            return
+        self._tick_coll[node] = self._tick_coll.get(node, 0.0) + \
+            self.time_model.collective_seconds(coll.step_bytes(tokens))
+
     def _step_pes(self) -> int:
         act = 0
         pe_max = 0.0
@@ -570,6 +635,8 @@ class ServingSystem:
             done = pe.step()
             pe_max = max(pe_max,
                          self.time_model.pe_step_seconds(pe.last_step_items))
+            self._charge_collectives(
+                pe.eid[0], sum(b for _, b in pe.last_step_items))
             act += (pe.prefill_tokens - before) + len(done)
             if self.slo_cfg.prefill_chunk_tokens is not None:
                 # a capped slice ran and the round waits in the fifo for
@@ -652,6 +719,7 @@ class ServingSystem:
             finished = de.step()
             de_max = max(de_max,
                          self.time_model.de_step_seconds(de.last_step_ctxs))
+            self._charge_collectives(de_node, len(de.last_step_ctxs))
             act += (de.decode_steps - steps0) + len(finished)
             persist_b = de.tm.bytes[TrafficClass.KV_TRANSFER] - b0
             if persist_b and self.tracer is not None:
@@ -784,11 +852,38 @@ class ServingSystem:
             er.span_state = "scheduled"
             er.state_t0 = self.clock.now
 
+    def _apply_net_contention(self) -> None:
+        """Resolve this tick's KV-against-collective contention on each
+        compute-NIC link (``network.drain_times``): the link's KV seconds
+        grow to the contended completion (the growth adds to
+        ``transfer_backlog_s``), and collectives finishing after their
+        uncontended service stall the tick's compute
+        (``collective_stall_s``; ~0 under 'vl', growing with KV load
+        under 'fifo').  The collectives' share of all the links' traffic
+        becomes the congestion the next tick's read-path choices and KV
+        pacing read.  Without collectives nothing changes."""
+        tot_coll = sum(self._tick_coll.values())
+        tot_kv = 0.0
+        for node, coll_s in self._tick_coll.items():
+            if coll_s <= 0:
+                continue
+            kv_s = self._tick_io.buckets.get(("cn", node), 0.0)
+            tot_kv += kv_s
+            kv_done, coll_done = self.time_model.cn_drain(kv_s, coll_s)
+            if kv_s > 0:
+                self._tick_io.buckets[("cn", node)] = kv_done
+            stall = max(0.0, coll_done - coll_s)
+            self._tick_compute += stall
+            self.collective_stall_s += stall
+            self.transfer_backlog_s += max(0.0, kv_done - kv_s)
+        tot = tot_coll + tot_kv
+        self.net_congestion = (tot_coll / tot) if tot > 0 else 0.0
+        for tm in self._all_tms():
+            tm.net_congestion = self.net_congestion
+
     def _elastic_signals(self) -> LoadSignals:
-        """The deployment's load in seconds of service per role, as the
-        reference computes it for its admission gate and elastic
-        controller (the compute network's congestion is 0 until the
-        port models it)."""
+        """The deployment's load in seconds of service per role, for the
+        admission gate and the elastic controller."""
         sched = self.sched
         spec = self.time_model.spec
         node = self.time_model.node
@@ -843,7 +938,7 @@ class ServingSystem:
             de_busy_s=de_busy_tok / de_rate,
             pe_read_q_s=pe_rq / snic_tok_rate,
             de_read_q_s=de_rq / snic_tok_rate,
-            net_congestion=0.0,
+            net_congestion=self.net_congestion,
             dram_hit_ratio=(dram_hit / denom) if denom else 0.0,
             pe_queued_interactive_s=pe_q_int,
             de_queued_interactive_s=de_q_int,
@@ -879,6 +974,128 @@ class ServingSystem:
         return d
 
     # ------------------------------------------------------------------
+    # elastic role flips (core/autoscale.py), driven by the tick loop
+    # ------------------------------------------------------------------
+    def _begin_reconfig(self, action: str):
+        src = "de" if action == DE_TO_PE else "pe"
+        cands = self.sched.admitting(src)
+        if len(cands) <= 1:
+            return
+
+        def load_of(st):
+            if st.kind == "de":
+                de = self.des[st.engine]
+                return st.tok + (de.n_slots - de.free_slots) * self.max_seq
+            return st.tok + st.read_q
+
+        victim = pick_victim(cands, self.drain_policy, load_of,
+                             rotation=self._drain_rotation)
+        self._drain_rotation += 1
+        self.sched.begin_drain(victim.engine)
+        self.sched.requeue_unstarted(
+            victim.engine, [er.req for er in self._inflight.values()])
+        self.engine_lifecycle[victim.engine] = EngineLifecycle.DRAINING
+        self.drains.begin(victim.engine, src,
+                          "pe" if src == "de" else "de", self.clock.now)
+
+    def _engine_drained(self, eid: Tuple[int, int], kind: str) -> bool:
+        """Has the draining engine's in-flight work emptied?  The
+        scheduler's seq/tok gate covers its assigned requests; the engine
+        checks cover work whose completion half is still parked (deferred
+        persists, unflushed or unpolled transfers)."""
+        if not self.sched.can_finish_drain(eid):
+            return False
+        if kind == "pe":
+            pe = self.pes[eid]
+            return not pe.fifo and not pe.tm.busy
+        de = self.des[eid]
+        return de.free_slots == de.n_slots and not de.pending_persist \
+            and not de.tm.busy and \
+            not any(er.req.de == eid for er in self._inflight.values())
+
+    def _new_pe(self, eid) -> PrefillEngine:
+        """A prefill engine under ``eid``, as the system starts them and
+        as a DE->PE flip makes them."""
+        return PrefillEngine(
+            eid, self.cfg, self.params, self.max_seq,
+            layerwise=self._layerwise,
+            chunk_tokens=self.slo_cfg.prefill_chunk_tokens,
+            class_aware=self.slo_cfg.class_aware, device=self.device)
+
+    def _new_de(self, eid) -> DecodeEngine:
+        """A decode engine under ``eid`` with a fresh decode state; it
+        persists through its node's tier when there is one."""
+        de = DecodeEngine(eid, self.cfg, self.params,
+                          self.tiers.get(eid[0], self.store),
+                          self.trie, self.layout, self.max_seq,
+                          n_slots=self._de_slots, device=self.device)
+        de.defer_persist = self.pipelined
+        return de
+
+    def _finish_flip(self, rec):
+        """Replace the drained engine by one of the other kind under the
+        same id, in a new scheduler group.  A DE that leaves takes its
+        decode state with it (nothing else holds the engine); a new DE
+        allocates one.  The node's tier is kept: its resident bytes are
+        the flip's tier handoff."""
+        eid = rec.engine
+        node_id = eid[0]
+        gid = next(self._next_gid)
+        tier = self.tiers.get(node_id)
+        handoff = int(tier.used_bytes) if tier is not None else 0
+        if rec.to_kind == "pe":
+            del self.des[eid]
+            self.pes[eid] = self._new_pe(eid)
+            self.sched.finish_drain(eid, kind="pe", group=gid)
+        else:
+            del self.pes[eid]
+            self.des[eid] = self._new_de(eid)
+            self.sched.finish_drain(eid, kind="de", group=gid,
+                                    free_hbm_tokens=self._de_slots *
+                                    self.max_seq)
+        # the DE-group topology changed: re-route queued requests
+        self.sched.rebalance_de_private()
+        self.engine_lifecycle[eid] = EngineLifecycle.ACTIVE
+        rec = self.drains.finish(eid, self.clock.now,
+                                 tier_handoff_bytes=handoff)
+        if self.tracer is not None:
+            eng = self.pes.get(eid) or self.des[eid]
+            eng.tm.tracer = self.tracer
+            eng.tm.track = f"traffic/node{eid[0]}"
+            self.tracer.span(
+                "reconfig", "drain", rec.t_begin, self.clock.now,
+                engine=list(eid),
+                direction=f"{rec.from_kind}->{rec.to_kind}")
+
+    def _elastic_tick(self):
+        """Phase 0 of an elastic tick: flip the engines whose weight
+        reload was charged last tick, move drained engines to
+        RECONFIGURING (charging the reload of one engine's weights to the
+        node's storage NIC), then let the controller observe, once per
+        ``reconfig_interval_s`` and only with no drain in progress."""
+        for rec in self._reconfig_ready:
+            self._finish_flip(rec)
+        self._reconfig_ready = []
+        for eid, rec in list(self.drains.active.items()):
+            if rec.t_drained >= 0:
+                continue
+            if not self._engine_drained(eid, rec.from_kind):
+                continue
+            self.drains.mark_drained(eid, self.clock.now)
+            self.engine_lifecycle[eid] = EngineLifecycle.RECONFIGURING
+            w = self.time_model.spec.active_param_bytes_resident(1)
+            self.reconfig_weight_bytes += w
+            self._tick_io.add(("snic", eid[0]), self._snic_s(eid[0], w))
+            self._reconfig_ready.append(rec)
+        if self.clock.now >= self._next_obs_t:
+            self._next_obs_t = self.clock.now + self.reconfig_interval_s
+            if not self.drains.active and not self._reconfig_ready:
+                action = self.controller.observe(self._elastic_signals(),
+                                                 self.clock.now)
+                if action is not None:
+                    self._begin_reconfig(action)
+
+    # ------------------------------------------------------------------
     # engine failure (sim/faults.EngineDeath): fail-stop and re-home
     # ------------------------------------------------------------------
     def _fault_tick(self):
@@ -889,12 +1106,13 @@ class ServingSystem:
             self._engine_death(tuple(d.engine))
 
     def _engine_death(self, eid: Tuple[int, int]):
-        """Fail-stop of engine ``eid``: unstarted assignments go back to
-        the queues whole, every round with state on the engine restarts
-        from the persisted KV (the trie holds every block persisted
-        before the death; blocks whose writes had not landed are
-        persisted once by the recovery), and the engine leaves the
-        scheduler so nothing routes to it."""
+        """Fail-stop of engine ``eid``: a drain it was in is dropped (a
+        death is not a role change), unstarted assignments go back to the
+        queues whole, every round with state on the engine restarts from
+        the persisted KV (the trie holds every block persisted before the
+        death; blocks whose writes had not landed are persisted once by
+        the recovery), and the engine leaves the scheduler so nothing
+        routes to it."""
         if eid not in self.pes and eid not in self.des:
             return                     # already dead, or never existed
         self.dead_engines.append(eid)
@@ -902,6 +1120,9 @@ class ServingSystem:
             kind = "pe" if eid in self.pes else "de"
             self.tracer.event("faults/deaths", "engine_death",
                               engine=list(eid), kind=kind)
+        self.drains.abort(eid)
+        self._reconfig_ready = [r for r in self._reconfig_ready
+                                if r.engine != eid]
         self.sched.requeue_unstarted(
             eid, [er.req for er in self._inflight.values()])
         # a PE's part ends once the prompt state left for the DE (the PD
@@ -914,6 +1135,7 @@ class ServingSystem:
         self.sched.fail_engine(eid)
         self.pes.pop(eid, None)
         self.des.pop(eid, None)
+        self.engine_lifecycle[eid] = EngineLifecycle.DEAD
         # the group topology changed: re-route queued DE requests
         self.sched.rebalance_de_private()
 
@@ -979,9 +1201,12 @@ class ServingSystem:
         """One tick; returns an activity count (0 = idle)."""
         self._tick_io = TickIo()
         self._tick_compute = 0.0
+        self._tick_coll = {}
         act = 0
         if self._deaths_pending:
             self._fault_tick()
+        if self.elastic:
+            self._elastic_tick()
         if self.pipelined:
             act += self._schedule_tick()     # 1. decide + issue reads
             act += self._step_pes()          # 2. prefill compute
@@ -990,12 +1215,14 @@ class ServingSystem:
             act += self._run_installs()      # 5. hit-KV installs
             self._collect_pd()
             act += self._admit_pending()     # 6. DE admissions
+            self._apply_net_contention()
             dt = max(self._tick_io.parallel_seconds(), self._tick_compute)
         else:
             act += self._schedule_tick()
             act += self._step_pes()
             act += self._admit_pending()
             act += self._step_des()
+            self._apply_net_contention()
             dt = self._tick_io.serial_seconds() + self._tick_compute
         self.clock.advance(dt + self._submit_overhead_delta())
         self._flush_stamps()
@@ -1054,10 +1281,8 @@ class ServingSystem:
         return sessions
 
     def stats(self) -> dict:
-        """The reference's ``stats()`` keys that this slice produces,
-        under the same names (``wall_s`` is modelled seconds), checked
-        against the metric schema.  The compute-network and elastic keys
-        come with the slices that port them."""
+        """The reference's ``stats()``, key for key (``wall_s`` and every
+        other second is modelled), checked against the metric schema."""
         tiers = list(self.tiers.values())
         return conforming(dict(
             store_reads=self.store.bytes_read,
@@ -1073,6 +1298,12 @@ class ServingSystem:
             doorbells=sum(tm.doorbells for tm in self._all_tms()),
             submitted_seconds=sum(tm.submitted_seconds
                                   for tm in self._all_tms()),
+            # the compute network (zeros without collectives)
+            collective_stall_s=self.collective_stall_s,
+            transfer_backlog_s=self.transfer_backlog_s,
+            net_congestion=self.net_congestion,
+            paced_flushes=sum(tm.paced_flushes for tm in self._all_tms()),
+            deferred_wrs=sum(tm.deferred_wrs for tm in self._all_tms()),
             **events.latency_summary(self.metrics.values()),
             # DRAM tiers (zeros without them)
             dram_hit_bytes=sum(t.dram_hit_bytes for t in tiers),
@@ -1081,6 +1312,12 @@ class ServingSystem:
             tier_miss_bytes=sum(t.miss_bytes for t in tiers),
             tier_prefetch_bytes=sum(t.prefetch_bytes for t in tiers),
             tier_evicted_bytes=sum(t.evicted_bytes for t in tiers),
+            # elastic role flips (zeros with elastic off)
+            role_changes=self.drains.n_flips,
+            role_changes_by_direction=self.drains.flips_by_direction(),
+            reconfig_drain_s=self.drains.drain_seconds(),
+            reconfig_weight_bytes=self.reconfig_weight_bytes,
+            tier_handoff_bytes=self.drains.tier_handoff_bytes(),
             n_pe_final=len(self.pes),
             n_de_final=len(self.des),
             # faults and hedging (zeros without them)

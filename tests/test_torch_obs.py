@@ -14,9 +14,8 @@ package's.
   untraced port run gives identical tokens and ``stats()``; the trace
   audit and the attribution pass on the port's run, and a dropped
   ``storage_read`` event fails the audit.
-* The port's ``stats()`` passes its ``conforming(..., "serving")``, and
-  the registered serving keys it does not emit are exactly the
-  compute-network and elastic keys that are not ported yet.
+* The port's ``stats()`` passes its ``conforming(..., "serving")``, has
+  the reference's keys, and emits every registered serving key.
 """
 import math
 
@@ -45,14 +44,6 @@ from repro_torch.sim.spec import REDUCED_TEST_NODE
 from repro_torch.sim.traces import Round, Trajectory
 
 torch.set_num_threads(1)
-
-# the serving keys the port does not emit yet: the compute-network model
-# and elastic role flips
-UNPORTED_KEYS = {"collective_stall_s", "transfer_backlog_s",
-                 "net_congestion", "paced_flushes", "deferred_wrs",
-                 "role_changes", "role_changes_by_direction",
-                 "reconfig_drain_s", "reconfig_weight_bytes",
-                 "tier_handoff_bytes"}
 
 
 # ---------------------------------------------------------------------------
@@ -311,7 +302,7 @@ def test_untraced_port_run_is_identical(runs):
 
 def test_port_stats_match_the_reference(runs):
     jst, tst = runs["jax"][0].stats(), runs["port"][0].stats()
-    assert set(jst) - set(tst) == UNPORTED_KEYS
+    assert tst.keys() == jst.keys()
     for k in tst:
         if isinstance(jst[k], float):
             assert tst[k] == pytest.approx(jst[k], rel=1e-9, abs=0,
@@ -353,7 +344,7 @@ def test_port_audit_detects_missing_read_event(runs):
 def test_port_stats_schema_two_way(runs):
     st = runs["port"][0].stats()
     assert conforming(st, "serving") is st
-    assert orphans(st, "serving") == UNPORTED_KEYS
+    assert orphans(st, "serving") == set()
     assert {"engine_deaths", "recovered_rounds", "hedged_reads",
             "hedge_moved_tokens", "n_pe_final", "n_de_final"} <= set(st)
 
