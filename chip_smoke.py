@@ -1,6 +1,6 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA H100.
 
-    python3 chip_smoke.py                  # the smoke, phases 1-10
+    python3 chip_smoke.py                  # the smoke, phases 1-11
     python3 chip_smoke.py --persist-ab 10  # offline serving, old persist
                                            # against the scatter's
     python3 chip_smoke.py --split-sweep    # the attention kernels' split
@@ -17,7 +17,11 @@ Drives ``repro_torch`` (never the JAX package) on the card:
    f32 pools through permuted tables, the first and last layer;
    attention within 2e-2 in bf16 and 2e-5 in f32, at the edges of its
    tiles, splits, pages and masks; every kernel bit-identical over two
-   calls; flash also at the chunked prefill's 256-token slices), and
+   calls; flash also at the chunked prefill's 256-token slices; flash
+   and paged also at gemma2-2b's head dim 256 with its 4096-token
+   window and softcap 50, in bf16 and f32, with q scaled so the outputs
+   are O(1) and, in bf16, faults planted in the plain version (a window
+   64 keys short, q's columns shifted) shown to fail the tolerance), and
    times the kernel, the plain version and one PyTorch call
    computing the same function, with CUDA events (also with a clean L2,
    and split into their kernels under torch.profiler); times the main
@@ -67,7 +71,18 @@ Drives ``repro_torch`` (never the JAX package) on the card:
 9. f32 token identity at full width: ServingSystem against the port's
    cache-free reference (full forward, then decode), unchunked and with
    the first round's prefill cut into slices;
-10. prints the ``kernels`` JSON line, then the contract line
+10. gemma2-2b at full width and depth (26 layers, head dim 256, local
+   layers with a 4096-token window between global ones, softcaps 50 and
+   30; bf16, random weights from a seed): 4 agents x 3 rounds whose
+   contexts pass the window (4624 to 5168 tokens), offline on 1 PE + 1
+   DE, asserting that every round finished, all four kernels launched
+   (the scatter once per persist), flash and paged ran with the window
+   on sequences longer than it, and the blocking arm gave identical
+   tokens; then f32 token identity with the cache-free reference on a
+   4160-token first round, unchunked and in 1024-token prefill slices
+   (see :func:`gemma2_phase`); a third pipelined run under
+   torch.profiler says where its time goes;
+11. prints the ``kernels`` JSON line, then the contract line
    ``{"ok": true, "device": {...}}`` last.
 
 Any failed check raises, so the script exits non-zero and prints no
@@ -128,6 +143,17 @@ ELASTIC_WAVE2 = dict(n=8, rounds=((64, 48, 0.0), (64, 48, 0.0)),
                      after_s=0.02)
 ELASTIC = dict(reconfig_interval_s=0.002, reconfig_patience=2,
                reconfig_idle_floor_s=1e-4)
+# the gemma2 phase: full-width gemma2-2b, 4 agents at t = 0.  Round-1
+# contexts reach 4624 tokens and round-3 ones 5168, past the 4096-token
+# window of the local layers, so the window masks in the appends and in
+# decode; rounds 2-3 hit the whole previous context
+GEMMA2_ROUNDS = ((4608, 16), (256, 16), (256, 16))
+GEMMA2_AGENTS = 4
+GEMMA2_MAX_SEQ = 6144
+# its f32 identity: a 4160-token first round, past the window, unchunked
+# and in 1024-token prefill slices
+GEMMA2_IDENTITY = dict(rounds=((4160, 4), (64, 4), (64, 4)), max_seq=4416,
+                       chunk=1024)
 # profiler rows of the port's kernels, by wrapper: kernel-name prefixes
 KERNEL_ROWS = {"flash_attention": ("flash_",), "paged_attention": ("paged_",),
                "kv_layer_gather": ("gather_kernel",),
@@ -506,16 +532,35 @@ def _deterministic(call):
     return a
 
 
+def _planted(name, want, tol, faults: dict) -> dict:
+    """Each fault, emulated in the plain version, must fail the check
+    the kernel passes: the case's inputs let the tolerance see a fault
+    of that size.  Returns each fault's max |err|."""
+    errs = {}
+    for label, out in faults.items():
+        err, ok = max_err(out, want, tol)
+        if ok:
+            raise AssertionError(f"{name}: the planted fault '{label}' is "
+                                 f"within the tolerance (err {err})")
+        errs[label] = err
+    return errs
+
+
 def _flash_case(rng, *, hq, hkv, dh, sq, kv_lens, S, dtype, causal=True,
-                softcap=0.0, window=0, parts=False):
+                softcap=0.0, window=0, q_std=1.0, planted=False,
+                parts=False):
     """The PE's append at the main path's layout: q (b, sq, hq, dh) and a
     padded (b, S, hkv, dh) cache, passed as (b, h, s, dh) views, with
-    per-row ``kv_lens``."""
+    per-row ``kv_lens``.  The yardstick is SDPA with the same mask; it
+    has no softcap, so a case with one times it without.  ``q_std``
+    scales q, and so the scores' spread; with ``planted``, a window 64
+    keys short and Q's columns taken from the next 16-wide k-step must
+    fail the tolerance (:func:`_planted`)."""
     from repro_torch.kernels import flash_attention, ref
     f = lambda *s: torch.from_numpy(
         rng.standard_normal(s).astype(np.float32)).to("cuda", dtype)
     b = len(kv_lens)
-    q = f(b, sq, hq, dh).transpose(1, 2)
+    q = (f(b, sq, hq, dh) * q_std).transpose(1, 2)
     k = f(b, S, hkv, dh).transpose(1, 2)
     v = f(b, S, hkv, dh).transpose(1, 2)
     lens = torch.tensor(kv_lens, dtype=torch.int32, device="cuda")
@@ -532,6 +577,11 @@ def _flash_case(rng, *, hq, hkv, dh, sq, kv_lens, S, dtype, causal=True,
     err, ok = max_err(got, want, TOLS[dtype])
     if not ok:
         raise AssertionError(f"flash_attention off by {err} at {shapes}")
+    faults = _planted("flash_attention", want, TOLS[dtype], {
+        "window 64 short": ref.flash_attention_ref(
+            q, k, v, **{**kw, "window": window - 64}),
+        "Q from the next k-step": ref.flash_attention_ref(
+            q.roll(-16, -1), k, v, **kw)}) if planted else None
     # the valid (query, key) pairs; the yardstick is SDPA with this mask
     # over the same keys (it has no softcap)
     ln = lens.long()
@@ -550,12 +600,11 @@ def _flash_case(rng, *, hq, hkv, dh, sq, kv_lens, S, dtype, causal=True,
     b_ms, b_by = bound(2 * b * sq * hq * dh * isz + 2 * keys * hkv * dh * isz,
                        4 * dh * hq * int(valid.sum()), dtype)
     return dict(
-        shapes=shapes, max_abs_err=err,
+        shapes=shapes, max_abs_err=err, planted_err=faults,
         ms=time_ms(call), ms_clean_l2=time_ms(call, clean_l2=True),
         parts_ms=kernel_parts(call) if parts else None,
         plain_ms=time_ms(lambda: ref.flash_attention_ref(q, k, v, **kw)),
-        library_ms=None if softcap else time_ms(
-            lambda: sdpa(q, ke, ve, attn_mask=valid[:, None])),
+        library_ms=time_ms(lambda: sdpa(q, ke, ve, attn_mask=valid[:, None])),
         bound_ms=b_ms, bound_by=b_by)
 
 
@@ -591,14 +640,19 @@ def flash_cases(cfg, rng):
 
 
 def _paged_case(rng, *, hq, hkv, dh, S, lengths, dtype, pt=64,
+                softcap=0.0, window=0, q_std=1.0, planted=False,
                 parts=False):
     """The DE's decode at the main path's layout: the padded (b, S, hkv,
-    dh) cache viewed as ``pt``-token pages with an arange block table."""
+    dh) cache viewed as ``pt``-token pages with an arange block table.
+    The yardstick is SDPA with the same (length and window) mask and no
+    softcap; the bound counts the K/V inside each window.  ``q_std`` and
+    ``planted`` as for :func:`_flash_case`; the second planted fault is
+    each lane reading the next lane's 16 bytes of q."""
     from repro_torch.kernels import paged_attention, ref
     f = lambda *s: torch.from_numpy(
         rng.standard_normal(s).astype(np.float32)).to("cuda", dtype)
     b, g = len(lengths), hq // hkv
-    q = f(b, hkv, g, dh)
+    q = f(b, hkv, g, dh) * q_std
     kc, vc = f(b, S, hkv, dh), f(b, S, hkv, dh)
     kp, vp = (x.view(b * S // pt, pt, hkv, dh) for x in (kc, vc))
     table = torch.arange(b * S // pt, dtype=torch.int32,
@@ -607,28 +661,40 @@ def _paged_case(rng, *, hq, hkv, dh, S, lengths, dtype, pt=64,
     shapes = dict(q=[b, hkv, g, dh], pool=list(kp.shape),
                   lengths=list(lengths),
                   dtype=str(dtype).replace("torch.", ""))
-    call = lambda: paged_attention(q, kp, vp, table, lens)
+    shapes.update({n: x for n, x in (("softcap", softcap),
+                                     ("window", window)) if x})
+    kw = dict(softcap=softcap, window=window)
+    call = lambda: paged_attention(q, kp, vp, table, lens, **kw)
     got = _deterministic(call)
-    want = ref.paged_attention_ref(q, kp, vp, table, lens)
+    want = ref.paged_attention_ref(q, kp, vp, table, lens, **kw)
     err, ok = max_err(got, want, TOLS[dtype])
     if not ok:
         raise AssertionError(f"paged_attention off by {err} at {shapes}")
+    e = 16 // q.element_size()
+    faults = _planted("paged_attention", want, TOLS[dtype], {
+        "window 64 short": ref.paged_attention_ref(
+            q, kp, vp, table, lens, softcap=softcap, window=window - 64),
+        "q from the next lane": ref.paged_attention_ref(
+            q.roll(-e, -1), kp, vp, table, lens, **kw)}) if planted else None
     qs = q.reshape(b, hq, 1, dh)
     ke, ve = (x.transpose(1, 2).repeat_interleave(g, dim=1)
               for x in (kc, vc))
-    mask = (torch.arange(S, device="cuda")[None, :] <
-            lens[:, None].long())[:, None, None, :]
+    cols, ln = torch.arange(S, device="cuda")[None, :], lens[:, None].long()
+    mask = cols < ln
+    if window > 0:
+        mask = mask & (ln - 1 - cols < window)
+    mask = mask[:, None, None, :]
     sdpa = torch.nn.functional.scaled_dot_product_attention
     isz = q.element_size()
-    tot = int(sum(lengths))
+    tot = int(sum(min(n, window) if window > 0 else n for n in lengths))
     b_ms, b_by = bound(2 * b * hq * dh * isz + 2 * tot * hkv * dh * isz,
                        4 * dh * hq * tot, dtype)
     return dict(
-        shapes=shapes, max_abs_err=err,
+        shapes=shapes, max_abs_err=err, planted_err=faults,
         ms=time_ms(call), ms_clean_l2=time_ms(call, clean_l2=True),
         parts_ms=kernel_parts(call) if parts else None,
         plain_ms=time_ms(lambda: ref.paged_attention_ref(q, kp, vp, table,
-                                                         lens)),
+                                                         lens, **kw)),
         library_ms=time_ms(lambda: sdpa(qs, ke, ve, attn_mask=mask)),
         bound_ms=b_ms, bound_by=b_by)
 
@@ -655,6 +721,49 @@ def paged_cases(cfg, rng):
         case(dh=128, S=268, pt=4, lengths=[1, 100, 267, 268],
              dtype=torch.float32),
     ]
+
+
+# q's scale in the gemma2 cases: scores of standard deviation 3 make the
+# softmax over about 4096 keys peaked, as a trained model's is, so the
+# outputs are O(1).  At 1, the softmax is nearly flat, the outputs about
+# 0.026, and the bf16 tolerance as large as what it compares.
+GEMMA2_Q_STD = 3.0
+
+
+def gemma2_flash_cases(cfg, rng):
+    """Flash at gemma2-2b's shapes, window and softcap: the round-2 append
+    of the gemma2 phase (256 queries over kv_len 4880 of a 6144 cache),
+    a 1024-row prefill chunk whose queries cross the window's edge
+    (positions 3584-4607), and the append in f32.  The bf16 cases check
+    that planted faults fail the tolerance."""
+    case = lambda **kw: _flash_case(rng, **{**dict(
+        hq=cfg.n_heads, hkv=cfg.n_kv_heads, dh=cfg.head_dim, sq=256,
+        kv_lens=[4880], S=GEMMA2_MAX_SEQ, dtype=torch.bfloat16,
+        window=cfg.local_window, softcap=cfg.attn_logit_softcap,
+        q_std=GEMMA2_Q_STD), **kw})
+    return [case(parts=True, planted=True),
+            case(sq=1024, kv_lens=[4608], parts=True, planted=True),
+            case(dtype=torch.float32)]
+
+
+def gemma2_paged_cases(cfg, rng):
+    """Paged at gemma2-2b's shapes, window and softcap: 8 slots with
+    contexts of 4600-4900 tokens (the window masks their oldest keys),
+    contexts up to the window (it masks nothing), the edges of the
+    window and the cache, and the main case in f32.  The main case
+    checks that planted faults fail the tolerance."""
+    lengths = [int(x) for x in rng.integers(4600, 4901, 8)]
+    case = lambda **kw: _paged_case(rng, **{**dict(
+        hq=cfg.n_heads, hkv=cfg.n_kv_heads, dh=cfg.head_dim,
+        S=GEMMA2_MAX_SEQ, lengths=lengths, dtype=torch.bfloat16,
+        window=cfg.local_window, softcap=cfg.attn_logit_softcap,
+        q_std=GEMMA2_Q_STD), **kw})
+    w = cfg.local_window
+    return [case(parts=True, planted=True),
+            case(lengths=[int(x) for x in rng.integers(3000, w, 7)] + [w]),
+            case(lengths=[1, 64, w - 1, w, w + 1, w + 65,
+                          GEMMA2_MAX_SEQ - 1, GEMMA2_MAX_SEQ]),
+            case(dtype=torch.float32)]
 
 
 # ---------------------------------------------------------------------------
@@ -753,8 +862,10 @@ def serving_phase(cfg, device="cuda", rounds=AGENT_ROUNDS, n_agents=6,
     return st, launches, wall, st["gen_tokens"] / wall, wall_b, persists.n
 
 
-def profile_phase(cfg, rounds=AGENT_ROUNDS, n_agents=6, top=8):
-    """Where the time goes: the serving phase's pipelined run once more,
+def profile_phase(cfg, rounds=AGENT_ROUNDS, n_agents=6, top=8,
+                  max_seq=2048):
+    """Where the time goes: the serving phase's pipelined run once more
+    (or ``cfg``'s with ``rounds`` and ``max_seq`` on 1 PE + 1 DE),
     under torch.profiler tracing the card only.  Returns (real wall s,
     device-busy s summed over kernels and copies, [(name, device ms,
     calls, [(kernel, launches)])] of the top entries and the port's
@@ -767,7 +878,7 @@ def profile_phase(cfg, rounds=AGENT_ROUNDS, n_agents=6, top=8):
     trajs = [Trajectory(i, [Round(*r) for r in rounds])
              for i in range(n_agents)]
     kw = dict(n_pe=1, n_de=1, mode="dualpath", block_tokens=64,
-              max_seq=2048, de_slots=8)
+              max_seq=max_seq, de_slots=8)
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         _, _, wall = serve(cfg, params, trajs, "cuda", **kw)
     rows = {}
@@ -790,6 +901,17 @@ def profile_phase(cfg, rounds=AGENT_ROUNDS, n_agents=6, top=8):
     # the top entries, and every port kernel's row wherever it ranks
     return wall, busy, [r for i, r in enumerate(rows)
                         if i < top or r[0] in KERNEL_ROWS]
+
+
+def print_profile(wall, busy, rows, label="") -> None:
+    """:func:`profile_phase`'s result, one row a line."""
+    print(f"{label}where the time goes (profiled pipelined run): "
+          f"{wall:.3f} s wall, {busy:.3f} s device busy "
+          f"({100 * busy / wall:.1f} %)")
+    for name, ms, calls, parts in rows:
+        kernels_of = "" if len(parts) < 2 else " = " + " + ".join(
+            f"{n} ({c})" for n, c in parts)
+        print(f"  {ms:9.1f} ms {calls:7d} calls  {name}{kernels_of}")
 
 
 def online_system(cfg, params, device="cuda", *, pipelined=True,
@@ -1532,6 +1654,131 @@ def identity_phase(cfg, device="cuda", rounds=((256, 8), (64, 8), (64, 8)),
 
 
 # ---------------------------------------------------------------------------
+# phase 10: gemma2-2b (sliding-window and global layers, softcaps, dh 256)
+# ---------------------------------------------------------------------------
+
+
+class WindowCounter:
+    """Counts the model's flash and paged calls that pass a window on a
+    sequence longer than it.  It reads no device tensor, so the run it
+    counts keeps its own syncs: the calls with a window are counted at
+    the names ``models.layers`` calls, and each engine step's count is
+    credited from the lengths the engines keep on the host.  A PE step
+    makes one ``append_step`` per item of ``last_step_items`` (cached,
+    size), each with the same calls, so an item past the window adds its
+    share; a DE step passes the window when its longest slot does."""
+
+    def __init__(self, window: int):
+        self.window = window
+        self.n = {"flash_attention": 0, "paged_attention": 0}
+        self.step = dict.fromkeys(self.n, 0)     # the running step's calls
+
+    def _layer(self, name):
+        def wrap(fn):
+            def counted(*args, window=0, **kw):
+                self.step[name] += window > 0
+                return fn(*args, window=window, **kw)
+            return counted
+        return wrap
+
+    def _prefill(self, fn):
+        def step(engine):
+            self.step["flash_attention"] = 0
+            out = fn(engine)
+            items = engine.last_step_items
+            past = sum(c + n > self.window for c, n in items)
+            if past:
+                self.n["flash_attention"] += \
+                    self.step["flash_attention"] * past // len(items)
+            return out
+        return step
+
+    def _decode(self, fn):
+        def step(engine):
+            self.step["paged_attention"] = 0
+            longest = max((int(engine.lengths[i]) + 1
+                           for i, er in enumerate(engine.slots)
+                           if er is not None), default=0)
+            out = fn(engine)
+            if longest > self.window:
+                self.n["paged_attention"] += self.step["paged_attention"]
+            return out
+        return step
+
+    def __enter__(self):
+        from repro_torch.engines import runtime
+        from repro_torch.models import layers
+        self.patches = [MethodPatch(layers, n, self._layer(n))
+                        for n in self.n]
+        self.patches += [
+            MethodPatch(runtime.PrefillEngine, "step", self._prefill),
+            MethodPatch(runtime.DecodeEngine, "step", self._decode)]
+        for p in self.patches:
+            p.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        for p in self.patches:
+            p.__exit__(*exc)
+
+
+def gemma2_phase(cfg, device="cuda", rounds=GEMMA2_ROUNDS,
+                 n_agents=GEMMA2_AGENTS, max_seq=GEMMA2_MAX_SEQ,
+                 identity=GEMMA2_IDENTITY) -> dict:
+    """gemma2-2b served offline on 1 PE + 1 DE (dualpath, 64-token
+    FullBlocks, 8 DE slots): every round finishes, all four kernels
+    launch (the scatter once per persist), flash and paged run with the
+    window on sequences longer than it, and the blocking arm gives the
+    same tokens; then f32 token identity with the cache-free reference,
+    unchunked and in prefill slices (:func:`identity_phase`)."""
+    from repro_torch import kernels
+    from repro_torch.models import init_params
+    from repro_torch.sim.traces import Round, Trajectory
+    if device != "cpu":
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+    params = init_params(cfg, seed=0, device=device)
+    trajs = lambda: [Trajectory(i, [Round(*r) for r in rounds])
+                     for i in range(n_agents)]
+    kw = dict(n_pe=1, n_de=1, mode="dualpath", block_tokens=64,
+              max_seq=max_seq, de_slots=8)
+    kernels.reset_launch_counts()
+    with persist_counter() as persists, \
+            WindowCounter(cfg.local_window) as windowed:
+        system, sessions, wall = serve(cfg, params, trajs(), device, **kw)
+    launches = kernels.launch_counts()
+    # the run's own peak, weights included: above what was allocated
+    # before the phase
+    peak = torch.cuda.max_memory_allocated() - base \
+        if device != "cpu" else None
+    st = system.stats()
+    assert all(s.rounds_done == len(rounds) for s in sessions), \
+        "a gemma2 round did not finish"
+    assert st["store_reads"] > 0, "no FullBlock was read back"
+    if device != "cpu":
+        check_launches(launches, persists.n, "gemma2")
+    assert all(n > 0 for n in windowed.n.values()), \
+        f"a kernel never ran its window past it: {windowed.n}"
+    contexts = [len(s.context) for s in sessions]
+    assert min(contexts) > cfg.local_window
+    del system
+    _, sessions_b, wall_b = serve(cfg, params, trajs(), device,
+                                  pipelined=False, **kw)
+    assert [s.context for s in sessions] == \
+        [s.context for s in sessions_b], "gemma2 blocking arm diverged"
+    del params, sessions, sessions_b
+    gc.collect()
+    if device != "cpu":
+        torch.cuda.empty_cache()
+    n, chunks = identity_phase(cfg, device, **identity)
+    return dict(stats=st, launches=launches, windowed=windowed.n,
+                persists=persists.n, wall_s=wall,
+                tokens_per_s=st["gen_tokens"] / wall, blocking_wall_s=wall_b,
+                context_lens=contexts, peak_allocated=peak,
+                identity_tokens=n, identity_chunks=chunks)
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -1580,7 +1827,8 @@ def main() -> int:
         log = build.BUILD_DIR / f"{name}.log"
         if log.exists():
             for line in log.read_text().splitlines():
-                if "registers" in line or "spill" in line:
+                if any(w in line for w in ("Function properties for",
+                                           "registers", "spill")):
                     print(f"  {name}: {line.strip()}")
 
     # 3. kernels against their plain versions
@@ -1590,6 +1838,11 @@ def main() -> int:
              "kv_layer_scatter": scatter_cases(cfg, rng),
              "flash_attention": flash_cases(cfg, rng),
              "paged_attention": paged_cases(cfg, rng)}
+    # gemma2-2b's shapes (head dim 256, window 4096, softcap 50) after
+    # the qwen cases, which stay first: cases[...][0] is the main case
+    cfg_g2 = get_config("gemma2-2b")
+    cases["flash_attention"] += gemma2_flash_cases(cfg_g2, rng)
+    cases["paged_attention"] += gemma2_paged_cases(cfg_g2, rng)
     for name, cs in cases.items():
         for c in cs:
             lib = c["library_ms"]
@@ -1604,7 +1857,11 @@ def main() -> int:
                      f"; clean L2 {c['ms_clean_l2']:.4f} ms")
                   + ("" if not c.get("parts_ms") else
                      "; warm " + ", ".join(f"{k} {v:.4f} ms"
-                                           for k, v in c["parts_ms"].items())))
+                                           for k, v in c["parts_ms"].items()))
+                  + ("" if not c.get("planted_err") else
+                     "; planted faults fail: " + ", ".join(
+                         f"{k} err {v:.3g}"
+                         for k, v in c["planted_err"].items())))
     alternating = gather_against_indexing(cfg)
     for k, flushes in alternating.items():
         print(f"{k}, {len(flushes['dirty'])} alternating rounds, ms median "
@@ -1623,13 +1880,7 @@ def main() -> int:
           f"(blocking), {tps:.1f} generated tokens/s, launches {launches}, "
           f"{persists} persists")
 
-    wall_p, busy, rows = profile_phase(cfg)
-    print(f"where the time goes (profiled pipelined run): {wall_p:.3f} s "
-          f"wall, {busy:.3f} s device busy ({100 * busy / wall_p:.1f} %)")
-    for name, ms, calls, parts in rows:
-        kernels_of = "" if len(parts) < 2 else " = " + " + ".join(
-            f"{n} ({c})" for n, c in parts)
-        print(f"  {ms:9.1f} ms {calls:7d} calls  {name}{kernels_of}")
+    print_profile(*profile_phase(cfg))
 
     # 5. online serving with DRAM tiers and the think-time prefetcher
     st_o, launches_o, wall_o, tps_o, wall_ob, blocks_o, persists_o = \
@@ -1724,7 +1975,25 @@ def main() -> int:
     print(f"f32 identity: {n} context tokens equal the cache-free reference, "
           f"unchunked and in {chunks} + 1 prefill slices")
 
-    # 10. kernels line, then the contract line
+    # 10. gemma2-2b: local and global layers, softcaps, head dim 256
+    g2 = gemma2_phase(cfg_g2)
+    st_g = g2["stats"]
+    print("gemma2 stats:", json.dumps(st_g))
+    print(f"gemma2: {g2['wall_s']:.3f} s real wall (pipelined), "
+          f"{g2['blocking_wall_s']:.3f} s (blocking), "
+          f"{g2['tokens_per_s']:.1f} generated tokens/s, launches "
+          f"{g2['launches']}, {g2['persists']} persists; launches with the "
+          f"window on sequences past it {g2['windowed']}; contexts "
+          f"{g2['context_lens']}; peak memory_allocated of the run "
+          f"(weights included) "
+          f"{g2['peak_allocated']} bytes")
+    print(f"gemma2 f32 identity: {g2['identity_tokens']} context tokens "
+          f"equal the cache-free reference, unchunked and in "
+          f"{g2['identity_chunks']} + 1 prefill slices")
+    print_profile(*profile_phase(cfg_g2, GEMMA2_ROUNDS, GEMMA2_AGENTS,
+                                 max_seq=GEMMA2_MAX_SEQ), label="gemma2: ")
+
+    # 11. kernels line, then the contract line
     meta = {
         "kv_layer_gather": ("src/repro_torch/kernels/csrc/kv_gather.cu",
                             "src/repro/kernels/kv_gather.py:30"),
@@ -1747,7 +2016,8 @@ def main() -> int:
                                   chaos=ca["run"]["launches"][name],
                                   chaos_death=cd["launches"][name],
                                   elastic=el["e"]["launches"][name],
-                                  network=el["g"]["launches"][name]),
+                                  network=el["g"]["launches"][name],
+                                  gemma2=g2["launches"][name]),
             max_abs_err=max(c["max_abs_err"] for c in cs),
             ms=main_case["ms"], kernel_ms=main_case["ms"],
             ms_clean_l2=main_case.get("ms_clean_l2"),
@@ -1762,7 +2032,10 @@ def main() -> int:
                                        chaos=ca["run"]["persists"],
                                        chaos_death=cd["persists"],
                                        elastic=el["e"]["persists"],
-                                       network=el["g"]["persists"])
+                                       network=el["g"]["persists"],
+                                       gemma2=g2["persists"])
+    for entry in line[2:]:
+        entry["gemma2_windowed_launches"] = g2["windowed"][entry["name"]]
     print(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -204,7 +204,7 @@ class ModelConfig:
 # Registry (architectures ported so far)
 # ---------------------------------------------------------------------------
 
-ARCH_IDS = ("qwen1.5-0.5b",)
+ARCH_IDS = ("qwen1.5-0.5b", "gemma2-2b")
 
 _REGISTRY = {}
 

@@ -44,13 +44,21 @@
 // device); each split writes f32 partials (m, l, acc) to scratch, a split
 // with no valid key writes l = 0, and flash_combine_kernel merges the
 // splits in index order and writes bf16.  With one split the kernel
-// writes the output itself.
+// writes the output itself.  At dh 256 (gemma2) the block takes
+// (64 + 2 * 2 * 64) * 264 * 2 = 168,960 bytes of shared memory, one block
+// per SM, and Q's fragments are reloaded from shared memory by ldmatrix
+// at every k-step instead of held in 64 registers beside the 128 of the
+// output accumulator (Q_IN_REGS); the ptxas report is in PERF.md.
 //
 // f32 design (flash_f32_kernel, chosen by the dtype dispatch in the entry
 // point): the scalar path of the port's first version, kept because TF32
-// tensor cores would break the 2e-5 tolerance and it already beats SDPA
-// in f32: blocks of ROWS = 16 (or 64 when g > 16) rows, 32-key tiles
-// staged in shared memory as f32, scalar FMAs, one split.
+// tensor cores would break the 2e-5 tolerance and, up to dh 128, it
+// beats SDPA in f32: blocks of ROWS = 16 (or 64 when g > 16) rows,
+// 32-key tiles staged in shared memory as f32, scalar FMAs, one split.
+// At dh 256 a block's tiles take 82 KB (ROWS 16), above the 48 KB
+// default: the opt-in attribute is set for every instantiation.  There
+// the path trails both SDPA and the plain version (PERF.md) and serves
+// only the f32 identity check.
 //
 // Each instantiation's shared-memory attribute is set once, at its first
 // launch, not per launch.  Times on the card against the bound and SDPA:
@@ -175,7 +183,13 @@ flash_split_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
   for (int i = 0; i < 2; ++i) pos[i] = q_start + i0 + wr[i] % bq;
 
-  uint32_t qf[DH / 16][4];
+  // Q's A fragments stay in registers up to dh 128; at dh 256 they would
+  // take 64 more registers beside the 128 of oacc, so each k-step reloads
+  // its fragment from the Q tile, which stays in shared memory
+  constexpr bool Q_IN_REGS = DH <= 128;
+  uint32_t qf[Q_IN_REGS ? DH / 16 : 1][4];
+  const int q_r = warp * 16 + (lane & 7) + (((lane >> 3) & 1) << 3);
+  const int q_c = (lane >> 4) << 3;
   float oacc[DH / 8][4];
 #pragma unroll
   for (int d = 0; d < DH / 8; ++d)
@@ -189,12 +203,11 @@ flash_split_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     cp_async_commit();                   // (empty on the last tile)
     cp_async_wait<1>();                  // tile it (and Q) have landed
     __syncthreads();
-    if (it == 0) {
+    if constexpr (Q_IN_REGS) {
+      if (it == 0) {
 #pragma unroll
-      for (int kk = 0; kk < DH / 16; ++kk) {
-        const int r = warp * 16 + (lane & 7) + (((lane >> 3) & 1) << 3);
-        const int c = kk * 16 + ((lane >> 4) << 3);
-        ldsm_x4(qf[kk], qsm + r * LD + c);
+        for (int kk = 0; kk < DH / 16; ++kk)
+          ldsm_x4(qf[kk], qsm + q_r * LD + kk * 16 + q_c);
       }
     }
     const bf16* kt = ksm + (it % STAGES) * BK * LD;
@@ -209,14 +222,21 @@ flash_split_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
 #pragma unroll
     for (int kk = 0; kk < DH / 16; ++kk) {
+      uint32_t qa[4];
+      if constexpr (Q_IN_REGS) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) qa[e] = qf[kk][e];
+      } else {
+        ldsm_x4(qa, qsm + q_r * LD + kk * 16 + q_c);
+      }
 #pragma unroll
       for (int j = 0; j < BK / 16; ++j) {
         uint32_t bfr[4];
         const int key = j * 16 + (lane & 7) + ((lane >> 4) << 3);
         const int c = kk * 16 + (((lane >> 3) & 1) << 3);
         ldsm_x4(bfr, kt + key * LD + c);
-        mma_bf16(s[2 * j], qf[kk], bfr[0], bfr[1]);
-        mma_bf16(s[2 * j + 1], qf[kk], bfr[2], bfr[3]);
+        mma_bf16(s[2 * j], qa, bfr[0], bfr[1]);
+        mma_bf16(s[2 * j + 1], qa, bfr[2], bfr[3]);
       }
     }
 
@@ -612,6 +632,9 @@ extern "C" int flash_attention(int dtype, int dh, const void* q,
       case 128: return launch_f32<128>(q, k, v, o, kv_lens, b, hq, hkv, sq,
                                        skv, st, scale, softcap, causal,
                                        window, stream);
+      case 256: return launch_f32<256>(q, k, v, o, kv_lens, b, hq, hkv, sq,
+                                       skv, st, scale, softcap, causal,
+                                       window, stream);
     }
     return (int)cudaErrorInvalidValue;
   }
@@ -624,6 +647,10 @@ extern "C" int flash_attention(int dtype, int dh, const void* q,
                                       hq, hkv, sq, skv, n_split, chunk, st,
                                       scale, softcap, causal, window, stream);
       case 128: return launch_bf16<128>(q, k, v, o, pm, pl, pacc, kv_lens,
+                                        b, hq, hkv, sq, skv, n_split, chunk,
+                                        st, scale, softcap, causal, window,
+                                        stream);
+      case 256: return launch_bf16<256>(q, k, v, o, pm, pl, pacc, kv_lens,
                                         b, hq, hkv, sq, skv, n_split, chunk,
                                         st, scale, softcap, causal, window,
                                         stream);

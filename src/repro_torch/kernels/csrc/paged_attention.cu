@@ -5,10 +5,15 @@
 // per sequence, q (b, hkv, g, dh), K/V pools (n_pages, page_tokens, hkv,
 // dh), block_table (b, max_pages) int32, lengths (b,) int32, optional
 // tanh softcap, scores in f32, p cast to the V dtype before P.V, a row
-// with no valid key written as 0.  No sliding window, as in Pallas.  The
-// Pallas grid visits all max_pages pages and masks positions >= lengths[b];
-// this kernel visits only keys below lengths[b], which gives the same
-// result.
+// with no valid key written as 0.  The Pallas grid visits all max_pages
+// pages and masks positions >= lengths[b]; this kernel visits only keys
+// below lengths[b], which gives the same result.  One addition: an
+// optional sliding window (window > 0 keeps key j iff
+// lengths[b] - 1 - j < window), the mask of the reference model's
+// decode_attend (repro/models/layers.py:242); the Pallas kernel has none.
+// A split's range starts at max(split * chunk, lengths[b] - window), so
+// keys outside the window are never read, and a split wholly outside it
+// exits at once with l = 0, which the combine already skips.
 //
 // Bound: bytes.  Each step reads the sequence's K and V once
 // (2 * len * dh * itemsize per kv head) for 4 * g * dh flops per key, far
@@ -22,15 +27,18 @@
 // sequence); a split that starts at or past the sequence's length exits at
 // once, writing l = 0.  A block's 128 threads cover dh with 16-byte loads
 // (8 bf16 or 4 f32 per lane; at dh 64 in bf16, 8 lanes per key and 16 keys
-// per block step), and the block reads its range in one pass: each thread
+// per block step; at most 32 lanes per key, so at dh 256 in f32 each lane
+// makes NV = 2 loads per key, and halves U to keep as many loads in
+// flight), and the block reads its range in one pass: each thread
 // issues the K and V loads of U keys together (U = 8 at g = 1; loads
-// unconditional and not kept in L1, so all 2U are in flight), page ids
+// unconditional and not kept in L1, so all 2 U NV are in flight), page ids
 // from the block table, then updates every row's online softmax over
 // those keys in registers (q . k reduced over a key's lanes by shuffles,
 // p rounded to the V dtype before P.V).  At the end the key groups of a
 // warp merge by shuffles and the warps in warp order through shared
 // memory.  Registers are sized to the group by a template bucket (g = 1,
-// <= 4, <= 8, <= 16); q stays in registers as its raw 16 bytes per row.
+// <= 4, <= 8, <= 16); q stays in registers as its raw NV x 16 bytes per
+// row.
 // paged_combine_kernel merges the splits' f32 partials (m, l, acc) in
 // split order, without atomics; with one split the block writes the
 // output itself.
@@ -71,15 +79,20 @@ __device__ __forceinline__ uint4 load_kv(const void* p) {
   return r;
 }
 
-// q . k over this lane's E elements of the row (q as raw 16 bytes of T)
-template <typename T>
-__device__ __forceinline__ float dot16(const uint4& qraw,
-                                       const float (&kf)[16 / sizeof(T)]) {
-  float qf[16 / sizeof(T)];
-  unpack16(qraw, qf);
+// q . k over this lane's NV x E elements of the row (q as raw 16-byte
+// vectors of T)
+template <typename T, int NV>
+__device__ __forceinline__ float dot16(
+    const uint4 (&qraw)[NV], const float (&kf)[NV][16 / sizeof(T)]) {
+  constexpr int E = 16 / (int)sizeof(T);
   float d = 0.f;
 #pragma unroll
-  for (int e = 0; e < (int)(16 / sizeof(T)); ++e) d = fmaf(qf[e], kf[e], d);
+  for (int v = 0; v < NV; ++v) {
+    float qf[E];
+    unpack16(qraw[v], qf);
+#pragma unroll
+    for (int e = 0; e < E; ++e) d = fmaf(qf[e], kf[v][e], d);
+  }
   return d;
 }
 
@@ -91,23 +104,31 @@ paged_split_kernel(const T* __restrict__ q, const T* __restrict__ kp,
                    float* __restrict__ pm, float* __restrict__ pl,
                    float* __restrict__ pacc, int hkv, int g, int pt,
                    int max_pages, int chunk, int n_split, float scale,
-                   float softcap) {
+                   float softcap, int window) {
   constexpr int E = 16 / (int)sizeof(T);   // elements per 16-byte load
-  constexpr int LPK = DH / E;              // lanes per key
+  constexpr int LPK = DH / E < 32 ? DH / E : 32;   // lanes per key
+  constexpr int NV = DH / (E * LPK);       // 16-byte loads per lane and key
   constexpr int KPS = THREADS / LPK;       // keys per block step
-  constexpr int U = G == 1 ? 8 : G <= 4 ? 4 : 2;   // keys per thread-step
-  static_assert(LPK <= 32 && 32 % LPK == 0, "a key's lanes fit one warp");
+  // keys per thread-step; NV loads per key, so as many loads in flight
+  // as at NV = 1
+  constexpr int U0 = G == 1 ? 8 : G <= 4 ? 4 : 2;
+  constexpr int U = U0 / NV > 0 ? U0 / NV : 1;
+  static_assert(32 % LPK == 0 && NV * E * LPK == DH,
+                "a key's lanes fit one warp, NV loads each");
   extern __shared__ float smem[];          // NWARPS x G x (m, l, acc[DH])
 
   const int split = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int kg = tid / LPK, dl = tid % LPK;
   const int len = min(max(lengths[b], 0), max_pages * pt);
-  const int lo = split * chunk, hi = min(lo + chunk, len);
+  // this split's keys, cut to the sequence and to its window
+  const int lo = window > 0 ? max(split * chunk, len - window)
+                            : split * chunk;
+  const int hi = min(split * chunk + chunk, len);
   const long long row0 = ((long long)b * hkv + h) * g;
   const long long n_rows = (long long)gridDim.z * hkv * g;
 
-  if (hi <= lo) {                          // past the sequence's end
+  if (hi <= lo) {                          // no key of this split is seen
     if (n_split == 1) {
       for (int idx = tid; idx < g * DH; idx += THREADS)
         o[row0 * DH + idx] = from_f<T>(0.f);
@@ -122,50 +143,62 @@ paged_split_kernel(const T* __restrict__ q, const T* __restrict__ kp,
 
   const int* tb = table + (long long)b * max_pages;
   const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
-  uint4 qraw[G];                           // this lane's slice of each row
+  // this lane's slices of each row: vector v holds the E elements from
+  // (v * LPK + dl) * E, so a key's lanes read contiguous 16-byte runs
+  uint4 qraw[G][NV];
 #pragma unroll
   for (int r = 0; r < G; ++r)
-    qraw[r] = r < g ? *reinterpret_cast<const uint4*>(
-                          q + (row0 + r) * DH + dl * E)
-                    : zero;
-  float m[G], l[G], acc[G][E];
+#pragma unroll
+    for (int v = 0; v < NV; ++v)
+      qraw[r][v] = r < g ? *reinterpret_cast<const uint4*>(
+                               q + (row0 + r) * DH + (v * LPK + dl) * E)
+                         : zero;
+  float m[G], l[G], acc[G][NV][E];
 #pragma unroll
   for (int r = 0; r < G; ++r) {
     m[r] = -INFINITY;
     l[r] = 0.f;
 #pragma unroll
-    for (int e = 0; e < E; ++e) acc[r][e] = 0.f;
+    for (int v = 0; v < NV; ++v)
+#pragma unroll
+      for (int e = 0; e < E; ++e) acc[r][v][e] = 0.f;
   }
 
   // One pass: each step loads U keys' K and V rows per thread together,
   // then updates every row's online softmax over those U keys.  The loop
   // is uniform across the block (shuffles below need whole warps).
   for (int base = lo; base < hi; base += U * KPS) {
-    // unconditional loads, so all 2U are in flight together: a key past
-    // the range reads the range's first key instead and is masked below
-    uint4 kr[U], vr[U];
+    // unconditional loads, so all 2 U NV are in flight together: a key
+    // past the range reads the range's first key instead and is masked
+    // below
+    uint4 kr[U][NV], vr[U][NV];
 #pragma unroll
     for (int u = 0; u < U; ++u) {
       int t = base + u * KPS + kg;
       t = t < hi ? t : lo;
       const long long off =
           (((long long)tb[t / pt] * pt + t % pt) * hkv + h) * DH + dl * E;
-      kr[u] = load_kv(kp + off);
-      vr[u] = load_kv(vp + off);
-    }
-    float kf[U][E], vf[U][E];
 #pragma unroll
-    for (int u = 0; u < U; ++u) {
-      unpack16(kr[u], kf[u]);
-      unpack16(vr[u], vf[u]);
+      for (int v = 0; v < NV; ++v) {
+        kr[u][v] = load_kv(kp + off + v * LPK * E);
+        vr[u][v] = load_kv(vp + off + v * LPK * E);
+      }
     }
+    float kf[U][NV][E], vf[U][NV][E];
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+#pragma unroll
+      for (int v = 0; v < NV; ++v) {
+        unpack16(kr[u][v], kf[u][v]);
+        unpack16(vr[u][v], vf[u][v]);
+      }
 #pragma unroll
     for (int r = 0; r < G; ++r) {
       if (r >= g) break;
       float x[U], mx = -INFINITY;
 #pragma unroll
       for (int u = 0; u < U; ++u) {
-        float d = dot16<T>(qraw[r], kf[u]);
+        float d = dot16<T, NV>(qraw[r], kf[u]);
 #pragma unroll
         for (int off = LPK / 2; off > 0; off >>= 1)
           d += __shfl_xor_sync(FULL, d, off);
@@ -179,14 +212,19 @@ paged_split_kernel(const T* __restrict__ q, const T* __restrict__ kp,
       const float corr = exp2f(m[r] - mu);
       l[r] *= corr;
 #pragma unroll
-      for (int e = 0; e < E; ++e) acc[r][e] *= corr;
+      for (int v = 0; v < NV; ++v)
+#pragma unroll
+        for (int e = 0; e < E; ++e) acc[r][v][e] *= corr;
 #pragma unroll
       for (int u = 0; u < U; ++u) {
         const float p = exp2f(x[u] - mu);
         l[r] += p;
         const float pv = to_f(from_f<T>(p));   // p in the V dtype
 #pragma unroll
-        for (int e = 0; e < E; ++e) acc[r][e] = fmaf(pv, vf[u][e], acc[r][e]);
+        for (int v = 0; v < NV; ++v)
+#pragma unroll
+          for (int e = 0; e < E; ++e)
+            acc[r][v][e] = fmaf(pv, vf[u][v][e], acc[r][v][e]);
       }
       m[r] = m_new;
     }
@@ -208,13 +246,15 @@ paged_split_kernel(const T* __restrict__ q, const T* __restrict__ kp,
       lr += __shfl_xor_sync(FULL, lr, off);
     float* dst = smem + (warp * G + r) * (DH + 2);
 #pragma unroll
-    for (int e = 0; e < E; ++e) {
-      float a = acc[r][e] * c;
+    for (int v = 0; v < NV; ++v)
 #pragma unroll
-      for (int off = LPK; off < 32; off <<= 1)
-        a += __shfl_xor_sync(FULL, a, off);
-      if (lane < LPK) dst[2 + dl * E + e] = a;
-    }
+      for (int e = 0; e < E; ++e) {
+        float a = acc[r][v][e] * c;
+#pragma unroll
+        for (int off = LPK; off < 32; off <<= 1)
+          a += __shfl_xor_sync(FULL, a, off);
+        if (lane < LPK) dst[2 + (v * LPK + dl) * E + e] = a;
+      }
     if (lane == 0) {
       dst[0] = mo;
       dst[1] = lr;
@@ -264,7 +304,8 @@ template <typename T, int DH, int G>
 int launch(const void* q, const void* kp, const void* vp, const int* table,
            const int* lengths, void* o, float* pm, float* pl, float* pacc,
            int b, int hkv, int g, int pt, int max_pages, int n_split,
-           int chunk, float scale, float softcap, cudaStream_t stream) {
+           int chunk, float scale, float softcap, int window,
+           cudaStream_t stream) {
   constexpr int smem = (int)sizeof(float) * smem_floats<G, DH>();
   static const cudaError_t attr = cudaFuncSetAttribute(
       paged_split_kernel<T, DH, G>,
@@ -274,7 +315,7 @@ int launch(const void* q, const void* kp, const void* vp, const int* table,
   paged_split_kernel<T, DH, G><<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(kp),
       static_cast<const T*>(vp), table, lengths, static_cast<T*>(o), pm, pl,
-      pacc, hkv, g, pt, max_pages, chunk, n_split, scale, softcap);
+      pacc, hkv, g, pt, max_pages, chunk, n_split, scale, softcap, window);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess || n_split == 1) return (int)e;
   const long long n_rows = (long long)b * hkv * g;
@@ -284,27 +325,21 @@ int launch(const void* q, const void* kp, const void* vp, const int* table,
   return (int)cudaGetLastError();
 }
 
+// the launch arguments after the dtype, head dim and group bucket
+#define PAGED_ARGS                                                        \
+  q, kp, vp, table, lengths, o, pm, pl, pacc, b, hkv, g, pt, max_pages,  \
+      n_split, chunk, scale, softcap, window, stream
+
 template <typename T, int DH>
 int dispatch_g(const void* q, const void* kp, const void* vp,
                const int* table, const int* lengths, void* o, float* pm,
                float* pl, float* pacc, int b, int hkv, int g, int pt,
                int max_pages, int n_split, int chunk, float scale,
-               float softcap, cudaStream_t stream) {
-  if (g == 1)
-    return launch<T, DH, 1>(q, kp, vp, table, lengths, o, pm, pl, pacc, b,
-                            hkv, g, pt, max_pages, n_split, chunk, scale,
-                            softcap, stream);
-  if (g <= 4)
-    return launch<T, DH, 4>(q, kp, vp, table, lengths, o, pm, pl, pacc, b,
-                            hkv, g, pt, max_pages, n_split, chunk, scale,
-                            softcap, stream);
-  if (g <= 8)
-    return launch<T, DH, 8>(q, kp, vp, table, lengths, o, pm, pl, pacc, b,
-                            hkv, g, pt, max_pages, n_split, chunk, scale,
-                            softcap, stream);
-  return launch<T, DH, MAXG>(q, kp, vp, table, lengths, o, pm, pl, pacc, b,
-                             hkv, g, pt, max_pages, n_split, chunk, scale,
-                             softcap, stream);
+               float softcap, int window, cudaStream_t stream) {
+  if (g == 1) return launch<T, DH, 1>(PAGED_ARGS);
+  if (g <= 4) return launch<T, DH, 4>(PAGED_ARGS);
+  if (g <= 8) return launch<T, DH, 8>(PAGED_ARGS);
+  return launch<T, DH, MAXG>(PAGED_ARGS);
 }
 
 template <typename T>
@@ -312,22 +347,13 @@ int dispatch_dh(int dh, const void* q, const void* kp, const void* vp,
                 const int* table, const int* lengths, void* o, float* pm,
                 float* pl, float* pacc, int b, int hkv, int g, int pt,
                 int max_pages, int n_split, int chunk, float scale,
-                float softcap, cudaStream_t stream) {
+                float softcap, int window, cudaStream_t stream) {
   switch (dh) {
-    case 32:
-      return dispatch_g<T, 32>(q, kp, vp, table, lengths, o, pm, pl, pacc, b,
-                               hkv, g, pt, max_pages, n_split, chunk,
-                               scale, softcap, stream);
-    case 64:
-      return dispatch_g<T, 64>(q, kp, vp, table, lengths, o, pm, pl, pacc, b,
-                               hkv, g, pt, max_pages, n_split, chunk,
-                               scale, softcap, stream);
-    case 128:
-      return dispatch_g<T, 128>(q, kp, vp, table, lengths, o, pm, pl, pacc,
-                                b, hkv, g, pt, max_pages, n_split, chunk,
-                                scale, softcap, stream);
-    default:
-      return (int)cudaErrorInvalidValue;
+    case 32: return dispatch_g<T, 32>(PAGED_ARGS);
+    case 64: return dispatch_g<T, 64>(PAGED_ARGS);
+    case 128: return dispatch_g<T, 128>(PAGED_ARGS);
+    case 256: return dispatch_g<T, 256>(PAGED_ARGS);
+    default: return (int)cudaErrorInvalidValue;
   }
 }
 
@@ -337,27 +363,22 @@ int dispatch_dh(int dh, const void* q, const void* kp, const void* vp,
 // contiguous, q and the pools 16-byte aligned (the caller checks).  Keys
 // are split in n_split ranges of `chunk` (n_split * chunk >= max_pages *
 // pt); with n_split > 1, pm and pl hold n_split * b * hkv * g floats and
-// pacc dh times as many (scratch the caller allocates).
+// pacc dh times as many (scratch the caller allocates).  window > 0 keeps
+// the last `window` keys of each sequence (0: all of them).
 // Returns the first launch error (cudaError_t), 0 on success.
 extern "C" int paged_attention(int dtype, int dh, const void* q,
-                               const void* k_pool, const void* v_pool,
-                               const int* block_table, const int* lengths,
+                               const void* kp, const void* vp,
+                               const int* table, const int* lengths,
                                void* o, float* pm, float* pl, float* pacc,
                                int b, int hkv, int g, int pt, int max_pages,
                                int n_split, int chunk, float scale,
-                               float softcap, cudaStream_t stream) {
+                               float softcap, int window,
+                               cudaStream_t stream) {
   if (b <= 0 || hkv <= 0) return 0;
   if (g <= 0 || g > MAXG || pt <= 0 || n_split <= 0 || chunk <= 0 ||
-      (long long)n_split * chunk < (long long)max_pages * pt)
+      window < 0 || (long long)n_split * chunk < (long long)max_pages * pt)
     return (int)cudaErrorInvalidValue;
-  if (dtype == 0)
-    return dispatch_dh<float>(dh, q, k_pool, v_pool, block_table, lengths,
-                              o, pm, pl, pacc, b, hkv, g, pt, max_pages,
-                              n_split, chunk, scale, softcap, stream);
-  if (dtype == 1)
-    return dispatch_dh<__nv_bfloat16>(dh, q, k_pool, v_pool, block_table,
-                                      lengths, o, pm, pl, pacc, b, hkv, g, pt,
-                                      max_pages, n_split, chunk, scale,
-                                      softcap, stream);
+  if (dtype == 0) return dispatch_dh<float>(dh, PAGED_ARGS);
+  if (dtype == 1) return dispatch_dh<__nv_bfloat16>(dh, PAGED_ARGS);
   return (int)cudaErrorInvalidValue;
 }

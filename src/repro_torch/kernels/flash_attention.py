@@ -34,7 +34,7 @@ import torch
 
 from repro_torch.kernels import build, ref
 
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 128, 256)
 MAX_GROUP = 64     # query heads per kv head that fit one block's rows
 ROWS = 64          # query rows (queries x group) per bf16 block
 KEY_TILE = 64      # keys per K/V tile; a split's range is a multiple

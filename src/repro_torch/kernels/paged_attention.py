@@ -6,7 +6,10 @@ int32 and lengths (b,) int32 valid tokens per sequence.  On CUDA tensors
 this launches ``csrc/paged_attention.cu``, the Hopper kernel that
 replaces the Pallas ``paged_attention``
 (``repro/kernels/paged_attention.py:76``); on CPU tensors it computes the
-plain version.  No sliding window, as in the Pallas kernel.
+plain version.  An optional sliding window masks keys ``window`` or
+more positions behind the query, as the reference model's
+``decode_attend`` does (``repro/models/layers.py:242``); the Pallas
+kernel has no window.
 
 The kernel splits the ``max_pages * page_tokens`` key positions into
 ranges (``plan``, from shapes only: ``lengths`` stays on the device) and
@@ -24,7 +27,7 @@ import torch
 
 from repro_torch.kernels import build, ref
 
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 128, 256)
 MAX_GROUP = 16     # query heads per kv head held in one block's registers
 BLOCKS_PER_SM = 8  # the split plan's aim
 KEY_UNIT = 128     # a split's keys are a multiple of this
@@ -35,7 +38,8 @@ def _fn():
     fn = build.library("paged_attention").paged_attention
     fn.argtypes = ([ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 9 +
                    [ctypes.c_int] * 7 +
-                   [ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
+                   [ctypes.c_float, ctypes.c_float, ctypes.c_int,
+                    ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
@@ -43,9 +47,10 @@ def _fn():
 def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
                     v_pool: torch.Tensor, block_table: torch.Tensor,
                     lengths: torch.Tensor, *,
-                    softcap: float = 0.0) -> torch.Tensor:
+                    softcap: float = 0.0, window: int = 0) -> torch.Tensor:
     """q (b,hkv,g,dh); pools (n_pages,pt,hkv,dh); block_table
-    (b,max_pages) i32; lengths (b,) i32 -> (b,hkv,g,dh)."""
+    (b,max_pages) i32; lengths (b,) i32 -> (b,hkv,g,dh).  ``window`` > 0
+    keeps only the last ``window`` keys of each sequence."""
     b, hkv, g, dh = q.shape
     n_pages, pt, _, _ = k_pool.shape
     max_pages = block_table.shape[1]
@@ -57,7 +62,8 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
                          f"{tuple(lengths.shape)}")
     if q.device.type == "cpu":
         return ref.paged_attention_ref(q, k_pool, v_pool, block_table,
-                                       lengths, softcap=softcap)
+                                       lengths, softcap=softcap,
+                                       window=window)
     build.require_cuda("paged_attention", q, k_pool, v_pool, block_table,
                        lengths)
     if q.dtype not in build.ATTN_DTYPES or k_pool.dtype != q.dtype \
@@ -88,7 +94,8 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
                k_pool.data_ptr(), v_pool.data_ptr(), block_table.data_ptr(),
                lengths.data_ptr(), out.data_ptr(), ptr(pm), ptr(pl),
                ptr(pacc), b, hkv, g, pt, max_pages, n_split, chunk,
-               1.0 / math.sqrt(dh), float(softcap), build.stream_of(q))
+               1.0 / math.sqrt(dh), float(softcap), int(window),
+               build.stream_of(q))
     build.check(rc, "paged_attention")
     paged_attention.launches += 1
     return out

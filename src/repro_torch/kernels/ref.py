@@ -107,13 +107,13 @@ def flash_attention_split_ref(q, k, v, *, chunk: int, causal=True,
 
 
 def paged_attention_split_ref(q, k_pool, v_pool, block_table, lengths, *,
-                              chunk: int, softcap=0.0):
+                              chunk: int, softcap=0.0, window=0):
     """:func:`paged_attention_ref` computed as the kernel does with its
     key positions split in ranges of ``chunk``: partials, then the
     merge."""
     b, hkv, g, dh = q.shape
     s, valid, v = _paged_scores(q, k_pool, v_pool, block_table, lengths,
-                                softcap=softcap)
+                                softcap=softcap, window=window)
     n, K = b * hkv, s.shape[-1]
     parts = split_partials_ref(
         s.reshape(n, g, K),
@@ -122,10 +122,12 @@ def paged_attention_split_ref(q, k_pool, v_pool, block_table, lengths, *,
     return combine_ref(*parts).reshape(b, hkv, g, dh).to(q.dtype)
 
 
-def _paged_scores(q, k_pool, v_pool, block_table, lengths, *, softcap):
+def _paged_scores(q, k_pool, v_pool, block_table, lengths, *, softcap,
+                  window=0):
     """Scaled, softcapped f32 scores (b, hkv, g, K) over the K = max_pages
     * pt key positions, the mask of valid positions (b, K) and the gathered
-    V (b, K, hkv, dh)."""
+    V (b, K, hkv, dh).  Position j is valid iff j < len and, with a
+    window, len - 1 - j < window (the reference's ``decode_attend``)."""
     b, hkv, g, dh = q.shape
     _, pt, _, _ = k_pool.shape
     np_ = block_table.shape[1]
@@ -136,16 +138,20 @@ def _paged_scores(q, k_pool, v_pool, block_table, lengths, *, softcap):
         1.0 / math.sqrt(dh))
     if softcap:
         s = torch.tanh(s / softcap) * softcap
-    valid = torch.arange(np_ * pt, device=q.device)[None, :] < \
-        lengths.to(torch.long)[:, None]
+    cols = torch.arange(np_ * pt, device=q.device)[None, :]
+    lens = lengths.to(torch.long)[:, None]
+    valid = cols < lens
+    if window > 0:
+        valid = valid & (lens - 1 - cols < window)
     return s, valid, v
 
 
 def paged_attention_ref(q, k_pool, v_pool, block_table, lengths, *,
-                        softcap=0.0):
-    """q (b,hkv,g,dh); pools (n,pt,hkv,dh); table (b,np); lengths (b,)."""
+                        softcap=0.0, window=0):
+    """q (b,hkv,g,dh); pools (n,pt,hkv,dh); table (b,np); lengths (b,);
+    ``window`` > 0 masks keys ``window`` or more behind the query."""
     s, valid, v = _paged_scores(q, k_pool, v_pool, block_table, lengths,
-                                softcap=softcap)
+                                softcap=softcap, window=window)
     s = torch.where(valid[:, None, None, :], s, NEG_INF)
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bngk,bknd->bngd", p.to(v.dtype).float(), v.float())

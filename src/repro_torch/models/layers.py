@@ -60,35 +60,39 @@ def _softcap(s, cap: float):
 # ---------------------------------------------------------------------------
 
 
-def attend(q, k, v, *, causal=True, softcap=0.0):
+def attend(q, k, v, *, causal=True, softcap=0.0, window=0):
     """Full attention over a whole sequence: q (b,s,hq,dh), k,v
-    (b,s,hkv,dh) -> (b,s,hq,dh)."""
+    (b,s,hkv,dh) -> (b,s,hq,dh).  ``window`` > 0 masks keys ``window``
+    or more positions behind each query (0: no window)."""
     o = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                        v.transpose(1, 2), causal=causal, softcap=softcap)
+                        v.transpose(1, 2), causal=causal, softcap=softcap,
+                        window=window)
     return o.transpose(1, 2)
 
 
-def append_attend(q, k_cache, v_cache, lengths, *, softcap=0.0):
+def append_attend(q, k_cache, v_cache, lengths, *, softcap=0.0, window=0):
     """Multi-token append attention against padded caches.
 
     q: (b, s_app, hq, dh), already written into the caches at
     [lengths, lengths + s_app); caches (b, S, hkv, dh); lengths (b,) =
     tokens present before the append.  Row r attends to kv index
     < lengths + r + 1, which is the flash kernel's contract with
-    ``kv_lens = lengths + s_app``."""
+    ``kv_lens = lengths + s_app``, and, with ``window`` > 0, to the last
+    ``window`` of those."""
     s_app = q.shape[1]
     kv_lens = (lengths + s_app).to(torch.int32)
     o = flash_attention(q.transpose(1, 2), k_cache.transpose(1, 2),
                         v_cache.transpose(1, 2), causal=True,
-                        softcap=softcap, kv_lens=kv_lens)
+                        softcap=softcap, window=window, kv_lens=kv_lens)
     return o.transpose(1, 2)
 
 
-def decode_attend(q, k_cache, v_cache, lengths, *, softcap=0.0):
+def decode_attend(q, k_cache, v_cache, lengths, *, softcap=0.0, window=0):
     """Single-token decode attention over a padded cache viewed as pages.
 
     q: (b, 1, hq, dh); caches (b, S, hkv, dh), contiguous; lengths (b,)
-    valid length (the new token already written at lengths - 1).  The
+    valid length (the new token already written at lengths - 1); with
+    ``window`` > 0 only keys j with lengths - 1 - j < window count.  The
     cache is viewed as (b·S/pt, pt, hkv, dh) pages with an ``arange``
     block table, so the paged kernel reads it in place."""
     b, _, hq, dh = q.shape
@@ -100,7 +104,8 @@ def decode_attend(q, k_cache, v_cache, lengths, *, softcap=0.0):
     table = torch.arange(n_pages, dtype=torch.int32,
                          device=q.device).view(b, S // pt)
     o = paged_attention(q.reshape(b, hkv, hq // hkv, dh), k_pool, v_pool,
-                        table, lengths.to(torch.int32), softcap=softcap)
+                        table, lengths.to(torch.int32), softcap=softcap,
+                        window=window)
     return o.reshape(b, 1, hq, dh)
 
 

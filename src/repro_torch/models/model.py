@@ -46,6 +46,15 @@ def logits_from_hidden(params, cfg: ModelConfig, h):
     return layers._softcap(out.float(), cfg.final_logit_softcap)
 
 
+def layer_windows(cfg: ModelConfig):
+    """Each layer's attention window: ``local_window`` on 'local_attn'
+    layers, 0 (no window) on global ones.  The reference gives global
+    layers ``BIG_WINDOW = 1 << 30`` (``model.py:33``, ``_window_for``
+    :71); the two agree while sequences stay under 2**30 tokens."""
+    return [cfg.local_window if kind == "local_attn" else 0
+            for kind in cfg.layer_kinds()]
+
+
 def _block(p, cfg: ModelConfig, h, attn_fn):
     """One transformer block; ``attn_fn(p_attn, xn)`` is the attention
     flavour (full, append or decode)."""
@@ -77,17 +86,17 @@ def forward(params, cfg: ModelConfig, tokens, *, return_state: bool = False,
     positions = torch.arange(s, device=tokens.device)
     h = embed(params, cfg, tokens)
     ks, vs = [], []
+    for blk, window in zip(params["blocks"], layer_windows(cfg)):
 
-    def full(p, x):
-        q, k, v = layers.gqa_qkv(p, cfg, x, positions)
-        if return_state:
-            ks.append(k)
-            vs.append(v)
-        o = layers.attend(q, k, v, causal=cfg.causal,
-                          softcap=cfg.attn_logit_softcap)
-        return layers.attn_out(p, o)
+        def full(p, x):
+            q, k, v = layers.gqa_qkv(p, cfg, x, positions)
+            if return_state:
+                ks.append(k)
+                vs.append(v)
+            o = layers.attend(q, k, v, causal=cfg.causal,
+                              softcap=cfg.attn_logit_softcap, window=window)
+            return layers.attn_out(p, o)
 
-    for blk in params["blocks"]:
         h = _block(blk, cfg, h, full)
     state = {"kv": {"k": torch.stack(ks), "v": torch.stack(vs)}} \
         if return_state else None
@@ -117,6 +126,7 @@ def decode_step(params, cfg: ModelConfig, tokens, state, lengths):
     _check_fits(lengths, 1, kc_all.shape[2])
     bidx = torch.arange(tokens.shape[0], device=tokens.device)
     h = embed(params, cfg, tokens[:, None])
+    windows = layer_windows(cfg)
     for li, blk in enumerate(params["blocks"]):
         kc, vc = kc_all[li], vc_all[li]
 
@@ -125,7 +135,8 @@ def decode_step(params, cfg: ModelConfig, tokens, state, lengths):
             kc[bidx, lengths] = k[:, 0].to(kc.dtype)
             vc[bidx, lengths] = v[:, 0].to(vc.dtype)
             o = layers.decode_attend(q, kc, vc, lengths + 1,
-                                     softcap=cfg.attn_logit_softcap)
+                                     softcap=cfg.attn_logit_softcap,
+                                     window=windows[li])
             return layers.attn_out(p, o)
 
         h = _block(blk, cfg, h, dec)
@@ -146,6 +157,7 @@ def append_step(params, cfg: ModelConfig, tokens, state, lengths):
     bidx = torch.arange(b, device=tokens.device)[:, None]
     positions = lengths[:, None] + torch.arange(s, device=tokens.device)
     h = embed(params, cfg, tokens)
+    windows = layer_windows(cfg)
     for li, blk in enumerate(params["blocks"]):
         kc, vc = kc_all[li], vc_all[li]
 
@@ -154,7 +166,8 @@ def append_step(params, cfg: ModelConfig, tokens, state, lengths):
             kc[bidx, positions] = k.to(kc.dtype)
             vc[bidx, positions] = v.to(vc.dtype)
             o = layers.append_attend(q, kc, vc, lengths,
-                                     softcap=cfg.attn_logit_softcap)
+                                     softcap=cfg.attn_logit_softcap,
+                                     window=windows[li])
             return layers.attn_out(p, o)
 
         h = _block(blk, cfg, h, app)

@@ -42,10 +42,6 @@ def require_ported(cfg: ModelConfig) -> None:
         raise NotImplementedError(
             f"{cfg.name}: attention {cfg.attn_variant!r} arrives with the "
             f"MLA slice of the port")
-    if cfg.local_window or cfg.local_global_period:
-        raise NotImplementedError(
-            f"{cfg.name}: sliding-window layers arrive with the gemma2 "
-            f"slice of the port")
     if cfg.frontend_embed_dim:
         raise NotImplementedError(
             f"{cfg.name}: frontend embeddings arrive with the VLM slice")

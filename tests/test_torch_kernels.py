@@ -20,6 +20,7 @@ import torch
 
 from repro.kernels import ops
 from repro.models.layers import append_attend as jax_append_attend
+from repro.models.layers import decode_attend as jax_decode_attend
 from repro_torch import kernels
 from repro_torch.bridge import assert_close, assert_exact, to_torch
 from repro_torch.kernels import ref
@@ -269,11 +270,19 @@ _paged_mod = importlib.import_module("repro_torch.kernels.paged_attention")
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("pt,chunk", [(4, 8), (4, 64), (16, 24), (1, 5)])
-def test_paged_split_ref_matches_unsplit_and_pallas(dtype, pt, chunk):
+@pytest.mark.parametrize("pt,chunk,window", [
+    pytest.param(4, 8, 0, id="4-8"), pytest.param(4, 64, 0, id="4-64"),
+    pytest.param(16, 24, 0, id="16-24"), pytest.param(1, 5, 0, id="1-5"),
+    # windows whose start falls inside a page and inside a split
+    pytest.param(4, 8, 6, id="4-8-w6"), pytest.param(4, 64, 50, id="4-64-w50"),
+    pytest.param(16, 24, 37, id="16-24-w37")])
+def test_paged_split_ref_matches_unsplit_and_pallas(dtype, pt, chunk,
+                                                    window):
     """Partials over key ranges of ``chunk`` then the merge equal the
     unsplit plain version and the Pallas kernel (interpret mode), at
-    ragged lengths around the range and page edges."""
+    ragged lengths around the range and page edges.  The Pallas kernel
+    has no window: with one, the reference model's ``decode_attend`` over
+    the gathered pages is the yardstick."""
     rng = np.random.default_rng(7)
     b, hkv, g, dh, npages = 6, 2, 4, 32, 80 // pt
     npool = b * npages
@@ -284,12 +293,19 @@ def test_paged_split_ref_matches_unsplit_and_pallas(dtype, pt, chunk):
     lengths = np.array([1, chunk - 1, chunk, chunk + 1, 63, npages * pt],
                        np.int32).clip(1, npages * pt)
     args = (qt, kt, vt, torch.from_numpy(tbl), torch.from_numpy(lengths))
-    got = ref.paged_attention_split_ref(*args, chunk=chunk)
+    got = ref.paged_attention_split_ref(*args, chunk=chunk, window=window)
     assert got.dtype == qt.dtype
-    assert_close(got, ref.paged_attention_ref(*args).float().numpy(),
-                 TOLS[dtype])
-    want = ops.paged_attention(qj, kj, vj, jnp.asarray(tbl),
-                               jnp.asarray(lengths))
+    assert_close(got, ref.paged_attention_ref(*args, window=window).float()
+                 .numpy(), TOLS[dtype])
+    if window:
+        cache = lambda p: p[jnp.asarray(tbl)].reshape(b, npages * pt, hkv,
+                                                      dh)
+        want = jax_decode_attend(qj.reshape(b, 1, hkv * g, dh), cache(kj),
+                                 cache(vj), jnp.asarray(lengths),
+                                 window=window).reshape(b, hkv, g, dh)
+    else:
+        want = ops.paged_attention(qj, kj, vj, jnp.asarray(tbl),
+                                   jnp.asarray(lengths))
     assert_close(got, np.asarray(want.astype(jnp.float32)), TOLS[dtype])
 
 
