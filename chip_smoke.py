@@ -1,6 +1,6 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA H100.
 
-    python3 chip_smoke.py                  # the smoke, phases 1-11
+    python3 chip_smoke.py                  # the smoke, phases 1-12
     python3 chip_smoke.py --persist-ab 10  # offline serving, old persist
                                            # against the scatter's
     python3 chip_smoke.py --split-sweep    # the attention kernels' split
@@ -9,7 +9,7 @@
 Drives ``repro_torch`` (never the JAX package) on the card:
 
 1. environment: torch version, the card's name and power limit, TF32 off;
-2. builds the four CUDA kernels from src/repro_torch/kernels/csrc with
+2. builds the six CUDA kernels from src/repro_torch/kernels/csrc with
    nvcc for sm_90a, one nvcc process per source, all at once;
 3. holds each kernel against its plain PyTorch version at the main
    paths' shapes plus other shapes (gather and scatter bit-exact, at the
@@ -21,8 +21,14 @@ Drives ``repro_torch`` (never the JAX package) on the card:
    and paged also at gemma2-2b's head dim 256 with its 4096-token
    window and softcap 50, in bf16 and f32, with q scaled so the outputs
    are O(1) and, in bf16, faults planted in the plain version (a window
-   64 keys short, q's columns shifted) shown to fail the tolerance), and
-   times the kernel, the plain version and one PyTorch call
+   64 keys short, q's columns shifted) shown to fail the tolerance); at
+   ds27b's shapes, the grouped GEMM (decode and append, both
+   projections, group sizes from the router plus a planted skew; a group
+   boundary moved by one row must fail), the absorbed MLA decode (8
+   slots, lengths at the tiles', splits' and cache's edges; the scale
+   1/sqrt(576) must fail), flash at q/k 192 and v 128 (V's last 64
+   columns dropped must fail) and gather and scatter of 1152-byte rows;
+   it times the kernel, the plain version and one PyTorch call
    computing the same function, with CUDA events (also with a clean L2,
    and split into their kernels under torch.profiler); times the main
    gather and its indexing alternately, beside an empty kernel; then the
@@ -82,7 +88,19 @@ Drives ``repro_torch`` (never the JAX package) on the card:
    4160-token first round, unchunked and in 1024-token prefill slices
    (see :func:`gemma2_phase`); a third pipelined run under
    torch.profiler says where its time goes;
-11. prints the ``kernels`` JSON line, then the contract line
+11. ds27b (the paper's own model: MoE with 72 experts, top-6, over MLA
+   attention) at full width and depth (30 layers, bf16, random weights
+   from a seed): 4 agents x 3 rounds (4096, 384 and 512 tokens, 16
+   generated each; contexts to 5040 of a 6144-token cache) offline on 1
+   PE + 1 DE, asserting that every round finished, FullBlock rows are
+   1152 bytes, every launch count equals its prediction from the
+   packer's items, the installs, the persists, the decode steps and the
+   layer kinds (gather, scatter, flash, the grouped GEMM and the
+   absorbed decode launched; paged never), and the blocking arm gave
+   identical tokens; a third run under torch.profiler; then f32 token
+   identity at full width and depth 4 with the cache-free reference,
+   unchunked and in 1024-token slices (see :func:`ds27b_phase`);
+12. prints the ``kernels`` JSON line, then the contract line
    ``{"ok": true, "device": {...}}`` last.
 
 Any failed check raises, so the script exits non-zero and prints no
@@ -154,10 +172,32 @@ GEMMA2_MAX_SEQ = 6144
 # and in 1024-token prefill slices
 GEMMA2_IDENTITY = dict(rounds=((4160, 4), (64, 4), (64, 4)), max_seq=4416,
                        chunk=1024)
+# the ds27b phase: full-width, full-depth ds27b (MoE + MLA), 4 agents at
+# t = 0 on 1 PE + 1 DE.  A first round of 4096 tokens, then appends of
+# 384 and 512; contexts reach 5040 tokens of a 6144-token cache; rounds
+# 2-3 hit the whole previous context
+DS27B_ROUNDS = ((4096, 16), (384, 16), (512, 16))
+# the phase's PE appends, as (rows, kv_len) of each ``append_step`` and
+# so of each flash call.  Round 1: the packer's 300 ms modelled quota
+# at full width takes three 4096-token prefills and the fourth's first
+# 2399 rows in one step, its last 1697 rows in the next; rounds 2-3:
+# the new tokens plus the context past its last full 64-token block (16
+# and 32 tokens).  Phase 3 holds flash at each, and phase 11 asserts
+# they are the appends it ran
+DS27B_APPENDS = ((4096, 4096), (2399, 2399), (1697, 4096), (400, 4496),
+                 (544, 5024))
+DS27B_AGENTS = 4
+DS27B_MAX_SEQ = 6144
+# its f32 identity at full width and depth 4 (1 dense + 3 MoE layers,
+# 14.0 GB of f32 weights): a 2112-token first round, unchunked and in
+# 1024-token prefill slices
+DS27B_IDENTITY = dict(depth=4, rounds=((2112, 4), (64, 4), (64, 4)),
+                      max_seq=2368, chunk=1024)
 # profiler rows of the port's kernels, by wrapper: kernel-name prefixes
 KERNEL_ROWS = {"flash_attention": ("flash_",), "paged_attention": ("paged_",),
                "kv_layer_gather": ("gather_kernel",),
-               "kv_layer_scatter": ("scatter_kernel",)}
+               "kv_layer_scatter": ("scatter_kernel",),
+               "grouped_gemm": ("gg_",), "mla_decode": ("mla_",)}
 
 
 # ---------------------------------------------------------------------------
@@ -548,24 +588,27 @@ def _planted(name, want, tol, faults: dict) -> dict:
 
 def _flash_case(rng, *, hq, hkv, dh, sq, kv_lens, S, dtype, causal=True,
                 softcap=0.0, window=0, q_std=1.0, planted=False,
-                parts=False):
+                parts=False, dv=None):
     """The PE's append at the main path's layout: q (b, sq, hq, dh) and a
     padded (b, S, hkv, dh) cache, passed as (b, h, s, dh) views, with
-    per-row ``kv_lens``.  The yardstick is SDPA with the same mask; it
-    has no softcap, so a case with one times it without.  ``q_std``
-    scales q, and so the scores' spread; with ``planted``, a window 64
-    keys short and Q's columns taken from the next 16-wide k-step must
-    fail the tolerance (:func:`_planted`)."""
+    per-row ``kv_lens``; ``dv`` (default ``dh``) is V's width.  The
+    yardstick is SDPA with the same mask; it has no softcap, so a case
+    with one times it without.  ``q_std`` scales q, and so the scores'
+    spread; with ``planted``, a window 64 keys short and Q's columns taken
+    from the next 16-wide k-step must fail the tolerance
+    (:func:`_planted`), and with ``dv`` < ``dh`` V's last 64 columns
+    dropped must too."""
     from repro_torch.kernels import flash_attention, ref
     f = lambda *s: torch.from_numpy(
         rng.standard_normal(s).astype(np.float32)).to("cuda", dtype)
-    b = len(kv_lens)
+    b, dv = len(kv_lens), dv or dh
     q = (f(b, sq, hq, dh) * q_std).transpose(1, 2)
     k = f(b, S, hkv, dh).transpose(1, 2)
-    v = f(b, S, hkv, dh).transpose(1, 2)
+    v = f(b, S, hkv, dv).transpose(1, 2)
     lens = torch.tensor(kv_lens, dtype=torch.int32, device="cuda")
     kw = dict(causal=causal, softcap=softcap, window=window, kv_lens=lens)
     shapes = dict(q=[b, hq, sq, dh], kv=[b, hkv, S, dh],
+                  **({} if dv == dh else dict(v=[b, hkv, S, dv])),
                   kv_len=kv_lens[0] if b == 1 else list(kv_lens),
                   dtype=str(dtype).replace("torch.", ""))
     shapes.update({n: x for n, x in (("causal", causal), ("softcap", softcap),
@@ -577,11 +620,18 @@ def _flash_case(rng, *, hq, hkv, dh, sq, kv_lens, S, dtype, causal=True,
     err, ok = max_err(got, want, TOLS[dtype])
     if not ok:
         raise AssertionError(f"flash_attention off by {err} at {shapes}")
-    faults = _planted("flash_attention", want, TOLS[dtype], {
-        "window 64 short": ref.flash_attention_ref(
-            q, k, v, **{**kw, "window": window - 64}),
-        "Q from the next k-step": ref.flash_attention_ref(
-            q.roll(-16, -1), k, v, **kw)}) if planted else None
+    faults = None
+    if planted:
+        faults = {"Q from the next k-step": ref.flash_attention_ref(
+            q.roll(-16, -1), k, v, **kw)}
+        if window:
+            faults["window 64 short"] = ref.flash_attention_ref(
+                q, k, v, **{**kw, "window": window - 64})
+        if dv < dh:
+            faults["V's last 64 columns dropped"] = ref.flash_attention_ref(
+                q, k, torch.cat([v[..., :-64], torch.zeros_like(
+                    v[..., -64:])], -1), **kw)
+        faults = _planted("flash_attention", want, TOLS[dtype], faults)
     # the valid (query, key) pairs; the yardstick is SDPA with this mask
     # over the same keys (it has no softcap)
     ln = lens.long()
@@ -597,8 +647,9 @@ def _flash_case(rng, *, hq, hkv, dh, sq, kv_lens, S, dtype, causal=True,
     sdpa = torch.nn.functional.scaled_dot_product_attention
     isz = q.element_size()
     keys = int(valid.any(dim=1).sum())     # keys some query needs
-    b_ms, b_by = bound(2 * b * sq * hq * dh * isz + 2 * keys * hkv * dh * isz,
-                       4 * dh * hq * int(valid.sum()), dtype)
+    b_ms, b_by = bound(b * sq * hq * (dh + dv) * isz +
+                       keys * hkv * (dh + dv) * isz,
+                       2 * (dh + dv) * hq * int(valid.sum()), dtype)
     return dict(
         shapes=shapes, max_abs_err=err, planted_err=faults,
         ms=time_ms(call), ms_clean_l2=time_ms(call, clean_l2=True),
@@ -723,11 +774,12 @@ def paged_cases(cfg, rng):
     ]
 
 
-# q's scale in the gemma2 cases: scores of standard deviation 3 make the
-# softmax over about 4096 keys peaked, as a trained model's is, so the
-# outputs are O(1).  At 1, the softmax is nearly flat, the outputs about
-# 0.026, and the bf16 tolerance as large as what it compares.
-GEMMA2_Q_STD = 3.0
+# q's scale in the gemma2 and ds27b attention cases: scores of standard
+# deviation about 3 make the softmax over thousands of keys peaked, as a
+# trained model's is, so the outputs are O(1).  At 1, the softmax is
+# nearly flat, the outputs about 0.026, and the bf16 tolerance as large
+# as what it compares.
+Q_STD = 3.0
 
 
 def gemma2_flash_cases(cfg, rng):
@@ -740,7 +792,7 @@ def gemma2_flash_cases(cfg, rng):
         hq=cfg.n_heads, hkv=cfg.n_kv_heads, dh=cfg.head_dim, sq=256,
         kv_lens=[4880], S=GEMMA2_MAX_SEQ, dtype=torch.bfloat16,
         window=cfg.local_window, softcap=cfg.attn_logit_softcap,
-        q_std=GEMMA2_Q_STD), **kw})
+        q_std=Q_STD), **kw})
     return [case(parts=True, planted=True),
             case(sq=1024, kv_lens=[4608], parts=True, planted=True),
             case(dtype=torch.float32)]
@@ -757,13 +809,239 @@ def gemma2_paged_cases(cfg, rng):
         hq=cfg.n_heads, hkv=cfg.n_kv_heads, dh=cfg.head_dim,
         S=GEMMA2_MAX_SEQ, lengths=lengths, dtype=torch.bfloat16,
         window=cfg.local_window, softcap=cfg.attn_logit_softcap,
-        q_std=GEMMA2_Q_STD), **kw})
+        q_std=Q_STD), **kw})
     w = cfg.local_window
     return [case(parts=True, planted=True),
             case(lengths=[int(x) for x in rng.integers(3000, w, 7)] + [w]),
             case(lengths=[1, 64, w - 1, w, w + 1, w + 65,
                           GEMMA2_MAX_SEQ - 1, GEMMA2_MAX_SEQ]),
             case(dtype=torch.float32)]
+
+
+# ---------------------------------------------------------------------------
+# phase 3 at ds27b's shapes: grouped GEMM, absorbed MLA decode, flash at
+# q/k 192 and v 128, gather and scatter of 1152-byte rows
+# ---------------------------------------------------------------------------
+
+def router_group_sizes(cfg, tokens: int, gen) -> torch.Tensor:
+    """Group sizes (E,) int32 on the card from the port's router
+    (``models.moe.route`` and ``_sort_by_expert``) on random tokens, with
+    a router of the schema's init std."""
+    from repro_torch.models import moe
+    d, m = cfg.d_model, cfg.moe
+    p = {"router": (torch.randn((d, m.n_experts), generator=gen,
+                                device="cuda") / d ** 0.5).bfloat16()}
+    x = torch.randn((tokens, d), generator=gen,
+                    device="cuda").bfloat16()
+    _, idx = moe.route(p, cfg, x)
+    return moe._sort_by_expert(idx, tokens, m.top_k, m.n_experts)[3]
+
+
+def skewed(sizes: torch.Tensor) -> torch.Tensor:
+    """The planted skew: ``sizes`` with group 0 empty and group 1 holding
+    a quarter of the rows, the rest shared as before, the sum kept."""
+    n = sizes.cpu().numpy().astype(np.int64)
+    m, quarter = int(n.sum()), int(n.sum()) // 4
+    rest = n.copy()
+    rest[:2] = 0
+    rest = rest * (m - quarter) // max(int(rest.sum()), 1)
+    rest[2 + int(np.argmax(rest[2:]))] += m - quarter - int(rest.sum())
+    rest[1] = quarter
+    return torch.from_numpy(rest.astype(np.int32)).cuda()
+
+
+def _moved_boundary(sizes: torch.Tensor) -> torch.Tensor:
+    """The planted fault: the last row of the first non-empty group moved
+    into the next non-empty group."""
+    n = sizes.cpu().numpy().copy()
+    e0 = int(np.flatnonzero(n)[0])
+    e1 = int(np.flatnonzero(n[e0 + 1:])[0]) + e0 + 1
+    n[e0] -= 1
+    n[e1] += 1
+    return torch.from_numpy(n).cuda()
+
+
+def _grouped_mm_library(x, w, sizes):
+    """One PyTorch call computing the grouped GEMM, and its name:
+    ``torch._grouped_mm`` on the row-major (E, K, N) ``w`` where this
+    torch has it, for bf16 only; else None (the per-expert cuBLAS loop is
+    the plain version).  It must agree with the plain version."""
+    fn = getattr(torch, "_grouped_mm", None)
+    if fn is None or x.dtype != torch.bfloat16:
+        return None, None
+    from repro_torch.kernels import ref
+    offs = torch.cumsum(sizes, 0, dtype=torch.int32)
+    call = lambda: fn(x, w, offs=offs)
+    err, ok = max_err(call(), ref.grouped_gemm_ref(x, w, sizes),
+                      TOLS[x.dtype])
+    assert ok, f"torch._grouped_mm off by {err}: no yardstick"
+    return call, "torch._grouped_mm"
+
+
+def _gg_case(gen, *, sizes, k, n, dtype=torch.bfloat16, planted=False,
+             label=""):
+    """``grouped_gemm`` on x (M, K) ~ N(0, 1) and w (E, K, N) of the
+    schema's std 1/sqrt(K), M = sum(sizes): held against the per-group
+    plain version, bit-identical over two calls; with ``planted``, a
+    group boundary moved by one row must fail the tolerance.  The bound
+    reads each used expert's weights once."""
+    from repro_torch.kernels import grouped_gemm, ref
+    e, m = sizes.shape[0], int(sizes.sum())
+    x = torch.randn((m, k), generator=gen, device="cuda").to(dtype)
+    w = (torch.randn((e, k, n), generator=gen, device="cuda") /
+         k ** 0.5).to(dtype)
+    used = int((sizes > 0).sum())
+    shapes = dict(x=[m, k], w=[e, k, n], groups_used=used,
+                  largest_group=int(sizes.max()),
+                  dtype=str(dtype).replace("torch.", ""),
+                  **({"case": label} if label else {}))
+    call = lambda: grouped_gemm(x, w, sizes)
+    got = _deterministic(call)
+    want = ref.grouped_gemm_ref(x, w, sizes)
+    err, ok = max_err(got, want, TOLS[dtype])
+    if not ok:
+        raise AssertionError(f"grouped_gemm off by {err} at {shapes}")
+    faults = _planted("grouped_gemm", want, TOLS[dtype], {
+        "a group boundary moved by one row": ref.grouped_gemm_ref(
+            x, w, _moved_boundary(sizes))}) if planted else None
+    lib, lib_name = _grouped_mm_library(x, w, sizes)
+    isz = x.element_size()
+    b_ms, b_by = bound((m * k + used * k * n + m * n) * isz, 2 * m * k * n,
+                       dtype)
+    return dict(
+        shapes=shapes, max_abs_err=err, planted_err=faults,
+        ms=time_ms(call), ms_clean_l2=time_ms(call, clean_l2=True),
+        plain_ms=time_ms(lambda: ref.grouped_gemm_ref(x, w, sizes)),
+        library_ms=None if lib is None else time_ms(lib),
+        library_name=lib_name or "none (the per-expert loop is the plain "
+                                 "version)",
+        bound_ms=b_ms, bound_by=b_by)
+
+
+def grouped_gemm_cases(cfg, rng):
+    """ds27b's three expert projections at an 8-slot decode (48 token
+    copies, most of the 72 groups empty) and at a 4096-token append
+    (24,576 copies), gate/up (K 2560 -> N 1536) and down (1536 -> 2560),
+    with group sizes from the port's router on random tokens; the append
+    again with a planted skew (an empty group, a group of a quarter of the
+    rows); an f32 case.  The append's gate case is the main case."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    d, f = cfg.d_model, cfg.moe.d_ff_expert
+    decode = router_group_sizes(cfg, 8, gen)
+    append = router_group_sizes(cfg, 4096, gen)
+    case = lambda **kw: _gg_case(gen, **{**dict(sizes=append, k=d, n=f),
+                                          **kw})
+    return [case(planted=True, label="append, gate/up"),
+            case(k=f, n=d, label="append, down"),
+            case(sizes=decode, planted=True, label="decode, gate/up"),
+            case(sizes=decode, k=f, n=d, label="decode, down"),
+            case(sizes=skewed(append), planted=True, label="append, skew"),
+            case(sizes=router_group_sizes(cfg, 256, gen),
+                 dtype=torch.float32, label="256 tokens, f32")]
+
+
+def _mla_case(rng, *, lengths, S, dtype=torch.bfloat16, q_std=Q_STD,
+              planted=False, parts=False):
+    """``mla_decode`` at ds27b's widths (32 heads, r 512, rd 64) over a
+    padded (b, S) latent cache with unit-variance rows, as the kv norm
+    makes them, against the plain version; with ``planted``, the scale
+    1/sqrt(r + rd) in place of 1/sqrt(nope + rope) must fail the
+    tolerance.  The yardstick is SDPA over the latent rows as one shared
+    key-value head (keys c || krope, values c) with the length mask."""
+    import math
+    from repro_torch.kernels import mla_decode, ref
+    f = lambda *s: torch.from_numpy(
+        rng.standard_normal(s).astype(np.float32)).to("cuda", dtype)
+    b, h, r, rd = len(lengths), 32, 512, 64
+    q_lat, q_rope = f(b, h, r) * q_std, f(b, h, rd) * q_std
+    c, krope = f(b, S, r), f(b, S, rd)
+    lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    scale = 1.0 / math.sqrt(192)
+    shapes = dict(q_lat=[b, h, r], c=[b, S, r], lengths=list(lengths),
+                  dtype=str(dtype).replace("torch.", ""))
+    call = lambda: mla_decode(q_lat, q_rope, c, krope, lens, scale=scale)
+    got = _deterministic(call)
+    want = ref.mla_decode_ref(q_lat, q_rope, c, krope, lens, scale=scale)
+    err, ok = max_err(got, want, TOLS[dtype])
+    if not ok:
+        raise AssertionError(f"mla_decode off by {err} at {shapes}")
+    faults = _planted("mla_decode", want, TOLS[dtype], {
+        "scale 1/sqrt(576)": ref.mla_decode_ref(
+            q_lat, q_rope, c, krope, lens, scale=1.0 / math.sqrt(r + rd))}) \
+        if planted else None
+    qs = torch.cat([q_lat, q_rope], -1)[:, :, None]     # (b, h, 1, 576)
+    ks = torch.cat([c, krope], -1)[:, None]             # (b, 1, S, 576)
+    mask = (torch.arange(S, device="cuda")[None, :] <
+            lens[:, None].long())[:, None, None]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib = lambda: sdpa(qs, ks.expand(b, h, S, r + rd),
+                       c[:, None].expand(b, h, S, r), attn_mask=mask,
+                       scale=scale)
+    try:                        # a yardstick only: null where SDPA refuses
+        lib()
+        torch.cuda.synchronize()
+    except RuntimeError:
+        lib = None
+    isz = c.element_size()
+    tot = int(sum(min(n, S) for n in lengths))
+    b_ms, b_by = bound(tot * (r + rd) * isz + b * h * (2 * r + rd) * isz,
+                       2 * tot * h * (2 * r + rd), dtype)
+    return dict(
+        shapes=shapes, max_abs_err=err, planted_err=faults,
+        ms=time_ms(call), ms_clean_l2=time_ms(call, clean_l2=True),
+        parts_ms=kernel_parts(call) if parts else None,
+        plain_ms=time_ms(lambda: ref.mla_decode_ref(
+            q_lat, q_rope, c, krope, lens, scale=scale)),
+        library_ms=None if lib is None else time_ms(lib), bound_ms=b_ms,
+        bound_by=b_by)
+
+
+def mla_decode_cases(cfg, rng):
+    """The DE's absorbed decode over ds27b's 8 slots: contexts of the
+    ds27b phase's third round (4600-5040 tokens) first, then the edges
+    of the tiles, the splits and the cache (1, 63, 64, 65, 4095, 4096,
+    5000, 6144), and the main case in f32."""
+    lengths = [int(x) for x in rng.integers(4600, 5041, 8)]
+    case = lambda **kw: _mla_case(rng, **{**dict(
+        lengths=lengths, S=DS27B_MAX_SEQ), **kw})
+    return [case(planted=True, parts=True),
+            case(lengths=[1, 63, 64, 65, 4095, 4096, 5000, DS27B_MAX_SEQ],
+                 planted=True),
+            case(dtype=torch.float32)]
+
+
+def mla_flash_cases(cfg, rng):
+    """Flash at ds27b's MLA append widths (32 heads, q/k 192, v 128) at
+    each of the ds27b phase's appends (``DS27B_APPENDS``; the port
+    expands K/V up to the longest row, so the cache the kernel sees is
+    kv_len long), a 1024-row slice at the end of a chunked 4096-token
+    prefill, and the 2399-row round-1 slice in f32.  Every bf16 case
+    checks that planted faults (Q's columns shifted, V's last 64 columns
+    dropped) fail the tolerance."""
+    m = cfg.mla
+    case = lambda sq, kv, **kw: _flash_case(rng, **{**dict(
+        hq=cfg.n_heads, hkv=cfg.n_heads, dh=m.nope_head_dim + m.rope_head_dim,
+        dv=m.v_head_dim, sq=sq, kv_lens=[kv], S=kv, dtype=torch.bfloat16,
+        q_std=Q_STD, planted=True), **kw})
+    return [*(case(sq, kv, parts=True) for sq, kv in DS27B_APPENDS),
+            case(1024, 4096),
+            case(*DS27B_APPENDS[1], dtype=torch.float32, planted=False)]
+
+
+def ds27b_copy_cases(cfg, rng):
+    """Gather and scatter of ds27b's 1152-byte MLA rows (30 layers): the
+    round-2 install's gather of one layer (64 pages) and the round-1
+    persist's scatter of every layer (64 blocks), then a 7-page gather
+    and a 7-block persist (round 2), all bit-exact."""
+    from repro_torch.engines.kvio import kv_row_bytes
+    g_gen = torch.Generator(device="cuda").manual_seed(6)
+    L, row = cfg.n_layers, kv_row_bytes(cfg)
+    assert row == 1152, row
+    gather = [_gather_case(rng, g_gen, n=n, n_layers=L, layer=L // 2,
+                           feat=row) for n in (64, 7)]
+    scatter = [_scatter_case(rng, g_gen, n=n, n_layers=L, layer=range(L),
+                             feat=row) for n in (64, 7)]
+    return gather, scatter
 
 
 # ---------------------------------------------------------------------------
@@ -822,10 +1100,18 @@ def persist_counter():
     return CallCounter(kvio, "serialize_blocks")
 
 
+# the kernels of a dense GQA model's serving path; the MoE and MLA ones
+# (grouped_gemm, mla_decode) run only on ds27b's
+GQA_KERNELS = ("kv_layer_gather", "kv_layer_scatter", "flash_attention",
+               "paged_attention")
+
+
 def check_launches(launches: dict, persists: int, path: str) -> None:
-    """Every kernel of the path launched, the scatter once per persist."""
-    assert all(n > 0 for n in launches.values()), \
-        f"a kernel of the {path} path never launched: {launches}"
+    """Every kernel of a GQA path launched, no other, the scatter once
+    per persist."""
+    assert all((n > 0) == (k in GQA_KERNELS) for k, n in launches.items()), \
+        f"a kernel of the {path} path never launched, or another did: " \
+        f"{launches}"
     assert launches["kv_layer_scatter"] == persists > 0, \
         f"{path}: {launches['kv_layer_scatter']} scatter launches for " \
         f"{persists} persists"
@@ -863,10 +1149,11 @@ def serving_phase(cfg, device="cuda", rounds=AGENT_ROUNDS, n_agents=6,
 
 
 def profile_phase(cfg, rounds=AGENT_ROUNDS, n_agents=6, top=8,
-                  max_seq=2048):
+                  max_seq=2048, params=None):
     """Where the time goes: the serving phase's pipelined run once more
-    (or ``cfg``'s with ``rounds`` and ``max_seq`` on 1 PE + 1 DE),
-    under torch.profiler tracing the card only.  Returns (real wall s,
+    (or ``cfg``'s with ``rounds`` and ``max_seq`` on 1 PE + 1 DE, on
+    ``params`` or seed 0's), under torch.profiler tracing the card only.
+    Returns (real wall s,
     device-busy s summed over kernels and copies, [(name, device ms,
     calls, [(kernel, launches)])] of the top entries and the port's
     kernels)."""
@@ -874,7 +1161,8 @@ def profile_phase(cfg, rounds=AGENT_ROUNDS, n_agents=6, top=8,
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.models import init_params
     from repro_torch.sim.traces import Round, Trajectory
-    params = init_params(cfg, seed=0, device="cuda")
+    if params is None:
+        params = init_params(cfg, seed=0, device="cuda")
     trajs = [Trajectory(i, [Round(*r) for r in rounds])
              for i in range(n_agents)]
     kw = dict(n_pe=1, n_de=1, mode="dualpath", block_tokens=64,
@@ -1779,6 +2067,193 @@ def gemma2_phase(cfg, device="cuda", rounds=GEMMA2_ROUNDS,
 
 
 # ---------------------------------------------------------------------------
+# phase 11: ds27b (MoE + MLA, the paper's own model)
+# ---------------------------------------------------------------------------
+
+
+class PathCounter:
+    """Counts what the ds27b phase's launches follow from: the packer's
+    batch items (one ``append_step`` each) and their (rows, kv_len), the
+    hit installs (one ``kvio.layer_stream`` each) and the DE persists.
+    Patches the engine
+    classes' methods while entered and reads no device tensor."""
+
+    def __init__(self):
+        self.items = self.installs = 0
+        self.appends = set()            # (rows, kv_len) of each item
+
+    def _prefill(self, fn):
+        def step(engine):
+            out = fn(engine)
+            self.items += len(engine.last_step_items)
+            self.appends.update((n, cached + n)
+                                for cached, n in engine.last_step_items)
+            return out
+        return step
+
+    def _install(self, fn):
+        def install(engine, er, payload):
+            self.installs += bool(payload)
+            return fn(engine, er, payload)
+        return install
+
+    def __enter__(self):
+        from repro_torch.engines import runtime
+        self.patches = [
+            MethodPatch(runtime.PrefillEngine, "step", self._prefill),
+            MethodPatch(runtime.PrefillEngine, "install_hit_kv",
+                        self._install),
+            persist_counter()]
+        for p in self.patches:
+            p.__enter__()
+        return self
+
+    @property
+    def persists(self) -> int:
+        return self.patches[2].n
+
+    def __exit__(self, *exc):
+        for p in self.patches:
+            p.__exit__(*exc)
+
+
+def host_syncs(fn) -> int:
+    """How many synchronising CUDA operations ``fn()`` makes, as
+    PyTorch's sync debug mode sees them (it warns at each; a prototype
+    that, by its own notice, does not see every kind): a host read of a
+    device value is one."""
+    import warnings
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sum("called a synchronizing CUDA operation" in str(w.message)
+               for w in caught)
+
+
+def model_step_syncs(cfg, params, max_seq: int) -> dict:
+    """Host syncs of one ``decode_step`` over 8 slots and one 256-token
+    ``append_step``: each reads the longest row's length once
+    (``model._check_fits``), and the MoE and MLA layers add none, so each
+    must make exactly one."""
+    from repro_torch.models import append_step, decode_step, \
+        init_decode_state
+    dev = params["embed"]["tok"].device
+    out = {}
+    for name, b, s in (("decode_step", 8, 1), ("append_step", 1, 256)):
+        state = init_decode_state(cfg, b, max_seq, dev)
+        toks = torch.randint(2, cfg.vocab_size, (b, s), device=dev)
+        lengths = torch.full((b,), 4096, device=dev)
+        step = (lambda: decode_step(params, cfg, toks[:, 0], state, lengths)) \
+            if s == 1 else \
+            (lambda: append_step(params, cfg, toks, state, lengths))
+        out[name] = host_syncs(step)
+        del state
+    return out
+
+
+def predicted_launches(cfg, items: int, installs: int, persists: int,
+                       decode_steps: int) -> dict:
+    """Each kernel's launches from the packer's items, the installs, the
+    persists, the decode steps and the layer kinds: flash once per layer
+    of every ``append_step``, the grouped GEMM three times per MoE layer
+    of every ``append_step`` and decode step, the absorbed decode once
+    per layer of every decode step, the gather once per layer of every
+    install, the scatter once per persist, the paged kernel never."""
+    n_l, n_moe = cfg.n_layers, sum(cfg.moe_layer_mask())
+    return {"kv_layer_gather": n_l * installs, "kv_layer_scatter": persists,
+            "flash_attention": n_l * items, "paged_attention": 0,
+            "grouped_gemm": 3 * n_moe * (items + decode_steps),
+            "mla_decode": n_l * decode_steps}
+
+
+def ds27b_phase(cfg, device="cuda", rounds=DS27B_ROUNDS,
+                n_agents=DS27B_AGENTS, max_seq=DS27B_MAX_SEQ,
+                identity=DS27B_IDENTITY, profile=True) -> dict:
+    """ds27b served offline on 1 PE + 1 DE (dualpath, 64-token FullBlocks
+    of 1152-byte rows, 8 DE slots): every round finishes, the launches
+    equal those predicted (:func:`predicted_launches`: no paged launch,
+    MLA decodes through ``mla_decode``), and the blocking arm gives the
+    same tokens; a model step makes one host sync, not one per layer
+    (:func:`model_step_syncs`); a third run under torch.profiler
+    (``profile``); then
+    f32 token identity at full width and ``identity["depth"]`` layers
+    with the cache-free reference, unchunked and in prefill slices
+    (:func:`identity_phase`)."""
+    from repro_torch import kernels
+    from repro_torch.engines.kvio import kv_row_bytes
+    from repro_torch.models import init_params
+    from repro_torch.sim.traces import Round, Trajectory
+    cuda = device != "cpu"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=0, device=device)
+    if cuda:
+        torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    trajs = lambda: [Trajectory(i, [Round(*r) for r in rounds])
+                     for i in range(n_agents)]
+    kw = dict(n_pe=1, n_de=1, mode="dualpath", block_tokens=64,
+              max_seq=max_seq, de_slots=8)
+    kernels.reset_launch_counts()
+    with PathCounter() as path:
+        system, sessions, wall = serve(cfg, params, trajs(), device, **kw)
+    launches = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated() - base if cuda else None
+    st = system.stats()
+    assert all(s.rounds_done == len(rounds) for s in sessions), \
+        "a ds27b round did not finish"
+    assert st["store_reads"] > 0, "no FullBlock was read back"
+    row = system.layout.bytes_per_token_layer
+    assert row == kv_row_bytes(cfg) == \
+        cfg.mla.kv_lora_rank * 2 + cfg.mla.rope_head_dim * 2, row
+    predicted = predicted_launches(cfg, path.items, path.installs,
+                                   path.persists, st["decode_steps"])
+    if cuda:
+        assert launches == predicted, \
+            f"ds27b launches {launches}, predicted {predicted}"
+        assert all(n > 0 for k, n in launches.items()
+                   if k != "paged_attention"), launches
+    contexts = [len(s.context) for s in sessions]
+    del system
+    system, sessions_b, wall_b = serve(cfg, params, trajs(), device,
+                                       pipelined=False, **kw)
+    assert [s.context for s in sessions] == \
+        [s.context for s in sessions_b], "ds27b blocking arm diverged"
+    del system
+    syncs = model_step_syncs(cfg, params, max_seq) if cuda else None
+    if cuda:
+        assert syncs == {"decode_step": 1, "append_step": 1}, \
+            f"host syncs per model step: {syncs}"
+    prof = profile_phase(cfg, rounds, n_agents, max_seq=max_seq,
+                         params=params) if profile else None
+    # the 54 GB of weights go before the f32 identity's 14 GB come
+    del params, sessions, sessions_b
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    depth = identity["depth"]
+    n, chunks = identity_phase(
+        dataclasses.replace(cfg, n_layers=depth), device,
+        **{k: v for k, v in identity.items() if k != "depth"})
+    return dict(stats=st, launches=launches, predicted=predicted,
+                items=path.items, appends=sorted(path.appends),
+                installs=path.installs,
+                persists=path.persists, wall_s=wall,
+                tokens_per_s=st["gen_tokens"] / wall,
+                blocking_wall_s=wall_b, context_lens=contexts,
+                peak_allocated=peak, init_s=init_s, row_bytes=row,
+                step_syncs=syncs, profile=prof, identity_tokens=n,
+                identity_chunks=chunks, identity_depth=depth)
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -1843,12 +2318,23 @@ def main() -> int:
     cfg_g2 = get_config("gemma2-2b")
     cases["flash_attention"] += gemma2_flash_cases(cfg_g2, rng)
     cases["paged_attention"] += gemma2_paged_cases(cfg_g2, rng)
+    # ds27b's: MLA's flash widths, its 1152-byte rows, and the two
+    # kernels only its path runs
+    cfg_ds = get_config("ds27b")
+    cases["flash_attention"] += mla_flash_cases(cfg_ds, rng)
+    gather_ds, scatter_ds = ds27b_copy_cases(cfg_ds, rng)
+    cases["kv_layer_gather"] += gather_ds
+    cases["kv_layer_scatter"] += scatter_ds
+    cases["grouped_gemm"] = grouped_gemm_cases(cfg_ds, rng)
+    cases["mla_decode"] = mla_decode_cases(cfg_ds, rng)
     for name, cs in cases.items():
         for c in cs:
             lib = c["library_ms"]
             print(f"{name} {json.dumps(c['shapes'])}: err {c['max_abs_err']:.3g}"
                   f" kernel {c['ms']:.4f} ms plain {c['plain_ms']:.4f} ms "
                   f"library {'n/a' if lib is None else f'{lib:.4f} ms'} "
+                  + (f"({c['library_name']}) " if "library_name" in c
+                     else "")
                   + ("" if "library_ms_clean_l2" not in c else
                      f"(clean L2 {c['library_ms_clean_l2']:.4f} ms) ")
                   + f"bound {c['bound_ms']:.4f} ms ({c['bound_by']}, "
@@ -1993,7 +2479,35 @@ def main() -> int:
     print_profile(*profile_phase(cfg_g2, GEMMA2_ROUNDS, GEMMA2_AGENTS,
                                  max_seq=GEMMA2_MAX_SEQ), label="gemma2: ")
 
-    # 11. kernels line, then the contract line
+    # 11. ds27b: MoE + MLA, the paper's own model
+    gc.collect()
+    torch.cuda.empty_cache()
+    ds = ds27b_phase(cfg_ds)
+    assert set(ds["appends"]) == set(DS27B_APPENDS), \
+        f"ds27b appends {ds['appends']}, phase 3 held flash at " \
+        f"{DS27B_APPENDS}"
+    st_d = ds["stats"]
+    print("ds27b stats:", json.dumps(st_d))
+    print(f"ds27b: weights drawn in {ds['init_s']:.3f} s; "
+          f"{ds['wall_s']:.3f} s real wall (pipelined), "
+          f"{ds['blocking_wall_s']:.3f} s (blocking), "
+          f"{ds['tokens_per_s']:.1f} generated tokens/s, launches "
+          f"{ds['launches']} (predicted {ds['predicted']} from "
+          f"{ds['items']} batch items (rows, kv_len) {ds['appends']}, "
+          f"{ds['installs']} installs, "
+          f"{ds['persists']} persists, {st_d['decode_steps']} decode "
+          f"steps); FullBlock rows {ds['row_bytes']} bytes; contexts "
+          f"{ds['context_lens']}; peak memory_allocated of the run "
+          f"(weights included) {ds['peak_allocated']} bytes; host syncs "
+          f"of one 8-slot decode_step and one 256-token append_step over "
+          f"30 layers {ds['step_syncs']}")
+    print(f"ds27b f32 identity at depth {ds['identity_depth']}: "
+          f"{ds['identity_tokens']} context tokens equal the cache-free "
+          f"reference, unchunked and in {ds['identity_chunks']} + 1 "
+          f"prefill slices")
+    print_profile(*ds["profile"], label="ds27b: ")
+
+    # 12. kernels line, then the contract line
     meta = {
         "kv_layer_gather": ("src/repro_torch/kernels/csrc/kv_gather.cu",
                             "src/repro/kernels/kv_gather.py:30"),
@@ -2003,13 +2517,24 @@ def main() -> int:
                             "src/repro/kernels/flash_attention.py:107"),
         "paged_attention": ("src/repro_torch/kernels/csrc/paged_attention.cu",
                             "src/repro/kernels/paged_attention.py:76"),
+        # jnp/lax in the reference, not Pallas: jax.lax.ragged_dot and
+        # the absorbed decode's einsums
+        "grouped_gemm": ("src/repro_torch/kernels/csrc/grouped_gemm.cu",
+                         "src/repro/models/moe.py:64"),
+        "mla_decode": ("src/repro_torch/kernels/csrc/mla_decode.cu",
+                       "src/repro/models/mla.py:109"),
     }
+    # the main path each kernel's launches are read from: the offline
+    # qwen run for the four of every path, ds27b's for its own two
+    main_path = {name: launches[name] for name in GQA_KERNELS}
+    main_path.update({name: ds["launches"][name]
+                      for name in ("grouped_gemm", "mla_decode")})
     line = []
     for name, cs in cases.items():
         main_case = cs[0]
         line.append(dict(
             name=name, route="cuda", source=meta[name][0],
-            replaces=meta[name][1], launches=launches[name],
+            replaces=meta[name][1], launches=main_path[name],
             launches_by_path=dict(offline=launches[name],
                                   online=launches_o[name],
                                   slo=slo["launches"][name],
@@ -2017,7 +2542,8 @@ def main() -> int:
                                   chaos_death=cd["launches"][name],
                                   elastic=el["e"]["launches"][name],
                                   network=el["g"]["launches"][name],
-                                  gemma2=g2["launches"][name]),
+                                  gemma2=g2["launches"][name],
+                                  ds27b=ds["launches"][name]),
             max_abs_err=max(c["max_abs_err"] for c in cs),
             ms=main_case["ms"], kernel_ms=main_case["ms"],
             ms_clean_l2=main_case.get("ms_clean_l2"),
@@ -2033,8 +2559,9 @@ def main() -> int:
                                        chaos_death=cd["persists"],
                                        elastic=el["e"]["persists"],
                                        network=el["g"]["persists"],
-                                       gemma2=g2["persists"])
-    for entry in line[2:]:
+                                       gemma2=g2["persists"],
+                                       ds27b=ds["persists"])
+    for entry in line[2:4]:
         entry["gemma2_windowed_launches"] = g2["windowed"][entry["name"]]
     print(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {

@@ -5,10 +5,14 @@ The bridge takes the JAX trees as numpy (``jax.tree.map(np.asarray,
 tree)``), so this module imports neither ``jax`` nor ``repro``.
 ``torch.from_numpy`` rejects ``ml_dtypes.bfloat16``, so bf16 arrays go
 through their uint16 bits: ``np.asarray(x).view(np.uint16)`` and then
-``.view(torch.bfloat16)``.  The reference stacks block parameters along a
-leading layer axis; the port keeps one dict per layer, so the blocks are
-unstacked here.  Like every entry point of the port, each converter
-puts its tensors on the card unless the caller names the CPU.
+``.view(torch.bfloat16)``.  The reference stacks block parameters along
+a leading layer axis (an MoE model in two stacks, ``dense_blocks`` for
+the first ``first_k_dense`` layers and ``super_blocks.moe`` for the
+rest, and its decode state in ``dense`` and ``moe``); the port keeps one
+dict per layer and one state stack over all layers, so the blocks are
+unstacked and the state stacks joined here.  Like every entry point of
+the port, each converter puts its tensors on the card unless the caller
+names the CPU.
 """
 from __future__ import annotations
 
@@ -51,20 +55,46 @@ def _unstack(tree, i: int):
     return tree[i]
 
 
+_STACKS = ("blocks", "dense_blocks", "super_blocks")
+
+
 def params_from_jax(np_tree: Dict, cfg: ModelConfig, device="cuda") -> Dict:
     """The reference's ``init_params`` tree (as numpy) -> the port's
-    parameters (dense family: ``blocks`` unstacked into a list)."""
+    parameters: ``blocks`` (dense family), or ``dense_blocks`` then
+    ``super_blocks["moe"]`` (MoE family, period 1), unstacked into one
+    list in layer order."""
     device = resolve(device)
     out = {k: _convert(v, device) for k, v in np_tree.items()
-           if k != "blocks"}
-    out["blocks"] = [_convert(_unstack(np_tree["blocks"], i), device)
-                     for i in range(cfg.n_layers)]
+           if k not in _STACKS}
+    if cfg.family == "moe":
+        if cfg.moe.period != 1:
+            raise NotImplementedError(
+                f"{cfg.name}: MoE period {cfg.moe.period} is not ported")
+        n_dense = cfg.moe.first_k_dense
+        stacks = [(np_tree["dense_blocks"], i) for i in range(n_dense)] + \
+            [(np_tree["super_blocks"]["moe"], i)
+             for i in range(cfg.n_layers - n_dense)]
+    else:
+        stacks = [(np_tree["blocks"], i) for i in range(cfg.n_layers)]
+    out["blocks"] = [_convert(_unstack(tree, i), device)
+                     for tree, i in stacks]
     return out
 
 
 def state_from_jax(np_state: Dict, device="cuda") -> Dict:
-    """Decode state: both packages use {"kv": {"k","v": (L,b,S,hkv,dh)}}."""
-    return _convert(np_state, resolve(device))
+    """Decode state.  Dense GQA: both packages use {"kv": {"k","v":
+    (L,b,S,hkv,dh)}}.  MoE (period 1): the reference's ``dense`` and
+    ``moe`` stacks are joined along the layer axis, under ``"mla"`` for
+    MLA (leaves ``c`` (L,b,S,r) and ``krope`` (L,b,S,rd)) and ``"kv"``
+    for GQA; the tree's own keys say which."""
+    device = resolve(device)
+    parts = [np_state[k] for k in ("dense", "moe") if k in np_state]
+    if not parts:
+        return _convert(np_state, device)
+    key = "mla" if "c" in parts[0] else "kv"
+    return {key: {name: to_torch(np.concatenate([p[name] for p in parts]),
+                                 device)
+                  for name in parts[0]}}
 
 
 def _as_np(x) -> np.ndarray:

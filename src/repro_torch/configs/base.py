@@ -155,13 +155,26 @@ class ModelConfig:
                 kinds.append("attn")
         return tuple(kinds)
 
+    def moe_layer_mask(self) -> Tuple[bool, ...]:
+        """Per layer: whether its FFN is the routed MoE."""
+        if self.moe is None:
+            return tuple(False for _ in range(self.n_layers))
+        m = []
+        for i in range(self.n_layers):
+            if i < self.moe.first_k_dense:
+                m.append(False)
+            else:
+                m.append((i - self.moe.first_k_dense) % self.moe.period
+                         == self.moe.period - 1)
+        return tuple(m)
+
     def param_count(self) -> int:
         from repro_torch.models.params import count_params_analytic
         return count_params_analytic(self)
 
     def active_param_count(self) -> int:
-        # dense families only in this port: every parameter is active
-        return self.param_count()
+        from repro_torch.models.params import count_active_params_analytic
+        return count_active_params_analytic(self)
 
     def reduced(self) -> "ModelConfig":
         """A tiny same-family config for CPU tests (same rule as the
@@ -204,7 +217,7 @@ class ModelConfig:
 # Registry (architectures ported so far)
 # ---------------------------------------------------------------------------
 
-ARCH_IDS = ("qwen1.5-0.5b", "gemma2-2b")
+ARCH_IDS = ("qwen1.5-0.5b", "gemma2-2b", "ds27b")
 
 _REGISTRY = {}
 

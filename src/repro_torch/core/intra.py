@@ -58,8 +58,11 @@ class AttnTimeModel:
 
 
 def attn_flops_per_layer(cfg: ModelConfig, cached: int, bsz: int) -> float:
-    """Theoretical attention FLOPs for one layer of a (cached, bsz) item."""
-    return 4.0 * cfg.n_heads * cfg.head_dim * bsz * (cached + (bsz + 1) / 2.0)
+    """Theoretical attention FLOPs for one layer of a (cached, bsz) item
+    (MLA scores at its q/k width, nope + rope)."""
+    qk_dim = cfg.head_dim if cfg.attn_variant != "mla" else (
+        cfg.mla.nope_head_dim + cfg.mla.rope_head_dim)
+    return 4.0 * cfg.n_heads * qk_dim * bsz * (cached + (bsz + 1) / 2.0)
 
 
 def attn_flops(cfg: ModelConfig, items: Sequence[Tuple[int, int]]) -> float:

@@ -1,16 +1,18 @@
 """KV state ↔ FullBlock bytes, slot utilities and the layerwise stream
 (port of ``repro.engines.kvio``).
 
-The engines keep decode state as padded device buffers
-``{"kv": {"k","v": (L, b, S, hkv, dh)}}``; storage holds host FullBlocks
-``(L, tokens, row_bytes)`` uint8 with row = k ‖ v, byte for byte the
-reference's layout.  :func:`serialize_blocks` is the DE's persist, which
-writes every layer into its FullBlock pages with one launch of the
-``kv_layer_scatter`` kernel.  :func:`layer_stream` is layerwise loading
-(paper §4.1): the hit FullBlocks go to the card once per install, and each
-layer's LayerBlock stream is gathered there by the ``kv_layer_gather``
-kernel, with the next layer's gather already submitted on the
-TrafficManager while the current layer is installed.
+The engines keep decode state as padded device buffers, ``{"kv": {"k",
+"v": (L, b, S, hkv, dh)}}`` for GQA and ``{"mla": {"c": (L, b, S, r),
+"krope": (L, b, S, rd)}}`` for MLA; storage holds host FullBlocks ``(L,
+tokens, row_bytes)`` uint8 with row = k ‖ v (GQA, 2·hkv·dh·itemsize
+bytes) or c ‖ krope (MLA, (r + rd)·itemsize bytes: 1152 for ds27b), byte
+for byte the reference's layout.  :func:`serialize_blocks` is the DE's
+persist, which writes every layer into its FullBlock pages with one
+launch of the ``kv_layer_scatter`` kernel.  :func:`layer_stream` is
+layerwise loading (paper §4.1): the hit FullBlocks go to the card once
+per install, and each layer's LayerBlock stream is gathered there by the
+``kv_layer_gather`` kernel, with the next layer's gather already
+submitted on the TrafficManager while the current layer is installed.
 """
 from __future__ import annotations
 
@@ -64,12 +66,26 @@ def slot_set(state, axes, slot: int, sub):
 
 
 def _kv_rows(cfg: ModelConfig) -> List[Tuple[str, tuple]]:
-    """(state_key, stack_index) per attention layer, in layer order."""
+    """(state_key, stack_index) per attention layer, in layer order.  The
+    port keeps one stack over all layers for the dense and the MoE
+    family alike (the reference's MoE rows are ``("dense", (i,))`` then
+    ``("moe", (i,))``; ``bridge.state_from_jax`` joins the two)."""
     require_ported(cfg)
-    return [("kv", (li,)) for li in range(cfg.n_layers)]
+    return [(_state_key(cfg), (li,)) for li in range(cfg.n_layers)]
+
+
+def _state_key(cfg: ModelConfig) -> str:
+    return "mla" if cfg.attn_variant == "mla" else "kv"
+
+
+def _row_parts(cfg: ModelConfig) -> Tuple[str, str]:
+    """The two state leaves a FullBlock row holds, in row order."""
+    return ("c", "krope") if cfg.attn_variant == "mla" else ("k", "v")
 
 
 def kv_row_bytes(cfg: ModelConfig, dtype_bytes: int = 2) -> int:
+    if cfg.attn_variant == "mla":
+        return (cfg.mla.kv_lora_rank + cfg.mla.rope_head_dim) * dtype_bytes
     return 2 * cfg.n_kv_heads * cfg.head_dim * dtype_bytes
 
 
@@ -77,10 +93,20 @@ def n_attn_layers(cfg: ModelConfig) -> int:
     return cfg.n_layers
 
 
-def _as_bytes(t: torch.Tensor) -> torch.Tensor:
-    """(..., T, hkv, dh) -> (..., T, hkv·dh·itemsize) uint8 view."""
+def _as_bytes(cfg: ModelConfig, t: torch.Tensor) -> torch.Tensor:
+    """(..., T, hkv, dh) -> (..., T, hkv·dh·itemsize) uint8; MLA's (..., T,
+    r) -> (..., T, r·itemsize)."""
     t = t.contiguous()
-    return t.view(torch.uint8).reshape(*t.shape[:-2], -1)
+    feat = 1 if cfg.attn_variant == "mla" else 2
+    return t.view(torch.uint8).reshape(*t.shape[:-feat], -1)
+
+
+def _row_bytes(cfg: ModelConfig, comp, index) -> torch.Tensor:
+    """The rows ``comp[leaf][index]`` of both leaves as uint8, leaf ‖
+    leaf (k ‖ v, or c ‖ krope)."""
+    a, b = _row_parts(cfg)
+    return torch.cat([_as_bytes(cfg, comp[a][index]),
+                      _as_bytes(cfg, comp[b][index])], dim=-1)
 
 
 def serialize_kv(cfg: ModelConfig, state, slot: int, t0: int,
@@ -96,15 +122,15 @@ def _kv_bytes(cfg: ModelConfig, state, slot: int, t0: int,
               t1: int) -> torch.Tensor:
     """(n_attn_layers, t1-t0, row_bytes) uint8 on the state's device."""
     _kv_rows(cfg)
-    k = state["kv"]["k"][:, slot, t0:t1]
-    v = state["kv"]["v"][:, slot, t0:t1]
-    return torch.cat([_as_bytes(k), _as_bytes(v)], dim=-1)
+    return _row_bytes(cfg, state[_state_key(cfg)],
+                      (slice(None), slot, slice(t0, t1)))
 
 
 def serialize_blocks(cfg: ModelConfig, state, slot: int, b0: int, b1: int,
                      block_tokens: int) -> np.ndarray:
     """FullBlocks ``b0 .. b1-1`` of one slot -> (b1-b0, n_attn_layers,
-    block_tokens, row_bytes) uint8, block-major, row = k ‖ v: the DE's
+    block_tokens, row_bytes) uint8, block-major, row = k ‖ v (or c ‖
+    krope): the DE's
     persist.  The layer-major byte view is built on the device once and
     every layer's LayerBlock stream goes into its FullBlock pages in one
     launch of the ``kv_layer_scatter`` kernel; the block-major pool then
@@ -125,20 +151,24 @@ def serialize_kv_layer(cfg: ModelConfig, state, slot: int, t0: int,
                        t1: int, layer: int) -> np.ndarray:
     """One attention layer's KV rows -> (t1-t0, row_bytes) uint8."""
     key, idx = _kv_rows(cfg)[layer]
-    comp = state[key]
-    k = comp["k"][idx + (slot, slice(t0, t1))]
-    v = comp["v"][idx + (slot, slice(t0, t1))]
-    return torch.cat([_as_bytes(k), _as_bytes(v)], dim=-1).cpu().numpy()
+    return _row_bytes(cfg, state[key],
+                      idx + (slot, slice(t0, t1))).cpu().numpy()
 
 
 def _rows_to_kv(cfg: ModelConfig, rows: torch.Tensor, dtype: torch.dtype):
-    """(..., T, row_bytes) uint8 -> k, v (..., T, hkv, dh) of ``dtype``,
-    viewed in place on the rows' device (no copy)."""
+    """(..., T, row_bytes) uint8 -> the row's two leaves of ``dtype``, k,
+    v (..., T, hkv, dh) or c (..., T, r), krope (..., T, rd), viewed in
+    place on the rows' device (no copy)."""
+    lead = rows.shape[:-1]
+    if cfg.attn_variant == "mla":
+        cut = cfg.mla.kv_lora_rank * rows.shape[-1] // (
+            cfg.mla.kv_lora_rank + cfg.mla.rope_head_dim)
+        return (rows[..., :cut].view(dtype).view(*lead, -1),
+                rows[..., cut:].view(dtype).view(*lead, -1))
     half = rows.shape[-1] // 2
-    shape = (*rows.shape[:-1], cfg.n_kv_heads, cfg.head_dim)
-    k = rows[..., :half].view(dtype).view(shape)
-    v = rows[..., half:].view(dtype).view(shape)
-    return k, v
+    shape = (*lead, cfg.n_kv_heads, cfg.head_dim)
+    return (rows[..., :half].view(dtype).view(shape),
+            rows[..., half:].view(dtype).view(shape))
 
 
 def deserialize_kv_layer(cfg: ModelConfig, state, slot: int, t0: int,
@@ -148,12 +178,12 @@ def deserialize_kv_layer(cfg: ModelConfig, state, slot: int, t0: int,
     step of layerwise loading.  Returns the state."""
     key, idx = _kv_rows(cfg)[layer]
     comp = state[key]
-    dev = comp["k"].device
-    rows = torch.as_tensor(rows, device=dev)
-    k, v = _rows_to_kv(cfg, rows, comp["k"].dtype)
-    t = k.shape[0]
-    comp["k"][idx + (slot, slice(t0, t0 + t))] = k
-    comp["v"][idx + (slot, slice(t0, t0 + t))] = v
+    a, b = _row_parts(cfg)
+    rows = torch.as_tensor(rows, device=comp[a].device)
+    x, y = _rows_to_kv(cfg, rows, comp[a].dtype)
+    t = x.shape[0]
+    comp[a][idx + (slot, slice(t0, t0 + t))] = x
+    comp[b][idx + (slot, slice(t0, t0 + t))] = y
     return state
 
 
@@ -163,12 +193,13 @@ def deserialize_kv(cfg: ModelConfig, state, slot: int, t0: int,
     layers in one host-to-device copy.  Returns the state."""
     n_l = len(_kv_rows(cfg))
     assert kv_bytes.shape[0] == n_l, (kv_bytes.shape[0], n_l)
-    comp = state["kv"]
-    rows = torch.as_tensor(kv_bytes, device=comp["k"].device)
-    k, v = _rows_to_kv(cfg, rows, comp["k"].dtype)
-    t = k.shape[1]
-    comp["k"][:, slot, t0:t0 + t] = k
-    comp["v"][:, slot, t0:t0 + t] = v
+    comp = state[_state_key(cfg)]
+    a, b = _row_parts(cfg)
+    rows = torch.as_tensor(kv_bytes, device=comp[a].device)
+    x, y = _rows_to_kv(cfg, rows, comp[a].dtype)
+    t = x.shape[1]
+    comp[a][:, slot, t0:t0 + t] = x
+    comp[b][:, slot, t0:t0 + t] = y
     return state
 
 

@@ -1,5 +1,6 @@
 """Inference engines: layerwise-prefill PE and slot-batched decode DE
-(port of ``repro.engines.runtime``, dense family).
+(port of ``repro.engines.runtime``, dense and MoE families, GQA or MLA
+attention).
 
 * ``PrefillEngine`` — hit KV arrives as host FullBlocks and is installed
   layer by layer on the card (``kvio.layer_stream``, the gather kernel);

@@ -5,12 +5,14 @@ computes its plain PyTorch version (``ref``) for CPU tensors, and counts
 its launches in ``<wrapper>.launches``.
 """
 from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.grouped_gemm import grouped_gemm
 from repro_torch.kernels.kv_gather import kv_layer_gather
 from repro_torch.kernels.kv_scatter import kv_layer_scatter
+from repro_torch.kernels.mla_decode import mla_decode
 from repro_torch.kernels.paged_attention import paged_attention
 
 WRAPPERS = (kv_layer_gather, kv_layer_scatter, flash_attention,
-            paged_attention)
+            paged_attention, grouped_gemm, mla_decode)
 
 
 def reset_launch_counts() -> None:
@@ -22,5 +24,6 @@ def launch_counts() -> dict:
     return {fn.__name__: fn.launches for fn in WRAPPERS}
 
 
-__all__ = ["flash_attention", "kv_layer_gather", "kv_layer_scatter",
-           "paged_attention", "reset_launch_counts", "launch_counts"]
+__all__ = ["flash_attention", "grouped_gemm", "kv_layer_gather",
+           "kv_layer_scatter", "mla_decode", "paged_attention",
+           "reset_launch_counts", "launch_counts"]

@@ -23,7 +23,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = ("kv_gather", "kv_scatter", "flash_attention", "paged_attention")
+SOURCES = ("kv_gather", "kv_scatter", "flash_attention", "paged_attention",
+           "grouped_gemm", "mla_decode")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -92,7 +93,8 @@ def check(rc: int, kernel: str) -> None:
                            f"cudaError_t {rc}")
 
 
-# the attention kernels' dtype codes (see the extern "C" entry points)
+# the kernels' dtype codes: attention, the absorbed MLA decode and the
+# grouped GEMM (see the extern "C" entry points)
 ATTN_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 

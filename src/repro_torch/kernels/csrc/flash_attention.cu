@@ -50,6 +50,14 @@
 // at every k-step instead of held in 64 registers beside the 128 of the
 // output accumulator (Q_IN_REGS); the ptxas report is in PERF.md.
 //
+// Widths: the kernels are templated on the q/k width DK and the v width
+// DV.  Every GQA model has DK = DV; ds27b's MLA append attends with q/k
+// 192 (128 nope + 64 rope) and v 128, and the scale is 1 / sqrt(DK), as
+// the reference's mla_append (repro/models/mla.py:78) scales.  At (192,
+// 128) the bf16 block takes (64 x 200 + 2 x 64 x (200 + 136)) x 2 =
+// 111,616 bytes of shared memory, and Q's 48 fragment registers stay
+// beside the 64 of the accumulator.
+//
 // f32 design (flash_f32_kernel, chosen by the dtype dispatch in the entry
 // point): the scalar path of the port's first version, kept because TF32
 // tensor cores would break the 2e-5 tolerance and, up to dh 128, it
@@ -88,12 +96,15 @@ constexpr int STAGES = 2;
 template <int DH>
 __host__ __device__ constexpr int ld_elems() { return DH + 8; }  // smem row
 
-template <int DH>
+template <int DK, int DV>
 constexpr int split_smem_bytes() {
-  return (MAX_ROWS + 2 * STAGES * BK) * ld_elems<DH>() * (int)sizeof(bf16);
+  return (MAX_ROWS * ld_elems<DK>() +
+          STAGES * BK * (ld_elems<DK>() + ld_elems<DV>())) *
+         (int)sizeof(bf16);
 }
 
-template <int DH>
+// DK: the q/k width, DV <= DK: the v (and output) width
+template <int DK, int DV>
 __global__ void __launch_bounds__(THREADS)
 flash_split_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                    const bf16* __restrict__ v, bf16* __restrict__ o,
@@ -102,12 +113,13 @@ flash_split_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                    int g, int bq, int sq, int skv, int chunk, int n_split,
                    Strides st, float scale, float softcap, int causal,
                    int window) {
-  constexpr int LD = ld_elems<DH>();
-  constexpr int CPR = DH / 8;            // 16-byte chunks per row
+  static_assert(DV <= DK, "v no wider than q/k");
+  constexpr int LDK = ld_elems<DK>(), LDV = ld_elems<DV>();
+  constexpr int CPRK = DK / 8, CPRV = DV / 8;  // 16-byte chunks per row
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* qsm = reinterpret_cast<bf16*>(smem_raw);   // MAX_ROWS x LD
-  bf16* ksm = qsm + MAX_ROWS * LD;                 // STAGES x BK x LD
-  bf16* vsm = ksm + STAGES * BK * LD;              // STAGES x BK x LD
+  bf16* qsm = reinterpret_cast<bf16*>(smem_raw);   // MAX_ROWS x LDK
+  bf16* ksm = qsm + MAX_ROWS * LDK;                // STAGES x BK x LDK
+  bf16* vsm = ksm + STAGES * BK * LDK;             // STAGES x BK x LDV
 
   const int qt = blockIdx.x / n_split, split = blockIdx.x % n_split;
   const int h = blockIdx.y, b = blockIdx.z;
@@ -133,8 +145,8 @@ flash_split_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   if (lo >= hi) {                        // nothing visible in this split
     if (n_split == 1) {
-      for (int idx = tid; idx < rows * DH; idx += THREADS) {
-        const int r = idx / DH, d = idx % DH, gi = r / bq, ri = r % bq;
+      for (int idx = tid; idx < rows * DV; idx += THREADS) {
+        const int r = idx / DV, d = idx % DV, gi = r / bq, ri = r % bq;
         if (ri < nq)
           o[b * st.ob + (long long)(h * g + gi) * st.oh +
             (long long)(i0 + ri) * st.os + d] = __float2bfloat16(0.f);
@@ -153,26 +165,39 @@ flash_split_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 
   // Q tile (rows past the tile's are zero-filled), then K/V tile 0: group 0
-  for (int c = tid; c < MAX_ROWS * CPR; c += THREADS) {
-    const int r = c / CPR, cc = c % CPR, gi = r / bq, ri = r % bq;
+  for (int c = tid; c < MAX_ROWS * CPRK; c += THREADS) {
+    const int r = c / CPRK, cc = c % CPRK, gi = r / bq, ri = r % bq;
     const bool ok = r < rows && ri < nq;
     const bf16* src = ok ? q + b * st.qb + (long long)(h * g + gi) * st.qh +
                                (long long)(i0 + ri) * st.qs + cc * 8
                          : q;
-    cp_async16(qsm + r * LD + cc * 8, src, ok);
+    cp_async16(qsm + r * LDK + cc * 8, src, ok);
   }
   const bf16* kbase = k + b * st.kb + h * st.kh;
   const bf16* vbase = v + b * st.vb + h * st.vh;
   auto load_tile = [&](int t0, int stage) {
-    bf16* kd = ksm + stage * BK * LD;
-    bf16* vd = vsm + stage * BK * LD;
-    for (int c = tid; c < BK * CPR; c += THREADS) {
-      const int j = c / CPR, cc = c % CPR, t = t0 + j;
+    bf16* kd = ksm + stage * BK * LDK;
+    bf16* vd = vsm + stage * BK * LDV;
+    // equal widths: each thread issues a K and a V chunk together; MLA's
+    // narrower V in a loop of its own (a V chunk beside only the first
+    // CPRV of each row's K chunks leaves the issue uneven: 13 % slower
+    // at 192 / 128, PERF.md)
+    for (int c = tid; c < BK * CPRK; c += THREADS) {
+      const int j = c / CPRK, cc = c % CPRK, t = t0 + j;
       const bool ok = t < hi;
-      cp_async16(kd + j * LD + cc * 8,
+      cp_async16(kd + j * LDK + cc * 8,
                  ok ? kbase + (long long)t * st.ks + cc * 8 : k, ok);
-      cp_async16(vd + j * LD + cc * 8,
-                 ok ? vbase + (long long)t * st.vs + cc * 8 : v, ok);
+      if constexpr (DK == DV)
+        cp_async16(vd + j * LDV + cc * 8,
+                   ok ? vbase + (long long)t * st.vs + cc * 8 : v, ok);
+    }
+    if constexpr (DK != DV) {
+      for (int c = tid; c < BK * CPRV; c += THREADS) {
+        const int j = c / CPRV, cc = c % CPRV, t = t0 + j;
+        const bool ok = t < hi;
+        cp_async16(vd + j * LDV + cc * 8,
+                   ok ? vbase + (long long)t * st.vs + cc * 8 : v, ok);
+      }
     }
   };
   load_tile(lo, 0);
@@ -183,16 +208,17 @@ flash_split_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
   for (int i = 0; i < 2; ++i) pos[i] = q_start + i0 + wr[i] % bq;
 
-  // Q's A fragments stay in registers up to dh 128; at dh 256 they would
-  // take 64 more registers beside the 128 of oacc, so each k-step reloads
-  // its fragment from the Q tile, which stays in shared memory
-  constexpr bool Q_IN_REGS = DH <= 128;
-  uint32_t qf[Q_IN_REGS ? DH / 16 : 1][4];
+  // Q's A fragments stay in registers up to dk 128 (and at MLA's dk 192
+  // beside dv 128: 48 + 64 registers); at dh 256 they would take 64 more
+  // registers beside the 128 of oacc, so each k-step reloads its fragment
+  // from the Q tile, which stays in shared memory
+  constexpr bool Q_IN_REGS = DK + DV <= 320;
+  uint32_t qf[Q_IN_REGS ? DK / 16 : 1][4];
   const int q_r = warp * 16 + (lane & 7) + (((lane >> 3) & 1) << 3);
   const int q_c = (lane >> 4) << 3;
-  float oacc[DH / 8][4];
+  float oacc[DV / 8][4];
 #pragma unroll
-  for (int d = 0; d < DH / 8; ++d)
+  for (int d = 0; d < DV / 8; ++d)
 #pragma unroll
     for (int e = 0; e < 4; ++e) oacc[d][e] = 0.f;
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
@@ -206,12 +232,12 @@ flash_split_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     if constexpr (Q_IN_REGS) {
       if (it == 0) {
 #pragma unroll
-        for (int kk = 0; kk < DH / 16; ++kk)
-          ldsm_x4(qf[kk], qsm + q_r * LD + kk * 16 + q_c);
+        for (int kk = 0; kk < DK / 16; ++kk)
+          ldsm_x4(qf[kk], qsm + q_r * LDK + kk * 16 + q_c);
       }
     }
-    const bf16* kt = ksm + (it % STAGES) * BK * LD;
-    const bf16* vt = vsm + (it % STAGES) * BK * LD;
+    const bf16* kt = ksm + (it % STAGES) * BK * LDK;
+    const bf16* vt = vsm + (it % STAGES) * BK * LDV;
     const int t0 = lo + it * BK;
 
     // S = Q K^T: 16 rows x BK keys per warp, in BK / 8 fragments
@@ -221,20 +247,20 @@ flash_split_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
 #pragma unroll
-    for (int kk = 0; kk < DH / 16; ++kk) {
+    for (int kk = 0; kk < DK / 16; ++kk) {
       uint32_t qa[4];
       if constexpr (Q_IN_REGS) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) qa[e] = qf[kk][e];
       } else {
-        ldsm_x4(qa, qsm + q_r * LD + kk * 16 + q_c);
+        ldsm_x4(qa, qsm + q_r * LDK + kk * 16 + q_c);
       }
 #pragma unroll
       for (int j = 0; j < BK / 16; ++j) {
         uint32_t bfr[4];
         const int key = j * 16 + (lane & 7) + ((lane >> 4) << 3);
         const int c = kk * 16 + (((lane >> 3) & 1) << 3);
-        ldsm_x4(bfr, kt + key * LD + c);
+        ldsm_x4(bfr, kt + key * LDK + c);
         mma_bf16(s[2 * j], qa, bfr[0], bfr[1]);
         mma_bf16(s[2 * j + 1], qa, bfr[2], bfr[3]);
       }
@@ -268,7 +294,7 @@ flash_split_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       const float corr = exp2f(m[i] - mu[i]);
       l[i] *= corr;
 #pragma unroll
-      for (int d = 0; d < DH / 8; ++d) {
+      for (int d = 0; d < DV / 8; ++d) {
         oacc[d][2 * i] *= corr;
         oacc[d][2 * i + 1] *= corr;
       }
@@ -293,11 +319,11 @@ flash_split_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       a[2] = pack_bf16(s[2 * j + 1][0], s[2 * j + 1][1]);
       a[3] = pack_bf16(s[2 * j + 1][2], s[2 * j + 1][3]);
 #pragma unroll
-      for (int d = 0; d < DH / 16; ++d) {
+      for (int d = 0; d < DV / 16; ++d) {
         uint32_t bfr[4];
         const int key = j * 16 + (lane & 7) + (((lane >> 3) & 1) << 3);
         const int c = d * 16 + ((lane >> 4) << 3);
-        ldsm_x4_trans(bfr, vt + key * LD + c);
+        ldsm_x4_trans(bfr, vt + key * LDV + c);
         mma_bf16(oacc[2 * d], a, bfr[0], bfr[1]);
         mma_bf16(oacc[2 * d + 1], a, bfr[2], bfr[3]);
       }
@@ -317,16 +343,16 @@ flash_split_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                    (long long)(i0 + ri) * st.os;
       const float inv = l[i] > 0.f ? 1.f / l[i] : 0.f;
 #pragma unroll
-      for (int d = 0; d < DH / 8; ++d)
+      for (int d = 0; d < DV / 8; ++d)
         *reinterpret_cast<__nv_bfloat162*>(orow + d * 8 + col) =
             __floats2bfloat162_rn(oacc[d][2 * i] * inv,
                                   oacc[d][2 * i + 1] * inv);
     } else {
       const long long pr = split * n_rows +
                            ((long long)b * hq + h * g + gi) * sq + i0 + ri;
-      float* arow = pacc + pr * DH;
+      float* arow = pacc + pr * DV;
 #pragma unroll
-      for (int d = 0; d < DH / 8; ++d)
+      for (int d = 0; d < DV / 8; ++d)
         *reinterpret_cast<float2*>(arow + d * 8 + col) =
             make_float2(oacc[d][2 * i], oacc[d][2 * i + 1]);
       if ((lane & 3) == 0) {
@@ -338,33 +364,33 @@ flash_split_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 // one warp per output row (b, head, query): merges the splits' partials
-template <int DH>
+template <int DV>
 __global__ void __launch_bounds__(THREADS)
 flash_combine_kernel(const float* __restrict__ pm,
                      const float* __restrict__ pl,
                      const float* __restrict__ pacc, bf16* __restrict__ o,
                      long long n_rows, int n_split, int hq, int sq,
                      Strides st) {
-  combine_rows<bf16, DH>(pm, pl, pacc, o, n_rows, n_split, hq, sq, st.ob,
+  combine_rows<bf16, DV>(pm, pl, pacc, o, n_rows, n_split, hq, sq, st.ob,
                          st.oh, st.os);
 }
 
-template <int DH>
+template <int DK, int DV>
 int launch_bf16(const void* q, const void* k, const void* v, void* o,
                 float* pm, float* pl, float* pacc, const int* kv_lens, int b,
                 int hq, int hkv, int sq, int skv, int n_split, int chunk,
                 const Strides& st, float scale, float softcap, int causal,
                 int window, cudaStream_t stream) {
-  constexpr int smem = split_smem_bytes<DH>();
+  constexpr int smem = split_smem_bytes<DK, DV>();
   static const cudaError_t attr = cudaFuncSetAttribute(
-      flash_split_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+      flash_split_kernel<DK, DV>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (attr != cudaSuccess) return (int)attr;
   const int g = hq / hkv;
   const int bq = max(1, MAX_ROWS / g);
   const int n_qt = (sq + bq - 1) / bq;
   dim3 grid(n_qt * n_split, hkv, b);
-  flash_split_kernel<DH><<<grid, THREADS, smem, stream>>>(
+  flash_split_kernel<DK, DV><<<grid, THREADS, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<bf16*>(o), pm, pl, pacc,
       kv_lens, g, bq, sq, skv, chunk, n_split, st, scale, softcap, causal,
@@ -373,7 +399,7 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o,
   if (e != cudaSuccess || n_split == 1) return (int)e;
   const long long n_rows = (long long)b * hq * sq;
   const long long blocks = (n_rows + NWARPS - 1) / NWARPS;
-  flash_combine_kernel<DH><<<(unsigned)blocks, THREADS, 0, stream>>>(
+  flash_combine_kernel<DV><<<(unsigned)blocks, THREADS, 0, stream>>>(
       pm, pl, pacc, static_cast<bf16*>(o), n_rows, n_split, hq, sq, st);
   return (int)cudaGetLastError();
 }
@@ -388,19 +414,22 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o,
 constexpr int TILE = 32;            // keys per staged tile = lanes per warp
 constexpr float NEG_BIG = -1e30f;   // initial running max (as in Pallas)
 
-// Stage keys [t0, t0 + TILE) into ks (TILE x (DH + 1)) and vs (TILE x DH)
+// Stage keys [t0, t0 + TILE) into ks (TILE x (DK + 1)) and vs (TILE x DV)
 // as f32; keys at or past n are zero.  NT threads cooperate (tid in
 // [0, NT)); row_off(t, ko, vo) gives the element offsets of key t's K and V
 // rows.  Each thread first loads a chunk of up to 16 K and 16 V elements,
 // raw, into registers (unrolled, so the loads are in flight together), and
 // only then converts and stores them: a load-convert-store loop makes the
-// global-memory latencies add up one after another.
-template <typename T, int DH, int NT, typename RowOff>
+// global-memory latencies add up one after another.  With DV < DK the V
+// chunk is the first DV / DK of the K chunk's elements, at V's row width.
+template <typename T, int DK, int DV, int NT, typename RowOff>
 __device__ __forceinline__ void stage_tile(const T* __restrict__ k,
                                            const T* __restrict__ v,
                                            RowOff row_off, int t0, int n,
                                            int tid, float* ks, float* vs) {
-  constexpr int PER = TILE * DH / NT;   // elements per thread
+  static_assert(DV <= DK, "v no wider than k");
+  constexpr int PER = TILE * DK / NT;   // K elements per thread
+  constexpr int PER_V = TILE * DV / NT;  // V elements per thread
   constexpr int CHUNK = PER < 16 ? PER : 16;
   static_assert(PER % CHUNK == 0, "tile must split evenly");
   const T zero = from_f<T>(0.f);
@@ -410,44 +439,47 @@ __device__ __forceinline__ void stage_tile(const T* __restrict__ k,
 #pragma unroll
     for (int i = 0; i < CHUNK; ++i) {
       const int idx = tid + (c + i) * NT;
-      const int t = t0 + idx / DH, d = idx % DH;
+      const int t = t0 + idx / DK, d = idx % DK;
+      const int tv = t0 + idx / DV, dv = idx % DV;
       kr[i] = zero;
       vr[i] = zero;
+      long long ko, vo;
       if (t < n) {
-        long long ko, vo;
         row_off(t, ko, vo);
         kr[i] = k[ko + d];
-        vr[i] = v[vo + d];
+      }
+      if (c + i < PER_V && tv < n) {
+        row_off(tv, ko, vo);
+        vr[i] = v[vo + dv];
       }
     }
 #pragma unroll
     for (int i = 0; i < CHUNK; ++i) {
       const int idx = tid + (c + i) * NT;
-      const int j = idx / DH, d = idx % DH;
-      ks[j * (DH + 1) + d] = to_f(kr[i]);
-      vs[j * DH + d] = to_f(vr[i]);
+      ks[(idx / DK) * (DK + 1) + idx % DK] = to_f(kr[i]);
+      if (c + i < PER_V) vs[idx] = to_f(vr[i]);
     }
   }
 }
 
-// One query row (qrow: DH floats in shared memory) against one staged
-// tile.  Lane j owns key j: its K row starts at ks + j * (DH + 1) (the +1
+// One query row (qrow: DK floats in shared memory) against one staged
+// tile.  Lane j owns key j: its K row starts at ks + j * (DK + 1) (the +1
 // pad puts the 32 lanes' reads in 32 distinct banks), its V row at
-// vs + j * DH.  Rows of keys past the end of the sequence must be zero
+// vs + j * DV.  Rows of keys past the end of the sequence must be zero
 // in ks/vs (the loaders fill them so), because p = 0 times a stale
 // non-finite value would still poison acc.  `valid` masks this lane's
 // key (padding, causality, window).  All 32 lanes must call together.
-template <typename T, int DH>
+template <typename T, int DK, int DV>
 __device__ __forceinline__ void row_update(const float* qrow,
                                            const float* ks, const float* vs,
                                            bool valid, float scale,
                                            float softcap, float& m, float& l,
-                                           float (&acc)[DH / 32]) {
+                                           float (&acc)[DV / 32]) {
   const int lane = threadIdx.x & 31;
-  const float* krow = ks + lane * (DH + 1);
+  const float* krow = ks + lane * (DK + 1);
   float s = 0.f;
 #pragma unroll 16
-  for (int d = 0; d < DH; ++d) s = fmaf(qrow[d], krow[d], s);
+  for (int d = 0; d < DK; ++d) s = fmaf(qrow[d], krow[d], s);
   s *= scale;
   if (softcap > 0.f) s = tanhf(s / softcap) * softcap;
   const float m_new = fmaxf(m, warp_max(valid ? s : -INFINITY));
@@ -456,24 +488,24 @@ __device__ __forceinline__ void row_update(const float* qrow,
   l = l * corr + warp_sum(p);
   const float pv = to_f(from_f<T>(p));   // p in the V dtype for P.V
 #pragma unroll
-  for (int i = 0; i < DH / 32; ++i) acc[i] *= corr;
+  for (int i = 0; i < DV / 32; ++i) acc[i] *= corr;
 #pragma unroll 8
   for (int j = 0; j < TILE; ++j) {
     const float pj = __shfl_sync(FULL, pv, j);
-    const float* vrow = vs + j * DH + lane;
+    const float* vrow = vs + j * DV + lane;
 #pragma unroll
-    for (int i = 0; i < DH / 32; ++i) acc[i] = fmaf(pj, vrow[32 * i], acc[i]);
+    for (int i = 0; i < DV / 32; ++i) acc[i] = fmaf(pj, vrow[32 * i], acc[i]);
   }
   m = m_new;
 }
 
 
-template <int DH, int ROWS>
+template <int DK, int DV, int ROWS>
 constexpr int smem_floats() {
-  return ROWS * DH + TILE * (DH + 1) + TILE * DH;
+  return ROWS * DK + TILE * (DK + 1) + TILE * DV;
 }
 
-template <typename T, int DH, int ROWS>
+template <typename T, int DK, int DV, int ROWS>
 __global__ void __launch_bounds__(THREADS)
 flash_f32_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o,
@@ -482,9 +514,9 @@ flash_f32_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  int window) {
   constexpr int RPW = ROWS / NWARPS;     // rows per warp
   extern __shared__ float smem[];
-  float* qs = smem;                      // ROWS x DH
-  float* ks = qs + ROWS * DH;            // TILE x (DH + 1)
-  float* vs = ks + TILE * (DH + 1);      // TILE x DH
+  float* qs = smem;                      // ROWS x DK
+  float* ks = qs + ROWS * DK;            // TILE x (DK + 1)
+  float* vs = ks + TILE * (DK + 1);      // TILE x DV
 
   const int b = blockIdx.z, h = blockIdx.y;
   const int i0 = blockIdx.x * bq;        // first query of this tile
@@ -494,8 +526,8 @@ flash_f32_kernel(const T* __restrict__ q, const T* __restrict__ k,
   kv_len = min(max(kv_len, 0), skv);
   const int q_start = kv_len - sq;       // global position of query 0
 
-  for (int idx = threadIdx.x; idx < rows * DH; idx += THREADS) {
-    const int r = idx / DH, d = idx % DH;
+  for (int idx = threadIdx.x; idx < rows * DK; idx += THREADS) {
+    const int r = idx / DK, d = idx % DK;
     const int gi = r / bq, ri = r % bq;
     float x = 0.f;
     if (ri < nq)
@@ -515,19 +547,19 @@ flash_f32_kernel(const T* __restrict__ q, const T* __restrict__ k,
     vo = vb + (long long)t * st.vs;
   };
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  float m[RPW], l[RPW], acc[RPW][DH / 32];
+  float m[RPW], l[RPW], acc[RPW][DV / 32];
 #pragma unroll
   for (int rr = 0; rr < RPW; ++rr) {
     m[rr] = NEG_BIG;
     l[rr] = 0.f;
 #pragma unroll
-    for (int i = 0; i < DH / 32; ++i) acc[rr][i] = 0.f;
+    for (int i = 0; i < DV / 32; ++i) acc[rr][i] = 0.f;
   }
 
   for (int t0 = k_beg; t0 < k_end; t0 += TILE) {
     __syncthreads();                     // previous tile fully consumed
-    stage_tile<T, DH, THREADS>(k, v, row_off, t0, k_end, threadIdx.x, ks,
-                               vs);
+    stage_tile<T, DK, DV, THREADS>(k, v, row_off, t0, k_end, threadIdx.x,
+                                   ks, vs);
     __syncthreads();
     const int t = t0 + lane;
 #pragma unroll
@@ -539,8 +571,8 @@ flash_f32_kernel(const T* __restrict__ q, const T* __restrict__ k,
         bool valid = ri < nq && t < k_end;
         if (causal) valid = valid && t <= pos;
         if (window > 0) valid = valid && pos - t < window;
-        row_update<T, DH>(qs + r * DH, ks, vs, valid, scale, softcap, m[rr],
-                          l[rr], acc[rr]);
+        row_update<T, DK, DV>(qs + r * DK, ks, vs, valid, scale, softcap,
+                              m[rr], l[rr], acc[rr]);
       }
     }
   }
@@ -554,43 +586,43 @@ flash_f32_kernel(const T* __restrict__ q, const T* __restrict__ k,
     T* orow = o + b * st.ob + (long long)(h * g + gi) * st.oh +
               (long long)(i0 + ri) * st.os;
 #pragma unroll
-    for (int i = 0; i < DH / 32; ++i)
+    for (int i = 0; i < DV / 32; ++i)
       orow[lane + 32 * i] =
           from_f<T>(l[rr] > 0.f ? acc[rr][i] / l[rr] : 0.f);
   }
 }
 
 
-template <int DH, int ROWS>
+template <int DK, int DV, int ROWS>
 int launch_f32_rows(const void* q, const void* k, const void* v, void* o,
                     const int* kv_lens, int b, int hq, int hkv, int sq,
                     int skv, const Strides& st, float scale, float softcap,
                     int causal, int window, cudaStream_t stream) {
-  constexpr int smem = (int)sizeof(float) * smem_floats<DH, ROWS>();
+  constexpr int smem = (int)sizeof(float) * smem_floats<DK, DV, ROWS>();
   static const cudaError_t attr = cudaFuncSetAttribute(
-      flash_f32_kernel<float, DH, ROWS>,
+      flash_f32_kernel<float, DK, DV, ROWS>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (attr != cudaSuccess) return (int)attr;
   const int g = hq / hkv;
   const int bq = max(1, ROWS / g);
   dim3 grid((sq + bq - 1) / bq, hkv, b);
-  flash_f32_kernel<float, DH, ROWS><<<grid, THREADS, smem, stream>>>(
+  flash_f32_kernel<float, DK, DV, ROWS><<<grid, THREADS, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), kv_lens, g, bq,
       sq, skv, st, scale, softcap, causal, window);
   return (int)cudaGetLastError();
 }
 
-template <int DH>
+template <int DK, int DV>
 int launch_f32(const void* q, const void* k, const void* v, void* o,
                const int* kv_lens, int b, int hq, int hkv, int sq, int skv,
                const Strides& st, float scale, float softcap, int causal,
                int window, cudaStream_t stream) {
   if (hq / hkv <= 16)
-    return launch_f32_rows<DH, 16>(q, k, v, o, kv_lens, b, hq, hkv, sq, skv,
+    return launch_f32_rows<DK, DV, 16>(q, k, v, o, kv_lens, b, hq, hkv, sq, skv,
                                    st, scale, softcap, causal, window,
                                    stream);
-  return launch_f32_rows<DH, MAX_ROWS>(q, k, v, o, kv_lens, b, hq, hkv, sq,
+  return launch_f32_rows<DK, DV, MAX_ROWS>(q, k, v, o, kv_lens, b, hq, hkv, sq,
                                        skv, st, scale, softcap, causal,
                                        window, stream);
 }
@@ -598,14 +630,16 @@ int launch_f32(const void* q, const void* k, const void* v, void* o,
 }  // namespace
 
 // dtype: 0 = float32 (scalar path, one split), 1 = bfloat16 (tensor-core
-// path).  strides: 12 element strides, the (b, h, s) strides of q, k, v
-// and o in that order.  kv_lens may be null.  bf16 with n_split > 1:
-// pm and pl hold n_split * b * hq * sq floats and pacc dh times as many
-// (scratch the caller allocates), keys are split in ranges of `chunk`
-// (a multiple of 64), and the caller checked that q, k, v, o are 16-byte
-// aligned with strides that are multiples of 8 elements.  Returns the
-// first launch error (cudaError_t), 0 on success.
-extern "C" int flash_attention(int dtype, int dh, const void* q,
+// path).  (dk, dv): the q/k and the v widths, one of (32, 32), (64, 64),
+// (128, 128), (256, 256) and MLA's (192, 128).  strides: 12 element
+// strides, the (b, h, s) strides of q, k, v and o in that order.  kv_lens
+// may be null.  bf16 with n_split > 1: pm and pl hold n_split * b * hq *
+// sq floats and pacc dv times as many (scratch the caller allocates),
+// keys are split in ranges of `chunk` (a multiple of 64), and the caller
+// checked that q, k, v, o are 16-byte aligned with strides that are
+// multiples of 8 elements.  Returns the first launch error (cudaError_t),
+// 0 on success.
+extern "C" int flash_attention(int dtype, int dk, int dv, const void* q,
                                const void* k, const void* v, void* o,
                                float* pm, float* pl, float* pacc,
                                const int* kv_lens, int b, int hq, int hkv,
@@ -620,41 +654,35 @@ extern "C" int flash_attention(int dtype, int dh, const void* q,
   Strides st{strides[0], strides[1], strides[2], strides[3],
              strides[4], strides[5], strides[6], strides[7],
              strides[8], strides[9], strides[10], strides[11]};
+#define FLASH_F32(DK, DV)                                                    \
+  return launch_f32<DK, DV>(q, k, v, o, kv_lens, b, hq, hkv, sq, skv, st,    \
+                            scale, softcap, causal, window, stream)
+#define FLASH_BF16(DK, DV)                                                   \
+  return launch_bf16<DK, DV>(q, k, v, o, pm, pl, pacc, kv_lens, b, hq, hkv,  \
+                             sq, skv, n_split, chunk, st, scale, softcap,    \
+                             causal, window, stream)
+  const int key = dk * 1000 + dv;
   if (dtype == 0) {
     if (n_split != 1) return (int)cudaErrorInvalidValue;
-    switch (dh) {
-      case 32: return launch_f32<32>(q, k, v, o, kv_lens, b, hq, hkv, sq,
-                                     skv, st, scale, softcap, causal, window,
-                                     stream);
-      case 64: return launch_f32<64>(q, k, v, o, kv_lens, b, hq, hkv, sq,
-                                     skv, st, scale, softcap, causal, window,
-                                     stream);
-      case 128: return launch_f32<128>(q, k, v, o, kv_lens, b, hq, hkv, sq,
-                                       skv, st, scale, softcap, causal,
-                                       window, stream);
-      case 256: return launch_f32<256>(q, k, v, o, kv_lens, b, hq, hkv, sq,
-                                       skv, st, scale, softcap, causal,
-                                       window, stream);
+    switch (key) {
+      case 32032: FLASH_F32(32, 32);
+      case 64064: FLASH_F32(64, 64);
+      case 128128: FLASH_F32(128, 128);
+      case 256256: FLASH_F32(256, 256);
+      case 192128: FLASH_F32(192, 128);
     }
     return (int)cudaErrorInvalidValue;
   }
   if (dtype == 1) {
-    switch (dh) {
-      case 32: return launch_bf16<32>(q, k, v, o, pm, pl, pacc, kv_lens, b,
-                                      hq, hkv, sq, skv, n_split, chunk, st,
-                                      scale, softcap, causal, window, stream);
-      case 64: return launch_bf16<64>(q, k, v, o, pm, pl, pacc, kv_lens, b,
-                                      hq, hkv, sq, skv, n_split, chunk, st,
-                                      scale, softcap, causal, window, stream);
-      case 128: return launch_bf16<128>(q, k, v, o, pm, pl, pacc, kv_lens,
-                                        b, hq, hkv, sq, skv, n_split, chunk,
-                                        st, scale, softcap, causal, window,
-                                        stream);
-      case 256: return launch_bf16<256>(q, k, v, o, pm, pl, pacc, kv_lens,
-                                        b, hq, hkv, sq, skv, n_split, chunk,
-                                        st, scale, softcap, causal, window,
-                                        stream);
+    switch (key) {
+      case 32032: FLASH_BF16(32, 32);
+      case 64064: FLASH_BF16(64, 64);
+      case 128128: FLASH_BF16(128, 128);
+      case 256256: FLASH_BF16(256, 256);
+      case 192128: FLASH_BF16(192, 128);
     }
   }
+#undef FLASH_F32
+#undef FLASH_BF16
   return (int)cudaErrorInvalidValue;
 }

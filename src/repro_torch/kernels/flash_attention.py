@@ -1,13 +1,15 @@
 """Prefix-append flash attention — the prefill compute pattern.
 
-q (b, hq, sq, dh), the append chunk, attends over k, v (b, hkv, skv, dh),
-prefix || append, with query i of row b at global position
-``kv_lens[b] - sq + i`` (``kv_lens`` defaults to ``skv`` for every row,
-the Pallas kernel's contract).  Keys at or past ``kv_lens[b]`` are
-padding.  On CUDA tensors this launches ``csrc/flash_attention.cu``, the
-Hopper kernel that replaces the Pallas ``flash_attention``
-(``repro/kernels/flash_attention.py:107``); on CPU tensors it computes
-the plain version.
+q (b, hq, sq, dk), the append chunk, attends over k (b, hkv, skv, dk)
+and v (b, hkv, skv, dv), prefix || append, with query i of row b at
+global position ``kv_lens[b] - sq + i`` (``kv_lens`` defaults to ``skv``
+for every row, the Pallas kernel's contract).  Keys at or past
+``kv_lens[b]`` are padding.  The widths are one of ``WIDTHS``: dk = dv
+for every GQA model, and (192, 128) for ds27b's MLA append; scores are
+scaled by 1/sqrt(dk).  On CUDA tensors this launches
+``csrc/flash_attention.cu``, the Hopper kernel that replaces the Pallas
+``flash_attention`` (``repro/kernels/flash_attention.py:107``); on CPU
+tensors it computes the plain version.
 
 In bf16 the kernel runs on the tensor cores and, when the grid of
 64-row query tiles is under one wave of the card's SMs, splits the keys
@@ -19,8 +21,8 @@ one split.
 
 The CUDA path takes strided views: any tensor whose last dim is
 contiguous, so the model passes its (b, s, h, dh) activations and caches
-transposed, without a copy.  The output is allocated (b, sq, hq, dh) in
-memory and returned as its (b, hq, sq, dh) view, so the model's
+transposed, without a copy.  The output is allocated (b, sq, hq, dv) in
+memory and returned as its (b, hq, sq, dv) view, so the model's
 transpose back is free.
 """
 from __future__ import annotations
@@ -35,6 +37,8 @@ import torch
 from repro_torch.kernels import build, ref
 
 HEAD_DIMS = (32, 64, 128, 256)
+# (q/k width, v width) pairs the kernel is built for
+WIDTHS = tuple((d, d) for d in HEAD_DIMS) + ((192, 128),)
 MAX_GROUP = 64     # query heads per kv head that fit one block's rows
 ROWS = 64          # query rows (queries x group) per bf16 block
 KEY_TILE = 64      # keys per K/V tile; a split's range is a multiple
@@ -44,7 +48,7 @@ SPLIT_BLOCKS_PER_SM = 4   # the split plan's aim, under one wave of tiles
 @functools.cache
 def _fn():
     fn = build.library("flash_attention").flash_attention
-    fn.argtypes = ([ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 8 +
+    fn.argtypes = ([ctypes.c_int] * 3 + [ctypes.c_void_p] * 8 +
                    [ctypes.c_int] * 7 +
                    [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float,
                     ctypes.c_float, ctypes.c_int, ctypes.c_int,
@@ -57,11 +61,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, softcap: float = 0.0,
                     window: int = 0,
                     kv_lens: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """q (b,hq,sq,dh); k,v (b,hkv,skv,dh); kv_lens (b,) int32 or None.
-    Returns (b,hq,sq,dh)."""
+    """q (b,hq,sq,dk); k (b,hkv,skv,dk); v (b,hkv,skv,dv); kv_lens (b,)
+    int32 or None.  Returns (b,hq,sq,dv)."""
     b, hq, sq, dh = q.shape
     _, hkv, skv, _ = k.shape
-    if hq % hkv or v.shape != k.shape or k.shape[0] != b \
+    dv = v.shape[3]
+    if hq % hkv or v.shape[:3] != k.shape[:3] or k.shape[0] != b \
             or k.shape[3] != dh:
         raise ValueError(f"flash_attention: shapes q {tuple(q.shape)} "
                          f"k {tuple(k.shape)} v {tuple(v.shape)}")
@@ -75,16 +80,16 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             or v.dtype != q.dtype:
         raise ValueError(f"flash_attention: dtypes {q.dtype} {k.dtype} "
                          f"{v.dtype}; need one of float32, bfloat16")
-    if dh not in HEAD_DIMS or hq // hkv > MAX_GROUP:
-        raise ValueError(f"flash_attention: head dim {dh} (need one of "
-                         f"{HEAD_DIMS}) or group {hq // hkv} > {MAX_GROUP}")
+    if (dh, dv) not in WIDTHS or hq // hkv > MAX_GROUP:
+        raise ValueError(f"flash_attention: widths {(dh, dv)} (need one "
+                         f"of {WIDTHS}) or group {hq // hkv} > {MAX_GROUP}")
     if any(t.stride(-1) != 1 for t in (q, k, v)):
         raise ValueError("flash_attention: the head dim must be contiguous")
     if kv_lens is not None:
         if kv_lens.dtype != torch.int32 or kv_lens.shape != (b,):
             raise ValueError("flash_attention: kv_lens must be (b,) int32")
         kv_lens = kv_lens.contiguous()
-    out = torch.empty((b, sq, hq, dh), dtype=q.dtype,
+    out = torch.empty((b, sq, hq, dv), dtype=q.dtype,
                       device=q.device).transpose(1, 2)
     if b == 0 or sq == 0:
         return out
@@ -97,15 +102,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             {n: t.data_ptr() for n, t in (("q", q), ("k", k), ("v", v))},
             {n: t.stride()[:3] for n, t in (("q", q), ("k", k), ("v", v))},
             q.element_size())
-    pm, pl, pacc = build.split_scratch(n_split, b * hq * sq, dh, q.device)
+    pm, pl, pacc = build.split_scratch(n_split, b * hq * sq, dv, q.device)
     ptr = lambda t: None if t is None else t.data_ptr()
     strides = (ctypes.c_longlong * 12)(
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3])
-    rc = _fn()(build.ATTN_DTYPES[q.dtype], dh, q.data_ptr(), k.data_ptr(),
-               v.data_ptr(), out.data_ptr(), ptr(pm), ptr(pl), ptr(pacc),
-               ptr(kv_lens), b, hq, hkv, sq, skv, n_split, chunk, strides,
-               1.0 / math.sqrt(dh), float(softcap), int(causal), int(window),
-               build.stream_of(q))
+    rc = _fn()(build.ATTN_DTYPES[q.dtype], dh, dv, q.data_ptr(),
+               k.data_ptr(), v.data_ptr(), out.data_ptr(), ptr(pm), ptr(pl),
+               ptr(pacc), ptr(kv_lens), b, hq, hkv, sq, skv, n_split, chunk,
+               strides, 1.0 / math.sqrt(dh), float(softcap), int(causal),
+               int(window), build.stream_of(q))
     build.check(rc, "flash_attention")
     flash_attention.launches += 1
     return out

@@ -1,5 +1,7 @@
-"""Plain PyTorch versions of the four kernels (port of
-``repro.kernels.ref``), and of the key-split arithmetic of the two
+"""Plain PyTorch versions of the kernels: the four Pallas kernels' (port
+of ``repro.kernels.ref``), the MoE grouped GEMM's (``jax.lax.ragged_dot``
+in ``repro.models.moe``) and the absorbed MLA decode's
+(``repro.models.mla.mla_decode``), and the key-split arithmetic of the
 attention kernels (partials per key range, then the merge that their
 combine kernels compute).
 
@@ -44,15 +46,16 @@ def _flash_scores(q, k, *, causal, softcap, window, kv_lens):
 
 def flash_attention_ref(q, k, v, *, causal=True, softcap=0.0, window=0,
                         kv_lens=None):
-    """q (b,hq,sq,dh); k,v (b,hkv,skv,dh); kv_lens (b,) or None (= skv).
-    Query i of row b sits at position kv_lens[b] - sq + i."""
-    b, hq, sq, dh = q.shape
+    """q (b,hq,sq,dk); k (b,hkv,skv,dk); v (b,hkv,skv,dv); kv_lens (b,)
+    or None (= skv).  Query i of row b sits at position kv_lens[b] - sq +
+    i; scores are scaled by 1/sqrt(dk)."""
+    b, hq, sq, _ = q.shape
     s, ok = _flash_scores(q, k, causal=causal, softcap=softcap,
                           window=window, kv_lens=kv_lens)
     s = torch.where(ok[:, None, None], s, NEG_INF)
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bngqk,bnkd->bngqd", p.to(v.dtype).float(), v.float())
-    return o.reshape(b, hq, sq, dh).to(q.dtype)
+    return o.reshape(b, hq, sq, v.shape[-1]).to(q.dtype)
 
 
 def split_partials_ref(s, valid, v, chunk: int):
@@ -93,8 +96,9 @@ def flash_attention_split_ref(q, k, v, *, chunk: int, causal=True,
                               softcap=0.0, window=0, kv_lens=None):
     """:func:`flash_attention_ref` computed as the bf16 kernel does with
     its keys split in ranges of ``chunk``: partials, then the merge."""
-    b, hq, sq, dh = q.shape
+    b, hq, sq, _ = q.shape
     _, hkv, skv, _ = k.shape
+    dv = v.shape[-1]
     g = hq // hkv
     s, ok = _flash_scores(q, k, causal=causal, softcap=softcap,
                           window=window, kv_lens=kv_lens)
@@ -102,8 +106,8 @@ def flash_attention_split_ref(q, k, v, *, chunk: int, causal=True,
     parts = split_partials_ref(
         s.reshape(n, g * sq, skv),
         ok[:, None, None].expand(b, hkv, g, sq, skv).reshape(n, g * sq, skv),
-        v.reshape(n, skv, dh), chunk)
-    return combine_ref(*parts).reshape(b, hq, sq, dh).to(q.dtype)
+        v.reshape(n, skv, dv), chunk)
+    return combine_ref(*parts).reshape(b, hq, sq, dv).to(q.dtype)
 
 
 def paged_attention_split_ref(q, k_pool, v_pool, block_table, lengths, *,
@@ -172,3 +176,52 @@ def kv_layer_scatter_ref(pool, table, stream, *, layer):
         return pool
     pool[table.to(torch.long), layer] = stream
     return pool
+
+
+def grouped_gemm_ref(x, w, group_sizes):
+    """``jax.lax.ragged_dot``: x (M, K) rows sorted by group, w (E, K, N),
+    group_sizes (E,) ints -> y (M, N) in x's dtype, ``y[r] = x[r] @
+    w[e(r)]`` with group e owning the next ``group_sizes[e]`` rows; rows
+    past the groups are 0.  One matmul per group, which reads the sizes
+    on the host."""
+    m = x.shape[0]
+    y = torch.zeros((m, w.shape[2]), dtype=x.dtype, device=x.device)
+    lo = 0
+    for e, n in enumerate(group_sizes.tolist()):
+        hi = min(lo + int(n), m)
+        if hi > lo:
+            y[lo:hi] = x[lo:hi] @ w[e]
+        lo = hi
+    return y
+
+
+def _mla_scores(q_lat, q_rope, c, krope, lengths, scale):
+    """f32 scores (b, h, S) of the absorbed decode and the mask of valid
+    keys (b, S): key j counts iff j < lengths[b]."""
+    s = (torch.einsum("bhr,bsr->bhs", q_lat.float(), c.float()) +
+         torch.einsum("bhd,bsd->bhs", q_rope.float(), krope.float())) * scale
+    valid = torch.arange(c.shape[1], device=c.device)[None, :] < \
+        lengths.to(torch.long)[:, None]
+    return s, valid
+
+
+def mla_decode_ref(q_lat, q_rope, c, krope, lengths, *, scale):
+    """The absorbed MLA decode between ``q_lat`` and ``o_lat``
+    (``repro.models.mla.mla_decode``): q_lat (b, h, r) and q_rope (b, h,
+    rd) against the padded latent cache c (b, S, r) and krope (b, S, rd);
+    the values are c itself.  Scores in f32, times ``scale``, keys at
+    ``lengths`` and past masked, softmax in f32, p cast to c's dtype
+    before P.c.  Returns o_lat (b, h, r) in c's dtype."""
+    s, valid = _mla_scores(q_lat, q_rope, c, krope, lengths, scale)
+    p = torch.softmax(torch.where(valid[:, None], s, NEG_INF), dim=-1)
+    o = torch.einsum("bhs,bsr->bhr", p.to(c.dtype).float(), c.float())
+    return o.to(c.dtype)
+
+
+def mla_decode_split_ref(q_lat, q_rope, c, krope, lengths, *, scale,
+                         chunk: int):
+    """:func:`mla_decode_ref` computed as the bf16 kernel does with the
+    keys split in ranges of ``chunk``: partials, then the merge."""
+    s, valid = _mla_scores(q_lat, q_rope, c, krope, lengths, scale)
+    parts = split_partials_ref(s, valid[:, None].expand_as(s), c, chunk)
+    return combine_ref(*parts).to(c.dtype)

@@ -1,17 +1,23 @@
-"""Model assembly for the dense family (port of ``repro.models.model``).
+"""Model assembly for the dense and MoE families, GQA or MLA attention
+(port of ``repro.models.model``).
 
 * ``forward``       — full sequence; optionally returns the KV it made.
 * ``decode_step``   — one token per sequence against a decode state.
 * ``append_step``   — prefill an appended chunk against existing padded
                       caches (the engine's prefill step).
 
-Decode state layout is the reference's: ``{"kv": {"k", "v": (L, b, S,
-hkv, dh)}}``.  Where the reference scans over stacked layers, the port
-loops over ``params["blocks"]``.  ``decode_step`` and ``append_step``
-write the new tokens' K/V into the state's buffers in place and return
-the same state object: the reference returns fresh arrays, the port
-saves a copy of the whole cache per step.  Writes past the cache raise
-(JAX would drop them silently).
+Decode state: GQA ``{"kv": {"k", "v": (L, b, S, hkv, dh)}}``, the
+reference's layout; MLA ``{"mla": {"c": (L, b, S, r), "krope": (L, b, S,
+rd)}}`` over every layer.  The reference splits an MoE model's state as
+its parameters, ``{"dense": ..., "moe": ...}``
+(``bridge.state_from_jax`` joins them).  Where the reference scans over
+stacked layers, the port loops over ``params["blocks"]``; a block with
+an ``"moe"`` entry runs the routed experts (``models.moe``) in place of
+the dense FFN.  ``decode_step`` and ``append_step`` write the new
+tokens' K/V into the state's buffers in place and return the same state
+object: the reference returns fresh arrays, the port saves a copy of the
+whole cache per step.  Writes past the cache raise (JAX would drop them
+silently).
 """
 from __future__ import annotations
 
@@ -21,7 +27,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve
-from repro_torch.models import layers
+from repro_torch.models import layers, mla, moe
 from repro_torch.models.layers import rms_norm
 from repro_torch.models.params import require_ported
 
@@ -64,23 +70,36 @@ def _block(p, cfg: ModelConfig, h, attn_fn):
         attn = rms_norm(attn, p["ln1b"], cfg.rms_norm_eps)
     h = h + attn * cfg.ffn_mult
     xn = rms_norm(h, p["ln2"], cfg.rms_norm_eps)
-    f = layers.ffn(p["ffn"], cfg, xn)
+    f = moe.moe_ffn(p["moe"], cfg, xn) if "moe" in p \
+        else layers.ffn(p["ffn"], cfg, xn)
     if cfg.post_attn_norm:
         f = rms_norm(f, p["ln2b"], cfg.rms_norm_eps)
     return h + f * cfg.ffn_mult
 
 
-def _check_fits(lengths, s: int, max_seq: int) -> None:
+def _check_fits(lengths, s: int, max_seq: int) -> int:
+    """The longest row's length after writing ``s`` tokens (one host read
+    per step), or raise past the cache."""
     top = int(lengths.max()) + s if lengths.numel() else 0
     if top > max_seq:
         raise IndexError(f"writing up to position {top} past the cache "
                          f"length {max_seq}")
+    return top
+
+
+def _cache(state, cfg: ModelConfig):
+    """The state's two per-layer stacks: (k, v) for GQA, (c, krope) for
+    MLA."""
+    if cfg.attn_variant == "mla":
+        return state["mla"]["c"], state["mla"]["krope"]
+    return state["kv"]["k"], state["kv"]["v"]
 
 
 def forward(params, cfg: ModelConfig, tokens, *, return_state: bool = False,
             last_only: bool = False):
     """Full-sequence forward over tokens (b, s).  Returns (logits,
-    state_or_None); the state holds the exact-length KV (L, b, s, hkv, dh)."""
+    state_or_None); the state holds the exact-length KV (L, b, s, hkv, dh)
+    or, for MLA, latents (L, b, s, r) and (L, b, s, rd)."""
     require_ported(cfg)
     s = tokens.shape[1]
     positions = torch.arange(s, device=tokens.device)
@@ -89,6 +108,13 @@ def forward(params, cfg: ModelConfig, tokens, *, return_state: bool = False,
     for blk, window in zip(params["blocks"], layer_windows(cfg)):
 
         def full(p, x):
+            if cfg.attn_variant == "mla":
+                o, (c, kr) = mla.mla_full(p, cfg, x, positions,
+                                          causal=cfg.causal)
+                if return_state:
+                    ks.append(c)
+                    vs.append(kr)
+                return o
             q, k, v = layers.gqa_qkv(p, cfg, x, positions)
             if return_state:
                 ks.append(k)
@@ -98,8 +124,11 @@ def forward(params, cfg: ModelConfig, tokens, *, return_state: bool = False,
             return layers.attn_out(p, o)
 
         h = _block(blk, cfg, h, full)
-    state = {"kv": {"k": torch.stack(ks), "v": torch.stack(vs)}} \
-        if return_state else None
+    state = None
+    if return_state:
+        state = {"mla": {"c": torch.stack(ks), "krope": torch.stack(vs)}} \
+            if cfg.attn_variant == "mla" else \
+            {"kv": {"k": torch.stack(ks), "v": torch.stack(vs)}}
     if last_only:
         h = h[:, -1:]
     return logits_from_hidden(params, cfg, h), state
@@ -110,18 +139,22 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_seq: int,
     """Zero decode caches on ``device`` (``"meta"`` gives shapes only)."""
     require_ported(cfg)
     dev = torch.device("meta") if str(device) == "meta" else resolve(device)
-    shape = (cfg.n_layers, batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
     dtype = getattr(torch, cfg.kv_cache_dtype)
-    return {"kv": {"k": torch.zeros(shape, dtype=dtype, device=dev),
-                   "v": torch.zeros(shape, dtype=dtype, device=dev)}}
+    zeros = lambda *s: torch.zeros((cfg.n_layers, batch, max_seq) + s,
+                                   dtype=dtype, device=dev)
+    if cfg.attn_variant == "mla":
+        return {"mla": {"c": zeros(cfg.mla.kv_lora_rank),
+                        "krope": zeros(cfg.mla.rope_head_dim)}}
+    return {"kv": {"k": zeros(cfg.n_kv_heads, cfg.head_dim),
+                   "v": zeros(cfg.n_kv_heads, cfg.head_dim)}}
 
 
 def decode_step(params, cfg: ModelConfig, tokens, state, lengths):
     """One decode step.  tokens (b,) int; lengths (b,) = tokens already
-    cached.  Writes each token's K/V at index ``lengths`` and attends over
-    ``lengths + 1``.  Returns (logits (b, vocab), state)."""
+    cached.  Writes each token's K/V (or latent) at index ``lengths`` and
+    attends over ``lengths + 1``.  Returns (logits (b, vocab), state)."""
     require_ported(cfg)
-    kc_all, vc_all = state["kv"]["k"], state["kv"]["v"]
+    kc_all, vc_all = _cache(state, cfg)
     lengths = lengths.to(torch.long)
     _check_fits(lengths, 1, kc_all.shape[2])
     bidx = torch.arange(tokens.shape[0], device=tokens.device)
@@ -131,6 +164,11 @@ def decode_step(params, cfg: ModelConfig, tokens, state, lengths):
         kc, vc = kc_all[li], vc_all[li]
 
         def dec(p, x):
+            if cfg.attn_variant == "mla":
+                c_new, kr_new = mla.mla_latent(p, cfg, x, lengths[:, None])
+                kc[bidx, lengths] = c_new[:, 0].to(kc.dtype)
+                vc[bidx, lengths] = kr_new[:, 0].to(vc.dtype)
+                return mla.mla_decode(p, cfg, x, kc, vc, lengths + 1)
             q, k, v = layers.gqa_qkv(p, cfg, x, lengths[:, None])
             kc[bidx, lengths] = k[:, 0].to(kc.dtype)
             vc[bidx, lengths] = v[:, 0].to(vc.dtype)
@@ -147,13 +185,13 @@ def append_step(params, cfg: ModelConfig, tokens, state, lengths):
     """Prefill an append chunk against existing decode state.
 
     tokens (b, s_app) int; lengths (b,) = tokens already cached.  Writes
-    the chunk's K/V at [lengths, lengths + s_app).  Returns (logits
-    (b, s_app, vocab), state)."""
+    the chunk's K/V (or latents) at [lengths, lengths + s_app).  Returns
+    (logits (b, s_app, vocab), state)."""
     require_ported(cfg)
-    kc_all, vc_all = state["kv"]["k"], state["kv"]["v"]
+    kc_all, vc_all = _cache(state, cfg)
     b, s = tokens.shape
     lengths = lengths.to(torch.long)
-    _check_fits(lengths, s, kc_all.shape[2])
+    top = _check_fits(lengths, s, kc_all.shape[2])
     bidx = torch.arange(b, device=tokens.device)[:, None]
     positions = lengths[:, None] + torch.arange(s, device=tokens.device)
     h = embed(params, cfg, tokens)
@@ -162,6 +200,8 @@ def append_step(params, cfg: ModelConfig, tokens, state, lengths):
         kc, vc = kc_all[li], vc_all[li]
 
         def app(p, x):
+            if cfg.attn_variant == "mla":
+                return mla.mla_append(p, cfg, x, kc, vc, lengths, top)
             q, k, v = layers.gqa_qkv(p, cfg, x, positions)
             kc[bidx, positions] = k.to(kc.dtype)
             vc[bidx, positions] = v.to(vc.dtype)

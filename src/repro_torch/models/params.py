@@ -1,12 +1,16 @@
-"""Parameter schema and init for the dense family.
+"""Parameter schema and init for the dense and MoE families.
 
 Port of ``repro.models.params`` (``attn_schema`` :63, ``ffn_schema`` :93,
-``dense_block_schema`` :153, ``model_schema`` :184, ``init_params``
-:252).  The reference stacks every block along a leading layer axis for
-``lax.scan``; here ``params["blocks"]`` is a list with one dict per
-layer, which the model walks in a Python loop.  Leaf names and shapes
-inside a block are the reference's, so ``bridge.params_from_jax`` is a
-plain unstacking.
+``moe_schema`` :107, ``dense_block_schema`` :153, ``moe_block_schema``
+:166, ``model_schema`` :184, ``init_params`` :252,
+``count_active_params_analytic`` :277).  The reference stacks every block
+along a leading layer axis for ``lax.scan`` (the MoE family in two
+stacks, ``dense_blocks`` and ``super_blocks.moe``); here
+``params["blocks"]`` is a list with one dict per layer, in layer order,
+which the model walks in a Python loop: for the MoE family a dense block
+for each of the first ``first_k_dense`` layers, then MoE blocks.  Leaf
+names and shapes inside a block are the reference's, so
+``bridge.params_from_jax`` is a plain unstacking.
 
 Values come from a ``torch.Generator`` and do not match ``jax.random``;
 tests that compare the two packages convert the JAX parameters through
@@ -24,7 +28,6 @@ from repro_torch.device import resolve
 
 # family / feature -> the port slice that brings it
 _LATER_SLICES = {
-    "moe": "the MoE slice",
     "ssm": "the SSM/hybrid slice",
     "hybrid": "the SSM/hybrid slice",
     "vlm": "the VLM slice",
@@ -33,15 +36,28 @@ _LATER_SLICES = {
 
 
 def require_ported(cfg: ModelConfig) -> None:
-    """Raise for any architecture feature this slice does not port."""
-    if cfg.family != "dense":
+    """Raise for any architecture feature the port does not run: the
+    families other than dense and MoE, MoE layers interleaved with dense
+    ones (``period`` > 1), MLA together with windows or softcaps (no
+    config has both), and frontend embeddings."""
+    if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} arrives with "
             f"{_LATER_SLICES[cfg.family]} of the port")
-    if cfg.attn_variant != "gqa":
+    if cfg.family == "moe" and (cfg.moe is None or cfg.moe.period != 1):
+        raise NotImplementedError(
+            f"{cfg.name}: the port runs MoE with an MoE config of period "
+            f"1 (every layer after first_k_dense), not {cfg.moe}")
+    if cfg.attn_variant not in ("gqa", "mla"):
         raise NotImplementedError(
             f"{cfg.name}: attention {cfg.attn_variant!r} arrives with the "
-            f"MLA slice of the port")
+            f"SSM/hybrid slice of the port")
+    if cfg.attn_variant == "mla" and (
+            cfg.mla is None or cfg.local_global_period or cfg.local_window
+            or cfg.attn_logit_softcap):
+        raise NotImplementedError(
+            f"{cfg.name}: the port runs MLA attention with an MLA config "
+            f"and without windows or softcaps")
     if cfg.frontend_embed_dim:
         raise NotImplementedError(
             f"{cfg.name}: frontend embeddings arrive with the VLM slice")
@@ -63,6 +79,17 @@ def _proj(d_in: int, *out) -> PSpec:
 
 def attn_schema(cfg: ModelConfig) -> Dict:
     d = cfg.d_model
+    if cfg.attn_variant == "mla":
+        m = cfg.mla
+        return {
+            "wq": _proj(d, cfg.n_heads, m.nope_head_dim + m.rope_head_dim),
+            "w_dkv": _proj(d, m.kv_lora_rank),
+            "w_krope": _proj(d, m.rope_head_dim),
+            "kv_norm": PSpec((m.kv_lora_rank,), "ones"),
+            "w_uk": _proj(m.kv_lora_rank, cfg.n_heads, m.nope_head_dim),
+            "w_uv": _proj(m.kv_lora_rank, cfg.n_heads, m.v_head_dim),
+            "wo": _proj(cfg.n_heads * m.v_head_dim, d),
+        }
     s = {
         "wq": _proj(d, cfg.n_heads, cfg.head_dim),
         "wk": _proj(d, cfg.n_kv_heads, cfg.head_dim),
@@ -84,17 +111,43 @@ def ffn_schema(cfg: ModelConfig, d_ff: int) -> Dict:
     return {"wi": _proj(d, d_ff), "wo": _proj(d_ff, d)}
 
 
-def dense_block_schema(cfg: ModelConfig) -> Dict:
+def moe_schema(cfg: ModelConfig) -> Dict:
+    """Router and routed experts (stacked on a leading expert axis), plus
+    the shared experts as one FFN ``n_shared_experts`` times as wide."""
+    d, m = cfg.d_model, cfg.moe
+    s = {
+        "router": PSpec((d, m.n_experts), "normal", 1.0 / math.sqrt(d)),
+        "wg": PSpec((m.n_experts, d, m.d_ff_expert), "normal",
+                    1.0 / math.sqrt(d)),
+        "wu": PSpec((m.n_experts, d, m.d_ff_expert), "normal",
+                    1.0 / math.sqrt(d)),
+        "wd": PSpec((m.n_experts, m.d_ff_expert, d), "normal",
+                    1.0 / math.sqrt(m.d_ff_expert)),
+    }
+    if m.n_shared_experts:
+        s["shared"] = ffn_schema(cfg, m.n_shared_experts * m.d_ff_expert)
+    return s
+
+
+def _block_schema(cfg: ModelConfig, ffn_key: str, ffn: Dict) -> Dict:
     s = {
         "ln1": _norm(cfg.d_model),
         "attn": attn_schema(cfg),
         "ln2": _norm(cfg.d_model),
-        "ffn": ffn_schema(cfg, cfg.d_ff),
+        ffn_key: ffn,
     }
     if cfg.post_attn_norm:
         s["ln1b"] = _norm(cfg.d_model)
         s["ln2b"] = _norm(cfg.d_model)
     return s
+
+
+def dense_block_schema(cfg: ModelConfig) -> Dict:
+    return _block_schema(cfg, "ffn", ffn_schema(cfg, cfg.d_ff))
+
+
+def moe_block_schema(cfg: ModelConfig) -> Dict:
+    return _block_schema(cfg, "moe", moe_schema(cfg))
 
 
 def model_schema(cfg: ModelConfig) -> Dict:
@@ -103,7 +156,9 @@ def model_schema(cfg: ModelConfig) -> Dict:
     s = {
         "embed": {"tok": PSpec((cfg.vocab_size, d), "normal", 1.0)},
         "final_norm": _norm(d),
-        "blocks": [dense_block_schema(cfg) for _ in range(cfg.n_layers)],
+        "blocks": [moe_block_schema(cfg) if is_moe
+                   else dense_block_schema(cfg)
+                   for is_moe in cfg.moe_layer_mask()],
     }
     if not cfg.tie_embeddings:
         s["lm_head"] = _proj(d, cfg.vocab_size)
@@ -125,6 +180,18 @@ def count_params_analytic(cfg: ModelConfig) -> int:
     return sum(math.prod(s.shape) for s in _leaves(model_schema(cfg)))
 
 
+def count_active_params_analytic(cfg: ModelConfig) -> int:
+    """Parameters one token uses: all but the routed experts it is not
+    sent to (``n_experts - top_k`` per MoE layer)."""
+    total = count_params_analytic(cfg)
+    if cfg.moe is None:
+        return total
+    m = cfg.moe
+    per_expert = 3 * cfg.d_model * m.d_ff_expert       # wg + wu + wd
+    n_moe_layers = sum(cfg.moe_layer_mask())
+    return total - n_moe_layers * (m.n_experts - m.top_k) * per_expert
+
+
 def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> Dict:
     """Random parameters in ``cfg.param_dtype`` on ``device``, drawn in
     float32 from a ``torch.Generator`` seeded with ``seed``."""
@@ -140,7 +207,7 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> Dict:
                 return torch.ones(tree.shape, dtype=dtype, device=dev)
             x = torch.randn(tree.shape, generator=gen, device=dev,
                             dtype=torch.float32)
-            return (x * tree.std).to(dtype)
+            return x.mul_(tree.std).to(dtype)
         if isinstance(tree, dict):
             return {k: make(v) for k, v in tree.items()}
         return [make(v) for v in tree]

@@ -77,7 +77,8 @@ hits, persists, read-path and hedge decisions, controller proposals,
 hook is a no-op.  ``stats()`` passes through the metric schema
 (``obs.schema.conforming``) and has every key of the reference's.
 
-This slice serves the dense family with ``mode`` dualpath or basic,
+It serves the dense and MoE families (GQA or MLA attention: ds27b's
+FullBlock rows are c ‖ krope) with ``mode`` dualpath or basic,
 ``split_reads``, ``layerwise`` on and off, any number of PEs, DEs and
 groups, offline or online, with or without DRAM tiers, prefetch, the SLO
 layer, faults and hedging, elastic roles and the collective network,

@@ -71,7 +71,9 @@ class ModelSimSpec:
             kv_bytes_per_token=cfg.kv_bytes_per_token(kv_dtype_bytes),
             active_params=cfg.active_param_count(),
             n_heads=max(cfg.n_heads, 1),
-            qk_head_dim=max(cfg.head_dim, 1),
+            qk_head_dim=max(cfg.head_dim if cfg.attn_variant != "mla" else
+                            cfg.mla.nope_head_dim + cfg.mla.rope_head_dim,
+                            1),
             total_param_bytes=cfg.param_count() * param_dtype_bytes,
         )
 

@@ -80,6 +80,26 @@ def test_entry_points_without_device_raise_without_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="cuda"):
         bridge.state_from_jax({"kv": {"k": np.zeros(2, np.float32)}})
     assert bridge.to_torch(np.ones(3, np.float32), "cpu").device.type == "cpu"
+    # ds27b (MoE + MLA) the same way: its parameters, its latent decode
+    # state, the bridge's MoE stacks and state, and serving
+    ds = get_config("ds27b").reduced()
+    with pytest.raises(RuntimeError, match="cuda"):
+        init_params(ds)
+    with pytest.raises(RuntimeError, match="cuda"):
+        init_decode_state(ds, 1, 16)
+    ds_params = init_params(ds, device="cpu")
+    with pytest.raises(RuntimeError, match="cuda"):
+        ServingSystem(ds, ds_params)
+    with pytest.raises(RuntimeError, match="cuda"):
+        bridge.params_from_jax(
+            {"embed": np.zeros(2, np.float32),
+             "dense_blocks": {"w": np.zeros((1, 2), np.float32)},
+             "super_blocks": {"moe": {"w": np.zeros((3, 2), np.float32)}}},
+            ds)
+    with pytest.raises(RuntimeError, match="cuda"):
+        bridge.state_from_jax(
+            {"dense": {"c": np.zeros((1, 1, 2, 3), np.float32)},
+             "moe": {"c": np.zeros((3, 1, 2, 3), np.float32)}})
 
 
 def test_cuda_path_raises_on_cpu_only_arguments():
