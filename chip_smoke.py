@@ -5,6 +5,9 @@
                                            # against the scatter's
     python3 chip_smoke.py --split-sweep    # the attention kernels' split
                                            # plans, timed at other aims
+    python3 chip_smoke.py --kernels grouped_gemm,mla_decode
+                                           # build and run phase 3's cases
+                                           # of the named kernels only
 
 Drives ``repro_torch`` (never the JAX package) on the card:
 
@@ -22,11 +25,13 @@ Drives ``repro_torch`` (never the JAX package) on the card:
    window and softcap 50, in bf16 and f32, with q scaled so the outputs
    are O(1) and, in bf16, faults planted in the plain version (a window
    64 keys short, q's columns shifted) shown to fail the tolerance); at
-   ds27b's shapes, the grouped GEMM (decode and append, both
-   projections, group sizes from the router plus a planted skew; a group
-   boundary moved by one row must fail), the absorbed MLA decode (8
-   slots, lengths at the tiles', splits' and cache's edges; the scale
-   1/sqrt(576) must fail), flash at q/k 192 and v 128 (V's last 64
+   ds27b's shapes, the grouped GEMM (at every M the ds27b phase runs:
+   each append's token copies and the 8-slot decode's, both projections,
+   group sizes from the router, plus a planted skew, all rows in one
+   group in each regime and M < 16; a group boundary moved by one row
+   must fail), the absorbed MLA decode (8 slots, lengths at the tiles',
+   splits' and cache's edges, all short, one at the cache's end; the
+   scale 1/sqrt(576) must fail), flash at q/k 192 and v 128 (V's last 64
    columns dropped must fail) and gather and scatter of 1152-byte rows;
    it times the kernel, the plain version and one PyTorch call
    computing the same function, with CUDA events (also with a clean L2,
@@ -885,7 +890,9 @@ def _gg_case(gen, *, sizes, k, n, dtype=torch.bfloat16, planted=False,
     plain version, bit-identical over two calls; with ``planted``, a
     group boundary moved by one row must fail the tolerance.  The bound
     reads each used expert's weights once."""
+    import importlib
     from repro_torch.kernels import grouped_gemm, ref
+    gg = importlib.import_module("repro_torch.kernels.grouped_gemm")
     e, m = sizes.shape[0], int(sizes.sum())
     x = torch.randn((m, k), generator=gen, device="cuda").to(dtype)
     w = (torch.randn((e, k, n), generator=gen, device="cuda") /
@@ -894,6 +901,8 @@ def _gg_case(gen, *, sizes, k, n, dtype=torch.bfloat16, planted=False,
     shapes = dict(x=[m, k], w=[e, k, n], groups_used=used,
                   largest_group=int(sizes.max()),
                   dtype=str(dtype).replace("torch.", ""),
+                  **({"regime": gg.regime(m, e, k, n)}
+                     if dtype == torch.bfloat16 else {}),
                   **({"case": label} if label else {}))
     call = lambda: grouped_gemm(x, w, sizes)
     got = _deterministic(call)
@@ -918,26 +927,53 @@ def _gg_case(gen, *, sizes, k, n, dtype=torch.bfloat16, planted=False,
         bound_ms=b_ms, bound_by=b_by)
 
 
+def one_group(m: int, e: int, group: int = 5) -> torch.Tensor:
+    """Group sizes with all ``m`` rows in one group."""
+    sizes = torch.zeros(e, dtype=torch.int32, device="cuda")
+    sizes[group] = m
+    return sizes
+
+
 def grouped_gemm_cases(cfg, rng):
-    """ds27b's three expert projections at an 8-slot decode (48 token
-    copies, most of the 72 groups empty) and at a 4096-token append
-    (24,576 copies), gate/up (K 2560 -> N 1536) and down (1536 -> 2560),
-    with group sizes from the port's router on random tokens; the append
-    again with a planted skew (an empty group, a group of a quarter of the
-    rows); an f32 case.  The append's gate case is the main case."""
+    """ds27b's expert projections at every M the ds27b phase runs, gate/up
+    (K 2560 -> N 1536) and down (1536 -> 2560), with group sizes from the
+    port's router on random tokens: the copies of each append of
+    ``DS27B_APPENDS`` (M = 6 x 4096, 2399, 1697, 400 and 544 tokens: the
+    append regime) and of an 8-slot decode (M = 48, most of the 72 groups
+    empty: the decode regime); the 4096-token append again with a planted
+    skew (an empty group, a group of a quarter of the rows); all rows in
+    one group in each regime; M < 16; an f32 case.  The 4096-token
+    append's gate case is the main case."""
+    import importlib
+    gg = importlib.import_module("repro_torch.kernels.grouped_gemm")
     gen = torch.Generator(device="cuda").manual_seed(5)
-    d, f = cfg.d_model, cfg.moe.d_ff_expert
+    d, f, e = cfg.d_model, cfg.moe.d_ff_expert, cfg.moe.n_experts
+    copies = cfg.moe.top_k
     decode = router_group_sizes(cfg, 8, gen)
-    append = router_group_sizes(cfg, 4096, gen)
-    case = lambda **kw: _gg_case(gen, **{**dict(sizes=append, k=d, n=f),
-                                          **kw})
-    return [case(planted=True, label="append, gate/up"),
-            case(k=f, n=d, label="append, down"),
-            case(sizes=decode, planted=True, label="decode, gate/up"),
-            case(sizes=decode, k=f, n=d, label="decode, down"),
-            case(sizes=skewed(append), planted=True, label="append, skew"),
-            case(sizes=router_group_sizes(cfg, 256, gen),
-                 dtype=torch.float32, label="256 tokens, f32")]
+    appends = {rows: router_group_sizes(cfg, rows, gen)
+               for rows, _ in DS27B_APPENDS}
+    case = lambda **kw: _gg_case(gen, **{**dict(k=d, n=f), **kw})
+    cases = [case(sizes=appends[4096], planted=True,
+                  label="append 4096, gate/up"),
+             case(sizes=appends[4096], k=f, n=d, label="append 4096, down")]
+    for rows, _ in DS27B_APPENDS[1:]:
+        cases += [case(sizes=appends[rows], label=f"append {rows}, gate/up"),
+                  case(sizes=appends[rows], k=f, n=d,
+                       label=f"append {rows}, down")]
+    cases += [
+        case(sizes=decode, planted=True, label="decode, gate/up"),
+        case(sizes=decode, k=f, n=d, label="decode, down"),
+        case(sizes=skewed(appends[4096]), planted=True,
+             label="append 4096, skew"),
+        case(sizes=one_group(8 * copies, e), label="decode, one group"),
+        case(sizes=one_group(400 * copies, e), label="append 400, one group"),
+        case(sizes=router_group_sizes(cfg, 2, gen), planted=True,
+             label="2 tokens (M 12)"),
+        case(sizes=router_group_sizes(cfg, 256, gen), dtype=torch.float32,
+             label="256 tokens, f32")]
+    regimes = {c["shapes"].get("regime") for c in cases}
+    assert regimes >= set(gg.REGIMES), f"regimes held: {regimes}"
+    return cases
 
 
 def _mla_case(rng, *, lengths, S, dtype=torch.bfloat16, q_std=Q_STD,
@@ -1000,13 +1036,20 @@ def mla_decode_cases(cfg, rng):
     """The DE's absorbed decode over ds27b's 8 slots: contexts of the
     ds27b phase's third round (4600-5040 tokens) first, then the edges
     of the tiles, the splits and the cache (1, 63, 64, 65, 4095, 4096,
-    5000, 6144), and the main case in f32."""
+    5000, 6144), every length at most 64 (all but a row's first split
+    exit at once), one row at the cache's end and seven short ones (one
+    row's splits merge while the others' have exited), and the main case
+    in f32."""
     lengths = [int(x) for x in rng.integers(4600, 5041, 8)]
     case = lambda **kw: _mla_case(rng, **{**dict(
         lengths=lengths, S=DS27B_MAX_SEQ), **kw})
     return [case(planted=True, parts=True),
             case(lengths=[1, 63, 64, 65, 4095, 4096, 5000, DS27B_MAX_SEQ],
                  planted=True),
+            case(lengths=[int(x) for x in rng.integers(1, 65, 8)],
+                 planted=True),
+            case(lengths=[DS27B_MAX_SEQ] +
+                 [int(x) for x in rng.integers(1, 200, 7)], planted=True),
             case(dtype=torch.float32)]
 
 
@@ -1042,6 +1085,90 @@ def ds27b_copy_cases(cfg, rng):
     scatter = [_scatter_case(rng, g_gen, n=n, n_layers=L, layer=range(L),
                              feat=row) for n in (64, 7)]
     return gather, scatter
+
+
+# the wrappers and their sources
+KERNEL_SOURCES = {"kv_layer_gather": "kv_gather",
+                  "kv_layer_scatter": "kv_scatter",
+                  "flash_attention": "flash_attention",
+                  "paged_attention": "paged_attention",
+                  "grouped_gemm": "grouped_gemm", "mla_decode": "mla_decode"}
+
+
+def kernel_cases(names=None) -> dict:
+    """Phase 3's cases, by kernel, in the smoke's order (``[0]`` is each
+    kernel's main case): qwen1.5-0.5b's shapes, then gemma2-2b's (head
+    dim 256, window 4096, softcap 50), then ds27b's (MLA's flash widths,
+    its 1152-byte rows, and the two kernels only its path runs).  With
+    ``names``, only those kernels' cases (the random draws then differ
+    from a whole run's)."""
+    from repro_torch.configs import get_config
+    want = lambda *ks: names is None or any(k in names for k in ks)
+    cfg, cfg_g2, cfg_ds = (get_config(a) for a in
+                           ("qwen1.5-0.5b", "gemma2-2b", "ds27b"))
+    rng = np.random.default_rng(0)
+    cases = {}
+    if want("kv_layer_gather"):
+        cases["kv_layer_gather"] = gather_cases(cfg, rng)
+    if want("kv_layer_scatter"):
+        cases["kv_layer_scatter"] = scatter_cases(cfg, rng)
+    if want("flash_attention"):
+        cases["flash_attention"] = flash_cases(cfg, rng)
+    if want("paged_attention"):
+        cases["paged_attention"] = paged_cases(cfg, rng)
+    if want("flash_attention"):
+        cases["flash_attention"] += gemma2_flash_cases(cfg_g2, rng)
+    if want("paged_attention"):
+        cases["paged_attention"] += gemma2_paged_cases(cfg_g2, rng)
+    if want("flash_attention"):
+        cases["flash_attention"] += mla_flash_cases(cfg_ds, rng)
+    if want("kv_layer_gather", "kv_layer_scatter"):
+        gather_ds, scatter_ds = ds27b_copy_cases(cfg_ds, rng)
+        for name, more in (("kv_layer_gather", gather_ds),
+                           ("kv_layer_scatter", scatter_ds)):
+            if name in cases:
+                cases[name] += more
+    if want("grouped_gemm"):
+        cases["grouped_gemm"] = grouped_gemm_cases(cfg_ds, rng)
+    if want("mla_decode"):
+        cases["mla_decode"] = mla_decode_cases(cfg_ds, rng)
+    return cases
+
+
+def print_cases(cases: dict) -> None:
+    for name, cs in cases.items():
+        for c in cs:
+            lib = c["library_ms"]
+            print(f"{name} {json.dumps(c['shapes'])}: err {c['max_abs_err']:.3g}"
+                  f" kernel {c['ms']:.4f} ms plain {c['plain_ms']:.4f} ms "
+                  f"library {'n/a' if lib is None else f'{lib:.4f} ms'} "
+                  + (f"({c['library_name']}) " if "library_name" in c
+                     else "")
+                  + ("" if "library_ms_clean_l2" not in c else
+                     f"(clean L2 {c['library_ms_clean_l2']:.4f} ms) ")
+                  + f"bound {c['bound_ms']:.4f} ms ({c['bound_by']}, "
+                  f"{100 * c['bound_ms'] / c['ms']:.1f} % of it)"
+                  + ("" if "ms_clean_l2" not in c else
+                     f"; clean L2 {c['ms_clean_l2']:.4f} ms")
+                  + ("" if not c.get("parts_ms") else
+                     "; warm " + ", ".join(f"{k} {v:.4f} ms"
+                                           for k, v in c["parts_ms"].items()))
+                  + ("" if not c.get("planted_err") else
+                     "; planted faults fail: " + ", ".join(
+                         f"{k} err {v:.3g}"
+                         for k, v in c["planted_err"].items())))
+
+
+def print_build_log(names) -> None:
+    """ptxas's report of each kernel: its function, registers, spills."""
+    from repro_torch.kernels import build
+    for name in names:
+        log = build.BUILD_DIR / f"{name}.log"
+        if log.exists():
+            for line in log.read_text().splitlines():
+                if any(w in line for w in ("Function properties for",
+                                           "registers", "spill")):
+                    print(f"  {name}: {line.strip()}")
 
 
 # ---------------------------------------------------------------------------
@@ -1155,8 +1282,8 @@ def profile_phase(cfg, rounds=AGENT_ROUNDS, n_agents=6, top=8,
     ``params`` or seed 0's), under torch.profiler tracing the card only.
     Returns (real wall s,
     device-busy s summed over kernels and copies, [(name, device ms,
-    calls, [(kernel, launches)])] of the top entries and the port's
-    kernels)."""
+    calls, [(kernel, launches, device ms)])] of the top entries and the
+    port's kernels)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.models import init_params
@@ -1174,16 +1301,19 @@ def profile_phase(cfg, rounds=AGENT_ROUNDS, n_agents=6, top=8,
         if e.device_type != DeviceType.CUDA:
             continue
         name = short_name(e.key)[:60]
-        # a port kernel's launches (split + combine kernels) read as one
-        # row under its wrapper's name, calls counting its first kernel's
-        # launches (one per wrapper call); any other kernel is a row of
-        # its own, by its full name
+        # a port kernel's launches (split + combine kernels, or one
+        # kernel per regime) read as one row under its wrapper's name,
+        # calls counting its most launched kernel's launches (one per
+        # wrapper call where a call launches a split kernel and maybe a
+        # combine; the parts give each kernel's own); any other kernel is
+        # a row of its own, by its full name
         group = next((w for w, prefixes in KERNEL_ROWS.items()
                       if name.startswith(prefixes)), e.key)
         _, ms, calls, parts = rows.get(group, (name, 0.0, 0, []))
+        own_ms = e.self_device_time_total / 1e3
         rows[group] = (group if group in KERNEL_ROWS else name,
-                       ms + e.self_device_time_total / 1e3,
-                       max(calls, e.count), parts + [(name, e.count)])
+                       ms + own_ms, max(calls, e.count),
+                       parts + [(name, e.count, own_ms)])
     rows = sorted(rows.values(), key=lambda r: -r[1])
     busy = sum(r[1] for r in rows) / 1e3
     # the top entries, and every port kernel's row wherever it ranks
@@ -1198,7 +1328,7 @@ def print_profile(wall, busy, rows, label="") -> None:
           f"({100 * busy / wall:.1f} %)")
     for name, ms, calls, parts in rows:
         kernels_of = "" if len(parts) < 2 else " = " + " + ".join(
-            f"{n} ({c})" for n, c in parts)
+            f"{n} ({c}, {m:.1f} ms)" for n, c, m in parts)
         print(f"  {ms:9.1f} ms {calls:7d} calls  {name}{kernels_of}")
 
 
@@ -2273,6 +2403,27 @@ def main() -> int:
         print("\n".join(split_sweep(get_config("qwen1.5-0.5b"))))
         return 0
 
+    if sys.argv[1:2] == ["--kernels"]:
+        names = sys.argv[2].split(",") if len(sys.argv) > 2 else []
+        if not names or not set(names) <= set(KERNEL_SOURCES):
+            print(f"chip_smoke: --kernels takes names among "
+                  f"{sorted(KERNEL_SOURCES)}", file=sys.stderr)
+            return 2
+        print(f"torch {torch.__version__} cuda {torch.version.cuda}")
+        print(subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            check=True).stdout.strip())
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        sources = sorted({KERNEL_SOURCES[n] for n in names})
+        t0 = time.perf_counter()
+        build.build(sources)
+        print(f"build: {time.perf_counter() - t0:.1f} s")
+        print_build_log(sources)
+        print_cases(kernel_cases(names))
+        return 0
+
     if sys.argv[1:2] == ["--persist-ab"]:
         print(subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2298,56 +2449,13 @@ def main() -> int:
     t0 = time.perf_counter()
     build.build()
     print(f"build: {time.perf_counter() - t0:.1f} s")
-    for name in build.SOURCES:
-        log = build.BUILD_DIR / f"{name}.log"
-        if log.exists():
-            for line in log.read_text().splitlines():
-                if any(w in line for w in ("Function properties for",
-                                           "registers", "spill")):
-                    print(f"  {name}: {line.strip()}")
+    print_build_log(build.SOURCES)
 
     # 3. kernels against their plain versions
-    cfg = get_config("qwen1.5-0.5b")
-    rng = np.random.default_rng(0)
-    cases = {"kv_layer_gather": gather_cases(cfg, rng),
-             "kv_layer_scatter": scatter_cases(cfg, rng),
-             "flash_attention": flash_cases(cfg, rng),
-             "paged_attention": paged_cases(cfg, rng)}
-    # gemma2-2b's shapes (head dim 256, window 4096, softcap 50) after
-    # the qwen cases, which stay first: cases[...][0] is the main case
-    cfg_g2 = get_config("gemma2-2b")
-    cases["flash_attention"] += gemma2_flash_cases(cfg_g2, rng)
-    cases["paged_attention"] += gemma2_paged_cases(cfg_g2, rng)
-    # ds27b's: MLA's flash widths, its 1152-byte rows, and the two
-    # kernels only its path runs
-    cfg_ds = get_config("ds27b")
-    cases["flash_attention"] += mla_flash_cases(cfg_ds, rng)
-    gather_ds, scatter_ds = ds27b_copy_cases(cfg_ds, rng)
-    cases["kv_layer_gather"] += gather_ds
-    cases["kv_layer_scatter"] += scatter_ds
-    cases["grouped_gemm"] = grouped_gemm_cases(cfg_ds, rng)
-    cases["mla_decode"] = mla_decode_cases(cfg_ds, rng)
-    for name, cs in cases.items():
-        for c in cs:
-            lib = c["library_ms"]
-            print(f"{name} {json.dumps(c['shapes'])}: err {c['max_abs_err']:.3g}"
-                  f" kernel {c['ms']:.4f} ms plain {c['plain_ms']:.4f} ms "
-                  f"library {'n/a' if lib is None else f'{lib:.4f} ms'} "
-                  + (f"({c['library_name']}) " if "library_name" in c
-                     else "")
-                  + ("" if "library_ms_clean_l2" not in c else
-                     f"(clean L2 {c['library_ms_clean_l2']:.4f} ms) ")
-                  + f"bound {c['bound_ms']:.4f} ms ({c['bound_by']}, "
-                  f"{100 * c['bound_ms'] / c['ms']:.1f} % of it)"
-                  + ("" if "ms_clean_l2" not in c else
-                     f"; clean L2 {c['ms_clean_l2']:.4f} ms")
-                  + ("" if not c.get("parts_ms") else
-                     "; warm " + ", ".join(f"{k} {v:.4f} ms"
-                                           for k, v in c["parts_ms"].items()))
-                  + ("" if not c.get("planted_err") else
-                     "; planted faults fail: " + ", ".join(
-                         f"{k} err {v:.3g}"
-                         for k, v in c["planted_err"].items())))
+    cases = kernel_cases()
+    print_cases(cases)
+    cfg, cfg_g2, cfg_ds = (get_config(a) for a in
+                           ("qwen1.5-0.5b", "gemma2-2b", "ds27b"))
     alternating = gather_against_indexing(cfg)
     for k, flushes in alternating.items():
         print(f"{k}, {len(flushes['dirty'])} alternating rounds, ms median "

@@ -7,211 +7,506 @@
 // (E, K, N) holds the experts' weights; y[r] = x[r] @ w[e(r)] with f32
 // accumulation, written in x's dtype.  Rows past the groups are written
 // as 0; groups past row M are cut at M.  The host never reads the group
-// sizes: the grid is sized by an upper bound of the row tiles, and each
-// block finds its group from them on the device.
+// sizes: the grid is sized from the shapes, and every block derives the
+// tile list from the sizes on the device (walk_init / walk_tile).
 //
-// Bound: at ds27b's append (M = 24,576 copies of 4,096 tokens, K 2,560,
-// N 1,536) a projection is 193 GFLOP against ~0.2 GB of bytes, 0.20 ms
-// of tensor-core peak: operations bound.  At an 8-slot decode (M = 48,
-// most of the 72 groups empty) it reads each used expert's 7.9 MB once
-// and does almost no arithmetic: bytes bound.
+// The tile walk (both bf16 regimes): each group's rows are cut into row
+// tiles of bm rows (128 in the append regime, 8 in the decode regime),
+// the rows past the groups into tiles of their own (written 0), and
+// every row tile into column tiles; tile t is (row tile t / n_ct, column
+// tile t % n_ct), so a tile never straddles a group and neighbouring
+// tiles share a group's rows and weights.  A persistent grid (one block
+// per SM) walks t = blockIdx.x, += gridDim.x.  grouped_gemm.py keeps a
+// plain-Python copy of the walk that the CPU tests check.
 //
-// bf16 design (gg_bf16_kernel): one block of 8 warps per (row tile of up
-// to 128 rows of one group, column tile of 128).  Tiles never straddle a
-// group, so each block multiplies by one expert's weights.  The block's
-// row tile comes from the prefix of the groups' tile counts, walked by
-// one thread over the E sizes; tiles past the groups cover the rows
-// past them (written 0), and slots past those exit.  The grid has
-// ceil(M / 128) + E + 1 row slots, enough for any sizes summing to at
-// most M.  A and B tiles of 32-deep slices are copied by 16-byte
-// cp.async into a 3-stage ring in shared memory (rows padded by 16
-// bytes, so ldmatrix reads them without bank conflicts), and each warp
-// multiplies a 64 x 32 sub-tile on the tensor cores with mma.sync
-// m16n8k16 bf16 -> f32 (B through ldmatrix.trans, as flash's P.V takes
-// V).  mma.sync rather than wgmma: a simple kernel that is right first,
-// as for flash; the 64-row warpgroup product is left for later work.
-// There is no split-K and no atomic: each output element is one
-// thread's fixed-order sum, so two calls give the same bits.
+// Which regime: a pure function of the shapes (grouped_gemm.regime):
+// decode when M <= 8 E, an average of at most 8 rows per expert, else
+// append.  At ds27b (E 72) that is the 48-row decode against the
+// 2,400-24,576-row appends.
+//
+// Bounds (ds27b, gate/up: K 2,560, N 1,536; bf16):
+// * append, M = 24,576 copies of a 4,096-token prefill: x 0.126 GB, the
+//   72 experts' w 0.566 GB and y 0.075 GB, 0.77 GB in all, 0.229 ms at
+//   3.35 TB/s, against 193 GFLOP, 0.195 ms of tensor-core peak: bytes
+//   bound, though barely, so the kernel has to run the tensor cores near
+//   their rate and read each expert's weights from device memory once.
+// * decode, M = 48 copies of 8 slots over ~38 of the 72 experts: the
+//   used experts' w, 0.30 GB, 0.089 ms, and almost no arithmetic: bytes
+//   bound; what counts is keeping every SM streaming distinct weight
+//   bytes with enough of them in flight.
+//
+// Append design (gg_append_kernel): a 128 x 256 output tile, k-slices of
+// 64.  Warp-specialised: warpgroup 0
+// gives up registers (setmaxnreg 40) and one of its threads keeps TMA
+// loads in flight through a ring of 4 slices (48 KB each, 192 KB)
+// guarded by full/empty mbarriers; warpgroups 1 and 2 take
+// 232 registers each and multiply rows 0-63 and 64-127 of the tile with
+// wgmma m64n256k16 (bf16 -> f32, both operands from shared memory, 128-byte
+// swizzled as TMA wrote them), keeping one slice's products in flight
+// while the next slice's are issued.  x's tile (128 rows x 64, K-major)
+// comes from a 2-D tensor map over x (M, K); w's (64 x 256, N contiguous,
+// so B is MN-major and wgmma reads it through its transpose bit) from
+// one 3-D tensor map over w (N, K, E) that serves every expert: boxes of
+// 64 columns, 4 per slice.  Rows of the next group inside a tile
+// are loaded and multiplied but never written; rows past M and columns
+// past N are zero-filled by TMA.  A warpgroup whose 64 rows are all past
+// the tile's rows skips its products.  What holds it back: every row tile
+// streams its group's whole weight strip from L2, so a group of two row
+// tiles, one of them nearly empty (the 1,697- and 2,399-token appends),
+// pulls twice the strip for little work, and the kernel is then bound by
+// L2-to-SM traffic; two CTAs of a cluster sharing the strip (TMA
+// multicast) would halve it.
+//
+// Decode design (gg_decode_kernel): the roles are swapped so that no
+// tile pads to 128 token rows: y[e]^T = w[e]^T x[e]^T, the expert's
+// columns on the M side of mma.sync m16n8k16 and up to 8 token rows on
+// its N side.  A work unit is (8-row chunk of one group, 64 columns);
+// units exist only for rows that exist, so unused experts cost no weight
+// read.  One producer warp streams each unit's 64 x 64 weight boxes (8
+// KB, the same tensor map) and its 8 x 64 token box (1 KB) through a
+// 16-stage ring (147 KB in flight per SM), running ahead across unit
+// boundaries; 4 consumer warps each own 16 of the unit's columns
+// (ldmatrix.trans of the swizzled weight box, ldmatrix of the token box).
+//
+// Both: no split-K and no atomic: each output element is one thread's
+// fixed-order sum, so two calls give the same bits.  The weights' tensor
+// maps are cached on the host by (pointer, E, K, N); x's is encoded per
+// call (cuTensorMapEncodeTiled, fetched from the CUDA driver through the
+// runtime: no -lcuda).
 //
 // f32 design (gg_f32_kernel): scalar FMAs on 64 x 64 tiles, 16-deep
-// slices staged in shared memory, each thread 4 x 4 outputs; the same
-// tile lookup.  TF32 tensor cores would break the 2e-5 tolerance; the
-// path serves the f32 identity check.
+// slices staged in shared memory, each thread 4 x 4 outputs; one block
+// per row-tile slot of the same walk (column tiles on the grid's y).  TF32 tensor cores would
+// break the 2e-5 tolerance; the path serves the f32 identity check.
 #include "attn_common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
 using namespace attn;
+using namespace hopper;
 using bf16 = __nv_bfloat16;
 
-// The rows of row-tile slot t, for tiles of bm rows: (group, first row,
-// rows).  Group -1: rows past the groups, to be zeroed; rows 0: nothing.
-struct Tile {
-  int e, row0, rows;
+// ---------------------------------------------------------------------------
+// the tile walk
+// ---------------------------------------------------------------------------
+
+constexpr int MAX_GROUPS = 512;
+
+// rt[e]: first row tile of group e (rt[E]: the first past the groups);
+// off[e]: first row of group e (off[E]: the first row past the groups)
+struct Walk {
+  int rt[MAX_GROUPS + 1];
+  int off[MAX_GROUPS + 1];
 };
 
-__device__ Tile find_tile(const int* __restrict__ gs, int n_groups, int m,
-                          int t, int bm) {
-  int cum = 0, off = 0;
-  for (int e = 0; e < n_groups; ++e) {
-    const int n = min(max(gs[e], 0), m - off);
-    const int tiles = (n + bm - 1) / bm;
-    if (t < cum + tiles) {
-      const int r0 = off + (t - cum) * bm;
-      return {e, r0, min(bm, off + n - r0)};
+// the rows and columns of one tile: group e (-1: rows past the groups,
+// to be zeroed), rows [row0, row0 + rows), column tile ct
+struct Tile {
+  int e, row0, rows, ct;
+};
+
+// all threads; ends with a __syncthreads
+__device__ void walk_init(Walk& w, const int* __restrict__ gs, int n_groups,
+                          int m, int bm) {
+  for (int e = threadIdx.x; e < n_groups; e += blockDim.x)
+    w.rt[e + 1] = gs[e];
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int off = 0, rt = 0;
+    w.rt[0] = 0;
+    w.off[0] = 0;
+    for (int e = 0; e < n_groups; ++e) {
+      const int rows = min(max(w.rt[e + 1], 0), m - off);
+      off += rows;
+      rt += (rows + bm - 1) / bm;
+      w.rt[e + 1] = rt;
+      w.off[e + 1] = off;
     }
-    cum += tiles;
-    off += n;
   }
-  const int r0 = off + (t - cum) * bm;
-  if (r0 < m) return {-1, r0, min(bm, m - r0)};
-  return {-1, 0, 0};
+  __syncthreads();
+}
+
+__device__ __forceinline__ int walk_tiles(const Walk& w, int n_groups, int m,
+                                          int bm, int n_ct) {
+  return (w.rt[n_groups] + (m - w.off[n_groups] + bm - 1) / bm) * n_ct;
+}
+
+__device__ Tile walk_tile(const Walk& w, int n_groups, int m, int bm,
+                          int n_ct, int t) {
+  const int rt = t / n_ct, ct = t - rt * n_ct;
+  if (rt >= w.rt[n_groups]) {
+    const int r0 = w.off[n_groups] + (rt - w.rt[n_groups]) * bm;
+    return {-1, r0, min(bm, m - r0), ct};
+  }
+  int lo = 0, hi = n_groups - 1;         // the last group starting at or
+  while (lo < hi) {                      // before row tile rt
+    const int mid = (lo + hi + 1) >> 1;
+    if (w.rt[mid] <= rt)
+      lo = mid;
+    else
+      hi = mid - 1;
+  }
+  const int r0 = w.off[lo] + (rt - w.rt[lo]) * bm;
+  return {lo, r0, min(bm, w.off[lo + 1] - r0), ct};
+}
+
+// rows past the groups: y[row0 .. row0 + rows, c0 .. c0 + cols) = 0
+// (cols a multiple of 8, y rows 16-byte aligned)
+__device__ void zero_tile(bf16* __restrict__ y, int row0, int rows, int c0,
+                          int cols, int n, int tid, int n_threads) {
+  const int chunks = cols / 8;
+  for (int i = tid; i < rows * chunks; i += n_threads) {
+    const int r = i / chunks, c = c0 + (i % chunks) * 8;
+    *reinterpret_cast<uint4*>(y + (long long)(row0 + r) * n + c) =
+        make_uint4(0, 0, 0, 0);
+  }
+}
+
+// the 1024-byte aligned start of the dynamic shared memory (the 128-byte
+// swizzle repeats every 8 rows of 128 bytes)
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  return p + ((1024 - (smem_addr(p) & 1023)) & 1023);
 }
 
 // ---------------------------------------------------------------------------
-// bf16: tensor cores
+// append: TMA + wgmma
 // ---------------------------------------------------------------------------
 
-constexpr int BM = 128, BN = 128, BK = 32, STAGES = 3, THREADS = 256;
-constexpr int LDA = BK + 8;            // shared row of an A tile, elements
-constexpr int LDB = BN + 8;            // shared row of a B tile
-constexpr int SMEM_BF16 = STAGES * (BM * LDA + BK * LDB) * (int)sizeof(bf16);
+// a wgmma shared-memory descriptor of a 128-byte-swizzled operand: start
+// address, leading and stride byte offsets, swizzle mode 1 (128 bytes).
+// K-major (x): 8-row groups 1024 bytes apart, the leading offset unused.
+// MN-major (w): 8-row groups of k 1024 bytes apart, 64-column boxes
+// `lbo` apart.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) |
+         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+}
 
-__global__ void __launch_bounds__(THREADS)
-gg_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
-               bf16* __restrict__ y, const int* __restrict__ gs,
-               int n_groups, int m, int k, int n) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* as = reinterpret_cast<bf16*>(smem_raw);    // STAGES x BM x LDA
-  bf16* bs = as + STAGES * BM * LDA;               // STAGES x BK x LDB
-  __shared__ Tile tile;
-  if (threadIdx.x == 0) tile = find_tile(gs, n_groups, m, blockIdx.x, BM);
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// keep the compiler from moving accumulator reads or writes across the
+// asynchronous products
+template <int R>
+__device__ __forceinline__ void fence_acc(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d (64 x N, f32, the wgmma accumulator layout) += A (64 x 16, K-major
+// descriptor) B (16 x N, MN-major descriptor: the transpose bit is set)
+__device__ __forceinline__ void wgmma_m64n256(float (&d)[128], uint64_t da,
+                                                uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, "
+      "%104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
+        "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]),
+        "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]),
+        "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
+        "+f"(d[126]), "+f"(d[127])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+constexpr int BM = 128, BN = 256, BK = 64, STAGES = 4;
+constexpr int A_THREADS = 384;           // producer warpgroup + 2 consumers
+constexpr int A_BYTES = BM * BK * 2;     // x: 128 rows x 128 B
+constexpr int A_STAGE = A_BYTES + BK * BN * 2;   // + w: 4 boxes of 64 cols
+constexpr int A_SMEM = STAGES * A_STAGE + 1024;
+
+__global__ void __launch_bounds__(A_THREADS, 1)
+gg_append_kernel(const __grid_constant__ CUtensorMap tx,
+                 const __grid_constant__ CUtensorMap tw,
+                 bf16* __restrict__ y, const int* __restrict__ gs,
+                 int n_groups, int m, int k, int n) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  __shared__ Walk walk;
+  __shared__ __align__(8) uint64_t full[STAGES], empty[STAGES];
+  const int tid = threadIdx.x;
+  walk_init(walk, gs, n_groups, m, BM);
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 8);           // lane 0 of each consumer warp
+    }
+    mbar_init_fence();
+  }
   __syncthreads();
-  const int e = tile.e, row0 = tile.row0, rows = tile.rows;
-  if (rows == 0) return;
-  const int n0 = blockIdx.y * BN;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  if (e < 0) {                           // rows past the groups
-    for (int i = tid; i < rows * BN; i += THREADS) {
-      const int r = i / BN, c = n0 + i % BN;
-      if (c < n) y[(long long)(row0 + r) * n + c] = __float2bfloat16(0.f);
+  const int n_ct = (n + BN - 1) / BN, n_kt = (k + BK - 1) / BK;
+  const int total = walk_tiles(walk, n_groups, m, BM, n_ct);
+
+  if (tid < 128) {                       // producer warpgroup
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (tid == 0) {
+      int stage = 0;
+      uint32_t ph = 0;
+      for (int t = blockIdx.x; t < total; t += gridDim.x) {
+        const Tile tl = walk_tile(walk, n_groups, m, BM, n_ct, t);
+        if (tl.e < 0) continue;
+        for (int kt = 0; kt < n_kt; ++kt) {
+          mbar_wait(&empty[stage], ph ^ 1);
+          mbar_expect_tx(&full[stage], A_STAGE);
+          unsigned char* sa = smem + stage * A_STAGE;
+          tma_load_2d(sa, &tx, kt * BK, tl.row0, &full[stage]);
+#pragma unroll
+          for (int h = 0; h < BN / 64; ++h)
+            tma_load_3d(sa + A_BYTES + h * 8192, &tw, tl.ct * BN + h * 64,
+                        kt * BK, tl.e, &full[stage]);
+          if (++stage == STAGES) {
+            stage = 0;
+            ph ^= 1;
+          }
+        }
+      }
     }
     return;
   }
-  const bf16* wb = w + (long long)e * k * n;
-  const int wm = (warp >> 2) * 64;       // the warp's 64 rows
-  const int wn = (warp & 3) * 32;        // and 32 columns
 
-  auto load = [&](int kt, int stage) {
-    const int k0 = kt * BK;
-    bf16* ad = as + stage * BM * LDA;
-    bf16* bd = bs + stage * BK * LDB;
-    for (int c = tid; c < BM * (BK / 8); c += THREADS) {
-      const int r = c / (BK / 8), cc = (c % (BK / 8)) * 8;
-      const bool ok = r < rows && k0 + cc < k;
-      cp_async16(ad + r * LDA + cc,
-                 ok ? x + (long long)(row0 + r) * k + k0 + cc : x, ok);
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+  const int c = (tid >> 7) - 1;          // rows c * 64 .. + 64 of a tile
+  const int warp = (tid >> 5) & 3, lane = tid & 31;
+  int stage = 0;
+  uint32_t ph = 0;
+  float acc[BN / 2];
+  for (int t = blockIdx.x; t < total; t += gridDim.x) {
+    const Tile tl = walk_tile(walk, n_groups, m, BM, n_ct, t);
+    const int n0 = tl.ct * BN;
+    if (tl.e < 0) {
+      zero_tile(y, tl.row0, tl.rows, n0, min(BN, n - n0), n, tid - 128, 256);
+      continue;
     }
-    for (int c = tid; c < BK * (BN / 8); c += THREADS) {
-      const int r = c / (BN / 8), cc = (c % (BN / 8)) * 8;
-      const bool ok = k0 + r < k && n0 + cc < n;
-      cp_async16(bd + r * LDB + cc,
-                 ok ? wb + (long long)(k0 + r) * n + n0 + cc : w, ok);
-    }
-  };
-
-  float acc[4][4][4];
+    const bool active = c * 64 < tl.rows;
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+    int prev = -1;
+    for (int kt = 0; kt < n_kt; ++kt) {
+      mbar_wait(&full[stage], ph);
+      if (active) {
+        const uint32_t sa = smem_addr(smem + stage * A_STAGE);
+        const uint64_t da = sw128_desc(sa + c * 8192, 16, 1024);
+        const uint64_t db = sw128_desc(sa + A_BYTES, 8192, 1024);
+        fence_acc(acc);
+        wgmma_fence();
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) acc[i][j][q] = 0.f;
-
-  const int n_kt = (k + BK - 1) / BK;
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < n_kt) load(s, s);
-    cp_async_commit();
-  }
-  for (int kt = 0; kt < n_kt; ++kt) {
-    cp_async_wait<STAGES - 2>();         // slice kt has landed
-    __syncthreads();                     // and slice kt - 1 is consumed
-    if (kt + STAGES - 1 < n_kt)
-      load(kt + STAGES - 1, (kt + STAGES - 1) % STAGES);
-    cp_async_commit();
-    const bf16* at = as + (kt % STAGES) * BM * LDA;
-    const bf16* bt = bs + (kt % STAGES) * BK * LDB;
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      uint32_t af[4][4], bfr[2][4];
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi)
-        ldsm_x4(af[mi], at + (wm + mi * 16 + (lane & 15)) * LDA + kk * 16 +
-                            ((lane >> 4) << 3));
-#pragma unroll
-      for (int nj = 0; nj < 2; ++nj)
-        ldsm_x4_trans(bfr[nj],
-                      bt + (kk * 16 + (lane & 7) + (((lane >> 3) & 1) << 3)) *
-                               LDB +
-                          wn + nj * 16 + ((lane >> 4) << 3));
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-        for (int nj = 0; nj < 2; ++nj) {
-          mma_bf16(acc[mi][2 * nj], af[mi], bfr[nj][0], bfr[nj][1]);
-          mma_bf16(acc[mi][2 * nj + 1], af[mi], bfr[nj][2], bfr[nj][3]);
-        }
-    }
-  }
-
-#pragma unroll
-  for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni) {
-      const int c = n0 + wn + ni * 8 + 2 * (lane & 3);
-      if (c >= n) continue;
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int r = wm + mi * 16 + (lane >> 2) + 8 * h;
-        if (r < rows)
-          *reinterpret_cast<__nv_bfloat162*>(y + (long long)(row0 + r) * n +
-                                             c) =
-              __floats2bfloat162_rn(acc[mi][ni][2 * h],
-                                    acc[mi][ni][2 * h + 1]);
+        for (int kk = 0; kk < BK / 16; ++kk)   // 32 bytes of x's rows, 16
+          wgmma_m64n256(acc, da + 2 * kk,      // rows (2 KB) of w's boxes
+                         db + 128 * kk);
+        wgmma_commit();
+        wgmma_wait<1>();                 // the previous slice's products
+        fence_acc(acc);
+      }
+      if (prev >= 0 && lane == 0) mbar_arrive(&empty[prev]);
+      prev = stage;
+      if (++stage == STAGES) {
+        stage = 0;
+        ph ^= 1;
       }
     }
+    if (active) {
+      wgmma_wait<0>();
+      fence_acc(acc);
+    }
+    if (lane == 0) mbar_arrive(&empty[prev]);
+    if (!active) continue;
+    // accumulator layout: d[4 j + i] is row warp * 16 + lane / 4 + 8 (i / 2)
+    // and column 8 j + 2 (lane % 4) + i % 2 of the warpgroup's 64 x BN
+    const int r_lo = c * 64 + warp * 16 + (lane >> 2);
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      const int col = n0 + 8 * j + 2 * (lane & 3);
+      if (col >= n) continue;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = r_lo + 8 * h;
+        if (r < tl.rows)
+          *reinterpret_cast<__nv_bfloat162*>(
+              y + (long long)(tl.row0 + r) * n + col) =
+              __floats2bfloat162_rn(acc[4 * j + 2 * h],
+                                    acc[4 * j + 2 * h + 1]);
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// decode: swapped roles, mma.sync
+// ---------------------------------------------------------------------------
+
+constexpr int D_BM = 8, D_BN = 64, D_STAGES = 16;
+constexpr int D_W = BK * D_BN * 2;       // 8 KB: 64 k-rows x 64 columns
+constexpr int D_STAGE = D_W + D_BM * BK * 2;   // + 1 KB: 8 tokens x 64 k
+constexpr int D_SMEM = D_STAGES * D_STAGE + 1024;
+constexpr int D_THREADS = 160;           // 4 consumer warps + a producer
+
+__global__ void __launch_bounds__(D_THREADS, 1)
+gg_decode_kernel(const __grid_constant__ CUtensorMap tx,
+                 const __grid_constant__ CUtensorMap tw,
+                 bf16* __restrict__ y, const int* __restrict__ gs,
+                 int n_groups, int m, int k, int n) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  __shared__ Walk walk;
+  __shared__ __align__(8) uint64_t full[D_STAGES], empty[D_STAGES];
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  walk_init(walk, gs, n_groups, m, D_BM);
+  if (tid == 0) {
+    for (int s = 0; s < D_STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 4);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+  const int n_ct = (n + D_BN - 1) / D_BN, n_kt = (k + BK - 1) / BK;
+  const int total = walk_tiles(walk, n_groups, m, D_BM, n_ct);
+
+  if (warp == 4) {                       // producer
+    if (lane == 0) {
+      int stage = 0;
+      uint32_t ph = 0;
+      for (int t = blockIdx.x; t < total; t += gridDim.x) {
+        const Tile tl = walk_tile(walk, n_groups, m, D_BM, n_ct, t);
+        if (tl.e < 0) continue;
+        for (int kt = 0; kt < n_kt; ++kt) {
+          mbar_wait(&empty[stage], ph ^ 1);
+          mbar_expect_tx(&full[stage], D_STAGE);
+          unsigned char* sw = smem + stage * D_STAGE;
+          tma_load_3d(sw, &tw, tl.ct * D_BN, kt * BK, tl.e, &full[stage]);
+          tma_load_2d(sw + D_W, &tx, kt * BK, tl.row0, &full[stage]);
+          if (++stage == D_STAGES) {
+            stage = 0;
+            ph ^= 1;
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  int stage = 0;
+  uint32_t ph = 0;
+  // ldmatrix rows: the weight box's k-row and 16-byte chunk for A
+  // (.trans: matrix i = lane / 8 is k-half i / 2, column half i % 2 of
+  // the warp's 16 columns), the token box's row for B
+  const int mi = lane >> 3, mr = lane & 7;
+  const int a_chunk = 2 * warp + (mi & 1);
+  for (int t = blockIdx.x; t < total; t += gridDim.x) {
+    const Tile tl = walk_tile(walk, n_groups, m, D_BM, n_ct, t);
+    const int n0 = tl.ct * D_BN;
+    if (tl.e < 0) {
+      zero_tile(y, tl.row0, tl.rows, n0, min(D_BN, n - n0), n, tid, 128);
+      continue;
+    }
+    float acc[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int kt = 0; kt < n_kt; ++kt) {
+      mbar_wait(&full[stage], ph);
+      const unsigned char* sw = smem + stage * D_STAGE;
+      const unsigned char* sx = sw + D_W;
+#pragma unroll
+      for (int k2 = 0; k2 < BK / 32; ++k2) {
+        uint32_t b[4];                   // tokens x k 32 k2 .. + 32
+        ldsm_x4(b, sx + mr * 128 + (((4 * k2 + mi) ^ mr) << 4));
+#pragma unroll
+        for (int s = 0; s < 2; ++s) {
+          const int kr = (2 * k2 + s) * 16 + mr + ((mi >> 1) << 3);
+          uint32_t a[4];
+          ldsm_x4_trans(a, sw + kr * 128 + ((a_chunk ^ (kr & 7)) << 4));
+          mma_bf16(acc, a, b[2 * s], b[2 * s + 1]);
+        }
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[stage]);
+      if (++stage == D_STAGES) {
+        stage = 0;
+        ph ^= 1;
+      }
+    }
+    // acc: columns g and g + 8 of the warp's 16, tokens 2 q and 2 q + 1
+    const int g = lane >> 2, q = lane & 3;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int col = n0 + 16 * warp + g + 8 * (i >> 1);
+      const int tok = 2 * q + (i & 1);
+      if (tok < tl.rows && col < n)
+        y[(long long)(tl.row0 + tok) * n + col] = __float2bfloat16(acc[i]);
+    }
+  }
 }
 
 // ---------------------------------------------------------------------------
 // f32: scalar FMAs
 // ---------------------------------------------------------------------------
 
-constexpr int FM = 64, FN = 64, FK = 16;
+constexpr int FM = 64, FN = 64, FK = 16, F_THREADS = 256;
 
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(F_THREADS)
 gg_f32_kernel(const float* __restrict__ x, const float* __restrict__ w,
               float* __restrict__ y, const int* __restrict__ gs, int n_groups,
               int m, int k, int n) {
   __shared__ float at[FK][FM + 4];       // A slice, transposed
   __shared__ float bt[FK][FN];
-  __shared__ Tile tile;
-  if (threadIdx.x == 0) tile = find_tile(gs, n_groups, m, blockIdx.x, FM);
-  __syncthreads();
+  __shared__ Walk walk;
+  walk_init(walk, gs, n_groups, m, FM);
+  if ((int)blockIdx.x >= walk_tiles(walk, n_groups, m, FM, 1)) return;
+  const Tile tile = walk_tile(walk, n_groups, m, FM, 1, blockIdx.x);
   const int e = tile.e, row0 = tile.row0, rows = tile.rows;
-  if (rows == 0) return;
   const int n0 = blockIdx.y * FN, tid = threadIdx.x;
   const int ty = tid / 16, tx = tid % 16;  // rows 4 ty.., columns 4 tx..
   float acc[4][4] = {};
   if (e >= 0) {
     const float* wb = w + (long long)e * k * n;
     for (int k0 = 0; k0 < k; k0 += FK) {
-      for (int i = tid; i < FM * FK; i += THREADS) {
+      for (int i = tid; i < FM * FK; i += F_THREADS) {
         const int r = i / FK, kk = i % FK;
         at[kk][r] = r < rows && k0 + kk < k
                         ? x[(long long)(row0 + r) * k + k0 + kk] : 0.f;
       }
-      for (int i = tid; i < FK * FN; i += THREADS) {
+      for (int i = tid; i < FK * FN; i += F_THREADS) {
         const int kk = i / FN, c = i % FN;
         bt[kk][c] = k0 + kk < k && n0 + c < n
                         ? wb[(long long)(k0 + kk) * n + n0 + c] : 0.f;
@@ -247,31 +542,71 @@ gg_f32_kernel(const float* __restrict__ x, const float* __restrict__ w,
 
 }  // namespace
 
-// dtype: 0 = float32 (scalar path), 1 = bfloat16 (tensor cores).  x (m, k)
+// ---------------------------------------------------------------------------
+// host
+// ---------------------------------------------------------------------------
+
+namespace {
+
+template <typename K>
+cudaError_t smem_attr(K kernel, int bytes) {
+  return cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+}
+
+}  // namespace
+
+// dtype: 0 = float32 (scalar path), 1 = bfloat16 (tensor cores); regime
+// (bf16 only): 0 = append, 1 = decode (grouped_gemm.regime).  x (m, k)
 // and y (m, n) row-major, w (n_groups, k, n) row-major, group_sizes
-// (n_groups,) int32 on the device.  bf16 needs k and n multiples of 8 and
+// (n_groups,) int32 on the device; n_sm: the card's SMs (the persistent
+// grid).  At most 512 groups; bf16 needs k and n multiples of 8 and
 // 16-byte aligned x, w, y (the caller checks).  Returns the first launch
 // error (cudaError_t), 0 on success.
-extern "C" int grouped_gemm(int dtype, const void* x, const void* w, void* y,
-                            const int* group_sizes, int n_groups, int m, int k,
-                            int n, cudaStream_t stream) {
+extern "C" int grouped_gemm(int dtype, int regime, const void* x,
+                            const void* w, void* y, const int* group_sizes,
+                            int n_groups, int m, int k, int n, int n_sm,
+                            cudaStream_t stream) {
   if (m <= 0 || n <= 0) return 0;
-  if (n_groups <= 0 || k <= 0) return (int)cudaErrorInvalidValue;
+  if (n_groups <= 0 || n_groups > MAX_GROUPS || k <= 0)
+    return (int)cudaErrorInvalidValue;
   if (dtype == 1) {
-    if (k % 8 || n % 8) return (int)cudaErrorInvalidValue;
-    static const cudaError_t attr = cudaFuncSetAttribute(
-        gg_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        SMEM_BF16);
-    if (attr != cudaSuccess) return (int)attr;
-    dim3 grid((m + BM - 1) / BM + n_groups + 1, (n + BN - 1) / BN);
-    gg_bf16_kernel<<<grid, THREADS, SMEM_BF16, stream>>>(
-        static_cast<const bf16*>(x), static_cast<const bf16*>(w),
-        static_cast<bf16*>(y), group_sizes, n_groups, m, k, n);
+    if (k % 8 || n % 8 || n_sm <= 0 || (regime != 0 && regime != 1))
+      return (int)cudaErrorInvalidValue;
+    CUtensorMap tw, tx;
+    const int bm = regime == 0 ? BM : D_BM;
+    const uint64_t xdims[2] = {(uint64_t)k, (uint64_t)m};
+    const uint64_t xstride[1] = {(uint64_t)k * 2};
+    const uint32_t xbox[2] = {(uint32_t)BK, (uint32_t)bm};
+    // w (E, K, N) as a 3-D map (N, K, E) of 64 x 64 boxes, fixed per
+    // layer: cached
+    const uint64_t wdims[3] = {(uint64_t)n, (uint64_t)k, (uint64_t)n_groups};
+    const uint64_t wstride[2] = {(uint64_t)n * 2, (uint64_t)k * n * 2};
+    const uint32_t wbox[3] = {64, (uint32_t)BK, 1};
+    if (!bf16_map_cached(&tw, w, wdims, wstride, wbox) ||
+        !bf16_map(&tx, x, 2, xdims, xstride, xbox))
+      return (int)cudaErrorInvalidValue;
+    const int bn = regime == 0 ? BN : D_BN;
+    const long long slots =
+        (long long)((m + bm - 1) / bm + n_groups + 1) * ((n + bn - 1) / bn);
+    const int grid = (int)(slots < n_sm ? slots : n_sm);
+    const auto yb = static_cast<bf16*>(y);
+    if (regime == 0) {
+      static const cudaError_t attr = smem_attr(gg_append_kernel, A_SMEM);
+      if (attr != cudaSuccess) return (int)attr;
+      gg_append_kernel<<<grid, A_THREADS, A_SMEM, stream>>>(
+          tx, tw, yb, group_sizes, n_groups, m, k, n);
+    } else {
+      static const cudaError_t attr = smem_attr(gg_decode_kernel, D_SMEM);
+      if (attr != cudaSuccess) return (int)attr;
+      gg_decode_kernel<<<grid, D_THREADS, D_SMEM, stream>>>(
+          tx, tw, yb, group_sizes, n_groups, m, k, n);
+    }
     return (int)cudaGetLastError();
   }
   if (dtype == 0) {
     dim3 grid((m + FM - 1) / FM + n_groups + 1, (n + FN - 1) / FN);
-    gg_f32_kernel<<<grid, THREADS, 0, stream>>>(
+    gg_f32_kernel<<<grid, 256, 0, stream>>>(
         static_cast<const float*>(x), static_cast<const float*>(w),
         static_cast<float*>(y), group_sizes, n_groups, m, k, n);
     return (int)cudaGetLastError();

@@ -9,9 +9,12 @@ reference's absorbed decode between ``q_lat`` and ``o_lat``
 (b,) int32; returns o_lat (b, h, r) in c's dtype.  On CUDA tensors this
 launches ``csrc/mla_decode.cu`` (h 32, r 512, rd 64: ds27b's), which in
 bf16 splits the keys into ranges when one block per sequence would
-leave the card idle (``plan``, from shapes only) and merges the splits'
-f32 partials in a second kernel: one call, one launch count.  On CPU
-tensors it computes the plain version.
+leave the card idle (``plan``, from shapes only); the last split of a row
+to finish merges the row's f32 partials in index order, inside the same
+kernel: one call, one launch.  The splits find the last of them through
+one arrival counter per row, which the wrapper keeps on the device
+(zeroed once) and each call leaves at 0.  On CPU tensors it computes
+the plain version.
 """
 from __future__ import annotations
 
@@ -24,18 +27,30 @@ from repro_torch.kernels import build, ref
 
 HEADS, RANK, ROPE = 32, 512, 64    # the shapes the kernel is built for
 KEY_TILE = 32                      # keys per tile; a split is a multiple
-BLOCKS_PER_SM = 2                  # the split plan's aim
+BLOCKS_PER_SM = 1                  # the split plan's aim
+_COUNTERS: dict = {}               # device -> the rows' arrival counters
 
 
 @functools.cache
 def _fn():
     fn = build.library("mla_decode").mla_decode
-    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 9 +
+    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 10 +
                    [ctypes.c_int] * 4 +
                    [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float,
                     ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
+
+
+def _counters(device: torch.device, b: int) -> torch.Tensor:
+    """At least ``b`` arrival counters on ``device``, all 0: zeroed when
+    allocated (grown only when a call has more rows than ever before),
+    and every call leaves the counters it used at 0."""
+    have = _COUNTERS.get(device)
+    if have is None or have.numel() < b:
+        have = torch.zeros(max(b, 64), dtype=torch.int32, device=device)
+        _COUNTERS[device] = have
+    return have
 
 
 def mla_decode(q_lat: torch.Tensor, q_rope: torch.Tensor, c: torch.Tensor,
@@ -80,12 +95,13 @@ def mla_decode(q_lat: torch.Tensor, q_rope: torch.Tensor, c: torch.Tensor,
             {n: t.stride()[:2] for n, t in zip(names, ts)},
             c.element_size())
     pm, pl, pacc = build.split_scratch(n_split, b * h, r, c.device)
+    counters = _counters(c.device, b) if n_split > 1 else None
     ptr = lambda t: None if t is None else t.data_ptr()
     strides = (ctypes.c_longlong * 8)(*(x for t in ts for x in t.stride()[:2]))
     rc = _fn()(build.ATTN_DTYPES[c.dtype], *(t.data_ptr() for t in ts),
                lengths.data_ptr(), out.data_ptr(), ptr(pm), ptr(pl),
-               ptr(pacc), b, s_max, n_split, chunk, strides, float(scale),
-               build.stream_of(c))
+               ptr(pacc), ptr(counters), b, s_max, n_split, chunk, strides,
+               float(scale), build.stream_of(c))
     build.check(rc, "mla_decode")
     mla_decode.launches += 1
     return out
@@ -97,6 +113,8 @@ mla_decode.launches = 0
 def plan(b: int, s_max: int, n_sm: int, bf16: bool = True) -> tuple:
     """(n_split, chunk) of one call: bf16 splits the cache's ``s_max``
     key positions so that the ``b`` sequences make about
-    ``BLOCKS_PER_SM`` blocks per SM; float32 never splits."""
+    ``BLOCKS_PER_SM`` blocks per SM (the kernel fits one an SM); float32
+    never splits.  ds27b's 8 slots of a 6144-token cache on 132 SMs:
+    (16, 384)."""
     target = BLOCKS_PER_SM * n_sm if bf16 else 0
     return build.split_plan(s_max, b, target, unit=KEY_TILE)

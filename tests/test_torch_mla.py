@@ -230,15 +230,38 @@ def test_decode_split_ref_matches_unsplit(chunk):
 
 def test_decode_plan_covers_every_key_once():
     """The split plan, from shapes only: ds27b's 8 slots over a 6144-token
-    cache make about two blocks per SM; f32 never splits; every key
-    position falls in exactly one split."""
+    cache make about one block per SM (the kernel fits one an SM, and
+    its last split of a row merges the row's partials, so fewer splits
+    mean fewer partial bytes): 16 splits of 384 keys; f32 never splits;
+    every key position falls in exactly one split."""
     plan = _mla_mod.plan
-    assert plan(8, 6144, 132) == (32, 192)
+    assert plan(8, 6144, 132) == (16, 384)
     assert plan(8, 6144, 132, bf16=False) == (1, 6144)
     for b, s_max in ((1, 64), (8, 6144), (3, 100), (16, 4096)):
         n_split, chunk = plan(b, s_max, 132)
         assert chunk % _mla_mod.KEY_TILE == 0
         assert (n_split - 1) * chunk < s_max <= n_split * chunk
+        assert n_split * b <= 132 + b      # about one block per SM
+
+
+@pytest.mark.parametrize("lengths", [[1, 383, 384, 385, 4600, 5040, 6143,
+                                      6144],
+                                     [6144, 1, 2, 3, 5, 8, 13, 64]])
+def test_decode_split_ref_at_the_plan_matches_unsplit(lengths):
+    """The bf16 kernel's arithmetic at the plan's own cut of ds27b's
+    cache (8 slots of 6144 positions on 132 SMs: 16 splits of 384 keys;
+    narrow heads keep it quick) against the unsplit plain version:
+    lengths at the splits' edges and the phase's, and one row at the
+    cache's end with seven short ones (their other splits hold no key)."""
+    rng = np.random.default_rng(lengths[1])
+    n_split, chunk = _mla_mod.plan(8, 6144, 132)
+    assert (n_split, chunk) == (16, 384)
+    ql, qr, c, kr = _latent_inputs(rng, 8, 4, 32, 16, 6144, torch.float32)
+    lens = torch.tensor(lengths, dtype=torch.int32)
+    want = ref.mla_decode_ref(ql, qr, c, kr, lens, scale=0.1)
+    got = ref.mla_decode_split_ref(ql, qr, c, kr, lens, scale=0.1,
+                                   chunk=chunk)
+    _close(got, want.numpy(), TOLS["float32"])
 
 
 def test_decode_wrapper_rejects_mismatched_shapes():

@@ -13,11 +13,17 @@ before the MoE layers.  The JAX parameters go through
   and with rows past the groups.
 * ``moe_ffn`` with its shared experts against the reference's ``ragged``
   form, in f32 and bf16.
+* The bf16 kernel's regime, from shapes only, at every M the smoke's
+  ds27b phase runs; the plain-Python copy of the kernels' tile walk:
+  every row of every group in exactly one tile, no tile mixing two
+  groups, rows past the groups covered (to be zeroed), with empty
+  groups, all rows in one group, M < E and M = 0.
 
 Tolerances: 2e-5 in f32 and 2e-2 in bf16, of the largest value
 (test_torch_model.py's).
 """
 import dataclasses
+import importlib
 
 import jax
 import jax.numpy as jnp
@@ -32,6 +38,8 @@ from repro_torch import bridge
 from repro_torch.configs import get_config
 from repro_torch.kernels import grouped_gemm
 from repro_torch.models import moe
+
+_gg_mod = importlib.import_module("repro_torch.kernels.grouped_gemm")
 
 torch.set_num_threads(1)
 
@@ -159,3 +167,60 @@ def test_moe_ffn_with_shared_experts_matches_jax(layer):
     got = moe.moe_ffn(tmoe, tcfg, tx.reshape(b, s, -1))
     assert got.dtype == tx.dtype
     _close(got, np.asarray(want, np.float32), TOLS[dt])
+
+
+# the copies (tokens x top-6) of every grouped GEMM the smoke's ds27b
+# phase runs: the 8-slot decode, the appends of DS27B_APPENDS, and M < 16
+PHASE_M = {"decode": [48, 12], "append": [24576, 14394, 10182, 2400, 3264]}
+
+
+@pytest.mark.parametrize("k, n", [(2560, 1536), (1536, 2560)])
+@pytest.mark.parametrize("want", list(PHASE_M))
+def test_regime_from_shapes_at_the_phase(want, k, n):
+    """ds27b (72 experts): the decode's 48 copies and a 2-token call take
+    the decode regime, every append's copies the append regime, for both
+    projections; the cut is at 8 rows per expert."""
+    for m in PHASE_M[want]:
+        assert _gg_mod.regime(m, 72, k, n) == want
+    cut = _gg_mod.DECODE_ROWS_PER_GROUP * 72
+    assert _gg_mod.regime(cut, 72, k, n) == "decode"
+    assert _gg_mod.regime(cut + 1, 72, k, n) == "append"
+
+
+WALK_SIZES = {
+    "routed": ([5, 0, 9, 3, 0, 7, 1, 5], 30),
+    "empty groups at both ends": ([0, 0, 12, 6, 12, 0, 0, 0], 30),
+    "all rows in one group": ([0, 0, 300, 0], 300),
+    "rows past the groups": ([4, 4, 4, 4, 4, 4, 0, 0], 30),
+    "M < E": ([1, 0, 0, 2, 0, 0, 0, 0, 1, 0], 4),
+    "groups past M": ([20, 20, 20], 33),
+    "M = 0": ([0, 0, 0], 0),
+}
+
+
+@pytest.mark.parametrize("bm", [8, 64, 128])
+@pytest.mark.parametrize("case", list(WALK_SIZES))
+def test_tile_walk_covers_every_row_once(case, bm):
+    """The kernels' device tile walk, emulated: each (row, column tile)
+    lands in exactly one tile; a tile holds rows of one group only,
+    never more than bm; the rows past the groups form tiles of group -1;
+    column tiles are the fastest index."""
+    sizes, m = WALK_SIZES[case]
+    n_ct = 3
+    tiles = _gg_mod.tile_walk(sizes, m, bm, n_ct)
+    owner = {}                            # row -> group, from the sizes
+    lo = 0
+    for e, size in enumerate(sizes):
+        for r in range(lo, min(lo + size, m)):
+            owner[r] = e
+        lo = min(lo + size, m)
+    seen = {}
+    for t, (e, r0, rows, ct) in enumerate(tiles):
+        assert 0 < rows <= bm and ct == t % n_ct
+        for r in range(r0, r0 + rows):
+            assert owner.get(r, -1) == e, (case, t, r)
+            assert (r, ct) not in seen
+            seen[(r, ct)] = t
+    assert set(seen) == {(r, ct) for r in range(m) for ct in range(n_ct)}
+    if m == 0:
+        assert tiles == []
