@@ -1,6 +1,6 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA H100.
 
-    python3 chip_smoke.py                  # the smoke, phases 1-12
+    python3 chip_smoke.py                  # the smoke, phases 1-13
     python3 chip_smoke.py --persist-ab 10  # offline serving, old persist
                                            # against the scatter's
     python3 chip_smoke.py --split-sweep    # the attention kernels' split
@@ -8,6 +8,7 @@
     python3 chip_smoke.py --kernels grouped_gemm,mla_decode
                                            # build and run phase 3's cases
                                            # of the named kernels only
+    python3 chip_smoke.py --sim            # phase 12 alone
 
 Drives ``repro_torch`` (never the JAX package) on the card:
 
@@ -105,7 +106,19 @@ Drives ``repro_torch`` (never the JAX package) on the card:
    identical tokens; a third run under torch.profiler; then f32 token
    identity at full width and depth 4 with the cache-free reference,
    unchunked and in 1024-token slices (see :func:`ds27b_phase`);
-12. prints the ``kernels`` JSON line, then the contract line
+12. the event simulator (``repro_torch.sim``), on the host in modelled
+   time: (a) DS 660B at 2P4D on 192 Table 2 trajectories of 64K in the
+   basic, dualpath and oracle modes (every agent finishes, dualpath's
+   modelled ``jct_max`` under 0.95 x basic's, oracle within 1.02 x
+   dualpath, mean TPOT within 15 %); (b) benchmarks/microbench_sim.py's
+   saturated-link workload under ``Sim``, ``VectorSim`` and ``VectorSim``
+   with its settle on the card, all three ``results()`` equal; (c) a
+   traced dualpath run at 48 agents whose trace passes ``audit_sim`` and
+   whose rounds' charges equal their loading plans to the byte; no
+   kernel launches in it.  It prints real host seconds and events per
+   host second, the modelled figures labelled so, and a ``sim`` JSON line
+   (see :func:`sim_phase`);
+13. prints the ``kernels`` JSON line, then the contract line
    ``{"ok": true, "device": {...}}`` last.
 
 Any failed check raises, so the script exits non-zero and prints no
@@ -198,6 +211,15 @@ DS27B_MAX_SEQ = 6144
 # 1024-token prefill slices
 DS27B_IDENTITY = dict(depth=4, rounds=((2112, 4), (64, 4), (64, 4)),
                       max_seq=2368, chunk=1024)
+# the event simulator (phase 12): (a) the reference's I/O-bound point,
+# DS 660B at 2P4D on Table 2's 64K trajectories; (b)
+# benchmarks/microbench_sim.py's saturated-link workload; (c) a traced
+# dualpath run
+SIM_IO_AGENTS = 192
+SIM_IO_MAX_LEN = 65536
+SIM_MICRO = dict(nodes=10, agents=60, window_s=4.0, horizon_s=12.0,
+                 bw_per_node=1e9, bg_load=0.8, bg_chunk=64e6, max_len=8192)
+SIM_TRACED_AGENTS = 48
 # profiler rows of the port's kernels, by wrapper: kernel-name prefixes
 KERNEL_ROWS = {"flash_attention": ("flash_",), "paged_attention": ("paged_",),
                "kv_layer_gather": ("gather_kernel",),
@@ -2384,6 +2406,197 @@ def ds27b_phase(cfg, device="cuda", rounds=DS27B_ROUNDS,
 
 
 # ---------------------------------------------------------------------------
+# the event simulator: modelled cluster time, run on the host
+# ---------------------------------------------------------------------------
+
+
+def json_safe(x):
+    """``x`` with every NaN float replaced by None (strict JSON)."""
+    if isinstance(x, dict):
+        return {k: json_safe(v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return [json_safe(v) for v in x]
+    if isinstance(x, float) and x != x:
+        return None
+    return x
+
+
+def sim_same(got: dict, want: dict) -> list:
+    """Keys of two ``results()`` dicts that differ, NaN equal to NaN."""
+    return [k for k in sorted(set(got) | set(want))
+            if not same_value(got.get(k), want.get(k))]
+
+
+def sim_io_bound(n_agents=SIM_IO_AGENTS, max_len=SIM_IO_MAX_LEN) -> dict:
+    """(a) DS 660B on the paper's Hopper nodes at 2P4D, the Table 2 64K
+    trajectories, in the basic, dualpath and oracle modes (fig. 7's DS
+    660B 2P4D shape): every agent finishes, dualpath's ``jct_max`` under
+    0.95 x basic's, oracle's within 1.02 x dualpath's, and dualpath's
+    mean TPOT within 15 % of basic's.  JCT and TPOT are modelled
+    seconds; ``host_s`` is real host time."""
+    from repro_torch.sim import (DS_660B, HOPPER_NODE, Sim, SimConfig,
+                                 generate_dataset)
+    out = {}
+    for mode in ("basic", "dualpath", "oracle"):
+        trajs = generate_dataset(n_agents, max_len, seed=0)
+        cfg = SimConfig(node=HOPPER_NODE, model=DS_660B, P=2, D=4,
+                        mode=mode)
+        t0 = time.perf_counter()
+        sim = Sim(cfg, trajs).run()
+        host = time.perf_counter() - t0
+        r = sim.results()
+        assert r["finished_agents"] == n_agents, (mode, r)
+        out[mode] = dict(host_s=host, events=sim.loop.n_events,
+                         results=r)
+    rb, rd, ro = (out[m]["results"] for m in ("basic", "dualpath", "oracle"))
+    assert rd["jct_max"] < rb["jct_max"] * 0.95, (rb["jct_max"],
+                                                 rd["jct_max"])
+    assert ro["jct_max"] <= rd["jct_max"] * 1.02, (rd["jct_max"],
+                                                  ro["jct_max"])
+    assert abs(rd["tpot_mean"] - rb["tpot_mean"]) / rb["tpot_mean"] < 0.15, \
+        (rb["tpot_mean"], rd["tpot_mean"])
+    return out
+
+
+def sim_microbench(settle_device="cuda") -> dict:
+    """(b) benchmarks/microbench_sim.py's workload: 10 nodes (2 P, 8 D),
+    60 agents of at most 8192 tokens arriving over 4 s, split reads, the
+    compute network saturated at 0.8 background load, a 12 s horizon.
+    ``Sim``, ``VectorSim`` with the numpy settle and ``VectorSim`` with
+    the settle on ``settle_device`` must give equal ``results()`` (NaN
+    equal to NaN), and the device settle must have run.  Events per host
+    second are real measurements of the host."""
+    from repro_torch.core.config import NetworkConfig
+    from repro_torch.sim import (DS_660B, HOPPER_NODE, Sim, SimConfig,
+                                 VectorSim, generate_dataset)
+    n = SIM_MICRO["nodes"]
+    p = max(1, n // 4)
+    cfg = SimConfig(node=HOPPER_NODE, model=DS_660B, P=p, D=n - p,
+                    nodes_per_pe_group=1, nodes_per_de_group=1,
+                    split_reads=True,
+                    net=NetworkConfig(
+                        net_bw=SIM_MICRO["bw_per_node"] * n,
+                        net_bg_load=SIM_MICRO["bg_load"],
+                        net_bg_chunk_bytes=SIM_MICRO["bg_chunk"]))
+    trajs = generate_dataset(SIM_MICRO["agents"], SIM_MICRO["max_len"],
+                             seed=0)
+    step = SIM_MICRO["window_s"] / max(len(trajs) - 1, 1)
+    arrivals = [i * step for i in range(len(trajs))]
+    out, results = {}, {}
+    for name, make in (
+            ("Sim", lambda: Sim(cfg, trajs)),
+            ("VectorSim", lambda: VectorSim(cfg, trajs)),
+            ("VectorSim_device", lambda: VectorSim(
+                cfg, trajs, settle_device=settle_device))):
+        t0 = time.perf_counter()
+        sim = make().run(arrivals=list(arrivals),
+                         until=SIM_MICRO["horizon_s"])
+        host = time.perf_counter() - t0
+        results[name] = sim.results()
+        out[name] = dict(host_s=host, events=sim.loop.n_events)
+        if name == "VectorSim_device":
+            out[name]["device_settles"] = sim._settle_kernel.calls
+            assert sim._settle_kernel.calls > 0, "the device settle never ran"
+    for name in ("VectorSim", "VectorSim_device"):
+        bad = sim_same(results[name], results["Sim"])
+        assert not bad, f"{name} results differ from Sim's at {bad}"
+    n_ev = out["Sim"]["events"]
+    for name, o in out.items():
+        # event-equivalent: the per-object engine's event count over each
+        # engine's host seconds (the pool needs far fewer own events)
+        o["events_per_s"] = n_ev / o["host_s"]
+        o["own_events_per_s"] = o["events"] / o["host_s"]
+    out["results"] = results["Sim"]
+    return out
+
+
+def sim_traced(n_agents=SIM_TRACED_AGENTS) -> dict:
+    """(c) a traced dualpath run (1P2D, the Table 2 32K trajectories):
+    ``audit_sim`` holds every storage-NIC span against the NICs' byte
+    counters, and every round's charged bytes equal its loading plan's
+    to the byte."""
+    from repro_torch.core.loading import resource_bytes
+    from repro_torch.obs import Tracer, audit_sim
+    from repro_torch.sim import (DS_660B, HOPPER_NODE, Sim, SimConfig,
+                                 generate_dataset)
+    trajs = generate_dataset(n_agents, 32768, seed=0)
+    cfg = SimConfig(node=HOPPER_NODE, model=DS_660B, P=1, D=2,
+                    mode="dualpath")
+    tracer = Tracer()
+    t0 = time.perf_counter()
+    sim = Sim(cfg, trajs, tracer=tracer).run()
+    host = time.perf_counter() - t0
+    r = sim.results()
+    assert r["finished_agents"] == n_agents, r
+    audit = audit_sim(sim, tracer)
+    checked = 0
+    for rs in sim.rounds:
+        if rs.done_t < 0 or rs.req.read_path is None:
+            continue
+        legs = [leg for leg in sim._request_legs(rs.req)
+                if leg.phase != "decode"]        # persists aggregate
+        want = {k: v for k, v in resource_bytes(legs).items() if v}
+        got = {k: v for k, v in rs.charged.items() if v}
+        assert got == want, (rs.req.rid, got, want)
+        checked += 1
+    assert checked == r["finished_rounds"], (checked, r["finished_rounds"])
+    return dict(host_s=host, events=sim.loop.n_events, audit=audit,
+                rounds_checked=checked, results=r)
+
+
+def sim_phase(settle_device="cuda") -> dict:
+    """Phase 12: the event simulator (``repro_torch.sim``), which models
+    the paper's cluster in modelled time on the host; only (b)'s opt-in
+    settle touches the card.  It launches none of the port's kernels:
+    the counts, zeroed before it, must read 0 after it."""
+    from repro_torch import kernels
+    kernels.reset_launch_counts()
+    out = dict(io_bound=sim_io_bound(), micro=sim_microbench(settle_device),
+               traced=sim_traced())
+    out["launches"] = kernels.launch_counts()
+    assert not any(out["launches"].values()), out["launches"]
+    return out
+
+
+SIM_KEYS = ("finished_agents", "finished_rounds", "jct_mean", "jct_max",
+            "ttft_mean", "ttft_p99", "tpot_mean", "tpot_p99", "sim_time",
+            "snic_hit_read_bytes", "collective_stall_s")
+
+
+def print_sim(sim: dict) -> None:
+    io, micro, tr = sim["io_bound"], sim["micro"], sim["traced"]
+    rb, rd, ro = (io[m]["results"] for m in ("basic", "dualpath", "oracle"))
+    print(f"sim (a) DS 660B 2P4D, {SIM_IO_AGENTS} agents at "
+          f"{SIM_IO_MAX_LEN}: real host s basic {io['basic']['host_s']:.2f}"
+          f", dualpath {io['dualpath']['host_s']:.2f}, oracle "
+          f"{io['oracle']['host_s']:.2f}; modelled jct_max basic "
+          f"{rb['jct_max']!r}, dualpath {rd['jct_max']!r}, oracle "
+          f"{ro['jct_max']!r}; modelled speed-up basic/dualpath "
+          f"{rb['jct_max'] / rd['jct_max']:.4f}; modelled tpot_mean basic "
+          f"{rb['tpot_mean']!r}, dualpath {rd['tpot_mean']!r}")
+    print("sim (b) microbench workload: " + "; ".join(
+        f"{k} {micro[k]['host_s']:.3f} real host s, {micro[k]['events']} "
+        f"own events, {micro[k]['events_per_s']:.0f} event-equivalent/s"
+        for k in ("Sim", "VectorSim", "VectorSim_device"))
+        + f"; device settles {micro['VectorSim_device']['device_settles']};"
+        " results equal across the three")
+    print(f"sim: kernel launches {json.dumps(sim['launches'])}")
+    print(f"sim (c) traced dualpath, {SIM_TRACED_AGENTS} agents: "
+          f"{tr['host_s']:.3f} real host s, {tr['events']} events, audit "
+          f"{json.dumps(tr['audit'])}, {tr['rounds_checked']} rounds' "
+          f"charges equal their plans")
+    host = sum(io[m]["host_s"] for m in io) + tr["host_s"] + sum(
+        micro[k]["host_s"] for k in ("Sim", "VectorSim", "VectorSim_device"))
+    print(json.dumps({"sim": json_safe(dict(
+        host_s=host,
+        io_bound={m: dict(host_s=io[m]["host_s"], events=io[m]["events"],
+                          modelled={k: io[m]["results"][k]
+                                    for k in SIM_KEYS}) for m in io},
+        micro={k: v for k, v in micro.items() if k != "results"},
+        micro_modelled={k: micro["results"][k] for k in SIM_KEYS},
+        traced=dict(host_s=tr["host_s"], events=tr["events"],
+                    rounds_checked=tr["rounds_checked"],
+                    modelled={k: tr["results"][k] for k in SIM_KEYS})))}))
 
 
 def main() -> int:
@@ -2422,6 +2635,14 @@ def main() -> int:
         print(f"build: {time.perf_counter() - t0:.1f} s")
         print_build_log(sources)
         print_cases(kernel_cases(names))
+        return 0
+
+    if sys.argv[1:2] == ["--sim"]:
+        print(subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            check=True).stdout.strip())
+        print_sim(sim_phase())
         return 0
 
     if sys.argv[1:2] == ["--persist-ab"]:
@@ -2615,7 +2836,11 @@ def main() -> int:
           f"prefill slices")
     print_profile(*ds["profile"], label="ds27b: ")
 
-    # 12. kernels line, then the contract line
+    # 12. the event simulator: modelled cluster time on the host
+    sim = sim_phase()
+    print_sim(sim)
+
+    # 13. kernels line, then the contract line
     meta = {
         "kv_layer_gather": ("src/repro_torch/kernels/csrc/kv_gather.cu",
                             "src/repro/kernels/kv_gather.py:30"),
@@ -2651,7 +2876,8 @@ def main() -> int:
                                   elastic=el["e"]["launches"][name],
                                   network=el["g"]["launches"][name],
                                   gemma2=g2["launches"][name],
-                                  ds27b=ds["launches"][name]),
+                                  ds27b=ds["launches"][name],
+                                  sim=sim["launches"][name]),
             max_abs_err=max(c["max_abs_err"] for c in cs),
             ms=main_case["ms"], kernel_ms=main_case["ms"],
             ms_clean_l2=main_case.get("ms_clean_l2"),

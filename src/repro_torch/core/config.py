@@ -10,9 +10,11 @@
 * :class:`SloConfig` — the online SLO layer: the admission gate,
   chunked prefill and priority classes.
 
-Each group has the reference's fields and defaults, less those in
-:data:`LEFT_OUT`.  The port's ``ServingSystem`` takes group objects only;
-the reference's flat-kwarg deprecation shim is not ported.
+Each group has the reference's fields and defaults.  The runtimes take
+group objects only; the reference's flat-kwarg deprecation shim is not
+ported.  :data:`FLAT_FIELDS` maps each flat name to its ``(group,
+field)``: the simulator's ``SimConfig`` reads and writes its groups
+through it (``cfg.dram_tier_bytes`` is ``cfg.tier.dram_tier_bytes``).
 """
 from __future__ import annotations
 
@@ -31,18 +33,33 @@ class TierConfig:
     tier_policy: str = "lru"          # lru | agentic-ttl
     tier_ttl_s: Optional[float] = None  # None = policy default (120 s)
     prefetch: bool = False            # think-time prefetcher
+    prefetch_chunk_blocks: int = 32   # blocks per staged prefetch chunk
 
 
 @dataclass
 class NetworkConfig:
-    """Finite compute network.  ``collective_group_size > 1`` puts the
-    per-layer model collectives of every PE and DE step on the stepping
-    node's compute-NIC link (volumes from ``network.CollectiveVolumeModel``),
-    where they contend with KV transfers under ``net_arbiter``: 'vl' (the
-    paper's weighted-VL arbiter) or 'fifo' (class-blind, the ablation)."""
+    """Finite compute network.  Model collectives contend with KV
+    transfers under ``net_arbiter``: 'vl' (the paper's weighted-VL
+    arbiter) or 'fifo' (class-blind, the ablation).
 
-    net_arbiter: str = "vl"
-    collective_group_size: int = 0    # >1 puts collectives on the network
+    * The simulator's shared PE↔DE link has capacity ``net_bw`` (None:
+      infinite, the paper's no-congestion assumption), collectives iff
+      ``model_collectives`` (None: iff the link is finite) and background
+      KV traffic at ``net_bg_load`` × ``net_bw`` in chunks of
+      ``net_bg_chunk_bytes``.
+    * In the serving runtime ``collective_group_size > 1`` puts the
+      per-layer model collectives of every PE and DE step on the stepping
+      node's compute-NIC link (volumes from
+      ``network.CollectiveVolumeModel``)."""
+
+    net_bw: Optional[float] = None    # shared PE<->DE link [B/s]; None = inf
+    net_arbiter: str = "vl"           # 'vl' (paper) | 'fifo' (ablation)
+    model_collectives: Optional[bool] = None   # None: on iff net finite
+    collective_dtype_bytes: int = 2
+    collective_bytes_per_token: Optional[float] = None
+    net_bg_load: float = 0.0          # background traffic, frac of net_bw
+    net_bg_chunk_bytes: float = 512e6
+    collective_group_size: int = 0    # serving: >1 puts collectives on CN
 
 
 @dataclass
@@ -62,6 +79,8 @@ class ElasticConfig:
     reconfig_patience: int = 2
     reconfig_cooldown_s: float = 0.0
     reconfig_idle_floor_s: float = 1e-3
+    elastic_min_pe: int = 1           # simulator-only floors
+    elastic_min_de: int = 1
 
     def __bool__(self) -> bool:
         return self.enabled
@@ -72,13 +91,14 @@ class ResilienceConfig:
     """Fault injection and hedged split reads.  ``faults`` is a
     ``sim.faults.FaultSchedule``; None or an empty schedule leaves every
     fault hook a no-op.  A read is hedged when one side's storage leg is
-    twice as slow as the other's or worse (``serving.system``'s
-    ``_HEDGE_MIN_SEVERITY``).  The reference's ``hedge_min_severity``
-    and ``hedge_threshold_s`` come with the simulator, the only caller
-    that sets them."""
+    ``hedge_min_severity`` times as slow as the other's or worse; the
+    simulator hedges mid-flight, and only a leg with more than
+    ``hedge_threshold_s`` seconds of service left."""
 
     faults: Optional[object] = None   # FaultSchedule (or None)
     hedge_reads: bool = False
+    hedge_threshold_s: float = 0.25   # simulator-only (mid-flight hedge)
+    hedge_min_severity: float = 2.0
 
 
 @dataclass
@@ -117,23 +137,38 @@ _GROUP_TYPES = dict(tier=TierConfig, net=NetworkConfig,
                     elastic=ElasticConfig, resilience=ResilienceConfig,
                     slo=SloConfig)
 
-#: the reference's group fields the port leaves out, with the reason
-LEFT_OUT: Dict[str, str] = {
-    "prefetch_chunk_blocks": "chunks matter only to the simulator, which "
-                             "stages a prefetch over time; the serving "
-                             "runtime stages the whole plan at once",
-    "net_bw": "simulator-only: the shared link's capacity",
-    "model_collectives": "simulator-only switch",
-    "collective_dtype_bytes": "simulator-only",
-    "collective_bytes_per_token": "simulator-only override",
-    "net_bg_load": "simulator-only background traffic",
-    "net_bg_chunk_bytes": "simulator-only",
-    "elastic_min_pe": "simulator-only floor (serving never drains the "
-                      "last admitting engine of a role)",
-    "elastic_min_de": "simulator-only floor",
-    "hedge_threshold_s": "simulator-only: gates the mid-flight hedge",
-    "hedge_min_severity": "no caller sets it; serving/system.py holds "
-                          "the reference's default",
+#: flat name -> (group, field): the simulator's read/write aliases
+FLAT_FIELDS: Dict[str, Tuple[str, str]] = {
+    # --- tier ---------------------------------------------------------
+    "dram_tier_bytes": ("tier", "dram_tier_bytes"),
+    "tier_policy": ("tier", "tier_policy"),
+    "tier_ttl_s": ("tier", "tier_ttl_s"),
+    "prefetch": ("tier", "prefetch"),
+    "prefetch_chunk_blocks": ("tier", "prefetch_chunk_blocks"),
+    # --- network ------------------------------------------------------
+    "net_bw": ("net", "net_bw"),
+    "net_arbiter": ("net", "net_arbiter"),
+    "model_collectives": ("net", "model_collectives"),
+    "collective_dtype_bytes": ("net", "collective_dtype_bytes"),
+    "collective_bytes_per_token": ("net", "collective_bytes_per_token"),
+    "net_bg_load": ("net", "net_bg_load"),
+    "net_bg_chunk_bytes": ("net", "net_bg_chunk_bytes"),
+    "collective_group_size": ("net", "collective_group_size"),
+    # --- elastic ------------------------------------------------------
+    "reconfig_interval_s": ("elastic", "reconfig_interval_s"),
+    "drain_policy": ("elastic", "drain_policy"),
+    "reconfig_hi": ("elastic", "reconfig_hi"),
+    "reconfig_lo": ("elastic", "reconfig_lo"),
+    "reconfig_patience": ("elastic", "reconfig_patience"),
+    "reconfig_cooldown_s": ("elastic", "reconfig_cooldown_s"),
+    "reconfig_idle_floor_s": ("elastic", "reconfig_idle_floor_s"),
+    "elastic_min_pe": ("elastic", "elastic_min_pe"),
+    "elastic_min_de": ("elastic", "elastic_min_de"),
+    # --- resilience ---------------------------------------------------
+    "faults": ("resilience", "faults"),
+    "hedge_reads": ("resilience", "hedge_reads"),
+    "hedge_threshold_s": ("resilience", "hedge_threshold_s"),
+    "hedge_min_severity": ("resilience", "hedge_min_severity"),
 }
 
 

@@ -38,15 +38,19 @@ With a tracer attached, every read-path decision and every hedge
 records an event.
 
 The arithmetic is the reference's, so both packages make the same
-decisions on the same lengths.  The round-robin baseline arrives with
-the simulator.
+decisions on the same lengths.  :class:`RoundRobinScheduler` is the
+simulator's Fig. 13 baseline, and :func:`water_fill_frac_batch` the
+read-path water-fill over request arrays.
 """
 from __future__ import annotations
 
 import bisect
+import itertools
 from collections import deque
 from dataclasses import dataclass
 from typing import Deque, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
 
 from repro_torch.core.loading import hedge_water_fill
 
@@ -612,3 +616,91 @@ class Scheduler:
                 st.seq, st.tok, st.read_q = vals[0], vals[1], vals[2]
                 if len(vals) > 3:
                     st.free_hbm_tokens = vals[3]
+
+
+class RoundRobinScheduler(Scheduler):
+    """Baseline for the Fig. 13 load-balance comparison: round-robin
+    engine assignment, alternating read path (ignores queues and load)."""
+
+    def __init__(self, *a, **kw):
+        super().__init__(*a, **kw)
+        self._rr_pe = itertools.count()
+        self._rr_de = itertools.count()
+        self._rr_path = itertools.count()
+
+    def on_pe_fetch(self, group, reports=None):
+        members = [self.engines[e] for e in self._groups[group]]
+        self._apply_reports(members, reports)
+        # draining engines leave the rotation, as under every policy
+        members = [e for e in members if not e.draining]
+        out = []
+        while self.pe_queue and members:
+            req = self.pe_queue.popleft()
+            pe = members[next(self._rr_pe) % len(members)]
+            req.pe = pe.engine
+            pe.tok += req.prompt_tokens
+            pe.seq += 1
+            out.append(Assignment(req, pe.engine))
+        return out
+
+    def on_de_fetch(self, group, reports=None):
+        self.de_phase1()
+        members = [self.engines[e] for e in self._groups[group]]
+        self._apply_reports(members, reports)
+        queue = self.de_private[group]
+        out = []
+        while queue:
+            req = queue[0]
+            fits = [e for e in members
+                    if not e.draining and e.free_hbm_tokens >= req.hbm_tokens]
+            if not fits:
+                break
+            de = fits[next(self._rr_de) % len(fits)]
+            queue.popleft()
+            req.de = de.engine
+            de.tok += req.prompt_tokens
+            de.seq += 1
+            de.free_hbm_tokens -= req.hbm_tokens
+            out.append(Assignment(req, de.engine))
+        return out
+
+    def choose_read_path(self, req: Request, tier_tokens=None,
+                         net_congestion: float = 0.0) -> str:
+        """Tier-aware like the base class (a DRAM-resident prefix skips
+        the storage NIC whatever the policy), but the cold remainder
+        keeps the round-robin alternation: no queue depths, no
+        congestion signal."""
+        if tier_tokens and req.cached_tokens:
+            t_pe = min(tier_tokens.get("pe", 0), req.cached_tokens)
+            t_de = min(tier_tokens.get("de", 0), req.cached_tokens)
+        else:
+            t_pe = t_de = 0
+        if t_pe or t_de:
+            # one draw per request, so the parity alternates
+            flip = next(self._rr_path) % 2 == 0
+            if t_pe > t_de:
+                side, t = "pe", t_pe
+            elif t_de > t_pe:
+                side, t = "de", t_de
+            else:   # equal prefixes: alternate, like every other RR choice
+                side, t = ("pe" if flip else "de"), t_pe
+            rem = req.cached_tokens - t
+            snic = {"pe": 0, "de": 0}
+            if rem:
+                snic["pe" if flip else "de"] = rem
+            return self._finalise_partition(req, side, t, snic)
+        req.read_path = "pe" if next(self._rr_path) % 2 == 0 else "de"
+        req.read_split = 1.0
+        side = self.engines[req.pe if req.read_path == "pe" else req.de]
+        side.read_q += req.cached_tokens
+        return req.read_path
+
+
+def water_fill_frac_batch(pe_q, de_q, h):
+    """:meth:`Scheduler._water_fill_frac` over request arrays: the same
+    expression in the same IEEE doubles, so it equals the scalar form
+    element for element.  ``h`` must be positive, as there."""
+    pe_q = np.asarray(pe_q, dtype=np.float64)
+    de_q = np.asarray(de_q, dtype=np.float64)
+    h = np.asarray(h, dtype=np.float64)
+    return np.clip((de_q - pe_q + h) / (2.0 * h), 0.0, 1.0)

@@ -145,6 +145,13 @@ class DramTier:
     # ------------------------------------------------------------------
     # occupancy queries
     # ------------------------------------------------------------------
+    @property
+    def free_bytes(self) -> float:
+        return self.capacity_bytes - self.used_bytes
+
+    def __len__(self) -> int:
+        return len(self._entries)
+
     def contains(self, ref) -> bool:
         return ref in self._entries
 
@@ -310,6 +317,28 @@ class DramTier:
                 if not held and e.owner in self._done_owners:
                     self._forget_owner(e.owner)   # last dead block gone
 
+    def evict_bytes(self, nbytes: float, now: Optional[float] = None) -> bool:
+        """External pressure: free ``nbytes`` of unpinned entries."""
+        return self._evict(nbytes, self._now(now))
+
+    # ------------------------------------------------------------------
+    # accounting-only serving (the simulator's path)
+    # ------------------------------------------------------------------
+    def serve(self, refs: Sequence, now: Optional[float] = None) -> int:
+        """Mark ``refs`` (all resident) as served from DRAM; the byte
+        count.  The simulator serves the resident prefix it charged to a
+        ``*_tier`` plan leg this way: no payload moves."""
+        t = self._now(now)
+        served = 0
+        for r in refs:
+            e = self._entries[r]
+            e.last_used = t
+            self._entries.move_to_end(r)
+            served += e.nbytes
+            self.hits += 1
+        self.dram_hit_bytes += served
+        return served
+
     # ------------------------------------------------------------------
     # the store interface, over the backing store
     # ------------------------------------------------------------------
@@ -384,19 +413,20 @@ class ThinkTimePrefetcher:
     """Plans which predicted next-round hit blocks to stage during the
     inter-round think gap, when the storage NICs sit idle.  The predicted
     hit is the trajectory's current context (exactly the trie match), so
-    the plan is its non-resident blocks, in order: staged front first, a
-    round that starts early still finds a resident prefix.  (The
-    reference also groups the plan into chunks, which only its event
-    simulator stages over time; this runtime stages the whole plan at
-    once.)"""
+    the plan is its non-resident blocks, in order, grouped into chunks of
+    ``chunk_blocks``: staged front first, a round that starts early still
+    finds a resident prefix.  The simulator stages a chunk per storage-NIC
+    job; the serving runtime stages the whole plan at once."""
 
-    def __init__(self):
+    def __init__(self, chunk_blocks: int = 32):
+        self.chunk_blocks = max(int(chunk_blocks), 1)
         self.rounds_planned = 0
         self.blocks_planned = 0
 
-    def plan(self, tier: DramTier, refs: Sequence) -> List:
-        """Missing refs, in stage order."""
+    def plan(self, tier: DramTier, refs: Sequence) -> List[List]:
+        """Missing refs, in order, grouped into stage-order chunks."""
         missing = [r for r in refs if not tier.contains(r)]
         self.rounds_planned += 1
         self.blocks_planned += len(missing)
-        return missing
+        return [missing[i:i + self.chunk_blocks]
+                for i in range(0, len(missing), self.chunk_blocks)]

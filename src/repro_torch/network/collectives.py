@@ -6,6 +6,13 @@ the FFN output, each moving ``2·(g−1)/g`` of one hidden activation
 vector across the link (ring all-reduce), so
 
     bytes/token ≈ n_layers · 2 · d_model · dtype_bytes · 2(g−1)/g.
+
+``ModelSimSpec`` (the simulator's model descriptor) carries no
+``d_model``, so :meth:`CollectiveVolumeModel.from_spec` takes the
+attention width ``n_heads · qk_head_dim`` as the activation width: equal
+for dense models, an over-estimate for MLA's widened QK heads.  The
+reference's ``from_hlo_text`` (volumes counted in a compiled program)
+waits for the mesh layer.
 """
 from __future__ import annotations
 
@@ -45,3 +52,11 @@ class CollectiveVolumeModel:
         """Analytic volume for a ModelConfig (the serving runtime)."""
         return cls.analytic(cfg.n_layers, cfg.d_model, group_size,
                             dtype_bytes)
+
+    @classmethod
+    def from_spec(cls, spec, group_size: int,
+                  dtype_bytes: int = 2) -> "CollectiveVolumeModel":
+        """Analytic volume for a ModelSimSpec (the simulator)."""
+        return cls.analytic(spec.n_layers,
+                            max(spec.n_heads * spec.qk_head_dim, 1),
+                            group_size, dtype_bytes)

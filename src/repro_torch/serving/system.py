@@ -128,10 +128,6 @@ from repro_torch.sim.traces import Trajectory
 _ON_PE = (ReqState.SCHEDULED, ReqState.READING, ReqState.PREFILL,
           ReqState.PREFILL_CHUNKED)
 
-# a hedged read moves work off a side whose storage leg is this many times
-# slower than the other's (the reference's ResilienceConfig default)
-_HEDGE_MIN_SEVERITY = 2.0
-
 
 @dataclass
 class AgentSession:
@@ -209,7 +205,7 @@ class ServingSystem:
                 # which passes no time: the tier asks the clock
                 t.clock_fn = lambda: self.clock.now
                 self.tiers[node_id] = t
-        self.prefetcher = ThinkTimePrefetcher() \
+        self.prefetcher = ThinkTimePrefetcher(tcfg.prefetch_chunk_blocks) \
             if (tcfg.prefetch and self.tiers) else None
         # engine groups: ``*_group_size`` engines per scheduler group
         # (default: one group spanning all engines of that kind)
@@ -282,6 +278,7 @@ class ServingSystem:
         self.faults = faults if (faults is not None
                                  and not faults.empty) else None
         self.hedge_reads = rcfg.hedge_reads
+        self.hedge_min_severity = rcfg.hedge_min_severity
         self._deaths_pending = list(self.faults.deaths) \
             if self.faults is not None else []
         self.dead_engines: List[Tuple[int, int]] = []
@@ -443,7 +440,7 @@ class ServingSystem:
     def _maybe_hedge(self, req: Request) -> int:
         """Hedged split read: if one side's storage leg is degraded
         (straggler draw and/or an active slowdown window on its node)
-        ``_HEDGE_MIN_SEVERITY`` times or more against the other, move part
+        ``hedge_min_severity`` times or more against the other, move part
         of that side's share to the healthy side through
         ``Scheduler.rebalance_remainder`` before the legs are built.
         Tier-hit tokens never move."""
@@ -456,7 +453,7 @@ class ServingSystem:
                                      now)
              for s in ("pe", "de")}
         for slow, fast in (("pe", "de"), ("de", "pe")):
-            if f[fast] <= 0 or f[slow] / f[fast] < _HEDGE_MIN_SEVERITY:
+            if f[fast] <= 0 or f[slow] / f[fast] < self.hedge_min_severity:
                 continue
             healthy = req.pe if fast == "pe" else req.de
             st = self.sched.engines.get(healthy)
@@ -804,8 +801,9 @@ class ServingSystem:
             tier.admit(r, self.layout.full_block_bytes, owner=tid,
                        payload=self.store.peek(r), now=now)
         if self.prefetcher is not None:
-            for r in self.prefetcher.plan(tier, refs):
-                tier.prefetch_block(r, owner=tid, now=now)
+            for chunk in self.prefetcher.plan(tier, refs):
+                for r in chunk:
+                    tier.prefetch_block(r, owner=tid, now=now)
 
     # ------------------------------------------------------------------
     # the tick

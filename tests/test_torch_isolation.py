@@ -5,7 +5,8 @@
 * No source file of the port says ``import jax``, ``from jax``,
   ``import repro`` or ``from repro.``.
 * An entry point called without ``device=`` on a machine without CUDA
-  raises instead of running on the CPU.
+  raises instead of running on the CPU, and so does the simulator's
+  settle asked for ``"cuda"``.
 """
 import os
 import re
@@ -100,6 +101,15 @@ def test_entry_points_without_device_raise_without_cuda(monkeypatch):
         bridge.state_from_jax(
             {"dense": {"c": np.zeros((1, 1, 2, 3), np.float32)},
              "moe": {"c": np.zeros((3, 1, 2, 3), np.float32)}})
+    # the simulator runs on the host; only its opt-in settle names a
+    # device, and a missing card raises instead of settling on the CPU
+    from repro_torch.sim import (DS_660B, HOPPER_NODE, SimConfig, VectorSim,
+                                 generate_dataset)
+    sim_cfg = SimConfig(HOPPER_NODE, DS_660B, 1, 1)
+    trajs = generate_dataset(2, 2048)
+    with pytest.raises(RuntimeError, match="cuda"):
+        VectorSim(sim_cfg, trajs, settle_device="cuda")
+    assert VectorSim(sim_cfg, trajs)._settle_kernel is None
 
 
 def test_cuda_path_raises_on_cpu_only_arguments():

@@ -23,7 +23,7 @@
   rest exact), pacing on the reference, and 'fifo' stalls the
   collectives longer than 'vl'.
 * The config groups: the port's five groups have the reference's field
-  names and defaults, less ``config.LEFT_OUT`` (each with its reason).
+  names and defaults, every one of them.
 """
 import dataclasses
 
@@ -364,8 +364,7 @@ def _fields(group):
 def test_group_fields_and_defaults_match(name):
     assert config.GROUP_FIELDS == jax_config.GROUP_FIELDS
     got = _fields(config.group_defaults(name))
-    want = {k: v for k, v in _fields(jax_config.group_defaults(name)).items()
-            if k not in config.LEFT_OUT}
+    want = _fields(jax_config.group_defaults(name))
     assert got == want
     assert dataclasses.astuple(config.group_defaults(name)) == tuple(
         getattr(jax_config.group_defaults(name), k) for k in got)
@@ -376,7 +375,7 @@ def test_left_out_fields_are_real_and_documented():
              for f in dataclasses.fields(jax_config.group_defaults(g))}
     ported = {f.name for g in config.GROUP_FIELDS
               for f in dataclasses.fields(config.group_defaults(g))}
-    assert set(config.LEFT_OUT) == known - ported
-    assert all(reason.strip() for reason in config.LEFT_OUT.values())
+    # the simulator needs every group field, so the port leaves none out
+    assert known == ported
     assert bool(config.ElasticConfig(enabled=True))
     assert not bool(config.ElasticConfig())

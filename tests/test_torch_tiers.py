@@ -187,14 +187,8 @@ def _prefix_and_prefetch(tiers, store, blocks):
     rec.append(tier.resident_prefix(refs))
     tier.admit(refs[2], BLOCK)
     rec.append(tier.resident_prefix(refs))
-    if tiers is jax_tiers:
-        # the reference groups its plan into chunks for its simulator;
-        # in stage order they are the port's flat plan
-        pf = tiers.ThinkTimePrefetcher(chunk_blocks=4)
-        plan = lambda: [r for chunk in pf.plan(tier, refs) for r in chunk]
-    else:
-        pf = tiers.ThinkTimePrefetcher()
-        plan = lambda: pf.plan(tier, refs)
+    pf = tiers.ThinkTimePrefetcher(chunk_blocks=4)
+    plan = lambda: pf.plan(tier, refs)
     rec.append(plan())
     rec.append((pf.rounds_planned, pf.blocks_planned))
     for r in refs:
@@ -206,7 +200,7 @@ def _prefix_and_prefetch(tiers, store, blocks):
 def test_resident_prefix_and_prefetch_chunks_match_reference():
     rec = both(_prefix_and_prefetch)
     assert rec[:2] == [2, 4]
-    assert rec[2] == [("t", i) for i in range(4, 10)]
+    assert rec[2] == [[("t", i) for i in range(4, 8)], [("t", 8), ("t", 9)]]
     assert rec[3] == (1, 6)
     assert rec[4] == []
 
