@@ -1,6 +1,6 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA H100.
 
-    python3 chip_smoke.py                  # the smoke, phases 1-13
+    python3 chip_smoke.py                  # the smoke, phases 1-15
     python3 chip_smoke.py --persist-ab 10  # offline serving, old persist
                                            # against the scatter's
     python3 chip_smoke.py --split-sweep    # the attention kernels' split
@@ -13,8 +13,9 @@
 Drives ``repro_torch`` (never the JAX package) on the card:
 
 1. environment: torch version, the card's name and power limit, TF32 off;
-2. builds the six CUDA kernels from src/repro_torch/kernels/csrc with
-   nvcc for sm_90a, one nvcc process per source, all at once;
+2. builds the eight CUDA kernels from src/repro_torch/kernels/csrc with
+   nvcc for sm_90a, one nvcc process per source, all at once (the causal
+   conv is Triton, compiled at its first launch);
 3. holds each kernel against its plain PyTorch version at the main
    paths' shapes plus other shapes (gather and scatter bit-exact, at the
    installs' and the persists' shapes, one page, short chunks, bf16 and
@@ -40,7 +41,16 @@ Drives ``repro_torch`` (never the JAX package) on the card:
    gather and its indexing alternately, beside an empty kernel; then the
    round-1 persist (16 FullBlocks) the old way (layer-major bytes, a
    host slice per block) against the scatter's block-major pool, host
-   time and D2H device time;
+   time and D2H device time; at mamba2-1.3b's shapes the SSD chunk scan
+   (the mamba2 phase's appends of 4000, 301 and 501 tokens, 4096 and
+   100 tokens, 4 sequences, f32; the carried state dropped and the
+   cumulative sum shifted by a row must fail), the recurrent step (8
+   slots, one all zeros, one slot, f32; the decay applied after the
+   update must fail) and the causal conv (4352 channels: appends, the
+   8-slot decode, 2 tokens, f32; against F.conv1d too); flash and paged
+   at nemotron-4-15b's group of 6 (dh 128) and minicpm-2b's 36 heads of
+   64 in bf16 and f32, and the grouped GEMM at granite-moe-3b-a800m's 40
+   experts, top-8, in both regimes (a moved group boundary must fail);
 4. serves 6 agents x 3 rounds of full-width qwen1.5-0.5b (bf16, random
    weights from a seed) offline through the port's ServingSystem,
    asserting that every round finished, both read sides were used and
@@ -118,7 +128,24 @@ Drives ``repro_torch`` (never the JAX package) on the card:
    kernel launches in it.  It prints real host seconds and events per
    host second, the modelled figures labelled so, and a ``sim`` JSON line
    (see :func:`sim_phase`);
-13. prints the ``kernels`` JSON line, then the contract line
+13. mamba2-1.3b (SSM, attention-free: the state-blob path) at full
+   width and depth (48 layers, bf16, random weights from a seed): 4
+   agents x 3 rounds (4000, 300 and 500 tokens, 16 generated each)
+   offline on 1 PE + 1 DE, asserting that every round finished, rounds 2
+   and 3 read their session's state blob (8 reads of the raw state's
+   ~102 MB, none split across the read sides), the launches equal their
+   prediction (the SSD scan, the recurrent step and the causal conv; no
+   attention kernel), and the blocking arm gave identical tokens; a
+   third run under torch.profiler, one blob's D2H and H2D alone, then
+   f32 token identity at depth 4 with the cache-free reference,
+   unchunked and in 1024-token slices (see :func:`mamba2_phase`);
+14. granite-moe-3b-a800m, minicpm-2b and nemotron-4-15b at full width
+   and depth, one after another (each model's weights freed before the
+   next): 2 agents x (2048, 16), (256, 16) offline on 1 PE + 1 DE,
+   asserting that every round finished, gather, scatter, flash, paged
+   (and granite's grouped GEMM) launched as predicted, and the blocking
+   arm gave identical tokens (see :func:`registrations_phase`);
+15. prints the ``kernels`` JSON line, then the contract line
    ``{"ok": true, "device": {...}}`` last.
 
 Any failed check raises, so the script exits non-zero and prints no
@@ -211,6 +238,25 @@ DS27B_MAX_SEQ = 6144
 # 1024-token prefill slices
 DS27B_IDENTITY = dict(depth=4, rounds=((2112, 4), (64, 4), (64, 4)),
                       max_seq=2368, chunk=1024)
+# the mamba2 phase: full-width, full-depth mamba2-1.3b, 4 agents at t = 0
+# on 1 PE + 1 DE.  Rounds 2-3 continue from the previous round's state
+# blob, so they append the new tokens plus the last generated one (301
+# and 501 tokens); the state is constant-size, the cache length only a
+# scheduler budget
+MAMBA2_ROUNDS = ((4000, 16), (300, 16), (500, 16))
+MAMBA2_AGENTS = 4
+MAMBA2_MAX_SEQ = 6144
+# its f32 identity at full width and depth 4, unchunked and in 1024-token
+# prefill slices
+MAMBA2_IDENTITY = dict(depth=4, rounds=((2112, 4), (64, 4), (64, 4)),
+                       max_seq=2368, chunk=1024)
+# the registrations phase: granite-moe-3b-a800m, minicpm-2b and
+# nemotron-4-15b at full width and depth, one after another, 2 agents x
+# (2048, 16), (256, 16) on 1 PE + 1 DE
+REG_ARCHS = ("granite-moe-3b-a800m", "minicpm-2b", "nemotron-4-15b")
+REG_ROUNDS = ((2048, 16), (256, 16))
+REG_AGENTS = 2
+REG_MAX_SEQ = 2560
 # the event simulator (phase 12): (a) the reference's I/O-bound point,
 # DS 660B at 2P4D on Table 2's 64K trajectories; (b)
 # benchmarks/microbench_sim.py's saturated-link workload; (c) a traced
@@ -224,7 +270,10 @@ SIM_TRACED_AGENTS = 48
 KERNEL_ROWS = {"flash_attention": ("flash_",), "paged_attention": ("paged_",),
                "kv_layer_gather": ("gather_kernel",),
                "kv_layer_scatter": ("scatter_kernel",),
-               "grouped_gemm": ("gg_",), "mla_decode": ("mla_",)}
+               "grouped_gemm": ("gg_",), "mla_decode": ("mla_",),
+               "ssd_chunk_scan": ("ssd_scan_kernel",),
+               "ssm_step": ("ssm_step_kernel",),
+               "causal_conv": ("_conv_kernel",)}
 
 
 # ---------------------------------------------------------------------------
@@ -724,8 +773,9 @@ def _paged_case(rng, *, hq, hkv, dh, S, lengths, dtype, pt=64,
     dh) cache viewed as ``pt``-token pages with an arange block table.
     The yardstick is SDPA with the same (length and window) mask and no
     softcap; the bound counts the K/V inside each window.  ``q_std`` and
-    ``planted`` as for :func:`_flash_case`; the second planted fault is
-    each lane reading the next lane's 16 bytes of q."""
+    ``planted`` as for :func:`_flash_case` (the window's fault where
+    there is a window); the other planted fault is each lane reading the
+    next lane's 16 bytes of q."""
     from repro_torch.kernels import paged_attention, ref
     f = lambda *s: torch.from_numpy(
         rng.standard_normal(s).astype(np.float32)).to("cuda", dtype)
@@ -749,11 +799,14 @@ def _paged_case(rng, *, hq, hkv, dh, S, lengths, dtype, pt=64,
     if not ok:
         raise AssertionError(f"paged_attention off by {err} at {shapes}")
     e = 16 // q.element_size()
-    faults = _planted("paged_attention", want, TOLS[dtype], {
-        "window 64 short": ref.paged_attention_ref(
-            q, kp, vp, table, lens, softcap=softcap, window=window - 64),
-        "q from the next lane": ref.paged_attention_ref(
-            q.roll(-e, -1), kp, vp, table, lens, **kw)}) if planted else None
+    faults = None
+    if planted:
+        faults = {"q from the next lane": ref.paged_attention_ref(
+            q.roll(-e, -1), kp, vp, table, lens, **kw)}
+        if window:
+            faults["window 64 short"] = ref.paged_attention_ref(
+                q, kp, vp, table, lens, softcap=softcap, window=window - 64)
+        faults = _planted("paged_attention", want, TOLS[dtype], faults)
     qs = q.reshape(b, hq, 1, dh)
     ke, ve = (x.transpose(1, 2).repeat_interleave(g, dim=1)
               for x in (kc, vc))
@@ -1109,12 +1162,299 @@ def ds27b_copy_cases(cfg, rng):
     return gather, scatter
 
 
-# the wrappers and their sources
+# ---------------------------------------------------------------------------
+# phase 3 at mamba2-1.3b's shapes: the SSD scan, the recurrent step and the
+# causal conv
+# ---------------------------------------------------------------------------
+
+
+def _ssm_inputs(gen, cfg, b, s, dtype):
+    """One Mamba2 layer's inputs to its device work at ``cfg``'s widths,
+    laid out as the model hands them over: x, B and C as views into one
+    (b, s, d_inner + 2N) conv output ~ N(0, 1) in ``dtype``; dt =
+    softplus(N(0, 1) + dt_bias) f32 with dt_bias drawn as the schema
+    draws it; A = -U[1, 16] and D ~ 1 + N(0, 0.1), f32."""
+    import math
+    d_inner, n = cfg.ssm.expand * cfg.d_model, cfg.ssm.d_state
+    H, P = d_inner // cfg.ssm.head_dim, cfg.ssm.head_dim
+    dev = "cuda"
+    xbc = torch.randn((b, s, d_inner + 2 * n), generator=gen,
+                      device=dev).to(dtype)
+    x = xbc[..., :d_inner].view(b, s, H, P)
+    B, C = xbc[..., d_inner:d_inner + n], xbc[..., d_inner + n:]
+    lo, hi = math.log(1e-3), math.log(1e-1)
+    u = torch.rand((H,), generator=gen, device=dev)
+    dt_bias = torch.log(torch.expm1(torch.exp(lo + u * (hi - lo))))
+    dt = torch.nn.functional.softplus(
+        torch.randn((b, s, H), generator=gen, device=dev) + dt_bias)
+    A = -(1.0 + 15.0 * torch.rand((H,), generator=gen, device=dev))
+    D = 1.0 + 0.1 * torch.randn((H,), generator=gen, device=dev)
+    return x, B, C, dt, A, D
+
+
+def _twice(call):
+    """Run ``call`` twice from the same inputs: every output bit-equal."""
+    a, b = call(), call()
+    if not all(torch.equal(x, y) for x, y in zip(a, b)):
+        raise AssertionError("two calls gave different bits")
+    return a
+
+
+def _ssd_case(gen, cfg, *, b, s, dtype=torch.bfloat16, h0=False,
+              planted=False, label=""):
+    """``ssd_chunk_scan`` on one layer's inputs (:func:`_ssm_inputs`), the
+    config's chunk, zeros or a random carried state: y and the final
+    state against the plain version, bit-identical over two calls; with
+    ``planted``, the carried state dropped and the cumulative sum shifted
+    by one row must fail the tolerance.  The bound reads x, B, C, dt and
+    h0 once and writes y and the state once; its operations count C.B^T
+    once per chunk (shared by the heads) and, per head, the weighted x,
+    the carried state's term and the state update, over the rows this
+    call's chunks hold."""
+    from repro_torch.kernels import ref, ssd_chunk_scan
+    x, B, C, dt, A, D = _ssm_inputs(gen, cfg, b, s, dtype)
+    H, P, N = x.shape[2], x.shape[3], B.shape[2]
+    state = torch.randn((b, H, P, N), generator=gen, device="cuda") \
+        if h0 else None
+    chunk = cfg.ssm.chunk_size
+    shapes = dict(b=b, s=s, H=H, P=P, N=N, chunk=min(chunk, s),
+                  h0=bool(h0), dtype=str(dtype).replace("torch.", ""),
+                  **({"case": label} if label else {}))
+    call = lambda: ssd_chunk_scan(x, B, C, dt, A, D, state, chunk)
+    y, h = _twice(call)
+    want_y, want_h = ref.ssd_chunk_scan_ref(x, B, C, dt, A, D, state, chunk)
+    tol = TOLS[dtype]
+    err_y, ok_y = max_err(y, want_y, tol)
+    err_h, ok_h = max_err(h, want_h, tol)
+    if not (ok_y and ok_h):
+        raise AssertionError(
+            f"ssd_chunk_scan off by {err_y} (y, max |y| "
+            f"{float(want_y.abs().max())}), {err_h} (state, max |h| "
+            f"{float(want_h.abs().max())}) at {shapes}")
+    faults = _planted("ssd_chunk_scan", want_y, tol, {
+        "carried state dropped": ref._ssd_scan(
+            x, B, C, dt, A, D, state, chunk, carry=False)[0],
+        "cumsum shifted by one row": ref._ssd_scan(
+            x, B, C, dt, A, D, state, chunk, shift=1)[0]}) \
+        if planted else None
+    L = min(chunk, s)
+    lens = [min(L, s - c0) for c0 in range(0, s, L)]
+    tri = sum(t * (t + 1) // 2 for t in lens)
+    fma = b * N * tri + b * H * (P * tri + 2 * s * P * N)
+    isz = x.element_size()
+    states = (2 if h0 else 1) * b * H * P * N * 4
+    b_ms, b_by = bound(b * s * (H * P + 2 * N) * isz + b * s * H * 4 +
+                       b * s * H * P * 4 + states, 2 * fma, torch.float32)
+    return dict(
+        shapes=shapes, max_abs_err=max(err_y, err_h), planted_err=faults,
+        ms=time_ms(call), ms_clean_l2=time_ms(call, clean_l2=True),
+        plain_ms=time_ms(lambda: ref.ssd_chunk_scan_ref(
+            x, B, C, dt, A, D, state, chunk)),
+        library_ms=None,
+        library_name="none (no single PyTorch call computes the scan)",
+        bound_ms=b_ms, bound_by=b_by)
+
+
+def ssd_cases(cfg):
+    """The SSD scan at mamba2-1.3b's widths (64 heads of 64, N 128, chunks
+    of 256): the mamba2 phase's appends (round 1's 4000 tokens, from
+    zeros; rounds 2-3's 301 and 501 tokens from a carried state: the new
+    tokens plus the last generated one), 4096 tokens (16 whole chunks),
+    100 tokens (one chunk shorter than 256), 4 sequences of 300 from
+    carried states, and f32.  The first case is the main one and checks
+    the planted faults, as does the continuation."""
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    case = lambda **kw: _ssd_case(gen, cfg, **{**dict(b=1, s=4000), **kw})
+    return [case(planted=True, label="round-1 append"),
+            case(s=301, h0=True, planted=True, label="round-2 append"),
+            case(s=501, h0=True, label="round-3 append"),
+            case(s=4096),
+            case(s=100),
+            case(b=4, s=300, h0=True, planted=True),
+            case(s=1000, h0=True, dtype=torch.float32)]
+
+
+def _ssm_step_case(gen, cfg, *, b, dtype=torch.bfloat16, zero_slot=None,
+                   planted=False):
+    """``ssm_step`` over ``b`` slots of one layer's decode (:func:`_ssm_inputs`
+    with s = 1, a random f32 state, slot ``zero_slot`` all zeros): y and
+    the updated state against the plain version, bit-identical over two
+    calls from the same state; with ``planted``, the decay applied after
+    the update must fail the tolerance.  The bound reads and writes the
+    state once (the inputs and y are a rounding error beside it)."""
+    from repro_torch.kernels import ref, ssm_step
+    x, B, C, dt, A, D = _ssm_inputs(gen, cfg, b, 1, dtype)
+    x, B, C, dt = x[:, 0], B[:, 0], C[:, 0], dt[:, 0].contiguous()
+    H, P, N = x.shape[1], x.shape[2], B.shape[1]
+    h = torch.randn((b, H, P, N), generator=gen, device="cuda")
+    if zero_slot is not None:
+        h[zero_slot] = 0
+    shapes = dict(b=b, H=H, P=P, N=N, dtype=str(dtype).replace("torch.", ""),
+                  **({} if zero_slot is None else {"zero_slot": zero_slot}))
+
+    def fresh():
+        hk = h.clone()
+        return ssm_step(hk, x, B, C, dt, A, D), hk
+
+    y, hk = _twice(fresh)
+    hr = h.clone()
+    want = ref.ssm_step_ref(hr, x, B, C, dt, A, D)
+    tol = TOLS[torch.float32]
+    err_y, ok_y = max_err(y, want, tol)
+    err_h, ok_h = max_err(hk, hr, tol)
+    if not (ok_y and ok_h):
+        raise AssertionError(f"ssm_step off by {err_y} (y), {err_h} (state) "
+                             f"at {shapes}")
+    faults = _planted("ssm_step", want, tol, {
+        "decay after the update": ref.ssm_step_ref(
+            h.clone(), x, B, C, dt, A, D, decay_after=True)}) \
+        if planted else None
+    work, work_p = h.clone(), h.clone()
+    isz = x.element_size()
+    b_ms, b_by = bound(2 * b * H * P * N * 4 + b * (H * P + 2 * N) * isz +
+                       b * H * 4 + b * H * P * 4, 6 * b * H * P * N,
+                       torch.float32)
+    return dict(
+        shapes=shapes, max_abs_err=max(err_y, err_h), planted_err=faults,
+        ms=time_ms(lambda: ssm_step(work, x, B, C, dt, A, D)),
+        ms_clean_l2=time_ms(lambda: ssm_step(work, x, B, C, dt, A, D),
+                            clean_l2=True),
+        plain_ms=time_ms(lambda: ref.ssm_step_ref(work_p, x, B, C, dt, A,
+                                                  D)),
+        library_ms=None,
+        library_name="none (no single PyTorch call computes the step)",
+        bound_ms=b_ms, bound_by=b_by)
+
+
+def ssm_step_cases(cfg):
+    """The recurrent step over the DE's 8 slots at mamba2-1.3b's widths
+    (the main case, with the planted fault), slot 3's state all zeros
+    (a slot just admitted from a fresh prefill starts from a real state,
+    an idle one stays zero), one slot, and f32."""
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    case = lambda **kw: _ssm_step_case(gen, cfg, **{**dict(b=8), **kw})
+    return [case(planted=True), case(zero_slot=3, planted=True), case(b=1),
+            case(dtype=torch.float32)]
+
+
+def _conv_case(gen, *, b, s, c, cw, dtype=torch.bfloat16, label=""):
+    """``causal_conv`` on x (b, s, c) ~ N(0, 1), weights of the schema's
+    std 1/sqrt(cw) and a random tail: the output against the plain
+    version (the reference's bf16 order), the new tail bit-exact, both
+    bit-identical over two calls.  The library call is ``F.conv1d``
+    (groups = c) over tail ‖ x laid out as it wants, then SiLU."""
+    from repro_torch.kernels import causal_conv, ref
+    F = torch.nn.functional
+    x = torch.randn((b, s, c), generator=gen, device="cuda").to(dtype)
+    w = (torch.randn((cw, c), generator=gen, device="cuda") /
+         cw ** 0.5).to(dtype)
+    tail = torch.randn((b, cw - 1, c), generator=gen,
+                       device="cuda").to(dtype)
+    shapes = dict(x=[b, s, c], cw=cw, dtype=str(dtype).replace("torch.", ""),
+                  **({"case": label} if label else {}))
+    call = lambda: causal_conv(x, w, tail)
+    out, new_tail = _twice(call)
+    want, want_tail = ref.causal_conv_ref(x, w, tail)
+    # f32: four products and a SiLU, summed in the same order as the
+    # plain version; bf16: one rounding against the reference's five
+    tol = 1e-5 if dtype == torch.float32 else TOLS[dtype]
+    err, ok = max_err(out, want, tol)
+    if not ok or not torch.equal(new_tail, want_tail):
+        raise AssertionError(f"causal_conv off by {err} at {shapes} (tail "
+                             f"equal: {torch.equal(new_tail, want_tail)})")
+    xp = torch.cat([tail, x], dim=1).transpose(1, 2).contiguous()
+    wt = w.t().contiguous().view(c, 1, cw)
+    lib = lambda: F.silu(F.conv1d(xp, wt, groups=c))
+    lib_err, lib_ok = max_err(lib().transpose(1, 2), want, tol)
+    assert lib_ok, f"F.conv1d off by {lib_err}: no yardstick"
+    isz = x.element_size()
+    b_ms, b_by = bound((2 * b * s * c + 2 * b * (cw - 1) * c + cw * c) * isz,
+                       (2 * cw + 4) * b * s * c, torch.float32)
+    return dict(
+        shapes=shapes, max_abs_err=err, planted_err=None,
+        ms=time_ms(call), ms_clean_l2=time_ms(call, clean_l2=True),
+        plain_ms=time_ms(lambda: ref.causal_conv_ref(x, w, tail)),
+        library_ms=time_ms(lib), library_name="F.conv1d + F.silu",
+        bound_ms=b_ms, bound_by=b_by)
+
+
+def conv_cases(cfg):
+    """The causal conv over mamba2-1.3b's 4352 channels (x, B and C
+    concatenated), width 4: the round-1 append (4000 tokens, the main
+    case), the 301-token append, the 8-slot decode step (s = 1, the
+    tails carried), 2 tokens (fewer than the tail), and f32."""
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    c = cfg.ssm.expand * cfg.d_model + 2 * cfg.ssm.d_state
+    case = lambda **kw: _conv_case(gen, **{**dict(
+        b=1, s=4000, c=c, cw=cfg.ssm.conv_width), **kw})
+    return [case(label="round-1 append"), case(s=301, label="append"),
+            case(b=8, s=1, label="decode"), case(s=2),
+            case(s=301, dtype=torch.float32)]
+
+
+# ---------------------------------------------------------------------------
+# phase 3 at the registrations' shapes: flash and paged at nemotron-4-15b's
+# group of 6 (48 heads over 8 x 128) and minicpm-2b's 36 heads of 64 (g 1),
+# the grouped GEMM at granite-moe-3b-a800m's 40 experts, top-8
+# ---------------------------------------------------------------------------
+
+
+def registration_attention_cases(rng):
+    """Flash and paged at nemotron's and minicpm's heads, at the
+    registrations phase's shapes (round 2's 272-token append over a
+    2320-token context, the 2048-token prefill; 8 decode slots at
+    2300-2336 tokens of a 2560-token cache), bf16 and f32; nemotron's bf16 append checks
+    the planted faults."""
+    from repro_torch.configs import get_config
+    flash, paged = [], []
+    lengths = [int(x) for x in rng.integers(2300, 2337, 8)]
+    for arch in ("nemotron-4-15b", "minicpm-2b"):
+        cfg = get_config(arch)
+        heads = dict(hq=cfg.n_heads, hkv=cfg.n_kv_heads, dh=cfg.head_dim)
+        fcase = lambda **kw: _flash_case(rng, **{**heads, **dict(
+            sq=272, kv_lens=[2320], S=REG_MAX_SEQ, dtype=torch.bfloat16,
+            q_std=Q_STD), **kw})
+        pcase = lambda **kw: _paged_case(rng, **{**heads, **dict(
+            S=REG_MAX_SEQ, lengths=lengths, dtype=torch.bfloat16,
+            q_std=Q_STD), **kw})
+        flash += [fcase(planted=arch == "nemotron-4-15b"),
+                  fcase(sq=2048, kv_lens=[2048]),
+                  fcase(dtype=torch.float32)]
+        paged += [pcase(planted=arch == "nemotron-4-15b"),
+                  pcase(dtype=torch.float32)]
+    return flash, paged
+
+
+def granite_gemm_cases():
+    """granite-moe-3b-a800m's expert projections (40 experts, top-8, K
+    1536 -> N 512 gate/up and 512 -> 1536 down), group sizes from the
+    router: the 2048-token prefill's 16384 copies (append regime), a
+    round-2 append (272 tokens), the 8-slot decode (M 64: decode
+    regime), the first and the decode's gate/up checking that a moved
+    group boundary fails, and f32."""
+    from repro_torch.configs import get_config
+    cfg = get_config("granite-moe-3b-a800m")
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    d, f = cfg.d_model, cfg.moe.d_ff_expert
+    sizes = {t: router_group_sizes(cfg, t, gen) for t in (2048, 272, 8)}
+    case = lambda t, **kw: _gg_case(gen, sizes=sizes[t], **{**dict(
+        k=d, n=f), **kw})
+    return [case(2048, planted=True, label="granite append 2048, gate/up"),
+            case(2048, k=f, n=d, label="granite append 2048, down"),
+            case(272, label="granite append 272, gate/up"),
+            case(8, planted=True, label="granite decode, gate/up"),
+            case(8, k=f, n=d, label="granite decode, down"),
+            case(272, dtype=torch.float32, label="granite 272, f32")]
+
+
+# the wrappers and their sources (None: Triton, compiled at first launch)
 KERNEL_SOURCES = {"kv_layer_gather": "kv_gather",
                   "kv_layer_scatter": "kv_scatter",
                   "flash_attention": "flash_attention",
                   "paged_attention": "paged_attention",
-                  "grouped_gemm": "grouped_gemm", "mla_decode": "mla_decode"}
+                  "grouped_gemm": "grouped_gemm", "mla_decode": "mla_decode",
+                  "ssd_chunk_scan": "ssd_scan", "ssm_step": "ssm_step",
+                  "causal_conv": None}
 
 
 def kernel_cases(names=None) -> dict:
@@ -1154,6 +1494,21 @@ def kernel_cases(names=None) -> dict:
         cases["grouped_gemm"] = grouped_gemm_cases(cfg_ds, rng)
     if want("mla_decode"):
         cases["mla_decode"] = mla_decode_cases(cfg_ds, rng)
+    cfg_m2 = get_config("mamba2-1.3b")
+    if want("ssd_chunk_scan"):
+        cases["ssd_chunk_scan"] = ssd_cases(cfg_m2)
+    if want("ssm_step"):
+        cases["ssm_step"] = ssm_step_cases(cfg_m2)
+    if want("causal_conv"):
+        cases["causal_conv"] = conv_cases(cfg_m2)
+    if want("flash_attention", "paged_attention"):
+        flash_r, paged_r = registration_attention_cases(rng)
+        for name, more in (("flash_attention", flash_r),
+                           ("paged_attention", paged_r)):
+            if name in cases:
+                cases[name] += more
+    if want("grouped_gemm"):
+        cases["grouped_gemm"] += granite_gemm_cases()
     return cases
 
 
@@ -2086,7 +2441,8 @@ def identity_phase(cfg, device="cuda", rounds=((256, 8), (64, 8), (64, 8)),
                 f"f32 serving{'' if slo is None else ' with prefill slices'}"
                 f" diverged from the cache-free reference at token {first}")
         st = system.stats()
-        assert st["store_reads"] > 0
+        assert st["store_reads"] > 0 or system.blob_store.bytes_read > 0, \
+            "no cache was read back"
         if slo is not None:
             chunks = st["prefill_chunks"]
             assert chunks > 0, "the f32 run was not sliced"
@@ -2245,7 +2601,7 @@ class PathCounter:
 
     def _install(self, fn):
         def install(engine, er, payload):
-            self.installs += bool(payload)
+            self.installs += payload is not None and len(payload) > 0
             return fn(engine, er, payload)
         return install
 
@@ -2311,16 +2667,28 @@ def model_step_syncs(cfg, params, max_seq: int) -> dict:
 def predicted_launches(cfg, items: int, installs: int, persists: int,
                        decode_steps: int) -> dict:
     """Each kernel's launches from the packer's items, the installs, the
-    persists, the decode steps and the layer kinds: flash once per layer
-    of every ``append_step``, the grouped GEMM three times per MoE layer
-    of every ``append_step`` and decode step, the absorbed decode once
-    per layer of every decode step, the gather once per layer of every
-    install, the scatter once per persist, the paged kernel never."""
+    persists, the decode steps and the layer kinds.  Attention models:
+    flash once per layer of every ``append_step``, the grouped GEMM three
+    times per MoE layer of every ``append_step`` and decode step, per
+    layer of every decode step the absorbed decode (MLA) or the paged
+    kernel (GQA), the gather once per layer of every FullBlock install,
+    the scatter once per persist.  SSM models: the SSD scan once per
+    layer of every ``append_step``, the recurrent step once per layer of
+    every decode step, the causal conv once per layer of both, nothing
+    else (a blob install and persist are one copy each, no kernel)."""
     n_l, n_moe = cfg.n_layers, sum(cfg.moe_layer_mask())
-    return {"kv_layer_gather": n_l * installs, "kv_layer_scatter": persists,
-            "flash_attention": n_l * items, "paged_attention": 0,
-            "grouped_gemm": 3 * n_moe * (items + decode_steps),
-            "mla_decode": n_l * decode_steps}
+    out = {k: 0 for k in KERNEL_SOURCES}
+    if cfg.family == "ssm":
+        out.update(ssd_chunk_scan=n_l * items, ssm_step=n_l * decode_steps,
+                   causal_conv=n_l * (items + decode_steps))
+        return out
+    mla = cfg.attn_variant == "mla"
+    out.update(kv_layer_gather=n_l * installs, kv_layer_scatter=persists,
+               flash_attention=n_l * items,
+               grouped_gemm=3 * n_moe * (items + decode_steps),
+               paged_attention=0 if mla else n_l * decode_steps,
+               mla_decode=n_l * decode_steps if mla else 0)
+    return out
 
 
 def ds27b_phase(cfg, device="cuda", rounds=DS27B_ROUNDS,
@@ -2370,8 +2738,9 @@ def ds27b_phase(cfg, device="cuda", rounds=DS27B_ROUNDS,
     if cuda:
         assert launches == predicted, \
             f"ds27b launches {launches}, predicted {predicted}"
-        assert all(n > 0 for k, n in launches.items()
-                   if k != "paged_attention"), launches
+        assert all(launches[k] > 0 for k in (
+            "kv_layer_gather", "kv_layer_scatter", "flash_attention",
+            "grouped_gemm", "mla_decode")), launches
     contexts = [len(s.context) for s in sessions]
     del system
     system, sessions_b, wall_b = serve(cfg, params, trajs(), device,
@@ -2403,6 +2772,211 @@ def ds27b_phase(cfg, device="cuda", rounds=DS27B_ROUNDS,
                 peak_allocated=peak, init_s=init_s, row_bytes=row,
                 step_syncs=syncs, profile=prof, identity_tokens=n,
                 identity_chunks=chunks, identity_depth=depth)
+
+# ---------------------------------------------------------------------------
+# phase 13: mamba2-1.3b (SSM: the state-blob path)
+# ---------------------------------------------------------------------------
+
+
+class BlobCounter(PathCounter):
+    """:class:`PathCounter` for the SSM family, whose persists are state
+    blobs (``kvio.state_to_blob`` calls) and whose installs of a hit are
+    blobs (``kvio.blob_to_state`` calls)."""
+
+    def __enter__(self):
+        from repro_torch.engines import kvio
+        super().__enter__()
+        self.blob_codec = [CallCounter(kvio, "state_to_blob"),
+                           CallCounter(kvio, "blob_to_state")]
+        for p in self.blob_codec:
+            p.__enter__()
+        return self
+
+    @property
+    def persists(self) -> int:
+        return self.blob_codec[0].n
+
+    @property
+    def blob_installs(self) -> int:
+        return self.blob_codec[1].n
+
+    def __exit__(self, *exc):
+        for p in self.blob_codec:
+            p.__exit__(*exc)
+        super().__exit__(*exc)
+
+
+def blob_copy_ms(cfg, state, device, reps: int = 5) -> dict:
+    """One slot's state to a blob (D2H) and back (H2D), timed alone by
+    the host clock around synchronised calls: median ms and GB/s."""
+    from repro_torch.engines import kvio
+    axes = kvio.batch_axes_of_state(cfg)
+    one = kvio.slot_get(state, axes, 0)
+    d2h, h2d = [], []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        blob = kvio.state_to_blob(one)
+        t1 = time.perf_counter()
+        kvio.blob_to_state(cfg, blob, device)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        d2h.append((t1 - t0) * 1e3)
+        h2d.append((t2 - t1) * 1e3)
+    n = len(blob)
+    return dict(bytes=n, d2h_ms=float(np.median(d2h)),
+                h2d_ms=float(np.median(h2d)),
+                d2h_gb_s=n / np.median(d2h) / 1e6,
+                h2d_gb_s=n / np.median(h2d) / 1e6)
+
+
+def mamba2_phase(cfg, device="cuda", rounds=MAMBA2_ROUNDS,
+                 n_agents=MAMBA2_AGENTS, max_seq=MAMBA2_MAX_SEQ,
+                 identity=MAMBA2_IDENTITY, profile=True) -> dict:
+    """mamba2-1.3b served offline on 1 PE + 1 DE (dualpath, 8 DE slots):
+    every round finishes; rounds 2 and 3 continue from their session's
+    state blob (the blob store read once per such round, the raw state's
+    bytes each time, never split across the read sides); the launches
+    equal those predicted (:func:`predicted_launches`: the SSD scan, the
+    recurrent step and the causal conv, nothing else); the blocking arm
+    gives the same tokens; a third run under torch.profiler
+    (``profile``), and the blob's D2H and H2D alone; then f32 token
+    identity at full width and ``identity["depth"]`` layers with the
+    cache-free reference, unchunked and in prefill slices
+    (:func:`identity_phase`)."""
+    from repro_torch import kernels
+    from repro_torch.models import init_params
+    from repro_torch.sim.traces import Round, Trajectory
+    cuda = device != "cpu"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+    params = init_params(cfg, seed=0, device=device)
+    trajs = lambda: [Trajectory(i, [Round(*r) for r in rounds])
+                     for i in range(n_agents)]
+    kw = dict(n_pe=1, n_de=1, mode="dualpath", block_tokens=64,
+              max_seq=max_seq, de_slots=8)
+    kernels.reset_launch_counts()
+    with BlobCounter() as path:
+        system, sessions, wall = serve(cfg, params, trajs(), device, **kw)
+    launches = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated() - base if cuda else None
+    st = system.stats()
+    assert all(s.rounds_done == len(rounds) for s in sessions), \
+        "a mamba2 round did not finish"
+    blobs = system.blob_store
+    raw = len(next(iter(blobs._blobs.values()))[0])
+    n_reads = n_agents * (len(rounds) - 1)
+    assert blobs.bytes_read == n_reads * raw, \
+        f"blob reads {blobs.bytes_read} bytes, want {n_reads} x {raw}"
+    assert path.blob_installs == n_reads and path.installs == n_reads
+    assert st["split_reads"] == 0 and \
+        st["read_bytes_pe_side"] % raw == 0 and \
+        st["read_bytes_de_side"] % raw == 0 and \
+        st["read_bytes_pe_side"] + st["read_bytes_de_side"] == \
+        blobs.bytes_read, "a blob read was split across the sides"
+    assert st["store_reads"] == st["store_writes"] == 0
+    predicted = predicted_launches(cfg, path.items, path.installs,
+                                   path.persists, st["decode_steps"])
+    if cuda:
+        assert launches == predicted, \
+            f"mamba2 launches {launches}, predicted {predicted}"
+    contexts = [len(s.context) for s in sessions]
+    copies = blob_copy_ms(cfg, system.des[(1, 0)].state, device) \
+        if cuda else None
+    del system
+    system, sessions_b, wall_b = serve(cfg, params, trajs(), device,
+                                       pipelined=False, **kw)
+    assert [s.context for s in sessions] == \
+        [s.context for s in sessions_b], "mamba2 blocking arm diverged"
+    del system
+    prof = profile_phase(cfg, rounds, n_agents, max_seq=max_seq,
+                         params=params) if profile else None
+    del params, sessions, sessions_b
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    depth = identity["depth"]
+    n, chunks = identity_phase(
+        dataclasses.replace(cfg, n_layers=depth), device,
+        **{k: v for k, v in identity.items() if k != "depth"})
+    return dict(stats=st, launches=launches, predicted=predicted,
+                items=path.items, appends=sorted(path.appends),
+                blob_reads=blobs.bytes_read // raw, blob_bytes=raw,
+                blob_writes=blobs.bytes_written // raw,
+                persists=path.persists, wall_s=wall,
+                tokens_per_s=st["gen_tokens"] / wall,
+                blocking_wall_s=wall_b, context_lens=contexts,
+                peak_allocated=peak, blob_copies=copies, profile=prof,
+                identity_tokens=n, identity_chunks=chunks,
+                identity_depth=depth)
+
+
+# ---------------------------------------------------------------------------
+# phase 14: granite-moe-3b-a800m, minicpm-2b, nemotron-4-15b
+# ---------------------------------------------------------------------------
+
+
+def registration_run(cfg, device="cuda", rounds=REG_ROUNDS,
+                     n_agents=REG_AGENTS, max_seq=REG_MAX_SEQ) -> dict:
+    """One registered model served offline on 1 PE + 1 DE (dualpath,
+    64-token FullBlocks, 8 DE slots): every round finishes, the launches
+    equal those predicted (gather, scatter, flash and paged, and for an
+    MoE model the grouped GEMM), the blocking arm gives the same
+    tokens.  The weights and caches are freed before it returns."""
+    from repro_torch import kernels
+    from repro_torch.models import init_params
+    from repro_torch.sim.traces import Round, Trajectory
+    cuda = device != "cpu"
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=0, device=device)
+    trajs = lambda: [Trajectory(i, [Round(*r) for r in rounds])
+                     for i in range(n_agents)]
+    kw = dict(n_pe=1, n_de=1, mode="dualpath", block_tokens=64,
+              max_seq=max_seq, de_slots=8)
+    kernels.reset_launch_counts()
+    with PathCounter() as path:
+        system, sessions, wall = serve(cfg, params, trajs(), device, **kw)
+    launches = kernels.launch_counts()
+    st = system.stats()
+    assert all(s.rounds_done == len(rounds) for s in sessions), \
+        f"a {cfg.name} round did not finish"
+    assert st["store_reads"] > 0, "no FullBlock was read back"
+    predicted = predicted_launches(cfg, path.items, path.installs,
+                                   path.persists, st["decode_steps"])
+    if cuda:
+        assert launches == predicted, \
+            f"{cfg.name} launches {launches}, predicted {predicted}"
+    del system
+    system, sessions_b, wall_b = serve(cfg, params, trajs(), device,
+                                       pipelined=False, **kw)
+    assert [s.context for s in sessions] == \
+        [s.context for s in sessions_b], f"{cfg.name} blocking arm diverged"
+    del system, params, sessions, sessions_b
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    return dict(stats=st, launches=launches, predicted=predicted,
+                items=path.items, appends=sorted(path.appends),
+                installs=path.installs, persists=path.persists,
+                wall_s=wall, tokens_per_s=st["gen_tokens"] / wall,
+                blocking_wall_s=wall_b,
+                phase_s=time.perf_counter() - t0)
+
+
+def registrations_phase(device="cuda", archs=REG_ARCHS, reduce=False,
+                        **kw) -> dict:
+    """:func:`registration_run` for each of ``archs`` at full width and
+    depth (``reduce``: their reduced configs, for a CPU rehearsal), one
+    after another."""
+    from repro_torch.configs import get_config
+    out = {}
+    for arch in archs:
+        cfg = get_config(arch)
+        out[arch] = registration_run(cfg.reduced() if reduce else cfg,
+                                     device, **kw)
+    return out
+
 
 
 # ---------------------------------------------------------------------------
@@ -2629,7 +3203,7 @@ def main() -> int:
             check=True).stdout.strip())
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-        sources = sorted({KERNEL_SOURCES[n] for n in names})
+        sources = sorted({KERNEL_SOURCES[n] for n in names} - {None})
         t0 = time.perf_counter()
         build.build(sources)
         print(f"build: {time.perf_counter() - t0:.1f} s")
@@ -2840,7 +3414,51 @@ def main() -> int:
     sim = sim_phase()
     print_sim(sim)
 
-    # 13. kernels line, then the contract line
+    # 13. mamba2-1.3b: the SSM family's state-blob path
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    m2 = mamba2_phase(get_config("mamba2-1.3b"))
+    m2_s = time.perf_counter() - t0
+    st_m = m2["stats"]
+    print("mamba2 stats:", json.dumps(st_m))
+    print(f"mamba2: {m2['wall_s']:.3f} s real wall (pipelined), "
+          f"{m2['blocking_wall_s']:.3f} s (blocking), "
+          f"{m2['tokens_per_s']:.1f} generated tokens/s, launches "
+          f"{m2['launches']} (predicted {m2['predicted']} from "
+          f"{m2['items']} batch items (rows, end) {m2['appends']} and "
+          f"{st_m['decode_steps']} decode steps); state blob "
+          f"{m2['blob_bytes']} bytes, read {m2['blob_reads']} times "
+          f"(never split: pe side {st_m['read_bytes_pe_side']}, de side "
+          f"{st_m['read_bytes_de_side']} bytes), written "
+          f"{m2['blob_writes']} times; one blob alone: "
+          f"{json.dumps(m2['blob_copies'])}; contexts "
+          f"{m2['context_lens']}; peak memory_allocated of the run "
+          f"(weights included) {m2['peak_allocated']} bytes")
+    print(f"mamba2 f32 identity at depth {m2['identity_depth']}: "
+          f"{m2['identity_tokens']} context tokens equal the cache-free "
+          f"reference, unchunked and in {m2['identity_chunks']} + 1 "
+          f"prefill slices")
+    print_profile(*m2["profile"], label="mamba2: ")
+    print(f"mamba2 phase: {m2_s:.1f} s")
+
+    # 14. the registrations: granite-moe-3b-a800m, minicpm-2b,
+    # nemotron-4-15b, one after another
+    t0 = time.perf_counter()
+    reg = registrations_phase()
+    for arch, r in reg.items():
+        s_ = r["stats"]
+        print(f"{arch}: {r['wall_s']:.3f} s real wall (pipelined), "
+              f"{r['blocking_wall_s']:.3f} s (blocking), "
+              f"{r['tokens_per_s']:.1f} generated tokens/s, launches "
+              f"{r['launches']} (predicted from {r['items']} batch items "
+              f"{r['appends']}, {r['installs']} installs, {r['persists']} "
+              f"persists, {s_['decode_steps']} decode steps); "
+              f"{r['phase_s']:.1f} s with the weights; stats "
+              + json.dumps(s_))
+    print(f"registrations phase: {time.perf_counter() - t0:.1f} s")
+
+    # 15. kernels line, then the contract line
     meta = {
         "kv_layer_gather": ("src/repro_torch/kernels/csrc/kv_gather.cu",
                             "src/repro/kernels/kv_gather.py:30"),
@@ -2856,17 +3474,31 @@ def main() -> int:
                          "src/repro/models/moe.py:64"),
         "mla_decode": ("src/repro_torch/kernels/csrc/mla_decode.cu",
                        "src/repro/models/mla.py:109"),
+        # jnp in the reference: the chunked scan, the recurrence, the conv
+        "ssd_chunk_scan": ("src/repro_torch/kernels/csrc/ssd_scan.cu",
+                           "src/repro/models/ssm.py:59"),
+        "ssm_step": ("src/repro_torch/kernels/csrc/ssm_step.cu",
+                     "src/repro/models/ssm.py:138"),
+        "causal_conv": ("src/repro_torch/kernels/causal_conv.py",
+                        "src/repro/models/ssm.py:31"),
     }
     # the main path each kernel's launches are read from: the offline
-    # qwen run for the four of every path, ds27b's for its own two
+    # qwen run for the four of every path, ds27b's for its own two,
+    # mamba2's for the SSM family's three
     main_path = {name: launches[name] for name in GQA_KERNELS}
     main_path.update({name: ds["launches"][name]
                       for name in ("grouped_gemm", "mla_decode")})
+    main_path.update({name: m2["launches"][name]
+                      for name in ("ssd_chunk_scan", "ssm_step",
+                                   "causal_conv")})
+    short = {"granite-moe-3b-a800m": "granite", "minicpm-2b": "minicpm",
+             "nemotron-4-15b": "nemotron"}
     line = []
     for name, cs in cases.items():
         main_case = cs[0]
         line.append(dict(
-            name=name, route="cuda", source=meta[name][0],
+            name=name, route="cuda" if KERNEL_SOURCES[name] else "triton",
+            source=meta[name][0],
             replaces=meta[name][1], launches=main_path[name],
             launches_by_path=dict(offline=launches[name],
                                   online=launches_o[name],
@@ -2877,7 +3509,10 @@ def main() -> int:
                                   network=el["g"]["launches"][name],
                                   gemma2=g2["launches"][name],
                                   ds27b=ds["launches"][name],
-                                  sim=sim["launches"][name]),
+                                  sim=sim["launches"][name],
+                                  mamba2=m2["launches"][name],
+                                  **{short[a]: r["launches"][name]
+                                     for a, r in reg.items()}),
             max_abs_err=max(c["max_abs_err"] for c in cs),
             ms=main_case["ms"], kernel_ms=main_case["ms"],
             ms_clean_l2=main_case.get("ms_clean_l2"),
@@ -2894,7 +3529,9 @@ def main() -> int:
                                        elastic=el["e"]["persists"],
                                        network=el["g"]["persists"],
                                        gemma2=g2["persists"],
-                                       ds27b=ds["persists"])
+                                       ds27b=ds["persists"],
+                                       **{short[a]: r["persists"]
+                                          for a, r in reg.items()})
     for entry in line[2:4]:
         entry["gemma2_windowed_launches"] = g2["windowed"][entry["name"]]
     print(json.dumps({"kernels": line}))

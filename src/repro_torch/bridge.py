@@ -60,9 +60,9 @@ _STACKS = ("blocks", "dense_blocks", "super_blocks")
 
 def params_from_jax(np_tree: Dict, cfg: ModelConfig, device="cuda") -> Dict:
     """The reference's ``init_params`` tree (as numpy) -> the port's
-    parameters: ``blocks`` (dense family), or ``dense_blocks`` then
-    ``super_blocks["moe"]`` (MoE family, period 1), unstacked into one
-    list in layer order."""
+    parameters: ``blocks`` (dense family, or the SSM family's Mamba2
+    blocks), or ``dense_blocks`` then ``super_blocks["moe"]`` (MoE
+    family, period 1), unstacked into one list in layer order."""
     device = resolve(device)
     out = {k: _convert(v, device) for k, v in np_tree.items()
            if k not in _STACKS}
@@ -83,7 +83,9 @@ def params_from_jax(np_tree: Dict, cfg: ModelConfig, device="cuda") -> Dict:
 
 def state_from_jax(np_state: Dict, device="cuda") -> Dict:
     """Decode state.  Dense GQA: both packages use {"kv": {"k","v":
-    (L,b,S,hkv,dh)}}.  MoE (period 1): the reference's ``dense`` and
+    (L,b,S,hkv,dh)}}; SSM: both use {"mamba": {"ssm": (L,b,H,P,N),
+    "conv_x"/"conv_B"/"conv_C": (L,b,cw-1,dim)}}.  MoE (period 1): the
+    reference's ``dense`` and
     ``moe`` stacks are joined along the layer axis, under ``"mla"`` for
     MLA (leaves ``c`` (L,b,S,r) and ``krope`` (L,b,S,rd)) and ``"kv"``
     for GQA; the tree's own keys say which."""

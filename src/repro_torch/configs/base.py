@@ -142,6 +142,20 @@ class ModelConfig:
             total += n_apps * 2 * self.kv_dim * dtype_bytes
         return total
 
+    def ssm_state_bytes(self, dtype_bytes: int = 4) -> int:
+        """Constant per-sequence recurrent state bytes (SSM/hybrid archs),
+        every leaf counted at ``dtype_bytes`` as the reference counts
+        them."""
+        if self.ssm is None:
+            return 0
+        d_inner = self.ssm.expand * self.d_model
+        n_ssm_heads = d_inner // self.ssm.head_dim
+        per_layer = (n_ssm_heads * self.ssm.head_dim * self.ssm.d_state
+                     + (self.ssm.conv_width - 1) *
+                     (d_inner + 2 * self.ssm.n_groups * self.ssm.d_state))
+        n_ssm_layers = sum(1 for k in self.layer_kinds() if k == "ssm")
+        return n_ssm_layers * per_layer * dtype_bytes
+
     def layer_kinds(self) -> Tuple[str, ...]:
         """Per-layer kind: 'attn' | 'local_attn' | 'ssm'."""
         kinds = []
@@ -217,7 +231,8 @@ class ModelConfig:
 # Registry (architectures ported so far)
 # ---------------------------------------------------------------------------
 
-ARCH_IDS = ("qwen1.5-0.5b", "gemma2-2b", "ds27b")
+ARCH_IDS = ("qwen1.5-0.5b", "gemma2-2b", "ds27b", "granite-moe-3b-a800m",
+            "minicpm-2b", "nemotron-4-15b", "mamba2-1.3b")
 
 _REGISTRY = {}
 

@@ -59,14 +59,22 @@ class AttnTimeModel:
 
 def attn_flops_per_layer(cfg: ModelConfig, cached: int, bsz: int) -> float:
     """Theoretical attention FLOPs for one layer of a (cached, bsz) item
-    (MLA scores at its q/k width, nope + rope)."""
+    (MLA scores at its q/k width, nope + rope; an attention-free SSM
+    layer's SSD work, linear in bsz)."""
+    if cfg.attn_variant == "none":
+        d_inner = cfg.ssm.expand * cfg.d_model
+        return 6.0 * bsz * d_inner * cfg.ssm.d_state
     qk_dim = cfg.head_dim if cfg.attn_variant != "mla" else (
         cfg.mla.nope_head_dim + cfg.mla.rope_head_dim)
     return 4.0 * cfg.n_heads * qk_dim * bsz * (cached + (bsz + 1) / 2.0)
 
 
 def attn_flops(cfg: ModelConfig, items: Sequence[Tuple[int, int]]) -> float:
+    """Over the layers: the attention layers, or every layer of an
+    attention-free model."""
     n_attn = sum(1 for k in cfg.layer_kinds() if k != "ssm")
+    if cfg.attn_variant == "none":
+        n_attn = cfg.n_layers
     per_layer = sum(attn_flops_per_layer(cfg, c, b) for c, b in items)
     return per_layer * max(n_attn, 1)
 

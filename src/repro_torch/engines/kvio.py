@@ -13,6 +13,15 @@ layerwise loading (paper §4.1): the hit FullBlocks go to the card once
 per install, and each layer's LayerBlock stream is gathered there by the
 ``kv_layer_gather`` kernel, with the next layer's gather already
 submitted on the TrafficManager while the current layer is installed.
+
+The SSM family keeps ``{"mamba": {"ssm": (L, b, H, P, N) f32,
+"conv_x" / "conv_B" / "conv_C": (L, b, conv_width-1, dim)}}``, the batch
+on axis 1 as everywhere, and its cache is one opaque state blob per
+sequence: :func:`state_to_blob` lays a slot's leaves end to end as raw
+bytes in a fixed order and :func:`blob_to_state` takes them back.  The
+reference pickles a numpy tree; the port moves only the payload (no
+pickle framing, and bf16 leaves need no numpy bf16 type), so its blob
+is that many bytes shorter.
 """
 from __future__ import annotations
 
@@ -23,6 +32,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.traffic import TrafficClass, TrafficManager
+from repro_torch.device import resolve
 from repro_torch.kernels import kv_layer_gather, kv_layer_scatter
 from repro_torch.models.model import init_decode_state
 from repro_torch.models.params import require_ported
@@ -58,6 +68,39 @@ def slot_set(state, axes, slot: int, sub):
     _tree_map(lambda a, ax, s: a.narrow(ax, slot, 1).copy_(s),
               state, axes, sub)
     return state
+
+
+# ---------------------------------------------------------------------------
+# the SSM family's state blob
+# ---------------------------------------------------------------------------
+
+BLOB_LEAVES = ("ssm", "conv_x", "conv_B", "conv_C")
+
+
+def state_to_blob(state) -> np.ndarray:
+    """A one-sequence SSM state (``{"mamba": ...}`` with batch 1) ->
+    its leaves' bytes end to end in ``BLOB_LEAVES`` order, a 1-D uint8
+    host array: one device-to-host copy."""
+    m = state["mamba"]
+    return torch.cat([m[k].contiguous().view(-1).view(torch.uint8)
+                      for k in BLOB_LEAVES]).cpu().numpy()
+
+
+def blob_to_state(cfg: ModelConfig, blob: np.ndarray, device="cuda"):
+    """The inverse of :func:`state_to_blob`: the blob goes to ``device``
+    in one host-to-device copy and each leaf is a view of it."""
+    like = init_decode_state(cfg, 1, 0, device="meta")["mamba"]
+    buf = torch.from_numpy(np.ascontiguousarray(blob)).to(resolve(device))
+    need = sum(like[k].numel() * like[k].element_size() for k in BLOB_LEAVES)
+    if buf.numel() != need:
+        raise ValueError(f"{cfg.name}: a state blob of {buf.numel()} bytes, "
+                         f"the state has {need}")
+    out, off = {}, 0
+    for k in BLOB_LEAVES:
+        n = like[k].numel() * like[k].element_size()
+        out[k] = buf[off:off + n].view(like[k].dtype).view(like[k].shape)
+        off += n
+    return {"mamba": out}
 
 
 # ---------------------------------------------------------------------------

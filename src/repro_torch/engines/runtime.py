@@ -16,7 +16,12 @@ attention).
   tier when the system has one (write-through and tier warm-up).
 
 Transfers ride each engine's TrafficManager as
-``TrafficClass.KV_TRANSFER``.
+``TrafficClass.KV_TRANSFER``.  The SSM family carries an opaque state
+blob instead of per-token KV (constant-size recurrent state): the PE
+installs a hit's blob in one host-to-device copy (``kvio.blob_to_state``)
+and the DE persists a finished round's state as one blob
+(``kvio.state_to_blob``) into the ``StateBlobStore``, keyed by the exact
+context.
 """
 from __future__ import annotations
 
@@ -33,10 +38,14 @@ from repro_torch.core.intra import (AttnTimeModel, BatchItem, PrefillWork,
 from repro_torch.core.scheduler import Request
 from repro_torch.core.traffic import TrafficClass, TrafficManager
 from repro_torch.engines import kvio
-from repro_torch.kvcache.store import MemoryKVStore
+from repro_torch.kvcache.store import MemoryKVStore, StateBlobStore
 from repro_torch.kvcache.trie import BlockTrie
 from repro_torch.models.model import (append_step, decode_step,
                                       init_decode_state)
+
+
+def uses_state_blob(cfg: ModelConfig) -> bool:
+    return cfg.family in ("ssm", "hybrid")
 
 
 @dataclass
@@ -55,6 +64,8 @@ class EngineRequest:
     session: Any = None
     lifecycle: Any = None
     read_payload: List[Optional[np.ndarray]] = field(default_factory=list)
+    # the state blob of the context (SSM family), found at submission
+    blob: Optional[np.ndarray] = None
     pd_ready: bool = False
     # (node, refs) of the DRAM-tier prefix pinned from the path decision
     # until the read copies it out
@@ -95,12 +106,19 @@ class PrefillEngine:
         self.last_step_chunked: List[EngineRequest] = []
 
     # -- loading ---------------------------------------------------------
-    def install_hit_kv(self, er: EngineRequest, payload: List[np.ndarray]):
-        """payload: the hit FullBlocks.  With ``layerwise`` (paper §4.1)
-        they are installed one LayerBlock at a time from the gather
-        kernel's stream; otherwise in one bulk copy (Fig. 12 ablation)."""
-        er.state = init_decode_state(self.cfg, 1, self.max_seq, self.device)
+    def install_hit_kv(self, er: EngineRequest, payload):
+        """payload: the hit FullBlocks, or for the SSM family the state
+        blob (or None).  With ``layerwise`` (paper §4.1) FullBlocks are
+        installed one LayerBlock at a time from the gather kernel's
+        stream; otherwise in one bulk copy (Fig. 12 ablation).  A blob
+        goes to the card whole."""
         hit = er.req.cached_tokens
+        if uses_state_blob(self.cfg) and payload is not None:
+            er.state = kvio.blob_to_state(self.cfg, payload, self.device)
+            payload = None
+        else:
+            er.state = init_decode_state(self.cfg, 1, self.max_seq,
+                                         self.device)
         if payload:
             if self.layerwise:
                 for li, rows in kvio.layer_stream(self.cfg, payload,
@@ -167,11 +185,13 @@ class PrefillEngine:
 class DecodeEngine:
     def __init__(self, eid, cfg: ModelConfig, params, store: MemoryKVStore,
                  trie: BlockTrie, layout: BlockLayout, max_seq: int,
-                 n_slots: int = 8, device="cuda"):
+                 n_slots: int = 8, device="cuda",
+                 blob_store: Optional[StateBlobStore] = None):
         self.eid = eid
         self.cfg = cfg
         self.params = params
         self.store = store
+        self.blob_store = blob_store
         self.trie = trie
         self.layout = layout
         self.max_seq = max_seq
@@ -244,6 +264,19 @@ class DecodeEngine:
         ``defer_persist`` the writes and the trie insert wait in
         ``pending_persist`` for the system's flush."""
         full_tokens = er.context_tokens + er.append_tokens + er.generated
+        if uses_state_blob(self.cfg):
+            # the slot's whole state, snapshotted now, as one blob
+            blob = kvio.state_to_blob(
+                kvio.slot_get(self.state, self.axes, slot))
+            self.tm.submit(
+                lambda b=blob, k=tuple(full_tokens), n=int(self.lengths[slot]):
+                self.blob_store.put(k, b, n),
+                len(blob), TrafficClass.KV_TRANSFER)
+            if self.defer_persist:
+                self.pending_persist.append((er, None))
+            else:
+                self.tm.drain()
+            return
         bt = self.layout.block_tokens
         n_blocks = len(full_tokens) // bt
         start_block = er.req.cached_tokens // bt

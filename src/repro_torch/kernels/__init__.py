@@ -1,18 +1,23 @@
 """The port's hand-written Hopper kernels and their plain versions.
 
-Each wrapper launches its CUDA kernel for CUDA tensors (or raises) and
-computes its plain PyTorch version (``ref``) for CPU tensors, and counts
-its launches in ``<wrapper>.launches``.
+Each wrapper launches its kernel (CUDA C++, or Triton for the causal
+conv) for CUDA tensors (or raises) and computes its plain PyTorch
+version (``ref``) for CPU tensors, and counts its launches in
+``<wrapper>.launches``.
 """
+from repro_torch.kernels.causal_conv import causal_conv
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.grouped_gemm import grouped_gemm
 from repro_torch.kernels.kv_gather import kv_layer_gather
 from repro_torch.kernels.kv_scatter import kv_layer_scatter
 from repro_torch.kernels.mla_decode import mla_decode
 from repro_torch.kernels.paged_attention import paged_attention
+from repro_torch.kernels.ssd_scan import ssd_chunk_scan
+from repro_torch.kernels.ssm_step import ssm_step
 
 WRAPPERS = (kv_layer_gather, kv_layer_scatter, flash_attention,
-            paged_attention, grouped_gemm, mla_decode)
+            paged_attention, grouped_gemm, mla_decode, ssd_chunk_scan,
+            ssm_step, causal_conv)
 
 
 def reset_launch_counts() -> None:
@@ -24,6 +29,7 @@ def launch_counts() -> dict:
     return {fn.__name__: fn.launches for fn in WRAPPERS}
 
 
-__all__ = ["flash_attention", "grouped_gemm", "kv_layer_gather",
-           "kv_layer_scatter", "mla_decode", "paged_attention",
+__all__ = ["causal_conv", "flash_attention", "grouped_gemm",
+           "kv_layer_gather", "kv_layer_scatter", "mla_decode",
+           "paged_attention", "ssd_chunk_scan", "ssm_step",
            "reset_launch_counts", "launch_counts"]

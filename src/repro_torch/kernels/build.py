@@ -24,7 +24,7 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 SOURCES = ("kv_gather", "kv_scatter", "flash_attention", "paged_attention",
-           "grouped_gemm", "mla_decode")
+           "grouped_gemm", "mla_decode", "ssd_scan", "ssm_step")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -1,9 +1,11 @@
 """Plain PyTorch versions of the kernels: the four Pallas kernels' (port
 of ``repro.kernels.ref``), the MoE grouped GEMM's (``jax.lax.ragged_dot``
-in ``repro.models.moe``) and the absorbed MLA decode's
-(``repro.models.mla.mla_decode``), and the key-split arithmetic of the
-attention kernels (partials per key range, then the merge that their
-combine kernels compute).
+in ``repro.models.moe``), the absorbed MLA decode's
+(``repro.models.mla.mla_decode``), the Mamba2 block's three pieces of
+device work (``repro.models.ssm``: the causal conv, the chunked SSD scan
+and the recurrent step), and the key-split arithmetic of the attention
+kernels (partials per key range, then the merge that their combine
+kernels compute).
 
 Each wrapper computes these for CPU tensors; the tests hold them against
 the JAX kernels, and ``chip_smoke.py`` holds the CUDA kernels against them
@@ -225,3 +227,99 @@ def mla_decode_split_ref(q_lat, q_rope, c, krope, lengths, *, scale,
     s, valid = _mla_scores(q_lat, q_rope, c, krope, lengths, scale)
     parts = split_partials_ref(s, valid[:, None].expand_as(s), c, chunk)
     return combine_ref(*parts).to(c.dtype)
+
+
+def causal_conv_ref(x, w, tail):
+    """``repro.models.ssm._causal_conv`` in its own rounding order: x (b,
+    s, c), w (cw, c), tail (b, cw-1, c), all of one dtype.  ``out[t] =
+    silu(sum_i xp[t + i] * w[i])`` over ``xp = tail ‖ x``, each product
+    and each partial sum rounded to the dtype, the terms added one after
+    another from i = 0 (the reference's Python ``sum``), then ``silu`` as
+    ``out * sigmoid(out)``.  Returns (out (b, s, c), the new tail: the
+    last cw-1 rows of xp)."""
+    cw, s = w.shape[0], x.shape[1]
+    xp = torch.cat([tail, x], dim=1)
+    out = xp[:, :s] * w[0]
+    for i in range(1, cw):
+        out = out + xp[:, i:i + s] * w[i]
+    new_tail = xp[:, xp.shape[1] - (cw - 1):] if cw > 1 else tail
+    return out * torch.sigmoid(out), new_tail
+
+
+def ssd_chunk_scan_ref(x, B, C, dt, A, D, h0, chunk: int):
+    """The chunked SSD scan of ``repro.models.ssm.ssd_scan`` between the
+    conv and the gated norm: x (b, s, H, P), B and C (b, s, N), dt (b, s,
+    H) f32 after softplus, A and D (H,), h0 (b, H, P, N) or None (zeros).
+    Chunks of ``L = min(chunk, s)`` rows, the last padded with dt = 0;
+    within a chunk the quadratic term ``C_i·B_j · exp(cs_i - cs_j) · dt_j``
+    over j <= i applied to x, across chunks the carried state h, plus
+    ``D·x``; every step in f32 but one: the cumulative sum ``cs`` of the
+    f32 products ``dt·A`` is accumulated in f64 and rounded once (the
+    reference sums in f32).  ``cs_i - cs_j`` of two sums in the hundreds
+    is the scan's ill-conditioned step; a sum rounded once is the same
+    f32 number whatever order the kernel adds in, so the kernel and this
+    version agree there to the bit.  Returns (y (b, s, H, P) f32,
+    h_final (b, H, P, N) f32)."""
+    return _ssd_scan(x, B, C, dt, A, D, h0, chunk)
+
+
+def _ssd_scan(x, B, C, dt, A, D, h0, chunk: int, *, carry: bool = True,
+              shift: int = 0):
+    """:func:`ssd_chunk_scan_ref`; ``carry=False`` drops the carried state
+    (each chunk starts from zeros) and ``shift`` moves the cumulative sum
+    down by that many rows: the planted faults the card's check must see
+    fail."""
+    b, s, H, P = x.shape
+    N = B.shape[-1]
+    L = min(chunk, s)
+    pad = (-s) % L
+    nc = (s + pad) // L
+    f32 = lambda t: t.float()
+    padded = lambda t: torch.nn.functional.pad(
+        t, (0, 0) * (t.dim() - 2) + (0, pad)) if pad else t
+    xh = padded(f32(x).reshape(b, s, H * P)).reshape(b, nc, L, H, P)
+    Bc = padded(f32(B)).reshape(b, nc, L, N)
+    Cc = padded(f32(C)).reshape(b, nc, L, N)
+    dtc = padded(f32(dt)).reshape(b, nc, L, H)
+    A = f32(A)
+    h = torch.zeros((b, H, P, N), dtype=torch.float32, device=x.device) \
+        if h0 is None else f32(h0)
+    idx = torch.arange(L, device=x.device)
+    causal = (idx[:, None] >= idx[None, :])[:, :, None]          # (i, j, 1)
+    ys = []
+    for c in range(nc):
+        xc, Bj, Ci, dtj = xh[:, c], Bc[:, c], Cc[:, c], dtc[:, c]
+        if not carry:
+            h = torch.zeros_like(h)
+        dA = dtj * A                                              # (b,L,H)
+        # accumulated in f64, rounded once: see ssd_chunk_scan_ref
+        cs = torch.cumsum(dA.double(), dim=1).float()
+        if shift:
+            cs = torch.cat([torch.zeros_like(cs[:, :shift]),
+                            cs[:, :-shift]], dim=1)
+        seg = cs[:, :, None, :] - cs[:, None, :, :]               # (b,i,j,H)
+        Lmat = torch.where(causal[None], torch.exp(seg), 0.0)
+        CB = torch.einsum("bin,bjn->bij", Ci, Bj)
+        w = CB[..., None] * Lmat * dtj[:, None, :, :]
+        y = torch.einsum("bijh,bjhp->bihp", w, xc)
+        y = y + torch.einsum("bin,bhpn,bih->bihp", Ci, h, torch.exp(cs))
+        decay_to_end = torch.exp(cs[:, -1:, :] - cs)              # (b,L,H)
+        S = torch.einsum("blh,bln,blhp->bhpn", decay_to_end * dtj, Bj, xc)
+        h = h * torch.exp(cs[:, -1, :])[:, :, None, None] + S
+        ys.append(y)
+    y = torch.stack(ys, dim=1).reshape(b, nc * L, H, P)[:, :s]
+    return y + f32(x) * f32(D)[None, None, :, None], h
+
+
+def ssm_step_ref(h, x, B, C, dt, A, D, *, decay_after: bool = False):
+    """``repro.models.ssm.ssm_decode_step``'s recurrence, one token per
+    sequence: h (b, H, P, N) f32, updated in place to ``h·exp(dt·A) +
+    (dt·x) ⊗ B``; x (b, H, P); B and C (b, N); dt (b, H) f32; A and D
+    (H,).  Returns y (b, H, P) f32 = ``h·C + D·x`` of the new h.
+    ``decay_after`` applies the decay after the update instead (a planted
+    fault for the card's check)."""
+    x, B, C = x.float(), B.float(), C.float()
+    decay = torch.exp(dt * A.float())[:, :, None, None]
+    upd = (dt[:, :, None] * x)[..., None] * B[:, None, None, :]
+    h.copy_((h + upd) * decay if decay_after else h * decay + upd)
+    return torch.einsum("bhpn,bn->bhp", h, C) + x * D.float()[None, :, None]

@@ -1,0 +1,106 @@
+"""The chunked SSD scan of Mamba2 — prefill and append over a sequence.
+
+Within each chunk of ``L`` rows the quadratic term ``C_i·B_j ·
+exp(cs_i - cs_j) · dt_j`` (j <= i) applied to x, across chunks the
+carried state h (H, P, N) f32, plus ``D·x``: the chunk loop of the
+reference's ``ssd_scan`` (``repro/models/ssm.py:59``, a ``lax.scan`` at
+:116 of ``chunk_body`` :94-114, jnp there).  x (b, s, H, P), B and C (b,
+s, N) in bf16 or f32; dt (b, s, H) f32 after softplus; A (= -exp(A_log))
+and D (H,); h0 (b, H, P, N) f32 or None (zeros); ``chunk`` the config's
+chunk size, of which a sequence shorter than it uses ``s`` (``L =
+min(chunk, s)``, as the reference).  Returns (y (b, s, H, P) f32,
+h_final (b, H, P, N) f32); with ``out_state`` the final state is written
+there (it may be h0 itself: the engines carry state in place).  On CUDA
+tensors this launches ``csrc/ssd_scan.cu`` (P 64, N 128: mamba2-1.3b's;
+one block per head and sequence, chunks in order); on CPU tensors it
+computes the plain version.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import build, ref
+
+HEAD_DIM, STATE = 64, 128          # the shapes the kernel is built for
+MAX_CHUNK = 256
+
+
+@functools.cache
+def _fn():
+    fn = build.library("ssd_scan").ssd_chunk_scan
+    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 9 +
+                   [ctypes.c_int] * 4 + [ctypes.c_longlong] * 4 +
+                   [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def ssd_chunk_scan(x: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
+                   dt: torch.Tensor, A: torch.Tensor, D: torch.Tensor,
+                   h0: Optional[torch.Tensor], chunk: int,
+                   out_state: Optional[torch.Tensor] = None):
+    """x (b,s,H,P); B, C (b,s,N); dt (b,s,H) f32; A, D (H,); h0
+    (b,H,P,N) f32 or None.  Returns (y (b,s,H,P) f32, h_final)."""
+    b, s, H, P = x.shape
+    N = B.shape[-1]
+    if B.shape != (b, s, N) or C.shape != (b, s, N) or \
+            dt.shape != (b, s, H) or A.shape != (H,) or D.shape != (H,) \
+            or (h0 is not None and h0.shape != (b, H, P, N)) or \
+            (out_state is not None and out_state.shape != (b, H, P, N)) \
+            or chunk < 1:
+        raise ValueError(f"ssd_chunk_scan: shapes x {tuple(x.shape)} B "
+                         f"{tuple(B.shape)} C {tuple(C.shape)} dt "
+                         f"{tuple(dt.shape)} A {tuple(A.shape)} D "
+                         f"{tuple(D.shape)} h0 "
+                         f"{None if h0 is None else tuple(h0.shape)} chunk "
+                         f"{chunk}")
+    if x.device.type == "cpu":
+        y, h = ref.ssd_chunk_scan_ref(x, B, C, dt, A, D, h0, chunk)
+        if out_state is None:
+            return y, h
+        return y, out_state.copy_(h)
+    states = [t for t in (h0, out_state) if t is not None]
+    build.require_cuda("ssd_chunk_scan", x, B, C, dt, A, D, *states)
+    if x.dtype not in build.ATTN_DTYPES or B.dtype != x.dtype or \
+            C.dtype != x.dtype or dt.dtype != torch.float32 or \
+            any(t.dtype != torch.float32 for t in states):
+        raise ValueError(f"ssd_chunk_scan: dtypes x {x.dtype} B {B.dtype} "
+                         f"C {C.dtype} dt {dt.dtype} states "
+                         f"{[t.dtype for t in states]}; need x, B, C all "
+                         f"float32 or bfloat16, f32 dt and states")
+    if (P, N) != (HEAD_DIM, STATE) or chunk > MAX_CHUNK:
+        raise ValueError(f"ssd_chunk_scan: built for (P, N) = "
+                         f"{(HEAD_DIM, STATE)} and chunks up to "
+                         f"{MAX_CHUNK}, got {(P, N)}, chunk {chunk}")
+    if x.stride()[2:] != (P, 1) or B.stride(2) != 1 or C.stride(2) != 1 \
+            or B.stride()[:2] != C.stride()[:2] or not dt.is_contiguous() \
+            or not all(t.is_contiguous() for t in states):
+        raise ValueError("ssd_chunk_scan: x's (H, P) contiguous, B and C "
+                         "rows contiguous with one stride, dt and the "
+                         "states contiguous")
+    y = torch.empty((b, s, H, P), dtype=torch.float32, device=x.device)
+    h_out = out_state if out_state is not None else torch.empty(
+        (b, H, P, N), dtype=torch.float32, device=x.device)
+    if b == 0:
+        return y, h_out
+    if s == 0:
+        return y, (h_out.zero_() if h0 is None else h_out.copy_(h0))
+    build.require_aligned("ssd_chunk_scan",
+                          {"y": y.data_ptr(), "h_out": h_out.data_ptr()},
+                          {}, 4)
+    A, D = A.float().contiguous(), D.float().contiguous()
+    rc = _fn()(build.ATTN_DTYPES[x.dtype], x.data_ptr(), B.data_ptr(),
+               C.data_ptr(), dt.data_ptr(), A.data_ptr(), D.data_ptr(),
+               None if h0 is None else h0.data_ptr(), y.data_ptr(),
+               h_out.data_ptr(), b, s, H, min(chunk, s), x.stride(0),
+               x.stride(1), B.stride(0), B.stride(1), build.stream_of(x))
+    build.check(rc, "ssd_chunk_scan")
+    ssd_chunk_scan.launches += 1
+    return y, h_out
+
+
+ssd_chunk_scan.launches = 0

@@ -6,12 +6,14 @@ row_bytes)`` uint8: persisting is a device-to-host copy and the
 layerwise install moves the hit blocks to the card once per request.
 A node's DRAM tier (``kvcache/tiers.py``) sits in front of this store.
 ``AccountingKVStore`` keeps the byte and call counters with no payloads.
+``StateBlobStore`` holds the SSM family's state snapshots, keyed by the
+exact context they were taken at.
 """
 from __future__ import annotations
 
 import itertools
 import threading
-from typing import Dict, List, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -86,3 +88,32 @@ class AccountingKVStore(KVStore):
 
     def _get(self, ref):
         return None
+
+
+class StateBlobStore:
+    """Exact-prefix state snapshots for SSM archs.
+
+    Attention-free layers have no per-token KV: their cache is the O(1)
+    recurrent state, reusable only at the exact context where it was
+    snapshotted.  Agentic replay continues exactly at the previous round
+    end, so an exact-match store mirrors the trie's role.  A blob is the
+    state's raw bytes (``kvio.state_to_blob``), a 1-D uint8 array, so
+    ``len(blob)`` is its byte count.
+    """
+
+    def __init__(self):
+        self._blobs: Dict[tuple, Tuple[np.ndarray, int]] = {}
+        self.bytes_read = 0
+        self.bytes_written = 0
+
+    def put(self, key_tokens: Sequence[int], blob: np.ndarray, length: int):
+        self._blobs[tuple(key_tokens)] = (blob, length)
+        self.bytes_written += len(blob)
+
+    def get(self, key_tokens: Sequence[int]
+            ) -> Tuple[Optional[np.ndarray], int]:
+        hit = self._blobs.get(tuple(key_tokens))
+        if hit is None:
+            return None, 0
+        self.bytes_read += len(hit[0])
+        return hit

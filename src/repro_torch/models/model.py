@@ -1,5 +1,5 @@
-"""Model assembly for the dense and MoE families, GQA or MLA attention
-(port of ``repro.models.model``).
+"""Model assembly for the dense and MoE families, GQA or MLA attention,
+and the SSM family's Mamba2 blocks (port of ``repro.models.model``).
 
 * ``forward``       — full sequence; optionally returns the KV it made.
 * ``decode_step``   — one token per sequence against a decode state.
@@ -8,7 +8,9 @@
 
 Decode state: GQA ``{"kv": {"k", "v": (L, b, S, hkv, dh)}}``, the
 reference's layout; MLA ``{"mla": {"c": (L, b, S, r), "krope": (L, b, S,
-rd)}}`` over every layer.  The reference splits an MoE model's state as
+rd)}}`` over every layer; SSM ``{"mamba": {"ssm": (L, b, H, P, N) f32,
+"conv_x" / "conv_B" / "conv_C": (L, b, conv_width-1, dim)}}``, the
+reference's layout.  The reference splits an MoE model's state as
 its parameters, ``{"dense": ..., "moe": ...}``
 (``bridge.state_from_jax`` joins them).  Where the reference scans over
 stacked layers, the port loops over ``params["blocks"]``; a block with
@@ -17,7 +19,9 @@ the dense FFN.  ``decode_step`` and ``append_step`` write the new
 tokens' K/V into the state's buffers in place and return the same state
 object: the reference returns fresh arrays, the port saves a copy of the
 whole cache per step.  Writes past the cache raise (JAX would drop them
-silently).
+silently).  The SSM family's state is constant-size: the steps update
+each layer's slice of it in place (``models.ssm``) and ignore
+``lengths``, as the reference does.
 """
 from __future__ import annotations
 
@@ -27,7 +31,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve
-from repro_torch.models import layers, mla, moe
+from repro_torch.models import layers, mla, moe, ssm
 from repro_torch.models.layers import rms_norm
 from repro_torch.models.params import require_ported
 
@@ -77,6 +81,23 @@ def _block(p, cfg: ModelConfig, h, attn_fn):
     return h + f * cfg.ffn_mult
 
 
+def _mamba_block(p, cfg: ModelConfig, h, step, state=None):
+    """One Mamba2 block, ``step`` the SSD flavour (``ssm.ssd_scan``,
+    ``ssd_scan_with_tails`` or ``ssm_decode_step``): returns (h + out,
+    the layer's state)."""
+    xn = rms_norm(h, p["ln"], cfg.rms_norm_eps)
+    out, st = step(p, cfg, xn) if state is None else step(p, cfg, xn, state)
+    return h + out, st
+
+
+def _mamba_layers(state):
+    """Each layer's state dict of views into the stacked ``{"mamba":
+    ...}`` state (writes go through to the stack)."""
+    m = state["mamba"]
+    return [{k: v[li] for k, v in m.items()}
+            for li in range(m["ssm"].shape[0])]
+
+
 def _check_fits(lengths, s: int, max_seq: int) -> int:
     """The longest row's length after writing ``s`` tokens (one host read
     per step), or raise past the cache."""
@@ -104,6 +125,16 @@ def forward(params, cfg: ModelConfig, tokens, *, return_state: bool = False,
     s = tokens.shape[1]
     positions = torch.arange(s, device=tokens.device)
     h = embed(params, cfg, tokens)
+    if cfg.family == "ssm":
+        sts = []
+        for blk in params["blocks"]:
+            h, st = _mamba_block(blk, cfg, h, ssm.ssd_scan)
+            sts.append(st)
+        state = {"mamba": {k: torch.stack([st[k] for st in sts])
+                           for k in sts[0]}} if return_state else None
+        if last_only:
+            h = h[:, -1:]
+        return logits_from_hidden(params, cfg, h), state
     ks, vs = [], []
     for blk, window in zip(params["blocks"], layer_windows(cfg)):
 
@@ -138,6 +169,10 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_seq: int,
                       device="cuda") -> Dict:
     """Zero decode caches on ``device`` (``"meta"`` gives shapes only)."""
     require_ported(cfg)
+    if cfg.family == "ssm":
+        st = ssm.init_ssm_state(cfg, batch, device)
+        return {"mamba": {k: v[None].repeat((cfg.n_layers,) + (1,) * v.dim())
+                          for k, v in st.items()}}
     dev = torch.device("meta") if str(device) == "meta" else resolve(device)
     dtype = getattr(torch, cfg.kv_cache_dtype)
     zeros = lambda *s: torch.zeros((cfg.n_layers, batch, max_seq) + s,
@@ -154,6 +189,11 @@ def decode_step(params, cfg: ModelConfig, tokens, state, lengths):
     cached.  Writes each token's K/V (or latent) at index ``lengths`` and
     attends over ``lengths + 1``.  Returns (logits (b, vocab), state)."""
     require_ported(cfg)
+    if cfg.family == "ssm":
+        h = embed(params, cfg, tokens[:, None])
+        for blk, st in zip(params["blocks"], _mamba_layers(state)):
+            h, _ = _mamba_block(blk, cfg, h, ssm.ssm_decode_step, st)
+        return logits_from_hidden(params, cfg, h)[:, 0], state
     kc_all, vc_all = _cache(state, cfg)
     lengths = lengths.to(torch.long)
     _check_fits(lengths, 1, kc_all.shape[2])
@@ -188,6 +228,11 @@ def append_step(params, cfg: ModelConfig, tokens, state, lengths):
     the chunk's K/V (or latents) at [lengths, lengths + s_app).  Returns
     (logits (b, s_app, vocab), state)."""
     require_ported(cfg)
+    if cfg.family == "ssm":
+        h = embed(params, cfg, tokens)
+        for blk, st in zip(params["blocks"], _mamba_layers(state)):
+            h, _ = _mamba_block(blk, cfg, h, ssm.ssd_scan_with_tails, st)
+        return logits_from_hidden(params, cfg, h), state
     kc_all, vc_all = _cache(state, cfg)
     b, s = tokens.shape
     lengths = lengths.to(torch.long)

@@ -1,16 +1,17 @@
-"""Parameter schema and init for the dense and MoE families.
+"""Parameter schema and init for the dense, MoE and SSM families.
 
 Port of ``repro.models.params`` (``attn_schema`` :63, ``ffn_schema`` :93,
-``moe_schema`` :107, ``dense_block_schema`` :153, ``moe_block_schema``
-:166, ``model_schema`` :184, ``init_params`` :252,
+``moe_schema`` :107, ``mamba_schema`` :127, ``dense_block_schema`` :153,
+``moe_block_schema`` :166, ``model_schema`` :184, ``init_params`` :252,
 ``count_active_params_analytic`` :277).  The reference stacks every block
 along a leading layer axis for ``lax.scan`` (the MoE family in two
 stacks, ``dense_blocks`` and ``super_blocks.moe``); here
 ``params["blocks"]`` is a list with one dict per layer, in layer order,
 which the model walks in a Python loop: for the MoE family a dense block
-for each of the first ``first_k_dense`` layers, then MoE blocks.  Leaf
-names and shapes inside a block are the reference's, so
-``bridge.params_from_jax`` is a plain unstacking.
+for each of the first ``first_k_dense`` layers, then MoE blocks; for the
+SSM family one Mamba2 block per layer.  Leaf names and shapes inside a
+block are the reference's, so ``bridge.params_from_jax`` is a plain
+unstacking.
 
 Values come from a ``torch.Generator`` and do not match ``jax.random``;
 tests that compare the two packages convert the JAX parameters through
@@ -28,8 +29,7 @@ from repro_torch.device import resolve
 
 # family / feature -> the port slice that brings it
 _LATER_SLICES = {
-    "ssm": "the SSM/hybrid slice",
-    "hybrid": "the SSM/hybrid slice",
+    "hybrid": "the hybrid slice (SSM + shared attention, zamba2)",
     "vlm": "the VLM slice",
     "encoder": "the encoder slice",
 }
@@ -37,21 +37,28 @@ _LATER_SLICES = {
 
 def require_ported(cfg: ModelConfig) -> None:
     """Raise for any architecture feature the port does not run: the
-    families other than dense and MoE, MoE layers interleaved with dense
-    ones (``period`` > 1), MLA together with windows or softcaps (no
-    config has both), and frontend embeddings."""
-    if cfg.family not in ("dense", "moe"):
+    hybrid, VLM and encoder families, an SSM family without its SSM
+    config, MoE layers interleaved with dense ones (``period`` > 1), MLA
+    together with windows or softcaps (no config has both), and
+    frontend embeddings."""
+    if cfg.family not in ("dense", "moe", "ssm"):
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} arrives with "
             f"{_LATER_SLICES[cfg.family]} of the port")
+    if cfg.family == "ssm":
+        if cfg.ssm is None:
+            raise NotImplementedError(
+                f"{cfg.name}: the port runs the SSM family with an SSM "
+                f"config (Mamba2 blocks), not without one")
+        return
     if cfg.family == "moe" and (cfg.moe is None or cfg.moe.period != 1):
         raise NotImplementedError(
             f"{cfg.name}: the port runs MoE with an MoE config of period "
             f"1 (every layer after first_k_dense), not {cfg.moe}")
     if cfg.attn_variant not in ("gqa", "mla"):
         raise NotImplementedError(
-            f"{cfg.name}: attention {cfg.attn_variant!r} arrives with the "
-            f"SSM/hybrid slice of the port")
+            f"{cfg.name}: attention {cfg.attn_variant!r} outside the SSM "
+            f"family is not ported")
     if cfg.attn_variant == "mla" and (
             cfg.mla is None or cfg.local_global_period or cfg.local_window
             or cfg.attn_logit_softcap):
@@ -65,7 +72,7 @@ def require_ported(cfg: ModelConfig) -> None:
 
 class PSpec(NamedTuple):
     shape: Tuple[int, ...]
-    init: str = "normal"            # normal | zeros | ones
+    init: str = "normal"            # normal | zeros | ones | ssm_a | ssm_dt
     std: float = 0.02
 
 
@@ -129,6 +136,34 @@ def moe_schema(cfg: ModelConfig) -> Dict:
     return s
 
 
+def mamba_schema(cfg: ModelConfig) -> Dict:
+    """One Mamba2 block: the five input projections, the depthwise conv
+    weights of x, B and C, the SSD head parameters, the gated norm and
+    the output projection."""
+    d, s = cfg.d_model, cfg.ssm
+    d_inner = s.expand * d
+    n_heads = d_inner // s.head_dim
+    bc = s.n_groups * s.d_state
+    conv = lambda c: PSpec((s.conv_width, c), "normal",
+                           1.0 / math.sqrt(s.conv_width))
+    return {
+        "ln": _norm(d),
+        "w_z": _proj(d, d_inner),
+        "w_x": _proj(d, d_inner),
+        "w_B": _proj(d, bc),
+        "w_C": _proj(d, bc),
+        "w_dt": _proj(d, n_heads),
+        "conv_x": conv(d_inner),
+        "conv_B": conv(bc),
+        "conv_C": conv(bc),
+        "A_log": PSpec((n_heads,), "ssm_a"),
+        "D": PSpec((n_heads,), "ones"),
+        "dt_bias": PSpec((n_heads,), "ssm_dt"),
+        "out_norm": PSpec((d_inner,), "ones"),
+        "out_proj": _proj(d_inner, d),
+    }
+
+
 def _block_schema(cfg: ModelConfig, ffn_key: str, ffn: Dict) -> Dict:
     s = {
         "ln1": _norm(cfg.d_model),
@@ -156,9 +191,10 @@ def model_schema(cfg: ModelConfig) -> Dict:
     s = {
         "embed": {"tok": PSpec((cfg.vocab_size, d), "normal", 1.0)},
         "final_norm": _norm(d),
-        "blocks": [moe_block_schema(cfg) if is_moe
-                   else dense_block_schema(cfg)
-                   for is_moe in cfg.moe_layer_mask()],
+        "blocks": [mamba_schema(cfg) for _ in range(cfg.n_layers)]
+        if cfg.family == "ssm" else
+        [moe_block_schema(cfg) if is_moe else dense_block_schema(cfg)
+         for is_moe in cfg.moe_layer_mask()],
     }
     if not cfg.tie_embeddings:
         s["lm_head"] = _proj(d, cfg.vocab_size)
@@ -205,6 +241,17 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> Dict:
                 return torch.zeros(tree.shape, dtype=dtype, device=dev)
             if tree.init == "ones":
                 return torch.ones(tree.shape, dtype=dtype, device=dev)
+            if tree.init == "ssm_a":
+                # A in [1, 16], stored as log(A); discretised as
+                # exp(-exp(A_log) * dt)
+                u = torch.rand(tree.shape, generator=gen, device=dev)
+                return torch.log(1.0 + 15.0 * u).to(dtype)
+            if tree.init == "ssm_dt":
+                # dt_bias = softplus^-1(dt), dt ~ logU[1e-3, 1e-1]
+                lo, hi = math.log(1e-3), math.log(1e-1)
+                u = torch.rand(tree.shape, generator=gen, device=dev)
+                return torch.log(torch.expm1(
+                    torch.exp(lo + u * (hi - lo)))).to(dtype)
             x = torch.randn(tree.shape, generator=gen, device=dev,
                             dtype=torch.float32)
             return x.mul_(tree.std).to(dtype)

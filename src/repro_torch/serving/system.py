@@ -32,6 +32,12 @@ the store (``kvcache/tiers.py``): the DE persists through its node's tier
 (write-through), each finished round warms that tier with its context,
 and the think-time prefetcher stages evicted blocks back.
 
+The SSM family (mamba2) has no per-token KV: a round's cache is its
+session's state blob (``StateBlobStore``), found by the exact context
+instead of a trie match, read whole on the side the path decision
+chose (never split), installed on the PE in one copy and persisted by
+the DE as one blob; the DRAM tiers do not hold blobs.
+
 ``slo=SloConfig(...)`` adds the online SLO layer: an admission gate in
 front of the scheduler (``core/admission.py``: online arrivals are
 admitted, deferred or rejected on a TTFT estimate from
@@ -108,8 +114,8 @@ from repro_torch.core.traffic import TrafficClass, TrafficManager
 from repro_torch.device import resolve
 from repro_torch.engines import kvio
 from repro_torch.engines.runtime import (DecodeEngine, EngineRequest,
-                                         PrefillEngine)
-from repro_torch.kvcache.store import MemoryKVStore
+                                         PrefillEngine, uses_state_blob)
+from repro_torch.kvcache.store import MemoryKVStore, StateBlobStore
 from repro_torch.kvcache.tiers import DramTier, ThinkTimePrefetcher
 from repro_torch.kvcache.trie import BlockTrie
 from repro_torch.models.params import require_ported
@@ -177,6 +183,7 @@ class ServingSystem:
             (), dtype=getattr(torch, cfg.kv_cache_dtype)).element_size()
         self.layout = layout_for(cfg, block_tokens, kv_itemsize)
         self.store = MemoryKVStore(self.layout)
+        self.blob_store = StateBlobStore()
         self.trie = BlockTrie(block_tokens)
         scfg = self.slo_cfg = slo or SloConfig()
         self.sched = Scheduler(alpha=1 << 30, beta=1 << 30,
@@ -329,6 +336,16 @@ class ServingSystem:
         return s
 
     # ------------------------------------------------------------------
+    def _cache_hit(self, sess: AgentSession, prompt: List[int]):
+        """(blob, hit tokens, hit FullBlock refs) of a round's prompt: the
+        trie match, or for the SSM family the state blob of the
+        session's exact context (reusable only there)."""
+        if uses_state_blob(self.cfg):
+            blob, hit = self.blob_store.get(sess.context)
+            return blob, (hit if blob is not None else 0), []
+        hit, refs = self.trie.match(prompt)
+        return None, hit, refs
+
     def _submit_round(self, sess: AgentSession):
         rnd = sess.traj.rounds[sess.next_round]
         # host numpy draws, as the reference, so token streams compare
@@ -336,7 +353,7 @@ class ServingSystem:
         append = list(sess.rng.integers(2, self.cfg.vocab_size,
                                         size=rnd.append))
         prompt = sess.context + append
-        hit, refs = self.trie.match(prompt)
+        blob, hit, refs = self._cache_hit(sess, prompt)
         new_tokens = len(prompt) - hit
         if self.gate is not None and self._online:
             # the gate decides after the draws above, as the reference:
@@ -364,7 +381,8 @@ class ServingSystem:
                       arrival=self.clock.now, slo_class=sess.traj.slo_class)
         er = EngineRequest(req=req, context_tokens=prompt[:hit],
                            append_tokens=prompt[hit:], hit_refs=refs,
-                           session=sess, lifecycle=ReqState.SCHEDULED)
+                           blob=blob, session=sess,
+                           lifecycle=ReqState.SCHEDULED)
         self._trace_submit(er)
         sess.current = er
         sess.next_round += 1
@@ -483,6 +501,8 @@ class ServingSystem:
         side's; only what the DE side reads crosses the compute network.
         With tiers, storage reads go through the reading node's tier
         (misses are admitted, stray resident blocks serve from DRAM)."""
+        if uses_state_blob(self.cfg):
+            return self._blob_transfers(er)
         req = er.req
         pe = self.pes[req.pe]
         de_tm = self.des[req.de].tm
@@ -562,6 +582,31 @@ class ServingSystem:
             er.tier_pinned = None
         return out
 
+    def _blob_transfers(self, er: EngineRequest
+                        ) -> List[Tuple[TrafficManager, callable, int]]:
+        """The read of an SSM state blob: one opaque snapshot, so it is
+        not split and rides the side the path decision chose (over the
+        compute network from the DE side)."""
+        req = er.req
+        side = req.read_path
+        pe_node, de_node = req.pe[0], req.de[0]
+        nbytes = len(er.blob) if er.blob is not None else 0
+        self.read_bytes_by_side[side] += nbytes
+        if nbytes and self.tracer is not None:
+            self.tracer.event(f"req/{req.rid}", "storage_read", side=side,
+                              nbytes=nbytes)
+        er.read_payload = [None]
+        node = pe_node if side == "pe" else de_node
+        self._tick_io.add(("snic", node),
+                          self._snic_s(node, nbytes, rid=req.rid, side=side))
+        pe_tm = self.pes[req.pe].tm
+        out = [(pe_tm if side == "pe" else self.des[req.de].tm,
+                lambda: er.read_payload.__setitem__(0, er.blob), nbytes)]
+        if side == "de":
+            self._tick_io.add(("cn", pe_node), self._cn_s(nbytes))
+            out.append((pe_tm, lambda: None, nbytes))
+        return out
+
     def _do_read(self, er: EngineRequest):
         """Blocking read: every transfer drains inline."""
         for tm, fn, nbytes in self._read_transfers(er):
@@ -600,8 +645,11 @@ class ServingSystem:
         self._release_read_q(req)
         self._stamp(req.rid, "read_done_t")
         self._set_state(er, ReqState.PREFILL)
-        self.pes[req.pe].install_hit_kv(
-            er, [b for b in er.read_payload if b is not None])
+        if uses_state_blob(self.cfg):
+            self.pes[req.pe].install_hit_kv(er, er.read_payload[0])
+        else:
+            self.pes[req.pe].install_hit_kv(
+                er, [b for b in er.read_payload if b is not None])
 
     def _release_read_q(self, req: Request):
         """Release exactly what the path decision charged (with
@@ -789,6 +837,8 @@ class ServingSystem:
         tid = sess.traj.tid
         tier = self.tiers[de_node]
         now = self.clock.now
+        if uses_state_blob(self.cfg):
+            return
         if sess.next_round >= sess.traj.n_rounds:
             # a finished trajectory is never hit again (§A.4)
             for t in self.tiers.values():
@@ -1027,7 +1077,8 @@ class ServingSystem:
         de = DecodeEngine(eid, self.cfg, self.params,
                           self.tiers.get(eid[0], self.store),
                           self.trie, self.layout, self.max_seq,
-                          n_slots=self._de_slots, device=self.device)
+                          n_slots=self._de_slots, device=self.device,
+                          blob_store=self.blob_store)
         de.defer_persist = self.pipelined
         return de
 
@@ -1172,7 +1223,7 @@ class ServingSystem:
             self.sched.on_request_done(req.de, req)
         del self._inflight[req.rid]
         prompt = er.context_tokens + er.append_tokens
-        hit, refs = self.trie.match(prompt)
+        blob, hit, refs = self._cache_hit(sess, prompt)
         if hit >= len(prompt):         # keep >= 1 token to prefill
             hit = len(prompt) - 1
             refs = refs[:hit // self.layout.block_tokens]
@@ -1183,7 +1234,8 @@ class ServingSystem:
                        slo_class=req.slo_class)
         er2 = EngineRequest(req=req2, context_tokens=prompt[:hit],
                             append_tokens=prompt[hit:], hit_refs=refs,
-                            session=sess, lifecycle=ReqState.SCHEDULED)
+                            blob=blob, session=sess,
+                            lifecycle=ReqState.SCHEDULED)
         self._trace_submit(er2)
         sess.current = er2
         self._inflight[req2.rid] = er2

@@ -73,8 +73,10 @@ class ModelSimSpec:
     @classmethod
     def from_config(cls, cfg: ModelConfig, kv_dtype_bytes: int = 2,
                     param_dtype_bytes: int = 2) -> "ModelSimSpec":
-        """The families the port registers carry no SSM state, so
-        ``ssm_state_bytes`` is 0."""
+        """The reference's ``from_config``: the SSM family carries its
+        constant-size state (``ModelConfig.ssm_state_bytes``, every leaf
+        counted at 4 bytes as the reference counts it); the other
+        families carry none."""
         qk = cfg.head_dim if cfg.attn_variant != "mla" else (
             cfg.mla.nope_head_dim + cfg.mla.rope_head_dim)
         return cls(
@@ -85,6 +87,7 @@ class ModelSimSpec:
             active_params=cfg.active_param_count(),
             n_heads=max(cfg.n_heads, 1),
             qk_head_dim=max(qk, 1),
+            ssm_state_bytes=cfg.ssm_state_bytes(),
             total_param_bytes=cfg.param_count() * param_dtype_bytes,
         )
 

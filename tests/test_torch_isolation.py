@@ -5,8 +5,10 @@
 * No source file of the port says ``import jax``, ``from jax``,
   ``import repro`` or ``from repro.``.
 * An entry point called without ``device=`` on a machine without CUDA
-  raises instead of running on the CPU, and so does the simulator's
-  settle asked for ``"cuda"``.
+  raises instead of running on the CPU (the dense, MoE + MLA and SSM
+  families alike), and so does the simulator's settle asked for
+  ``"cuda"``.
+* The families of later slices are refused, naming their slice.
 """
 import os
 import re
@@ -101,6 +103,20 @@ def test_entry_points_without_device_raise_without_cuda(monkeypatch):
         bridge.state_from_jax(
             {"dense": {"c": np.zeros((1, 1, 2, 3), np.float32)},
              "moe": {"c": np.zeros((3, 1, 2, 3), np.float32)}})
+    # mamba2 (SSM) the same way: its parameters, its state, the state
+    # blob's way back to the card, and serving
+    from repro_torch.engines import kvio
+    m2 = get_config("mamba2-1.3b").reduced()
+    with pytest.raises(RuntimeError, match="cuda"):
+        init_params(m2)
+    with pytest.raises(RuntimeError, match="cuda"):
+        init_decode_state(m2, 1, 16)
+    m2_params = init_params(m2, device="cpu")
+    with pytest.raises(RuntimeError, match="cuda"):
+        ServingSystem(m2, m2_params)
+    blob = kvio.state_to_blob(init_decode_state(m2, 1, 16, "cpu"))
+    with pytest.raises(RuntimeError, match="cuda"):
+        kvio.blob_to_state(m2, blob)
     # the simulator runs on the host; only its opt-in settle names a
     # device, and a missing card raises instead of settling on the CPU
     from repro_torch.sim import (DS_660B, HOPPER_NODE, SimConfig, VectorSim,
@@ -119,11 +135,16 @@ def test_cuda_path_raises_on_cpu_only_arguments():
         build.require_cuda("k", torch.zeros(1))
 
 
-def test_unported_families_raise_with_their_slice():
+@pytest.mark.parametrize("family,match", [
+    ("hybrid", "hybrid slice"),       # zamba2: the next slice
+    ("ssm", "SSM config"),            # the SSM family needs its SSMConfig
+])
+def test_unported_families_raise_with_their_slice(family, match):
     import dataclasses
     from repro_torch.configs import get_config
     from repro_torch.models import init_params
     cfg = dataclasses.replace(get_config("qwen1.5-0.5b").reduced(),
-                              family="ssm")
-    with pytest.raises(NotImplementedError, match="SSM"):
+                              family=family)
+    assert cfg.ssm is None
+    with pytest.raises(NotImplementedError, match=match):
         init_params(cfg, device="cpu")

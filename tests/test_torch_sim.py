@@ -30,8 +30,10 @@ from types import SimpleNamespace
 import numpy as np
 import pytest
 
+import repro.configs as jax_configs
 import repro.core.config as jax_config
 import repro.sim as jax_sim
+import repro_torch.configs as port_configs
 import repro.sim.faults as jax_faults
 import repro.sim.traces as jax_traces
 import repro_torch.sim as port_sim
@@ -46,9 +48,10 @@ from repro_torch.sim import faults, traces
 from repro_torch.sim.traces import Round, Trajectory
 
 JAX = SimpleNamespace(sim=jax_sim, config=jax_config, faults=jax_faults,
-                      traces=jax_traces, Tracer=JaxTracer)
+                      traces=jax_traces, Tracer=JaxTracer,
+                      configs=jax_configs)
 PORT = SimpleNamespace(sim=port_sim, config=config, faults=faults,
-                       traces=traces, Tracer=Tracer)
+                       traces=traces, Tracer=Tracer, configs=port_configs)
 
 SLOW = dataclasses.replace(HOPPER_NODE, snic_bw=10e9)   # I/O-bound point
 
@@ -158,6 +161,14 @@ def _arm(name, p):
                    split_reads=True,
                    tier=c.TierConfig(dram_tier_bytes=0.5e9, prefetch=True))
         tracer = p.Tracer()
+    elif name == "ssm_config":
+        # the blob arm with mamba2-1.3b's spec built from its config
+        # (its ~103 MB state blob), as the serving clock builds it
+        trajs = p.traces.generate_dataset(24, 8192, seed=2,
+                                          think_mean_s=1.0)
+        kw = _base(p, model=p.sim.ModelSimSpec.from_config(
+            p.configs.get_config("mamba2-1.3b")), split_reads=True,
+            tier=c.TierConfig(dram_tier_bytes=0.5e9, prefetch=True))
     else:
         raise KeyError(name)
     return p.sim.SimConfig(**kw), trajs, arrivals, tracer
@@ -165,7 +176,7 @@ def _arm(name, p):
 
 ARMS = ("basic", "dualpath", "oracle", "rr", "split", "tier_prefetch",
         "online_slo", "faults_hedge", "elastic", "net_vl", "net_fifo",
-        "ssm_blob")
+        "ssm_blob", "ssm_config")
 
 
 @functools.lru_cache(maxsize=None)
@@ -225,6 +236,23 @@ def test_arms_engage_their_features():
     assert "blob" in tags
     assert sum(n.read_bytes for n in sim.snic.values()) > \
         sim.results()["snic_hit_read_bytes"]
+    # from mamba2-1.3b's config: an attention-free model whose reads are
+    # its blobs alone
+    sim = pair("ssm_config")[1]
+    assert sim.model.ssm_state_bytes == \
+        port_configs.get_config("mamba2-1.3b").ssm_state_bytes() > 0
+    assert sim.model.kv_bytes_per_token == 0
+    assert sum(n.read_bytes for n in sim.snic.values()) >= \
+        sim.model.ssm_state_bytes
+
+
+@pytest.mark.parametrize("arch", port_configs.ARCH_IDS)
+def test_model_spec_from_config_matches_reference(arch):
+    """Every field, ``ssm_state_bytes`` included (0 before the SSM
+    family was ported, whatever the config)."""
+    got = port_sim.ModelSimSpec.from_config(port_configs.get_config(arch))
+    want = jax_sim.ModelSimSpec.from_config(jax_configs.get_config(arch))
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
 
 
 def test_traced_run_equals_reference_trace_and_passes_audit():

@@ -1,0 +1,317 @@
+"""mamba2 in the port against the JAX reference (CPU, reduced mamba2-1.3b).
+
+The reduced config keeps Mamba2's structure at test size: 4 layers,
+d_model 128, d_inner 256 in 16 SSD heads of 16, d_state 16, chunks of
+32, conv width 4, tied embeddings.  The JAX parameters go through
+``repro_torch.bridge``; inputs come from numpy with a seed.  The port
+runs on the CPU, so every kernel wrapper computes its plain version.
+
+* The plain causal conv against the reference's ``_causal_conv`` (its
+  bf16 order reproduced), s shorter than, equal to and past the tail.
+* One Mamba2 layer: the port's ``ssd_scan`` (the conv and the plain
+  chunked scan) against the reference's at s a multiple of the chunk,
+  not a multiple, and shorter than it; ``ssd_scan_with_tails`` from a
+  nonzero state and tails, updating it in place; ``ssm_decode_step``
+  (the plain recurrent step), in place.  The planted faults of the
+  card's check change the results.
+* The model: ``forward`` (logits and the state it returns),
+  ``append_step`` from a carried state and ``decode_step`` against the
+  reference; the bridged state; the slot utilities on the state.
+* The state blob: byte for byte the reference state's leaves end to
+  end, and back.  The port's launcher serves mamba2.
+
+Tolerances: the kernels' plain versions 1e-5 in f32 and 2e-2 in bf16
+elementwise, relative to the largest output (the chunk sums are f32 in
+both, in other orders); logits test_torch_model.py's (2e-5 of the
+largest logit in f32, 2e-2 in bf16).
+"""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_config as jax_get_config
+from repro.models import init_params as jax_init_params
+from repro.models import model as jax_model
+from repro.models import ssm as jax_ssm
+from repro_torch import bridge
+from repro_torch.configs import get_config
+from repro_torch.engines import kvio
+from repro_torch.kernels import ref
+from repro_torch.launch import serve as serve_launcher
+from repro_torch.models import (append_step, decode_step, forward,
+                                init_decode_state, ssm)
+
+torch.set_num_threads(1)
+
+jax_forward = jax.jit(jax_model.forward, static_argnums=1,
+                      static_argnames="return_state")
+jax_decode = jax.jit(jax_model.decode_step, static_argnums=1)
+jax_append = jax.jit(jax_model.append_step, static_argnums=1)
+jax_scan = jax.jit(jax_ssm.ssd_scan, static_argnums=1)
+jax_scan_tails = jax.jit(jax_ssm.ssd_scan_with_tails, static_argnums=1)
+jax_step = jax.jit(jax_ssm.ssm_decode_step, static_argnums=1)
+
+ARCH = "mamba2-1.3b"
+KTOLS = {"float32": 1e-5, "bfloat16": 2e-2}     # the plain versions
+TOLS = {"float32": 2e-5, "bfloat16": 2e-2}      # logits
+
+
+def _close(got, want, tol):
+    """|got - want| <= tol * max(1, max|want|) elementwise."""
+    want = np.asarray(want, np.float32)
+    bridge.assert_close(got, want, tol * max(1.0, float(np.abs(want).max())))
+
+
+def _pair(rng, shape, dtype, scale=1.0):
+    """The same values as a JAX array and a CPU torch tensor."""
+    x = (rng.standard_normal(shape) * scale).astype(np.float32)
+    j = jnp.asarray(x).astype(dtype)
+    return j, bridge.to_torch(np.asarray(j), "cpu")
+
+
+def _cfgs(dt):
+    return (dataclasses.replace(jax_get_config(ARCH).reduced(),
+                                param_dtype=dt),
+            dataclasses.replace(get_config(ARCH).reduced(), param_dtype=dt))
+
+
+@pytest.fixture(scope="module", params=["float32", "bfloat16"])
+def models(request):
+    dt = request.param
+    jcfg, tcfg = _cfgs(dt)
+    jp = jax_init_params(jcfg, jax.random.PRNGKey(0))
+    tp = bridge.params_from_jax(jax.tree.map(np.asarray, jp), tcfg,
+                                 device="cpu")
+    return dt, jcfg, tcfg, jp, tp
+
+
+def _layer(jp, tp, i=1):
+    """Block ``i``'s parameters in both packages."""
+    return jax.tree.map(lambda a: a[i], jp["blocks"]), tp["blocks"][i]
+
+
+def _random_state(rng, tcfg, b, dt):
+    """A nonzero one-layer state in both packages: f32 ssm, tails in the
+    activation dtype."""
+    d_inner, H, P, N = ssm._dims(tcfg)
+    cw = tcfg.ssm.conv_width
+    shapes = dict(ssm=((b, H, P, N), "float32"),
+                  conv_x=((b, cw - 1, d_inner), dt),
+                  conv_B=((b, cw - 1, N), dt), conv_C=((b, cw - 1, N), dt))
+    pairs = {k: _pair(rng, s, d, 0.5) for k, (s, d) in shapes.items()}
+    return ({k: j for k, (j, _) in pairs.items()},
+            {k: t for k, (_, t) in pairs.items()})
+
+
+# ---------------------------------------------------------------------------
+# the plain versions against the reference's functions
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+@pytest.mark.parametrize("s", [1, 3, 37])
+def test_causal_conv_plain_matches_reference(dt, s):
+    rng = np.random.default_rng(s)
+    jx, tx = _pair(rng, (2, s, 48), dt)
+    jw, tw = _pair(rng, (4, 48), dt, 0.5)
+    jt, tt = _pair(rng, (2, 3, 48), dt)
+    jout, jtail = jax_ssm._causal_conv(jx, jw, jt)
+    out, tail = ref.causal_conv_ref(tx, tw, tt)
+    _close(out, jout, KTOLS[dt])
+    bridge.assert_exact(tail, np.asarray(jtail).astype(np.float32))
+    # the model's call: no tail is zeros
+    jout0, _ = jax_ssm._causal_conv(jx, jw)
+    out0, _ = ref.causal_conv_ref(tx, tw, torch.zeros_like(tt))
+    _close(out0, jout0, KTOLS[dt])
+
+
+@pytest.mark.parametrize("s", [64, 70, 20])     # 2 chunks, 2 + 6, < 1
+def test_ssd_scan_matches_reference(models, s):
+    dt, jcfg, tcfg, jp, tp = models
+    jl, tl = _layer(jp, tp)
+    rng = np.random.default_rng(s)
+    jx, tx = _pair(rng, (2, s, tcfg.d_model), dt)
+    jy, jst = jax_scan(jl, jcfg, jx)
+    y, st = ssm.ssd_scan(tl, tcfg, tx)
+    _close(y, jy, KTOLS[dt])
+    for k in jst:
+        _close(st[k], jst[k], KTOLS[dt])
+        assert st[k].dtype == bridge.to_torch(np.asarray(jst[k]),
+                                              "cpu").dtype
+
+
+@pytest.mark.parametrize("s", [70, 20])
+def test_ssd_scan_with_tails_continues_in_place(models, s):
+    dt, jcfg, tcfg, jp, tp = models
+    jl, tl = _layer(jp, tp)
+    rng = np.random.default_rng(100 + s)
+    jstate, state = _random_state(rng, tcfg, 2, dt)
+    jx, tx = _pair(rng, (2, s, tcfg.d_model), dt)
+    jy, jnew = jax_scan_tails(jl, jcfg, jx, jstate)
+    ptrs = {k: v.data_ptr() for k, v in state.items()}
+    y, new = ssm.ssd_scan_with_tails(tl, tcfg, tx, state)
+    _close(y, jy, KTOLS[dt])
+    assert new is state
+    for k in jnew:
+        assert state[k].data_ptr() == ptrs[k]         # updated in place
+        _close(state[k], jnew[k], KTOLS[dt])
+
+
+def test_decode_step_updates_in_place(models):
+    dt, jcfg, tcfg, jp, tp = models
+    jl, tl = _layer(jp, tp)
+    rng = np.random.default_rng(7)
+    jstate, state = _random_state(rng, tcfg, 3, dt)
+    jx, tx = _pair(rng, (3, 1, tcfg.d_model), dt)
+    jy, jnew = jax_step(jl, jcfg, jx, jstate)
+    ptrs = {k: v.data_ptr() for k, v in state.items()}
+    y, _ = ssm.ssm_decode_step(tl, tcfg, tx, state)
+    _close(y, jy, KTOLS[dt])
+    for k in jnew:
+        assert state[k].data_ptr() == ptrs[k]
+        _close(state[k], jnew[k], KTOLS[dt])
+
+
+def test_planted_faults_change_the_results():
+    """The faults the card's check plants in the plain versions are not
+    no-ops: the carried state dropped, the cumulative sum shifted by a
+    row, the decay applied after the update."""
+    rng = np.random.default_rng(3)
+    f = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+    b, s, H, P, N = 1, 70, 4, 8, 16
+    x, B, C, h0 = f(b, s, H, P), f(b, s, N), f(b, s, N), f(b, H, P, N)
+    dt = torch.nn.functional.softplus(f(b, s, H) - 3.0)
+    A = -(1.0 + 15.0 * torch.from_numpy(rng.random(H).astype(np.float32)))
+    D = f(H)
+    want, _ = ref.ssd_chunk_scan_ref(x, B, C, dt, A, D, h0, 32)
+    for kw in (dict(carry=False), dict(shift=1)):
+        got, _ = ref._ssd_scan(x, B, C, dt, A, D, h0, 32, **kw)
+        assert (got - want).abs().max() > 1e-2, kw
+    h = f(2, H, P, N)
+    xs, Bs, Cs, dts = f(2, H, P), f(2, N), f(2, N), dt[0, :2]
+    y = ref.ssm_step_ref(h.clone(), xs, Bs, Cs, dts, A, D)
+    y_bad = ref.ssm_step_ref(h.clone(), xs, Bs, Cs, dts, A, D,
+                             decay_after=True)
+    assert (y - y_bad).abs().max() > 1e-2
+
+
+# ---------------------------------------------------------------------------
+# the model
+# ---------------------------------------------------------------------------
+
+
+def test_model_matches_jax(models):
+    """forward (logits and state), then append_step from that carried
+    state and decode_step after it, against the reference."""
+    dt, jcfg, tcfg, jp, tp = models
+    rng = np.random.default_rng(0)
+    toks = rng.integers(2, tcfg.vocab_size, (2, 45)).astype(np.int32)
+    jl, jst = jax_forward(jp, jcfg, jnp.asarray(toks), return_state=True)
+    tl, tst = forward(tp, tcfg, torch.from_numpy(toks).long(),
+                      return_state=True)
+    _close(tl, jl, TOLS[dt])
+    for k, v in jst["mamba"].items():
+        _close(tst["mamba"][k], v, KTOLS[dt])
+    lengths = np.array([45, 45], np.int32)
+    app = rng.integers(2, tcfg.vocab_size, (2, 37)).astype(np.int32)
+    jl2, jst2 = jax_append(jp, jcfg, jnp.asarray(app), jst,
+                           jnp.asarray(lengths))
+    state = bridge.state_from_jax(jax.tree.map(np.asarray, jst), "cpu")
+    tl2, state2 = append_step(tp, tcfg, torch.from_numpy(app).long(), state,
+                              torch.from_numpy(lengths).long())
+    assert state2 is state
+    _close(tl2, jl2, TOLS[dt])
+    nxt = rng.integers(2, tcfg.vocab_size, (2,)).astype(np.int32)
+    jl3, jst3 = jax_decode(jp, jcfg, jnp.asarray(nxt), jst2,
+                           jnp.asarray(lengths + 37))
+    tl3, _ = decode_step(tp, tcfg, torch.from_numpy(nxt).long(), state,
+                         torch.from_numpy(lengths + 37).long())
+    _close(tl3, jl3, TOLS[dt])
+    for k, v in jst3["mamba"].items():
+        _close(state["mamba"][k], v, KTOLS[dt])
+    if dt == "float32":
+        assert (np.argmax(np.asarray(jl3), -1) ==
+                bridge.to_numpy(tl3).argmax(-1)).all()
+
+
+def test_bridged_state_is_the_ports_layout(models):
+    dt, jcfg, tcfg, jp, tp = models
+    jst = jax_model.init_decode_state(jcfg, 3, 16)
+    got = bridge.state_from_jax(jax.tree.map(np.asarray, jst), "cpu")
+    want = init_decode_state(tcfg, 3, 16, "cpu")
+    assert set(got) == set(want) == {"mamba"}
+    for k, v in want["mamba"].items():
+        assert got["mamba"][k].shape == v.shape, k
+        assert got["mamba"][k].dtype == v.dtype, k
+        assert v.shape[:2] == (tcfg.n_layers, 3)
+    assert kvio.batch_axes_of_state(tcfg) == {
+        "mamba": {k: 1 for k in kvio.BLOB_LEAVES}}
+
+
+def test_slot_get_set_on_the_mamba_state():
+    _, tcfg = _cfgs("bfloat16")
+    rng = np.random.default_rng(5)
+    state = init_decode_state(tcfg, 4, 16, "cpu")
+    for k, v in state["mamba"].items():
+        v.copy_(torch.from_numpy(rng.standard_normal(v.shape)))
+    axes = kvio.batch_axes_of_state(tcfg)
+    one = kvio.slot_get(state, axes, 2)
+    other = init_decode_state(tcfg, 4, 16, "cpu")
+    kvio.slot_set(other, axes, 1, one)
+    for k in kvio.BLOB_LEAVES:
+        assert torch.equal(other["mamba"][k][:, 1], state["mamba"][k][:, 2])
+        assert not other["mamba"][k][:, 0].any()
+
+
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+def test_blob_is_the_states_bytes_and_round_trips(dt):
+    """The blob holds the reference state's leaves end to end, byte for
+    byte, in ``BLOB_LEAVES`` order; decoding it gives the state back and
+    encoding that gives the same bytes.  Its length is the raw state
+    size, the reference's pickle framing excluded."""
+    jcfg, tcfg = _cfgs(dt)
+    rng = np.random.default_rng(11)
+    jst = jax_model.init_decode_state(jcfg, 1, 16)
+    jst = jax.tree.map(lambda a: jnp.asarray(
+        rng.standard_normal(a.shape), a.dtype), jst)
+    np_st = jax.tree.map(np.asarray, jst)
+    state = bridge.state_from_jax(np_st, "cpu")
+    blob = kvio.state_to_blob(state)
+    want = b"".join(np_st["mamba"][k].tobytes() for k in kvio.BLOB_LEAVES)
+    assert blob.dtype == np.uint8 and blob.ndim == 1
+    assert blob.tobytes() == want
+    back = kvio.blob_to_state(tcfg, blob, "cpu")
+    for k in kvio.BLOB_LEAVES:
+        bridge.assert_exact(back["mamba"][k], state["mamba"][k])
+    assert kvio.state_to_blob(back).tobytes() == want
+    with pytest.raises(ValueError, match="blob"):
+        kvio.blob_to_state(tcfg, blob[:-2], "cpu")
+
+
+def test_launcher_serves_mamba2(capsys):
+    serve_launcher.main(["--arch", ARCH, "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert "completed 12 rounds across 4 agents (dualpath, cpu)" in out
+
+
+def test_wrappers_refuse_bad_shapes():
+    """The kernel wrappers check shapes before anything else, on any
+    device: a wrong shape raises, it never reaches a kernel or the plain
+    version."""
+    from repro_torch.kernels import causal_conv, ssd_chunk_scan, ssm_step
+    z = torch.zeros
+    with pytest.raises(ValueError, match="causal_conv"):
+        causal_conv(z(1, 5, 8), z(4, 8), z(1, 2, 8))
+    with pytest.raises(ValueError, match="ssd_chunk_scan"):
+        ssd_chunk_scan(z(1, 5, 2, 4), z(1, 5, 8), z(1, 5, 8), z(1, 5, 3),
+                       z(2), z(2), None, 4)
+    with pytest.raises(ValueError, match="ssd_chunk_scan"):
+        ssd_chunk_scan(z(1, 5, 2, 4), z(1, 5, 8), z(1, 5, 8), z(1, 5, 2),
+                       z(2), z(2), z(1, 2, 4, 9), 4)
+    with pytest.raises(ValueError, match="ssm_step"):
+        ssm_step(z(2, 2, 4, 8), z(2, 2, 5), z(2, 8), z(2, 8), z(2, 2),
+                 z(2), z(2))
