@@ -43,11 +43,15 @@ Drives ``repro_torch`` (never the JAX package) on the card:
    host slice per block) against the scatter's block-major pool, host
    time and D2H device time; at mamba2-1.3b's shapes the SSD chunk scan
    (the mamba2 phase's appends of 4000, 301 and 501 tokens, 4096 and
-   100 tokens, 4 sequences, f32; the carried state dropped and the
-   cumulative sum shifted by a row must fail), the recurrent step (8
-   slots, one all zeros, one slot, f32; the decay applied after the
-   update must fail) and the causal conv (4352 channels: appends, the
-   8-slot decode, 2 tokens, f32; against F.conv1d too); flash and paged
+   100 tokens, 4 sequences, f32; bf16 held to SSD_BF16_TOL, from the
+   split TF32 products' measured error; the carried state dropped, the
+   cumulative sum shifted by a row and plain TF32 must fail; the round-1
+   append's three kernels' parts),
+   the decode step, the token's conv folded into the recurrence (8
+   slots, one slot's state and tails all zeros in bf16 and f32, one
+   slot, f32; the decay applied after the update and the conv's taps
+   reversed must fail) and the prefill conv (4352 channels: appends, s =
+   1 over 8 slots, 2 tokens, f32; against F.conv1d too); flash and paged
    at nemotron-4-15b's group of 6 (dh 128) and minicpm-2b's 36 heads of
    64 in bf16 and f32, and the grouped GEMM at granite-moe-3b-a800m's 40
    experts, top-8, in both regimes (a moved group boundary must fail);
@@ -134,8 +138,9 @@ Drives ``repro_torch`` (never the JAX package) on the card:
    offline on 1 PE + 1 DE, asserting that every round finished, rounds 2
    and 3 read their session's state blob (8 reads of the raw state's
    ~102 MB, none split across the read sides), the launches equal their
-   prediction (the SSD scan, the recurrent step and the causal conv; no
-   attention kernel), and the blocking arm gave identical tokens; a
+   prediction (the SSD scan and the prefill conv per layer of each
+   append, the decode step per layer of each decode step; no attention
+   kernel), and the blocking arm gave identical tokens; a
    third run under torch.profiler, one blob's D2H and H2D alone, then
    f32 token identity at depth 4 with the cache-free reference,
    unchunked and in 1024-token slices (see :func:`mamba2_phase`);
@@ -169,8 +174,14 @@ sys.path.insert(0, os.path.join(REPO, "src"))
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 PEAK_FLOPS = {torch.bfloat16: 989e12,   # dense tensor-core bf16
-              torch.float32: 67e12}     # f32 outside the tensor cores
+              torch.float32: 67e12,     # f32 outside the tensor cores
+              "tf32": 495e12}           # dense tensor-core TF32
 TOLS = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+# the SSD scan with bf16 inputs: its output is f32 and its products are
+# split TF32, whose error against the plain version was 1.9e-5 to 6.1e-5
+# on an H100 (the PR 23 runs); plain TF32 (the low parts dropped) errs by
+# ~1.7e-2 to 2.3e-2 at mamba2's widths, which TOLS[bf16] would pass
+SSD_BF16_TOL = 2e-4
 AGENT_ROUNDS = ((1024, 32), (128, 32), (128, 32))
 # online: (append, gen, think seconds before the round).  The tier holds
 # 18 FullBlocks per node: more than one round-1 context (16 blocks), less
@@ -271,7 +282,7 @@ KERNEL_ROWS = {"flash_attention": ("flash_",), "paged_attention": ("paged_",),
                "kv_layer_gather": ("gather_kernel",),
                "kv_layer_scatter": ("scatter_kernel",),
                "grouped_gemm": ("gg_",), "mla_decode": ("mla_",),
-               "ssd_chunk_scan": ("ssd_scan_kernel",),
+               "ssd_chunk_scan": ("ssd_",),
                "ssm_step": ("ssm_step_kernel",),
                "causal_conv": ("_conv_kernel",)}
 
@@ -1201,16 +1212,23 @@ def _twice(call):
 
 
 def _ssd_case(gen, cfg, *, b, s, dtype=torch.bfloat16, h0=False,
-              planted=False, label=""):
+              planted=False, label="", parts=False):
     """``ssd_chunk_scan`` on one layer's inputs (:func:`_ssm_inputs`), the
     config's chunk, zeros or a random carried state: y and the final
-    state against the plain version, bit-identical over two calls; with
+    state against the plain version, bit-identical over two calls, within
+    TOLS[f32] for f32 inputs and SSD_BF16_TOL for bf16 ones; with
     ``planted``, the carried state dropped and the cumulative sum shifted
-    by one row must fail the tolerance.  The bound reads x, B, C, dt and
-    h0 once and writes y and the state once; its operations count C.B^T
-    once per chunk (shared by the heads) and, per head, the weighted x,
-    the carried state's term and the state update, over the rows this
-    call's chunks hold."""
+    by one row must fail the tolerance, and with bf16 inputs the plain
+    version in plain TF32 too (the split's low parts dropped).  The bound
+    reads x, B, C, dt and h0 once and writes y and the state once; its
+    operations count C.B^T once per chunk (shared by the heads) and, per
+    head, the weighted x, the carried state's term and the state update,
+    over the rows this call's chunks hold.  f32 inputs run them as f32
+    FMAs: the f32 peak.  bf16 inputs run them as the kernel issues them,
+    TF32 MMAs at the TF32 peak, C.B^T one a product and the others two
+    (an f32 operand in two parts); ``bound_ms_f32_peak`` keeps the f32
+    peak's figure beside it.  With ``parts``, each of the call's kernels'
+    device time too (warm, :func:`kernel_parts`)."""
     from repro_torch.kernels import ref, ssd_chunk_scan
     x, B, C, dt, A, D = _ssm_inputs(gen, cfg, b, s, dtype)
     H, P, N = x.shape[2], x.shape[3], B.shape[2]
@@ -1223,7 +1241,8 @@ def _ssd_case(gen, cfg, *, b, s, dtype=torch.bfloat16, h0=False,
     call = lambda: ssd_chunk_scan(x, B, C, dt, A, D, state, chunk)
     y, h = _twice(call)
     want_y, want_h = ref.ssd_chunk_scan_ref(x, B, C, dt, A, D, state, chunk)
-    tol = TOLS[dtype]
+    bf16 = dtype == torch.bfloat16
+    tol = SSD_BF16_TOL if bf16 else TOLS[torch.float32]
     err_y, ok_y = max_err(y, want_y, tol)
     err_h, ok_h = max_err(h, want_h, tol)
     if not (ok_y and ok_h):
@@ -1231,28 +1250,34 @@ def _ssd_case(gen, cfg, *, b, s, dtype=torch.bfloat16, h0=False,
             f"ssd_chunk_scan off by {err_y} (y, max |y| "
             f"{float(want_y.abs().max())}), {err_h} (state, max |h| "
             f"{float(want_h.abs().max())}) at {shapes}")
+    plant = lambda **kw: ref._ssd_scan(x, B, C, dt, A, D, state, chunk,
+                                       **kw)[0]
     faults = _planted("ssd_chunk_scan", want_y, tol, {
-        "carried state dropped": ref._ssd_scan(
-            x, B, C, dt, A, D, state, chunk, carry=False)[0],
-        "cumsum shifted by one row": ref._ssd_scan(
-            x, B, C, dt, A, D, state, chunk, shift=1)[0]}) \
-        if planted else None
+        "carried state dropped": plant(carry=False),
+        "cumsum shifted by one row": plant(shift=1),
+        **({"plain TF32 (low parts dropped)": plant(tf32=True)}
+           if bf16 else {})}) if planted else None
     L = min(chunk, s)
     lens = [min(L, s - c0) for c0 in range(0, s, L)]
     tri = sum(t * (t + 1) // 2 for t in lens)
-    fma = b * N * tri + b * H * (P * tri + 2 * s * P * N)
+    fma_cb, fma_heads = b * N * tri, b * H * (P * tri + 2 * s * P * N)
     isz = x.element_size()
     states = (2 if h0 else 1) * b * H * P * N * 4
-    b_ms, b_by = bound(b * s * (H * P + 2 * N) * isz + b * s * H * 4 +
-                       b * s * H * P * 4 + states, 2 * fma, torch.float32)
+    nbytes = b * s * (H * P + 2 * N) * isz + b * s * H * 4 + \
+        b * s * H * P * 4 + states
+    f32_ms, f32_by = bound(nbytes, 2 * (fma_cb + fma_heads), torch.float32)
+    b_ms, b_by = bound(nbytes, 2 * (fma_cb + 2 * fma_heads), "tf32") \
+        if bf16 else (f32_ms, f32_by)
     return dict(
         shapes=shapes, max_abs_err=max(err_y, err_h), planted_err=faults,
+        tol=tol,
         ms=time_ms(call), ms_clean_l2=time_ms(call, clean_l2=True),
+        parts_ms=kernel_parts(call) if parts else None,
         plain_ms=time_ms(lambda: ref.ssd_chunk_scan_ref(
             x, B, C, dt, A, D, state, chunk)),
         library_ms=None,
         library_name="none (no single PyTorch call computes the scan)",
-        bound_ms=b_ms, bound_by=b_by)
+        bound_ms=b_ms, bound_by=b_by, bound_ms_f32_peak=f32_ms)
 
 
 def ssd_cases(cfg):
@@ -1262,10 +1287,11 @@ def ssd_cases(cfg):
     tokens plus the last generated one), 4096 tokens (16 whole chunks),
     100 tokens (one chunk shorter than 256), 4 sequences of 300 from
     carried states, and f32.  The first case is the main one and checks
-    the planted faults, as does the continuation."""
+    the planted faults, as do the continuation and the 4 sequences; the
+    main case reads its kernels' parts."""
     gen = torch.Generator(device="cuda").manual_seed(7)
     case = lambda **kw: _ssd_case(gen, cfg, **{**dict(b=1, s=4000), **kw})
-    return [case(planted=True, label="round-1 append"),
+    return [case(planted=True, label="round-1 append", parts=True),
             case(s=301, h0=True, planted=True, label="round-2 append"),
             case(s=501, h0=True, label="round-3 append"),
             case(s=4096),
@@ -1276,65 +1302,99 @@ def ssd_cases(cfg):
 
 def _ssm_step_case(gen, cfg, *, b, dtype=torch.bfloat16, zero_slot=None,
                    planted=False):
-    """``ssm_step`` over ``b`` slots of one layer's decode (:func:`_ssm_inputs`
-    with s = 1, a random f32 state, slot ``zero_slot`` all zeros): y and
-    the updated state against the plain version, bit-identical over two
-    calls from the same state; with ``planted``, the decay applied after
-    the update must fail the tolerance.  The bound reads and writes the
-    state once (the inputs and y are a rounding error beside it)."""
+    """``ssm_step`` over ``b`` slots of one layer's decode: the token's
+    pre-conv x, B and C (:func:`_ssm_inputs` with s = 1), conv weights of
+    the schema's std 1/sqrt(cw), random tails and a random f32 state,
+    slot ``zero_slot``'s state and tails all zeros.  y, the updated state
+    and x's tail (both in place) and B's and C's new tails against the
+    plain version, bit-identical over two calls from the same state, the
+    tails bit-exact.  The plain version sums the token's conv in f32 and
+    rounds it once, as the kernel does (``f32_conv``; the CPU path keeps
+    the reference's bf16 order, and the CPU tests hold both against the
+    reference): that order rounds each product and partial sum, so its
+    conv outputs sit a few bf16 steps from the kernel's, and y, a sum of
+    128 products of them, moved by 0.143 against it on an H100, past
+    TOLS[bf16] where y is near 0.  Summed alike, the conv outputs agree
+    in bf16 too, so y and the state are held to TOLS[f32] in both dtypes,
+    as the step alone was (a conv output rounded the other way would
+    fail it).  With ``planted``, the decay applied after the update and
+    the conv's taps reversed must fail the tolerance.  The bound reads
+    and writes the state once, reads the token, the weights, dt and the
+    tails and writes y and the tails; the operations are the recurrence's
+    and the conv's (C.B^T once for the slots, not per head)."""
     from repro_torch.kernels import ref, ssm_step
     x, B, C, dt, A, D = _ssm_inputs(gen, cfg, b, 1, dtype)
     x, B, C, dt = x[:, 0], B[:, 0], C[:, 0], dt[:, 0].contiguous()
     H, P, N = x.shape[1], x.shape[2], B.shape[1]
-    h = torch.randn((b, H, P, N), generator=gen, device="cuda")
+    cw = cfg.ssm.conv_width
+    dev = "cuda"
+    w_x, w_B, w_C = ((torch.randn((cw, c), generator=gen, device=dev) /
+                      cw ** 0.5).to(dtype) for c in (H * P, N, N))
+    t_x, t_B, t_C = (torch.randn((b, cw - 1, c), generator=gen,
+                                 device=dev).to(dtype)
+                     for c in (H * P, N, N))
+    h = torch.randn((b, H, P, N), generator=gen, device=dev)
     if zero_slot is not None:
-        h[zero_slot] = 0
-    shapes = dict(b=b, H=H, P=P, N=N, dtype=str(dtype).replace("torch.", ""),
+        for t in (h, t_x, t_B, t_C):
+            t[zero_slot] = 0
+    shapes = dict(b=b, H=H, P=P, N=N, cw=cw,
+                  dtype=str(dtype).replace("torch.", ""),
                   **({} if zero_slot is None else {"zero_slot": zero_slot}))
+    weights = (w_x, w_B, w_C)
 
-    def fresh():
-        hk = h.clone()
-        return ssm_step(hk, x, B, C, dt, A, D), hk
+    def fresh(fn=ssm_step, ws=weights, **kw):
+        hk, tk = h.clone(), t_x.clone()
+        y, nb, nc = fn(hk, x, B, C, *ws, tk, t_B, t_C, dt, A, D, **kw)
+        return y, hk, tk, nb, nc
 
-    y, hk = _twice(fresh)
-    hr = h.clone()
-    want = ref.ssm_step_ref(hr, x, B, C, dt, A, D)
+    y, hk, tk, nb, nc = _twice(fresh)
+    want = fresh(ref.ssm_conv_step_ref, f32_conv=True)
     tol = TOLS[torch.float32]
-    err_y, ok_y = max_err(y, want, tol)
-    err_h, ok_h = max_err(hk, hr, tol)
-    if not (ok_y and ok_h):
+    err_y, ok_y = max_err(y, want[0], tol)
+    err_h, ok_h = max_err(hk, want[1], tol)
+    tails = all(torch.equal(g, w) for g, w in zip((tk, nb, nc), want[2:]))
+    if not (ok_y and ok_h and tails):
         raise AssertionError(f"ssm_step off by {err_y} (y), {err_h} (state) "
-                             f"at {shapes}")
-    faults = _planted("ssm_step", want, tol, {
-        "decay after the update": ref.ssm_step_ref(
-            h.clone(), x, B, C, dt, A, D, decay_after=True)}) \
+                             f"at {shapes}; tails equal: {tails}")
+    faults = _planted("ssm_step", want[0], tol, {
+        "decay after the update": fresh(ref.ssm_conv_step_ref,
+                                        decay_after=True,
+                                        f32_conv=True)[0],
+        "conv taps reversed": fresh(ref.ssm_conv_step_ref, ws=tuple(
+            w.flip(0) for w in weights), f32_conv=True)[0]}) \
         if planted else None
-    work, work_p = h.clone(), h.clone()
+    work, work_t, work_p, work_pt = h.clone(), t_x.clone(), h.clone(), \
+        t_x.clone()
+    call = lambda: ssm_step(work, x, B, C, *weights, work_t, t_B, t_C, dt,
+                            A, D)
     isz = x.element_size()
-    b_ms, b_by = bound(2 * b * H * P * N * 4 + b * (H * P + 2 * N) * isz +
-                       b * H * 4 + b * H * P * 4, 6 * b * H * P * N,
+    ch = H * P + 2 * N
+    b_ms, b_by = bound(2 * b * H * P * N * 4 + b * ch * isz + cw * ch * isz
+                       + 2 * b * (cw - 1) * ch * isz + b * H * 4 +
+                       b * H * P * 4,
+                       6 * b * H * P * N + (2 * cw + 4) * b * ch,
                        torch.float32)
     return dict(
         shapes=shapes, max_abs_err=max(err_y, err_h), planted_err=faults,
-        ms=time_ms(lambda: ssm_step(work, x, B, C, dt, A, D)),
-        ms_clean_l2=time_ms(lambda: ssm_step(work, x, B, C, dt, A, D),
-                            clean_l2=True),
-        plain_ms=time_ms(lambda: ref.ssm_step_ref(work_p, x, B, C, dt, A,
-                                                  D)),
+        ms=time_ms(call), ms_clean_l2=time_ms(call, clean_l2=True),
+        plain_ms=time_ms(lambda: ref.ssm_conv_step_ref(
+            work_p, x, B, C, *weights, work_pt, t_B, t_C, dt, A, D)),
         library_ms=None,
         library_name="none (no single PyTorch call computes the step)",
         bound_ms=b_ms, bound_by=b_by)
 
 
 def ssm_step_cases(cfg):
-    """The recurrent step over the DE's 8 slots at mamba2-1.3b's widths
-    (the main case, with the planted fault), slot 3's state all zeros
-    (a slot just admitted from a fresh prefill starts from a real state,
-    an idle one stays zero), one slot, and f32."""
+    """The decode step (the token's conv, then the recurrence) over the
+    DE's 8 slots at mamba2-1.3b's widths (the main case, with the planted
+    faults), slot 3's state and tails all zeros (a slot just admitted
+    from a fresh prefill starts from a real state, an idle one stays
+    zero) in bf16 and f32, one slot, and f32."""
     gen = torch.Generator(device="cuda").manual_seed(8)
     case = lambda **kw: _ssm_step_case(gen, cfg, **{**dict(b=8), **kw})
     return [case(planted=True), case(zero_slot=3, planted=True), case(b=1),
-            case(dtype=torch.float32)]
+            case(dtype=torch.float32),
+            case(zero_slot=3, dtype=torch.float32, planted=True)]
 
 
 def _conv_case(gen, *, b, s, c, cw, dtype=torch.bfloat16, label=""):
@@ -1495,12 +1555,15 @@ def kernel_cases(names=None) -> dict:
     if want("mla_decode"):
         cases["mla_decode"] = mla_decode_cases(cfg_ds, rng)
     cfg_m2 = get_config("mamba2-1.3b")
+    t0 = time.perf_counter()
     if want("ssd_chunk_scan"):
         cases["ssd_chunk_scan"] = ssd_cases(cfg_m2)
     if want("ssm_step"):
         cases["ssm_step"] = ssm_step_cases(cfg_m2)
     if want("causal_conv"):
         cases["causal_conv"] = conv_cases(cfg_m2)
+    if want("ssd_chunk_scan", "ssm_step", "causal_conv"):
+        print(f"phase 3, the SSM cases: {time.perf_counter() - t0:.1f} s")
     if want("flash_attention", "paged_attention"):
         flash_r, paged_r = registration_attention_cases(rng)
         for name, more in (("flash_attention", flash_r),
@@ -2674,13 +2737,15 @@ def predicted_launches(cfg, items: int, installs: int, persists: int,
     kernel (GQA), the gather once per layer of every FullBlock install,
     the scatter once per persist.  SSM models: the SSD scan once per
     layer of every ``append_step``, the recurrent step once per layer of
-    every decode step, the causal conv once per layer of both, nothing
-    else (a blob install and persist are one copy each, no kernel)."""
+    every decode step, the causal conv once per layer of every
+    ``append_step`` only (a decode token's conv runs inside the recurrent
+    step's launch), nothing else (a blob install and persist are one copy
+    each, no kernel)."""
     n_l, n_moe = cfg.n_layers, sum(cfg.moe_layer_mask())
     out = {k: 0 for k in KERNEL_SOURCES}
     if cfg.family == "ssm":
         out.update(ssd_chunk_scan=n_l * items, ssm_step=n_l * decode_steps,
-                   causal_conv=n_l * (items + decode_steps))
+                   causal_conv=n_l * items)
         return out
     mla = cfg.attn_variant == "mla"
     out.update(kv_layer_gather=n_l * installs, kv_layer_scatter=persists,
@@ -3231,6 +3296,15 @@ def main() -> int:
         return 0
 
     # 1. environment
+    clock = [time.perf_counter()]
+
+    def lap(phase: str) -> None:
+        """The host wall since the previous lap: each phase's share of the
+        whole run."""
+        now = time.perf_counter()
+        print(f"phase {phase} wall: {now - clock[0]:.1f} s")
+        clock[0] = now
+
     print(f"torch {torch.__version__} cuda {torch.version.cuda}")
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -3245,6 +3319,7 @@ def main() -> int:
     build.build()
     print(f"build: {time.perf_counter() - t0:.1f} s")
     print_build_log(build.SOURCES)
+    lap("1-2")
 
     # 3. kernels against their plain versions
     cases = kernel_cases()
@@ -3261,6 +3336,7 @@ def main() -> int:
     for way, (host_ms, d2h_ms) in persist.items():
         print(f"persist of 16 FullBlocks, {way} way: {host_ms:.3f} ms host "
               f"(median), {d2h_ms:.3f} ms D2H device time per persist")
+    lap("3")
 
     # 4. serving at full width, bf16
     st, launches, wall, tps, wall_b, persists = serving_phase(cfg)
@@ -3270,6 +3346,7 @@ def main() -> int:
           f"{persists} persists")
 
     print_profile(*profile_phase(cfg))
+    lap("4")
 
     # 5. online serving with DRAM tiers and the think-time prefetcher
     st_o, launches_o, wall_o, tps_o, wall_ob, blocks_o, persists_o = \
@@ -3281,6 +3358,7 @@ def main() -> int:
           f"in FullBlocks: {json.dumps(blocks_o)}; modelled seconds: wall "
           f"{st_o['wall_s']:.4f}, ttft_p99 {st_o['ttft_p99']:.4f}, "
           f"tpot_mean {st_o['tpot_mean']:.6f}")
+    lap("5")
 
     # 6. the online SLO layer
     slo = slo_phase(cfg)
@@ -3302,6 +3380,7 @@ def main() -> int:
     print(f"slo, first rounds with no deferral allowed: "
           f"{slo['reject_wall_s']:.3f} s real wall, "
           f"{json.dumps(slo['reject_stats'])}")
+    lap("6")
 
     # 7. chaos: traced, hedged reads, a DE's fail-stop and its recovery
     chaos = chaos_phase(cfg)
@@ -3325,6 +3404,7 @@ def main() -> int:
                  chaos["d"]["first_difference"]) + "; in f32 (a) and (d) "
              "give equal tokens (death at modelled "
              f"{chaos['d']['f32']['d']['t_death']!r} s)"))
+    lap("7")
 
     # 8. elastic role flips and the compute network
     el = elastic_phase(cfg)
@@ -3358,11 +3438,13 @@ def main() -> int:
         "equal" if el["first_difference"] is None else
         "differ at " + json.dumps(el["first_difference"]) +
         "; in f32 (e) and (f) give equal tokens"))
+    lap("8")
 
     # 9. f32 token identity with the cache-free reference
     n, chunks = identity_phase(cfg)
     print(f"f32 identity: {n} context tokens equal the cache-free reference, "
           f"unchunked and in {chunks} + 1 prefill slices")
+    lap("9")
 
     # 10. gemma2-2b: local and global layers, softcaps, head dim 256
     g2 = gemma2_phase(cfg_g2)
@@ -3381,6 +3463,7 @@ def main() -> int:
           f"{g2['identity_chunks']} + 1 prefill slices")
     print_profile(*profile_phase(cfg_g2, GEMMA2_ROUNDS, GEMMA2_AGENTS,
                                  max_seq=GEMMA2_MAX_SEQ), label="gemma2: ")
+    lap("10")
 
     # 11. ds27b: MoE + MLA, the paper's own model
     gc.collect()
@@ -3409,10 +3492,12 @@ def main() -> int:
           f"reference, unchunked and in {ds['identity_chunks']} + 1 "
           f"prefill slices")
     print_profile(*ds["profile"], label="ds27b: ")
+    lap("11")
 
     # 12. the event simulator: modelled cluster time on the host
     sim = sim_phase()
     print_sim(sim)
+    lap("12")
 
     # 13. mamba2-1.3b: the SSM family's state-blob path
     gc.collect()
@@ -3441,6 +3526,7 @@ def main() -> int:
           f"prefill slices")
     print_profile(*m2["profile"], label="mamba2: ")
     print(f"mamba2 phase: {m2_s:.1f} s")
+    lap("13")
 
     # 14. the registrations: granite-moe-3b-a800m, minicpm-2b,
     # nemotron-4-15b, one after another
@@ -3457,6 +3543,7 @@ def main() -> int:
               f"{r['phase_s']:.1f} s with the weights; stats "
               + json.dumps(s_))
     print(f"registrations phase: {time.perf_counter() - t0:.1f} s")
+    lap("14")
 
     # 15. kernels line, then the contract line
     meta = {

@@ -1,302 +1,599 @@
-// The chunked SSD scan of Mamba2 for Hopper.
+// The chunked SSD scan of Mamba2 for Hopper, as a chunk-parallel kernel set.
 //
 // Replaces the chunk loop of repro/models/ssm.py:59 (ssd_scan: a
 // jax.lax.scan over chunks at :116 of chunk_body :94-114), which the
 // reference leaves to XLA as jnp.  For each sequence b and SSD head h,
-// over the chunks of L rows in order (the last one short), with the
-// carried state h (P, N) f32:
+// over the chunks of L rows (the last one short), with the carried state
+// h (P, N) f32:
 //   cs_i      = sum_{k <= i} dt_k * A   (within the chunk; f64, rounded)
-//   y_i      += sum_{j <= i} (C_i . B_j) exp(cs_i - cs_j) dt_j x_j
-//             + exp(cs_i) sum_n C_i[n] h[:, n]
+//   y_i       = sum_{j <= i} (C_i . B_j) exp(cs_i - cs_j) dt_j x_j
+//             + exp(cs_i) sum_n C_i[n] h[:, n] + D x_i
 //   h        <- h exp(cs_end) + sum_j exp(cs_end - cs_j) dt_j x_j (x) B_j
-// then y += D x.  x (b, s, H, P), B and C (b, s, N) in bf16 or f32, cast
-// to f32 as the reference casts them; dt (b, s, H) f32 after softplus; A
-// (= -exp(A_log)) and D (H,) f32; h0 (b, H, P, N) f32 or null (zeros);
-// y (b, s, H, P) f32; h_final (b, H, P, N) f32, which may be h0 itself
-// (a block reads its own state first and writes it last).  Every step is
-// f32 on the CUDA cores: no TF32.  The reference pads the last chunk with
-// dt = 0; here rows past the sequence are masked instead, and only
-// j <= i is computed (exp(cs_i - cs_j) for j > i may overflow; the
-// reference masks it with `where`).  The chunk length L comes at run
-// time: min(chunk_size, s), as the reference's ssm.py:69 takes it.
+// x (b, s, H, P), B and C (b, s, N) in bf16 or f32, cast to f32 as the
+// reference casts them; dt (b, s, H) f32 after softplus; A (=
+// -exp(A_log)) and D (H,) f32; h0 (b, H, P, N) f32 or null (zeros); y
+// (b, s, H, P) f32; h_final (b, H, P, N) f32, which may be h0 itself.
+// With bf16 inputs the products run on the tensor cores as split TF32
+// with f32 accumulators, never as plain TF32; with f32 inputs as f32 FMAs
+// (see mma_tile).  The reference pads the last chunk with dt = 0; here
+// rows past the sequence are masked instead, and only j <= i is computed
+// (exp(cs_i - cs_j) for j > i may overflow; the reference masks it with
+// `where`).  The chunk length L comes at run time: min(chunk_size, s), as
+// ssm.py:69 takes it.
 //
-// Bound: operations at the main path's shapes.  Per chunk of 256 rows and
-// head: C.B^T over j <= i (~256^2/2 x 128 FMAs, recomputed per head: the
-// reference shares it across heads, but one block per head keeps every
-// head's chain of chunks inside one block), the weighted x (~256^2/2 x
+// Bound: operations at the main path's shapes.  Per chunk of 256 rows:
+// C.B^T over j <= i once (~256^2/2 x 128 FMAs, shared by the heads, as
+// the reference shares it), then per head the weighted x (~256^2/2 x
 // 64), the carried state's term (256 x 64 x 128) and the state update
-// (256 x 64 x 128): ~12 M FMAs against ~100 KB of inputs, ~120 flops a
-// byte, above the f32 ridge (~20).
+// (256 x 64 x 128): ~6 M FMAs a head against ~50 KB of its inputs, far
+// above the f32 ridge (~20 flops a byte).  With f32 inputs the bound
+// counts these FMAs at the f32 CUDA cores' peak; with bf16 inputs as the
+// kernel issues them, TF32 MMAs at the TF32 peak (C.B^T one a product,
+// the others two: an f32 operand in two parts), ~3.7x less time.
 //
-// Design (the simple one first): one block of 8 warps per (head,
-// sequence), looping over the chunks in order, the state transposed in
-// shared memory (hT[n][p], 34 KB).  A chunk is cut into tiles of 64 rows.
-// For each query tile I: C_I (transposed) is loaded, the carried state's
-// term is a 64 x 64 x 128 product from shared memory, then for each key
-// tile J <= I, B_J (transposed) and x_J are loaded, G^T = (B_J C_I^T)
-// masked, times exp(cs_i - cs_j) dt_j, goes to shared memory and y_I +=
-// G x_J.  Then a second pass over the key tiles accumulates the state
-// update (B_J natural, x_J scaled by exp(cs_end - cs_j) dt_j) in
-// registers and folds it into hT.  Every product is a 4 x 4 (or 8 x 4)
-// register tile per thread fed by 16-byte shared-memory loads.  The
-// shared memory (141 KB) holds one block per SM; at b = 1 the 64 heads
-// leave half of the 132 SMs idle (the engine appends one request at a
-// time).  Splitting the work into a chunk-parallel kernel and a
-// state-passing one is the way to fill the card, left for later.
+// Design: the SSD paper's four steps (arXiv:2405.21060 sec. 6), each over
+// every chunk at once, in three launches on the stream:
+//   1. C_c.B_c^T per chunk and pair of 64-row tiles j <= i, once for all
+//      heads -> cb (b, nc, Lt, Lt) f32, stored transposed (cb[j][i]);
+//   2. per (chunk, half of N, head, sequence): cs in f64 (-> cs (b, nc, H,
+//      Lt)) and the chunk's own state S_c = sum_j w_j x_j (x) B_j -> S (b,
+//      nc, H, P, N).  1 and 2 are independent: ssd_chunk_kernel runs
+//      both, side by side in one grid;
+//   3. ssd_pass_kernel, per (head, sequence, 1024 state elements), over
+//      the chunks in order: h_c = h_{c-1} exp(cs_end) + S_c, writing the
+//      state entering chunk c over S_c and the last state to h_final;
+//   4. ssd_out_kernel, per (64-row query tile, chunk, head, sequence):
+//      the carried state's term from the state entering the chunk, then
+//      the query tile against each key tile j <= i (cb from 1), plus D x.
+// The sequential part is step 3 alone, elementwise over the state: at one
+// 4000-token sequence steps 1 and 2 run 160 + 2048 blocks and step 4
+// 4096, where one block per (head, sequence) ran 64 on 132 SMs.  Each
+// product is a 64 x 64 output tile of 4 warps, a 32 x 32 quarter each in
+// mma.sync m16n8k8 fragments (the f32 path keeps the same fragments), over
+// 32-row slices of f32 in shared memory (~20 KB a block, so several blocks
+// share an SM).  Why the tensor cores (an H100 80GB HBM3 at 700 W): the
+// f32 CUDA cores ran these tiles at ~40 % of their peak with 4 x 4 or 8 x
+// 4 register tiles, 0.58 ms for a 4000-token append against 0.40 here;
+// staging the next slice in registers during the products, or 8 warps a
+// tile, cost more than they hid.  Step 4 walks its query tiles from the
+// last (the most key tiles) down, so the long blocks start first.  No
+// atomics: every output is written once, in a fixed order, so two calls
+// agree to the bit.  cb, cs and S come from the wrapper (PyTorch's caching
+// allocator); h0 is read (step 3, each element by the thread that writes
+// it to h_final) before h_final is written.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
 constexpr int P = 64;          // SSD head dim (mamba2-1.3b's)
 constexpr int N = 128;         // state dim (d_state x n_groups)
 constexpr int T = 64;          // rows of a tile
+constexpr int KS = 32;         // rows of a slice of the contraction
 constexpr int MAX_L = 256;     // longest chunk
-constexpr int THREADS = 256;
-constexpr int LDT = T + 4;     // row strides in shared memory (floats),
-constexpr int LDP = P + 4;     // padded: 16-byte aligned rows, fewer
-constexpr int LDN = N + 4;     // bank conflicts on the transposed stores
-
-constexpr int SZ_H = N * LDP;                         // hT[n][p]
-constexpr int SZ_C = N * LDT;                         // Ct[n][i]
-constexpr int SZ_B = N * LDT > T * LDN ? N * LDT : T * LDN;  // Bt / Bn
-constexpr int SZ_X = T * LDP;                         // Xs[j][p]
-constexpr int SZ_G = T * LDT;                         // Gt[j][i]
-constexpr int SMEM_FLOATS = SZ_H + SZ_C + SZ_B + SZ_X + SZ_G + 2 * MAX_L;
-constexpr int SMEM_BYTES = SMEM_FLOATS * 4;
+constexpr int THREADS = 128;   // 4 warps, each a 32 x 32 quarter of a
+                               // 64 x 64 output tile
+constexpr int PIECES = T * KS / 4 / THREADS;    // a slice's 4-element
+                                                // pieces a thread moves
+constexpr int LDT = T + 8;     // padded slice row (floats): 16-byte aligned
+                               // rows, and a warp's fragment loads (rows
+                               // t, columns g: 8 t + g) hit 32 banks
+constexpr int NH = 2;          // the state kernel cuts N in halves
+constexpr int PASS_THREADS = 256;
+constexpr int PASS_BLOCKS = P * N / 4 / PASS_THREADS;
+constexpr int PASS_BATCH = 8;  // chunks whose loads the pass issues at once
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
 
-// rows [0, T) x cols [0, W) of a row-major source (row stride rs; rows at
-// or past nrows read as 0) into shared memory, transposed:
-// dst[c * ld + r].  Consecutive threads take consecutive rows, so the
-// shared-memory stores do not conflict.
-template <typename Tin, int W>
-__device__ __forceinline__ void load_t(float* dst, int ld, const Tin* src,
-                                       long long rs, int nrows) {
-  for (int idx = threadIdx.x; idx < T * W; idx += THREADS) {
-    const int r = idx % T, c = idx / T;
-    dst[c * ld + r] = r < nrows ? to_f32(src[r * rs + c]) : 0.f;
-  }
+// four consecutive elements as f32 (16 bytes of f32, 8 of bf16)
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const float2 a = __bfloat1622float2(
+      *reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 b = __bfloat1622float2(
+      *reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  return make_float4(a.x, a.y, b.x, b.y);
 }
 
-// the same, natural layout: dst[r * ld + c]; coalesced reads
-template <typename Tin, int W>
-__device__ __forceinline__ void load_n(float* dst, int ld, const Tin* src,
-                                       long long rs, int nrows) {
-  for (int idx = threadIdx.x; idx < T * W; idx += THREADS) {
-    const int r = idx / W, c = idx % W;
-    dst[r * ld + c] = r < nrows ? to_f32(src[r * rs + c]) : 0.f;
-  }
-}
+// A slice goes from global memory to shared memory as f32 in PIECES
+// 4-element pieces a thread.  Slices are T x KS read transposed or KS x T
+// read in their natural layout: T * KS / 4 = PIECES * THREADS pieces
+// either way.
 
-// acc[a][c] += sum_k At[k][m0 + a] * Bk[k][n0 + c], a, c < 4: a 4 x 4
-// register tile of a product whose operands sit k-major in shared memory
-__device__ __forceinline__ void mma4x4(float (&acc)[4][4], const float* At,
-                                       int lda, int m0, const float* Bk,
-                                       int ldb, int n0, int K) {
-#pragma unroll 8
-  for (int k = 0; k < K; ++k) {
-    const float4 a = *reinterpret_cast<const float4*>(At + k * lda + m0);
-    const float4 b = *reinterpret_cast<const float4*>(Bk + k * ldb + n0);
-    const float av[4] = {a.x, a.y, a.z, a.w};
-    const float bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] += av[i] * bv[j];
-  }
-}
-
+// rows [0, T) x cols [0, KS) of a row-major source (row stride rs; rows at
+// or past nrows read as 0) into dst transposed: dst[c * LDT + r].  A piece
+// is 4 consecutive columns of a row; consecutive threads take consecutive
+// rows, so the shared-memory stores do not conflict.
 template <typename Tin>
-__global__ void __launch_bounds__(THREADS)
-ssd_scan_kernel(const Tin* __restrict__ x, const Tin* __restrict__ B,
-                const Tin* __restrict__ C, const float* __restrict__ dt,
-                const float* __restrict__ A, const float* __restrict__ D,
-                const float* h0, float* __restrict__ y, float* h_out,
-                int s, int H, int L, long long x_bs, long long x_ts,
-                long long bc_bs, long long bc_ts) {
-  extern __shared__ __align__(16) float smem[];
-  float* hT = smem;
-  float* Ct = hT + SZ_H;
-  float* Bb = Ct + SZ_C;         // Bt[n][j] for y, Bn[j][n] for the state
-  float* Xs = Bb + SZ_B;
-  float* Gt = Xs + SZ_X;
-  float* cs = Gt + SZ_G;
-  float* dts = cs + MAX_L;
-
-  const int head = blockIdx.x, b = blockIdx.y, tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5;
-  const int ty = tid / 16, tx = tid % 16;     // 16 x 16 thread tiles
-  const float a_h = A[head], d_h = D[head];
-  const long long state = ((long long)b * H + head) * P * N;
-  const Tin* xb = x + b * x_bs + (long long)head * P;
-  const Tin* Bb_g = B + b * bc_bs;
-  const Tin* Cb_g = C + b * bc_bs;
-  const float* dtb = dt + (long long)b * s * H + head;
-  float* yb = y + ((long long)b * s * H + head) * P;
-
-  // the carried state, transposed: hT[n][p] = h[p][n]
-  for (int idx = tid; idx < P * N; idx += THREADS) {
-    const int p = idx % P, n = idx / P;
-    hT[n * LDP + p] = h0 ? h0[state + (long long)p * N + n] : 0.f;
+__device__ __forceinline__ void load_t(float* dst, const Tin* src,
+                                       long long rs, int nrows) {
+#pragma unroll
+  for (int q = 0; q < PIECES; ++q) {
+    const int idx = threadIdx.x + q * THREADS;
+    const int r = idx % T, g = idx / T;
+    const float4 v =
+        r < nrows ? load4(src + r * rs + 4 * g) : make_float4(0, 0, 0, 0);
+    dst[(4 * g + 0) * LDT + r] = v.x;
+    dst[(4 * g + 1) * LDT + r] = v.y;
+    dst[(4 * g + 2) * LDT + r] = v.z;
+    dst[(4 * g + 3) * LDT + r] = v.w;
   }
+}
 
-  for (int c0 = 0; c0 < s; c0 += L) {
-    const int len = min(L, s - c0);
-    const int nt = (len + T - 1) / T;
-    __syncthreads();   // the previous chunk is done with cs, dts, tiles
-    // cs = inclusive cumsum of the f32 products dt * A over the chunk
-    // (rows past len: 0), accumulated in f64 and rounded once, as the
-    // plain version does: cs_i - cs_j of two sums in the hundreds is the
-    // scan's one ill-conditioned step, and sums rounded once agree to the
-    // bit whatever their order.  One warp, 8 consecutive rows a lane,
-    // then a shuffle scan.
-    if (warp == 0) {
-      double v[MAX_L / 32], run = 0.0;
+// rows [0, KS) x cols [0, T) of a row-major source, rows at or past nrows
+// read as 0, into dst as they are (dst[r * LDT + c]), row r scaled by
+// wr[r] when wr is given
+template <typename Tin>
+__device__ __forceinline__ void load_n(float* dst, const Tin* src,
+                                       long long rs, int nrows,
+                                       const float* wr) {
 #pragma unroll
-      for (int q = 0; q < MAX_L / 32; ++q) {
-        const int i = lane * (MAX_L / 32) + q;
-        const float d = i < len ? dtb[(long long)(c0 + i) * H] : 0.f;
-        dts[i] = d;
-        run += (double)(d * a_h);
-        v[q] = run;
-      }
-      double tot = run;
-#pragma unroll
-      for (int off = 1; off < 32; off <<= 1) {
-        const double t = __shfl_up_sync(0xffffffffu, tot, off);
-        if (lane >= off) tot += t;
-      }
-      const double excl = tot - run;
-#pragma unroll
-      for (int q = 0; q < MAX_L / 32; ++q)
-        cs[lane * (MAX_L / 32) + q] = (float)(v[q] + excl);
-    }
-    __syncthreads();
-    const float cs_end = cs[len - 1];
-
-    // y, one query tile at a time
-    for (int it = 0; it < nt; ++it) {
-      const int i0 = it * T, ni = min(T, len - i0);
-      __syncthreads();
-      load_t<Tin, N>(Ct, LDT, Cb_g + (c0 + i0) * bc_ts, bc_ts, ni);
-      __syncthreads();
-      float acc[4][4] = {};
-      // the carried state's term: (C_I . h^T) exp(cs_i)
-      mma4x4(acc, Ct, LDT, ty * 4, hT, LDP, tx * 4, N);
-#pragma unroll
-      for (int a = 0; a < 4; ++a) {
-        const float e = expf(cs[i0 + ty * 4 + a]);
-#pragma unroll
-        for (int c = 0; c < 4; ++c) acc[a][c] *= e;
-      }
-      for (int jt = 0; jt <= it; ++jt) {
-        const int j0 = jt * T, nj = min(T, len - j0);
-        __syncthreads();
-        load_t<Tin, N>(Bb, LDT, Bb_g + (c0 + j0) * bc_ts, bc_ts, nj);
-        load_n<Tin, P>(Xs, LDP, xb + (c0 + j0) * x_ts, x_ts, nj);
-        __syncthreads();
-        // G^T[j][i] = (B_j . C_i) exp(cs_i - cs_j) dt_j for j <= i, rows
-        // j = ty*4 + a and columns i = tx*4 + c of this thread
-        float g[4][4] = {};
-        mma4x4(g, Bb, LDT, ty * 4, Ct, LDT, tx * 4, N);
-#pragma unroll
-        for (int a = 0; a < 4; ++a) {
-          const int j = j0 + ty * 4 + a;
-#pragma unroll
-          for (int c = 0; c < 4; ++c) {
-            const int i = i0 + tx * 4 + c;
-            g[a][c] = (j <= i && j < len && i < len)
-                          ? g[a][c] * expf(cs[i] - cs[j]) * dts[j]
-                          : 0.f;
-          }
-          *reinterpret_cast<float4*>(Gt + (ty * 4 + a) * LDT + tx * 4) =
-              make_float4(g[a][0], g[a][1], g[a][2], g[a][3]);
-        }
-        __syncthreads();
-        // y_I += G x_J
-        mma4x4(acc, Gt, LDT, ty * 4, Xs, LDP, tx * 4, T);
-      }
-      // Xs holds x_I (the last key tile was I): y = acc + D x
-#pragma unroll
-      for (int a = 0; a < 4; ++a) {
-        const int i = ty * 4 + a;
-        if (i < ni) {
-          const float* xr = Xs + i * LDP + tx * 4;
-          *reinterpret_cast<float4*>(yb + (long long)(c0 + i0 + i) * H * P +
-                                     tx * 4) =
-              make_float4(acc[a][0] + xr[0] * d_h, acc[a][1] + xr[1] * d_h,
-                          acc[a][2] + xr[2] * d_h, acc[a][3] + xr[3] * d_h);
-        }
+  for (int q = 0; q < PIECES; ++q) {
+    const int idx = threadIdx.x + q * THREADS;
+    const int r = idx / (T / 4), g = idx % (T / 4);
+    float4 v = make_float4(0, 0, 0, 0);
+    if (r < nrows) {
+      v = load4(src + r * rs + 4 * g);
+      if (wr) {
+        const float w = wr[r];
+        v = make_float4(v.x * w, v.y * w, v.z * w, v.w * w);
       }
     }
+    *reinterpret_cast<float4*>(dst + r * LDT + 4 * g) = v;
+  }
+}
 
-    // the state update: hT[n][p] <- hT exp(cs_end) + sum_j B_j[n] w_j x_j[p]
-    // with w_j = exp(cs_end - cs_j) dt_j; rows n = ty*8 + r, cols p = tx*4
-    float hacc[8][4] = {};
-    for (int jt = 0; jt < nt; ++jt) {
-      const int j0 = jt * T, nj = min(T, len - j0);
-      __syncthreads();
-      load_n<Tin, N>(Bb, LDN, Bb_g + (c0 + j0) * bc_ts, bc_ts, nj);
-      load_n<Tin, P>(Xs, LDP, xb + (c0 + j0) * x_ts, x_ts, nj);
-      __syncthreads();
-      for (int idx = tid; idx < T * P; idx += THREADS) {
-        const int j = idx / P, p = idx % P;
-        const float w = j < nj ? expf(cs_end - cs[j0 + j]) * dts[j0 + j]
-                               : 0.f;
-        Xs[j * LDP + p] *= w;
+// The products.  With bf16 inputs they run on the tensor cores as split
+// TF32 (mma.sync m16n8k8, f32 accumulators): an f32 operand is cut into
+// two TF32 parts, hi = tf32(v) and lo = tf32(v - hi), and a bf16 operand
+// is exact in TF32, so a product is lo.b + hi.b (or a.lo + a.hi), each
+// TF32 product exact in f32, ~2^-22 of it dropped; C.B^T of two bf16
+// operands is one product.  The MMA's own accumulation then costs ~5e-5
+// against the plain version, well inside bf16's 2e-2.  With f32 inputs
+// (the f32 identity checks, held to 2e-5) the same fragments are summed
+// by f32 FMAs on the CUDA cores: split TF32 there erred by up to 8.4e-5
+// on an H100, two or three parts a side, from the MMA's accumulation, and
+// still by several times f32's error with a fresh accumulator per slice.
+__device__ __forceinline__ uint32_t tf32(float v) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(v));
+  return r;
+}
+
+__device__ __forceinline__ void mma_tf32(float (&d)[4],
+                                         const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// v's NP TF32 parts, coarsest first (NP = 1: v holds a bf16 value)
+template <int NP>
+__device__ __forceinline__ void split(float v, uint32_t (&part)[NP]) {
+  part[0] = NP == 1 ? __float_as_uint(v) : tf32(v);
+  if (NP == 2) part[NP - 1] = tf32(v - __uint_as_float(part[0]));
+}
+
+// acc += A B over one slice of KS for this warp's 32 x 32 quarter of the
+// block's 64 x 64 tile, A = At^T and B = Bk with both operands k-major in
+// shared memory (ld LDT), cut into NA and NB TF32 parts: acc[mi][ni] is
+// the m16n8 fragment at rows 16 mi, columns 8 ni of the quarter (this
+// thread: rows g and g + 8, columns 2 t and 2 t + 1, g = lane / 4, t =
+// lane % 4; frag_row and frag_col)
+template <int NA, int NB>
+__device__ __forceinline__ void mma_tile(float (&acc)[2][4][4],
+                                         const float* At, const float* Bk) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int m0 = (warp >> 1) * 32, n0 = (warp & 1) * 32;
+#pragma unroll
+  for (int k = 0; k < KS; k += 8) {
+    uint32_t a[2][NA][4], b[4][NB][2];
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi) {
+      const float* p = At + (k + t) * LDT + m0 + 16 * mi + g;
+      const int off[4] = {0, 8, 4 * LDT, 4 * LDT + 8};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        uint32_t part[NA];
+        split<NA>(p[off[e]], part);
+#pragma unroll
+        for (int i = 0; i < NA; ++i) a[mi][i][e] = part[i];
       }
-      __syncthreads();
+    }
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni) {
+      const float* p = Bk + (k + t) * LDT + n0 + 8 * ni + g;
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        uint32_t part[NB];
+        split<NB>(p[e * 4 * LDT], part);
+#pragma unroll
+        for (int j = 0; j < NB; ++j) b[ni][j][e] = part[j];
+      }
+    }
+    // the lo part's product first, then hi's
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni) {
+        mma_tf32(acc[mi][ni], a[mi][NA - 1], b[ni][NB - 1]);
+        if (NA + NB == 3) mma_tf32(acc[mi][ni], a[mi][0], b[ni][0]);
+      }
+  }
+}
+
+// acc += A B as mma_tile computes it, fragment for fragment, by f32 FMAs
+// on the CUDA cores, summed over k in order
+__device__ __forceinline__ void fma_tile(float (&acc)[2][4][4],
+                                         const float* At, const float* Bk) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int m0 = (warp >> 1) * 32, n0 = (warp & 1) * 32;
 #pragma unroll 4
-      for (int k = 0; k < T; ++k) {
-        const float4 a0 =
-            *reinterpret_cast<const float4*>(Bb + k * LDN + ty * 8);
-        const float4 a1 =
-            *reinterpret_cast<const float4*>(Bb + k * LDN + ty * 8 + 4);
-        const float4 bx =
-            *reinterpret_cast<const float4*>(Xs + k * LDP + tx * 4);
-        const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-        const float bv[4] = {bx.x, bx.y, bx.z, bx.w};
+  for (int k = 0; k < KS; ++k) {
+    float a[2][2];
+    float2 b[4];
 #pragma unroll
-        for (int r = 0; r < 8; ++r)
+    for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
-          for (int c = 0; c < 4; ++c) hacc[r][c] += av[r] * bv[c];
-      }
+      for (int h = 0; h < 2; ++h)
+        a[mi][h] = At[k * LDT + m0 + 16 * mi + 8 * h + g];
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni)
+      b[ni] = *reinterpret_cast<const float2*>(Bk + k * LDT + n0 + 8 * ni +
+                                               2 * t);
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          acc[mi][ni][2 * h] += a[mi][h] * b[ni].x;
+          acc[mi][ni][2 * h + 1] += a[mi][h] * b[ni].y;
+        }
+  }
+}
+
+// one slice's product for inputs of Tin: A_F32 / B_F32, the operand
+// holds values computed in f32 (not Tin's)
+template <typename Tin, bool A_F32, bool B_F32>
+__device__ __forceinline__ void product(float (&acc)[2][4][4],
+                                        const float* At, const float* Bk) {
+  if constexpr (sizeof(Tin) == 2)
+    mma_tile<A_F32 ? 2 : 1, B_F32 ? 2 : 1>(acc, At, Bk);
+  else
+    fma_tile(acc, At, Bk);
+}
+
+// the row and column, in the block's 64 x 64 tile, of values 2 h and
+// 2 h + 1 (column + 1) of this thread's fragment (mi, ni)
+__device__ __forceinline__ int frag_row(int mi, int h) {
+  return (threadIdx.x >> 6) * 32 + 16 * mi + ((threadIdx.x & 31) >> 2) +
+         8 * h;
+}
+__device__ __forceinline__ int frag_col(int ni) {
+  return ((threadIdx.x >> 5) & 1) * 32 + 8 * ni + 2 * (threadIdx.x & 3);
+}
+
+// 1. cb[j][i] = B_j . C_i for the 64-row tiles (jt, it), jt <= it, of
+// chunk c of sequence b (tile pair = it (it + 1) / 2 + jt); rows past the
+// chunk are zeros.  Bt and Ct: KS x LDT floats of shared memory each.
+template <typename Tin>
+__device__ __forceinline__ void cb_block(
+    int pair, int c, int b, float* Bt, float* Ct, const Tin* __restrict__ B,
+    const Tin* __restrict__ C, float* __restrict__ cb, int s, int L, int nc,
+    int nt, long long bc_bs, long long bc_ts) {
+  int it = 0, jt = pair;
+  while (jt > it) jt -= ++it;
+  const int c0 = c * L, len = min(L, s - c0);
+  const int i0 = it * T, j0 = jt * T;
+  if (i0 >= len) return;
+  const int ni = min(T, len - i0), nj = min(T, len - j0);
+  const Tin* Bg = B + b * bc_bs + (long long)(c0 + j0) * bc_ts;
+  const Tin* Cg = C + b * bc_bs + (long long)(c0 + i0) * bc_ts;
+  float acc[2][4][4] = {};
+  for (int n0 = 0; n0 < N; n0 += KS) {
+    __syncthreads();
+    load_t(Bt, Bg + n0, bc_ts, nj);
+    load_t(Ct, Cg + n0, bc_ts, ni);
+    __syncthreads();
+    product<Tin, false, false>(acc, Bt, Ct);
+  }
+  const int lt = nt * T;
+  float* out = cb + ((long long)b * nc + c) * lt * lt + (long long)j0 * lt +
+               i0;
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int nf = 0; nf < 4; ++nf)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        *reinterpret_cast<float2*>(out + (long long)frag_row(mi, h) * lt +
+                                   frag_col(nf)) =
+            make_float2(acc[mi][nf][2 * h], acc[mi][nf][2 * h + 1]);
+}
+
+// 2. for chunk c, half nh of N, head and sequence b: the cumulative sum
+// cs (written out by the first half) and the columns [nh * 64, nh * 64 +
+// 64) of the chunk's own state
+// S[p][n] = sum_j exp(cs_end - cs_j) dt_j x_j[p] B_j[n].  Xs and Bs: KS x
+// LDT floats of shared memory each; cs, dts, w: MAX_L floats each.
+template <typename Tin>
+__device__ __forceinline__ void state_block(
+    int c, int nh, int head, int b, float* Xs, float* Bs, float* cs,
+    float* dts, float* w, const Tin* __restrict__ x,
+    const Tin* __restrict__ B, const float* __restrict__ dt,
+    const float* __restrict__ A, float* __restrict__ cs_out,
+    float* __restrict__ S, int s, int H, int L, int nc, int lt,
+    long long x_bs, long long x_ts, long long bc_bs, long long bc_ts) {
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int c0 = c * L, len = min(L, s - c0);
+  const float a_h = A[head];
+  const float* dtb = dt + ((long long)b * s + c0) * H + head;
+  // cs = inclusive cumsum of the f32 products dt * A over the chunk (rows
+  // past len: 0), accumulated in f64 and rounded once, as the plain
+  // version does: cs_i - cs_j of two sums in the hundreds is the scan's
+  // one ill-conditioned step, and sums rounded once agree to the bit
+  // whatever their order.  One warp, 8 consecutive rows a lane, then a
+  // shuffle scan.
+  if (warp == 0) {
+    double v[MAX_L / 32], run = 0.0;
+#pragma unroll
+    for (int q = 0; q < MAX_L / 32; ++q) {
+      const int i = lane * (MAX_L / 32) + q;
+      const float d = i < len ? dtb[(long long)i * H] : 0.f;
+      dts[i] = d;
+      run += (double)(d * a_h);
+      v[q] = run;
     }
-    __syncthreads();   // every query tile has read the old hT
-    const float decay = expf(cs_end);
+    double tot = run;
 #pragma unroll
-    for (int r = 0; r < 8; ++r) {
-      float* row = hT + (ty * 8 + r) * LDP + tx * 4;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) row[c] = row[c] * decay + hacc[r][c];
+    for (int off = 1; off < 32; off <<= 1) {
+      const double t = __shfl_up_sync(0xffffffffu, tot, off);
+      if (lane >= off) tot += t;
     }
+    const double excl = tot - run;
+#pragma unroll
+    for (int q = 0; q < MAX_L / 32; ++q)
+      cs[lane * (MAX_L / 32) + q] = (float)(v[q] + excl);
   }
   __syncthreads();
-  for (int idx = tid; idx < P * N; idx += THREADS) {
-    const int n = idx % N, p = idx / N;
-    h_out[state + (long long)p * N + n] = hT[n * LDP + p];
+  const float cs_end = cs[len - 1];
+  for (int i = tid; i < MAX_L; i += THREADS)
+    w[i] = i < len ? expf(cs_end - cs[i]) * dts[i] : 0.f;
+  if (nh == 0) {
+    float* out = cs_out + (((long long)b * nc + c) * H + head) * lt;
+    for (int i = tid; i < lt; i += THREADS) out[i] = cs[i];
   }
+  const Tin* xg = x + b * x_bs + (long long)c0 * x_ts + (long long)head * P;
+  const Tin* Bg = B + b * bc_bs + (long long)c0 * bc_ts + nh * T;
+  float acc[2][4][4] = {};   // rows p, columns n - nh * 64
+  for (int k0 = 0; k0 < len; k0 += KS) {
+    const int nk = min(KS, len - k0);
+    __syncthreads();      // w is written; the previous slice is consumed
+    load_n(Xs, xg + k0 * x_ts, x_ts, nk, w + k0);
+    load_n(Bs, Bg + k0 * bc_ts, bc_ts, nk, (const float*)nullptr);
+    __syncthreads();
+    product<Tin, true, false>(acc, Xs, Bs);
+  }
+  float* out = S + (((long long)b * nc + c) * H + head) * P * N + nh * T;
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        *reinterpret_cast<float2*>(out + (long long)frag_row(mi, h) * N +
+                                   frag_col(ni)) =
+            make_float2(acc[mi][ni][2 * h], acc[mi][ni][2 * h + 1]);
+}
+
+// 1 and 2 in one launch: blocks x < nc NH take the chunk states of (x /
+// NH, x % NH, head y, sequence z); the rest take C.B^T's tile pairs, as
+// many as there are (nc pairs a sequence), spread over y, so the two run
+// side by side
+template <typename Tin>
+__global__ void __launch_bounds__(THREADS)
+ssd_chunk_kernel(const Tin* __restrict__ x, const Tin* __restrict__ B,
+                 const Tin* __restrict__ C, const float* __restrict__ dt,
+                 const float* __restrict__ A, float* __restrict__ cb,
+                 float* __restrict__ cs_out, float* __restrict__ S, int s,
+                 int H, int L, int nc, int nt, long long x_bs,
+                 long long x_ts, long long bc_bs, long long bc_ts) {
+  __shared__ __align__(16) float As[KS * LDT], Bs[KS * LDT];
+  __shared__ float cs[MAX_L], dts[MAX_L], w[MAX_L];
+  const int n_state = nc * NH;
+  if ((int)blockIdx.x < n_state) {
+    state_block<Tin>(blockIdx.x / NH, blockIdx.x % NH, blockIdx.y,
+                     blockIdx.z, As, Bs, cs, dts, w, x, B, dt, A, cs_out, S,
+                     s, H, L, nc, nt * T, x_bs, x_ts, bc_bs, bc_ts);
+    return;
+  }
+  const int pairs = nt * (nt + 1) / 2;
+  const int id = (blockIdx.x - n_state) * H + blockIdx.y;
+  if (id < nc * pairs)
+    cb_block<Tin>(id % pairs, id / pairs, blockIdx.z, As, Bs, B, C, cb, s,
+                  L, nc, nt, bc_bs, bc_ts);
+}
+
+// 3. state passing for head blockIdx.y, sequence blockIdx.z, 4 state
+// elements a thread: over the chunks in order, S_c is replaced by the
+// state entering chunk c, and the state after the last chunk goes to
+// h_out.  h0 may be h_out: each thread reads its elements of h0 before it
+// writes them.
+__global__ void __launch_bounds__(PASS_THREADS)
+ssd_pass_kernel(const float* __restrict__ cs, float* __restrict__ S,
+                const float* h0, float* h_out, int s, int H, int L, int nc,
+                int lt) {
+  const int head = blockIdx.y, b = blockIdx.z;
+  const long long e = (long long)blockIdx.x * PASS_THREADS + threadIdx.x;
+  const long long q = P * N / 4;               // float4s of one state
+  const long long st = ((long long)b * H + head) * q + e;
+  float4 h = h0 ? reinterpret_cast<const float4*>(h0)[st]
+                : make_float4(0, 0, 0, 0);
+  float4* sp = reinterpret_cast<float4*>(S) +
+               ((long long)b * nc * H + head) * q + e;
+  const float* csp = cs + ((long long)b * nc * H + head) * lt;
+  // PASS_BATCH chunks at a time: their loads first, all in flight, then
+  // the chain of updates and stores
+  for (int c0 = 0; c0 < nc; c0 += PASS_BATCH) {
+    float4 sc[PASS_BATCH];
+    float cse[PASS_BATCH];
+#pragma unroll
+    for (int u = 0; u < PASS_BATCH; ++u) {
+      const int c = c0 + u;
+      if (c < nc) {
+        sc[u] = sp[(long long)c * H * q];
+        cse[u] = csp[(long long)c * H * lt + min(L, s - c * L) - 1];
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < PASS_BATCH; ++u) {
+      const int c = c0 + u;
+      if (c < nc) {
+        sp[(long long)c * H * q] = h;
+        const float decay = expf(cse[u]);
+        h = make_float4(h.x * decay + sc[u].x, h.y * decay + sc[u].y,
+                        h.z * decay + sc[u].z, h.w * decay + sc[u].w);
+      }
+    }
+  }
+  reinterpret_cast<float4*>(h_out)[st] = h;
+}
+
+// 4. y for query tile it (the last first) of chunk blockIdx.x / nt, head
+// blockIdx.y, sequence blockIdx.z: exp(cs_i) (C_i . h_in) + the key tiles
+// j <= i of cb exp(cs_i - cs_j) dt_j x_j + D x_i, h_in the state entering
+// the chunk (S after step 3)
+template <typename Tin>
+__global__ void __launch_bounds__(THREADS)
+ssd_out_kernel(const Tin* __restrict__ x, const Tin* __restrict__ C,
+               const float* __restrict__ dt, const float* __restrict__ D,
+               const float* __restrict__ cb, const float* __restrict__ cs,
+               const float* __restrict__ S, float* __restrict__ y, int s,
+               int H, int L, int nc, int nt, long long x_bs, long long x_ts,
+               long long bc_bs, long long bc_ts) {
+  __shared__ __align__(16) float As[KS * LDT], Bs[KS * LDT];
+  __shared__ float csc[MAX_L], dtc[MAX_L];
+  const int c = blockIdx.x / nt, it = nt - 1 - blockIdx.x % nt;
+  const int head = blockIdx.y, b = blockIdx.z, tid = threadIdx.x;
+  const int c0 = c * L, len = min(L, s - c0), i0 = it * T;
+  if (i0 >= len) return;
+  const int ni = min(T, len - i0), lt = nt * T;
+  const float* csp = cs + (((long long)b * nc + c) * H + head) * lt;
+  for (int i = tid; i < lt; i += THREADS) {
+    csc[i] = csp[i];
+    dtc[i] = i < len ? dt[((long long)b * s + c0 + i) * H + head] : 0.f;
+  }
+  // the carried state's term: acc[i][p] = sum_n C_i[n] h_in[p][n]
+  const Tin* Cg = C + b * bc_bs + (long long)(c0 + i0) * bc_ts;
+  const float* hg = S + (((long long)b * nc + c) * H + head) * P * N;
+  float acc[2][4][4] = {};   // rows i - i0, columns p
+  for (int n0 = 0; n0 < N; n0 += KS) {
+    __syncthreads();
+    load_t(As, Cg + n0, bc_ts, ni);
+    load_t(Bs, hg + n0, (long long)N, P);
+    __syncthreads();
+    product<Tin, false, true>(acc, As, Bs);
+  }
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float e = expf(csc[i0 + frag_row(mi, h)]);
+#pragma unroll
+      for (int nf = 0; nf < 4; ++nf) {
+        acc[mi][nf][2 * h] *= e;
+        acc[mi][nf][2 * h + 1] *= e;
+      }
+    }
+  // the chunk's own term, one KS-row slice of a key tile at a time:
+  // G^T[j][i] = cb[j][i] exp(cs_i - cs_j) dt_j for j <= i, both in the
+  // chunk, then y_I += G x_J
+  const float* cbp = cb + ((long long)b * nc + c) * lt * lt + i0;
+  const Tin* xg = x + b * x_bs + (long long)c0 * x_ts + (long long)head * P;
+  const int k_end = min(i0 + T, len);
+  for (int k0 = 0; k0 < k_end; k0 += KS) {
+    const int nk = min(KS, len - k0);
+    __syncthreads();
+#pragma unroll
+    for (int q = 0; q < PIECES; ++q) {
+      const int idx = tid + q * THREADS;
+      const int r = idx / (T / 4), g = idx % (T / 4);
+      const int j = k0 + r;
+      float4 v = make_float4(0, 0, 0, 0);
+      if (r < nk) {
+        const float4 w4 = *reinterpret_cast<const float4*>(
+            cbp + (long long)j * lt + 4 * g);
+        const float csj = csc[j], dj = dtc[j];
+        float wv[4] = {w4.x, w4.y, w4.z, w4.w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = i0 + 4 * g + e;
+          wv[e] = (j <= i && i < len) ? wv[e] * expf(csc[i] - csj) * dj
+                                      : 0.f;
+        }
+        v = make_float4(wv[0], wv[1], wv[2], wv[3]);
+      }
+      *reinterpret_cast<float4*>(As + r * LDT + 4 * g) = v;
+    }
+    load_n(Bs, xg + k0 * x_ts, x_ts, nk, (const float*)nullptr);
+    __syncthreads();
+    product<Tin, true, false>(acc, As, Bs);
+  }
+  const float d_h = D[head];
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int i = frag_row(mi, h);
+      if (i < ni) {
+        const Tin* xr = xg + (long long)(i0 + i) * x_ts;
+        float* yr = y + (((long long)b * s + c0 + i0 + i) * H + head) * P;
+#pragma unroll
+        for (int nf = 0; nf < 4; ++nf) {
+          const int p = frag_col(nf);
+          *reinterpret_cast<float2*>(yr + p) =
+              make_float2(acc[mi][nf][2 * h] + to_f32(xr[p]) * d_h,
+                          acc[mi][nf][2 * h + 1] + to_f32(xr[p + 1]) * d_h);
+        }
+      }
+    }
 }
 
 template <typename Tin>
-int launch(const void* x, const void* B, const void* C, const float* dt,
+int launch(const void* xv, const void* Bv, const void* Cv, const float* dt,
            const float* A, const float* D, const float* h0, float* y,
-           float* h_out, int b, int s, int H, int L, long long x_bs,
-           long long x_ts, long long bc_bs, long long bc_ts,
-           cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      ssd_scan_kernel<Tin>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      SMEM_BYTES);
-  if (err != cudaSuccess) return (int)err;
-  ssd_scan_kernel<Tin><<<dim3(H, b), THREADS, SMEM_BYTES, stream>>>(
-      static_cast<const Tin*>(x), static_cast<const Tin*>(B),
-      static_cast<const Tin*>(C), dt, A, D, h0, y, h_out, s, H, L, x_bs,
-      x_ts, bc_bs, bc_ts);
+           float* h_out, float* cb, float* cs, float* S, int b, int s,
+           int H, int L, long long x_bs, long long x_ts, long long bc_bs,
+           long long bc_ts, cudaStream_t stream) {
+  const Tin* x = static_cast<const Tin*>(xv);
+  const Tin* B = static_cast<const Tin*>(Bv);
+  const Tin* C = static_cast<const Tin*>(Cv);
+  const int nc = (s + L - 1) / L, nt = (L + T - 1) / T, lt = nt * T;
+  cudaError_t err;
+  const int cb_x = (nc * (nt * (nt + 1) / 2) + H - 1) / H;
+  ssd_chunk_kernel<Tin><<<dim3(nc * NH + cb_x, H, b), THREADS, 0,
+                          stream>>>(x, B, C, dt, A, cb, cs, S, s, H, L, nc,
+                                    nt, x_bs, x_ts, bc_bs, bc_ts);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  ssd_pass_kernel<<<dim3(PASS_BLOCKS, H, b), PASS_THREADS, 0, stream>>>(
+      cs, S, h0, h_out, s, H, L, nc, lt);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  ssd_out_kernel<Tin><<<dim3(nc * nt, H, b), THREADS, 0, stream>>>(
+      x, C, dt, D, cb, cs, S, y, s, H, L, nc, nt, x_bs, x_ts, bc_bs, bc_ts);
   return (int)cudaGetLastError();
 }
 
@@ -304,22 +601,26 @@ int launch(const void* x, const void* B, const void* C, const float* dt,
 
 // dtype: 0 float32, 1 bfloat16 (x, B, C).  x's rows are x_ts elements
 // apart and its sequences x_bs, with (H, P) contiguous; B and C share
-// bc_ts and bc_bs, with N contiguous; dt (b, s, H), A, D (H,), y (b, s,
-// H, P) and h0 / h_out (b, H, P, N) f32 contiguous; h0 may be null and
-// may equal h_out.  P = 64, N = 128, 1 <= L <= 256.  Returns the launch's
-// cudaError_t.
+// bc_ts and bc_bs, with N contiguous; x, B and C 4-element aligned (16
+// bytes in f32, 8 in bf16, strides included); dt (b, s, H), A, D (H,), y
+// (b, s, H, P) and h0 / h_out (b, H, P, N) f32 contiguous; h0 may be null
+// and may equal h_out.  Scratch, f32 contiguous, with nc = ceil(s / L),
+// lt = 64 ceil(L / 64): cb (b, nc, lt, lt), cs (b, nc, H, lt), S (b, nc,
+// H, P, N).  P = 64, N = 128, 1 <= L <= 256.  Launches the three kernels
+// on the stream; returns the first launch's error (cudaError_t).
 extern "C" int ssd_chunk_scan(int dtype, const void* x, const void* B,
                               const void* C, const float* dt, const float* A,
                               const float* D, const float* h0, float* y,
-                              float* h_out, int b, int s, int H, int L,
-                              long long x_bs, long long x_ts,
-                              long long bc_bs, long long bc_ts,
-                              cudaStream_t stream) {
+                              float* h_out, float* cb, float* cs, float* S,
+                              int b, int s, int H, int L, long long x_bs,
+                              long long x_ts, long long bc_bs,
+                              long long bc_ts, cudaStream_t stream) {
   if (b <= 0 || s <= 0) return 0;
   if (L < 1 || L > MAX_L) return (int)cudaErrorInvalidValue;
   if (dtype == 1)
-    return launch<__nv_bfloat16>(x, B, C, dt, A, D, h0, y, h_out, b, s, H,
-                                 L, x_bs, x_ts, bc_bs, bc_ts, stream);
-  return launch<float>(x, B, C, dt, A, D, h0, y, h_out, b, s, H, L, x_bs,
-                       x_ts, bc_bs, bc_ts, stream);
+    return launch<__nv_bfloat16>(x, B, C, dt, A, D, h0, y, h_out, cb, cs, S,
+                                 b, s, H, L, x_bs, x_ts, bc_bs, bc_ts,
+                                 stream);
+  return launch<float>(x, B, C, dt, A, D, h0, y, h_out, cb, cs, S, b, s, H,
+                       L, x_bs, x_ts, bc_bs, bc_ts, stream);
 }

@@ -2,10 +2,11 @@
 of ``repro.kernels.ref``), the MoE grouped GEMM's (``jax.lax.ragged_dot``
 in ``repro.models.moe``), the absorbed MLA decode's
 (``repro.models.mla.mla_decode``), the Mamba2 block's three pieces of
-device work (``repro.models.ssm``: the causal conv, the chunked SSD scan
-and the recurrent step), and the key-split arithmetic of the attention
-kernels (partials per key range, then the merge that their combine
-kernels compute).
+device work (``repro.models.ssm``: the causal conv, the chunked SSD scan,
+also split as the card's kernel set splits it, and the decode step, the
+token's conv folded into the recurrence), and the key-split arithmetic
+of the attention kernels (partials per key range, then the merge that
+their combine kernels compute).
 
 Each wrapper computes these for CPU tensors; the tests hold them against
 the JAX kernels, and ``chip_smoke.py`` holds the CUDA kernels against them
@@ -229,21 +230,26 @@ def mla_decode_split_ref(q_lat, q_rope, c, krope, lengths, *, scale,
     return combine_ref(*parts).to(c.dtype)
 
 
-def causal_conv_ref(x, w, tail):
+def causal_conv_ref(x, w, tail, *, f32_sum: bool = False):
     """``repro.models.ssm._causal_conv`` in its own rounding order: x (b,
     s, c), w (cw, c), tail (b, cw-1, c), all of one dtype.  ``out[t] =
     silu(sum_i xp[t + i] * w[i])`` over ``xp = tail ‖ x``, each product
     and each partial sum rounded to the dtype, the terms added one after
     another from i = 0 (the reference's Python ``sum``), then ``silu`` as
-    ``out * sigmoid(out)``.  Returns (out (b, s, c), the new tail: the
-    last cw-1 rows of xp)."""
+    ``out * sigmoid(out)``.  With ``f32_sum`` the terms are summed in f32
+    in the same order and the SiLU taken in f32, rounded once to the
+    dtype: the card's kernels' arithmetic (in bf16 each product is exact
+    in f32, so only the SiLU's last bit can differ).  Returns (out (b, s,
+    c), the new tail: the last cw-1 rows of xp)."""
     cw, s = w.shape[0], x.shape[1]
     xp = torch.cat([tail, x], dim=1)
+    new_tail = xp[:, xp.shape[1] - (cw - 1):] if cw > 1 else tail
+    if f32_sum:
+        xp, w = xp.float(), w.float()
     out = xp[:, :s] * w[0]
     for i in range(1, cw):
         out = out + xp[:, i:i + s] * w[i]
-    new_tail = xp[:, xp.shape[1] - (cw - 1):] if cw > 1 else tail
-    return out * torch.sigmoid(out), new_tail
+    return (out * torch.sigmoid(out)).to(x.dtype), new_tail
 
 
 def ssd_chunk_scan_ref(x, B, C, dt, A, D, h0, chunk: int):
@@ -263,12 +269,21 @@ def ssd_chunk_scan_ref(x, B, C, dt, A, D, h0, chunk: int):
     return _ssd_scan(x, B, C, dt, A, D, h0, chunk)
 
 
+def _tf32(t):
+    """f32 values rounded to TF32 (10 mantissa bits, to nearest, ties away
+    from zero: ``cvt.rna.tf32.f32``)."""
+    return ((t.contiguous().view(torch.int32) + 0x1000) &
+            ~0x1FFF).view(torch.float32)
+
+
 def _ssd_scan(x, B, C, dt, A, D, h0, chunk: int, *, carry: bool = True,
-              shift: int = 0):
+              shift: int = 0, tf32: bool = False):
     """:func:`ssd_chunk_scan_ref`; ``carry=False`` drops the carried state
-    (each chunk starts from zeros) and ``shift`` moves the cumulative sum
-    down by that many rows: the planted faults the card's check must see
-    fail."""
+    (each chunk starts from zeros), ``shift`` moves the cumulative sum
+    down by that many rows, and ``tf32`` rounds each product's f32-valued
+    operand to TF32 (the weighted x, the carried state), as the card's
+    split-TF32 products would without their low parts: the planted faults
+    the card's check must see fail."""
     b, s, H, P = x.shape
     N = B.shape[-1]
     L = min(chunk, s)
@@ -300,15 +315,75 @@ def _ssd_scan(x, B, C, dt, A, D, h0, chunk: int, *, carry: bool = True,
         seg = cs[:, :, None, :] - cs[:, None, :, :]               # (b,i,j,H)
         Lmat = torch.where(causal[None], torch.exp(seg), 0.0)
         CB = torch.einsum("bin,bjn->bij", Ci, Bj)
-        w = CB[..., None] * Lmat * dtj[:, None, :, :]
+        rnd = _tf32 if tf32 else (lambda t: t)
+        w = rnd(CB[..., None] * Lmat * dtj[:, None, :, :])
         y = torch.einsum("bijh,bjhp->bihp", w, xc)
-        y = y + torch.einsum("bin,bhpn,bih->bihp", Ci, h, torch.exp(cs))
+        y = y + torch.einsum("bin,bhpn,bih->bihp", Ci, rnd(h), torch.exp(cs))
         decay_to_end = torch.exp(cs[:, -1:, :] - cs)              # (b,L,H)
-        S = torch.einsum("blh,bln,blhp->bhpn", decay_to_end * dtj, Bj, xc)
+        if tf32:
+            S = torch.einsum("blhp,bln->bhpn", rnd(
+                (decay_to_end * dtj)[..., None] * xc), Bj)
+        else:
+            S = torch.einsum("blh,bln,blhp->bhpn", decay_to_end * dtj, Bj,
+                             xc)
         h = h * torch.exp(cs[:, -1, :])[:, :, None, None] + S
         ys.append(y)
     y = torch.stack(ys, dim=1).reshape(b, nc * L, H, P)[:, :s]
     return y + f32(x) * f32(D)[None, None, :, None], h
+
+
+def ssd_chunk_parallel_ref(x, B, C, dt, A, D, h0, chunk: int,
+                           out_state=None):
+    """:func:`ssd_chunk_scan_ref` split as the card's kernel set splits it
+    (``csrc/ssd_scan.cu``; the SSD paper's four steps), for the tests:
+    chunks of ``L = min(chunk, s)`` rows, the last one short and masked
+    rather than padded.  (1) ``CB_c = C_c·B_cᵀ`` once per chunk, shared by
+    the heads; (2) each chunk's own state ``S_c = Σ_j exp(cs_end - cs_j)
+    dt_j x_j ⊗ B_j`` from zeros, with ``cs`` the chunk's cumulative sum of
+    ``dt·A`` (f64, rounded once); (3) the state passing, sequential over
+    chunks only: ``h_c = h_{c-1}·exp(cs_end_c) + S_c``, keeping the state
+    that enters each chunk and writing the last to ``out_state`` (which
+    may be h0 itself: h0 is read first); (4) each chunk's output from
+    ``CB_c``, its cumulative sum and the state entering it, plus ``D·x``.
+    Returns (y (b, s, H, P) f32, h_final (b, H, P, N) f32)."""
+    b, s, H, P = x.shape
+    N = B.shape[-1]
+    L = min(chunk, s)
+    xf, Bf, Cf, dtf = x.float(), B.float(), C.float(), dt.float()
+    A = A.float()
+    spans = [(r0, min(s, r0 + L)) for r0 in range(0, s, L)]
+    # (1) and (2), each chunk on its own
+    CB, cs, S = [], [], []
+    for r0, r1 in spans:
+        Bc, Cc, dtc = Bf[:, r0:r1], Cf[:, r0:r1], dtf[:, r0:r1]
+        CB.append(torch.einsum("bin,bjn->bij", Cc, Bc))
+        c = torch.cumsum((dtc * A).double(), dim=1).float()     # (b,len,H)
+        cs.append(c)
+        w = torch.exp(c[:, -1:, :] - c) * dtc
+        S.append(torch.einsum("blh,bln,blhp->bhpn", w, Bc, xf[:, r0:r1]))
+    # (3) the state entering each chunk, then the final state
+    h = torch.zeros((b, H, P, N), dtype=torch.float32, device=x.device) \
+        if h0 is None else h0.float().clone()
+    h_in = []
+    for c, Sc in zip(cs, S):
+        h_in.append(h)
+        h = h * torch.exp(c[:, -1, :])[:, :, None, None] + Sc
+    if out_state is not None:
+        h = out_state.copy_(h)
+    # (4) the outputs, every chunk against the state entering it
+    ys = []
+    for (r0, r1), cb, c, hc in zip(spans, CB, cs, h_in):
+        n = r1 - r0
+        causal = torch.ones((n, n), dtype=torch.bool,
+                            device=x.device).tril()[None, :, :, None]
+        seg = c[:, :, None, :] - c[:, None, :, :]                # (b,i,j,H)
+        Lmat = torch.where(causal, torch.exp(seg), 0.0)
+        w = cb[..., None] * Lmat * dtf[:, r0:r1][:, None, :, :]
+        y = torch.einsum("bijh,bjhp->bihp", w, xf[:, r0:r1])
+        ys.append(y + torch.einsum("bin,bhpn,bih->bihp", Cf[:, r0:r1], hc,
+                                   torch.exp(c)))
+    y = torch.cat(ys, dim=1)
+    return y + xf * D.float()[None, None, :, None], h
 
 
 def ssm_step_ref(h, x, B, C, dt, A, D, *, decay_after: bool = False):
@@ -323,3 +398,28 @@ def ssm_step_ref(h, x, B, C, dt, A, D, *, decay_after: bool = False):
     upd = (dt[:, :, None] * x)[..., None] * B[:, None, None, :]
     h.copy_((h + upd) * decay if decay_after else h * decay + upd)
     return torch.einsum("bhpn,bn->bhp", h, C) + x * D.float()[None, :, None]
+
+
+def ssm_conv_step_ref(h, x, B, C, w_x, w_B, w_C, tail_x, tail_B, tail_C, dt,
+                      A, D, *, decay_after: bool = False,
+                      f32_conv: bool = False):
+    """The decode step of ``repro.models.ssm.ssm_decode_step`` after the
+    projections: the token's causal conv with SiLU over x, B and C
+    (:func:`causal_conv_ref`, the reference's bf16 order), then
+    :func:`ssm_step_ref` on its outputs.  x (b, H, P), B and C (b, N) are
+    the token's pre-conv values; w_x (cw, H·P), w_B and w_C (cw, N) the
+    conv weights; tail_x (b, cw-1, H·P) is updated in place, tail_B and
+    tail_C (b, cw-1, N) are read only; h is updated in place.  Returns
+    (y (b, H, P) f32, B's new tail, C's new tail), the tails new tensors.
+    ``decay_after`` as in :func:`ssm_step_ref`; ``f32_conv`` sums the
+    conv as the card's kernel does (:func:`causal_conv_ref`'s
+    ``f32_sum``)."""
+    b, H, P = x.shape
+    conv = lambda v, w, t: causal_conv_ref(v, w, t, f32_sum=f32_conv)
+    xo, new_x = conv(x.reshape(b, 1, H * P), w_x, tail_x)
+    Bo, new_B = conv(B[:, None], w_B, tail_B)
+    Co, new_C = conv(C[:, None], w_C, tail_C)
+    tail_x.copy_(new_x)
+    y = ssm_step_ref(h, xo.view(b, H, P), Bo[:, 0], Co[:, 0], dt, A, D,
+                     decay_after=decay_after)
+    return y, new_B, new_C

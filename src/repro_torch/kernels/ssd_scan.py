@@ -11,9 +11,13 @@ chunk size, of which a sequence shorter than it uses ``s`` (``L =
 min(chunk, s)``, as the reference).  Returns (y (b, s, H, P) f32,
 h_final (b, H, P, N) f32); with ``out_state`` the final state is written
 there (it may be h0 itself: the engines carry state in place).  On CUDA
-tensors this launches ``csrc/ssd_scan.cu`` (P 64, N 128: mamba2-1.3b's;
-one block per head and sequence, chunks in order); on CPU tensors it
-computes the plain version.
+tensors one call launches the three kernels of ``csrc/ssd_scan.cu`` (P
+64, N 128: mamba2-1.3b's): C·Bᵀ once per chunk beside the chunks' own
+states, then the state passing over the chunks in order, then the
+chunks' outputs (split TF32 on the tensor cores for bf16 inputs, f32
+FMAs for f32 ones); their scratch (C·Bᵀ, the cumulative sums and the
+chunk states, 33.5 MB of states at 4000 tokens) comes from PyTorch's
+caching allocator.  On CPU tensors it computes the plain version.
 """
 from __future__ import annotations
 
@@ -27,12 +31,13 @@ from repro_torch.kernels import build, ref
 
 HEAD_DIM, STATE = 64, 128          # the shapes the kernel is built for
 MAX_CHUNK = 256
+TILE = 64                          # rows of the kernels' tiles
 
 
 @functools.cache
 def _fn():
     fn = build.library("ssd_scan").ssd_chunk_scan
-    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 9 +
+    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 12 +
                    [ctypes.c_int] * 4 + [ctypes.c_longlong] * 4 +
                    [ctypes.c_void_p])
     fn.restype = ctypes.c_int
@@ -82,6 +87,13 @@ def ssd_chunk_scan(x: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
         raise ValueError("ssd_chunk_scan: x's (H, P) contiguous, B and C "
                          "rows contiguous with one stride, dt and the "
                          "states contiguous")
+    # x, B and C are read four elements at a time (16 bytes of f32, 8 of
+    # bf16)
+    build.require_aligned(
+        "ssd_chunk_scan", {"x": x.data_ptr(), "B": B.data_ptr(),
+                           "C": C.data_ptr()},
+        {"x": x.stride()[:2], "B": B.stride()[:2]}, x.element_size(),
+        align=4 * x.element_size())
     y = torch.empty((b, s, H, P), dtype=torch.float32, device=x.device)
     h_out = out_state if out_state is not None else torch.empty(
         (b, H, P, N), dtype=torch.float32, device=x.device)
@@ -93,10 +105,17 @@ def ssd_chunk_scan(x: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
                           {"y": y.data_ptr(), "h_out": h_out.data_ptr()},
                           {}, 4)
     A, D = A.float().contiguous(), D.float().contiguous()
+    L = min(chunk, s)
+    nc, lt = -(-s // L), -(-L // TILE) * TILE
+    f32 = dict(dtype=torch.float32, device=x.device)
+    cb = torch.empty((b, nc, lt, lt), **f32)
+    cs = torch.empty((b, nc, H, lt), **f32)
+    chunk_states = torch.empty((b, nc, H, P, N), **f32)
     rc = _fn()(build.ATTN_DTYPES[x.dtype], x.data_ptr(), B.data_ptr(),
                C.data_ptr(), dt.data_ptr(), A.data_ptr(), D.data_ptr(),
                None if h0 is None else h0.data_ptr(), y.data_ptr(),
-               h_out.data_ptr(), b, s, H, min(chunk, s), x.stride(0),
+               h_out.data_ptr(), cb.data_ptr(), cs.data_ptr(),
+               chunk_states.data_ptr(), b, s, H, L, x.stride(0),
                x.stride(1), B.stride(0), B.stride(1), build.stream_of(x))
     build.check(rc, "ssd_chunk_scan")
     ssd_chunk_scan.launches += 1

@@ -9,10 +9,11 @@ State of one layer:
 
 The five input projections and ``out_proj`` are plain matmuls, as the
 reference leaves them to XLA; the device work between them goes through
-the kernel wrappers: ``causal_conv`` (one launch over x, B and C
-concatenated), ``ssd_chunk_scan`` for a sequence and ``ssm_step`` for a
-decode token.  The reference's ``sharding.constrain`` (:21, :125) does
-nothing on one card and is left out.  :func:`ssd_scan_with_tails` and
+the kernel wrappers: for a sequence ``causal_conv`` (one launch over x, B
+and C concatenated) and ``ssd_chunk_scan``, for a decode token
+``ssm_step`` (the token's conv and the recurrence in one launch).  The
+reference's ``sharding.constrain`` (:21, :125) does nothing on one card
+and is left out.  :func:`ssd_scan_with_tails` and
 :func:`ssm_decode_step` update the state they are given in place (the
 reference returns a new one), so the engines' stacked state is never
 copied per step.
@@ -38,9 +39,17 @@ def _dims(cfg: ModelConfig):
     return d_inner, n_heads, s.head_dim, s.n_groups * s.d_state
 
 
+def _dt(p, x):
+    """dt = softplus(x·w_dt + dt_bias) in f32, without a threshold:
+    log(1 + e^v)."""
+    return torch.logaddexp(
+        (x @ p["w_dt"]).float() + p["dt_bias"].float(),
+        torch.zeros((), device=x.device))
+
+
 def _inputs(p, cfg: ModelConfig, x, conv_tails: Optional[Dict] = None):
-    """The projections and the conv shared by the scan and the step.
-    Returns (z, x, B, C, dt (f32, after softplus), the new tails)."""
+    """The projections and the conv of the scan.  Returns (z, x, B, C, dt
+    (f32, after softplus), the new tails)."""
     d_inner, _, _, N = _dims(cfg)
     b = x.shape[0]
     z = x @ p["w_z"]
@@ -52,12 +61,8 @@ def _inputs(p, cfg: ModelConfig, x, conv_tails: Optional[Dict] = None):
         tail = torch.cat([conv_tails[k] for k in _CONV], dim=-1)
     out, new_tail = causal_conv(xbc, w.contiguous(), tail.contiguous())
     xb, B, C = out.split((d_inner, N, N), dim=-1)
-    # softplus in f32 without a threshold: log(1 + e^v)
-    dt = torch.logaddexp(
-        (x @ p["w_dt"]).float() + p["dt_bias"].float(),
-        torch.zeros((), device=x.device))
     tails = dict(zip(_CONV, new_tail.split((d_inner, N, N), dim=-1)))
-    return z, xb, B, C, dt, tails
+    return z, xb, B, C, _dt(p, x), tails
 
 
 def _gated_out(p, cfg: ModelConfig, y, z):
@@ -99,16 +104,19 @@ def ssd_scan_with_tails(p, cfg: ModelConfig, x, state: Dict):
 
 def ssm_decode_step(p, cfg: ModelConfig, x, state: Dict):
     """One token per sequence: x (b, 1, d_model) against ``state``,
-    updated in place.  Returns (y (b, 1, d_model), state)."""
+    updated in place.  The token's conv and the recurrence are one
+    ``ssm_step`` launch (x's tail updated in place, B's and C's new tails
+    copied back).  Returns (y (b, 1, d_model), state)."""
     d_inner, H, P, N = _dims(cfg)
     b = x.shape[0]
-    z, xb, B, C, dt, tails = _inputs(p, cfg, x,
-                                     {k: state[k] for k in _CONV})
+    z = x @ p["w_z"]
     A = -torch.exp(p["A_log"].float())
-    y = ssm_step(state["ssm"], xb[:, 0].view(b, H, P), B[:, 0], C[:, 0],
-                 dt[:, 0].contiguous(), A, p["D"])
-    for k in _CONV:
-        state[k].copy_(tails[k])
+    y, tail_B, tail_C = ssm_step(
+        state["ssm"], (x @ p["w_x"])[:, 0].view(b, H, P),
+        (x @ p["w_B"])[:, 0], (x @ p["w_C"])[:, 0], *(p[k] for k in _CONV),
+        *(state[k] for k in _CONV), _dt(p, x)[:, 0].contiguous(), A, p["D"])
+    state["conv_B"].copy_(tail_B)
+    state["conv_C"].copy_(tail_C)
     return _gated_out(p, cfg, y.view(b, 1, d_inner), z), state
 
 

@@ -13,19 +13,32 @@ runs on the CPU, so every kernel wrapper computes its plain version.
   not a multiple, and shorter than it; ``ssd_scan_with_tails`` from a
   nonzero state and tails, updating it in place; ``ssm_decode_step``
   (the plain recurrent step), in place.  The planted faults of the
-  card's check change the results.
+  card's check change the results; its plain TF32 control (TF32 rounding
+  as ``cvt.rna``) errs by TF32's steps.  Both conv wrappers take the
+  same widths.
 * The model: ``forward`` (logits and the state it returns),
   ``append_step`` from a carried state and ``decode_step`` against the
   reference; the bridged state; the slot utilities on the state.
 * The state blob: byte for byte the reference state's leaves end to
   end, and back.  The port's launcher serves mamba2.
+* The card's decompositions, plain: the SSD scan split into its four
+  steps (C·Bᵀ per chunk, chunk states, state passing, chunk outputs)
+  against the chunk loop (one chunk, two, a short last chunk, s under
+  the chunk, two sequences from carried states, the final state written
+  over h0) and, inside the layer, against the reference's ``ssd_scan``
+  and ``ssd_scan_with_tails``; the decode step's wrapper (the token's
+  conv, then the recurrence) against ``ssm_decode_step`` with one slot
+  all zeros.  The wrappers refuse wrong shapes, mixed dtypes and
+  tensors that are neither on the CPU nor on a card.
 
 Tolerances: the kernels' plain versions 1e-5 in f32 and 2e-2 in bf16
 elementwise, relative to the largest output (the chunk sums are f32 in
-both, in other orders); logits test_torch_model.py's (2e-5 of the
+both, in other orders); the four-step split against the chunk loop 2e-5
+in f32 (the card's check); logits test_torch_model.py's (2e-5 of the
 largest logit in f32, 2e-2 in bf16).
 """
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -199,6 +212,47 @@ def test_planted_faults_change_the_results():
     assert (y - y_bad).abs().max() > 1e-2
 
 
+def test_tf32_rounding_keeps_ten_mantissa_bits():
+    """``ref._tf32`` rounds as ``cvt.rna.tf32.f32``: to the nearest value
+    with 10 mantissa bits, ties away from zero; bf16 values (7 bits) and
+    zero stay as they are."""
+    one = 1.0
+    got = ref._tf32(torch.tensor(
+        [one + 2 ** -11, -(one + 2 ** -11), one + 2 ** -12,
+         one + 3 * 2 ** -12, 0.0, -2.5], dtype=torch.float32))
+    want = [one + 2 ** -10, -(one + 2 ** -10), one, one + 2 ** -10, 0.0,
+            -2.5]
+    assert got.tolist() == want
+    bf = torch.randn(1000, generator=torch.Generator().manual_seed(0)) \
+        .bfloat16().float()
+    assert torch.equal(ref._tf32(bf), bf)
+    r = ref._tf32(torch.randn(1000, generator=torch.Generator().manual_seed(1)))
+    assert not (r.view(torch.int32) & 0x1FFF).any()
+
+
+@pytest.mark.parametrize("h0", [False, True])
+def test_plain_tf32_control_moves_the_scan_by_tf32_steps(h0):
+    """The plain TF32 control the card's check must see fail (the split
+    products' low parts dropped) is not a no-op, and it stays an error of
+    TF32's size: above 1e-5 of the output's scale, under 1e-2 of it."""
+    rng = np.random.default_rng(13)
+    args = _scan_inputs(rng, 1, 70, 4, 8, 16, "bfloat16", h0)
+    want, _ = ref.ssd_chunk_scan_ref(*args, 32)
+    got, _ = ref._ssd_scan(*args, 32, tf32=True)
+    scale = float(want.abs().max())
+    err = float((got - want).abs().max())
+    assert 1e-5 * scale < err < 1e-2 * scale, (err, scale)
+
+
+def test_conv_wrappers_take_the_same_widths():
+    """The prefill conv and the decode step (which folds the token's conv
+    in) refuse the same conv widths: a model's prefill and decode run or
+    refuse together."""
+    import importlib
+    mod = lambda name: importlib.import_module(f"repro_torch.kernels.{name}")
+    assert mod("ssm_step").MAX_CW == mod("causal_conv").MAX_CW == 4
+
+
 # ---------------------------------------------------------------------------
 # the model
 # ---------------------------------------------------------------------------
@@ -301,7 +355,9 @@ def test_launcher_serves_mamba2(capsys):
 def test_wrappers_refuse_bad_shapes():
     """The kernel wrappers check shapes before anything else, on any
     device: a wrong shape raises, it never reaches a kernel or the plain
-    version."""
+    version.  The decode step also refuses a wrong tail, mixed dtypes,
+    and tensors off the CPU that are not on a card: there is no fallback
+    to the plain version."""
     from repro_torch.kernels import causal_conv, ssd_chunk_scan, ssm_step
     z = torch.zeros
     with pytest.raises(ValueError, match="causal_conv"):
@@ -312,6 +368,159 @@ def test_wrappers_refuse_bad_shapes():
     with pytest.raises(ValueError, match="ssd_chunk_scan"):
         ssd_chunk_scan(z(1, 5, 2, 4), z(1, 5, 8), z(1, 5, 8), z(1, 5, 2),
                        z(2), z(2), z(1, 2, 4, 9), 4)
-    with pytest.raises(ValueError, match="ssm_step"):
-        ssm_step(z(2, 2, 4, 8), z(2, 2, 5), z(2, 8), z(2, 8), z(2, 2),
-                 z(2), z(2))
+
+    def step(dev="cpu", x_shape=(2, 2, 4), tail_B=(2, 3, 8),
+             tail_dtype=torch.float32):
+        zz = lambda *sh, dtype=torch.float32: torch.zeros(sh, dtype=dtype,
+                                                          device=dev)
+        return ssm_step(zz(2, 2, 4, 8), zz(*x_shape), zz(2, 8), zz(2, 8),
+                        zz(4, 8), zz(4, 8), zz(4, 8), zz(2, 3, 8),
+                        zz(*tail_B, dtype=tail_dtype), zz(2, 3, 8),
+                        zz(2, 2), zz(2), zz(2))
+
+    step()                                      # the shapes that fit
+    with pytest.raises(ValueError, match="ssm_step: shapes"):
+        step(x_shape=(2, 2, 5))
+    with pytest.raises(ValueError, match="ssm_step: shapes"):
+        step(tail_B=(2, 2, 8))                  # a tail one row short
+    with pytest.raises(ValueError, match="ssm_step: dtypes"):
+        step(tail_dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="CUDA device"):
+        step(dev="meta")                        # not the CPU, no card
+    for fn, args in ((causal_conv, (z(1, 5, 8), z(4, 8), z(1, 3, 8))),
+                     (ssd_chunk_scan, (z(1, 5, 2, 4), z(1, 5, 8),
+                                       z(1, 5, 8), z(1, 5, 2), z(2), z(2),
+                                       None, 4))):
+        with pytest.raises(ValueError, match="CUDA device"):
+            fn(*(a.to("meta") if isinstance(a, torch.Tensor) else a
+                 for a in args))
+
+
+# ---------------------------------------------------------------------------
+# the card's decompositions, plain: the chunk-parallel SSD scan and the
+# fused decode step
+# ---------------------------------------------------------------------------
+
+
+def _scan_inputs(rng, b, s, H, P, N, dt, h0):
+    """Random scan inputs at test widths, dt after softplus, A in [-16,
+    -1]: the shapes ``ssd_chunk_scan`` takes, on the CPU."""
+    f = lambda *sh: torch.from_numpy(
+        rng.standard_normal(sh).astype(np.float32))
+    x, B, C = (f(b, s, H, P).to(getattr(torch, dt)),
+               f(b, s, N).to(getattr(torch, dt)),
+               f(b, s, N).to(getattr(torch, dt)))
+    dtv = torch.nn.functional.softplus(f(b, s, H) - 2.0)
+    A = -(1.0 + 15.0 * torch.from_numpy(rng.random(H).astype(np.float32)))
+    D = 1.0 + 0.1 * f(H)
+    return x, B, C, dtv, A, D, (f(b, H, P, N) if h0 else None)
+
+
+# (b, s, chunk, carried state): one chunk, two, a short last chunk, s
+# under the chunk, two sequences from carried states
+CHUNK_CASES = [(1, 32, 32, False), (1, 64, 32, False), (1, 70, 32, True),
+               (1, 20, 32, True), (2, 70, 32, True)]
+
+
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,s,chunk,h0", CHUNK_CASES)
+def test_chunk_parallel_plain_matches_chunk_loop(dt, b, s, chunk, h0):
+    """The four-step split (C·Bᵀ per chunk, chunk states, state passing,
+    chunk outputs) against the chunk loop of the plain version: f32 to
+    2e-5, bf16 to the plain versions' tolerance."""
+    rng = np.random.default_rng(s + 7 * b)
+    args = _scan_inputs(rng, b, s, 4, 8, 16, dt, h0)
+    want_y, want_h = ref.ssd_chunk_scan_ref(*args, chunk)
+    y, h = ref.ssd_chunk_parallel_ref(*args, chunk)
+    tol = 2e-5 if dt == "float32" else KTOLS[dt]
+    _close(y, want_y, tol)
+    _close(h, want_h, tol)
+
+
+def test_chunk_parallel_plain_out_state_may_be_h0():
+    """``out_state`` is h0 itself, as the engines pass it: the state
+    entering the first chunk is read before the final one is written."""
+    rng = np.random.default_rng(5)
+    x, B, C, dtv, A, D, h0 = _scan_inputs(rng, 2, 70, 4, 8, 16, "float32",
+                                          True)
+    want_y, want_h = ref.ssd_chunk_scan_ref(x, B, C, dtv, A, D, h0.clone(),
+                                            32)
+    ptr = h0.data_ptr()
+    y, h = ref.ssd_chunk_parallel_ref(x, B, C, dtv, A, D, h0, 32,
+                                      out_state=h0)
+    assert h is h0 and h0.data_ptr() == ptr
+    _close(y, want_y, 2e-5)
+    _close(h0, want_h, 2e-5)
+
+
+@pytest.mark.parametrize("s", [64, 70, 20])     # 2 chunks, 2 + 6, < 1
+def test_chunk_parallel_plain_in_the_layer_matches_reference(models, s,
+                                                             monkeypatch):
+    """The layer's scan through the four-step split in place of the
+    chunk loop, against the reference's ``ssd_scan`` from zeros and
+    ``ssd_scan_with_tails`` from a carried state (there the final state
+    is written over the state it starts from)."""
+    dt, jcfg, tcfg, jp, tp = models
+    jl, tl = _layer(jp, tp)
+
+    def split(x, B, C, dtv, A, D, h0, chunk, out_state=None):
+        return ref.ssd_chunk_parallel_ref(x, B, C, dtv, A, D, h0, chunk,
+                                          out_state)
+
+    monkeypatch.setattr(ssm, "ssd_chunk_scan", split)
+    rng = np.random.default_rng(200 + s)
+    jx, tx = _pair(rng, (2, s, tcfg.d_model), dt)
+    jy, jst = jax_scan(jl, jcfg, jx)
+    y, st = ssm.ssd_scan(tl, tcfg, tx)
+    _close(y, jy, KTOLS[dt])
+    for k in jst:
+        _close(st[k], jst[k], KTOLS[dt])
+    jstate, state = _random_state(rng, tcfg, 2, dt)
+    jy, jnew = jax_scan_tails(jl, jcfg, jx, jstate)
+    y, _ = ssm.ssd_scan_with_tails(tl, tcfg, tx, state)
+    _close(y, jy, KTOLS[dt])
+    for k in jnew:
+        _close(state[k], jnew[k], KTOLS[dt])
+
+
+@pytest.mark.parametrize("f32_conv", [False, True])
+def test_fused_decode_plain_matches_reference(models, f32_conv,
+                                              monkeypatch):
+    """The decode step's wrapper on the CPU (the token's conv, then the
+    recurrence) over 4 slots, slot 2's state and tails all zeros, against
+    the reference's ``ssm_decode_step``: the state and tails it leaves and
+    the layer's output.  x's tail is updated in place; B's and C's new
+    tails are new tensors, the old ones untouched.  ``f32_conv`` sums the
+    conv as the card's kernel does (f32, one rounding), which the card's
+    check compares the kernel with: it too stays within the plain
+    versions' tolerance of the reference."""
+    from repro_torch.kernels import ssm_step
+    if f32_conv:
+        monkeypatch.setattr(ref, "ssm_conv_step_ref", functools.partial(
+            ref.ssm_conv_step_ref, f32_conv=True))
+    dt, jcfg, tcfg, jp, tp = models
+    jl, tl = _layer(jp, tp)
+    d_inner, H, P, N = ssm._dims(tcfg)
+    rng = np.random.default_rng(17)
+    jstate, state = _random_state(rng, tcfg, 4, dt)
+    for k in state:
+        state[k][2] = 0
+        jstate[k] = jstate[k].at[2].set(0)
+    jx, tx = _pair(rng, (4, 1, tcfg.d_model), dt)
+    jy, jnew = jax_step(jl, jcfg, jx, jstate)
+    old_B, old_C = state["conv_B"].clone(), state["conv_C"].clone()
+    ptr_x = state["conv_x"].data_ptr()
+    x = tx[:, 0]
+    y, tail_B, tail_C = ssm_step(
+        state["ssm"], (x @ tl["w_x"]).view(4, H, P), x @ tl["w_B"],
+        x @ tl["w_C"], tl["conv_x"], tl["conv_B"], tl["conv_C"],
+        state["conv_x"], state["conv_B"], state["conv_C"],
+        ssm._dt(tl, x), -torch.exp(tl["A_log"].float()), tl["D"])
+    assert state["conv_x"].data_ptr() == ptr_x
+    assert torch.equal(state["conv_B"], old_B)
+    assert torch.equal(state["conv_C"], old_C)
+    for got, k in ((state["ssm"], "ssm"), (state["conv_x"], "conv_x"),
+                   (tail_B, "conv_B"), (tail_C, "conv_C")):
+        _close(got, jnew[k], KTOLS[dt])
+    out = ssm._gated_out(tl, tcfg, y.view(4, 1, d_inner), tx @ tl["w_z"])
+    _close(out, jy, KTOLS[dt])
