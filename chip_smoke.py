@@ -1,6 +1,6 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA H100.
 
-    python3 chip_smoke.py                  # the smoke, phases 1-15
+    python3 chip_smoke.py                  # the smoke, phases 1-16
     python3 chip_smoke.py --persist-ab 10  # offline serving, old persist
                                            # against the scatter's
     python3 chip_smoke.py --split-sweep    # the attention kernels' split
@@ -54,7 +54,14 @@ Drives ``repro_torch`` (never the JAX package) on the card:
    1 over 8 slots, 2 tokens, f32; against F.conv1d too); flash and paged
    at nemotron-4-15b's group of 6 (dh 128) and minicpm-2b's 36 heads of
    64 in bf16 and f32, and the grouped GEMM at granite-moe-3b-a800m's 40
-   experts, top-8, in both regimes (a moved group boundary must fail);
+   experts, top-8, in both regimes (a moved group boundary must fail); at
+   zamba2-2.7b's shapes flash at head dim 80 (the zamba2 phase's appends
+   of 4000, 301 and 501 rows over its 5120-token cache, 272 rows over
+   4600 keys; bf16 and f32; q's columns shifted must fail), paged at
+   head dim 80 (8 slots at 4000-4848 keys, the edges of a page and of
+   the cache; bf16 and f32), the SSD scan at N 64 over 80 heads (the
+   phase's appends, f32; plain TF32 must fail), the decode step at 80
+   heads and N 64 and the conv over 5248 channels;
 4. serves 6 agents x 3 rounds of full-width qwen1.5-0.5b (bf16, random
    weights from a seed) offline through the port's ServingSystem,
    asserting that every round finished, both read sides were used and
@@ -143,14 +150,29 @@ Drives ``repro_torch`` (never the JAX package) on the card:
    kernel), and the blocking arm gave identical tokens; a
    third run under torch.profiler, one blob's D2H and H2D alone, then
    f32 token identity at depth 4 with the cache-free reference,
-   unchunked and in 1024-token slices (see :func:`mamba2_phase`);
+   unchunked and in 1024-token slices (see :func:`blob_phase`);
 14. granite-moe-3b-a800m, minicpm-2b and nemotron-4-15b at full width
    and depth, one after another (each model's weights freed before the
    next): 2 agents x (2048, 16), (256, 16) offline on 1 PE + 1 DE,
    asserting that every round finished, gather, scatter, flash, paged
    (and granite's grouped GEMM) launched as predicted, and the blocking
    arm gave identical tokens (see :func:`registrations_phase`);
-15. prints the ``kernels`` JSON line, then the contract line
+15. zamba2-2.7b (hybrid: 54 Mamba2 layers and one shared attention block
+   of 32 x 80 heads after every 6th, 9 applications, each with its own
+   K/V; the state-blob path) at full width and depth (bf16, random
+   weights from a seed): 4 agents x 3 rounds (4000, 300 and 500 tokens,
+   16 generated each; contexts to 4848 of a 5120-token cache) offline on
+   1 PE + 1 DE, asserting that every round finished, rounds 2 and 3 read
+   their session's blob (8 reads of 544,338,432 bytes: the Mamba2 states
+   and the shared K/V at the cache length, from the config; none split),
+   the launches equal their prediction (the SSM kernels per layer, flash
+   and paged per shared application; nothing else) at the appends phase
+   3 held flash at, and the blocking arm gave identical tokens; a third
+   run under torch.profiler, one blob's D2H and H2D alone, then f32 token
+   identity at depth 12 (two shared applications) with the cache-free
+   reference, unchunked and in 1024-token slices (see
+   :func:`blob_phase`);
+16. prints the ``kernels`` JSON line, then the contract line
    ``{"ok": true, "device": {...}}`` last.
 
 Any failed check raises, so the script exits non-zero and prints no
@@ -260,6 +282,23 @@ MAMBA2_MAX_SEQ = 6144
 # its f32 identity at full width and depth 4, unchunked and in 1024-token
 # prefill slices
 MAMBA2_IDENTITY = dict(depth=4, rounds=((2112, 4), (64, 4), (64, 4)),
+                       max_seq=2368, chunk=1024)
+# the zamba2 phase: full-width, full-depth zamba2-2.7b (54 Mamba2 layers,
+# the shared attention block after every 6th), mamba2's rounds and agents
+# so the two SSM phases compare, a 5120-token cache.  Rounds 2-3 continue
+# from the previous round's blob (the Mamba2 states and the shared
+# block's K/V at max_seq), appending 301 and 501 tokens; contexts reach
+# 4848
+ZAMBA2_MAX_SEQ = 5120
+# the phase's appends as (rows, kv_len) of each ``append_step``, and so of
+# each flash call: round 1's 4000-token prefills, then rounds 2-3 (the
+# blob holds 4015 and 4331 tokens: the last generated token is appended
+# with the new ones).  Phase 3 holds flash at each; the phase asserts
+# they are the appends it ran
+ZAMBA2_APPENDS = ((4000, 4000), (301, 4316), (501, 4832))
+# its f32 identity at full width and depth 12 (two shared applications),
+# unchunked and in 1024-token prefill slices
+ZAMBA2_IDENTITY = dict(depth=12, rounds=((2112, 4), (64, 4), (64, 4)),
                        max_seq=2368, chunk=1024)
 # the registrations phase: granite-moe-3b-a800m, minicpm-2b and
 # nemotron-4-15b at full width and depth, one after another, 2 agents x
@@ -659,6 +698,16 @@ def _deterministic(call):
     return a
 
 
+def normal(rng, shape, dtype) -> torch.Tensor:
+    """N(0, 1) draws of ``shape`` on the card in ``dtype``: from a numpy
+    Generator on the host, or from a CUDA ``torch.Generator`` on the card
+    (for large tensors: no host draw, no copy)."""
+    if isinstance(rng, torch.Generator):
+        return torch.randn(shape, generator=rng, device="cuda").to(dtype)
+    return torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32)).to("cuda", dtype)
+
+
 def _planted(name, want, tol, faults: dict) -> dict:
     """Each fault, emulated in the plain version, must fail the check
     the kernel passes: the case's inputs let the tolerance see a fault
@@ -686,8 +735,7 @@ def _flash_case(rng, *, hq, hkv, dh, sq, kv_lens, S, dtype, causal=True,
     (:func:`_planted`), and with ``dv`` < ``dh`` V's last 64 columns
     dropped must too."""
     from repro_torch.kernels import flash_attention, ref
-    f = lambda *s: torch.from_numpy(
-        rng.standard_normal(s).astype(np.float32)).to("cuda", dtype)
+    f = lambda *s: normal(rng, s, dtype)
     b, dv = len(kv_lens), dv or dh
     q = (f(b, sq, hq, dh) * q_std).transpose(1, 2)
     k = f(b, S, hkv, dh).transpose(1, 2)
@@ -788,8 +836,7 @@ def _paged_case(rng, *, hq, hkv, dh, S, lengths, dtype, pt=64,
     there is a window); the other planted fault is each lane reading the
     next lane's 16 bytes of q."""
     from repro_torch.kernels import paged_attention, ref
-    f = lambda *s: torch.from_numpy(
-        rng.standard_normal(s).astype(np.float32)).to("cuda", dtype)
+    f = lambda *s: normal(rng, s, dtype)
     b, g = len(lengths), hq // hkv
     q = f(b, hkv, g, dh) * q_std
     kc, vc = f(b, S, hkv, dh), f(b, S, hkv, dh)
@@ -1507,6 +1554,73 @@ def granite_gemm_cases():
             case(272, dtype=torch.float32, label="granite 272, f32")]
 
 
+# ---------------------------------------------------------------------------
+# phase 3 at zamba2-2.7b's shapes: flash and paged at head dim 80 (MHA 32
+# x 80), the SSD scan at N 64 over 80 heads, the step and the conv
+# ---------------------------------------------------------------------------
+
+
+def zamba2_attention_cases(cfg, rng):
+    """Flash and paged at zamba2's shared block (32 heads of 80, g 1) and
+    its 5120-token cache.  Flash at the zamba2 phase's appends
+    (``ZAMBA2_APPENDS``: round 1's 4000-row prefill, rounds 2-3's 301 and
+    501 rows), a 272-row append over 4600 keys, and the prefill and the
+    272-row append in f32; paged over 8 slots at the phase's decode
+    contexts (4000-4848), at the edges of a page and of the cache, bf16
+    and f32.  The main bf16 cases check that planted faults (q's columns
+    shifted by a k-step or a lane) fail the tolerance.  The lengths come
+    from ``rng``; q, K and V (up to 8 x 5120 x 32 x 80 values each) are
+    drawn on the card."""
+    heads = dict(hq=cfg.n_heads, hkv=cfg.n_kv_heads, dh=cfg.head_dim)
+    gen = torch.Generator(device="cuda").manual_seed(80)
+    fcase = lambda sq, kv, **kw: _flash_case(gen, **{**heads, **dict(
+        sq=sq, kv_lens=[kv], S=ZAMBA2_MAX_SEQ, dtype=torch.bfloat16,
+        q_std=Q_STD), **kw})
+    flash = [fcase(*ZAMBA2_APPENDS[0], planted=True, parts=True),
+             *(fcase(*a) for a in ZAMBA2_APPENDS[1:]),
+             fcase(272, 4600, planted=True),
+             fcase(*ZAMBA2_APPENDS[0], dtype=torch.float32),
+             fcase(272, 4600, dtype=torch.float32)]
+    lengths = [int(x) for x in rng.integers(4000, 4849, 8)]
+    edges = [1, 63, 64, 65, 4095, 4097, 5119, 5120]
+    pcase = lambda **kw: _paged_case(gen, **{**heads, **dict(
+        S=ZAMBA2_MAX_SEQ, lengths=lengths, dtype=torch.bfloat16,
+        q_std=Q_STD), **kw})
+    paged = [pcase(planted=True, parts=True), pcase(lengths=edges),
+             pcase(dtype=torch.float32),
+             pcase(lengths=edges, dtype=torch.float32)]
+    return flash, paged
+
+
+def zamba2_ssm_cases(cfg, names=None):
+    """The SSD scan at zamba2's widths (80 heads of 64, N 64, chunks of
+    256): the zamba2 phase's appends (4000 rows from zeros, 301 and 501
+    from a carried state; bf16 held to SSD_BF16_TOL, the planted faults,
+    plain TF32 among them, failing it) and f32; the decode step over 8
+    slots (one slot zero, planted faults) and f32; the prefill conv over
+    5248 channels (x, B and C concatenated): the appends and f32.  With
+    ``names``, only those kernels' cases."""
+    gen = torch.Generator(device="cuda").manual_seed(24)
+    scan = lambda **kw: _ssd_case(gen, cfg, **{**dict(b=1, s=4000), **kw})
+    step = lambda **kw: _ssm_step_case(gen, cfg, **{**dict(b=8), **kw})
+    c = cfg.ssm.expand * cfg.d_model + 2 * cfg.ssm.d_state
+    conv = lambda **kw: _conv_case(gen, **{**dict(
+        b=1, s=4000, c=c, cw=cfg.ssm.conv_width), **kw})
+    cases = dict(
+        ssd_chunk_scan=lambda: [
+            scan(planted=True, label="zamba2 round-1 append", parts=True),
+            scan(s=301, h0=True, planted=True, label="zamba2 round-2 append"),
+            scan(s=501, h0=True, planted=True, label="zamba2 round-3 append"),
+            scan(s=1000, h0=True, dtype=torch.float32, label="zamba2 f32")],
+        ssm_step=lambda: [step(planted=True), step(zero_slot=3, planted=True),
+                          step(dtype=torch.float32)],
+        causal_conv=lambda: [conv(label="zamba2 round-1 append"),
+                             conv(s=301, label="zamba2 append"),
+                             conv(s=301, dtype=torch.float32)])
+    return {k: make() for k, make in cases.items()
+            if names is None or k in names}
+
+
 # the wrappers and their sources (None: Triton, compiled at first launch)
 KERNEL_SOURCES = {"kv_layer_gather": "kv_gather",
                   "kv_layer_scatter": "kv_scatter",
@@ -1521,7 +1635,9 @@ def kernel_cases(names=None) -> dict:
     """Phase 3's cases, by kernel, in the smoke's order (``[0]`` is each
     kernel's main case): qwen1.5-0.5b's shapes, then gemma2-2b's (head
     dim 256, window 4096, softcap 50), then ds27b's (MLA's flash widths,
-    its 1152-byte rows, and the two kernels only its path runs).  With
+    its 1152-byte rows, and the two kernels only its path runs), then
+    mamba2-1.3b's SSM kernels, the registrations' heads and experts, and
+    zamba2-2.7b's (head dim 80, N 64).  With
     ``names``, only those kernels' cases (the random draws then differ
     from a whole run's)."""
     from repro_torch.configs import get_config
@@ -1572,6 +1688,19 @@ def kernel_cases(names=None) -> dict:
                 cases[name] += more
     if want("grouped_gemm"):
         cases["grouped_gemm"] += granite_gemm_cases()
+    cfg_z2 = get_config("zamba2-2.7b")
+    if want("flash_attention", "paged_attention"):
+        flash_z, paged_z = zamba2_attention_cases(cfg_z2, rng)
+        for name, more in (("flash_attention", flash_z),
+                           ("paged_attention", paged_z)):
+            if name in cases:
+                cases[name] += more
+    if want("ssd_chunk_scan", "ssm_step", "causal_conv"):
+        t0 = time.perf_counter()
+        for name, more in zamba2_ssm_cases(cfg_z2, names).items():
+            cases[name] += more
+        print(f"phase 3, zamba2's SSM cases: "
+              f"{time.perf_counter() - t0:.1f} s")
     return cases
 
 
@@ -2740,12 +2869,18 @@ def predicted_launches(cfg, items: int, installs: int, persists: int,
     every decode step, the causal conv once per layer of every
     ``append_step`` only (a decode token's conv runs inside the recurrent
     step's launch), nothing else (a blob install and persist are one copy
-    each, no kernel)."""
+    each, no kernel).  Hybrid models: the SSM kernels per Mamba2 layer as
+    an SSM model's, and flash once per shared-block application of every
+    ``append_step``, paged once per application of every decode step."""
     n_l, n_moe = cfg.n_layers, sum(cfg.moe_layer_mask())
     out = {k: 0 for k in KERNEL_SOURCES}
-    if cfg.family == "ssm":
+    if cfg.family in ("ssm", "hybrid"):
         out.update(ssd_chunk_scan=n_l * items, ssm_step=n_l * decode_steps,
                    causal_conv=n_l * items)
+        if cfg.family == "hybrid":
+            n_apps = n_l // cfg.hybrid_period
+            out.update(flash_attention=n_apps * items,
+                       paged_attention=n_apps * decode_steps)
         return out
     mla = cfg.attn_variant == "mla"
     out.update(kv_layer_gather=n_l * installs, kv_layer_scatter=persists,
@@ -2839,7 +2974,8 @@ def ds27b_phase(cfg, device="cuda", rounds=DS27B_ROUNDS,
                 identity_chunks=chunks, identity_depth=depth)
 
 # ---------------------------------------------------------------------------
-# phase 13: mamba2-1.3b (SSM: the state-blob path)
+# phases 13 and 15: mamba2-1.3b (SSM) and zamba2-2.7b (hybrid), the
+# state-blob path
 # ---------------------------------------------------------------------------
 
 
@@ -2877,13 +3013,14 @@ def blob_copy_ms(cfg, state, device, reps: int = 5) -> dict:
     from repro_torch.engines import kvio
     axes = kvio.batch_axes_of_state(cfg)
     one = kvio.slot_get(state, axes, 0)
+    max_seq = one["shared"]["k"].shape[2] if "shared" in one else 0
     d2h, h2d = [], []
     for _ in range(reps):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         blob = kvio.state_to_blob(one)
         t1 = time.perf_counter()
-        kvio.blob_to_state(cfg, blob, device)
+        kvio.blob_to_state(cfg, blob, device, max_seq)
         torch.cuda.synchronize()
         t2 = time.perf_counter()
         d2h.append((t1 - t0) * 1e3)
@@ -2895,20 +3032,40 @@ def blob_copy_ms(cfg, state, device, reps: int = 5) -> dict:
                 h2d_gb_s=n / np.median(h2d) / 1e6)
 
 
-def mamba2_phase(cfg, device="cuda", rounds=MAMBA2_ROUNDS,
-                 n_agents=MAMBA2_AGENTS, max_seq=MAMBA2_MAX_SEQ,
-                 identity=MAMBA2_IDENTITY, profile=True) -> dict:
-    """mamba2-1.3b served offline on 1 PE + 1 DE (dualpath, 8 DE slots):
-    every round finishes; rounds 2 and 3 continue from their session's
-    state blob (the blob store read once per such round, the raw state's
-    bytes each time, never split across the read sides); the launches
-    equal those predicted (:func:`predicted_launches`: the SSD scan, the
-    recurrent step and the causal conv, nothing else); the blocking arm
-    gives the same tokens; a third run under torch.profiler
-    (``profile``), and the blob's D2H and H2D alone; then f32 token
-    identity at full width and ``identity["depth"]`` layers with the
-    cache-free reference, unchunked and in prefill slices
-    (:func:`identity_phase`)."""
+def blob_bytes(cfg, max_seq: int) -> int:
+    """One session's state blob from the config: per Mamba2 layer the f32
+    SSD state (H x P x N) and the conv tails of x, B and C (cw - 1 rows
+    of d_inner + 2 N) in the activation dtype, then for a hybrid the
+    shared block's K and V for each application at ``max_seq`` tokens in
+    the cache dtype."""
+    s = cfg.ssm
+    d_inner, n = s.expand * cfg.d_model, s.n_groups * s.d_state
+    act = torch.finfo(getattr(torch, cfg.param_dtype)).bits // 8
+    mamba = cfg.n_layers * (d_inner * n * 4 +
+                            (s.conv_width - 1) * (d_inner + 2 * n) * act)
+    if cfg.family != "hybrid":
+        return mamba
+    kv = torch.finfo(getattr(torch, cfg.kv_cache_dtype)).bits // 8
+    return mamba + 2 * (cfg.n_layers // cfg.hybrid_period) * max_seq * \
+        cfg.n_kv_heads * cfg.head_dim * kv
+
+
+def blob_phase(cfg, device="cuda", rounds=MAMBA2_ROUNDS,
+               n_agents=MAMBA2_AGENTS, max_seq=MAMBA2_MAX_SEQ,
+               identity=MAMBA2_IDENTITY, profile=True) -> dict:
+    """An SSM or hybrid model (mamba2-1.3b, zamba2-2.7b) served offline on
+    1 PE + 1 DE (dualpath, 8 DE slots): every round finishes; rounds 2
+    and 3 continue from their session's state blob (the blob store read
+    once per such round, never split across the read sides), each blob
+    the size its config gives (:func:`blob_bytes`: a hybrid's carries its
+    shared block's K/V at ``max_seq``); the launches equal those
+    predicted (:func:`predicted_launches`: the SSD scan, the recurrent
+    step and the causal conv per Mamba2 layer, a hybrid's flash and paged
+    per shared-block application, nothing else); the blocking arm gives
+    the same tokens; a third run under torch.profiler (``profile``), and
+    the blob's D2H and H2D alone; then f32 token identity at full width
+    and ``identity["depth"]`` layers with the cache-free reference,
+    unchunked and in prefill slices (:func:`identity_phase`)."""
     from repro_torch import kernels
     from repro_torch.models import init_params
     from repro_torch.sim.traces import Round, Trajectory
@@ -2928,9 +3085,11 @@ def mamba2_phase(cfg, device="cuda", rounds=MAMBA2_ROUNDS,
     peak = torch.cuda.max_memory_allocated() - base if cuda else None
     st = system.stats()
     assert all(s.rounds_done == len(rounds) for s in sessions), \
-        "a mamba2 round did not finish"
+        f"a {cfg.name} round did not finish"
     blobs = system.blob_store
-    raw = len(next(iter(blobs._blobs.values()))[0])
+    raw = blob_bytes(cfg, max_seq)
+    sizes = {len(b) for b, _ in blobs._blobs.values()}
+    assert sizes == {raw}, f"{cfg.name} blobs of {sizes} bytes, want {raw}"
     n_reads = n_agents * (len(rounds) - 1)
     assert blobs.bytes_read == n_reads * raw, \
         f"blob reads {blobs.bytes_read} bytes, want {n_reads} x {raw}"
@@ -2945,7 +3104,7 @@ def mamba2_phase(cfg, device="cuda", rounds=MAMBA2_ROUNDS,
                                    path.persists, st["decode_steps"])
     if cuda:
         assert launches == predicted, \
-            f"mamba2 launches {launches}, predicted {predicted}"
+            f"{cfg.name} launches {launches}, predicted {predicted}"
     contexts = [len(s.context) for s in sessions]
     copies = blob_copy_ms(cfg, system.des[(1, 0)].state, device) \
         if cuda else None
@@ -2953,7 +3112,7 @@ def mamba2_phase(cfg, device="cuda", rounds=MAMBA2_ROUNDS,
     system, sessions_b, wall_b = serve(cfg, params, trajs(), device,
                                        pipelined=False, **kw)
     assert [s.context for s in sessions] == \
-        [s.context for s in sessions_b], "mamba2 blocking arm diverged"
+        [s.context for s in sessions_b], f"{cfg.name} blocking arm diverged"
     del system
     prof = profile_phase(cfg, rounds, n_agents, max_seq=max_seq,
                          params=params) if profile else None
@@ -2975,6 +3134,30 @@ def mamba2_phase(cfg, device="cuda", rounds=MAMBA2_ROUNDS,
                 peak_allocated=peak, blob_copies=copies, profile=prof,
                 identity_tokens=n, identity_chunks=chunks,
                 identity_depth=depth)
+
+
+def print_blob_phase(r: dict, label: str) -> None:
+    """:func:`blob_phase`'s result, as phases 13 and 15 print it."""
+    st = r["stats"]
+    print(f"{label} stats:", json.dumps(st))
+    print(f"{label}: {r['wall_s']:.3f} s real wall (pipelined), "
+          f"{r['blocking_wall_s']:.3f} s (blocking), "
+          f"{r['tokens_per_s']:.1f} generated tokens/s, launches "
+          f"{r['launches']} (predicted {r['predicted']} from "
+          f"{r['items']} batch items (rows, end) {r['appends']} and "
+          f"{st['decode_steps']} decode steps); state blob "
+          f"{r['blob_bytes']} bytes, read {r['blob_reads']} times "
+          f"(never split: pe side {st['read_bytes_pe_side']}, de side "
+          f"{st['read_bytes_de_side']} bytes), written "
+          f"{r['blob_writes']} times; one blob alone: "
+          f"{json.dumps(r['blob_copies'])}; contexts "
+          f"{r['context_lens']}; peak memory_allocated of the run "
+          f"(weights included) {r['peak_allocated']} bytes")
+    print(f"{label} f32 identity at depth {r['identity_depth']}: "
+          f"{r['identity_tokens']} context tokens equal the cache-free "
+          f"reference, unchunked and in {r['identity_chunks']} + 1 "
+          f"prefill slices")
+    print_profile(*r["profile"], label=f"{label}: ")
 
 
 # ---------------------------------------------------------------------------
@@ -3503,28 +3686,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    m2 = mamba2_phase(get_config("mamba2-1.3b"))
+    m2 = blob_phase(get_config("mamba2-1.3b"))
     m2_s = time.perf_counter() - t0
-    st_m = m2["stats"]
-    print("mamba2 stats:", json.dumps(st_m))
-    print(f"mamba2: {m2['wall_s']:.3f} s real wall (pipelined), "
-          f"{m2['blocking_wall_s']:.3f} s (blocking), "
-          f"{m2['tokens_per_s']:.1f} generated tokens/s, launches "
-          f"{m2['launches']} (predicted {m2['predicted']} from "
-          f"{m2['items']} batch items (rows, end) {m2['appends']} and "
-          f"{st_m['decode_steps']} decode steps); state blob "
-          f"{m2['blob_bytes']} bytes, read {m2['blob_reads']} times "
-          f"(never split: pe side {st_m['read_bytes_pe_side']}, de side "
-          f"{st_m['read_bytes_de_side']} bytes), written "
-          f"{m2['blob_writes']} times; one blob alone: "
-          f"{json.dumps(m2['blob_copies'])}; contexts "
-          f"{m2['context_lens']}; peak memory_allocated of the run "
-          f"(weights included) {m2['peak_allocated']} bytes")
-    print(f"mamba2 f32 identity at depth {m2['identity_depth']}: "
-          f"{m2['identity_tokens']} context tokens equal the cache-free "
-          f"reference, unchunked and in {m2['identity_chunks']} + 1 "
-          f"prefill slices")
-    print_profile(*m2["profile"], label="mamba2: ")
+    print_blob_phase(m2, "mamba2")
     print(f"mamba2 phase: {m2_s:.1f} s")
     lap("13")
 
@@ -3545,7 +3709,22 @@ def main() -> int:
     print(f"registrations phase: {time.perf_counter() - t0:.1f} s")
     lap("14")
 
-    # 15. kernels line, then the contract line
+    # 15. zamba2-2.7b: the hybrid's blob path (Mamba2 states and the
+    # shared block's K/V), flash and paged at head dim 80, the scan at N 64
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    z2 = blob_phase(get_config("zamba2-2.7b"), max_seq=ZAMBA2_MAX_SEQ,
+                    identity=ZAMBA2_IDENTITY)
+    z2_s = time.perf_counter() - t0
+    assert set(z2["appends"]) == set(ZAMBA2_APPENDS), \
+        f"zamba2 appends {z2['appends']}, phase 3 held flash at " \
+        f"{ZAMBA2_APPENDS}"
+    print_blob_phase(z2, "zamba2")
+    print(f"zamba2 phase: {z2_s:.1f} s")
+    lap("15")
+
+    # 16. kernels line, then the contract line
     meta = {
         "kv_layer_gather": ("src/repro_torch/kernels/csrc/kv_gather.cu",
                             "src/repro/kernels/kv_gather.py:30"),
@@ -3599,7 +3778,8 @@ def main() -> int:
                                   sim=sim["launches"][name],
                                   mamba2=m2["launches"][name],
                                   **{short[a]: r["launches"][name]
-                                     for a, r in reg.items()}),
+                                     for a, r in reg.items()},
+                                  zamba2=z2["launches"][name]),
             max_abs_err=max(c["max_abs_err"] for c in cs),
             ms=main_case["ms"], kernel_ms=main_case["ms"],
             ms_clean_l2=main_case.get("ms_clean_l2"),
@@ -3618,7 +3798,9 @@ def main() -> int:
                                        gemma2=g2["persists"],
                                        ds27b=ds["persists"],
                                        **{short[a]: r["persists"]
-                                          for a, r in reg.items()})
+                                          for a, r in reg.items()},
+                                       mamba2=m2["persists"],
+                                       zamba2=z2["persists"])
     for entry in line[2:4]:
         entry["gemma2_windowed_launches"] = g2["windowed"][entry["name"]]
     print(json.dumps({"kernels": line}))

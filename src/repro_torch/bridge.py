@@ -8,9 +8,10 @@ through their uint16 bits: ``np.asarray(x).view(np.uint16)`` and then
 ``.view(torch.bfloat16)``.  The reference stacks block parameters along
 a leading layer axis (an MoE model in two stacks, ``dense_blocks`` for
 the first ``first_k_dense`` layers and ``super_blocks.moe`` for the
-rest, and its decode state in ``dense`` and ``moe``); the port keeps one
-dict per layer and one state stack over all layers, so the blocks are
-unstacked and the state stacks joined here.  Like every entry point of
+rest, and its decode state in ``dense`` and ``moe``; the hybrid's Mamba2
+blocks and their state as (n_super, period)); the port keeps one dict per
+layer and one state stack over all layers, so the blocks are unstacked
+and the state stacks joined or flattened here.  Like every entry point of
 the port, each converter puts its tensors on the card unless the caller
 names the CPU.
 """
@@ -55,17 +56,27 @@ def _unstack(tree, i: int):
     return tree[i]
 
 
-_STACKS = ("blocks", "dense_blocks", "super_blocks")
+_STACKS = ("blocks", "dense_blocks", "super_blocks", "shared_block")
 
 
 def params_from_jax(np_tree: Dict, cfg: ModelConfig, device="cuda") -> Dict:
     """The reference's ``init_params`` tree (as numpy) -> the port's
     parameters: ``blocks`` (dense family, or the SSM family's Mamba2
     blocks), or ``dense_blocks`` then ``super_blocks["moe"]`` (MoE
-    family, period 1), unstacked into one list in layer order."""
+    family, period 1), or the hybrid's (n_super, period) Mamba2 blocks,
+    unstacked into one list in layer order; the hybrid's
+    ``shared_block`` is converted once."""
     device = resolve(device)
     out = {k: _convert(v, device) for k, v in np_tree.items()
            if k not in _STACKS}
+    if cfg.family == "hybrid":
+        period = cfg.hybrid_period
+        out["shared_block"] = _convert(np_tree["shared_block"], device)
+        out["blocks"] = [
+            _convert(_unstack(_unstack(np_tree["blocks"], li // period),
+                              li % period), device)
+            for li in range(cfg.n_layers)]
+        return out
     if cfg.family == "moe":
         if cfg.moe.period != 1:
             raise NotImplementedError(
@@ -88,8 +99,16 @@ def state_from_jax(np_state: Dict, device="cuda") -> Dict:
     reference's ``dense`` and
     ``moe`` stacks are joined along the layer axis, under ``"mla"`` for
     MLA (leaves ``c`` (L,b,S,r) and ``krope`` (L,b,S,rd)) and ``"kv"``
-    for GQA; the tree's own keys say which."""
+    for GQA; the tree's own keys say which.  Hybrid: the reference's
+    ``mamba`` leaves (n_super, period, b, ...) are flattened to (L, b,
+    ...) in layer order and ``shared`` keeps its (n_apps, b, S, hkv, dh)
+    K/V."""
     device = resolve(device)
+    if "shared" in np_state:
+        return {"mamba": {k: to_torch(np.reshape(
+                    v, (-1,) + np.shape(v)[2:]), device)
+                          for k, v in np_state["mamba"].items()},
+                "shared": _convert(np_state["shared"], device)}
     parts = [np_state[k] for k in ("dense", "moe") if k in np_state]
     if not parts:
         return _convert(np_state, device)

@@ -232,7 +232,7 @@ class ModelConfig:
 # ---------------------------------------------------------------------------
 
 ARCH_IDS = ("qwen1.5-0.5b", "gemma2-2b", "ds27b", "granite-moe-3b-a800m",
-            "minicpm-2b", "nemotron-4-15b", "mamba2-1.3b")
+            "minicpm-2b", "nemotron-4-15b", "mamba2-1.3b", "zamba2-2.7b")
 
 _REGISTRY = {}
 

@@ -70,9 +70,12 @@ def attn_flops_per_layer(cfg: ModelConfig, cached: int, bsz: int) -> float:
 
 
 def attn_flops(cfg: ModelConfig, items: Sequence[Tuple[int, int]]) -> float:
-    """Over the layers: the attention layers, or every layer of an
-    attention-free model."""
+    """Over the layers: the attention layers (with a hybrid's shared
+    block once per application), or every layer of an attention-free
+    model."""
     n_attn = sum(1 for k in cfg.layer_kinds() if k != "ssm")
+    if cfg.hybrid_period:
+        n_attn += cfg.n_layers // cfg.hybrid_period
     if cfg.attn_variant == "none":
         n_attn = cfg.n_layers
     per_layer = sum(attn_flops_per_layer(cfg, c, b) for c, b in items)

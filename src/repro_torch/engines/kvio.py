@@ -19,9 +19,13 @@ The SSM family keeps ``{"mamba": {"ssm": (L, b, H, P, N) f32,
 on axis 1 as everywhere, and its cache is one opaque state blob per
 sequence: :func:`state_to_blob` lays a slot's leaves end to end as raw
 bytes in a fixed order and :func:`blob_to_state` takes them back.  The
-reference pickles a numpy tree; the port moves only the payload (no
-pickle framing, and bf16 leaves need no numpy bf16 type), so its blob
-is that many bytes shorter.
+hybrid's state adds ``{"shared": {"k", "v": (n_apps, b, S, hkv, dh)}}``,
+its shared attention block's K/V per application, and its blob carries
+them after the Mamba2 leaves, padded to the engine's ``max_seq`` as the
+reference's pickle of the whole slot carries them.  The reference
+pickles a numpy tree; the port moves only the payload (no pickle
+framing, and bf16 leaves need no numpy bf16 type), so its blob is that
+many bytes shorter.
 """
 from __future__ import annotations
 
@@ -71,36 +75,49 @@ def slot_set(state, axes, slot: int, sub):
 
 
 # ---------------------------------------------------------------------------
-# the SSM family's state blob
+# the SSM and hybrid families' state blob
 # ---------------------------------------------------------------------------
 
 BLOB_LEAVES = ("ssm", "conv_x", "conv_B", "conv_C")
+SHARED_LEAVES = ("k", "v")
+
+
+def _blob_leaves(state):
+    """(group, leaf) of each leaf a blob holds, in blob order: the Mamba2
+    leaves, then a hybrid's shared K/V."""
+    return [("mamba", k) for k in BLOB_LEAVES] + \
+        [("shared", k) for k in SHARED_LEAVES if "shared" in state]
 
 
 def state_to_blob(state) -> np.ndarray:
-    """A one-sequence SSM state (``{"mamba": ...}`` with batch 1) ->
-    its leaves' bytes end to end in ``BLOB_LEAVES`` order, a 1-D uint8
-    host array: one device-to-host copy."""
-    m = state["mamba"]
-    return torch.cat([m[k].contiguous().view(-1).view(torch.uint8)
-                      for k in BLOB_LEAVES]).cpu().numpy()
+    """A one-sequence SSM or hybrid state (batch 1) -> its leaves' bytes
+    end to end in ``BLOB_LEAVES`` order, then a hybrid's shared ``k``
+    and ``v``, a 1-D uint8 host array: one device-to-host copy."""
+    return torch.cat([state[g][k].contiguous().view(-1).view(torch.uint8)
+                      for g, k in _blob_leaves(state)]).cpu().numpy()
 
 
-def blob_to_state(cfg: ModelConfig, blob: np.ndarray, device="cuda"):
+def blob_to_state(cfg: ModelConfig, blob: np.ndarray, device="cuda",
+                  max_seq: int = 0):
     """The inverse of :func:`state_to_blob`: the blob goes to ``device``
-    in one host-to-device copy and each leaf is a view of it."""
-    like = init_decode_state(cfg, 1, 0, device="meta")["mamba"]
+    in one host-to-device copy and each leaf is a view of it.  A
+    hybrid's shared K/V are ``max_seq`` tokens long, the engine's cache
+    length the blob was taken at."""
+    like = init_decode_state(cfg, 1, max_seq, device="meta")
     buf = torch.from_numpy(np.ascontiguousarray(blob)).to(resolve(device))
-    need = sum(like[k].numel() * like[k].element_size() for k in BLOB_LEAVES)
+    leaves = _blob_leaves(like)
+    need = sum(like[g][k].numel() * like[g][k].element_size()
+               for g, k in leaves)
     if buf.numel() != need:
         raise ValueError(f"{cfg.name}: a state blob of {buf.numel()} bytes, "
-                         f"the state has {need}")
-    out, off = {}, 0
-    for k in BLOB_LEAVES:
-        n = like[k].numel() * like[k].element_size()
-        out[k] = buf[off:off + n].view(like[k].dtype).view(like[k].shape)
+                         f"the state has {need} (max_seq {max_seq})")
+    out, off = {g: {} for g, _ in leaves}, 0
+    for g, k in leaves:
+        t = like[g][k]
+        n = t.numel() * t.element_size()
+        out[g][k] = buf[off:off + n].view(t.dtype).view(t.shape)
         off += n
-    return {"mamba": out}
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -112,12 +129,16 @@ def _kv_rows(cfg: ModelConfig) -> List[Tuple[str, tuple]]:
     """(state_key, stack_index) per attention layer, in layer order.  The
     port keeps one stack over all layers for the dense and the MoE
     family alike (the reference's MoE rows are ``("dense", (i,))`` then
-    ``("moe", (i,))``; ``bridge.state_from_jax`` joins the two)."""
+    ``("moe", (i,))``; ``bridge.state_from_jax`` joins the two); the
+    hybrid's rows are its shared block's applications, ``("shared",
+    (i,))``, as the reference's."""
     require_ported(cfg)
-    return [(_state_key(cfg), (li,)) for li in range(cfg.n_layers)]
+    return [(_state_key(cfg), (li,)) for li in range(n_attn_layers(cfg))]
 
 
 def _state_key(cfg: ModelConfig) -> str:
+    if cfg.family == "hybrid":
+        return "shared"
     return "mla" if cfg.attn_variant == "mla" else "kv"
 
 
@@ -133,6 +154,8 @@ def kv_row_bytes(cfg: ModelConfig, dtype_bytes: int = 2) -> int:
 
 
 def n_attn_layers(cfg: ModelConfig) -> int:
+    if cfg.family == "hybrid":
+        return cfg.n_layers // cfg.hybrid_period
     return cfg.n_layers
 
 

@@ -1,6 +1,6 @@
 """Inference engines: layerwise-prefill PE and slot-batched decode DE
-(port of ``repro.engines.runtime``, dense and MoE families, GQA or MLA
-attention).
+(port of ``repro.engines.runtime``: the dense and MoE families, GQA or
+MLA attention, and the SSM and hybrid families' state blobs).
 
 * ``PrefillEngine`` — hit KV arrives as host FullBlocks and is installed
   layer by layer on the card (``kvio.layer_stream``, the gather kernel);
@@ -16,8 +16,9 @@ attention).
   tier when the system has one (write-through and tier warm-up).
 
 Transfers ride each engine's TrafficManager as
-``TrafficClass.KV_TRANSFER``.  The SSM family carries an opaque state
-blob instead of per-token KV (constant-size recurrent state): the PE
+``TrafficClass.KV_TRANSFER``.  The SSM and hybrid families carry an
+opaque state blob instead of FullBlocks (constant-size recurrent state,
+and the hybrid's shared K/V padded to ``max_seq``): the PE
 installs a hit's blob in one host-to-device copy (``kvio.blob_to_state``)
 and the DE persists a finished round's state as one blob
 (``kvio.state_to_blob``) into the ``StateBlobStore``, keyed by the exact
@@ -114,7 +115,8 @@ class PrefillEngine:
         goes to the card whole."""
         hit = er.req.cached_tokens
         if uses_state_blob(self.cfg) and payload is not None:
-            er.state = kvio.blob_to_state(self.cfg, payload, self.device)
+            er.state = kvio.blob_to_state(self.cfg, payload, self.device,
+                                          self.max_seq)
             payload = None
         else:
             er.state = init_decode_state(self.cfg, 1, self.max_seq,

@@ -138,6 +138,8 @@ __device__ __forceinline__ float warp_sum(float x) {
 // does not depend on the order the blocks ran in), and writes o at the
 // row's address: row =
 // (bb * nh + hh) * ni + i, element offset bb * ob + hh * oh + i * os.
+// Lane l holds elements l, l + 32, ...: at a width that is not a multiple
+// of 32 (dh 80) the last pass's lanes past DH are predicated off.
 template <typename T, int DH>
 __device__ __forceinline__ void combine_rows(
     const float* __restrict__ pm, const float* __restrict__ pl,
@@ -155,9 +157,13 @@ __device__ __forceinline__ void combine_rows(
       mx = fmaxf(mx, pm[s * n_rows + row]);
   }
   mx = warp_max(mx);
-  float lsum = 0.f, a[DH / 32];
+  constexpr int NE = (DH + 31) / 32;      // elements per lane
+  const auto owns = [lane](int e) {
+    return DH % 32 == 0 || lane + 32 * e < DH;
+  };
+  float lsum = 0.f, a[NE];
 #pragma unroll
-  for (int e = 0; e < DH / 32; ++e) a[e] = 0.f;
+  for (int e = 0; e < NE; ++e) a[e] = 0.f;
   for (int s0 = 0; s0 < n_split; s0 += 32) {
     const int s = s0 + lane;
     float c = 0.f;
@@ -175,7 +181,8 @@ __device__ __forceinline__ void combine_rows(
       if (cj == 0.f) continue;           // no valid key: acc is not read
       const float* src = pacc + ((s0 + j) * n_rows + row) * DH;
 #pragma unroll
-      for (int e = 0; e < DH / 32; ++e) a[e] += src[lane + 32 * e] * cj;
+      for (int e = 0; e < NE; ++e)
+        if (owns(e)) a[e] += src[lane + 32 * e] * cj;
     }
   }
   lsum = warp_sum(lsum);
@@ -184,7 +191,8 @@ __device__ __forceinline__ void combine_rows(
   T* dst = o + bb * ob + hh * oh + i * os;
   const float inv = lsum > 0.f ? 1.f / lsum : 0.f;
 #pragma unroll
-  for (int e = 0; e < DH / 32; ++e) dst[lane + 32 * e] = from_f<T>(a[e] * inv);
+  for (int e = 0; e < NE; ++e)
+    if (owns(e)) dst[lane + 32 * e] = from_f<T>(a[e] * inv);
 }
 
 }  // namespace attn

@@ -51,7 +51,14 @@
 // output accumulator (Q_IN_REGS); the ptxas report is in PERF.md.
 //
 // Widths: the kernels are templated on the q/k width DK and the v width
-// DV.  Every GQA model has DK = DV; ds27b's MLA append attends with q/k
+// DV, each a multiple of 16.  Every GQA model has DK = DV; at zamba2's dh
+// 80 the bf16 block's rows are 88 elements (176 bytes, 44 words: a warp's
+// 8 ldmatrix rows start at banks 0, 12, 24, 4, 16, 28, 8, 20, so they do
+// not collide), 5 k-steps of 16 and 10 accumulator tiles of 8, and the
+// block takes (64 x 88 + 2 x 64 x (88 + 88)) x 2 = 56,320 bytes of shared
+// memory (the opt-in attribute); the f32 path's lanes hold elements l, l
+// + 32 and l + 64 of a row, the last pass's lanes past 80 predicated off.
+// ds27b's MLA append attends with q/k
 // 192 (128 nope + 64 rope) and v 128, and the scale is 1 / sqrt(DK), as
 // the reference's mla_append (repro/models/mla.py:78) scales.  At (192,
 // 128) the bf16 block takes (64 x 200 + 2 x 64 x (200 + 136)) x 2 =
@@ -414,6 +421,24 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o,
 constexpr int TILE = 32;            // keys per staged tile = lanes per warp
 constexpr float NEG_BIG = -1e30f;   // initial running max (as in Pallas)
 
+// a row's V elements per lane (lane l: l, l + 32, ...), and whether lane
+// holds its e-th: at a width not a multiple of 32 the last pass's lanes
+// past it are predicated off
+template <int DV>
+__host__ __device__ constexpr int per_lane() { return (DV + 31) / 32; }
+template <int DV>
+__device__ __forceinline__ bool owns(int lane, int e) {
+  return DV % 32 == 0 || lane + 32 * e < DV;
+}
+
+// the largest divisor of per that is at most 16: the elements a thread
+// loads together while staging a tile
+__host__ __device__ constexpr int stage_chunk(int per) {
+  int c = per < 16 ? per : 16;
+  while (per % c) --c;
+  return c;
+}
+
 // Stage keys [t0, t0 + TILE) into ks (TILE x (DK + 1)) and vs (TILE x DV)
 // as f32; keys at or past n are zero.  NT threads cooperate (tid in
 // [0, NT)); row_off(t, ko, vo) gives the element offsets of key t's K and V
@@ -430,7 +455,7 @@ __device__ __forceinline__ void stage_tile(const T* __restrict__ k,
   static_assert(DV <= DK, "v no wider than k");
   constexpr int PER = TILE * DK / NT;   // K elements per thread
   constexpr int PER_V = TILE * DV / NT;  // V elements per thread
-  constexpr int CHUNK = PER < 16 ? PER : 16;
+  constexpr int CHUNK = stage_chunk(PER);
   static_assert(PER % CHUNK == 0, "tile must split evenly");
   const T zero = from_f<T>(0.f);
 #pragma unroll
@@ -474,7 +499,7 @@ __device__ __forceinline__ void row_update(const float* qrow,
                                            const float* ks, const float* vs,
                                            bool valid, float scale,
                                            float softcap, float& m, float& l,
-                                           float (&acc)[DV / 32]) {
+                                           float (&acc)[per_lane<DV>()]) {
   const int lane = threadIdx.x & 31;
   const float* krow = ks + lane * (DK + 1);
   float s = 0.f;
@@ -488,13 +513,14 @@ __device__ __forceinline__ void row_update(const float* qrow,
   l = l * corr + warp_sum(p);
   const float pv = to_f(from_f<T>(p));   // p in the V dtype for P.V
 #pragma unroll
-  for (int i = 0; i < DV / 32; ++i) acc[i] *= corr;
+  for (int i = 0; i < per_lane<DV>(); ++i) acc[i] *= corr;
 #pragma unroll 8
   for (int j = 0; j < TILE; ++j) {
     const float pj = __shfl_sync(FULL, pv, j);
     const float* vrow = vs + j * DV + lane;
 #pragma unroll
-    for (int i = 0; i < DV / 32; ++i) acc[i] = fmaf(pj, vrow[32 * i], acc[i]);
+    for (int i = 0; i < per_lane<DV>(); ++i)
+      if (owns<DV>(lane, i)) acc[i] = fmaf(pj, vrow[32 * i], acc[i]);
   }
   m = m_new;
 }
@@ -547,13 +573,13 @@ flash_f32_kernel(const T* __restrict__ q, const T* __restrict__ k,
     vo = vb + (long long)t * st.vs;
   };
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  float m[RPW], l[RPW], acc[RPW][DV / 32];
+  float m[RPW], l[RPW], acc[RPW][per_lane<DV>()];
 #pragma unroll
   for (int rr = 0; rr < RPW; ++rr) {
     m[rr] = NEG_BIG;
     l[rr] = 0.f;
 #pragma unroll
-    for (int i = 0; i < DV / 32; ++i) acc[rr][i] = 0.f;
+    for (int i = 0; i < per_lane<DV>(); ++i) acc[rr][i] = 0.f;
   }
 
   for (int t0 = k_beg; t0 < k_end; t0 += TILE) {
@@ -586,9 +612,10 @@ flash_f32_kernel(const T* __restrict__ q, const T* __restrict__ k,
     T* orow = o + b * st.ob + (long long)(h * g + gi) * st.oh +
               (long long)(i0 + ri) * st.os;
 #pragma unroll
-    for (int i = 0; i < DV / 32; ++i)
-      orow[lane + 32 * i] =
-          from_f<T>(l[rr] > 0.f ? acc[rr][i] / l[rr] : 0.f);
+    for (int i = 0; i < per_lane<DV>(); ++i)
+      if (owns<DV>(lane, i))
+        orow[lane + 32 * i] =
+            from_f<T>(l[rr] > 0.f ? acc[rr][i] / l[rr] : 0.f);
   }
 }
 
@@ -631,7 +658,7 @@ int launch_f32(const void* q, const void* k, const void* v, void* o,
 
 // dtype: 0 = float32 (scalar path, one split), 1 = bfloat16 (tensor-core
 // path).  (dk, dv): the q/k and the v widths, one of (32, 32), (64, 64),
-// (128, 128), (256, 256) and MLA's (192, 128).  strides: 12 element
+// (80, 80), (128, 128), (256, 256) and MLA's (192, 128).  strides: 12 element
 // strides, the (b, h, s) strides of q, k, v and o in that order.  kv_lens
 // may be null.  bf16 with n_split > 1: pm and pl hold n_split * b * hq *
 // sq floats and pacc dv times as many (scratch the caller allocates),
@@ -667,6 +694,7 @@ extern "C" int flash_attention(int dtype, int dk, int dv, const void* q,
     switch (key) {
       case 32032: FLASH_F32(32, 32);
       case 64064: FLASH_F32(64, 64);
+      case 80080: FLASH_F32(80, 80);
       case 128128: FLASH_F32(128, 128);
       case 256256: FLASH_F32(256, 256);
       case 192128: FLASH_F32(192, 128);
@@ -677,6 +705,7 @@ extern "C" int flash_attention(int dtype, int dk, int dv, const void* q,
     switch (key) {
       case 32032: FLASH_BF16(32, 32);
       case 64064: FLASH_BF16(64, 64);
+      case 80080: FLASH_BF16(80, 80);
       case 128128: FLASH_BF16(128, 128);
       case 256256: FLASH_BF16(256, 256);
       case 192128: FLASH_BF16(192, 128);

@@ -29,7 +29,12 @@
 // (8 bf16 or 4 f32 per lane; at dh 64 in bf16, 8 lanes per key and 16 keys
 // per block step; at most 32 lanes per key, so at dh 256 in f32 each lane
 // makes NV = 2 loads per key, and halves U to keep as many loads in
-// flight), and the block reads its range in one pass: each thread
+// flight).  A key's lanes are its row's 16-byte vectors rounded up to a
+// power of two, so the shuffle reductions over them stay butterflies: at
+// zamba2's dh 80, 10 vectors on 16 lanes in bf16 (8 keys a block step)
+// and 20 on 32 in f32 (4 keys), the lanes past the row predicated off
+// (they load nothing and hold zeros).  The block reads its range in one
+// pass: each thread
 // issues the K and V loads of U keys together (U = 8 at g = 1; loads
 // unconditional and not kept in L1, so all 2 U NV are in flight), page ids
 // from the block table, then updates every row's online softmax over
@@ -106,20 +111,26 @@ paged_split_kernel(const T* __restrict__ q, const T* __restrict__ kp,
                    int max_pages, int chunk, int n_split, float scale,
                    float softcap, int window) {
   constexpr int E = 16 / (int)sizeof(T);   // elements per 16-byte load
-  constexpr int LPK = DH / E < 32 ? DH / E : 32;   // lanes per key
-  constexpr int NV = DH / (E * LPK);       // 16-byte loads per lane and key
+  constexpr int W = DH / E;                // 16-byte vectors of a row
+  // lanes per key: W rounded up to a power of two, at most 32
+  constexpr int LPK = W >= 32 ? 32 : W > 8 ? 16 : W > 4 ? 8 : W > 2 ? 4
+                    : W > 1 ? 2 : 1;
+  constexpr int NV = (W + LPK - 1) / LPK;  // 16-byte loads per lane and key
+  constexpr bool FULL_LANES = W % LPK == 0;
   constexpr int KPS = THREADS / LPK;       // keys per block step
   // keys per thread-step; NV loads per key, so as many loads in flight
   // as at NV = 1
   constexpr int U0 = G == 1 ? 8 : G <= 4 ? 4 : 2;
   constexpr int U = U0 / NV > 0 ? U0 / NV : 1;
-  static_assert(32 % LPK == 0 && NV * E * LPK == DH,
+  static_assert(DH % E == 0 && 32 % LPK == 0 && NV * LPK >= W,
                 "a key's lanes fit one warp, NV loads each");
   extern __shared__ float smem[];          // NWARPS x G x (m, l, acc[DH])
 
   const int split = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int kg = tid / LPK, dl = tid % LPK;
+  // whether this lane holds the row's vector v * LPK + dl
+  const auto on = [dl](int v) { return FULL_LANES || v * LPK + dl < W; };
   const int len = min(max(lengths[b], 0), max_pages * pt);
   // this split's keys, cut to the sequence and to its window
   const int lo = window > 0 ? max(split * chunk, len - window)
@@ -150,9 +161,10 @@ paged_split_kernel(const T* __restrict__ q, const T* __restrict__ kp,
   for (int r = 0; r < G; ++r)
 #pragma unroll
     for (int v = 0; v < NV; ++v)
-      qraw[r][v] = r < g ? *reinterpret_cast<const uint4*>(
-                               q + (row0 + r) * DH + (v * LPK + dl) * E)
-                         : zero;
+      qraw[r][v] = r < g && on(v)
+                       ? *reinterpret_cast<const uint4*>(
+                             q + (row0 + r) * DH + (v * LPK + dl) * E)
+                       : zero;
   float m[G], l[G], acc[G][NV][E];
 #pragma unroll
   for (int r = 0; r < G; ++r) {
@@ -180,8 +192,8 @@ paged_split_kernel(const T* __restrict__ q, const T* __restrict__ kp,
           (((long long)tb[t / pt] * pt + t % pt) * hkv + h) * DH + dl * E;
 #pragma unroll
       for (int v = 0; v < NV; ++v) {
-        kr[u][v] = load_kv(kp + off + v * LPK * E);
-        vr[u][v] = load_kv(vp + off + v * LPK * E);
+        kr[u][v] = on(v) ? load_kv(kp + off + v * LPK * E) : zero;
+        vr[u][v] = on(v) ? load_kv(vp + off + v * LPK * E) : zero;
       }
     }
     float kf[U][NV][E], vf[U][NV][E];
@@ -253,7 +265,7 @@ paged_split_kernel(const T* __restrict__ q, const T* __restrict__ kp,
 #pragma unroll
         for (int off = LPK; off < 32; off <<= 1)
           a += __shfl_xor_sync(FULL, a, off);
-        if (lane < LPK) dst[2 + (v * LPK + dl) * E + e] = a;
+        if (lane < LPK && on(v)) dst[2 + (v * LPK + dl) * E + e] = a;
       }
     if (lane == 0) {
       dst[0] = mo;
@@ -351,6 +363,7 @@ int dispatch_dh(int dh, const void* q, const void* kp, const void* vp,
   switch (dh) {
     case 32: return dispatch_g<T, 32>(PAGED_ARGS);
     case 64: return dispatch_g<T, 64>(PAGED_ARGS);
+    case 80: return dispatch_g<T, 80>(PAGED_ARGS);
     case 128: return dispatch_g<T, 128>(PAGED_ARGS);
     case 256: return dispatch_g<T, 256>(PAGED_ARGS);
     default: return (int)cudaErrorInvalidValue;

@@ -67,8 +67,7 @@
 
 namespace {
 
-constexpr int P = 64;          // SSD head dim (mamba2-1.3b's)
-constexpr int N = 128;         // state dim (d_state x n_groups)
+constexpr int P = 64;          // SSD head dim (mamba2-1.3b's, zamba2's)
 constexpr int T = 64;          // rows of a tile
 constexpr int KS = 32;         // rows of a slice of the contraction
 constexpr int MAX_L = 256;     // longest chunk
@@ -79,9 +78,11 @@ constexpr int PIECES = T * KS / 4 / THREADS;    // a slice's 4-element
 constexpr int LDT = T + 8;     // padded slice row (floats): 16-byte aligned
                                // rows, and a warp's fragment loads (rows
                                // t, columns g: 8 t + g) hit 32 banks
-constexpr int NH = 2;          // the state kernel cuts N in halves
+// The state dim N (d_state x n_groups) is a template parameter of every
+// kernel: 128 (mamba2-1.3b) or 64 (zamba2-2.7b).  The state kernel cuts N
+// into NH = N / T column tiles of 64 (two at N 128, one at N 64), and the
+// pass takes P N / 4 / PASS_THREADS blocks a head (8 or 4).
 constexpr int PASS_THREADS = 256;
-constexpr int PASS_BLOCKS = P * N / 4 / PASS_THREADS;
 constexpr int PASS_BATCH = 8;  // chunks whose loads the pass issues at once
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
@@ -289,7 +290,7 @@ __device__ __forceinline__ int frag_col(int ni) {
 // 1. cb[j][i] = B_j . C_i for the 64-row tiles (jt, it), jt <= it, of
 // chunk c of sequence b (tile pair = it (it + 1) / 2 + jt); rows past the
 // chunk are zeros.  Bt and Ct: KS x LDT floats of shared memory each.
-template <typename Tin>
+template <typename Tin, int N>
 __device__ __forceinline__ void cb_block(
     int pair, int c, int b, float* Bt, float* Ct, const Tin* __restrict__ B,
     const Tin* __restrict__ C, float* __restrict__ cb, int s, int L, int nc,
@@ -324,12 +325,12 @@ __device__ __forceinline__ void cb_block(
             make_float2(acc[mi][nf][2 * h], acc[mi][nf][2 * h + 1]);
 }
 
-// 2. for chunk c, half nh of N, head and sequence b: the cumulative sum
-// cs (written out by the first half) and the columns [nh * 64, nh * 64 +
-// 64) of the chunk's own state
+// 2. for chunk c, column tile nh of N, head and sequence b: the
+// cumulative sum cs (written out by the first tile) and the columns
+// [nh * 64, nh * 64 + 64) of the chunk's own state
 // S[p][n] = sum_j exp(cs_end - cs_j) dt_j x_j[p] B_j[n].  Xs and Bs: KS x
 // LDT floats of shared memory each; cs, dts, w: MAX_L floats each.
-template <typename Tin>
+template <typename Tin, int N>
 __device__ __forceinline__ void state_block(
     int c, int nh, int head, int b, float* Xs, float* Bs, float* cs,
     float* dts, float* w, const Tin* __restrict__ x,
@@ -404,7 +405,7 @@ __device__ __forceinline__ void state_block(
 // NH, x % NH, head y, sequence z); the rest take C.B^T's tile pairs, as
 // many as there are (nc pairs a sequence), spread over y, so the two run
 // side by side
-template <typename Tin>
+template <typename Tin, int N>
 __global__ void __launch_bounds__(THREADS)
 ssd_chunk_kernel(const Tin* __restrict__ x, const Tin* __restrict__ B,
                  const Tin* __restrict__ C, const float* __restrict__ dt,
@@ -414,9 +415,11 @@ ssd_chunk_kernel(const Tin* __restrict__ x, const Tin* __restrict__ B,
                  long long x_ts, long long bc_bs, long long bc_ts) {
   __shared__ __align__(16) float As[KS * LDT], Bs[KS * LDT];
   __shared__ float cs[MAX_L], dts[MAX_L], w[MAX_L];
+  static_assert(N % T == 0, "N a multiple of the 64-column tile");
+  constexpr int NH = N / T;
   const int n_state = nc * NH;
   if ((int)blockIdx.x < n_state) {
-    state_block<Tin>(blockIdx.x / NH, blockIdx.x % NH, blockIdx.y,
+    state_block<Tin, N>(blockIdx.x / NH, blockIdx.x % NH, blockIdx.y,
                      blockIdx.z, As, Bs, cs, dts, w, x, B, dt, A, cs_out, S,
                      s, H, L, nc, nt * T, x_bs, x_ts, bc_bs, bc_ts);
     return;
@@ -424,7 +427,7 @@ ssd_chunk_kernel(const Tin* __restrict__ x, const Tin* __restrict__ B,
   const int pairs = nt * (nt + 1) / 2;
   const int id = (blockIdx.x - n_state) * H + blockIdx.y;
   if (id < nc * pairs)
-    cb_block<Tin>(id % pairs, id / pairs, blockIdx.z, As, Bs, B, C, cb, s,
+    cb_block<Tin, N>(id % pairs, id / pairs, blockIdx.z, As, Bs, B, C, cb, s,
                   L, nc, nt, bc_bs, bc_ts);
 }
 
@@ -433,6 +436,7 @@ ssd_chunk_kernel(const Tin* __restrict__ x, const Tin* __restrict__ B,
 // state entering chunk c, and the state after the last chunk goes to
 // h_out.  h0 may be h_out: each thread reads its elements of h0 before it
 // writes them.
+template <int N>
 __global__ void __launch_bounds__(PASS_THREADS)
 ssd_pass_kernel(const float* __restrict__ cs, float* __restrict__ S,
                 const float* h0, float* h_out, int s, int H, int L, int nc,
@@ -477,7 +481,7 @@ ssd_pass_kernel(const float* __restrict__ cs, float* __restrict__ S,
 // blockIdx.y, sequence blockIdx.z: exp(cs_i) (C_i . h_in) + the key tiles
 // j <= i of cb exp(cs_i - cs_j) dt_j x_j + D x_i, h_in the state entering
 // the chunk (S after step 3)
-template <typename Tin>
+template <typename Tin, int N>
 __global__ void __launch_bounds__(THREADS)
 ssd_out_kernel(const Tin* __restrict__ x, const Tin* __restrict__ C,
                const float* __restrict__ dt, const float* __restrict__ D,
@@ -573,7 +577,7 @@ ssd_out_kernel(const Tin* __restrict__ x, const Tin* __restrict__ C,
     }
 }
 
-template <typename Tin>
+template <typename Tin, int N>
 int launch(const void* xv, const void* Bv, const void* Cv, const float* dt,
            const float* A, const float* D, const float* h0, float* y,
            float* h_out, float* cb, float* cs, float* S, int b, int s,
@@ -585,14 +589,15 @@ int launch(const void* xv, const void* Bv, const void* Cv, const float* dt,
   const int nc = (s + L - 1) / L, nt = (L + T - 1) / T, lt = nt * T;
   cudaError_t err;
   const int cb_x = (nc * (nt * (nt + 1) / 2) + H - 1) / H;
-  ssd_chunk_kernel<Tin><<<dim3(nc * NH + cb_x, H, b), THREADS, 0,
-                          stream>>>(x, B, C, dt, A, cb, cs, S, s, H, L, nc,
+  constexpr int NH = N / T, PASS_BLOCKS = P * N / 4 / PASS_THREADS;
+  ssd_chunk_kernel<Tin, N><<<dim3(nc * NH + cb_x, H, b), THREADS, 0,
+                             stream>>>(x, B, C, dt, A, cb, cs, S, s, H, L, nc,
                                     nt, x_bs, x_ts, bc_bs, bc_ts);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  ssd_pass_kernel<<<dim3(PASS_BLOCKS, H, b), PASS_THREADS, 0, stream>>>(
+  ssd_pass_kernel<N><<<dim3(PASS_BLOCKS, H, b), PASS_THREADS, 0, stream>>>(
       cs, S, h0, h_out, s, H, L, nc, lt);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  ssd_out_kernel<Tin><<<dim3(nc * nt, H, b), THREADS, 0, stream>>>(
+  ssd_out_kernel<Tin, N><<<dim3(nc * nt, H, b), THREADS, 0, stream>>>(
       x, C, dt, D, cb, cs, S, y, s, H, L, nc, nt, x_bs, x_ts, bc_bs, bc_ts);
   return (int)cudaGetLastError();
 }
@@ -606,21 +611,28 @@ int launch(const void* xv, const void* Bv, const void* Cv, const float* dt,
 // (b, s, H, P) and h0 / h_out (b, H, P, N) f32 contiguous; h0 may be null
 // and may equal h_out.  Scratch, f32 contiguous, with nc = ceil(s / L),
 // lt = 64 ceil(L / 64): cb (b, nc, lt, lt), cs (b, nc, H, lt), S (b, nc,
-// H, P, N).  P = 64, N = 128, 1 <= L <= 256.  Launches the three kernels
-// on the stream; returns the first launch's error (cudaError_t).
-extern "C" int ssd_chunk_scan(int dtype, const void* x, const void* B,
-                              const void* C, const float* dt, const float* A,
-                              const float* D, const float* h0, float* y,
-                              float* h_out, float* cb, float* cs, float* S,
-                              int b, int s, int H, int L, long long x_bs,
-                              long long x_ts, long long bc_bs,
-                              long long bc_ts, cudaStream_t stream) {
+// H, P, N).  P = 64, N 64 or 128, 1 <= L <= 256.  Launches the three
+// kernels on the stream; returns the first launch's error (cudaError_t).
+extern "C" int ssd_chunk_scan(int dtype, int n, const void* x,
+                              const void* B, const void* C, const float* dt,
+                              const float* A, const float* D,
+                              const float* h0, float* y, float* h_out,
+                              float* cb, float* cs, float* S, int b, int s,
+                              int H, int L, long long x_bs, long long x_ts,
+                              long long bc_bs, long long bc_ts,
+                              cudaStream_t stream) {
   if (b <= 0 || s <= 0) return 0;
-  if (L < 1 || L > MAX_L) return (int)cudaErrorInvalidValue;
-  if (dtype == 1)
-    return launch<__nv_bfloat16>(x, B, C, dt, A, D, h0, y, h_out, cb, cs, S,
-                                 b, s, H, L, x_bs, x_ts, bc_bs, bc_ts,
-                                 stream);
-  return launch<float>(x, B, C, dt, A, D, h0, y, h_out, cb, cs, S, b, s, H,
-                       L, x_bs, x_ts, bc_bs, bc_ts, stream);
+  if (L < 1 || L > MAX_L || (n != 64 && n != 128) || (dtype != 0 &&
+                                                       dtype != 1))
+    return (int)cudaErrorInvalidValue;
+#define SSD_LAUNCH(Tin, N)                                                  \
+  return launch<Tin, N>(x, B, C, dt, A, D, h0, y, h_out, cb, cs, S, b, s,  \
+                        H, L, x_bs, x_ts, bc_bs, bc_ts, stream)
+  if (dtype == 1) {
+    if (n == 64) SSD_LAUNCH(__nv_bfloat16, 64);
+    SSD_LAUNCH(__nv_bfloat16, 128);
+  }
+  if (n == 64) SSD_LAUNCH(float, 64);
+  SSD_LAUNCH(float, 128);
+#undef SSD_LAUNCH
 }

@@ -36,7 +36,7 @@ import torch
 
 from repro_torch.kernels import build, ref
 
-HEAD_DIMS = (32, 64, 128, 256)
+HEAD_DIMS = (32, 64, 80, 128, 256)
 # (q/k width, v width) pairs the kernel is built for
 WIDTHS = tuple((d, d) for d in HEAD_DIMS) + ((192, 128),)
 MAX_GROUP = 64     # query heads per kv head that fit one block's rows

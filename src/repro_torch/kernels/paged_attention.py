@@ -27,7 +27,7 @@ import torch
 
 from repro_torch.kernels import build, ref
 
-HEAD_DIMS = (32, 64, 128, 256)
+HEAD_DIMS = (32, 64, 80, 128, 256)
 MAX_GROUP = 16     # query heads per kv head held in one block's registers
 BLOCKS_PER_SM = 8  # the split plan's aim
 KEY_UNIT = 128     # a split's keys are a multiple of this

@@ -12,7 +12,8 @@ min(chunk, s)``, as the reference).  Returns (y (b, s, H, P) f32,
 h_final (b, H, P, N) f32); with ``out_state`` the final state is written
 there (it may be h0 itself: the engines carry state in place).  On CUDA
 tensors one call launches the three kernels of ``csrc/ssd_scan.cu`` (P
-64, N 128: mamba2-1.3b's): C·Bᵀ once per chunk beside the chunks' own
+64, N 128 or 64: mamba2-1.3b's and zamba2-2.7b's): C·Bᵀ once per chunk
+beside the chunks' own
 states, then the state passing over the chunks in order, then the
 chunks' outputs (split TF32 on the tensor cores for bf16 inputs, f32
 FMAs for f32 ones); their scratch (C·Bᵀ, the cumulative sums and the
@@ -29,7 +30,7 @@ import torch
 
 from repro_torch.kernels import build, ref
 
-HEAD_DIM, STATE = 64, 128          # the shapes the kernel is built for
+HEAD_DIM, STATES = 64, (64, 128)   # the widths the kernel is built for
 MAX_CHUNK = 256
 TILE = 64                          # rows of the kernels' tiles
 
@@ -37,7 +38,7 @@ TILE = 64                          # rows of the kernels' tiles
 @functools.cache
 def _fn():
     fn = build.library("ssd_scan").ssd_chunk_scan
-    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 12 +
+    fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 12 +
                    [ctypes.c_int] * 4 + [ctypes.c_longlong] * 4 +
                    [ctypes.c_void_p])
     fn.restype = ctypes.c_int
@@ -77,10 +78,10 @@ def ssd_chunk_scan(x: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
                          f"C {C.dtype} dt {dt.dtype} states "
                          f"{[t.dtype for t in states]}; need x, B, C all "
                          f"float32 or bfloat16, f32 dt and states")
-    if (P, N) != (HEAD_DIM, STATE) or chunk > MAX_CHUNK:
-        raise ValueError(f"ssd_chunk_scan: built for (P, N) = "
-                         f"{(HEAD_DIM, STATE)} and chunks up to "
-                         f"{MAX_CHUNK}, got {(P, N)}, chunk {chunk}")
+    if P != HEAD_DIM or N not in STATES or chunk > MAX_CHUNK:
+        raise ValueError(f"ssd_chunk_scan: built for P {HEAD_DIM}, N in "
+                         f"{STATES} and chunks up to {MAX_CHUNK}, got "
+                         f"{(P, N)}, chunk {chunk}")
     if x.stride()[2:] != (P, 1) or B.stride(2) != 1 or C.stride(2) != 1 \
             or B.stride()[:2] != C.stride()[:2] or not dt.is_contiguous() \
             or not all(t.is_contiguous() for t in states):
@@ -111,7 +112,7 @@ def ssd_chunk_scan(x: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
     cb = torch.empty((b, nc, lt, lt), **f32)
     cs = torch.empty((b, nc, H, lt), **f32)
     chunk_states = torch.empty((b, nc, H, P, N), **f32)
-    rc = _fn()(build.ATTN_DTYPES[x.dtype], x.data_ptr(), B.data_ptr(),
+    rc = _fn()(build.ATTN_DTYPES[x.dtype], N, x.data_ptr(), B.data_ptr(),
                C.data_ptr(), dt.data_ptr(), A.data_ptr(), D.data_ptr(),
                None if h0 is None else h0.data_ptr(), y.data_ptr(),
                h_out.data_ptr(), cb.data_ptr(), cs.data_ptr(),

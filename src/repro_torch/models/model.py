@@ -1,5 +1,6 @@
 """Model assembly for the dense and MoE families, GQA or MLA attention,
-and the SSM family's Mamba2 blocks (port of ``repro.models.model``).
+the SSM family's Mamba2 blocks and the hybrid's Mamba2 backbone with its
+shared attention block (port of ``repro.models.model``).
 
 * ``forward``       — full sequence; optionally returns the KV it made.
 * ``decode_step``   — one token per sequence against a decode state.
@@ -10,7 +11,10 @@ Decode state: GQA ``{"kv": {"k", "v": (L, b, S, hkv, dh)}}``, the
 reference's layout; MLA ``{"mla": {"c": (L, b, S, r), "krope": (L, b, S,
 rd)}}`` over every layer; SSM ``{"mamba": {"ssm": (L, b, H, P, N) f32,
 "conv_x" / "conv_B" / "conv_C": (L, b, conv_width-1, dim)}}``, the
-reference's layout.  The reference splits an MoE model's state as
+reference's layout; hybrid ``{"mamba": {...(L, b, ...)}, "shared": {"k",
+"v": (n_apps, b, S, hkv, dh)}}``, the reference's with its (n_super,
+period) Mamba2 stacks flattened.  The reference splits an MoE model's
+state as
 its parameters, ``{"dense": ..., "moe": ...}``
 (``bridge.state_from_jax`` joins them).  Where the reference scans over
 stacked layers, the port loops over ``params["blocks"]``; a block with
@@ -21,7 +25,10 @@ object: the reference returns fresh arrays, the port saves a copy of the
 whole cache per step.  Writes past the cache raise (JAX would drop them
 silently).  The SSM family's state is constant-size: the steps update
 each layer's slice of it in place (``models.ssm``) and ignore
-``lengths``, as the reference does.
+``lengths``, as the reference does.  The hybrid runs the shared block
+(``params["shared_block"]``) after every ``hybrid_period``-th Mamba2
+layer against that application's K/V; its Mamba2 half ignores
+``lengths`` and its attention half reads them, as the dense family's.
 """
 from __future__ import annotations
 
@@ -109,36 +116,37 @@ def _check_fits(lengths, s: int, max_seq: int) -> int:
 
 
 def _cache(state, cfg: ModelConfig):
-    """The state's two per-layer stacks: (k, v) for GQA, (c, krope) for
-    MLA."""
+    """The state's two stacks: (k, v) for GQA, (c, krope) for MLA, the
+    shared block's (k, v) over its applications for the hybrid."""
+    if cfg.family == "hybrid":
+        return state["shared"]["k"], state["shared"]["v"]
     if cfg.attn_variant == "mla":
         return state["mla"]["c"], state["mla"]["krope"]
     return state["kv"]["k"], state["kv"]["v"]
+
+
+def _shared_app(cfg: ModelConfig, li: int):
+    """The hybrid's shared-block application that follows layer ``li``
+    (after every ``hybrid_period``-th layer), or None."""
+    if cfg.family != "hybrid" or (li + 1) % cfg.hybrid_period:
+        return None
+    return li // cfg.hybrid_period
 
 
 def forward(params, cfg: ModelConfig, tokens, *, return_state: bool = False,
             last_only: bool = False):
     """Full-sequence forward over tokens (b, s).  Returns (logits,
     state_or_None); the state holds the exact-length KV (L, b, s, hkv, dh)
-    or, for MLA, latents (L, b, s, r) and (L, b, s, rd)."""
+    or, for MLA, latents (L, b, s, r) and (L, b, s, rd); the hybrid's
+    holds its Mamba2 states and its shared block's KV per application."""
     require_ported(cfg)
     s = tokens.shape[1]
     positions = torch.arange(s, device=tokens.device)
     h = embed(params, cfg, tokens)
-    if cfg.family == "ssm":
-        sts = []
-        for blk in params["blocks"]:
-            h, st = _mamba_block(blk, cfg, h, ssm.ssd_scan)
-            sts.append(st)
-        state = {"mamba": {k: torch.stack([st[k] for st in sts])
-                           for k in sts[0]}} if return_state else None
-        if last_only:
-            h = h[:, -1:]
-        return logits_from_hidden(params, cfg, h), state
     ks, vs = [], []
-    for blk, window in zip(params["blocks"], layer_windows(cfg)):
 
-        def full(p, x):
+    def full(window):
+        def attn(p, x):
             if cfg.attn_variant == "mla":
                 o, (c, kr) = mla.mla_full(p, cfg, x, positions,
                                           causal=cfg.causal)
@@ -153,13 +161,29 @@ def forward(params, cfg: ModelConfig, tokens, *, return_state: bool = False,
             o = layers.attend(q, k, v, causal=cfg.causal,
                               softcap=cfg.attn_logit_softcap, window=window)
             return layers.attn_out(p, o)
+        return attn
 
-        h = _block(blk, cfg, h, full)
     state = None
-    if return_state:
-        state = {"mla": {"c": torch.stack(ks), "krope": torch.stack(vs)}} \
-            if cfg.attn_variant == "mla" else \
-            {"kv": {"k": torch.stack(ks), "v": torch.stack(vs)}}
+    if cfg.family in ("ssm", "hybrid"):
+        sts = []
+        for li, blk in enumerate(params["blocks"]):
+            h, st = _mamba_block(blk, cfg, h, ssm.ssd_scan)
+            sts.append(st)
+            if _shared_app(cfg, li) is not None:
+                h = _block(params["shared_block"], cfg, h, full(0))
+        if return_state:
+            state = {"mamba": {k: torch.stack([st[k] for st in sts])
+                               for k in sts[0]}}
+            if ks:
+                state["shared"] = {"k": torch.stack(ks),
+                                   "v": torch.stack(vs)}
+    else:
+        for blk, window in zip(params["blocks"], layer_windows(cfg)):
+            h = _block(blk, cfg, h, full(window))
+        if return_state:
+            state = {"mla": {"c": torch.stack(ks), "krope": torch.stack(vs)}} \
+                if cfg.attn_variant == "mla" else \
+                {"kv": {"k": torch.stack(ks), "v": torch.stack(vs)}}
     if last_only:
         h = h[:, -1:]
     return logits_from_hidden(params, cfg, h), state
@@ -169,19 +193,43 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_seq: int,
                       device="cuda") -> Dict:
     """Zero decode caches on ``device`` (``"meta"`` gives shapes only)."""
     require_ported(cfg)
-    if cfg.family == "ssm":
-        st = ssm.init_ssm_state(cfg, batch, device)
-        return {"mamba": {k: v[None].repeat((cfg.n_layers,) + (1,) * v.dim())
-                          for k, v in st.items()}}
     dev = torch.device("meta") if str(device) == "meta" else resolve(device)
     dtype = getattr(torch, cfg.kv_cache_dtype)
-    zeros = lambda *s: torch.zeros((cfg.n_layers, batch, max_seq) + s,
-                                   dtype=dtype, device=dev)
+    zeros = lambda n, *s: torch.zeros((n, batch, max_seq) + s, dtype=dtype,
+                                      device=dev)
+    if cfg.family in ("ssm", "hybrid"):
+        st = ssm.init_ssm_state(cfg, batch, dev)
+        out = {"mamba": {k: v[None].repeat((cfg.n_layers,) +
+                                           (1,) * v.dim())
+                         for k, v in st.items()}}
+        if cfg.family == "hybrid":
+            n_apps = cfg.n_layers // cfg.hybrid_period
+            out["shared"] = {"k": zeros(n_apps, cfg.n_kv_heads, cfg.head_dim),
+                             "v": zeros(n_apps, cfg.n_kv_heads, cfg.head_dim)}
+        return out
     if cfg.attn_variant == "mla":
-        return {"mla": {"c": zeros(cfg.mla.kv_lora_rank),
-                        "krope": zeros(cfg.mla.rope_head_dim)}}
-    return {"kv": {"k": zeros(cfg.n_kv_heads, cfg.head_dim),
-                   "v": zeros(cfg.n_kv_heads, cfg.head_dim)}}
+        return {"mla": {"c": zeros(cfg.n_layers, cfg.mla.kv_lora_rank),
+                        "krope": zeros(cfg.n_layers, cfg.mla.rope_head_dim)}}
+    return {"kv": {"k": zeros(cfg.n_layers, cfg.n_kv_heads, cfg.head_dim),
+                   "v": zeros(cfg.n_layers, cfg.n_kv_heads, cfg.head_dim)}}
+
+
+def _layers(params, cfg: ModelConfig, state):
+    """(block, its Mamba2 state or None, the attention cache's stack index
+    or None, window) of each block of the walk; a hybrid's shared block
+    follows its period's last Mamba2 layer, with that application's
+    index into the ``shared`` stacks."""
+    if cfg.family not in ("ssm", "hybrid"):
+        for li, (blk, window) in enumerate(zip(params["blocks"],
+                                               layer_windows(cfg))):
+            yield blk, None, li, window
+        return
+    for li, (blk, st) in enumerate(zip(params["blocks"],
+                                       _mamba_layers(state))):
+        yield blk, st, None, 0
+        app = _shared_app(cfg, li)
+        if app is not None:
+            yield params["shared_block"], None, app, 0
 
 
 def decode_step(params, cfg: ModelConfig, tokens, state, lengths):
@@ -189,21 +237,15 @@ def decode_step(params, cfg: ModelConfig, tokens, state, lengths):
     cached.  Writes each token's K/V (or latent) at index ``lengths`` and
     attends over ``lengths + 1``.  Returns (logits (b, vocab), state)."""
     require_ported(cfg)
-    if cfg.family == "ssm":
-        h = embed(params, cfg, tokens[:, None])
-        for blk, st in zip(params["blocks"], _mamba_layers(state)):
-            h, _ = _mamba_block(blk, cfg, h, ssm.ssm_decode_step, st)
-        return logits_from_hidden(params, cfg, h)[:, 0], state
-    kc_all, vc_all = _cache(state, cfg)
-    lengths = lengths.to(torch.long)
-    _check_fits(lengths, 1, kc_all.shape[2])
-    bidx = torch.arange(tokens.shape[0], device=tokens.device)
     h = embed(params, cfg, tokens[:, None])
-    windows = layer_windows(cfg)
-    for li, blk in enumerate(params["blocks"]):
-        kc, vc = kc_all[li], vc_all[li]
+    if cfg.family != "ssm":
+        kc_all, vc_all = _cache(state, cfg)
+        lengths = lengths.to(torch.long)
+        _check_fits(lengths, 1, kc_all.shape[2])
+        bidx = torch.arange(tokens.shape[0], device=tokens.device)
 
-        def dec(p, x):
+    def dec(kc, vc, window):
+        def attn(p, x):
             if cfg.attn_variant == "mla":
                 c_new, kr_new = mla.mla_latent(p, cfg, x, lengths[:, None])
                 kc[bidx, lengths] = c_new[:, 0].to(kc.dtype)
@@ -214,10 +256,15 @@ def decode_step(params, cfg: ModelConfig, tokens, state, lengths):
             vc[bidx, lengths] = v[:, 0].to(vc.dtype)
             o = layers.decode_attend(q, kc, vc, lengths + 1,
                                      softcap=cfg.attn_logit_softcap,
-                                     window=windows[li])
+                                     window=window)
             return layers.attn_out(p, o)
+        return attn
 
-        h = _block(blk, cfg, h, dec)
+    for blk, st, ci, window in _layers(params, cfg, state):
+        if st is not None:
+            h, _ = _mamba_block(blk, cfg, h, ssm.ssm_decode_step, st)
+        else:
+            h = _block(blk, cfg, h, dec(kc_all[ci], vc_all[ci], window))
     return logits_from_hidden(params, cfg, h)[:, 0], state
 
 
@@ -228,23 +275,17 @@ def append_step(params, cfg: ModelConfig, tokens, state, lengths):
     the chunk's K/V (or latents) at [lengths, lengths + s_app).  Returns
     (logits (b, s_app, vocab), state)."""
     require_ported(cfg)
-    if cfg.family == "ssm":
-        h = embed(params, cfg, tokens)
-        for blk, st in zip(params["blocks"], _mamba_layers(state)):
-            h, _ = _mamba_block(blk, cfg, h, ssm.ssd_scan_with_tails, st)
-        return logits_from_hidden(params, cfg, h), state
-    kc_all, vc_all = _cache(state, cfg)
     b, s = tokens.shape
-    lengths = lengths.to(torch.long)
-    top = _check_fits(lengths, s, kc_all.shape[2])
-    bidx = torch.arange(b, device=tokens.device)[:, None]
-    positions = lengths[:, None] + torch.arange(s, device=tokens.device)
     h = embed(params, cfg, tokens)
-    windows = layer_windows(cfg)
-    for li, blk in enumerate(params["blocks"]):
-        kc, vc = kc_all[li], vc_all[li]
+    if cfg.family != "ssm":
+        kc_all, vc_all = _cache(state, cfg)
+        lengths = lengths.to(torch.long)
+        top = _check_fits(lengths, s, kc_all.shape[2])
+        bidx = torch.arange(b, device=tokens.device)[:, None]
+        positions = lengths[:, None] + torch.arange(s, device=tokens.device)
 
-        def app(p, x):
+    def app(kc, vc, window):
+        def attn(p, x):
             if cfg.attn_variant == "mla":
                 return mla.mla_append(p, cfg, x, kc, vc, lengths, top)
             q, k, v = layers.gqa_qkv(p, cfg, x, positions)
@@ -252,8 +293,13 @@ def append_step(params, cfg: ModelConfig, tokens, state, lengths):
             vc[bidx, positions] = v.to(vc.dtype)
             o = layers.append_attend(q, kc, vc, lengths,
                                      softcap=cfg.attn_logit_softcap,
-                                     window=windows[li])
+                                     window=window)
             return layers.attn_out(p, o)
+        return attn
 
-        h = _block(blk, cfg, h, app)
+    for blk, st, ci, window in _layers(params, cfg, state):
+        if st is not None:
+            h, _ = _mamba_block(blk, cfg, h, ssm.ssd_scan_with_tails, st)
+        else:
+            h = _block(blk, cfg, h, app(kc_all[ci], vc_all[ci], window))
     return logits_from_hidden(params, cfg, h), state

@@ -1,17 +1,20 @@
-"""Parameter schema and init for the dense, MoE and SSM families.
+"""Parameter schema and init for the dense, MoE, SSM and hybrid families.
 
 Port of ``repro.models.params`` (``attn_schema`` :63, ``ffn_schema`` :93,
 ``moe_schema`` :107, ``mamba_schema`` :127, ``dense_block_schema`` :153,
 ``moe_block_schema`` :166, ``model_schema`` :184, ``init_params`` :252,
 ``count_active_params_analytic`` :277).  The reference stacks every block
 along a leading layer axis for ``lax.scan`` (the MoE family in two
-stacks, ``dense_blocks`` and ``super_blocks.moe``); here
-``params["blocks"]`` is a list with one dict per layer, in layer order,
-which the model walks in a Python loop: for the MoE family a dense block
-for each of the first ``first_k_dense`` layers, then MoE blocks; for the
-SSM family one Mamba2 block per layer.  Leaf names and shapes inside a
-block are the reference's, so ``bridge.params_from_jax`` is a plain
-unstacking.
+stacks, ``dense_blocks`` and ``super_blocks.moe``; the hybrid's Mamba2
+blocks as (n_super, period)); here ``params["blocks"]`` is a list with
+one dict per layer, in layer order, which the model walks in a Python
+loop: for the MoE family a dense block for each of the first
+``first_k_dense`` layers, then MoE blocks; for the SSM and hybrid
+families one Mamba2 block per layer.  The hybrid adds
+``params["shared_block"]``, one dense block (attention + FFN of width
+``hybrid_d_ff``) applied after every ``hybrid_period``-th layer.  Leaf
+names and shapes inside a block are the reference's, so
+``bridge.params_from_jax`` is a plain unstacking.
 
 Values come from a ``torch.Generator`` and do not match ``jax.random``;
 tests that compare the two packages convert the JAX parameters through
@@ -29,7 +32,6 @@ from repro_torch.device import resolve
 
 # family / feature -> the port slice that brings it
 _LATER_SLICES = {
-    "hybrid": "the hybrid slice (SSM + shared attention, zamba2)",
     "vlm": "the VLM slice",
     "encoder": "the encoder slice",
 }
@@ -37,20 +39,27 @@ _LATER_SLICES = {
 
 def require_ported(cfg: ModelConfig) -> None:
     """Raise for any architecture feature the port does not run: the
-    hybrid, VLM and encoder families, an SSM family without its SSM
-    config, MoE layers interleaved with dense ones (``period`` > 1), MLA
-    together with windows or softcaps (no config has both), and
-    frontend embeddings."""
-    if cfg.family not in ("dense", "moe", "ssm"):
+    VLM and encoder families, an SSM or hybrid family without its SSM
+    config, a hybrid whose shared block is not GQA or whose period does
+    not divide its layers, MoE layers interleaved with dense ones
+    (``period`` > 1), MLA together with windows or softcaps (no config
+    has both), and frontend embeddings."""
+    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} arrives with "
             f"{_LATER_SLICES[cfg.family]} of the port")
+    if cfg.family in ("ssm", "hybrid") and cfg.ssm is None:
+        raise NotImplementedError(
+            f"{cfg.name}: the port runs the {cfg.family.upper()} family "
+            f"with an SSM config (Mamba2 blocks), not without one")
     if cfg.family == "ssm":
-        if cfg.ssm is None:
-            raise NotImplementedError(
-                f"{cfg.name}: the port runs the SSM family with an SSM "
-                f"config (Mamba2 blocks), not without one")
         return
+    if cfg.family == "hybrid" and (
+            cfg.attn_variant != "gqa" or not cfg.hybrid_period
+            or cfg.n_layers % cfg.hybrid_period):
+        raise NotImplementedError(
+            f"{cfg.name}: the port runs the hybrid family with a GQA "
+            f"shared block and a period dividing the layers")
     if cfg.family == "moe" and (cfg.moe is None or cfg.moe.period != 1):
         raise NotImplementedError(
             f"{cfg.name}: the port runs MoE with an MoE config of period "
@@ -177,8 +186,8 @@ def _block_schema(cfg: ModelConfig, ffn_key: str, ffn: Dict) -> Dict:
     return s
 
 
-def dense_block_schema(cfg: ModelConfig) -> Dict:
-    return _block_schema(cfg, "ffn", ffn_schema(cfg, cfg.d_ff))
+def dense_block_schema(cfg: ModelConfig, d_ff: int = 0) -> Dict:
+    return _block_schema(cfg, "ffn", ffn_schema(cfg, d_ff or cfg.d_ff))
 
 
 def moe_block_schema(cfg: ModelConfig) -> Dict:
@@ -192,10 +201,12 @@ def model_schema(cfg: ModelConfig) -> Dict:
         "embed": {"tok": PSpec((cfg.vocab_size, d), "normal", 1.0)},
         "final_norm": _norm(d),
         "blocks": [mamba_schema(cfg) for _ in range(cfg.n_layers)]
-        if cfg.family == "ssm" else
+        if cfg.family in ("ssm", "hybrid") else
         [moe_block_schema(cfg) if is_moe else dense_block_schema(cfg)
          for is_moe in cfg.moe_layer_mask()],
     }
+    if cfg.family == "hybrid":
+        s["shared_block"] = dense_block_schema(cfg, cfg.hybrid_d_ff)
     if not cfg.tie_embeddings:
         s["lm_head"] = _proj(d, cfg.vocab_size)
     return s

@@ -117,6 +117,24 @@ def test_entry_points_without_device_raise_without_cuda(monkeypatch):
     blob = kvio.state_to_blob(init_decode_state(m2, 1, 16, "cpu"))
     with pytest.raises(RuntimeError, match="cuda"):
         kvio.blob_to_state(m2, blob)
+    # zamba2 (hybrid: Mamba2 + a shared attention block) the same way:
+    # its parameters, its state (Mamba2 leaves and the shared K/V), the
+    # bridge's (n_super, period) stacks, the blob's way back, and serving
+    z2 = get_config("zamba2-2.7b").reduced()
+    with pytest.raises(RuntimeError, match="cuda"):
+        init_params(z2)
+    with pytest.raises(RuntimeError, match="cuda"):
+        init_decode_state(z2, 1, 16)
+    z2_params = init_params(z2, device="cpu")
+    with pytest.raises(RuntimeError, match="cuda"):
+        ServingSystem(z2, z2_params)
+    with pytest.raises(RuntimeError, match="cuda"):
+        bridge.state_from_jax(
+            {"mamba": {"ssm": np.zeros((2, 2, 1, 3), np.float32)},
+             "shared": {"k": np.zeros((2, 1, 4, 3), np.float32)}})
+    blob = kvio.state_to_blob(init_decode_state(z2, 1, 16, "cpu"))
+    with pytest.raises(RuntimeError, match="cuda"):
+        kvio.blob_to_state(z2, blob, max_seq=16)
     # the simulator runs on the host; only its opt-in settle names a
     # device, and a missing card raises instead of settling on the CPU
     from repro_torch.sim import (DS_660B, HOPPER_NODE, SimConfig, VectorSim,
@@ -136,8 +154,9 @@ def test_cuda_path_raises_on_cpu_only_arguments():
 
 
 @pytest.mark.parametrize("family,match", [
-    ("hybrid", "hybrid slice"),       # zamba2: the next slice
+    ("vlm", "VLM slice"),             # llava: a later slice
     ("ssm", "SSM config"),            # the SSM family needs its SSMConfig
+    ("hybrid", "SSM config"),         # and so does the hybrid's backbone
 ])
 def test_unported_families_raise_with_their_slice(family, match):
     import dataclasses
