@@ -47,10 +47,14 @@ Drives ``repro_torch`` (never the JAX package) on the card:
    split TF32 products' measured error; the carried state dropped, the
    cumulative sum shifted by a row and plain TF32 must fail; the round-1
    append's three kernels' parts),
-   the decode step, the token's conv folded into the recurrence (8
-   slots, one slot's state and tails all zeros in bf16 and f32, one
-   slot, f32; the decay applied after the update and the conv's taps
-   reversed must fail) and the prefill conv (4352 channels: appends, s =
+   the decode step, the token's conv folded into the recurrence, every
+   tail in place (8 slots, one slot's state and tails all zeros in bf16
+   and f32, one slot, f32, three consecutive steps, and 3 slots of 5
+   heads of (32, 16) over three steps in bf16 and f32; the decay applied
+   after the update, the conv's taps reversed and, over three steps, B's
+   old tail kept must fail; one decode layer of mamba2-1.3b and of
+   zamba2-2.7b launches the step once and copies no tail) and the
+   prefill conv (4352 channels: appends, s =
    1 over 8 slots, 2 tokens, f32; against F.conv1d too); flash and paged
    at nemotron-4-15b's group of 6 (dh 128) and minicpm-2b's 36 heads of
    64 in bf16 and f32, and the grouped GEMM at granite-moe-3b-a800m's 40
@@ -61,7 +65,8 @@ Drives ``repro_torch`` (never the JAX package) on the card:
    head dim 80 (8 slots at 4000-4848 keys, the edges of a page and of
    the cache; bf16 and f32), the SSD scan at N 64 over 80 heads (the
    phase's appends, f32; plain TF32 must fail), the decode step at 80
-   heads and N 64 and the conv over 5248 channels;
+   heads and N 64 (also over three steps) and the conv over 5248
+   channels;
 4. serves 6 agents x 3 rounds of full-width qwen1.5-0.5b (bf16, random
    weights from a seed) offline through the port's ServingSystem,
    asserting that every round finished, both read sides were used and
@@ -181,6 +186,7 @@ result.  Without a CUDA card it exits non-zero at once.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import gc
 import json
 import os
@@ -1348,72 +1354,96 @@ def ssd_cases(cfg):
 
 
 def _ssm_step_case(gen, cfg, *, b, dtype=torch.bfloat16, zero_slot=None,
-                   planted=False):
-    """``ssm_step`` over ``b`` slots of one layer's decode: the token's
-    pre-conv x, B and C (:func:`_ssm_inputs` with s = 1), conv weights of
-    the schema's std 1/sqrt(cw), random tails and a random f32 state,
-    slot ``zero_slot``'s state and tails all zeros.  y, the updated state
-    and x's tail (both in place) and B's and C's new tails against the
-    plain version, bit-identical over two calls from the same state, the
-    tails bit-exact.  The plain version sums the token's conv in f32 and
-    rounds it once, as the kernel does (``f32_conv``; the CPU path keeps
-    the reference's bf16 order, and the CPU tests hold both against the
-    reference): that order rounds each product and partial sum, so its
-    conv outputs sit a few bf16 steps from the kernel's, and y, a sum of
-    128 products of them, moved by 0.143 against it on an H100, past
-    TOLS[bf16] where y is near 0.  Summed alike, the conv outputs agree
-    in bf16 too, so y and the state are held to TOLS[f32] in both dtypes,
-    as the step alone was (a conv output rounded the other way would
-    fail it).  With ``planted``, the decay applied after the update and
-    the conv's taps reversed must fail the tolerance.  The bound reads
-    and writes the state once, reads the token, the weights, dt and the
-    tails and writes y and the tails; the operations are the recurrence's
-    and the conv's (C.B^T once for the slots, not per head)."""
+                   planted=False, steps=1, label=""):
+    """``ssm_step`` over ``b`` slots of one layer's decode, ``steps``
+    consecutive steps from one state: each step's pre-conv x, B and C
+    (:func:`_ssm_inputs`), conv weights of the schema's std 1/sqrt(cw),
+    random tails and a random f32 state, slot ``zero_slot``'s state and
+    tails all zeros.  Each step's y, the final state and all three tails
+    after each step (every one in place) against the plain version,
+    bit-identical over two runs from the same state, the tails
+    bit-exact: a later step convolves the tails the kernel left, so
+    three steps show that the kernel's arrival counters come back to 0
+    and its last block per slot writes B's and C's rows.  The plain
+    version sums the token's conv in f32 and rounds it once, as the
+    kernel does (``f32_conv``; the CPU path keeps the reference's bf16
+    order, and the CPU tests hold both against the reference): that
+    order rounds each product and partial sum, so its conv outputs sit a
+    few bf16 steps from the kernel's, and y, a sum of 128 products of
+    them, moved by 0.143 against it on an H100, past TOLS[bf16] where y
+    is near 0.  Summed alike, the conv outputs agree in bf16 too, so y
+    and the state are held to TOLS[f32] in both dtypes, as the step alone
+    was (a conv output rounded the other way would fail it).  With
+    ``planted``, the decay applied after the update and the conv's taps
+    reversed must fail the tolerance, and over several steps B's tail
+    left as it was (the tail write lost) too.  The bound reads and
+    writes the state once, reads the token, the weights, dt and the
+    tails and writes y and the tails; the operations are the
+    recurrence's and the conv's (C.B^T once for the slots, not per
+    head).  The times are of one step; beside them, PyTorch's in-place
+    ``mul_`` of a state of the same shape (one tuned elementwise kernel
+    that reads and writes it once, and nothing else: the least this
+    timing gives any kernel that streams the state)."""
     from repro_torch.kernels import ref, ssm_step
-    x, B, C, dt, A, D = _ssm_inputs(gen, cfg, b, 1, dtype)
-    x, B, C, dt = x[:, 0], B[:, 0], C[:, 0], dt[:, 0].contiguous()
-    H, P, N = x.shape[1], x.shape[2], B.shape[1]
+    xs, Bs, Cs, dts, A, D = _ssm_inputs(gen, cfg, b, steps, dtype)
+    tokens = [(xs[:, i], Bs[:, i], Cs[:, i], dts[:, i].contiguous())
+              for i in range(steps)]
+    H, P, N = xs.shape[2], xs.shape[3], Bs.shape[2]
     cw = cfg.ssm.conv_width
     dev = "cuda"
-    w_x, w_B, w_C = ((torch.randn((cw, c), generator=gen, device=dev) /
-                      cw ** 0.5).to(dtype) for c in (H * P, N, N))
-    t_x, t_B, t_C = (torch.randn((b, cw - 1, c), generator=gen,
-                                 device=dev).to(dtype)
-                     for c in (H * P, N, N))
+    weights = tuple((torch.randn((cw, c), generator=gen, device=dev) /
+                     cw ** 0.5).to(dtype) for c in (H * P, N, N))
+    tails = tuple(torch.randn((b, cw - 1, c), generator=gen,
+                              device=dev).to(dtype) for c in (H * P, N, N))
     h = torch.randn((b, H, P, N), generator=gen, device=dev)
     if zero_slot is not None:
-        for t in (h, t_x, t_B, t_C):
+        for t in (h, *tails):
             t[zero_slot] = 0
     shapes = dict(b=b, H=H, P=P, N=N, cw=cw,
                   dtype=str(dtype).replace("torch.", ""),
-                  **({} if zero_slot is None else {"zero_slot": zero_slot}))
-    weights = (w_x, w_B, w_C)
+                  **({} if zero_slot is None else {"zero_slot": zero_slot}),
+                  **({} if steps == 1 else {"steps": steps}),
+                  **({"case": label} if label else {}))
 
-    def fresh(fn=ssm_step, ws=weights, **kw):
-        hk, tk = h.clone(), t_x.clone()
-        y, nb, nc = fn(hk, x, B, C, *ws, tk, t_B, t_C, dt, A, D, **kw)
-        return y, hk, tk, nb, nc
+    def run(fn=ssm_step, ws=weights, keep_B=False, **kw):
+        """``steps`` steps from copies of the state and tails: (each
+        step's y, the final state, each tail after each step), stacked
+        over steps; ``keep_B`` puts B's old tail back after each step."""
+        hk, tk = h.clone(), tuple(t.clone() for t in tails)
+        ys, seen = [], []
+        for x, B, C, dt in tokens:
+            old_B = tk[1].clone()
+            ys.append(fn(hk, x, B, C, *ws, *tk, dt, A, D, **kw))
+            if keep_B:
+                tk[1].copy_(old_B)
+            seen.append(tuple(t.clone() for t in tk))
+        return (torch.stack(ys), hk,
+                *(torch.stack(ts) for ts in zip(*seen)))
 
-    y, hk, tk, nb, nc = _twice(fresh)
-    want = fresh(ref.ssm_conv_step_ref, f32_conv=True)
+    got = _twice(run)
+    plain = functools.partial(run, ref.ssm_conv_step_ref, f32_conv=True)
+    want = plain()
     tol = TOLS[torch.float32]
-    err_y, ok_y = max_err(y, want[0], tol)
-    err_h, ok_h = max_err(hk, want[1], tol)
-    tails = all(torch.equal(g, w) for g, w in zip((tk, nb, nc), want[2:]))
-    if not (ok_y and ok_h and tails):
+    err_y, ok_y = max_err(got[0], want[0], tol)
+    err_h, ok_h = max_err(got[1], want[1], tol)
+    tails_ok = all(torch.equal(g, w) for g, w in zip(got[2:], want[2:]))
+    if not (ok_y and ok_h and tails_ok):
         raise AssertionError(f"ssm_step off by {err_y} (y), {err_h} (state) "
-                             f"at {shapes}; tails equal: {tails}")
-    faults = _planted("ssm_step", want[0], tol, {
-        "decay after the update": fresh(ref.ssm_conv_step_ref,
-                                        decay_after=True,
-                                        f32_conv=True)[0],
-        "conv taps reversed": fresh(ref.ssm_conv_step_ref, ws=tuple(
-            w.flip(0) for w in weights), f32_conv=True)[0]}) \
-        if planted else None
-    work, work_t, work_p, work_pt = h.clone(), t_x.clone(), h.clone(), \
-        t_x.clone()
-    call = lambda: ssm_step(work, x, B, C, *weights, work_t, t_B, t_C, dt,
-                            A, D)
+                             f"at {shapes}; tails equal: {tails_ok}")
+    faults = None
+    if planted:
+        faults = {"decay after the update": plain(decay_after=True)[0],
+                  "conv taps reversed": plain(ws=tuple(
+                      w.flip(0) for w in weights))[0]}
+        if steps > 1:
+            kept = plain(keep_B=True)
+            assert not torch.equal(kept[3], want[3])
+            faults["old B tail kept"] = kept[0]
+        faults = _planted("ssm_step", want[0], tol, faults)
+    x, B, C, dt = tokens[0]
+    work, work_t = h.clone(), tuple(t.clone() for t in tails)
+    work_p, work_pt = h.clone(), tuple(t.clone() for t in tails)
+    call = lambda: ssm_step(work, x, B, C, *weights, *work_t, dt, A, D)
     isz = x.element_size()
     ch = H * P + 2 * N
     b_ms, b_by = bound(2 * b * H * P * N * 4 + b * ch * isz + cw * ch * isz
@@ -1425,10 +1455,20 @@ def _ssm_step_case(gen, cfg, *, b, dtype=torch.bfloat16, zero_slot=None,
         shapes=shapes, max_abs_err=max(err_y, err_h), planted_err=faults,
         ms=time_ms(call), ms_clean_l2=time_ms(call, clean_l2=True),
         plain_ms=time_ms(lambda: ref.ssm_conv_step_ref(
-            work_p, x, B, C, *weights, work_pt, t_B, t_C, dt, A, D)),
+            work_p, x, B, C, *weights, *work_pt, dt, A, D)),
+        state_rmw_ms=time_ms(lambda: work_p.mul_(1.0)),
         library_ms=None,
         library_name="none (no single PyTorch call computes the step)",
         bound_ms=b_ms, bound_by=b_by)
+
+
+def ssm_config_at(cfg, heads, head_dim, d_state):
+    """``cfg`` cut to ``heads`` SSD heads of ``head_dim`` at N ``d_state``
+    (expand 2): widths the step's walk must mask or take in several
+    float4s a lane."""
+    return dataclasses.replace(
+        cfg, d_model=heads * head_dim // 2, ssm=dataclasses.replace(
+            cfg.ssm, d_state=d_state, head_dim=head_dim, expand=2))
 
 
 def ssm_step_cases(cfg):
@@ -1436,12 +1476,32 @@ def ssm_step_cases(cfg):
     DE's 8 slots at mamba2-1.3b's widths (the main case, with the planted
     faults), slot 3's state and tails all zeros (a slot just admitted
     from a fresh prefill starts from a real state, an idle one stays
-    zero) in bf16 and f32, one slot, and f32."""
+    zero) in bf16 and f32, one slot, f32, three consecutive steps from
+    one state (the lost tail write planted), and other widths over
+    consecutive steps: 5 heads of 32 at N 16 over 3 slots in bf16 and f32
+    (4 lanes a row, 32 of a pass's 64 rows), 3 heads of 24 at N 132 (a
+    lane takes 2 float4s of a row, 31 of 32 lanes idle for the second),
+    and the largest N and P the wrapper takes: 2 heads of 64 at N 1024
+    in f32 (49 KB of shared memory, past the 48 KB a launch gets without
+    opting in) and bf16, and 2 heads of 1024 at N 1024 in f32 (68 KB)."""
     gen = torch.Generator(device="cuda").manual_seed(8)
-    case = lambda **kw: _ssm_step_case(gen, cfg, **{**dict(b=8), **kw})
+    case = lambda c=cfg, **kw: _ssm_step_case(gen, c, **{**dict(b=8), **kw})
+    odd = ssm_config_at(cfg, 5, 32, 16)
+    n132 = ssm_config_at(cfg, 3, 24, 132)
+    wide = ssm_config_at(cfg, 2, 64, 1024)
+    widest = ssm_config_at(cfg, 2, 1024, 1024)
+    f32 = torch.float32
     return [case(planted=True), case(zero_slot=3, planted=True), case(b=1),
-            case(dtype=torch.float32),
-            case(zero_slot=3, dtype=torch.float32, planted=True)]
+            case(dtype=f32),
+            case(zero_slot=3, dtype=f32, planted=True),
+            case(steps=3, planted=True, label="three steps"),
+            case(odd, b=3, steps=3, planted=True, label="odd widths"),
+            case(odd, b=3, steps=3, dtype=f32, label="odd widths"),
+            case(n132, b=2, steps=2, planted=True, label="N 132"),
+            case(wide, b=3, steps=3, dtype=f32, planted=True,
+                 label="N 1024"),
+            case(wide, b=3, steps=2, label="N 1024"),
+            case(widest, b=1, steps=2, dtype=f32, label="P 1024, N 1024")]
 
 
 def _conv_case(gen, *, b, s, c, cw, dtype=torch.bfloat16, label=""):
@@ -1597,7 +1657,8 @@ def zamba2_ssm_cases(cfg, names=None):
     256): the zamba2 phase's appends (4000 rows from zeros, 301 and 501
     from a carried state; bf16 held to SSD_BF16_TOL, the planted faults,
     plain TF32 among them, failing it) and f32; the decode step over 8
-    slots (one slot zero, planted faults) and f32; the prefill conv over
+    slots (one slot zero, planted faults), f32 and three consecutive
+    steps (the lost tail write planted); the prefill conv over
     5248 channels (x, B and C concatenated): the appends and f32.  With
     ``names``, only those kernels' cases."""
     gen = torch.Generator(device="cuda").manual_seed(24)
@@ -1613,7 +1674,9 @@ def zamba2_ssm_cases(cfg, names=None):
             scan(s=501, h0=True, planted=True, label="zamba2 round-3 append"),
             scan(s=1000, h0=True, dtype=torch.float32, label="zamba2 f32")],
         ssm_step=lambda: [step(planted=True), step(zero_slot=3, planted=True),
-                          step(dtype=torch.float32)],
+                          step(dtype=torch.float32),
+                          step(steps=3, planted=True,
+                               label="zamba2 three steps")],
         causal_conv=lambda: [conv(label="zamba2 round-1 append"),
                              conv(s=301, label="zamba2 append"),
                              conv(s=301, dtype=torch.float32)])
@@ -1676,6 +1739,9 @@ def kernel_cases(names=None) -> dict:
         cases["ssd_chunk_scan"] = ssd_cases(cfg_m2)
     if want("ssm_step"):
         cases["ssm_step"] = ssm_step_cases(cfg_m2)
+        for arch, got in decode_layer_check().items():
+            print(f"one {arch} decode layer over 8 slots: "
+                  f"{sum(got.values())} launches, {json.dumps(got)}")
     if want("causal_conv"):
         cases["causal_conv"] = conv_cases(cfg_m2)
     if want("ssd_chunk_scan", "ssm_step", "causal_conv"):
@@ -1719,6 +1785,9 @@ def print_cases(cases: dict) -> None:
                   f"{100 * c['bound_ms'] / c['ms']:.1f} % of it)"
                   + ("" if "ms_clean_l2" not in c else
                      f"; clean L2 {c['ms_clean_l2']:.4f} ms")
+                  + ("" if "state_rmw_ms" not in c else
+                     f"; the state's in-place mul_ alone "
+                     f"{c['state_rmw_ms']:.4f} ms")
                   + ("" if not c.get("parts_ms") else
                      "; warm " + ", ".join(f"{k} {v:.4f} ms"
                                            for k, v in c["parts_ms"].items()))
@@ -2866,7 +2935,8 @@ def predicted_launches(cfg, items: int, installs: int, persists: int,
     kernel (GQA), the gather once per layer of every FullBlock install,
     the scatter once per persist.  SSM models: the SSD scan once per
     layer of every ``append_step``, the recurrent step once per layer of
-    every decode step, the causal conv once per layer of every
+    every decode step (which writes the state and every conv tail in
+    place: no copy), the causal conv once per layer of every
     ``append_step`` only (a decode token's conv runs inside the recurrent
     step's launch), nothing else (a blob install and persist are one copy
     each, no kernel).  Hybrid models: the SSM kernels per Mamba2 layer as
@@ -3048,6 +3118,64 @@ def blob_bytes(cfg, max_seq: int) -> int:
     kv = torch.finfo(getattr(torch, cfg.kv_cache_dtype)).bits // 8
     return mamba + 2 * (cfg.n_layers // cfg.hybrid_period) * max_seq * \
         cfg.n_kv_heads * cfg.head_dim * kv
+
+
+def decode_layer_kernels(cfg, layer, b=8, reps=20) -> tuple:
+    """What one Mamba2 layer's decode step launches over ``b`` slots at
+    ``cfg``'s widths (``layer``: one layer's weights; a zero state):
+    ``ssm_step``'s launches a step by its wrapper's count, and {kernel or
+    copy name:
+    launches a step} as torch.profiler saw ``reps`` warm steps after a
+    warm-up cycle of as many (a session can miss its first few records,
+    so these are rounded).  The token's conv and the recurrence are one
+    ``ssm_step`` launch, which writes the state and every tail in place,
+    so no ``Memcpy`` runs."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+    from repro_torch.kernels import ssm_step
+    from repro_torch.models import ssm
+    state = ssm.init_ssm_state(cfg, b, "cuda")
+    x = torch.randn((b, 1, cfg.d_model), device="cuda").to(
+        getattr(torch, cfg.param_dtype))
+    ssm.ssm_decode_step(layer, cfg, x, state)
+    torch.cuda.synchronize()
+    before = ssm_step.launches
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1)) as prof:
+        for cycle in range(2):              # warm-up, then the one read
+            for _ in range(reps):
+                ssm.ssm_decode_step(layer, cfg, x, state)
+            torch.cuda.synchronize()
+            if cycle == 0:
+                prof.step()
+    steps = (ssm_step.launches - before) / (2 * reps)
+    out = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            name = short_name(e.key)
+            out[name] = out.get(name, 0) + e.count
+    return steps, {k: round(n / reps) for k, n in out.items()}
+
+
+def decode_layer_check() -> dict:
+    """One Mamba2 decode layer of mamba2-1.3b and of zamba2-2.7b at full
+    width over 8 slots (:func:`decode_layer_kernels`, one layer's seed-0
+    weights): each launches ``ssm_step`` once and copies no tail.
+    Returns {arch: kernels}."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    out = {}
+    for arch in ("mamba2-1.3b", "zamba2-2.7b"):
+        cfg = get_config(arch)
+        one = dataclasses.replace(cfg, n_layers=cfg.hybrid_period
+                                  if cfg.family == "hybrid" else 1)
+        steps, got = decode_layer_kernels(
+            cfg, init_params(one, seed=0)["blocks"][0])
+        assert steps == 1 and not any(k.startswith("Memcpy") for k in got), \
+            f"{arch}: a decode layer launched ssm_step {steps} times a " \
+            f"step and {got}"
+        out[arch] = got
+    return out
 
 
 def blob_phase(cfg, device="cuda", rounds=MAMBA2_ROUNDS,

@@ -408,9 +408,8 @@ def ssm_conv_step_ref(h, x, B, C, w_x, w_B, w_C, tail_x, tail_B, tail_C, dt,
     (:func:`causal_conv_ref`, the reference's bf16 order), then
     :func:`ssm_step_ref` on its outputs.  x (b, H, P), B and C (b, N) are
     the token's pre-conv values; w_x (cw, H·P), w_B and w_C (cw, N) the
-    conv weights; tail_x (b, cw-1, H·P) is updated in place, tail_B and
-    tail_C (b, cw-1, N) are read only; h is updated in place.  Returns
-    (y (b, H, P) f32, B's new tail, C's new tail), the tails new tensors.
+    conv weights; the tails tail_x (b, cw-1, H·P), tail_B and tail_C (b,
+    cw-1, N) and h are updated in place.  Returns y (b, H, P) f32.
     ``decay_after`` as in :func:`ssm_step_ref`; ``f32_conv`` sums the
     conv as the card's kernel does (:func:`causal_conv_ref`'s
     ``f32_sum``)."""
@@ -419,7 +418,7 @@ def ssm_conv_step_ref(h, x, B, C, w_x, w_B, w_C, tail_x, tail_B, tail_C, dt,
     xo, new_x = conv(x.reshape(b, 1, H * P), w_x, tail_x)
     Bo, new_B = conv(B[:, None], w_B, tail_B)
     Co, new_C = conv(C[:, None], w_C, tail_C)
-    tail_x.copy_(new_x)
-    y = ssm_step_ref(h, xo.view(b, H, P), Bo[:, 0], Co[:, 0], dt, A, D,
-                     decay_after=decay_after)
-    return y, new_B, new_C
+    for tail, new in ((tail_x, new_x), (tail_B, new_B), (tail_C, new_C)):
+        tail.copy_(new)
+    return ssm_step_ref(h, xo.view(b, H, P), Bo[:, 0], Co[:, 0], dt, A, D,
+                        decay_after=decay_after)

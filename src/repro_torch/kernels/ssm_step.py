@@ -9,13 +9,16 @@ of ``ssm_decode_step`` (``repro/models/ssm.py:138``), jnp there.  h (b,
 H, P, N) f32 is updated in place; x (b, H, P) and B, C (b, N) are the
 token's pre-conv projections, in bf16 or f32; w_x (cw, H·P), w_B, w_C
 (cw, N) the conv weights and tail_x (b, cw - 1, H·P), tail_B, tail_C (b,
-cw - 1, N) the tails, all of x's dtype; dt (b, H) f32 after softplus; A
-(= -exp(A_log)) and D (H,).  x's tail is updated in place; B's and C's
-new tails come back as new tensors (every head reads the old ones), with
-y (b, H, P) f32.  On CUDA tensors this launches ``csrc/ssm_step.cu``
-(one block per head and sequence: the conv into shared memory, then
-each state element read and written once); on CPU tensors it computes
-the plain version.
+cw - 1, N) the tails, all of x's dtype, all three updated in place; dt
+(b, H) f32 after softplus; A (= -exp(A_log)) and D (H,).  Returns y (b,
+H, P) f32.  On CUDA tensors this launches ``csrc/ssm_step.cu``: one block
+per head and sequence streams the head's state (bound by its bytes, read
+once and written once), every thread's copies of it issued before the
+conv; every head's block reads the old B and C tails, and the sequence's
+last block to arrive writes their new rows, counted on per-sequence
+arrival counters that this module owns (one int32 per sequence, device
+and stream, each on its own 128-byte line, zeroed once; each launch
+leaves them 0).  On CPU tensors it computes the plain version.
 """
 from __future__ import annotations
 
@@ -30,14 +33,34 @@ from repro_torch.kernels import build, ref
 from repro_torch.kernels.causal_conv import MAX_CW
 
 
+ARRIVAL_STRIDE = 32            # int32s between two sequences' counters
+# the kernel's per-sequence arrival counters, by (device, stream)
+_ARRIVALS: dict = {}
+
+
 @functools.cache
 def _fn():
     fn = build.library("ssm_step").ssm_step
-    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 16 +
+    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 15 +
                    [ctypes.c_int] * 5 + [ctypes.c_longlong] * 2 +
                    [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
+
+
+def _arrivals(device: torch.device, stream: int, b: int) -> torch.Tensor:
+    """Arrival counters for ``b`` sequences' launches on ``stream``, one
+    128-byte line each (``ARRIVAL_STRIDE`` int32s apart), all 0: zeroed
+    when allocated (grown only when a call has more sequences than ever
+    before), never reset from the host; every launch leaves the counters
+    it used at 0.  Two streams never share counters, so two launches in
+    flight at once never count into one."""
+    have = _ARRIVALS.get((device, stream))
+    if have is None or have.numel() < b * ARRIVAL_STRIDE:
+        have = torch.zeros(max(b, 64) * ARRIVAL_STRIDE, dtype=torch.int32,
+                           device=device)
+        _ARRIVALS[(device, stream)] = have
+    return have
 
 
 def ssm_step(h: torch.Tensor, x: torch.Tensor, B: torch.Tensor,
@@ -46,9 +69,8 @@ def ssm_step(h: torch.Tensor, x: torch.Tensor, B: torch.Tensor,
              tail_C: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
              D: torch.Tensor):
     """h (b,H,P,N) f32, in place; x (b,H,P); B, C (b,N); w_x (cw,H·P);
-    w_B, w_C (cw,N); tail_x (b,cw-1,H·P), in place; tail_B, tail_C
-    (b,cw-1,N); dt (b,H) f32; A, D (H,).  Returns (y (b,H,P) f32, new
-    tail_B, new tail_C)."""
+    w_B, w_C (cw,N); tail_x (b,cw-1,H·P), tail_B, tail_C (b,cw-1,N), all
+    in place; dt (b,H) f32; A, D (H,).  Returns y (b,H,P) f32."""
     b, H, P, N = h.shape
     cw = w_x.shape[0]
     if x.shape != (b, H, P) or B.shape != (b, N) or C.shape != (b, N) \
@@ -89,18 +111,18 @@ def ssm_step(h: torch.Tensor, x: torch.Tensor, B: torch.Tensor,
                          "contiguous with one stride")
     build.require_aligned("ssm_step", {"h": h.data_ptr()}, {}, 4)
     y = torch.empty((b, H, P), dtype=torch.float32, device=h.device)
-    new_B, new_C = torch.empty_like(tail_B), torch.empty_like(tail_C)
     if b == 0:
-        return y, new_B, new_C
+        return y
     A, D = A.float().contiguous(), D.float().contiguous()
+    stream = build.stream_of(h)
+    arrivals = _arrivals(h.device, stream.value, b)
     rc = _fn()(build.ATTN_DTYPES[x.dtype], h.data_ptr(),
-               *(t.data_ptr() for t in act), new_B.data_ptr(),
-               new_C.data_ptr(), dt.data_ptr(), A.data_ptr(), D.data_ptr(),
-               y.data_ptr(), b, H, P, N, cw, x.stride(0), B.stride(0),
-               build.stream_of(h))
+               *(t.data_ptr() for t in act), arrivals.data_ptr(),
+               dt.data_ptr(), A.data_ptr(), D.data_ptr(), y.data_ptr(), b,
+               H, P, N, cw, x.stride(0), B.stride(0), stream)
     build.check(rc, "ssm_step")
     ssm_step.launches += 1
-    return y, new_B, new_C
+    return y
 
 
 ssm_step.launches = 0

@@ -105,18 +105,16 @@ def ssd_scan_with_tails(p, cfg: ModelConfig, x, state: Dict):
 def ssm_decode_step(p, cfg: ModelConfig, x, state: Dict):
     """One token per sequence: x (b, 1, d_model) against ``state``,
     updated in place.  The token's conv and the recurrence are one
-    ``ssm_step`` launch (x's tail updated in place, B's and C's new tails
-    copied back).  Returns (y (b, 1, d_model), state)."""
+    ``ssm_step`` launch, which updates the state and all three tails in
+    place.  Returns (y (b, 1, d_model), state)."""
     d_inner, H, P, N = _dims(cfg)
     b = x.shape[0]
     z = x @ p["w_z"]
     A = -torch.exp(p["A_log"].float())
-    y, tail_B, tail_C = ssm_step(
+    y = ssm_step(
         state["ssm"], (x @ p["w_x"])[:, 0].view(b, H, P),
         (x @ p["w_B"])[:, 0], (x @ p["w_C"])[:, 0], *(p[k] for k in _CONV),
         *(state[k] for k in _CONV), _dt(p, x)[:, 0].contiguous(), A, p["D"])
-    state["conv_B"].copy_(tail_B)
-    state["conv_C"].copy_(tail_C)
     return _gated_out(p, cfg, y.view(b, 1, d_inner), z), state
 
 

@@ -27,8 +27,10 @@ runs on the CPU, so every kernel wrapper computes its plain version.
   the chunk, two sequences from carried states, the final state written
   over h0) and, inside the layer, against the reference's ``ssd_scan``
   and ``ssd_scan_with_tails``; the decode step's wrapper (the token's
-  conv, then the recurrence) against ``ssm_decode_step`` with one slot
-  all zeros.  The wrappers refuse wrong shapes, mixed dtypes and
+  conv, then the recurrence, every tail in place) against
+  ``ssm_decode_step`` with one slot all zeros, and over three consecutive
+  steps from one carried state (B's tail left behind must fail).  The
+  wrappers refuse wrong shapes, mixed dtypes and
   tensors that are neither on the CPU nor on a card.
 
 Tolerances: the kernels' plain versions 1e-5 in f32 and 2e-2 in bf16
@@ -489,8 +491,8 @@ def test_fused_decode_plain_matches_reference(models, f32_conv,
     """The decode step's wrapper on the CPU (the token's conv, then the
     recurrence) over 4 slots, slot 2's state and tails all zeros, against
     the reference's ``ssm_decode_step``: the state and tails it leaves and
-    the layer's output.  x's tail is updated in place; B's and C's new
-    tails are new tensors, the old ones untouched.  ``f32_conv`` sums the
+    the layer's output.  All three tails are updated in place, and the
+    wrapper returns y alone.  ``f32_conv`` sums the
     conv as the card's kernel does (f32, one rounding), which the card's
     check compares the kernel with: it too stays within the plain
     versions' tolerance of the reference."""
@@ -508,19 +510,62 @@ def test_fused_decode_plain_matches_reference(models, f32_conv,
         jstate[k] = jstate[k].at[2].set(0)
     jx, tx = _pair(rng, (4, 1, tcfg.d_model), dt)
     jy, jnew = jax_step(jl, jcfg, jx, jstate)
-    old_B, old_C = state["conv_B"].clone(), state["conv_C"].clone()
-    ptr_x = state["conv_x"].data_ptr()
+    ptrs = {k: v.data_ptr() for k, v in state.items()}
+    old = {k: state[k].clone() for k in ssm._CONV}
+    y = _fused_step(tl, tx, state, H, P)
+    assert isinstance(y, torch.Tensor) and y.shape == (4, H, P)
+    for k in jnew:
+        assert state[k].data_ptr() == ptrs[k]
+        _close(state[k], jnew[k], KTOLS[dt])
+    for k in ssm._CONV:                         # every tail moved
+        assert not torch.equal(state[k], old[k]), k
+    out = ssm._gated_out(tl, tcfg, y.view(4, 1, d_inner), tx @ tl["w_z"])
+    _close(out, jy, KTOLS[dt])
+
+
+def _fused_step(tl, tx, state, H, P):
+    """The decode step's wrapper on one layer's projections of ``tx`` (b,
+    1, d_model) against ``state``, which it updates in place; returns
+    y."""
+    from repro_torch.kernels import ssm_step
     x = tx[:, 0]
-    y, tail_B, tail_C = ssm_step(
-        state["ssm"], (x @ tl["w_x"]).view(4, H, P), x @ tl["w_B"],
+    return ssm_step(
+        state["ssm"], (x @ tl["w_x"]).view(x.shape[0], H, P), x @ tl["w_B"],
         x @ tl["w_C"], tl["conv_x"], tl["conv_B"], tl["conv_C"],
         state["conv_x"], state["conv_B"], state["conv_C"],
         ssm._dt(tl, x), -torch.exp(tl["A_log"].float()), tl["D"])
-    assert state["conv_x"].data_ptr() == ptr_x
-    assert torch.equal(state["conv_B"], old_B)
-    assert torch.equal(state["conv_C"], old_C)
-    for got, k in ((state["ssm"], "ssm"), (state["conv_x"], "conv_x"),
-                   (tail_B, "conv_B"), (tail_C, "conv_C")):
-        _close(got, jnew[k], KTOLS[dt])
-    out = ssm._gated_out(tl, tcfg, y.view(4, 1, d_inner), tx @ tl["w_z"])
-    _close(out, jy, KTOLS[dt])
+
+
+@pytest.mark.parametrize("f32_conv", [False, True])
+def test_fused_decode_three_steps_match_reference(models, f32_conv,
+                                                  monkeypatch):
+    """Three consecutive decode steps of the wrapper from one carried
+    state (the tails in place each step, so each step convolves the
+    tails the previous one left) against three of the reference's
+    ``ssm_decode_step``: each step's layer output and the state and tails
+    after it.  With B's tail left as it was after each step (the fault
+    the card's check plants), the third step's output moves past the
+    tolerance."""
+    if f32_conv:
+        monkeypatch.setattr(ref, "ssm_conv_step_ref", functools.partial(
+            ref.ssm_conv_step_ref, f32_conv=True))
+    dt, jcfg, tcfg, jp, tp = models
+    jl, tl = _layer(jp, tp)
+    d_inner, H, P, N = ssm._dims(tcfg)
+    rng = np.random.default_rng(29)
+    jstate, state = _random_state(rng, tcfg, 3, dt)
+    faulty = {k: v.clone() for k, v in state.items()}
+    for _ in range(3):
+        jx, tx = _pair(rng, (3, 1, tcfg.d_model), dt)
+        jy, jstate = jax_step(jl, jcfg, jx, jstate)
+        y = _fused_step(tl, tx, state, H, P)
+        out = ssm._gated_out(tl, tcfg, y.view(3, 1, d_inner), tx @ tl["w_z"])
+        _close(out, jy, KTOLS[dt])
+        for k in jstate:
+            _close(state[k], jstate[k], KTOLS[dt])
+        old_B = faulty["conv_B"].clone()
+        y_bad = _fused_step(tl, tx, faulty, H, P)
+        faulty["conv_B"].copy_(old_B)
+    with pytest.raises(AssertionError):
+        _close(ssm._gated_out(tl, tcfg, y_bad.view(3, 1, d_inner),
+                              tx @ tl["w_z"]), jy, KTOLS[dt])

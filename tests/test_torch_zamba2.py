@@ -21,7 +21,10 @@ runs on the CPU, so every kernel wrapper computes its plain version.
   the shared K/V padded to ``max_seq``, byte for byte the reference
   state's leaves, and back) and the attention-row enumeration.
 * The plain SSD scan at zamba2's N 64 (and P 64) inside a Mamba2 layer
-  against the reference's ``ssd_scan``.  The launcher serves zamba2.
+  against the reference's ``ssd_scan``; the decode step's wrapper at N 64
+  over three consecutive steps from one carried state (every tail in
+  place) against the reference's ``ssm_decode_step``.  The launcher
+  serves zamba2.
 
 Tolerances: logits and states 2e-5 of the largest value in f32, 2e-2 in
 bf16 (test_torch_model.py's).
@@ -55,6 +58,7 @@ jax_forward = jax.jit(jax_model.forward, static_argnums=1,
 jax_decode = jax.jit(jax_model.decode_step, static_argnums=1)
 jax_append = jax.jit(jax_model.append_step, static_argnums=1)
 jax_scan = jax.jit(jax_ssm.ssd_scan, static_argnums=1)
+jax_step = jax.jit(jax_ssm.ssm_decode_step, static_argnums=1)
 
 ARCH = "zamba2-2.7b"
 TOLS = {"float32": 2e-5, "bfloat16": 2e-2}
@@ -377,6 +381,50 @@ def test_plain_ssd_scan_at_n64_matches_reference(dt, s):
     _close(y, jy, TOLS[dt])
     for k in jst:
         _close(st[k], jst[k], TOLS[dt])
+
+
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+def test_fused_decode_three_steps_at_n64_match_reference(dt):
+    """Three consecutive decode steps of one Mamba2 layer at zamba2's
+    d_state 64 and SSD head dim 64, through the decode step's wrapper
+    (the token's conv and the recurrence, the state and all three tails
+    in place), from one nonzero carried state, against three of the
+    reference's ``ssm_decode_step``: each step's layer output and the
+    state and tails after it."""
+    from repro_torch.kernels import ssm_step
+    jcfg, tcfg = _cfgs(dt, ssm_kw=dict(d_state=64, head_dim=64))
+    jp = jax_init_params(jcfg, jax.random.PRNGKey(2))
+    tp = bridge.params_from_jax(_np(jp), tcfg, device="cpu")
+    jl = jax.tree.map(lambda a: a[0, 1], jp["blocks"])
+    tl = tp["blocks"][1]
+    d_inner, H, P, N = ssm._dims(tcfg)
+    b, cw = 3, tcfg.ssm.conv_width
+    rng = np.random.default_rng(31)
+    draw = lambda *shape: (0.5 * rng.standard_normal(shape)).astype(
+        np.float32)
+    leaves = dict(ssm=(draw(b, H, P, N), "float32"),
+                  conv_x=(draw(b, cw - 1, d_inner), dt),
+                  conv_B=(draw(b, cw - 1, N), dt),
+                  conv_C=(draw(b, cw - 1, N), dt))
+    jstate = {k: jnp.asarray(v).astype(d) for k, (v, d) in leaves.items()}
+    state = {k: bridge.to_torch(np.asarray(v), "cpu")
+             for k, v in jstate.items()}
+    assert state["ssm"].shape == (3, 4, 64, 64)
+    for _ in range(3):
+        jx = jnp.asarray(rng.standard_normal(
+            (b, 1, tcfg.d_model)).astype(np.float32)).astype(dt)
+        tx = bridge.to_torch(np.asarray(jx), "cpu")
+        jy, jstate = jax_step(jl, jcfg, jx, jstate)
+        x = tx[:, 0]
+        y = ssm_step(
+            state["ssm"], (x @ tl["w_x"]).view(b, H, P), x @ tl["w_B"],
+            x @ tl["w_C"], tl["conv_x"], tl["conv_B"], tl["conv_C"],
+            state["conv_x"], state["conv_B"], state["conv_C"],
+            ssm._dt(tl, x), -torch.exp(tl["A_log"].float()), tl["D"])
+        _close(ssm._gated_out(tl, tcfg, y.view(b, 1, d_inner),
+                              tx @ tl["w_z"]), jy, TOLS[dt])
+        for k in jstate:
+            _close(state[k], jstate[k], TOLS[dt])
 
 
 def test_launcher_serves_zamba2(capsys):
