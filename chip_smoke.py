@@ -1,6 +1,6 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA H100.
 
-    python3 chip_smoke.py                  # the smoke, phases 1-16
+    python3 chip_smoke.py                  # the smoke, phases 1-19
     python3 chip_smoke.py --persist-ab 10  # offline serving, old persist
                                            # against the scatter's
     python3 chip_smoke.py --split-sweep    # the attention kernels' split
@@ -66,7 +66,13 @@ Drives ``repro_torch`` (never the JAX package) on the card:
    the cache; bf16 and f32), the SSD scan at N 64 over 80 heads (the
    phase's appends, f32; plain TF32 must fail), the decode step at 80
    heads and N 64 (also over three steps) and the conv over 5248
-   channels;
+   channels; at the last three models' shapes flash at llama4's g 5
+   (its round-2 append and 4096-row prefill), llava's g 7 (the round-2
+   append and the 2880-patch append) and hubert's bidirectional (80, 80)
+   over 8 clips of 1500 frames, paged over 8 slots at g 5 and g 7, each
+   in bf16 and f32, and the grouped GEMM at llama4's 128 experts, top-1
+   (the 4096-token prefill, a 400-token append and the 8-slot decode,
+   both projections, and f32), planted faults failing;
 4. serves 6 agents x 3 rounds of full-width qwen1.5-0.5b (bf16, random
    weights from a seed) offline through the port's ServingSystem,
    asserting that every round finished, both read sides were used and
@@ -131,7 +137,7 @@ Drives ``repro_torch`` (never the JAX package) on the card:
    absorbed decode launched; paged never), and the blocking arm gave
    identical tokens; a third run under torch.profiler; then f32 token
    identity at full width and depth 4 with the cache-free reference,
-   unchunked and in 1024-token slices (see :func:`ds27b_phase`);
+   unchunked and in 1024-token slices (see :func:`moe_phase`);
 12. the event simulator (``repro_torch.sim``), on the host in modelled
    time: (a) DS 660B at 2P4D on 192 Table 2 trajectories of 64K in the
    basic, dualpath and oracle modes (every agent finishes, dualpath's
@@ -177,7 +183,29 @@ Drives ``repro_torch`` (never the JAX package) on the card:
    identity at depth 12 (two shared applications) with the cache-free
    reference, unchunked and in 1024-token slices (see
    :func:`blob_phase`);
-16. prints the ``kernels`` JSON line, then the contract line
+16. llama4-maverick-400b-a17b (MoE of period 2: a dense layer, then an
+   MoE layer of 128 experts, top-1, and a shared expert, over GQA 40 x 8
+   of 128) at full width and depth 2 (37.1 GB of bf16 weights: one MoE
+   layer's experts alone are 32.2 GB): ds27b's rounds, agents and cache,
+   asserting what phase 11 asserts (paged in place of the MLA decode) and
+   that the grouped GEMM ran in both regimes; a profiled run; f32 token
+   identity at depth 2 with the routed experts cut to 32 (see
+   :func:`llama4_phase`);
+17. llava-next-34b (the VLM connector) at full width and depth 48 of 60:
+   (a) served offline by token ids at the registrations' rounds, with
+   phase 14's checks, and profiled; (b) the VLM path on one slot: 2880
+   patch embeddings appended, a 256-token text append, 16 greedy decode
+   steps, every logit finite, flash once per layer of each append and
+   paged once per layer of each step; (c) f32 at depth 4: the patch
+   append in 1024-row slices equals the unchunked forward (see
+   :func:`llava_phase`);
+18. hubert-xlarge (the encoder) at full width and depth: a bf16 forward
+   over 8 clips x 1500 frames, finite, flash launched once per layer and
+   bidirectional, nothing else, timed and profiled; f32 at depth 2 on
+   the card equal to the port's CPU forward within TOLS[f32] of the
+   largest logit; moving the last frame moves the first frame's logits (see
+   :func:`hubert_phase`);
+19. prints the ``kernels`` JSON line, then the contract line
    ``{"ok": true, "device": {...}}`` last.
 
 Any failed check raises, so the script exits non-zero and prints no
@@ -313,6 +341,46 @@ REG_ARCHS = ("granite-moe-3b-a800m", "minicpm-2b", "nemotron-4-15b")
 REG_ROUNDS = ((2048, 16), (256, 16))
 REG_AGENTS = 2
 REG_MAX_SEQ = 2560
+# the last three models (phases 16-18).  llama4-maverick-400b-a17b at
+# published width and depth 2 (one dense layer, then one MoE layer of 128
+# experts of d_ff 8192, top-1, and a shared expert: 37.1 GB of bf16
+# weights; one MoE layer's routed experts alone are 32.2 GB, so depth 4
+# would need ~69.5 GB of weights plus init_params' f32 draw of one
+# expert stack, 21.5 GB), served with ds27b's rounds, agents and cache so
+# the two MoE runs compare
+LLAMA4 = "llama4-maverick-400b-a17b"
+LLAMA4_DEPTH = 2
+# its appends (rows, kv_len): at depth 2 the packer's quota takes the
+# four 4096-token prefills in one step, unsplit; rounds 2-3 as ds27b's.
+# Phase 3 holds flash at each; phase 16 asserts they are the appends it
+# ran
+LLAMA4_APPENDS = ((4096, 4096), (400, 4496), (544, 5024))
+# its f32 identity at depth 2 with the routed experts cut to 32 (25.9 GB
+# of f32 weights: 128 experts in f32 do not fit)
+LLAMA4_IDENTITY = dict(depth=2, n_experts=32,
+                       rounds=((2112, 4), (64, 4), (64, 4)), max_seq=2368,
+                       chunk=1024)
+# llava-next-34b at published width and depth 48 of 60 (55.5 GB of bf16
+# weights; 60 layers are 68.9 GB before any cache): (a) the
+# registrations' rounds by token ids; (b) the VLM path on one slot: the
+# patch embeddings of LLaVA-NeXT's five 576-patch anyres tiles, a text
+# append by token ids, greedy decode steps; (c) f32 identity at depth 4
+# of the patch append in 1024-row slices against the unchunked forward
+LLAVA = "llava-next-34b"
+LLAVA_DEPTH = 48
+LLAVA_PATCHES = 2880
+LLAVA_TEXT = 256
+LLAVA_STEPS = 16
+# the VLM path's one-slot cache: its tokens rounded up to whole 64-token
+# pages (3200 of 3152)
+LLAVA_VLM_MAX_SEQ = -(-(LLAVA_PATCHES + LLAVA_TEXT + LLAVA_STEPS) // 64) * 64
+LLAVA_IDENTITY = dict(depth=4, chunk=1024)
+# hubert-xlarge at published width and depth (48 layers, 1.9 GB): 8
+# clips of 30 s at its 50 Hz frame rate; f32 at depth 2 on the card
+# against the port's CPU forward (plain versions) on one clip
+HUBERT = "hubert-xlarge"
+HUBERT_CLIPS, HUBERT_FRAMES = 8, 1500
+HUBERT_IDENTITY = dict(depth=2)
 # the event simulator (phase 12): (a) the reference's I/O-bound point,
 # DS 660B at 2P4D on Table 2's 64K trajectories; (b)
 # benchmarks/microbench_sim.py's saturated-link workload; (c) a traced
@@ -1022,20 +1090,32 @@ def _grouped_mm_library(x, w, sizes):
     return call, "torch._grouped_mm"
 
 
+def expert_weights(gen, e: int, k: int, n: int, dtype) -> torch.Tensor:
+    """w (E, K, N) of the schema's std 1/sqrt(K) drawn on the card one
+    expert at a time, so a stack of 10.7 GB (llama4's 128 experts of
+    5120 x 8192 in bf16) needs no f32 copy of itself."""
+    w = torch.empty((e, k, n), dtype=dtype, device="cuda")
+    for i in range(e):
+        w[i] = torch.randn((k, n), generator=gen, device="cuda") / k ** 0.5
+    return w
+
+
 def _gg_case(gen, *, sizes, k, n, dtype=torch.bfloat16, planted=False,
-             label=""):
+             label="", w=None):
     """``grouped_gemm`` on x (M, K) ~ N(0, 1) and w (E, K, N) of the
-    schema's std 1/sqrt(K), M = sum(sizes): held against the per-group
-    plain version, bit-identical over two calls; with ``planted``, a
-    group boundary moved by one row must fail the tolerance.  The bound
-    reads each used expert's weights once."""
+    schema's std 1/sqrt(K) (drawn here, or ``w`` given), M = sum(sizes):
+    held against the per-group plain version, bit-identical over two
+    calls; with ``planted``, a group boundary moved by one row must fail
+    the tolerance.  The bound reads each used expert's weights once."""
     import importlib
     from repro_torch.kernels import grouped_gemm, ref
     gg = importlib.import_module("repro_torch.kernels.grouped_gemm")
     e, m = sizes.shape[0], int(sizes.sum())
     x = torch.randn((m, k), generator=gen, device="cuda").to(dtype)
-    w = (torch.randn((e, k, n), generator=gen, device="cuda") /
-         k ** 0.5).to(dtype)
+    if w is None:
+        w = (torch.randn((e, k, n), generator=gen, device="cuda") /
+             k ** 0.5).to(dtype)
+    assert w.shape == (e, k, n) and w.dtype == dtype, (w.shape, w.dtype)
     used = int((sizes > 0).sum())
     shapes = dict(x=[m, k], w=[e, k, n], groups_used=used,
                   largest_group=int(sizes.max()),
@@ -1684,6 +1764,92 @@ def zamba2_ssm_cases(cfg, names=None):
             if names is None or k in names}
 
 
+# ---------------------------------------------------------------------------
+# phase 3 at the last three models' shapes: flash at llama4's g 5, llava's
+# g 7 and hubert's bidirectional (80, 80); paged at g 5 and g 7; the
+# grouped GEMM at llama4's 128 experts, top-1
+# ---------------------------------------------------------------------------
+
+
+def last_three_attention_cases(rng):
+    """Flash at llama4's 40 heads over 8 of 128 (g 5: its round-2 append
+    of the llama4 phase, 400 rows over 4496 keys of 6144, and its
+    4096-row prefill), llava's 56 over 8 (g 7: the registrations' round-2
+    append, 272 rows over 2320 keys of 2560, and the VLM path's
+    2880-patch append) and hubert's 16 of 80, bidirectional, over 8 clips
+    of 1500 frames; each in f32 too.  Paged over 8 slots at g 5 (the
+    llama4 phase's decode contexts, 4112-5040 of 6144) and g 7 (llava's,
+    2300-2336 of 2560), bf16 and f32.  Each model's first bf16 case of
+    each kernel checks that the planted faults fail.  q, K and V are drawn
+    on the card; the lengths come from ``rng``."""
+    from repro_torch.configs import get_config
+    l4, lv, hb = (get_config(a) for a in (LLAMA4, LLAVA, HUBERT))
+    gen = torch.Generator(device="cuda").manual_seed(26)
+    bf, f32 = torch.bfloat16, torch.float32
+    heads = lambda c: dict(hq=c.n_heads, hkv=c.n_kv_heads, dh=c.head_dim)
+    fcase = lambda c, sq, kv, S, **kw: _flash_case(gen, **{**heads(c), **dict(
+        sq=sq, kv_lens=kv if isinstance(kv, list) else [kv], S=S,
+        dtype=bf, q_std=Q_STD), **kw})
+    clips = [HUBERT_FRAMES] * HUBERT_CLIPS
+    flash = [fcase(l4, *LLAMA4_APPENDS[1], DS27B_MAX_SEQ, planted=True,
+                   parts=True),
+             fcase(l4, *LLAMA4_APPENDS[0], DS27B_MAX_SEQ, parts=True),
+             fcase(l4, *LLAMA4_APPENDS[1], DS27B_MAX_SEQ, dtype=f32),
+             fcase(lv, 272, 2320, REG_MAX_SEQ, planted=True),
+             fcase(lv, LLAVA_PATCHES, LLAVA_PATCHES, LLAVA_VLM_MAX_SEQ),
+             fcase(lv, 272, 2320, REG_MAX_SEQ, dtype=f32),
+             fcase(hb, HUBERT_FRAMES, clips, HUBERT_FRAMES, causal=False,
+                   planted=True, parts=True),
+             fcase(hb, HUBERT_FRAMES, clips, HUBERT_FRAMES, causal=False,
+                   dtype=f32)]
+    pcase = lambda c, S, lengths, **kw: _paged_case(gen, **{**heads(c), **dict(
+        S=S, lengths=lengths, dtype=bf, q_std=Q_STD), **kw})
+    l4_lens = [int(x) for x in rng.integers(4112, 5041, 8)]
+    lv_lens = [int(x) for x in rng.integers(2300, 2337, 8)]
+    paged = [pcase(l4, DS27B_MAX_SEQ, l4_lens, planted=True, parts=True),
+             pcase(l4, DS27B_MAX_SEQ, l4_lens, dtype=f32),
+             pcase(lv, REG_MAX_SEQ, lv_lens, planted=True),
+             pcase(lv, REG_MAX_SEQ, lv_lens, dtype=f32)]
+    return flash, paged
+
+
+def llama4_gemm_cases():
+    """llama4's expert projections (128 experts, top-1, K 5120 -> N 8192
+    gate/up and 8192 -> 5120 down), group sizes from the router: the
+    4096-token prefill (4096 copies, ~32 rows a group: the append
+    regime), a 400-token append and the 8-slot decode (M <= 8 E: the
+    decode regime), each projection's first case of each regime checking
+    that a moved group boundary fails, and the 400-token gate/up in f32.
+    Each 10.7 GB weight stack (21.5 GB in f32) is built once for its
+    cases and freed before the next."""
+    import importlib
+    from repro_torch.configs import get_config
+    gg = importlib.import_module("repro_torch.kernels.grouped_gemm")
+    cfg = get_config(LLAMA4)
+    gen = torch.Generator(device="cuda").manual_seed(27)
+    d, f, e = cfg.d_model, cfg.moe.d_ff_expert, cfg.moe.n_experts
+    sizes = {t: router_group_sizes(cfg, t, gen) for t in (4096, 400, 8)}
+    cases = []
+    for k, n, proj in ((d, f, "gate/up"), (f, d, "down")):
+        w = expert_weights(gen, e, k, n, torch.bfloat16)
+        cases += [_gg_case(gen, sizes=sizes[t], k=k, n=n, w=w,
+                           planted=t != 400,
+                           label=f"llama4 {what}, {proj}")
+                  for t, what in ((4096, "prefill 4096"),
+                                  (400, "append 400"), (8, "decode"))]
+        del w
+        torch.cuda.empty_cache()
+    w = expert_weights(gen, e, d, f, torch.float32)
+    cases.append(_gg_case(gen, sizes=sizes[400], k=d, n=f, w=w,
+                          dtype=torch.float32,
+                          label="llama4 append 400, gate/up, f32"))
+    del w
+    torch.cuda.empty_cache()
+    regimes = {c["shapes"].get("regime") for c in cases}
+    assert regimes >= set(gg.REGIMES), f"llama4 regimes held: {regimes}"
+    return cases
+
+
 # the wrappers and their sources (None: Triton, compiled at first launch)
 KERNEL_SOURCES = {"kv_layer_gather": "kv_gather",
                   "kv_layer_scatter": "kv_scatter",
@@ -1699,8 +1865,10 @@ def kernel_cases(names=None) -> dict:
     kernel's main case): qwen1.5-0.5b's shapes, then gemma2-2b's (head
     dim 256, window 4096, softcap 50), then ds27b's (MLA's flash widths,
     its 1152-byte rows, and the two kernels only its path runs), then
-    mamba2-1.3b's SSM kernels, the registrations' heads and experts, and
-    zamba2-2.7b's (head dim 80, N 64).  With
+    mamba2-1.3b's SSM kernels, the registrations' heads and experts,
+    zamba2-2.7b's (head dim 80, N 64), and llama4's, llava's and hubert's
+    (flash and paged at g 5 and g 7, flash bidirectional at head dim 80,
+    the grouped GEMM at 128 experts, top-1).  With
     ``names``, only those kernels' cases (the random draws then differ
     from a whole run's)."""
     from repro_torch.configs import get_config
@@ -1766,6 +1934,18 @@ def kernel_cases(names=None) -> dict:
         for name, more in zamba2_ssm_cases(cfg_z2, names).items():
             cases[name] += more
         print(f"phase 3, zamba2's SSM cases: "
+              f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    if want("flash_attention", "paged_attention"):
+        flash_3, paged_3 = last_three_attention_cases(rng)
+        for name, more in (("flash_attention", flash_3),
+                           ("paged_attention", paged_3)):
+            if name in cases:
+                cases[name] += more
+    if want("grouped_gemm"):
+        cases["grouped_gemm"] += llama4_gemm_cases()
+    if want("flash_attention", "paged_attention", "grouped_gemm"):
+        print(f"phase 3, llama4's, llava's and hubert's cases: "
               f"{time.perf_counter() - t0:.1f} s")
     return cases
 
@@ -1917,13 +2097,8 @@ def profile_phase(cfg, rounds=AGENT_ROUNDS, n_agents=6, top=8,
                   max_seq=2048, params=None):
     """Where the time goes: the serving phase's pipelined run once more
     (or ``cfg``'s with ``rounds`` and ``max_seq`` on 1 PE + 1 DE, on
-    ``params`` or seed 0's), under torch.profiler tracing the card only.
-    Returns (real wall s,
-    device-busy s summed over kernels and copies, [(name, device ms,
-    calls, [(kernel, launches, device ms)])] of the top entries and the
-    port's kernels)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    ``params`` or seed 0's), under torch.profiler tracing the card only
+    (:func:`profiled`)."""
     from repro_torch.models import init_params
     from repro_torch.sim.traces import Round, Trajectory
     if params is None:
@@ -1932,8 +2107,19 @@ def profile_phase(cfg, rounds=AGENT_ROUNDS, n_agents=6, top=8,
              for i in range(n_agents)]
     kw = dict(n_pe=1, n_de=1, mode="dualpath", block_tokens=64,
               max_seq=max_seq, de_slots=8)
+    return profiled(lambda: serve(cfg, params, trajs, "cuda", **kw)[2], top)
+
+
+def profiled(run, top=8):
+    """``run()`` (which returns its real wall s) under torch.profiler
+    tracing the card only.  Returns (real wall s, device-busy s summed
+    over kernels and copies, [(name, device ms, calls, [(kernel,
+    launches, device ms)])] of the top entries and the port's
+    kernels)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        _, _, wall = serve(cfg, params, trajs, "cuda", **kw)
+        wall = run()
     rows = {}
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA:
@@ -2961,19 +3147,41 @@ def predicted_launches(cfg, items: int, installs: int, persists: int,
     return out
 
 
-def ds27b_phase(cfg, device="cuda", rounds=DS27B_ROUNDS,
-                n_agents=DS27B_AGENTS, max_seq=DS27B_MAX_SEQ,
-                identity=DS27B_IDENTITY, profile=True) -> dict:
-    """ds27b served offline on 1 PE + 1 DE (dualpath, 64-token FullBlocks
-    of 1152-byte rows, 8 DE slots): every round finishes, the launches
-    equal those predicted (:func:`predicted_launches`: no paged launch,
-    MLA decodes through ``mla_decode``), and the blocking arm gives the
-    same tokens; a model step makes one host sync, not one per layer
-    (:func:`model_step_syncs`); a third run under torch.profiler
-    (``profile``); then
-    f32 token identity at full width and ``identity["depth"]`` layers
-    with the cache-free reference, unchunked and in prefill slices
-    (:func:`identity_phase`)."""
+class RegimeCounter(MethodPatch):
+    """Counts the grouped GEMM's launches by regime, from the shapes the
+    wrapper picks it from (``grouped_gemm.regime``): host-side, no
+    device read."""
+
+    def __init__(self):
+        import importlib
+        gg = importlib.import_module("repro_torch.kernels.grouped_gemm")
+        self.n = dict.fromkeys(gg.REGIMES, 0)
+
+        def wrap(fn):
+            def counted(*args):
+                mode = fn(*args)
+                self.n[mode] += 1
+                return mode
+            return counted
+
+        super().__init__(gg, "regime", wrap)
+
+
+def moe_phase(cfg, device="cuda", rounds=DS27B_ROUNDS,
+              n_agents=DS27B_AGENTS, max_seq=DS27B_MAX_SEQ,
+              identity=DS27B_IDENTITY, profile=True) -> dict:
+    """An MoE model (ds27b over MLA, llama4 over GQA) served offline on 1
+    PE + 1 DE (dualpath, 64-token FullBlocks, 8 DE slots): every round
+    finishes, FullBlock rows are the config's, the launches equal those
+    predicted (:func:`predicted_launches`: MLA decodes through
+    ``mla_decode``, GQA through ``paged_attention``), the grouped GEMM
+    runs in both regimes (:class:`RegimeCounter`), and the blocking arm
+    gives the same tokens; a model step makes one host sync, not one per
+    layer (:func:`model_step_syncs`); a third run under torch.profiler
+    (``profile``); then f32 token identity at full width,
+    ``identity["depth"]`` layers and, with ``identity["n_experts"]``,
+    that many routed experts, with the cache-free reference, unchunked
+    and in prefill slices (:func:`identity_phase`)."""
     from repro_torch import kernels
     from repro_torch.engines.kvio import kv_row_bytes
     from repro_torch.models import init_params
@@ -2992,31 +3200,36 @@ def ds27b_phase(cfg, device="cuda", rounds=DS27B_ROUNDS,
     kw = dict(n_pe=1, n_de=1, mode="dualpath", block_tokens=64,
               max_seq=max_seq, de_slots=8)
     kernels.reset_launch_counts()
-    with PathCounter() as path:
+    with PathCounter() as path, RegimeCounter() as regimes:
         system, sessions, wall = serve(cfg, params, trajs(), device, **kw)
     launches = kernels.launch_counts()
     peak = torch.cuda.max_memory_allocated() - base if cuda else None
     st = system.stats()
     assert all(s.rounds_done == len(rounds) for s in sessions), \
-        "a ds27b round did not finish"
+        f"a {cfg.name} round did not finish"
     assert st["store_reads"] > 0, "no FullBlock was read back"
+    mla = cfg.attn_variant == "mla"
     row = system.layout.bytes_per_token_layer
-    assert row == kv_row_bytes(cfg) == \
-        cfg.mla.kv_lora_rank * 2 + cfg.mla.rope_head_dim * 2, row
+    assert row == kv_row_bytes(cfg) == (
+        cfg.mla.kv_lora_rank * 2 + cfg.mla.rope_head_dim * 2 if mla else
+        2 * cfg.n_kv_heads * cfg.head_dim * 2), row
     predicted = predicted_launches(cfg, path.items, path.installs,
                                    path.persists, st["decode_steps"])
     if cuda:
         assert launches == predicted, \
-            f"ds27b launches {launches}, predicted {predicted}"
+            f"{cfg.name} launches {launches}, predicted {predicted}"
         assert all(launches[k] > 0 for k in (
             "kv_layer_gather", "kv_layer_scatter", "flash_attention",
-            "grouped_gemm", "mla_decode")), launches
+            "grouped_gemm", "mla_decode" if mla else "paged_attention")), \
+            launches
+        assert all(n > 0 for n in regimes.n.values()), \
+            f"{cfg.name}: a grouped-GEMM regime never ran: {regimes.n}"
     contexts = [len(s.context) for s in sessions]
     del system
     system, sessions_b, wall_b = serve(cfg, params, trajs(), device,
                                        pipelined=False, **kw)
     assert [s.context for s in sessions] == \
-        [s.context for s in sessions_b], "ds27b blocking arm diverged"
+        [s.context for s in sessions_b], f"{cfg.name} blocking arm diverged"
     del system
     syncs = model_step_syncs(cfg, params, max_seq) if cuda else None
     if cuda:
@@ -3024,24 +3237,29 @@ def ds27b_phase(cfg, device="cuda", rounds=DS27B_ROUNDS,
             f"host syncs per model step: {syncs}"
     prof = profile_phase(cfg, rounds, n_agents, max_seq=max_seq,
                          params=params) if profile else None
-    # the 54 GB of weights go before the f32 identity's 14 GB come
+    # the bf16 weights go before the f32 identity's come
     del params, sessions, sessions_b
     gc.collect()
     if cuda:
         torch.cuda.empty_cache()
-    depth = identity["depth"]
+    cut = dict(n_layers=identity["depth"])
+    if identity.get("n_experts"):
+        cut["moe"] = dataclasses.replace(cfg.moe,
+                                         n_experts=identity["n_experts"])
     n, chunks = identity_phase(
-        dataclasses.replace(cfg, n_layers=depth), device,
-        **{k: v for k, v in identity.items() if k != "depth"})
+        dataclasses.replace(cfg, **cut), device,
+        **{k: v for k, v in identity.items()
+           if k not in ("depth", "n_experts")})
     return dict(stats=st, launches=launches, predicted=predicted,
-                items=path.items, appends=sorted(path.appends),
-                installs=path.installs,
+                regimes=regimes.n, items=path.items,
+                appends=sorted(path.appends), installs=path.installs,
                 persists=path.persists, wall_s=wall,
                 tokens_per_s=st["gen_tokens"] / wall,
                 blocking_wall_s=wall_b, context_lens=contexts,
                 peak_allocated=peak, init_s=init_s, row_bytes=row,
                 step_syncs=syncs, profile=prof, identity_tokens=n,
-                identity_chunks=chunks, identity_depth=depth)
+                identity_chunks=chunks, identity_depth=identity["depth"],
+                identity_experts=identity.get("n_experts"))
 
 # ---------------------------------------------------------------------------
 # phases 13 and 15: mamba2-1.3b (SSM) and zamba2-2.7b (hybrid), the
@@ -3285,7 +3503,8 @@ def print_blob_phase(r: dict, label: str) -> None:
           f"{r['identity_tokens']} context tokens equal the cache-free "
           f"reference, unchunked and in {r['identity_chunks']} + 1 "
           f"prefill slices")
-    print_profile(*r["profile"], label=f"{label}: ")
+    if r["profile"]:
+        print_profile(*r["profile"], label=f"{label}: ")
 
 
 # ---------------------------------------------------------------------------
@@ -3294,18 +3513,25 @@ def print_blob_phase(r: dict, label: str) -> None:
 
 
 def registration_run(cfg, device="cuda", rounds=REG_ROUNDS,
-                     n_agents=REG_AGENTS, max_seq=REG_MAX_SEQ) -> dict:
+                     n_agents=REG_AGENTS, max_seq=REG_MAX_SEQ,
+                     params=None) -> dict:
     """One registered model served offline on 1 PE + 1 DE (dualpath,
     64-token FullBlocks, 8 DE slots): every round finishes, the launches
     equal those predicted (gather, scatter, flash and paged, and for an
     MoE model the grouped GEMM), the blocking arm gives the same
-    tokens.  The weights and caches are freed before it returns."""
+    tokens.  On seed 0's weights, freed with the caches before it
+    returns, or on ``params``, which it leaves to the caller."""
     from repro_torch import kernels
     from repro_torch.models import init_params
     from repro_torch.sim.traces import Round, Trajectory
     cuda = device != "cpu"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
-    params = init_params(cfg, seed=0, device=device)
+    own = params is None
+    if own:
+        params = init_params(cfg, seed=0, device=device)
     trajs = lambda: [Trajectory(i, [Round(*r) for r in rounds])
                      for i in range(n_agents)]
     kw = dict(n_pe=1, n_de=1, mode="dualpath", block_tokens=64,
@@ -3314,6 +3540,8 @@ def registration_run(cfg, device="cuda", rounds=REG_ROUNDS,
     with PathCounter() as path:
         system, sessions, wall = serve(cfg, params, trajs(), device, **kw)
     launches = kernels.launch_counts()
+    # the run's own peak, weights included when they were made here
+    peak = torch.cuda.max_memory_allocated() - base if cuda else None
     st = system.stats()
     assert all(s.rounds_done == len(rounds) for s in sessions), \
         f"a {cfg.name} round did not finish"
@@ -3328,7 +3556,9 @@ def registration_run(cfg, device="cuda", rounds=REG_ROUNDS,
                                        pipelined=False, **kw)
     assert [s.context for s in sessions] == \
         [s.context for s in sessions_b], f"{cfg.name} blocking arm diverged"
-    del system, params, sessions, sessions_b
+    del system, sessions, sessions_b
+    if own:
+        del params
     gc.collect()
     if cuda:
         torch.cuda.empty_cache()
@@ -3336,7 +3566,7 @@ def registration_run(cfg, device="cuda", rounds=REG_ROUNDS,
                 items=path.items, appends=sorted(path.appends),
                 installs=path.installs, persists=path.persists,
                 wall_s=wall, tokens_per_s=st["gen_tokens"] / wall,
-                blocking_wall_s=wall_b,
+                blocking_wall_s=wall_b, peak_allocated=peak,
                 phase_s=time.perf_counter() - t0)
 
 
@@ -3353,6 +3583,322 @@ def registrations_phase(device="cuda", archs=REG_ARCHS, reduce=False,
                                      device, **kw)
     return out
 
+
+
+# ---------------------------------------------------------------------------
+# phases 16-18: llama4-maverick-400b-a17b (MoE of period 2), llava-next-34b
+# (the VLM connector), hubert-xlarge (the encoder)
+# ---------------------------------------------------------------------------
+
+
+def llama4_phase(cfg, device="cuda", depth=LLAMA4_DEPTH,
+                 identity=LLAMA4_IDENTITY, **kw) -> dict:
+    """llama4 at ``depth`` layers (one dense, then one MoE of 128 experts,
+    top-1, at 2) through :func:`moe_phase` with ds27b's rounds, agents
+    and cache: launches equal to the prediction (flash 2 per item, paged
+    2 per decode step, the grouped GEMM 3 per item and per decode step,
+    the gather 2 per install, the scatter 1 per persist), both grouped-GEMM
+    regimes, equal blocking tokens, one host read a model step, a profile,
+    then f32 identity at ``identity``'s depth with its experts cut."""
+    cfg = dataclasses.replace(cfg, n_layers=depth)
+    assert cfg.moe_layer_mask() == (False, True) * (depth // 2), \
+        cfg.moe_layer_mask()
+    return moe_phase(cfg, device, identity=identity, **kw)
+
+
+def vlm_path(cfg, params, device="cuda", patches=LLAVA_PATCHES,
+             text=LLAVA_TEXT, steps=LLAVA_STEPS,
+             max_seq=LLAVA_VLM_MAX_SEQ) -> dict:
+    """The VLM path on a fresh one-slot decode state: ``append_step`` with
+    ``patches`` patch embeddings of width ``frontend_embed_dim`` from a
+    seed, a ``text``-token append by token ids, then ``steps`` greedy
+    ``decode_step``s from the text's last logits.  Every logit is
+    finite; on the card flash launches once per layer of each append and
+    paged once per layer of each step, nothing else."""
+    from repro_torch import kernels
+    from repro_torch.models import append_step, decode_step, \
+        init_decode_state
+    cuda = device != "cpu"
+    gen = torch.Generator(device=device).manual_seed(17)
+    emb = torch.randn((1, patches, cfg.frontend_embed_dim), generator=gen,
+                      device=device).to(getattr(torch, cfg.param_dtype))
+    toks = torch.randint(2, cfg.vocab_size, (1, text), generator=gen,
+                         device=device)
+    assert patches + text + steps <= max_seq, (patches, text, steps)
+    state = init_decode_state(cfg, 1, max_seq, device)
+    at = lambda n: torch.tensor([n], device=device)
+    if cuda:
+        torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    lg_img, state = append_step(params, cfg, emb, state, at(0))
+    finite = torch.isfinite(lg_img).all()
+    lg, state = append_step(params, cfg, toks, state, at(patches))
+    finite &= torch.isfinite(lg).all()
+    cur = lg[0, -1].argmax()
+    gen_toks = [cur]
+    for i in range(steps):
+        lg, state = decode_step(params, cfg, cur[None], state,
+                                at(patches + text + i))
+        finite &= torch.isfinite(lg).all()
+        cur = lg[0].argmax()
+        gen_toks.append(cur)
+    ok = bool(finite)
+    wall = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    assert ok, "a VLM logit is not finite"
+    assert lg_img.shape == (1, patches, cfg.vocab_size), lg_img.shape
+    if cuda:
+        want = dict.fromkeys(launches, 0)
+        want.update(flash_attention=2 * cfg.n_layers,
+                    paged_attention=steps * cfg.n_layers)
+        assert launches == want, f"VLM path launches {launches}, want {want}"
+    return dict(wall_s=wall, launches=launches, max_seq=max_seq,
+                tokens=[int(t) for t in gen_toks])
+
+
+def vlm_identity(cfg, device="cuda", depth=4, chunk=1024,
+                 patches=LLAVA_PATCHES) -> dict:
+    """f32 at ``depth`` layers: the patch embeddings appended in
+    ``chunk``-row slices to a fresh state give the unchunked
+    ``forward``'s logits over the same embeddings (within TOLS[f32] of
+    the largest, the last row's greedy token equal)."""
+    from repro_torch.models import append_step, forward, init_decode_state, \
+        init_params
+    cfg32 = dataclasses.replace(cfg, n_layers=depth, param_dtype="float32",
+                                kv_cache_dtype="float32")
+    params = init_params(cfg32, seed=1, device=device)
+    gen = torch.Generator(device=device).manual_seed(18)
+    emb = torch.randn((1, patches, cfg.frontend_embed_dim), generator=gen,
+                      device=device)
+    want, _ = forward(params, cfg32, emb)
+    state = init_decode_state(cfg32, 1, -(-patches // 64) * 64, device)
+    got = []
+    for s0 in range(0, patches, chunk):
+        lg, state = append_step(params, cfg32, emb[:, s0:s0 + chunk], state,
+                                torch.tensor([s0], device=device))
+        got.append(lg)
+    got = torch.cat(got, dim=1)
+    err = float((got - want).abs().max())
+    tol = TOLS[torch.float32] * max(1.0, float(want.abs().max()))
+    assert err <= tol, f"VLM f32 slices off the forward by {err} > {tol}"
+    assert int(got[0, -1].argmax()) == int(want[0, -1].argmax())
+    del params, state
+    return dict(depth=depth, slices=-(-patches // chunk), max_abs_err=err,
+                tol=tol)
+
+
+def llava_phase(cfg, device="cuda", depth=LLAVA_DEPTH,
+                identity=LLAVA_IDENTITY, rounds=REG_ROUNDS,
+                n_agents=REG_AGENTS, max_seq=REG_MAX_SEQ,
+                profile=True) -> dict:
+    """llava at ``depth`` layers: (a) served offline by token ids
+    (:func:`registration_run`, its checks, at the registrations' rounds)
+    and profiled; (b) the VLM path (:func:`vlm_path`) on the same
+    weights; (c) f32 identity at ``identity["depth"]``
+    (:func:`vlm_identity`).  The peak ``memory_allocated`` spans (a) and
+    (b), weights included."""
+    from repro_torch.models import init_params
+    cuda = device != "cpu"
+    cfg = dataclasses.replace(cfg, n_layers=depth)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=0, device=device)
+    if cuda:
+        torch.cuda.synchronize()
+        weights = torch.cuda.memory_allocated() - base
+    init_s = time.perf_counter() - t0
+    out = registration_run(cfg, device, rounds, n_agents, max_seq,
+                           params=params)
+    if cuda:
+        # (a)'s peak above its start, which held the weights
+        peak = out["peak_allocated"] + weights
+        torch.cuda.reset_peak_memory_stats()
+    out["profile"] = profile_phase(cfg, rounds, n_agents, max_seq=max_seq,
+                                   params=params) \
+        if profile and cuda else None
+    out["vlm"] = vlm_path(cfg, params, device)
+    if cuda:
+        out.update(weights_allocated=weights, peak_allocated=max(
+            peak, torch.cuda.max_memory_allocated() - base))
+    del params
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    out["identity"] = vlm_identity(cfg, device, **identity)
+    out.update(depth=depth, init_s=init_s)
+    return out
+
+
+class FlashCausality(MethodPatch):
+    """Counts the model's flash calls by ``causal`` (at the name
+    ``models.layers`` calls; host-side)."""
+
+    def __init__(self):
+        from repro_torch.models import layers
+        self.n = {True: 0, False: 0}
+
+        def wrap(fn):
+            def counted(*args, causal=True, **kw):
+                self.n[bool(causal)] += 1
+                return fn(*args, causal=causal, **kw)
+            return counted
+
+        super().__init__(layers, "flash_attention", wrap)
+
+
+def hubert_phase(cfg, device="cuda", clips=HUBERT_CLIPS,
+                 frames=HUBERT_FRAMES, identity=HUBERT_IDENTITY,
+                 profile=True) -> dict:
+    """hubert at published width and depth: a bf16 ``forward`` over
+    ``clips`` x ``frames`` frame embeddings from a seed gives finite
+    logits, launching flash once per layer, bidirectional, and nothing
+    else; timed over 3 forwards (and once under torch.profiler).  Then
+    f32 at ``identity["depth"]`` layers: the card's ``forward`` on one
+    clip equals the port's CPU forward (the kernels' plain versions)
+    within ``TOLS[f32]`` of the largest logit, and moving the last
+    frame moves the first frame's logits."""
+    from repro_torch import kernels
+    from repro_torch.models import forward, init_params
+    cuda = device != "cpu"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+    params = init_params(cfg, seed=0, device=device)
+    gen = torch.Generator(device=device).manual_seed(19)
+    x = torch.randn((clips, frames, cfg.frontend_embed_dim), generator=gen,
+                    device=device).to(getattr(torch, cfg.param_dtype))
+    kernels.reset_launch_counts()
+    with FlashCausality() as causality:
+        logits, state = forward(params, cfg, x)
+    launches = kernels.launch_counts()
+    assert state is None and logits.shape == (clips, frames,
+                                              cfg.vocab_size), logits.shape
+    assert bool(torch.isfinite(logits).all()), "a hubert logit is not finite"
+    if cuda:
+        want = dict.fromkeys(launches, 0)
+        want["flash_attention"] = cfg.n_layers
+        assert launches == want, f"hubert launches {launches}, want {want}"
+        assert causality.n == {True: 0, False: cfg.n_layers}, causality.n
+    del logits
+
+    def timed():
+        if cuda:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        forward(params, cfg, x)
+        if cuda:
+            torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    walls = [timed() for _ in range(3)]
+    prof = profiled(timed) if profile and cuda else None
+    peak = torch.cuda.max_memory_allocated() - base if cuda else None
+    del params, x
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    cfg32 = dataclasses.replace(cfg, n_layers=identity["depth"],
+                                param_dtype="float32",
+                                kv_cache_dtype="float32")
+    p32 = init_params(cfg32, seed=1, device=device)
+    clip = torch.randn((1, frames, cfg.frontend_embed_dim), generator=gen,
+                       device=device)
+    card, _ = forward(p32, cfg32, clip)
+    host = forward(_to_cpu(p32), cfg32, clip.cpu())[0]
+    err = float((card.cpu() - host).abs().max())
+    tol = TOLS[torch.float32] * max(1.0, float(host.abs().max()))
+    assert err <= tol, f"hubert f32 card vs CPU off by {err} > {tol}"
+    moved = clip.clone()
+    moved[:, -1] += 1.0
+    first = float((forward(p32, cfg32, moved)[0][:, 0] - card[:, 0])
+                  .abs().max())
+    assert first > 0, "moving the last frame left the first frame's logits"
+    del p32
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    return dict(launches=launches, causality=causality.n, walls_s=walls,
+                clips=clips, frames=frames,
+                frames_per_s=clips * frames / float(np.median(walls)),
+                profile=prof, peak_allocated=peak,
+                identity=dict(depth=identity["depth"], max_abs_err=err,
+                              tol=tol, first_frame_moved_by=first))
+
+
+def print_moe_phase(r: dict, label: str) -> None:
+    """:func:`moe_phase`'s result (phases 11 and 16)."""
+    st = r["stats"]
+    print(f"{label} stats:", json.dumps(st))
+    print(f"{label}: weights drawn in {r['init_s']:.3f} s; "
+          f"{r['wall_s']:.3f} s real wall (pipelined), "
+          f"{r['blocking_wall_s']:.3f} s (blocking), "
+          f"{r['tokens_per_s']:.1f} generated tokens/s, launches "
+          f"{r['launches']} (predicted {r['predicted']} from "
+          f"{r['items']} batch items (rows, kv_len) {r['appends']}, "
+          f"{r['installs']} installs, {r['persists']} persists, "
+          f"{st['decode_steps']} decode steps); grouped GEMM by regime "
+          f"{r['regimes']}; FullBlock rows {r['row_bytes']} bytes; "
+          f"contexts {r['context_lens']}; peak memory_allocated of the "
+          f"run (weights included) {r['peak_allocated']} bytes; host "
+          f"syncs of one 8-slot decode_step and one 256-token append_step "
+          f"{r['step_syncs']}")
+    experts = "" if not r["identity_experts"] else \
+        f" with {r['identity_experts']} routed experts"
+    print(f"{label} f32 identity at depth {r['identity_depth']}{experts}: "
+          f"{r['identity_tokens']} context tokens equal the cache-free "
+          f"reference, unchunked and in {r['identity_chunks']} + 1 "
+          f"prefill slices")
+    if r["profile"]:
+        print_profile(*r["profile"], label=f"{label}: ")
+
+
+def print_llava_phase(r: dict) -> None:
+    st, v, idt = r["stats"], r["vlm"], r["identity"]
+    print(f"llava (depth {r['depth']}): weights drawn in {r['init_s']:.3f} "
+          f"s, {r.get('weights_allocated')} bytes; {r['wall_s']:.3f} s real "
+          f"wall (pipelined), {r['blocking_wall_s']:.3f} s (blocking), "
+          f"{r['tokens_per_s']:.1f} generated tokens/s, launches "
+          f"{r['launches']} (predicted from {r['items']} batch items "
+          f"{r['appends']}, {r['installs']} installs, {r['persists']} "
+          f"persists, {st['decode_steps']} decode steps); peak "
+          f"memory_allocated (weights included) {r['peak_allocated']} "
+          f"bytes; stats " + json.dumps(st))
+    if r["profile"]:
+        print_profile(*r["profile"], label="llava: ")
+    print(f"llava VLM path: {LLAVA_PATCHES} patch embeddings, "
+          f"{LLAVA_TEXT} text tokens, {LLAVA_STEPS} decode steps on a "
+          f"{v['max_seq']}-token state: {v['wall_s']:.3f} s real wall, "
+          f"launches {v['launches']}, tokens {v['tokens']}")
+    print(f"llava f32 identity at depth {idt['depth']}: the patch append "
+          f"in {idt['slices']} slices equals the unchunked forward, max "
+          f"|err| {idt['max_abs_err']:.3g} (tolerance {idt['tol']:.3g})")
+
+
+def print_hubert_phase(r: dict) -> None:
+    idt = r["identity"]
+    walls = ", ".join(f"{w:.4f}" for w in r["walls_s"])
+    print(f"hubert: forward over {r['clips']} x {r['frames']} frames "
+          f"in {walls} s real wall ({r['frames_per_s']:.0f} frames/s), "
+          f"launches {r['launches']}, flash calls by causal "
+          f"{r['causality']}; peak memory_allocated (weights included) "
+          f"{r['peak_allocated']} bytes")
+    if r["profile"]:
+        print_profile(*r["profile"], label="hubert: ")
+    print(f"hubert f32 at depth {idt['depth']}: card vs CPU max |err| "
+          f"{idt['max_abs_err']:.3g} (tolerance {idt['tol']:.3g}); moving "
+          f"the last frame moved the first frame's logits by "
+          f"{idt['first_frame_moved_by']:.3g}")
+
+
+def _to_cpu(tree):
+    if isinstance(tree, torch.Tensor):
+        return tree.cpu()
+    if isinstance(tree, dict):
+        return {k: _to_cpu(v) for k, v in tree.items()}
+    return [_to_cpu(v) for v in tree]
 
 
 # ---------------------------------------------------------------------------
@@ -3779,30 +4325,11 @@ def main() -> int:
     # 11. ds27b: MoE + MLA, the paper's own model
     gc.collect()
     torch.cuda.empty_cache()
-    ds = ds27b_phase(cfg_ds)
+    ds = moe_phase(cfg_ds)
     assert set(ds["appends"]) == set(DS27B_APPENDS), \
         f"ds27b appends {ds['appends']}, phase 3 held flash at " \
         f"{DS27B_APPENDS}"
-    st_d = ds["stats"]
-    print("ds27b stats:", json.dumps(st_d))
-    print(f"ds27b: weights drawn in {ds['init_s']:.3f} s; "
-          f"{ds['wall_s']:.3f} s real wall (pipelined), "
-          f"{ds['blocking_wall_s']:.3f} s (blocking), "
-          f"{ds['tokens_per_s']:.1f} generated tokens/s, launches "
-          f"{ds['launches']} (predicted {ds['predicted']} from "
-          f"{ds['items']} batch items (rows, kv_len) {ds['appends']}, "
-          f"{ds['installs']} installs, "
-          f"{ds['persists']} persists, {st_d['decode_steps']} decode "
-          f"steps); FullBlock rows {ds['row_bytes']} bytes; contexts "
-          f"{ds['context_lens']}; peak memory_allocated of the run "
-          f"(weights included) {ds['peak_allocated']} bytes; host syncs "
-          f"of one 8-slot decode_step and one 256-token append_step over "
-          f"30 layers {ds['step_syncs']}")
-    print(f"ds27b f32 identity at depth {ds['identity_depth']}: "
-          f"{ds['identity_tokens']} context tokens equal the cache-free "
-          f"reference, unchunked and in {ds['identity_chunks']} + 1 "
-          f"prefill slices")
-    print_profile(*ds["profile"], label="ds27b: ")
+    print_moe_phase(ds, "ds27b")
     lap("11")
 
     # 12. the event simulator: modelled cluster time on the host
@@ -3852,7 +4379,31 @@ def main() -> int:
     print(f"zamba2 phase: {z2_s:.1f} s")
     lap("15")
 
-    # 16. kernels line, then the contract line
+    # 16. llama4-maverick-400b-a17b: MoE of period 2, 128 experts top-1
+    gc.collect()
+    torch.cuda.empty_cache()
+    l4 = llama4_phase(get_config(LLAMA4))
+    assert set(l4["appends"]) == set(LLAMA4_APPENDS), \
+        f"llama4 appends {l4['appends']}, phase 3 held flash at " \
+        f"{LLAMA4_APPENDS}"
+    print_moe_phase(l4, "llama4")
+    lap("16")
+
+    # 17. llava-next-34b: served by token ids, then the VLM path
+    gc.collect()
+    torch.cuda.empty_cache()
+    lv = llava_phase(get_config(LLAVA))
+    print_llava_phase(lv)
+    lap("17")
+
+    # 18. hubert-xlarge: the encoder, forward only
+    gc.collect()
+    torch.cuda.empty_cache()
+    hb = hubert_phase(get_config(HUBERT))
+    print_hubert_phase(hb)
+    lap("18")
+
+    # 19. kernels line, then the contract line
     meta = {
         "kv_layer_gather": ("src/repro_torch/kernels/csrc/kv_gather.cu",
                             "src/repro/kernels/kv_gather.py:30"),
@@ -3907,7 +4458,11 @@ def main() -> int:
                                   mamba2=m2["launches"][name],
                                   **{short[a]: r["launches"][name]
                                      for a, r in reg.items()},
-                                  zamba2=z2["launches"][name]),
+                                  zamba2=z2["launches"][name],
+                                  llama4=l4["launches"][name],
+                                  llava=lv["launches"][name],
+                                  llava_vlm=lv["vlm"]["launches"][name],
+                                  hubert=hb["launches"][name]),
             max_abs_err=max(c["max_abs_err"] for c in cs),
             ms=main_case["ms"], kernel_ms=main_case["ms"],
             ms_clean_l2=main_case.get("ms_clean_l2"),
@@ -3928,7 +4483,13 @@ def main() -> int:
                                        **{short[a]: r["persists"]
                                           for a, r in reg.items()},
                                        mamba2=m2["persists"],
-                                       zamba2=z2["persists"])
+                                       zamba2=z2["persists"],
+                                       llama4=l4["persists"],
+                                       llava=lv["persists"],
+                                       llava_vlm=lv["vlm"]["launches"][
+                                           "kv_layer_scatter"],
+                                       hubert=hb["launches"][
+                                           "kv_layer_scatter"])
     for entry in line[2:4]:
         entry["gemma2_windowed_launches"] = g2["windowed"][entry["name"]]
     print(json.dumps({"kernels": line}))

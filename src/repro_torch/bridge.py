@@ -6,12 +6,14 @@ tree)``), so this module imports neither ``jax`` nor ``repro``.
 ``torch.from_numpy`` rejects ``ml_dtypes.bfloat16``, so bf16 arrays go
 through their uint16 bits: ``np.asarray(x).view(np.uint16)`` and then
 ``.view(torch.bfloat16)``.  The reference stacks block parameters along
-a leading layer axis (an MoE model in two stacks, ``dense_blocks`` for
-the first ``first_k_dense`` layers and ``super_blocks.moe`` for the
-rest, and its decode state in ``dense`` and ``moe``; the hybrid's Mamba2
-blocks and their state as (n_super, period)); the port keeps one dict per
-layer and one state stack over all layers, so the blocks are unstacked
-and the state stacks joined or flattened here.  Like every entry point of
+a leading layer axis (an MoE model in up to three stacks,
+``dense_blocks`` for the first ``first_k_dense`` layers, then per period
+``super_blocks.pre`` for its dense layers and ``super_blocks.moe`` for
+its last, and its decode state likewise in ``dense``, ``pre`` and
+``moe``; the hybrid's Mamba2 blocks and their state as (n_super,
+period)); the port keeps one dict per layer and one state stack over all
+layers, so the blocks are unstacked and the state stacks interleaved or
+flattened here.  Like every entry point of
 the port, each converter puts its tensors on the card unless the caller
 names the CPU.
 """
@@ -61,11 +63,15 @@ _STACKS = ("blocks", "dense_blocks", "super_blocks", "shared_block")
 
 def params_from_jax(np_tree: Dict, cfg: ModelConfig, device="cuda") -> Dict:
     """The reference's ``init_params`` tree (as numpy) -> the port's
-    parameters: ``blocks`` (dense family, or the SSM family's Mamba2
-    blocks), or ``dense_blocks`` then ``super_blocks["moe"]`` (MoE
-    family, period 1), or the hybrid's (n_super, period) Mamba2 blocks,
-    unstacked into one list in layer order; the hybrid's
-    ``shared_block`` is converted once."""
+    parameters: ``blocks`` (dense, VLM and encoder families, or the SSM
+    family's Mamba2 blocks), or ``dense_blocks`` then, for each of the
+    ``n_super`` periods, ``super_blocks["pre"][i, j]`` for j < period - 1
+    and ``super_blocks["moe"][i]`` (MoE family; layer ``first_k_dense +
+    i * period + j``, the reference's ``kvio._kv_rows`` order), or the
+    hybrid's (n_super, period) Mamba2 blocks, unstacked into one list in
+    layer order; the hybrid's ``shared_block`` is converted once, and
+    ``embed`` whole (``frontend_proj`` included where the config has a
+    frontend)."""
     device = resolve(device)
     out = {k: _convert(v, device) for k, v in np_tree.items()
            if k not in _STACKS}
@@ -78,44 +84,56 @@ def params_from_jax(np_tree: Dict, cfg: ModelConfig, device="cuda") -> Dict:
             for li in range(cfg.n_layers)]
         return out
     if cfg.family == "moe":
-        if cfg.moe.period != 1:
-            raise NotImplementedError(
-                f"{cfg.name}: MoE period {cfg.moe.period} is not ported")
-        n_dense = cfg.moe.first_k_dense
-        stacks = [(np_tree["dense_blocks"], i) for i in range(n_dense)] + \
-            [(np_tree["super_blocks"]["moe"], i)
-             for i in range(cfg.n_layers - n_dense)]
+        m = cfg.moe
+        sb = np_tree["super_blocks"]
+        stacks = [_unstack(np_tree["dense_blocks"], i)
+                  for i in range(m.first_k_dense)]
+        for i in range((cfg.n_layers - m.first_k_dense) // m.period):
+            stacks += [_unstack(_unstack(sb["pre"], i), j)
+                       for j in range(m.period - 1)]
+            stacks.append(_unstack(sb["moe"], i))
     else:
-        stacks = [(np_tree["blocks"], i) for i in range(cfg.n_layers)]
-    out["blocks"] = [_convert(_unstack(tree, i), device)
-                     for tree, i in stacks]
+        stacks = [_unstack(np_tree["blocks"], i) for i in range(cfg.n_layers)]
+    out["blocks"] = [_convert(tree, device) for tree in stacks]
     return out
 
 
+def _moe_layers(np_state: Dict, name: str) -> np.ndarray:
+    """One leaf of the reference's MoE decode state in layer order: the
+    ``dense`` rows, then per period the ``pre`` rows (n_super, period -
+    1, ...) and the period's ``moe`` row."""
+    rows = list(np_state["dense"][name]) if "dense" in np_state else []
+    pre = np_state["pre"][name] if "pre" in np_state else None
+    for i, moe_row in enumerate(np_state["moe"][name]):
+        if pre is not None:
+            rows.extend(pre[i])
+        rows.append(moe_row)
+    return np.stack(rows)
+
+
 def state_from_jax(np_state: Dict, device="cuda") -> Dict:
-    """Decode state.  Dense GQA: both packages use {"kv": {"k","v":
+    """Decode state.  Dense and VLM GQA: both packages use {"kv": {"k","v":
     (L,b,S,hkv,dh)}}; SSM: both use {"mamba": {"ssm": (L,b,H,P,N),
-    "conv_x"/"conv_B"/"conv_C": (L,b,cw-1,dim)}}.  MoE (period 1): the
-    reference's ``dense`` and
-    ``moe`` stacks are joined along the layer axis, under ``"mla"`` for
-    MLA (leaves ``c`` (L,b,S,r) and ``krope`` (L,b,S,rd)) and ``"kv"``
-    for GQA; the tree's own keys say which.  Hybrid: the reference's
-    ``mamba`` leaves (n_super, period, b, ...) are flattened to (L, b,
-    ...) in layer order and ``shared`` keeps its (n_apps, b, S, hkv, dh)
-    K/V."""
+    "conv_x"/"conv_B"/"conv_C": (L,b,cw-1,dim)}}.  MoE: the reference's
+    ``dense``, ``pre`` (n_super, period - 1, ...) and ``moe`` (n_super,
+    ...) stacks are interleaved into layer order (:func:`_moe_layers`),
+    under ``"mla"`` for MLA (leaves ``c`` (L,b,S,r) and ``krope``
+    (L,b,S,rd)) and ``"kv"`` for GQA; the tree's own keys say which.
+    Hybrid: the reference's ``mamba`` leaves (n_super, period, b, ...)
+    are flattened to (L, b, ...) in layer order and ``shared`` keeps its
+    (n_apps, b, S, hkv, dh) K/V."""
     device = resolve(device)
     if "shared" in np_state:
         return {"mamba": {k: to_torch(np.reshape(
                     v, (-1,) + np.shape(v)[2:]), device)
                           for k, v in np_state["mamba"].items()},
                 "shared": _convert(np_state["shared"], device)}
-    parts = [np_state[k] for k in ("dense", "moe") if k in np_state]
-    if not parts:
+    if "moe" not in np_state:
         return _convert(np_state, device)
-    key = "mla" if "c" in parts[0] else "kv"
-    return {key: {name: to_torch(np.concatenate([p[name] for p in parts]),
-                                 device)
-                  for name in parts[0]}}
+    names = tuple(np_state["moe"])
+    key = "mla" if "c" in names else "kv"
+    return {key: {name: to_torch(_moe_layers(np_state, name), device)
+                  for name in names}}
 
 
 def _as_np(x) -> np.ndarray:

@@ -2,8 +2,8 @@
 
 ``ModelConfig`` is the same flat, frozen dataclass as the reference's,
 field for field, so a config written for one package reads the same in
-the other.  Only the architectures the port serves are registered here;
-the others join with the slices that port their model families.
+the other.  Every architecture the reference registers is registered
+here too.
 """
 from __future__ import annotations
 
@@ -228,11 +228,12 @@ class ModelConfig:
 
 
 # ---------------------------------------------------------------------------
-# Registry (architectures ported so far)
+# Registry
 # ---------------------------------------------------------------------------
 
 ARCH_IDS = ("qwen1.5-0.5b", "gemma2-2b", "ds27b", "granite-moe-3b-a800m",
-            "minicpm-2b", "nemotron-4-15b", "mamba2-1.3b", "zamba2-2.7b")
+            "minicpm-2b", "nemotron-4-15b", "mamba2-1.3b", "zamba2-2.7b",
+            "llama4-maverick-400b-a17b", "llava-next-34b", "hubert-xlarge")
 
 _REGISTRY = {}
 

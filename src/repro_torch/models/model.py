@@ -1,6 +1,15 @@
-"""Model assembly for the dense and MoE families, GQA or MLA attention,
-the SSM family's Mamba2 blocks and the hybrid's Mamba2 backbone with its
-shared attention block (port of ``repro.models.model``).
+"""Model assembly for the dense, MoE, VLM and encoder families, GQA or
+MLA attention, the SSM family's Mamba2 blocks and the hybrid's Mamba2
+backbone with its shared attention block (port of
+``repro.models.model``).
+
+Inputs are token ids (b, s) or, for a config with ``frontend_embed_dim``
+(the VLM's patch embeddings, the encoder's frame embeddings), float
+embeddings (b, s, frontend_embed_dim) that the connector
+``embed["frontend_proj"]`` projects to d_model.  The encoder attends
+bidirectionally (``cfg.causal`` False) and has only ``forward``: its
+``decode_step``, ``append_step`` and ``init_decode_state`` raise, as the
+reference asserts ``supports_decode``.
 
 * ``forward``       — full sequence; optionally returns the KV it made.
 * ``decode_step``   — one token per sequence against a decode state.
@@ -40,12 +49,21 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve
 from repro_torch.models import layers, mla, moe, ssm
 from repro_torch.models.layers import rms_norm
-from repro_torch.models.params import require_ported
+from repro_torch.models.params import require_decode, require_ported
 
 
-def embed(params, cfg: ModelConfig, tokens):
-    """Token ids (b, s) -> (b, s, d)."""
-    h = params["embed"]["tok"][tokens]
+def embed(params, cfg: ModelConfig, inputs):
+    """Token ids (b, s) -> (b, s, d); or precomputed frontend embeddings
+    (b, s, frontend_dim), cast to the embedding dtype, through the
+    connector projection -> (b, s, d)."""
+    e = params["embed"]
+    if inputs.dim() == 3:
+        if not cfg.frontend_embed_dim:
+            raise ValueError(f"{cfg.name}: embeddings given to a model "
+                             f"without a frontend")
+        h = inputs.to(e["tok"].dtype) @ e["frontend_proj"]
+    else:
+        h = e["tok"][inputs]
     if cfg.embed_scale != 1.0:
         # the scale rounds to the activation dtype first, as in JAX
         h = h * torch.tensor(cfg.embed_scale, dtype=h.dtype, device=h.device)
@@ -135,7 +153,8 @@ def _shared_app(cfg: ModelConfig, li: int):
 
 def forward(params, cfg: ModelConfig, tokens, *, return_state: bool = False,
             last_only: bool = False):
-    """Full-sequence forward over tokens (b, s).  Returns (logits,
+    """Full-sequence forward over tokens (b, s) or frontend embeddings
+    (b, s, frontend_dim).  Returns (logits,
     state_or_None); the state holds the exact-length KV (L, b, s, hkv, dh)
     or, for MLA, latents (L, b, s, r) and (L, b, s, rd); the hybrid's
     holds its Mamba2 states and its shared block's KV per application."""
@@ -192,7 +211,7 @@ def forward(params, cfg: ModelConfig, tokens, *, return_state: bool = False,
 def init_decode_state(cfg: ModelConfig, batch: int, max_seq: int,
                       device="cuda") -> Dict:
     """Zero decode caches on ``device`` (``"meta"`` gives shapes only)."""
-    require_ported(cfg)
+    require_decode(cfg)
     dev = torch.device("meta") if str(device) == "meta" else resolve(device)
     dtype = getattr(torch, cfg.kv_cache_dtype)
     zeros = lambda n, *s: torch.zeros((n, batch, max_seq) + s, dtype=dtype,
@@ -236,7 +255,7 @@ def decode_step(params, cfg: ModelConfig, tokens, state, lengths):
     """One decode step.  tokens (b,) int; lengths (b,) = tokens already
     cached.  Writes each token's K/V (or latent) at index ``lengths`` and
     attends over ``lengths + 1``.  Returns (logits (b, vocab), state)."""
-    require_ported(cfg)
+    require_decode(cfg)
     h = embed(params, cfg, tokens[:, None])
     if cfg.family != "ssm":
         kc_all, vc_all = _cache(state, cfg)
@@ -271,11 +290,12 @@ def decode_step(params, cfg: ModelConfig, tokens, state, lengths):
 def append_step(params, cfg: ModelConfig, tokens, state, lengths):
     """Prefill an append chunk against existing decode state.
 
-    tokens (b, s_app) int; lengths (b,) = tokens already cached.  Writes
-    the chunk's K/V (or latents) at [lengths, lengths + s_app).  Returns
-    (logits (b, s_app, vocab), state)."""
-    require_ported(cfg)
-    b, s = tokens.shape
+    tokens (b, s_app) int, or (b, s_app, frontend_dim) embeddings;
+    lengths (b,) = tokens already cached.  Writes the chunk's K/V (or
+    latents) at [lengths, lengths + s_app).  Returns (logits (b, s_app,
+    vocab), state)."""
+    require_decode(cfg)
+    b, s = tokens.shape[:2]
     h = embed(params, cfg, tokens)
     if cfg.family != "ssm":
         kc_all, vc_all = _cache(state, cfg)

@@ -1,18 +1,24 @@
-"""Parameter schema and init for the dense, MoE, SSM and hybrid families.
+"""Parameter schema and init for the dense, MoE, SSM, hybrid, VLM and
+encoder families.
 
 Port of ``repro.models.params`` (``attn_schema`` :63, ``ffn_schema`` :93,
 ``moe_schema`` :107, ``mamba_schema`` :127, ``dense_block_schema`` :153,
 ``moe_block_schema`` :166, ``model_schema`` :184, ``init_params`` :252,
 ``count_active_params_analytic`` :277).  The reference stacks every block
-along a leading layer axis for ``lax.scan`` (the MoE family in two
-stacks, ``dense_blocks`` and ``super_blocks.moe``; the hybrid's Mamba2
-blocks as (n_super, period)); here ``params["blocks"]`` is a list with
-one dict per layer, in layer order, which the model walks in a Python
-loop: for the MoE family a dense block for each of the first
-``first_k_dense`` layers, then MoE blocks; for the SSM and hybrid
-families one Mamba2 block per layer.  The hybrid adds
+along a leading layer axis for ``lax.scan`` (the MoE family in up to
+three stacks, ``dense_blocks``, ``super_blocks.pre`` (n_super, period -
+1) and ``super_blocks.moe``; the hybrid's Mamba2 blocks as (n_super,
+period)); here ``params["blocks"]`` is a list with one dict per layer,
+in layer order, which the model walks in a Python loop: for the MoE
+family a dense or an MoE block as ``cfg.moe_layer_mask()`` says (the
+first ``first_k_dense`` layers dense, then each period's last layer
+MoE); for the SSM and hybrid families one Mamba2 block per layer; for
+the dense, VLM and encoder families (no MoE config, so no MoE layer)
+one dense block per layer.  The hybrid adds
 ``params["shared_block"]``, one dense block (attention + FFN of width
-``hybrid_d_ff``) applied after every ``hybrid_period``-th layer.  Leaf
+``hybrid_d_ff``) applied after every ``hybrid_period``-th layer.  A
+config with ``frontend_embed_dim`` adds ``embed["frontend_proj"]``, the
+connector that projects precomputed patch or frame embeddings.  Leaf
 names and shapes inside a block are the reference's, so
 ``bridge.params_from_jax`` is a plain unstacking.
 
@@ -30,24 +36,20 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve
 
-# family / feature -> the port slice that brings it
-_LATER_SLICES = {
-    "vlm": "the VLM slice",
-    "encoder": "the encoder slice",
-}
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "encoder")
 
 
 def require_ported(cfg: ModelConfig) -> None:
-    """Raise for any architecture feature the port does not run: the
-    VLM and encoder families, an SSM or hybrid family without its SSM
-    config, a hybrid whose shared block is not GQA or whose period does
-    not divide its layers, MoE layers interleaved with dense ones
-    (``period`` > 1), MLA together with windows or softcaps (no config
-    has both), and frontend embeddings."""
-    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
+    """Raise for any architecture the port does not run: an unknown
+    family, an SSM or hybrid family without its SSM config, a hybrid
+    whose shared block is not GQA or whose period does not divide its
+    layers, an MoE family without its MoE config or whose layers after
+    ``first_k_dense`` are not a multiple of its period (the reference
+    asserts the same), and MLA together with windows or softcaps (no
+    config has both)."""
+    if cfg.family not in FAMILIES:
         raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} arrives with "
-            f"{_LATER_SLICES[cfg.family]} of the port")
+            f"{cfg.name}: family {cfg.family!r} is not one of {FAMILIES}")
     if cfg.family in ("ssm", "hybrid") and cfg.ssm is None:
         raise NotImplementedError(
             f"{cfg.name}: the port runs the {cfg.family.upper()} family "
@@ -60,10 +62,13 @@ def require_ported(cfg: ModelConfig) -> None:
         raise NotImplementedError(
             f"{cfg.name}: the port runs the hybrid family with a GQA "
             f"shared block and a period dividing the layers")
-    if cfg.family == "moe" and (cfg.moe is None or cfg.moe.period != 1):
+    if cfg.family == "moe" and (
+            cfg.moe is None or cfg.moe.period < 1
+            or (cfg.n_layers - cfg.moe.first_k_dense) % cfg.moe.period):
         raise NotImplementedError(
-            f"{cfg.name}: the port runs MoE with an MoE config of period "
-            f"1 (every layer after first_k_dense), not {cfg.moe}")
+            f"{cfg.name}: the port runs MoE with an MoE config whose period "
+            f"divides the layers after first_k_dense, not {cfg.moe} over "
+            f"{cfg.n_layers} layers")
     if cfg.attn_variant not in ("gqa", "mla"):
         raise NotImplementedError(
             f"{cfg.name}: attention {cfg.attn_variant!r} outside the SSM "
@@ -74,9 +79,16 @@ def require_ported(cfg: ModelConfig) -> None:
         raise NotImplementedError(
             f"{cfg.name}: the port runs MLA attention with an MLA config "
             f"and without windows or softcaps")
-    if cfg.frontend_embed_dim:
-        raise NotImplementedError(
-            f"{cfg.name}: frontend embeddings arrive with the VLM slice")
+
+
+def require_decode(cfg: ModelConfig) -> None:
+    """Raise for a model whose ``supports_decode`` is False (the encoder
+    family): the reference asserts ``cfg.supports_decode`` in
+    ``decode_step`` and has no encoder state."""
+    require_ported(cfg)
+    if not cfg.supports_decode:
+        raise ValueError(f"{cfg.name}: supports_decode is False, so it has "
+                         f"no decode state, decode step or append step")
 
 
 class PSpec(NamedTuple):
@@ -205,6 +217,10 @@ def model_schema(cfg: ModelConfig) -> Dict:
         [moe_block_schema(cfg) if is_moe else dense_block_schema(cfg)
          for is_moe in cfg.moe_layer_mask()],
     }
+    if cfg.frontend_embed_dim:
+        # the connector of the stubbed modality frontend (patch or frame
+        # embeddings -> d_model)
+        s["embed"]["frontend_proj"] = _proj(cfg.frontend_embed_dim, d)
     if cfg.family == "hybrid":
         s["shared_block"] = dense_block_schema(cfg, cfg.hybrid_d_ff)
     if not cfg.tie_embeddings:

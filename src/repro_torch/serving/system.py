@@ -38,6 +38,11 @@ instead of a trie match, read whole on the side the path decision
 chose (never split), installed on the PE in one copy and persisted by
 the DE as one blob; the DRAM tiers do not hold blobs.
 
+The dense, MoE and VLM families take the FullBlock path (the reference's
+``PAGED_FAMILIES``); a VLM is served by token ids, as the reference
+serves it.  An encoder-only config has no decode state and raises at
+construction.
+
 ``slo=SloConfig(...)`` adds the online SLO layer: an admission gate in
 front of the scheduler (``core/admission.py``: online arrivals are
 admitted, deferred or rejected on a TTFT estimate from
@@ -118,7 +123,7 @@ from repro_torch.engines.runtime import (DecodeEngine, EngineRequest,
 from repro_torch.kvcache.store import MemoryKVStore, StateBlobStore
 from repro_torch.kvcache.tiers import DramTier, ThinkTimePrefetcher
 from repro_torch.kvcache.trie import BlockTrie
-from repro_torch.models.params import require_ported
+from repro_torch.models.params import require_decode
 from repro_torch.obs.schema import conforming
 from repro_torch.serving import events
 from repro_torch.serving.events import (EngineLifecycle, EventLoop,
@@ -163,7 +168,9 @@ class ServingSystem:
                  resilience: Optional[ResilienceConfig] = None,
                  slo: Optional[SloConfig] = None, device="cuda"):
         assert mode in ("dualpath", "basic")
-        require_ported(cfg)
+        # an encoder has no decode state to serve: refused here, before
+        # any engine is built
+        require_decode(cfg)
         if max_seq % block_tokens:
             raise ValueError(f"max_seq {max_seq} must be a multiple of "
                              f"block_tokens {block_tokens}")

@@ -21,8 +21,9 @@ The reduced config keeps it at test size: 4 layers (1 dense + 3 MoE),
   tests/test_serving.py::test_mla_arch_serving: equal contexts, store
   reads, byte and tier counters.
 * The time models use MLA's q/k width (nope + rope); ``require_ported``
-  still refuses MoE of period > 1, SSM, hybrid and frontends; the
-  launcher serves ds27b.
+  still refuses an MoE period that does not divide the layers after the
+  dense one, SSM and hybrid without their config, and MLA with a window;
+  the launcher serves ds27b.
 
 Tolerances: 2e-5 in f32 and 2e-2 in bf16, of the largest logit
 (test_torch_model.py's).
@@ -124,9 +125,10 @@ def test_time_models_use_the_mla_qk_width():
 
 
 @pytest.mark.parametrize("change,match", [
+    # period 2 over the 3 layers after the dense one: does not divide
     (dict(moe=dataclasses.replace(get_config(ARCH).moe, period=2)), "MoE"),
     (dict(family="ssm"), "SSM"), (dict(family="hybrid"), "SSM"),
-    (dict(frontend_embed_dim=128), "VLM")])
+    (dict(local_window=64), "MLA")])
 def test_unported_features_still_raise(change, match):
     cfg = get_config(ARCH).reduced()
     require_ported(cfg)

@@ -114,10 +114,11 @@ def test_full_config_is_gemma2_2b():
 
 @pytest.mark.parametrize("change,match", [
     (dict(family="moe"), "MoE"), (dict(attn_variant="mla"), "MLA"),
-    (dict(family="ssm"), "SSM"), (dict(frontend_embed_dim=128), "VLM")])
+    (dict(family="ssm"), "SSM"), (dict(attn_variant="none"), "not ported")])
 def test_other_features_still_refused(change, match):
-    """Only the window's refusal went: MoE, MLA, SSM and frontend
-    embeddings still raise, on top of gemma2 as on any config."""
+    """Only the window's refusal went: MoE and MLA without their configs,
+    SSM without its config and attention-free layers outside the SSM
+    family still raise, on top of gemma2 as on any config."""
     from repro_torch.models import init_params
     from repro_torch.models.params import require_ported
     cfg = get_config(ARCH).reduced()

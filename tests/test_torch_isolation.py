@@ -8,7 +8,8 @@
   raises instead of running on the CPU (the dense, MoE + MLA and SSM
   families alike), and so does the simulator's settle asked for
   ``"cuda"``.
-* The families of later slices are refused, naming their slice.
+* A family without the config its blocks need (MoE, SSM, hybrid) is
+  refused, naming that config.
 """
 import os
 import re
@@ -154,7 +155,7 @@ def test_cuda_path_raises_on_cpu_only_arguments():
 
 
 @pytest.mark.parametrize("family,match", [
-    ("vlm", "VLM slice"),             # llava: a later slice
+    ("moe", "MoE config"),            # MoE needs its MoEConfig
     ("ssm", "SSM config"),            # the SSM family needs its SSMConfig
     ("hybrid", "SSM config"),         # and so does the hybrid's backbone
 ])

@@ -34,6 +34,7 @@ from repro.serving import ServingSystem as JaxServingSystem
 from repro.sim.spec import REDUCED_TEST_NODE
 from repro.sim.traces import Round as JaxRound
 from repro.sim.traces import Trajectory as JaxTrajectory
+from _torch_served import bf16_values
 from repro_torch import bridge
 from repro_torch.configs import get_config
 from repro_torch.core.config import TierConfig
@@ -128,7 +129,3 @@ def test_run_online_with_tiers_matches_jax(weights, tier, split_reads):
         assert np.abs(got - want).max() <= 2e-2 * np.abs(want).max(), ref
         assert np.mean(got[0] == want[0]) > 0.99, ref
 
-
-def bf16_values(block: np.ndarray) -> np.ndarray:
-    """A (L, T, row) uint8 FullBlock of bf16 KV as float32 values."""
-    return (block.view(np.uint16).astype(np.uint32) << 16).view(np.float32)
