@@ -1,6 +1,6 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA H100.
 
-    python3 chip_smoke.py                  # the smoke, phases 1-19
+    python3 chip_smoke.py                  # the smoke, phases 1-20
     python3 chip_smoke.py --persist-ab 10  # offline serving, old persist
                                            # against the scatter's
     python3 chip_smoke.py --split-sweep    # the attention kernels' split
@@ -13,7 +13,7 @@
 Drives ``repro_torch`` (never the JAX package) on the card:
 
 1. environment: torch version, the card's name and power limit, TF32 off;
-2. builds the eight CUDA kernels from src/repro_torch/kernels/csrc with
+2. builds the nine CUDA kernels from src/repro_torch/kernels/csrc with
    nvcc for sm_90a, one nvcc process per source, all at once (the causal
    conv is Triton, compiled at its first launch);
 3. holds each kernel against its plain PyTorch version at the main
@@ -72,7 +72,17 @@ Drives ``repro_torch`` (never the JAX package) on the card:
    over 8 clips of 1500 frames, paged over 8 slots at g 5 and g 7, each
    in bf16 and f32, and the grouped GEMM at llama4's 128 experts, top-1
    (the 4096-token prefill, a 400-token append and the 8-slot decode,
-   both projections, and f32), planted faults failing;
+   both projections, and f32), planted faults failing; and flash's
+   backward (``flash_attention_bwd``, the training path's gradient)
+   against the plain backward (autograd of the plain forward) within
+   TOLS of each gradient's largest |value|, bit-identical over two
+   calls, at qwen's training microbatch (4 x 1023, 16 x 64, causal), GQA
+   g 4 at dh 128, hubert's bidirectional (80, 80) over 2 clips of 1500,
+   gemma2's dh 256 with a 256-token window and softcap 50, s 1 and 77,
+   f32, and a case built so the bf16 rounding of P shows in dV; planted
+   faults (the softcap's derivative dropped, the last key tile skipped,
+   P left unrounded in dV) must fail, and SDPA's backward is timed
+   beside it;
 4. serves 6 agents x 3 rounds of full-width qwen1.5-0.5b (bf16, random
    weights from a seed) offline through the port's ServingSystem,
    asserting that every round finished, both read sides were used and
@@ -140,9 +150,10 @@ Drives ``repro_torch`` (never the JAX package) on the card:
    unchunked and in 1024-token slices (see :func:`moe_phase`);
 12. the event simulator (``repro_torch.sim``), on the host in modelled
    time: (a) DS 660B at 2P4D on 192 Table 2 trajectories of 64K in the
-   basic, dualpath and oracle modes (every agent finishes, dualpath's
-   modelled ``jct_max`` under 0.95 x basic's, oracle within 1.02 x
-   dualpath, mean TPOT within 15 %); (b) benchmarks/microbench_sim.py's
+   basic, dualpath and oracle modes, side by side in three processes
+   started with phase 3 (every agent finishes, dualpath's modelled
+   ``jct_max`` under 0.95 x basic's, oracle within 1.02 x dualpath,
+   mean TPOT within 15 %); (b) benchmarks/microbench_sim.py's
    saturated-link workload under ``Sim``, ``VectorSim`` and ``VectorSim``
    with its settle on the card, all three ``results()`` equal; (c) a
    traced dualpath run at 48 agents whose trace passes ``audit_sim`` and
@@ -205,7 +216,18 @@ Drives ``repro_torch`` (never the JAX package) on the card:
    the card equal to the port's CPU forward within TOLS[f32] of the
    largest logit; moving the last frame moves the first frame's logits (see
    :func:`hubert_phase`);
-19. prints the ``kernels`` JSON line, then the contract line
+19. training and checkpoints on qwen1.5-0.5b at published widths: (a) f32
+   at depth 2, the card's gradients and 3 AdamW steps against the port's
+   CPU path; (b) bf16 at full depth, 6 steps of 8 x 1024 tokens in 2
+   microbatches with full remat (``make_train_step`` -> ``loss_fn`` ->
+   ``forward`` through flash and its hand-written backward -> AdamW):
+   finite, falling losses and every launch count equal to its
+   prediction, host seconds per step, trained tokens per real second,
+   peak memory and a profiled step; (c) ``FaultTolerantRunner`` at depth
+   2 crashing after step 3 and resumed from step 2: losses and final
+   parameters equal an uninterrupted run's bit for bit (see
+   :func:`train_phase`);
+20. prints the ``kernels`` JSON line, then the contract line
    ``{"ok": true, "device": {...}}`` last.
 
 Any failed check raises, so the script exits non-zero and prints no
@@ -223,7 +245,12 @@ import sys
 import time
 
 import numpy as np
-import torch
+
+# cuBLAS is reproducible run to run only with a fixed workspace config,
+# and torch.use_deterministic_algorithms (phase 19 (c)) refuses its
+# GEMMs unless one is named before the first of them
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+import torch  # noqa: E402
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(REPO, "src"))
@@ -381,12 +408,25 @@ LLAVA_IDENTITY = dict(depth=4, chunk=1024)
 HUBERT = "hubert-xlarge"
 HUBERT_CLIPS, HUBERT_FRAMES = 8, 1500
 HUBERT_IDENTITY = dict(depth=2)
+# the training phase (19): qwen1.5-0.5b at published widths.  (a) f32 at
+# depth 2, the card against the port's CPU path from one init: 2 rows of
+# 129 tokens in 2 microbatches, 3 AdamW steps; (b) bf16 at full depth, the
+# slice's path: 8 rows of 1024 tokens (1023 inputs each) in qwen's 2
+# microbatches (microbatches_train_4k), full remat, 6 steps; (c) crash and
+# resume at depth 2 in bf16, a checkpoint every 2 steps, a crash after
+# step 3, resumed from step 2 and run to 5
+TRAIN_IDENTITY = dict(depth=2, batch=2, seq=129, micro=2, steps=3)
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO, TRAIN_STEPS = 8, 1024, 2, 6
+TRAIN_LR = 3e-4
+TRAIN_RESUME = dict(depth=2, batch=4, seq=129, micro=2, every=2, crash=3,
+                    steps=5)
 # the event simulator (phase 12): (a) the reference's I/O-bound point,
 # DS 660B at 2P4D on Table 2's 64K trajectories; (b)
 # benchmarks/microbench_sim.py's saturated-link workload; (c) a traced
 # dualpath run
 SIM_IO_AGENTS = 192
 SIM_IO_MAX_LEN = 65536
+SIM_IO_MODES = ("basic", "dualpath", "oracle")
 SIM_MICRO = dict(nodes=10, agents=60, window_s=4.0, horizon_s=12.0,
                  bw_per_node=1e9, bg_load=0.8, bg_chunk=64e6, max_len=8192)
 SIM_TRACED_AGENTS = 48
@@ -397,7 +437,8 @@ KERNEL_ROWS = {"flash_attention": ("flash_",), "paged_attention": ("paged_",),
                "grouped_gemm": ("gg_",), "mla_decode": ("mla_",),
                "ssd_chunk_scan": ("ssd_",),
                "ssm_step": ("ssm_step_kernel",),
-               "causal_conv": ("_conv_kernel",)}
+               "causal_conv": ("_conv_kernel",),
+               "flash_attention_bwd": ("bwd_",)}
 
 
 # ---------------------------------------------------------------------------
@@ -782,13 +823,14 @@ def normal(rng, shape, dtype) -> torch.Tensor:
         np.float32)).to("cuda", dtype)
 
 
-def _planted(name, want, tol, faults: dict) -> dict:
+def _planted(name, want, tol, faults: dict, check=max_err) -> dict:
     """Each fault, emulated in the plain version, must fail the check
-    the kernel passes: the case's inputs let the tolerance see a fault
-    of that size.  Returns each fault's max |err|."""
+    the kernel passes (``check(out, want, tol)`` -> (err, ok);
+    :func:`max_err` unless given): the case's inputs let the tolerance see
+    a fault of that size.  Returns each fault's max |err|."""
     errs = {}
     for label, out in faults.items():
-        err, ok = max_err(out, want, tol)
+        err, ok = check(out, want, tol)
         if ok:
             raise AssertionError(f"{name}: the planted fault '{label}' is "
                                  f"within the tolerance (err {err})")
@@ -1850,6 +1892,205 @@ def llama4_gemm_cases():
     return cases
 
 
+# ---------------------------------------------------------------------------
+# phase 3, flash's backward: the training path's gradient (phase 19), at
+# qwen's training microbatch, GQA, hubert's bidirectional (80, 80),
+# gemma2's dh 256 with a window and softcap, the short edges and f32
+# ---------------------------------------------------------------------------
+
+# q's scale in the softcapped backward case: scores of standard deviation
+# ~8 put the largest ones where the softcap's derivative 1 - tanh^2(s /
+# 50) is far from 1, so dropping it must fail the tolerance
+BWD_Q_STD = 8.0
+
+
+def attention_pairs(s: int, causal: bool, window: int) -> int:
+    """The valid (query, key) pairs of one head of full-sequence attention
+    over ``s`` tokens."""
+    total = 0
+    for i in range(s):
+        lo = max(0, i - window + 1) if window > 0 else 0
+        total += (i if causal else s - 1) - lo + 1
+    return total
+
+
+def grads_err(got, want, tol: float):
+    """max |got - want| over (dq, dk, dv), and whether each output is
+    within ``tol`` of its own largest |value|, or, for an output that is
+    zero in exact arithmetic (dq and dk over one token: P = 1, so dS =
+    dP - D = 0), of the largest |value| of the three: its rounding
+    residue is judged on the scale of the computation."""
+    errs = [float((g.float() - w.float()).abs().max()) for g, w in
+            zip(got, want)]
+    tops = [float(w.float().abs().max()) for w in want]
+    ok = all(e <= tol * (top or max(tops)) for e, top in zip(errs, tops))
+    return max(errs), ok
+
+
+def bwd_plain(q, k, v, do, *, causal=True, softcap=0.0, window=0,
+              cap_grad=True, skip_from=None, round_p=True):
+    """flash's gradient in closed form (f32 products, P rounded to the V
+    dtype for dV as the forward rounds it), to plant faults in: without
+    ``cap_grad`` the softcap's derivative is dropped, with ``skip_from``
+    the keys from there on leave dK, dV and dQ, without ``round_p`` dV
+    takes P unrounded."""
+    b, hq, s, dh = q.shape
+    hkv = k.shape[1]
+    g = hq // hkv
+    qf = q.float().reshape(b, hkv, g, s, dh)
+    kf, vf = k.float(), v.float()
+    dof = do.float().reshape(b, hkv, g, s, dh)
+    raw = torch.einsum("bngqd,bnkd->bngqk", qf, kf) / np.sqrt(dh)
+    t = torch.tanh(raw / softcap) if softcap else None
+    sc = softcap * t if softcap else raw
+    rows = torch.arange(s, device=q.device)
+    ok = torch.ones(s, s, dtype=torch.bool, device=q.device)
+    if causal:
+        ok &= rows[None, :] <= rows[:, None]
+    if window > 0:
+        ok &= rows[:, None] - rows[None, :] < window
+    p = torch.softmax(sc.masked_fill(~ok, float("-inf")), dim=-1)
+    o = torch.einsum("bngqk,bnkd->bngqd", p.to(v.dtype).float(), vf)
+    dsum = (dof * o.to(q.dtype).float()).sum(-1, keepdim=True)
+    keep = torch.ones(s, device=q.device)
+    if skip_from is not None:
+        keep[skip_from:] = 0
+    pv = (p.to(v.dtype).float() if round_p else p) * keep
+    dv = torch.einsum("bngqk,bngqd->bnkd", pv, dof)
+    ds = p * (torch.einsum("bngqd,bnkd->bngqk", dof, vf) - dsum) * keep
+    if softcap and cap_grad:
+        ds = ds * (1 - t * t)
+    dq = torch.einsum("bngqk,bnkd->bngqd", ds, kf) / np.sqrt(dh)
+    dk = torch.einsum("bngqk,bngqd->bnkd", ds, qf) / np.sqrt(dh)
+    return (dq.reshape(b, hq, s, dh).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
+
+
+def rounded_p_inputs(b=1, h=4, s=1024, dh=64, device="cuda"):
+    """bf16 inputs on which dV shows whether P was rounded to bf16: q = 0,
+    so row i's P is 1/(i + 1) over its i + 1 causal keys, and v = 0, so dq
+    and dk are exactly 0.  Consecutive rows are paired and given dO rows
+    of +-(i + 1) (the same in every column and head), signed so that
+    within a pair the unrounded P.dO nearly cancels while the rounding
+    errors of P add: the bf16 dV is then mostly those rounding errors.
+    Rows whose 1/(i + 1) lies within 1e-5 of a bf16 rounding midpoint get
+    dO = 0 (an f32 recompute could round them the other way)."""
+    i = torch.arange(s, dtype=torch.float64)
+    p = (1.0 / (i + 1)).float()
+    bits = p.view(torch.int32)
+    lo = (bits & ~0xFFFF).view(torch.float32).double()
+    hi = ((bits & ~0xFFFF) + 0x10000).view(torch.float32).double()
+    safe = ((p.double() - (lo + hi) / 2).abs() / p.double() > 1e-5)
+    delta = (p.to(torch.bfloat16).double() - p.double()) * (i + 1)
+    sign = torch.zeros(s, dtype=torch.float64)
+    rows = [int(r) for r in torch.nonzero(safe).flatten()]
+    for a, c in zip(rows[0::2], rows[1::2]):
+        sign[a] = 1.0 if delta[a] > delta[c] else -1.0
+        sign[c] = -sign[a]
+    do = (sign * (i + 1)).float()[None, :, None, None].expand(
+        b, s, h, dh).contiguous().to(device, torch.bfloat16)
+    z = torch.zeros((b, s, h, dh), dtype=torch.bfloat16, device=device)
+    k = torch.randn((b, s, h, dh), generator=torch.Generator(
+        device=device).manual_seed(29), device=device).to(torch.bfloat16)
+    return tuple(x.transpose(1, 2) for x in (z, k, z.clone(), do))
+
+
+def _bwd_case(gen, *, b, hq, hkv, dh, s, dtype=torch.bfloat16, causal=True,
+              softcap=0.0, window=0, q_std=1.0, planted=(), parts=False,
+              inputs=None, label=""):
+    """flash's backward at the training path's layout: q, k, v and dO
+    (b, s, h, dh) passed as (b, h, s, dh) views, o from the forward kernel.
+    Held against the plain backward (autograd of the plain forward) within
+    TOLS of each output's largest |value| and bit-identical over two
+    calls; each label in ``planted`` is a fault of :func:`bwd_plain` that
+    must fail that check.  Timed beside the plain backward and SDPA's
+    backward (causal or not, no window and no softcap, K and V repeated
+    to the query heads), with the bound of its five products' flops over
+    the valid pairs (the recomputed scores included) or its bytes."""
+    from repro_torch.kernels import flash_attention, flash_attention_bwd, ref
+    if inputs is None:
+        f = lambda h: normal(gen, (b, s, h, dh), dtype)
+        q = (f(hq) * q_std).transpose(1, 2)
+        k, v, do = (f(h).transpose(1, 2) for h in (hkv, hkv, hq))
+    else:
+        q, k, v, do = inputs
+    kw = dict(causal=causal, softcap=softcap, window=window)
+    shapes = dict(q=[b, hq, s, dh], kv=[b, hkv, s, dh],
+                  dtype=str(dtype).replace("torch.", ""))
+    shapes.update({n: x for n, x in kw.items()
+                   if x != dict(causal=True, softcap=0.0, window=0)[n]})
+    if label:
+        shapes["case"] = label
+    o = flash_attention(q, k, v, **kw)
+    call = lambda: flash_attention_bwd(q, k, v, o, do, **kw)
+    got, again = call(), call()
+    if not all(torch.equal(x, y) for x, y in zip(got, again)):
+        raise AssertionError(f"flash_attention_bwd: two calls gave "
+                             f"different bits at {shapes}")
+    want = ref.flash_attention_bwd_ref(q, k, v, do, **kw)
+    err, ok = grads_err(got, want, TOLS[dtype])
+    if not ok:
+        raise AssertionError(f"flash_attention_bwd off by {err} at {shapes}")
+    faults = None
+    if planted:
+        emulate = {"softcap's derivative dropped": dict(cap_grad=False),
+                   "the last key tile skipped": dict(
+                       skip_from=(s - 1) // 64 * 64),
+                   "P left unrounded in dV": dict(round_p=False)}
+        faults = _planted("flash_attention_bwd", want, TOLS[dtype],
+                          {f: bwd_plain(q, k, v, do, **kw, **emulate[f])
+                           for f in planted}, check=grads_err)
+    del got, again, want
+    g = hq // hkv
+    ql, kl, vl = (x.detach().requires_grad_(True) for x in
+                  (q, k.repeat_interleave(g, 1), v.repeat_interleave(g, 1)))
+    out = torch.nn.functional.scaled_dot_product_attention(
+        ql, kl, vl, is_causal=causal)
+    library = lambda: torch.autograd.grad(out, (ql, kl, vl), do,
+                                          retain_graph=True)
+    pairs = attention_pairs(s, causal, window) * b * hq
+    b_ms, b_by = bound(4 * (b * hq + b * hkv) * s * dh * q.element_size(),
+                       10 * dh * pairs, dtype)
+    return dict(
+        shapes=shapes, max_abs_err=err, planted_err=faults,
+        ms=time_ms(call), ms_clean_l2=time_ms(call, clean_l2=True),
+        parts_ms=kernel_parts(call) if parts else None,
+        plain_ms=time_ms(lambda: ref.flash_attention_bwd_ref(q, k, v, do,
+                                                             **kw)),
+        library_ms=time_ms(library), bound_ms=b_ms, bound_by=b_by)
+
+
+def flash_bwd_cases():
+    """flash's backward: qwen's training microbatch (4 rows of 1023
+    inputs, 16 x 64, causal; phase 19's shape), GQA g 4 at dh 128 over
+    1000 tokens, hubert's bidirectional 16 x 80 over 2 clips of 1500
+    frames, gemma2's dh 256 (8 over 4 heads) with a 256-token window and
+    softcap 50 over 1024 tokens (q scaled by ``BWD_Q_STD``; the softcap's
+    derivative dropped and the last 64-key tile skipped must fail), s 1
+    and s 77, f32 at dh 64, and :func:`rounded_p_inputs` (P left
+    unrounded in dV must fail)."""
+    from repro_torch.configs import get_config
+    qw, hb, g2 = (get_config(a) for a in ("qwen1.5-0.5b", HUBERT,
+                                          "gemma2-2b"))
+    gen = torch.Generator(device="cuda").manual_seed(28)
+    heads = lambda c: dict(hq=c.n_heads, hkv=c.n_kv_heads, dh=c.head_dim)
+    case = lambda c, **kw: _bwd_case(gen, **{**heads(c), **kw})
+    return [
+        case(qw, b=TRAIN_BATCH // TRAIN_MICRO, s=TRAIN_SEQ - 1, parts=True),
+        case(qw, b=2, hkv=qw.n_heads // 4, dh=128, s=1000),
+        case(hb, b=2, s=HUBERT_FRAMES, causal=False),
+        case(g2, b=1, s=1024, window=256, softcap=50.0, q_std=BWD_Q_STD,
+             planted=("softcap's derivative dropped",
+                      "the last key tile skipped")),
+        case(qw, b=2, s=1),
+        case(qw, b=2, s=77),
+        case(qw, b=2, s=256, dtype=torch.float32),
+        _bwd_case(gen, b=1, hq=4, hkv=4, dh=64, s=1024,
+                  inputs=rounded_p_inputs(), planted=(
+                      "P left unrounded in dV",), label="rounded P"),
+    ]
+
+
 # the wrappers and their sources (None: Triton, compiled at first launch)
 KERNEL_SOURCES = {"kv_layer_gather": "kv_gather",
                   "kv_layer_scatter": "kv_scatter",
@@ -1857,7 +2098,8 @@ KERNEL_SOURCES = {"kv_layer_gather": "kv_gather",
                   "paged_attention": "paged_attention",
                   "grouped_gemm": "grouped_gemm", "mla_decode": "mla_decode",
                   "ssd_chunk_scan": "ssd_scan", "ssm_step": "ssm_step",
-                  "causal_conv": None}
+                  "causal_conv": None,
+                  "flash_attention_bwd": "flash_attention_bwd"}
 
 
 def kernel_cases(names=None) -> dict:
@@ -1877,6 +2119,7 @@ def kernel_cases(names=None) -> dict:
                            ("qwen1.5-0.5b", "gemma2-2b", "ds27b"))
     rng = np.random.default_rng(0)
     cases = {}
+    t0 = time.perf_counter()
     if want("kv_layer_gather"):
         cases["kv_layer_gather"] = gather_cases(cfg, rng)
     if want("kv_layer_scatter"):
@@ -1885,6 +2128,8 @@ def kernel_cases(names=None) -> dict:
         cases["flash_attention"] = flash_cases(cfg, rng)
     if want("paged_attention"):
         cases["paged_attention"] = paged_cases(cfg, rng)
+    print(f"phase 3, qwen's cases: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     if want("flash_attention"):
         cases["flash_attention"] += gemma2_flash_cases(cfg_g2, rng)
     if want("paged_attention"):
@@ -1901,6 +2146,8 @@ def kernel_cases(names=None) -> dict:
         cases["grouped_gemm"] = grouped_gemm_cases(cfg_ds, rng)
     if want("mla_decode"):
         cases["mla_decode"] = mla_decode_cases(cfg_ds, rng)
+    print(f"phase 3, gemma2's and ds27b's cases: "
+          f"{time.perf_counter() - t0:.1f} s")
     cfg_m2 = get_config("mamba2-1.3b")
     t0 = time.perf_counter()
     if want("ssd_chunk_scan"):
@@ -1914,6 +2161,7 @@ def kernel_cases(names=None) -> dict:
         cases["causal_conv"] = conv_cases(cfg_m2)
     if want("ssd_chunk_scan", "ssm_step", "causal_conv"):
         print(f"phase 3, the SSM cases: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     if want("flash_attention", "paged_attention"):
         flash_r, paged_r = registration_attention_cases(rng)
         for name, more in (("flash_attention", flash_r),
@@ -1929,6 +2177,8 @@ def kernel_cases(names=None) -> dict:
                            ("paged_attention", paged_z)):
             if name in cases:
                 cases[name] += more
+    print(f"phase 3, the registrations' and zamba2's attention and GEMM "
+          f"cases: {time.perf_counter() - t0:.1f} s")
     if want("ssd_chunk_scan", "ssm_step", "causal_conv"):
         t0 = time.perf_counter()
         for name, more in zamba2_ssm_cases(cfg_z2, names).items():
@@ -1946,6 +2196,11 @@ def kernel_cases(names=None) -> dict:
         cases["grouped_gemm"] += llama4_gemm_cases()
     if want("flash_attention", "paged_attention", "grouped_gemm"):
         print(f"phase 3, llama4's, llava's and hubert's cases: "
+              f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    if want("flash_attention_bwd"):
+        cases["flash_attention_bwd"] = flash_bwd_cases()
+        print(f"phase 3, flash's backward: "
               f"{time.perf_counter() - t0:.1f} s")
     return cases
 
@@ -3828,6 +4083,228 @@ def hubert_phase(cfg, device="cuda", clips=HUBERT_CLIPS,
                               tol=tol, first_frame_moved_by=first))
 
 
+# ---------------------------------------------------------------------------
+# phase 19: training and checkpoints (qwen1.5-0.5b)
+# ---------------------------------------------------------------------------
+
+
+def train_identity(cfg, device="cuda", depth=2, batch=2, seq=129, micro=2,
+                   steps=3, lr=TRAIN_LR) -> dict:
+    """(a) f32 at ``depth`` layers from one ``init_params`` seed: the first
+    batch's gradients on ``device`` equal the port's CPU path's (the
+    kernels' plain versions) within 1e-4 of each leaf's largest |g|, and
+    ``steps`` AdamW steps give losses within 1e-4 relative.  Each step is
+    ``make_train_step``'s composition, ``loss_and_grads`` then the
+    optimizer's update, taken apart to keep the first gradients."""
+    from repro_torch.models import init_params
+    from repro_torch.training import (SyntheticLM, loss_and_grads,
+                                      make_optimizer)
+    from repro_torch.training.tree import leaves, leaves_with_paths, tree_map
+    cfg32 = dataclasses.replace(cfg, n_layers=depth, param_dtype="float32")
+    card = init_params(cfg32, seed=3, device=device)
+    host = tree_map(lambda t: t.to("cpu", copy=True), card)
+    pipe = SyntheticLM(cfg.vocab_size, batch, seq, seed=4)
+    batches = [pipe.next_batch() for _ in range(steps)]
+    losses, first = {}, {}
+    for name, params in (("card", card), ("host", host)):
+        opt_init, opt_update = make_optimizer(cfg32.optimizer,
+                                              cfg32.opt_state_dtype)
+        opt = opt_init(params)
+        losses[name] = []
+        for bt in batches:
+            loss, grads = loss_and_grads(params, cfg32, bt,
+                                         n_microbatches=micro)
+            first.setdefault(name, grads)
+            params, opt = opt_update(params, grads, opt, lr=lr)
+            losses[name].append(float(loss))
+        del params, opt, grads
+    worst = 0.0
+    for (path, gc_), gh in zip(leaves_with_paths(first["card"]),
+                               leaves(first["host"])):
+        err = float((gc_.cpu() - gh).abs().max())
+        scale = float(gh.abs().max())
+        assert err <= 1e-4 * scale, \
+            f"f32 gradient of {'/'.join(path)} off by {err} > 1e-4 x {scale}"
+        worst = max(worst, err / scale if scale else 0.0)
+    del first, card, host
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses["card"],
+                                                  losses["host"]))
+    assert rel <= 1e-4, f"f32 losses {losses['card']} against the CPU's " \
+        f"{losses['host']}"
+    return dict(losses=losses, loss_rel_err=rel, grad_rel_err=worst)
+
+
+def predicted_train_launches(cfg, steps: int, micro: int, remat) -> dict:
+    """A dense model's training launches: per layer and microbatch, flash
+    forward once, and once more when full remat recomputes the block in
+    the backward, and flash's backward once; nothing else."""
+    out = {k: 0 for k in KERNEL_SOURCES}
+    out.update(flash_attention=(2 if remat else 1) * cfg.n_layers * micro *
+               steps,
+               flash_attention_bwd=cfg.n_layers * micro * steps)
+    return out
+
+
+def train_resume(cfg, device="cuda", depth=2, batch=4, seq=129, micro=2,
+                 every=2, crash=3, steps=5, lr=TRAIN_LR) -> dict:
+    """(c) ``FaultTolerantRunner`` at ``depth`` layers in bf16: a run that
+    crashes after step ``crash``, resumed from its last checkpoint and run
+    to ``steps``, gives the losses of the steps after the checkpoint and
+    the final parameters of an uninterrupted run bit for bit, all three
+    runs under ``torch.use_deterministic_algorithms``.  The
+    checkpoints go to a temporary directory, removed afterwards; each
+    save and the restore are timed."""
+    import shutil
+    import tempfile
+    from repro_torch.ckpt import FaultTolerantRunner, checkpoint
+    from repro_torch.models import init_params
+    from repro_torch.training import SyntheticLM, make_train_step
+    from repro_torch.training.tree import leaves
+    cfg_d = dataclasses.replace(cfg, n_layers=depth)
+    opt_init, train_step = make_train_step(cfg_d, lr=lr, n_microbatches=micro)
+    saves = []
+
+    def timed_save(fn):
+        def save(*args, **kw):
+            t0 = time.perf_counter()
+            name = fn(*args, **kw)
+            saves.append((time.perf_counter() - t0, os.path.getsize(name)))
+            return name
+        return save
+
+    def runner(path, ckpt_every):
+        params = init_params(cfg_d, seed=2, device=device)
+        return FaultTolerantRunner(
+            path, train_step, params, opt_init(params),
+            SyntheticLM(cfg.vocab_size, batch, seq, seed=3),
+            ckpt_every=ckpt_every)
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    was = (torch.are_deterministic_algorithms_enabled(),
+           torch.is_deterministic_algorithms_warn_only_enabled())
+    # an op on this path without a deterministic form raises and names
+    # itself, rather than breaking the bitwise equality now and then
+    torch.use_deterministic_algorithms(True)
+    try:
+        with MethodPatch(checkpoint, "save_checkpoint", timed_save):
+            crashed = runner(os.path.join(root, "a"), every)
+            try:
+                crashed.run(steps, crash_at=crash)
+                raise AssertionError("the injected crash did not happen")
+            except RuntimeError as e:
+                assert "injected crash" in str(e), e
+            del crashed
+            resumed = runner(os.path.join(root, "a"), every)
+            t0 = time.perf_counter()
+            assert resumed.try_resume()
+            restore_s = time.perf_counter() - t0
+            at = resumed.step
+            assert at == crash // every * every, at
+            resumed.run(steps)
+            whole = runner(os.path.join(root, "b"), 10 * steps)
+            ref_losses = whole.run(steps)
+        assert resumed.losses == ref_losses[at:], (resumed.losses,
+                                                   ref_losses)
+        for a, b in zip(leaves(resumed.params), leaves(whole.params)):
+            assert torch.equal(a.view(torch.uint8) if a.dim() else a,
+                               b.view(torch.uint8) if b.dim() else b), \
+                "resumed parameters differ from the uninterrupted run's"
+    finally:
+        torch.use_deterministic_algorithms(was[0], warn_only=was[1])
+        shutil.rmtree(root, ignore_errors=True)
+    return dict(resumed_at=at, losses=ref_losses, saves=saves,
+                restore_s=restore_s)
+
+
+def train_phase(cfg, device="cuda", identity=TRAIN_IDENTITY,
+                batch=TRAIN_BATCH, seq=TRAIN_SEQ, micro=TRAIN_MICRO,
+                steps=TRAIN_STEPS, lr=TRAIN_LR, resume=TRAIN_RESUME,
+                remat="full", profile=True) -> dict:
+    """Phase 19: training and checkpoints on qwen1.5-0.5b at published
+    widths.  (a) :func:`train_identity`; (b) the slice's path at full
+    depth in bf16 (``make_train_step`` -> ``loss_fn`` -> ``forward``
+    through flash and its hand-written backward -> AdamW): finite losses,
+    the last below the first, and on the card every launch count equal
+    to :func:`predicted_train_launches`; host seconds per step (the
+    median of steps 2 on), trained tokens per real second, the peak of
+    ``memory_allocated`` over what the process held before the phase,
+    and one more step profiled; (c)
+    :func:`train_resume`."""
+    from repro_torch import kernels
+    from repro_torch.models import init_params
+    from repro_torch.training import SyntheticLM, make_train_step
+    cuda = device != "cpu"
+    out = dict(identity=train_identity(cfg, device, lr=lr, **identity))
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+    params = init_params(cfg, seed=0, device=device)
+    opt_init, train_step = make_train_step(cfg, lr=lr, n_microbatches=micro,
+                                           remat=remat)
+    opt = opt_init(params)
+    pipe = SyntheticLM(cfg.vocab_size, batch, seq, seed=1)
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+
+    def step():
+        nonlocal params, opt
+        sync()
+        t0 = time.perf_counter()
+        params, opt, loss = train_step(params, opt, pipe.next_batch())
+        loss = float(loss)
+        return time.perf_counter() - t0, loss
+
+    kernels.reset_launch_counts()
+    walls, losses = zip(*(step() for _ in range(steps)))
+    launches = kernels.launch_counts()
+    assert all(np.isfinite(losses)), losses
+    assert losses[-1] < losses[0], losses
+    if cuda:
+        want = predicted_train_launches(cfg, steps, micro, remat)
+        assert launches == want, f"training launches {launches}, want {want}"
+    step_s = float(np.median(walls[1:]))
+    out.update(batch=batch, seq=seq, micro=micro, steps=steps,
+               losses=list(losses), walls_s=list(walls), step_s=step_s,
+               tokens_per_s=batch * (seq - 1) / step_s, launches=launches,
+               peak_allocated=torch.cuda.max_memory_allocated() - base
+               if cuda else None, base_allocated=base if cuda else None,
+               profile=profiled(lambda: step()[0]) if profile and cuda
+               else None)
+    del params, opt
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    out["resume"] = dict(train_resume(cfg, device, lr=lr, **resume),
+                         **resume)
+    out["identity"].update(identity)
+    return out
+
+
+def print_train_phase(r: dict) -> None:
+    idn, rs = r["identity"], r["resume"]
+    print(f"train (a) f32 at depth {idn['depth']}, card against "
+          f"the CPU: losses {idn['losses']['card']} vs "
+          f"{idn['losses']['host']} (max rel err {idn['loss_rel_err']:.3g}), "
+          f"first-step gradients within {idn['grad_rel_err']:.3g} of each "
+          f"leaf's largest |g|")
+    print(f"train (b) bf16 at full depth, {r['batch']} x {r['seq']} tokens "
+          f"in {r['micro']} microbatches: losses {r['losses']}; host s per "
+          f"step {[round(w, 4) for w in r['walls_s']]}, median of steps 2-"
+          f"{r['steps']} {r['step_s']:.4f} s, {r['tokens_per_s']:.1f} "
+          f"trained tokens per real second; launches {r['launches']}; peak "
+          f"memory_allocated {r['peak_allocated']} bytes over the "
+          f"{r['base_allocated']} held before the phase's weights")
+    if r["profile"]:
+        print_profile(*r["profile"], label="train (b) one step: ")
+    print(f"train (c) crash after step {rs['crash']}, resumed at "
+          f"step {rs['resumed_at']}, run to {rs['steps']}: losses "
+          f"and final parameters equal the uninterrupted run's bit for bit "
+          f"({rs['losses']}); saves (s, bytes) "
+          f"{[(round(t, 3), n) for t, n in rs['saves']]}, restore "
+          f"{rs['restore_s']:.3f} s")
+
+
 def print_moe_phase(r: dict, label: str) -> None:
     """:func:`moe_phase`'s result (phases 11 and 16)."""
     st = r["stats"]
@@ -3923,28 +4400,50 @@ def sim_same(got: dict, want: dict) -> list:
             if not same_value(got.get(k), want.get(k))]
 
 
-def sim_io_bound(n_agents=SIM_IO_AGENTS, max_len=SIM_IO_MAX_LEN) -> dict:
-    """(a) DS 660B on the paper's Hopper nodes at 2P4D, the Table 2 64K
-    trajectories, in the basic, dualpath and oracle modes (fig. 7's DS
-    660B 2P4D shape): every agent finishes, dualpath's ``jct_max`` under
-    0.95 x basic's, oracle's within 1.02 x dualpath's, and dualpath's
-    mean TPOT within 15 % of basic's.  JCT and TPOT are modelled
-    seconds; ``host_s`` is real host time."""
+def _sim_io_mode(mode: str, n_agents: int, max_len: int) -> dict:
+    """One mode of (a), in a process of its own: real host seconds, the
+    events, ``results()`` and the kernel launches the run made."""
+    from repro_torch import kernels
     from repro_torch.sim import (DS_660B, HOPPER_NODE, Sim, SimConfig,
                                  generate_dataset)
-    out = {}
-    for mode in ("basic", "dualpath", "oracle"):
-        trajs = generate_dataset(n_agents, max_len, seed=0)
-        cfg = SimConfig(node=HOPPER_NODE, model=DS_660B, P=2, D=4,
-                        mode=mode)
-        t0 = time.perf_counter()
-        sim = Sim(cfg, trajs).run()
-        host = time.perf_counter() - t0
-        r = sim.results()
-        assert r["finished_agents"] == n_agents, (mode, r)
-        out[mode] = dict(host_s=host, events=sim.loop.n_events,
-                         results=r)
-    rb, rd, ro = (out[m]["results"] for m in ("basic", "dualpath", "oracle"))
+    kernels.reset_launch_counts()
+    trajs = generate_dataset(n_agents, max_len, seed=0)
+    cfg = SimConfig(node=HOPPER_NODE, model=DS_660B, P=2, D=4, mode=mode)
+    t0 = time.perf_counter()
+    sim = Sim(cfg, trajs).run()
+    host = time.perf_counter() - t0
+    return dict(host_s=host, events=sim.loop.n_events, results=sim.results(),
+                launches=kernels.launch_counts())
+
+
+def sim_io_start(n_agents=SIM_IO_AGENTS, max_len=SIM_IO_MAX_LEN):
+    """Start (a)'s three modes side by side, one spawned process each on
+    the host's cores; :func:`sim_io_bound` collects them."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+    ex = ProcessPoolExecutor(len(SIM_IO_MODES),
+                             mp_context=multiprocessing.get_context("spawn"))
+    return n_agents, ex, [ex.submit(_sim_io_mode, m, n_agents, max_len)
+                          for m in SIM_IO_MODES]
+
+
+def sim_io_bound(started=None) -> dict:
+    """(a) DS 660B on the paper's Hopper nodes at 2P4D, the Table 2 64K
+    trajectories, in the basic, dualpath and oracle modes (fig. 7's DS
+    660B 2P4D shape), as :func:`sim_io_start` started them (now, if
+    ``started`` is None): every agent finishes, dualpath's ``jct_max``
+    under 0.95 x basic's, oracle's within 1.02 x dualpath's, and
+    dualpath's mean TPOT within 15 % of basic's, and no mode launched a
+    kernel.  JCT and TPOT are modelled seconds; ``host_s`` is real host
+    time, each mode's in its own process."""
+    n_agents, ex, runs = started or sim_io_start()
+    with ex:
+        out = {m: run.result() for m, run in zip(SIM_IO_MODES, runs)}
+    for m, o in out.items():
+        assert o["results"]["finished_agents"] == n_agents, (m, o["results"])
+        launches = o.pop("launches")
+        assert not any(launches.values()), (m, launches)
+    rb, rd, ro = (out[m]["results"] for m in SIM_IO_MODES)
     assert rd["jct_max"] < rb["jct_max"] * 0.95, (rb["jct_max"],
                                                  rd["jct_max"])
     assert ro["jct_max"] <= rd["jct_max"] * 1.02, (rd["jct_max"],
@@ -4040,14 +4539,18 @@ def sim_traced(n_agents=SIM_TRACED_AGENTS) -> dict:
                 rounds_checked=checked, results=r)
 
 
-def sim_phase(settle_device="cuda") -> dict:
+def sim_phase(settle_device="cuda", io_started=None) -> dict:
     """Phase 12: the event simulator (``repro_torch.sim``), which models
     the paper's cluster in modelled time on the host; only (b)'s opt-in
-    settle touches the card.  It launches none of the port's kernels:
-    the counts, zeroed before it, must read 0 after it."""
+    settle touches the card.  (a)'s three runs go to processes of their
+    own, started by :func:`sim_io_start` (``io_started``: the smoke
+    starts them with phase 3, whose numbers are device times).  It
+    launches none of the port's kernels: the counts, zeroed before it,
+    must read 0 after it."""
     from repro_torch import kernels
     kernels.reset_launch_counts()
-    out = dict(io_bound=sim_io_bound(), micro=sim_microbench(settle_device),
+    out = dict(io_bound=sim_io_bound(io_started),
+               micro=sim_microbench(settle_device),
                traced=sim_traced())
     out["launches"] = kernels.launch_counts()
     assert not any(out["launches"].values()), out["launches"]
@@ -4178,7 +4681,9 @@ def main() -> int:
     print_build_log(build.SOURCES)
     lap("1-2")
 
-    # 3. kernels against their plain versions
+    # 3. kernels against their plain versions; phase 12's (a) runs on
+    # the host's other cores meanwhile
+    sim_io = sim_io_start()
     cases = kernel_cases()
     print_cases(cases)
     cfg, cfg_g2, cfg_ds = (get_config(a) for a in
@@ -4333,7 +4838,7 @@ def main() -> int:
     lap("11")
 
     # 12. the event simulator: modelled cluster time on the host
-    sim = sim_phase()
+    sim = sim_phase(io_started=sim_io)
     print_sim(sim)
     lap("12")
 
@@ -4403,7 +4908,14 @@ def main() -> int:
     print_hubert_phase(hb)
     lap("18")
 
-    # 19. kernels line, then the contract line
+    # 19. training and checkpoints: qwen1.5-0.5b through flash's backward
+    gc.collect()
+    torch.cuda.empty_cache()
+    tr = train_phase(cfg)
+    print_train_phase(tr)
+    lap("19")
+
+    # 20. kernels line, then the contract line
     meta = {
         "kv_layer_gather": ("src/repro_torch/kernels/csrc/kv_gather.cu",
                             "src/repro/kernels/kv_gather.py:30"),
@@ -4426,16 +4938,22 @@ def main() -> int:
                      "src/repro/models/ssm.py:138"),
         "causal_conv": ("src/repro_torch/kernels/causal_conv.py",
                         "src/repro/models/ssm.py:31"),
+        # no Pallas counterpart: the reference's training differentiates
+        # its jnp attention with XLA
+        "flash_attention_bwd": (
+            "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+            "src/repro/models/layers.py:100"),
     }
     # the main path each kernel's launches are read from: the offline
     # qwen run for the four of every path, ds27b's for its own two,
-    # mamba2's for the SSM family's three
+    # mamba2's for the SSM family's three, training's for flash's backward
     main_path = {name: launches[name] for name in GQA_KERNELS}
     main_path.update({name: ds["launches"][name]
                       for name in ("grouped_gemm", "mla_decode")})
     main_path.update({name: m2["launches"][name]
                       for name in ("ssd_chunk_scan", "ssm_step",
                                    "causal_conv")})
+    main_path["flash_attention_bwd"] = tr["launches"]["flash_attention_bwd"]
     short = {"granite-moe-3b-a800m": "granite", "minicpm-2b": "minicpm",
              "nemotron-4-15b": "nemotron"}
     line = []
@@ -4462,7 +4980,8 @@ def main() -> int:
                                   llama4=l4["launches"][name],
                                   llava=lv["launches"][name],
                                   llava_vlm=lv["vlm"]["launches"][name],
-                                  hubert=hb["launches"][name]),
+                                  hubert=hb["launches"][name],
+                                  train=tr["launches"][name]),
             max_abs_err=max(c["max_abs_err"] for c in cs),
             ms=main_case["ms"], kernel_ms=main_case["ms"],
             ms_clean_l2=main_case.get("ms_clean_l2"),

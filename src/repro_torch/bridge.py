@@ -98,6 +98,49 @@ def params_from_jax(np_tree: Dict, cfg: ModelConfig, device="cuda") -> Dict:
     return out
 
 
+def opt_state_from_jax(np_opt: Dict, cfg: ModelConfig,
+                       device="cuda") -> Dict:
+    """The reference's optimizer state (as numpy) -> the port's: AdamW's
+    ``m`` and ``v`` and Adafactor's ``fac`` mirror the parameters, so they
+    are unstacked as :func:`params_from_jax` unstacks them; ``step``
+    becomes an int32 scalar.  Adafactor factors a stacked per-layer
+    vector (a norm's weight, a bias) over (layer, width), where the port
+    keeps one unfactored ``v`` per layer: such a leaf becomes the second
+    moment the reference's update divides by, ``vr / mean(vr) * vc``,
+    before it is unstacked."""
+    device = resolve(device)
+    step = torch.tensor(int(np.asarray(np_opt["step"])), dtype=torch.int32,
+                        device=device)
+    if "fac" not in np_opt:
+        return {"m": params_from_jax(np_opt["m"], cfg, device),
+                "v": params_from_jax(np_opt["v"], cfg, device),
+                "step": step}
+    # the stacked axes in front of each subtree's leaves
+    stacks = {"blocks": 2 if cfg.family == "hybrid" else 1,
+              "dense_blocks": 1, "super_blocks": {"pre": 2, "moe": 1}}
+    fac = {k: _vectors_unfactored(v, stacks.get(k, 0))
+           for k, v in np_opt["fac"].items()}
+    return {"fac": params_from_jax(fac, cfg, device), "step": step}
+
+
+def _vectors_unfactored(fac, n_stack):
+    """Adafactor's (vr, vc) of a parameter that is one vector per layer
+    (vr has only the ``n_stack`` stacked axes) as its ``v``."""
+    if isinstance(n_stack, dict):
+        return {k: _vectors_unfactored(v, n_stack[k]) for k, v in fac.items()}
+    if set(fac) == {"vr", "vc"}:
+        vr, vc = (np.asarray(fac[k]) for k in ("vr", "vc"))
+        if vr.ndim != n_stack:
+            return fac
+        r, c = vr.astype(np.float32), vc.astype(np.float32)
+        v = r[..., None] / r.mean(-1, keepdims=True)[..., None] \
+            * c[..., None, :]
+        return {"v": v.astype(vc.dtype)}
+    if set(fac) == {"v"}:
+        return fac
+    return {k: _vectors_unfactored(v, n_stack) for k, v in fac.items()}
+
+
 def _moe_layers(np_state: Dict, name: str) -> np.ndarray:
     """One leaf of the reference's MoE decode state in layer order: the
     ``dense`` rows, then per period the ``pre`` rows (n_super, period -

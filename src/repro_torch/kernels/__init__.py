@@ -3,10 +3,13 @@
 Each wrapper launches its kernel (CUDA C++, or Triton for the causal
 conv) for CUDA tensors (or raises) and computes its plain PyTorch
 version (``ref``) for CPU tensors, and counts its launches in
-``<wrapper>.launches``.
+``<wrapper>.launches``.  ``flash_attention_bwd`` is flash's gradient,
+which ``flash_attention`` runs through autograd when training; the other
+wrappers have no backward and raise when their inputs require grad.
 """
 from repro_torch.kernels.causal_conv import causal_conv
-from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.flash_attention import (flash_attention,
+                                                 flash_attention_bwd)
 from repro_torch.kernels.grouped_gemm import grouped_gemm
 from repro_torch.kernels.kv_gather import kv_layer_gather
 from repro_torch.kernels.kv_scatter import kv_layer_scatter
@@ -17,7 +20,7 @@ from repro_torch.kernels.ssm_step import ssm_step
 
 WRAPPERS = (kv_layer_gather, kv_layer_scatter, flash_attention,
             paged_attention, grouped_gemm, mla_decode, ssd_chunk_scan,
-            ssm_step, causal_conv)
+            ssm_step, causal_conv, flash_attention_bwd)
 
 
 def reset_launch_counts() -> None:
@@ -29,7 +32,8 @@ def launch_counts() -> dict:
     return {fn.__name__: fn.launches for fn in WRAPPERS}
 
 
-__all__ = ["causal_conv", "flash_attention", "grouped_gemm",
+__all__ = ["causal_conv", "flash_attention", "flash_attention_bwd",
+           "grouped_gemm",
            "kv_layer_gather", "kv_layer_scatter", "mla_decode",
            "paged_attention", "ssd_chunk_scan", "ssm_step",
            "reset_launch_counts", "launch_counts"]

@@ -24,7 +24,8 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 SOURCES = ("kv_gather", "kv_scatter", "flash_attention", "paged_attention",
-           "grouped_gemm", "mla_decode", "ssd_scan", "ssm_step")
+           "grouped_gemm", "mla_decode", "ssd_scan", "ssm_step",
+           "flash_attention_bwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -110,6 +111,29 @@ def require_cuda(kernel: str, *tensors: torch.Tensor) -> None:
         if t.device != dev or t.device.type != "cuda":
             raise ValueError(f"{kernel}: tensors must share one CUDA "
                              f"device, got {[x.device for x in tensors]}")
+
+
+# the later slices (ROADMAP Queue 1) that bring the backwards the port does
+# not have yet, as the guards name them
+MOE_TRAINING = ("MoE training, with a grouped_gemm backward, is ROADMAP "
+                "Queue 1 item 3a")
+MLA_TRAINING = ("MLA training, with flash's backward at (192, 128), is "
+                "ROADMAP Queue 1 item 3b")
+SSM_TRAINING = ("SSM and hybrid training, with ssd_chunk_scan and "
+                "causal_conv backwards, is ROADMAP Queue 1 item 3c")
+DECODE_ONLY = ("a decode kernel is never trained: training runs the "
+               "full-sequence forward")
+
+
+def require_no_grad(kernel: str, later: str, *tensors) -> None:
+    """Raise ``NotImplementedError`` when autograd would need ``kernel``'s
+    gradient: grad mode on and any of ``tensors`` requiring grad.  The
+    kernel has no backward yet, and ``later`` names the slice that brings
+    it; on both devices, so the CPU trains exactly what the card can.
+    Serving never trips it: its tensors do not require grad."""
+    if torch.is_grad_enabled() and any(
+            isinstance(t, torch.Tensor) and t.requires_grad for t in tensors):
+        raise NotImplementedError(f"{kernel} has no backward yet: {later}")
 
 
 def require_aligned(kernel: str, ptrs: dict, strides: dict, itemsize: int,

@@ -34,7 +34,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels import ref
+from repro_torch.kernels import build, ref
 
 BLOCK_C = 256              # channels of a strip: one warp, 16 B a thread
 ROWS = 4                   # rows loaded together in a step of a run
@@ -170,6 +170,7 @@ def causal_conv(x: torch.Tensor, w: torch.Tensor, tail: torch.Tensor):
     if w.shape != (cw, c) or tail.shape != (b, cw - 1, c) or cw < 2:
         raise ValueError(f"causal_conv: shapes x {tuple(x.shape)} w "
                          f"{tuple(w.shape)} tail {tuple(tail.shape)}")
+    build.require_no_grad("causal_conv", build.SSM_TRAINING, x, w, tail)
     if x.device.type == "cpu":
         return ref.causal_conv_ref(x, w, tail)
     if x.device.type != "cuda" or w.device != x.device or \

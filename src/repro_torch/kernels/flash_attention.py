@@ -24,6 +24,15 @@ contiguous, so the model passes its (b, s, h, dh) activations and caches
 transposed, without a copy.  The output is allocated (b, sq, hq, dv) in
 memory and returned as its (b, hq, sq, dv) view, so the model's
 transpose back is free.
+
+Training: when grad mode is on and q, k or v requires grad, the call goes
+through an autograd Function whose backward is ``flash_attention_bwd``,
+``csrc/flash_attention_bwd.cu`` on CUDA tensors (the reference has no
+backward kernel: XLA differentiates its jnp attention) and
+``ref.flash_attention_bwd_ref`` on CPU tensors.  It covers full-sequence
+attention (sq = skv, no ``kv_lens``) at dk = dv in ``HEAD_DIMS``; an
+append with ``kv_lens`` and MLA's (192, 128) raise under grad.  Without
+grad the call is the forward alone, launch for launch.
 """
 from __future__ import annotations
 
@@ -57,12 +66,25 @@ def _fn():
     return fn
 
 
+@functools.cache
+def _bwd_fn():
+    fn = build.library("flash_attention_bwd").flash_attention_bwd
+    fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 10 +
+                   [ctypes.c_int] * 4 +
+                   [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float,
+                    ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                    ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, softcap: float = 0.0,
                     window: int = 0,
                     kv_lens: Optional[torch.Tensor] = None) -> torch.Tensor:
     """q (b,hq,sq,dk); k (b,hkv,skv,dk); v (b,hkv,skv,dv); kv_lens (b,)
-    int32 or None.  Returns (b,hq,sq,dv)."""
+    int32 or None.  Returns (b,hq,sq,dv), differentiable in q, k and v
+    for full-sequence attention (see the module's docstring)."""
     b, hq, sq, dh = q.shape
     _, hkv, skv, _ = k.shape
     dv = v.shape[3]
@@ -70,6 +92,45 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             or k.shape[3] != dh:
         raise ValueError(f"flash_attention: shapes q {tuple(q.shape)} "
                          f"k {tuple(k.shape)} v {tuple(v.shape)}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        if (dh, dv) not in tuple((d, d) for d in HEAD_DIMS):
+            raise NotImplementedError(
+                f"flash_attention has no backward at widths {(dh, dv)} "
+                f"yet: {build.MLA_TRAINING}")
+        if kv_lens is not None or sq != skv:
+            raise NotImplementedError(
+                "flash_attention's backward covers full-sequence attention "
+                "(sq = skv, no kv_lens): training runs no append")
+        return _Flash.apply(q, k, v, causal, float(softcap), int(window))
+    return _forward(q, k, v, causal, softcap, window, kv_lens)
+
+
+class _Flash(torch.autograd.Function):
+    """Full-sequence flash attention with ``flash_attention_bwd`` as its
+    backward; the forward's inputs and output are saved for it."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, softcap, window):
+        o = _forward(q, k, v, causal, softcap, window, None)
+        ctx.save_for_backward(q, k, v, o)
+        ctx.mask = (causal, softcap, window)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o = ctx.saved_tensors
+        causal, softcap, window = ctx.mask
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, do, causal=causal,
+                                         softcap=softcap, window=window)
+        return dq, dk, dv, None, None, None
+
+
+def _forward(q, k, v, causal, softcap, window, kv_lens):
+    """The forward alone: the kernel on CUDA tensors, the plain version on
+    CPU tensors."""
+    b, hq, sq, dh = q.shape
+    _, hkv, skv, _ = k.shape
+    dv = v.shape[3]
     if q.device.type == "cpu":
         return ref.flash_attention_ref(q, k, v, causal=causal,
                                        softcap=softcap, window=window,
@@ -117,6 +178,64 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 flash_attention.launches = 0
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, do: torch.Tensor, *,
+                        causal: bool = True, softcap: float = 0.0,
+                        window: int = 0) -> tuple:
+    """The gradient of full-sequence :func:`flash_attention`: q, o and do
+    (b,hq,s,dh), k and v (b,hkv,s,dh), dh in ``HEAD_DIMS``, o the forward's
+    output and do its cotangent.  Returns (dq, dk, dv) in the input dtype,
+    each allocated (b, s, h, dh) in memory and returned as its (b, h, s,
+    dh) view.  On CUDA tensors one call runs the three launches of
+    ``csrc/flash_attention_bwd.cu`` (counted once); on CPU tensors it is
+    ``ref.flash_attention_bwd_ref`` (``o`` unused)."""
+    b, hq, s, dh = q.shape
+    hkv = k.shape[1]
+    if hq % hkv or k.shape != (b, hkv, s, dh) or v.shape != k.shape \
+            or o.shape != q.shape or do.shape != q.shape:
+        raise ValueError(f"flash_attention_bwd: shapes q {tuple(q.shape)} "
+                         f"k {tuple(k.shape)} v {tuple(v.shape)} o "
+                         f"{tuple(o.shape)} do {tuple(do.shape)}")
+    if q.device.type == "cpu":
+        return ref.flash_attention_bwd_ref(q, k, v, do, causal=causal,
+                                           softcap=softcap, window=window)
+    build.require_cuda("flash_attention_bwd", q, k, v, o, do)
+    if q.dtype not in build.ATTN_DTYPES or any(
+            t.dtype != q.dtype for t in (k, v, o, do)):
+        raise ValueError(f"flash_attention_bwd: dtypes "
+                         f"{[t.dtype for t in (q, k, v, o, do)]}; need all "
+                         f"float32 or all bfloat16")
+    if dh not in HEAD_DIMS or hq // hkv > MAX_GROUP:
+        raise ValueError(f"flash_attention_bwd: head dim {dh} (need one of "
+                         f"{HEAD_DIMS}) or group {hq // hkv} > {MAX_GROUP}")
+    if any(t.stride(-1) != 1 for t in (q, k, v, o)):
+        raise ValueError("flash_attention_bwd: the head dim must be "
+                         "contiguous")
+    if do.stride(-1) != 1 or do.data_ptr() % 16:
+        # autograd's cotangent in a layout the kernel does not read
+        do = do.contiguous()
+    grads = [torch.empty((b, s, h, dh), dtype=q.dtype,
+                         device=q.device).transpose(1, 2)
+             for h in (hq, hkv, hkv)]
+    if b == 0 or s == 0:
+        return tuple(grads)
+    stats = torch.empty((2, b, hq, s), dtype=torch.float32, device=q.device)
+    strides = (ctypes.c_longlong * 24)(*(
+        x for t in (q, k, v, o, do, *grads) for x in t.stride()[:3]))
+    rc = _bwd_fn()(build.ATTN_DTYPES[q.dtype], dh, q.data_ptr(),
+                   k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
+                   *(g.data_ptr() for g in grads), stats[0].data_ptr(),
+                   stats[1].data_ptr(), b, hq, hkv, s, strides,
+                   1.0 / math.sqrt(dh), float(softcap), int(causal),
+                   int(window), build.stream_of(q))
+    build.check(rc, "flash_attention_bwd")
+    flash_attention_bwd.launches += 1
+    return tuple(grads)
+
+
+flash_attention_bwd.launches = 0
 
 
 def plan(b: int, hq: int, hkv: int, sq: int, skv: int, n_sm: int,

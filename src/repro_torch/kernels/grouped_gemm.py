@@ -88,6 +88,7 @@ def grouped_gemm(x: torch.Tensor, w: torch.Tensor,
         raise ValueError(f"grouped_gemm: shapes x {tuple(x.shape)} w "
                          f"{tuple(w.shape)} group_sizes "
                          f"{tuple(group_sizes.shape)}")
+    build.require_no_grad("grouped_gemm", build.MOE_TRAINING, x, w)
     if x.device.type == "cpu":
         return ref.grouped_gemm_ref(x, w, group_sizes)
     build.require_cuda("grouped_gemm", x, w, group_sizes)

@@ -66,6 +66,7 @@ def mla_decode(q_lat: torch.Tensor, q_rope: torch.Tensor, c: torch.Tensor,
                          f"q_rope {tuple(q_rope.shape)} c {tuple(c.shape)} "
                          f"krope {tuple(krope.shape)} lengths "
                          f"{tuple(lengths.shape)}")
+    build.require_no_grad("mla_decode", build.DECODE_ONLY, q_lat, q_rope, c, krope)
     if q_lat.device.type == "cpu":
         return ref.mla_decode_ref(q_lat, q_rope, c, krope, lengths,
                                   scale=scale)

@@ -60,6 +60,7 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
                          f"pool {tuple(k_pool.shape)} table "
                          f"{tuple(block_table.shape)} lengths "
                          f"{tuple(lengths.shape)}")
+    build.require_no_grad("paged_attention", build.DECODE_ONLY, q, k_pool, v_pool)
     if q.device.type == "cpu":
         return ref.paged_attention_ref(q, k_pool, v_pool, block_table,
                                        lengths, softcap=softcap,

@@ -61,6 +61,18 @@ def flash_attention_ref(q, k, v, *, causal=True, softcap=0.0, window=0,
     return o.reshape(b, hq, sq, v.shape[-1]).to(q.dtype)
 
 
+def flash_attention_bwd_ref(q, k, v, do, *, causal=True, softcap=0.0,
+                            window=0):
+    """The gradient of :func:`flash_attention_ref` for full-sequence
+    attention (every row's kv_len = s): (dq, dk, dv) for the cotangent
+    ``do`` of its output, by ``torch.autograd.grad``, in the input dtype."""
+    with torch.enable_grad():
+        qg, kg, vg = (t.detach().requires_grad_(True) for t in (q, k, v))
+        o = flash_attention_ref(qg, kg, vg, causal=causal, softcap=softcap,
+                                window=window)
+        return torch.autograd.grad(o, (qg, kg, vg), do)
+
+
 def split_partials_ref(s, valid, v, chunk: int):
     """Per key range, what a split-K attention kernel writes before the
     merge.  s (n, r, K) f32 scores of r query rows of each of n heads,

@@ -64,6 +64,7 @@ def ssd_chunk_scan(x: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
                          f"{tuple(D.shape)} h0 "
                          f"{None if h0 is None else tuple(h0.shape)} chunk "
                          f"{chunk}")
+    build.require_no_grad("ssd_chunk_scan", build.SSM_TRAINING, x, B, C, dt, A, D, h0)
     if x.device.type == "cpu":
         y, h = ref.ssd_chunk_scan_ref(x, B, C, dt, A, D, h0, chunk)
         if out_state is None:

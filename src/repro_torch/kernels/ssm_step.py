@@ -94,6 +94,7 @@ def ssm_step(h: torch.Tensor, x: torch.Tensor, B: torch.Tensor,
                          f"x, B, C, weights and tails "
                          f"{[t.dtype for t in act]}; need f32 h and dt, "
                          f"and the rest all float32 or all bfloat16")
+    build.require_no_grad("ssm_step", build.DECODE_ONLY, h, *act, dt, A, D)
     if h.device.type == "cpu":
         return ref.ssm_conv_step_ref(h, x, B, C, w_x, w_B, w_C, tail_x,
                                      tail_B, tail_C, dt, A, D)

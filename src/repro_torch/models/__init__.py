@@ -4,6 +4,7 @@ from repro_torch.models.model import (
     embed,
     forward,
     init_decode_state,
+    lm_loss,
     logits_from_hidden,
 )
 from repro_torch.models.params import (
@@ -14,6 +15,6 @@ from repro_torch.models.params import (
 
 __all__ = [
     "append_step", "decode_step", "embed", "forward", "init_decode_state",
-    "logits_from_hidden", "count_params_analytic", "init_params",
+    "lm_loss", "logits_from_hidden", "count_params_analytic", "init_params",
     "model_schema",
 ]

@@ -11,7 +11,9 @@ bidirectionally (``cfg.causal`` False) and has only ``forward``: its
 ``decode_step``, ``append_step`` and ``init_decode_state`` raise, as the
 reference asserts ``supports_decode``.
 
-* ``forward``       — full sequence; optionally returns the KV it made.
+* ``forward``       — full sequence; optionally returns the KV it made,
+                      or recomputes each block in the backward (remat).
+* ``lm_loss``       — next-token cross-entropy of the logits.
 * ``decode_step``   — one token per sequence against a decode state.
 * ``append_step``   — prefill an appended chunk against existing padded
                       caches (the engine's prefill step).
@@ -44,6 +46,7 @@ from __future__ import annotations
 from typing import Dict
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve
@@ -63,7 +66,10 @@ def embed(params, cfg: ModelConfig, inputs):
                              f"without a frontend")
         h = inputs.to(e["tok"].dtype) @ e["frontend_proj"]
     else:
-        h = e["tok"][inputs]
+        # F.embedding, not e["tok"][inputs]: its CUDA backward sums a
+        # token's rows in a fixed order, so training steps are
+        # bit-reproducible
+        h = torch.nn.functional.embedding(inputs, e["tok"])
     if cfg.embed_scale != 1.0:
         # the scale rounds to the activation dtype first, as in JAX
         h = h * torch.tensor(cfg.embed_scale, dtype=h.dtype, device=h.device)
@@ -151,14 +157,43 @@ def _shared_app(cfg: ModelConfig, li: int):
     return li // cfg.hybrid_period
 
 
+REMAT_POLICIES = ("full", "dots", "dots_no_batch")
+
+
+def _maybe_remat(fn, remat):
+    """remat: False | True ('full') | a policy of ``REMAT_POLICIES``.
+    'full' recomputes each block in the backward (``checkpoint`` without
+    reentry), as the reference wraps each scanned body in
+    ``jax.checkpoint(..., nothing_saveable)`` (``model.py:165-171``)."""
+    if not remat:
+        return fn
+    name = "full" if remat is True else remat
+    if name in ("dots", "dots_no_batch"):
+        raise NotImplementedError(
+            f"remat policy {name!r} comes with the mesh layer (ROADMAP "
+            f"Queue 1 item 4), where the dry run uses it")
+    if name != "full":
+        raise ValueError(f"remat {remat!r}: one of False, True, "
+                         f"{REMAT_POLICIES}")
+    return lambda *args: checkpoint(fn, *args, use_reentrant=False)
+
+
 def forward(params, cfg: ModelConfig, tokens, *, return_state: bool = False,
-            last_only: bool = False):
+            last_only: bool = False, remat=False):
     """Full-sequence forward over tokens (b, s) or frontend embeddings
     (b, s, frontend_dim).  Returns (logits,
     state_or_None); the state holds the exact-length KV (L, b, s, hkv, dh)
     or, for MLA, latents (L, b, s, r) and (L, b, s, rd); the hybrid's
-    holds its Mamba2 states and its shared block's KV per application."""
+    holds its Mamba2 states and its shared block's KV per application.
+    ``remat`` (False, True or 'full') recomputes each block's activations
+    in the backward instead of keeping them (see :func:`_maybe_remat`);
+    it does not combine with ``return_state``."""
     require_ported(cfg)
+    if remat and return_state:
+        raise ValueError("forward: remat recomputes the blocks, so it "
+                         "cannot also return their state")
+    block, mamba_block = (_maybe_remat(f, remat)
+                          for f in (_block, _mamba_block))
     s = tokens.shape[1]
     positions = torch.arange(s, device=tokens.device)
     h = embed(params, cfg, tokens)
@@ -186,10 +221,10 @@ def forward(params, cfg: ModelConfig, tokens, *, return_state: bool = False,
     if cfg.family in ("ssm", "hybrid"):
         sts = []
         for li, blk in enumerate(params["blocks"]):
-            h, st = _mamba_block(blk, cfg, h, ssm.ssd_scan)
+            h, st = mamba_block(blk, cfg, h, ssm.ssd_scan)
             sts.append(st)
             if _shared_app(cfg, li) is not None:
-                h = _block(params["shared_block"], cfg, h, full(0))
+                h = block(params["shared_block"], cfg, h, full(0))
         if return_state:
             state = {"mamba": {k: torch.stack([st[k] for st in sts])
                                for k in sts[0]}}
@@ -198,7 +233,7 @@ def forward(params, cfg: ModelConfig, tokens, *, return_state: bool = False,
                                    "v": torch.stack(vs)}
     else:
         for blk, window in zip(params["blocks"], layer_windows(cfg)):
-            h = _block(blk, cfg, h, full(window))
+            h = block(blk, cfg, h, full(window))
         if return_state:
             state = {"mla": {"c": torch.stack(ks), "krope": torch.stack(vs)}} \
                 if cfg.attn_variant == "mla" else \
@@ -206,6 +241,18 @@ def forward(params, cfg: ModelConfig, tokens, *, return_state: bool = False,
     if last_only:
         h = h[:, -1:]
     return logits_from_hidden(params, cfg, h), state
+
+
+def lm_loss(logits, labels, mask=None):
+    """Mean next-token cross-entropy.  logits (b,s,v), labels (b,s); with
+    ``mask`` (b,s), the mean over its nonzero entries (the reference's
+    ``model.py:628``): log-softmax in f32."""
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    ll = torch.gather(logp, -1, labels.long()[..., None])[..., 0]
+    if mask is None:
+        return -ll.mean()
+    mask = mask.float()
+    return -(ll * mask).sum() / torch.clamp_min(mask.sum(), 1.0)
 
 
 def init_decode_state(cfg: ModelConfig, batch: int, max_seq: int,

@@ -6,8 +6,8 @@
   ``import repro`` or ``from repro.``.
 * An entry point called without ``device=`` on a machine without CUDA
   raises instead of running on the CPU (the dense, MoE + MLA and SSM
-  families alike), and so does the simulator's settle asked for
-  ``"cuda"``.
+  families alike, and training's launcher and optimizer-state bridge),
+  and so does the simulator's settle asked for ``"cuda"``.
 * A family without the config its blocks need (MoE, SSM, hybrid) is
   refused, naming that config.
 """
@@ -145,6 +145,26 @@ def test_entry_points_without_device_raise_without_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="cuda"):
         VectorSim(sim_cfg, trajs, settle_device="cuda")
     assert VectorSim(sim_cfg, trajs)._settle_kernel is None
+
+
+def test_training_entry_points_raise_without_cuda(monkeypatch, tmp_path):
+    """Training's entry points default to the card too: the launcher and
+    the bridge's optimizer state raise without one."""
+    import numpy as np
+    from repro_torch import bridge
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="cuda"):
+        train.main(["--reduced", "--steps", "1", "--ckpt-dir",
+                    str(tmp_path)])
+    cfg = get_config("qwen1.5-0.5b").reduced()
+    with pytest.raises(RuntimeError, match="cuda"):
+        bridge.opt_state_from_jax(
+            {"m": {"embed": np.zeros(2, np.float32)},
+             "v": {"embed": np.zeros(2, np.float32)},
+             "step": np.zeros((), np.int32)}, cfg)
+    assert not any(tmp_path.iterdir())       # nothing ran, nothing saved
 
 
 def test_cuda_path_raises_on_cpu_only_arguments():

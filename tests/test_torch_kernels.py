@@ -488,3 +488,126 @@ def test_copy_plan_at_the_main_path_shapes():
     chunk, n_chunks, _ = kv_copy.plan(16, 4 * 10252, 132)
     assert (chunk, n_chunks) == (20512, 2)
     assert 4 * 10252 - (n_chunks - 1) * chunk == 20496   # the short last
+
+
+# ---------------------------------------------------------------------------
+# flash's gradient: the plain backward against jax.grad of the reference's
+# jnp attention (its training path: XLA differentiates _attend_dense_impl,
+# repro/models/layers.py:100), and the autograd glue on CPU tensors
+# ---------------------------------------------------------------------------
+
+def _grads_close(got, want, tol):
+    """Each of (dq, dk, dv) within ``tol`` of its own largest |value|."""
+    for g, w in zip(got, want):
+        g = np.asarray(g, np.float32)
+        w = np.asarray(w, np.float32)
+        assert g.shape == w.shape, (g.shape, w.shape)
+        assert np.abs(g - w).max() <= tol * np.abs(w).max(), \
+            (np.abs(g - w).max(), np.abs(w).max())
+
+
+_BWD_CASES = [
+    pytest.param(dict(hq=4, hkv=4, s=48), id="causal-mha"),
+    pytest.param(dict(hq=8, hkv=2, s=48), id="gqa-g4"),
+    pytest.param(dict(hq=4, hkv=4, s=48, causal=False), id="bidirectional"),
+    pytest.param(dict(hq=4, hkv=2, s=48, window=16), id="window"),
+    pytest.param(dict(hq=4, hkv=2, s=48, softcap=5.0), id="softcap"),
+    pytest.param(dict(hq=4, hkv=4, s=77), id="s77"),
+]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", _BWD_CASES)
+def test_flash_bwd_plain_matches_jax_grad(dtype, case):
+    """ref.flash_attention_bwd_ref against jax.vjp of the reference's
+    _attend_dense_impl on the same numpy inputs, q scaled by 2 so the
+    softcap bends: within 2e-5 (f32) and 2e-2 (bf16) of each gradient's
+    largest |value| (bf16: the two frameworks round p, dP and the
+    outputs at their own places)."""
+    import jax
+    from repro.models.layers import _attend_dense_impl
+    causal = case.get("causal", True)
+    softcap, window = case.get("softcap", 0.0), case.get("window", 0)
+    b, s, dh = 2, case["s"], 32
+    rng = np.random.default_rng(11)
+    qj, qt = _pair(rng, (b, s, case["hq"], dh), dtype)
+    qj, qt = qj * 2, qt * 2
+    kj, kt = _pair(rng, (b, s, case["hkv"], dh), dtype)
+    vj, vt = _pair(rng, (b, s, case["hkv"], dh), dtype)
+    dj, dt = _pair(rng, (b, s, case["hq"], dh), dtype)
+
+    def attend(q, k, v):
+        return _attend_dense_impl(q, k, v, causal=causal,
+                                  window=window or None, softcap=softcap,
+                                  q_offset=0, kv_offset=0, kv_valid=None,
+                                  scale=None)
+
+    _, vjp = jax.vjp(attend, qj, kj, vj)
+    want = [np.asarray(g.astype(jnp.float32)) for g in vjp(dj)]
+    got = ref.flash_attention_bwd_ref(
+        *(x.transpose(1, 2) for x in (qt, kt, vt, dt)), causal=causal,
+        softcap=softcap, window=window)
+    assert all(g.dtype == qt.dtype for g in got)
+    _grads_close([g.transpose(1, 2).float().numpy() for g in got], want,
+                 TOLS[dtype])
+
+
+@pytest.mark.parametrize("kw", [
+    dict(), dict(causal=False), dict(window=7, softcap=3.0)])
+def test_flash_function_on_cpu_gives_autograd_of_the_plain_forward(kw):
+    """With grad on, flash_attention on CPU tensors goes through its
+    autograd Function (forward: the plain version; backward: the plain
+    backward) and gives the gradients autograd takes through the plain
+    forward, and it counts no launch."""
+    kernels.reset_launch_counts()
+    g = torch.Generator().manual_seed(3)
+    q, k, v = (torch.randn(shape, generator=g).transpose(1, 2)
+               .requires_grad_(True)
+               for shape in ((2, 21, 4, 32), (2, 21, 2, 32), (2, 21, 2, 32)))
+    out = kernels.flash_attention(q, k, v, **kw)
+    assert type(out.grad_fn).__name__ == "_FlashBackward"
+    do = torch.randn(out.shape, generator=g)
+    got = torch.autograd.grad(out, (q, k, v), do)
+    want = torch.autograd.grad(ref.flash_attention_ref(q, k, v, **kw),
+                               (q, k, v), do)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert set(kernels.launch_counts().values()) == {0}
+
+
+def test_flash_without_grad_is_the_forward_alone():
+    """Without grad (no input requiring it, or grad mode off) the call
+    is the forward alone: no autograd node and the plain version's
+    output; append calls with kv_lens and MLA's widths keep serving."""
+    g = torch.Generator().manual_seed(4)
+    q = torch.randn((1, 4, 9, 32), generator=g)
+    k = torch.randn((1, 2, 30, 32), generator=g)
+    lens = torch.tensor([30], dtype=torch.int32)
+    out = kernels.flash_attention(q, k, k, kv_lens=lens)
+    assert out.grad_fn is None
+    assert torch.equal(out, ref.flash_attention_ref(q, k, k, kv_lens=lens))
+    qg = q.clone().requires_grad_(True)
+    with torch.no_grad():
+        assert kernels.flash_attention(qg, k, k, kv_lens=lens).grad_fn is None
+    # with grad, an append (kv_lens, or sq != skv) has no backward
+    with pytest.raises(NotImplementedError, match="full-sequence"):
+        kernels.flash_attention(qg, k, k, kv_lens=lens)
+    with pytest.raises(NotImplementedError, match="full-sequence"):
+        kernels.flash_attention(qg, k, k)
+    q6 = torch.randn((1, 4, 9, 192), generator=g, requires_grad=True)
+    k6 = torch.randn((1, 4, 9, 192), generator=g)
+    v6 = torch.randn((1, 4, 9, 128), generator=g)
+    with pytest.raises(NotImplementedError, match="item 3b"):
+        kernels.flash_attention(q6, k6, v6)
+    assert kernels.flash_attention(q6.detach(), k6, v6).shape == (1, 4, 9, 128)
+
+
+def test_flash_bwd_wrapper_on_cpu_is_the_plain_backward():
+    g = torch.Generator().manual_seed(5)
+    q, o, do = (torch.randn((2, 4, 13, 64), generator=g) for _ in range(3))
+    k, v = (torch.randn((2, 1, 13, 64), generator=g) for _ in range(2))
+    got = kernels.flash_attention_bwd(q, k, v, o, do, window=5)
+    want = ref.flash_attention_bwd_ref(q, k, v, do, window=5)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    with pytest.raises(ValueError):
+        kernels.flash_attention_bwd(q, k, v, o[:, :, :12], do)

@@ -1,0 +1,535 @@
+"""Training and checkpoints: the port (``repro_torch.training``,
+``repro_torch.ckpt``, ``repro_torch.launch.train``) against the JAX
+reference on the CPU.
+
+The reference's own training tests (tests/test_training.py) are ported
+case for case; then both packages get the same inputs: data batches
+(byte-equal), schedules (equal), optimizer updates on shared numpy trees
+(within 1e-6 of each leaf's largest |value|), reduced qwen's loss and
+gradients on bridged parameters (the loss within 2e-5 relative, each
+gradient within 1e-4 of its leaf's largest |g|: XLA and PyTorch sum the
+matmuls, the softmax and the embedding's scatter in different orders),
+five train steps from a shared init (losses within 1e-4 relative in f32,
+2e-2 in bf16, where the two frameworks round bf16 activations and
+gradients at their own places) with both optimizer states held after
+them, and gemma2's (window, softcaps) and hubert's (bidirectional,
+frame embeddings) gradients through flash's autograd glue.  The port's
+guards name the later slice of each missing backward.  The JAX train
+step of each dtype is compiled once for the module.
+"""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_config as jax_get_config
+from repro.models import init_params as jax_init_params
+from repro.training import SyntheticLM as JaxSyntheticLM
+from repro.training import TrajectoryLM as JaxTrajectoryLM
+from repro.training import cosine as jax_cosine
+from repro.training import loss_fn as jax_loss_fn
+from repro.training import make_optimizer as jax_make_optimizer
+from repro.training import make_train_step as jax_make_train_step
+from repro.training import wsd as jax_wsd
+from repro_torch import bridge
+from repro_torch.ckpt import (FaultTolerantRunner, latest_step,
+                              restore_checkpoint, save_checkpoint)
+from repro_torch.configs import get_config
+from repro_torch.models import forward, init_params
+from repro_torch.training import (SyntheticLM, TrajectoryLM, cosine,
+                                  loss_and_grads, loss_fn, make_optimizer,
+                                  make_train_step, require_trainable, wsd)
+from repro_torch.training.tree import leaves, leaves_with_paths
+
+# tiny CPU tensors: extra intra-op threads only contend with the other
+# test workers
+torch.set_num_threads(1)
+
+CFG = get_config("qwen1.5-0.5b").reduced()
+
+
+def _setup():
+    params = init_params(CFG, seed=0, device="cpu")
+    opt_init, train_step = make_train_step(CFG, lr=1e-3, n_microbatches=2)
+    return params, opt_init, train_step
+
+
+def _bits(t: torch.Tensor) -> bytes:
+    return t.detach().contiguous().view(torch.uint8).numpy().tobytes() \
+        if t.dim() else t.numpy().tobytes()
+
+
+# ---------------------------------------------------------------------------
+# tests/test_training.py, ported
+# ---------------------------------------------------------------------------
+
+
+def test_loss_decreases():
+    params, opt_init, ts = _setup()
+    opt = opt_init(params)
+    pipe = SyntheticLM(CFG.vocab_size, batch=4, seq=32, seed=1)
+    losses = []
+    for _ in range(10):
+        params, opt, loss = ts(params, opt, pipe.next_batch())
+        losses.append(float(loss))
+    assert losses[-1] < losses[0] * 0.9, losses
+
+
+def test_microbatching_equivalent():
+    """Grad accumulation over n microbatches == one big batch (f32
+    grads); the step updates in place, so each arm starts from its own
+    copy of one init."""
+    batch = SyntheticLM(CFG.vocab_size, batch=4, seq=16, seed=2).next_batch()
+    outs = []
+    for n in (1, 2, 4):
+        opt_init, ts = make_train_step(CFG, lr=1e-3, n_microbatches=n)
+        p = init_params(CFG, seed=0, device="cpu")
+        p, _, loss = ts(p, opt_init(p), batch)
+        outs.append((loss, p))
+    for loss, p in outs[1:]:
+        # microbatch means of per-µb losses differ from the full-batch loss
+        # only by averaging order
+        assert abs(float(loss) - float(outs[0][0])) < 0.05
+        for a, b in zip(leaves(p), leaves(outs[0][1])):
+            np.testing.assert_allclose(a.float().numpy(), b.float().numpy(),
+                                       atol=5e-2)
+
+
+@pytest.mark.parametrize("name", ["adamw", "adafactor"])
+def test_optimizer_updates(name):
+    init, update = make_optimizer(name)
+    params = {"w": torch.ones((8, 4)), "b": torch.zeros((4,))}
+    before = {k: v.clone() for k, v in params.items()}
+    grads = {"w": torch.full((8, 4), 0.5), "b": torch.full((4,), -0.5)}
+    st = init(params)
+    p2, st2 = update(params, grads, st, lr=0.1)
+    assert bool((p2["w"] < before["w"]).all())
+    assert bool((p2["b"] > before["b"]).all())
+    assert int(st2["step"]) == 1 and st2["step"].dtype == torch.int32
+
+
+def test_adafactor_state_is_factored():
+    init, _ = make_optimizer("adafactor")
+    st = init({"w": torch.ones((64, 32))})
+    assert sum(t.numel() for t in leaves(st["fac"])) == 64 + 32
+
+
+def test_wsd_schedule():
+    kw = dict(peak_lr=1.0, warmup=10, stable=100, decay=20)
+    assert wsd(0, **kw) < wsd(9, **kw) <= 1.0
+    assert wsd(50, **kw) == 1.0
+    assert wsd(129, **kw) < 0.2
+    assert cosine(0, peak_lr=1.0, warmup=5, total=50) < 1.0
+
+
+def test_pipeline_checkpointable():
+    p1 = SyntheticLM(100, 2, 8, seed=3)
+    p1.next_batch()
+    b = p1.next_batch()
+    p2 = SyntheticLM(100, 2, 8, seed=3)
+    p2.load_state_dict(dict(seed=3, step=1))
+    np.testing.assert_array_equal(p2.next_batch(), b)
+
+
+def test_trajectory_pipeline():
+    p = TrajectoryLM(100, 2, 64, max_len=32768, seed=0)
+    assert p.next_batch().shape == (2, 64)
+
+
+def test_crash_resume_bitwise(tmp_path):
+    params, opt_init, ts = _setup()
+    pipe = lambda: SyntheticLM(CFG.vocab_size, batch=4, seq=32, seed=1)
+    r = FaultTolerantRunner(str(tmp_path / "a"), ts, params,
+                            opt_init(params), pipe(), ckpt_every=3)
+    with pytest.raises(RuntimeError, match="injected crash"):
+        r.run(8, crash_at=5)
+    p2 = init_params(CFG, seed=0, device="cpu")
+    r2 = FaultTolerantRunner(str(tmp_path / "a"), ts, p2, opt_init(p2),
+                             pipe(), ckpt_every=3)
+    assert r2.try_resume() and r2.step == 3
+    r2.run(8)
+    # uninterrupted reference
+    p3 = init_params(CFG, seed=0, device="cpu")
+    r3 = FaultTolerantRunner(str(tmp_path / "b"), ts, p3, opt_init(p3),
+                             pipe(), ckpt_every=100)
+    ref = r3.run(8)
+    assert ref[3:] == r2.losses, (ref[3:], r2.losses)
+    for a, b in zip(leaves((r2.params, r2.opt_state)),
+                    leaves((r3.params, r3.opt_state))):
+        assert _bits(a) == _bits(b)
+
+
+def test_checkpoint_atomic_and_latest(tmp_path):
+    params = {"w": torch.arange(4, dtype=torch.bfloat16) / 3,
+              "blocks": [{"b": torch.ones(2)}]}
+    opt = {"m": torch.zeros((4,)), "step": torch.zeros((), dtype=torch.int32)}
+    d = str(tmp_path)
+    save_checkpoint(d, 1, params, opt)
+    save_checkpoint(d, 2, params, opt, extra=dict(note="x"))
+    assert latest_step(d) == 2
+    assert sorted(p.name for p in tmp_path.iterdir()) == [
+        "ckpt_00000001.npz", "ckpt_00000002.npz"]     # no temp file left
+    r = restore_checkpoint(d, params, opt)
+    assert r["step"] == 2 and r["extra"] == dict(note="x")
+    assert r["params"]["w"].dtype == torch.bfloat16
+    assert _bits(r["params"]["w"]) == _bits(params["w"])
+    assert torch.equal(r["params"]["blocks"][0]["b"], torch.ones(2))
+    assert r["opt_state"]["step"].dtype == torch.int32
+    # the reference's layout: params//<path> and opt//<path>, bf16 as uint16
+    with np.load(tmp_path / "ckpt_00000002.npz") as z:
+        assert set(z.files) == {"__meta__", "params//w", "params//blocks//0//b",
+                                "opt//m", "opt//step"}
+        assert z["params//w"].dtype == np.uint16
+    assert restore_checkpoint(str(tmp_path / "none"), params, opt) is None
+
+
+# ---------------------------------------------------------------------------
+# against the reference: data, schedules, optimizers
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("source", ["synthetic", "trajectory"])
+def test_pipelines_byte_equal_to_reference(source):
+    kind = {"synthetic": (SyntheticLM, JaxSyntheticLM),
+            "trajectory": (TrajectoryLM, JaxTrajectoryLM)}[source]
+    port, jx = (k(CFG.vocab_size, 3, 40, seed=5) for k in kind)
+    for _ in range(3):
+        a, b = port.next_batch(), jx.next_batch()
+        assert a.dtype == b.dtype and a.tobytes() == b.tobytes()
+    assert port.state_dict() == jx.state_dict()
+
+
+def test_schedules_equal_reference():
+    for step in range(200):
+        kw = dict(peak_lr=3e-4, warmup=10, stable=120, decay=50)
+        assert wsd(step, **kw) == jax_wsd(step, **kw)
+        kw = dict(peak_lr=3e-4, warmup=10, total=150)
+        assert cosine(step, **kw) == jax_cosine(step, **kw)
+
+
+def _np_tree(rng, scale=1.0):
+    return {"w": (rng.standard_normal((8, 4)) * scale).astype(np.float32),
+            "b": (rng.standard_normal(4) * scale).astype(np.float32),
+            "t": (rng.standard_normal((3, 5, 6)) * scale).astype(np.float32)}
+
+
+def _close_tree(got, want, tol, skip=()):
+    """Each leaf within ``tol`` of its own largest |value|, equal shapes;
+    leaves whose last key is in ``skip`` only in shape."""
+    flat = dict(leaves_with_paths(got))
+    for path, w in leaves_with_paths(want):
+        if path[-1] in skip:
+            assert tuple(flat[path].shape) == np.shape(w), path
+            continue
+        g = np.asarray(flat[path].float() if isinstance(flat[path],
+                                                        torch.Tensor)
+                       else flat[path], np.float32)
+        w = np.asarray(w, np.float32)
+        assert g.shape == w.shape, (path, g.shape, w.shape)
+        assert np.abs(g - w).max() <= tol * max(np.abs(w).max(), 1e-30), \
+            (path, np.abs(g - w).max(), np.abs(w).max())
+
+
+@pytest.mark.parametrize("name", ["adamw", "adafactor"])
+def test_optimizer_update_matches_reference(name):
+    """Three updates on a shared tree (a matrix, a vector, a 3-D leaf)
+    with fresh gradients each step: parameters and states within 1e-6 of
+    each leaf's largest |value|."""
+    rng = np.random.default_rng(6)
+    p_np = _np_tree(rng)
+    g_nps = [_np_tree(rng, 0.1) for _ in range(3)]
+    j_init, j_update = jax_make_optimizer(name)
+    t_init, t_update = make_optimizer(name)
+    jp = jax.tree.map(jnp.asarray, p_np)
+    tp = {k: torch.from_numpy(v.copy()) for k, v in p_np.items()}
+    js, ts = j_init(jp), t_init(tp)
+    for g in g_nps:
+        jp, js = j_update(jp, jax.tree.map(jnp.asarray, g), js, lr=0.05)
+        tp, ts = t_update(tp, {k: torch.from_numpy(v) for k, v in g.items()},
+                          ts, lr=0.05)
+    _close_tree(tp, jax.tree.map(np.asarray, jp), 1e-6)
+    assert int(ts["step"]) == int(js["step"]) == 3
+    key = "fac" if name == "adafactor" else "m"
+    _close_tree(ts[key], jax.tree.map(np.asarray, js[key]), 1e-6)
+    if name == "adamw":
+        _close_tree(ts["v"], jax.tree.map(np.asarray, js["v"]), 1e-6)
+
+
+# ---------------------------------------------------------------------------
+# against the reference: loss, gradients and train steps on bridged weights
+# ---------------------------------------------------------------------------
+
+
+def _configs(arch: str, dtype: str):
+    jcfg = dataclasses.replace(jax_get_config(arch).reduced(),
+                               param_dtype=dtype)
+    tcfg = dataclasses.replace(get_config(arch).reduced(), param_dtype=dtype)
+    return jcfg, tcfg
+
+
+def _bridged(arch: str, dtype: str, key: int = 0):
+    jcfg, tcfg = _configs(arch, dtype)
+    jp = jax_init_params(jcfg, jax.random.PRNGKey(key))
+    return jcfg, tcfg, jp, bridge.params_from_jax(
+        jax.tree.map(np.asarray, jp), tcfg, device="cpu")
+
+
+def _batch(tcfg, b: int, s: int, seed: int):
+    """{'tokens'} for token LMs; frame embeddings and labels for the
+    encoder (both packages' loss_fn take either)."""
+    rng = np.random.default_rng(seed)
+    if tcfg.frontend_embed_dim:
+        return {"inputs": rng.standard_normal(
+                    (b, s, tcfg.frontend_embed_dim)).astype(np.float32),
+                "labels": rng.integers(0, tcfg.vocab_size,
+                                       (b, s)).astype(np.int32)}
+    return {"tokens": SyntheticLM(tcfg.vocab_size, b, s + 1,
+                                  seed=seed).next_batch()}
+
+
+@pytest.mark.parametrize("arch,s", [
+    pytest.param("qwen1.5-0.5b", 16, id="qwen"),
+    # past the reduced window of 64, with both softcaps
+    pytest.param("gemma2-2b", 80, id="gemma2"),
+    # bidirectional, frame embeddings through the connector
+    pytest.param("hubert-xlarge", 24, id="hubert"),
+])
+def test_loss_and_gradients_match_reference(arch, s):
+    """f32, no remat on either side: loss_fn within 2e-5 relative, and
+    every gradient (the reference's unstacked through params_from_jax)
+    within 1e-4 of its leaf's largest |g|; the port's attention gradient
+    comes through flash's autograd glue."""
+    jcfg, tcfg, jp, tp = _bridged(arch, "float32")
+    batch = _batch(tcfg, 2, s, seed=7)
+    jloss, jgrads = jax.jit(jax.value_and_grad(
+        lambda p, bt: jax_loss_fn(p, jcfg, bt, remat=False)))(
+        jp, jax.tree.map(jnp.asarray, batch))
+    tloss = loss_fn(tp, tcfg, {k: torch.from_numpy(v)
+                               for k, v in batch.items()}, remat=False)
+    assert abs(float(tloss) - float(jloss)) <= 2e-5 * abs(float(jloss))
+    loss, grads = loss_and_grads(tp, tcfg, batch, remat=False)
+    assert float(loss) == float(tloss)
+    want = bridge.params_from_jax(jax.tree.map(np.asarray, jgrads), tcfg,
+                                  device="cpu")
+    _close_tree(grads, want, 1e-4)
+
+
+def test_remat_full_is_bit_identical_on_cpu():
+    """Recomputing each block in the backward changes nothing: the loss
+    and every gradient equal those without remat, bit for bit."""
+    params = init_params(CFG, seed=1, device="cpu")
+    batch = SyntheticLM(CFG.vocab_size, 4, 17, seed=8).next_batch()
+    la, ga = loss_and_grads(params, CFG, batch, n_microbatches=2,
+                            remat="full")
+    lb, gb = loss_and_grads(params, CFG, batch, n_microbatches=2,
+                            remat=False)
+    assert _bits(la) == _bits(lb)
+    for a, b in zip(leaves(ga), leaves(gb)):
+        assert _bits(a) == _bits(b)
+
+
+@pytest.fixture(scope="module", params=["float32", "bfloat16"])
+def five_steps(request):
+    """Five AdamW steps of reduced qwen in both packages from one init
+    and one batch stream (4 rows of 17 tokens, 2 microbatches, full
+    remat): each train step compiled once for the module."""
+    dt = request.param
+    jcfg, tcfg, jp, tp = _bridged("qwen1.5-0.5b", dt, key=1)
+    j_init, j_step = jax_make_train_step(jcfg, lr=1e-3, n_microbatches=2)
+    t_init, t_step = make_train_step(tcfg, lr=1e-3, n_microbatches=2)
+    j_step = jax.jit(j_step)
+    js, ts = j_init(jp), t_init(tp)
+    pipe = SyntheticLM(tcfg.vocab_size, 4, 17, seed=9)
+    jl, tl = [], []
+    for _ in range(5):
+        bt = pipe.next_batch()
+        jp, js, jloss = j_step(jp, js, jnp.asarray(bt))
+        tp, ts, tloss = t_step(tp, ts, bt)
+        jl.append(float(jloss))
+        tl.append(float(tloss))
+    return dt, tcfg, (jp, js, jl), (tp, ts, tl)
+
+
+def test_train_steps_match_reference(five_steps):
+    dt, _, (_, _, jl), (_, _, tl) = five_steps
+    tol = {"float32": 1e-4, "bfloat16": 2e-2}[dt]
+    for a, b in zip(tl, jl):
+        assert abs(a - b) <= tol * abs(b), (tl, jl)
+    assert tl[-1] < tl[0]
+
+
+def test_optimizer_states_match_reference_after_the_steps(five_steps):
+    """The reference's AdamW state after the five steps, through
+    bridge.opt_state_from_jax, against the port's: the step counter
+    equal; in f32 the moments and parameters within 1e-3 of each leaf's
+    largest |value| (five steps of gradients that agree within 1e-4);
+    in bf16 the shapes and dtypes.  The key bias ``bk`` is held in shape
+    only: it adds the same q.bk to every score of a query, which the
+    softmax cancels, so its gradient is 0 in exact arithmetic and both
+    packages' values are rounding residue (Adam then scales that residue
+    to steps of ~lr)."""
+    dt, tcfg, (jp, js, _), (tp, ts, _) = five_steps
+    conv = bridge.opt_state_from_jax(jax.tree.map(np.asarray, js), tcfg,
+                                     device="cpu")
+    assert int(conv["step"]) == int(ts["step"]) == 5
+    assert conv["step"].dtype == ts["step"].dtype == torch.int32
+    flat = dict(leaves_with_paths(ts))
+    for path, t in leaves_with_paths(conv):
+        assert flat[path].shape == t.shape and flat[path].dtype == t.dtype
+    if dt == "float32":
+        residue = ("bk",)
+        _close_tree(ts["m"], conv["m"], 1e-3, skip=residue)
+        _close_tree(ts["v"], conv["v"], 1e-3, skip=residue)
+        _close_tree(tp, bridge.params_from_jax(
+            jax.tree.map(np.asarray, jp), tcfg, device="cpu"), 1e-3,
+            skip=residue)
+
+
+def test_adafactor_state_bridges_to_the_port_layout():
+    """The reference's Adafactor state of reduced qwen (stacked layers)
+    becomes the port's per-layer layout: factored (vr, vc) for every leaf
+    of two or more dims per layer, a per-layer vector's (layer, width)
+    factors as the second moment ``vr / mean(vr) * vc`` of that layer."""
+    jcfg, tcfg, jp, tp = _bridged("qwen1.5-0.5b", "float32")
+    j_init, j_update = jax_make_optimizer("adafactor")
+    rng = np.random.default_rng(10)
+    jg = jax.tree.map(lambda p: jnp.asarray(
+        rng.standard_normal(p.shape).astype(np.float32)), jp)
+    _, js = jax.jit(lambda p, g, st: j_update(p, g, st, lr=1e-3))(
+        jp, jg, j_init(jp))
+    conv = bridge.opt_state_from_jax(jax.tree.map(np.asarray, js), tcfg,
+                                     device="cpu")
+    want = make_optimizer("adafactor")[0](tp)
+    assert int(conv["step"]) == 1
+    flat = dict(leaves_with_paths(conv["fac"]))
+    for path, t in leaves_with_paths(want["fac"]):
+        assert flat[path].shape == t.shape, path
+    vr = np.asarray(js["fac"]["blocks"]["ln1"]["vr"])       # (L,)
+    vc = np.asarray(js["fac"]["blocks"]["ln1"]["vc"])       # (d,)
+    np.testing.assert_allclose(conv["fac"]["blocks"][1]["ln1"]["v"].numpy(),
+                               vr[1] / vr.mean() * vc, rtol=1e-6)
+
+
+def test_launch_train_runs_and_resumes(tmp_path, capsys):
+    from repro_torch.launch import train
+    args = ["--reduced", "--device", "cpu", "--batch", "2", "--seq", "16",
+            "--ckpt-dir", str(tmp_path)]
+    train.main(args + ["--steps", "3"])
+    out = capsys.readouterr().out
+    assert "steps 3: loss" in out and "resumed" not in out
+    assert latest_step(str(tmp_path)) == 3
+    train.main(args + ["--steps", "5"])
+    out = capsys.readouterr().out
+    assert "resumed at step 3" in out and "steps 5: loss" in out
+
+
+# ---------------------------------------------------------------------------
+# what the port cannot train yet names its slice
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("arch,match", [
+    ("ds27b", "item 3a"),                 # MoE: the grouped GEMM
+    ("llama4-maverick-400b-a17b", "item 3a"),
+    ("granite-moe-3b-a800m", "item 3a"),
+    ("mamba2-1.3b", "item 3c"),           # SSM: the SSD scan, the conv
+    ("zamba2-2.7b", "item 3c"),
+])
+def test_require_trainable_names_the_slice(arch, match):
+    cfg = get_config(arch).reduced()
+    with pytest.raises(NotImplementedError, match=match):
+        require_trainable(cfg)
+    with pytest.raises(NotImplementedError, match=match):
+        make_train_step(cfg)
+
+
+def test_mla_training_and_the_mesh_forms_name_their_slices():
+    ds = get_config("ds27b").reduced()
+    mla_dense = dataclasses.replace(ds, family="dense", moe=None)
+    with pytest.raises(NotImplementedError, match="item 3b"):
+        require_trainable(mla_dense)
+    for arch in ("qwen1.5-0.5b", "gemma2-2b", "minicpm-2b", "nemotron-4-15b",
+                 "llava-next-34b", "hubert-xlarge"):
+        require_trainable(get_config(arch).reduced())
+    params = init_params(CFG, seed=0, device="cpu")
+    toks = torch.zeros((1, 4), dtype=torch.int32)
+    for policy in ("dots", "dots_no_batch"):
+        with pytest.raises(NotImplementedError, match="item 4"):
+            forward(params, CFG, toks, remat=policy)
+    with pytest.raises(NotImplementedError, match="item 4"):
+        loss_fn(params, CFG, {"tokens": toks}, moe_impl="ep")
+    with pytest.raises(NotImplementedError, match="item 4"):
+        make_train_step(CFG, moe_impl="dense")
+    with pytest.raises(ValueError):
+        forward(params, CFG, toks, remat="full", return_state=True)
+
+
+def test_wrappers_without_a_backward_raise_under_grad():
+    """Each kernel without a backward raises when grad mode is on and an
+    input requires grad, on the CPU as on the card, naming what brings
+    it; without grad it serves as before."""
+    from repro_torch import kernels
+    x = torch.randn((6, 8), requires_grad=True)
+    w = torch.randn((2, 8, 4))
+    sizes = torch.tensor([3, 3], dtype=torch.int32)
+    with pytest.raises(NotImplementedError, match="item 3a"):
+        kernels.grouped_gemm(x, w, sizes)
+    with torch.no_grad():
+        assert kernels.grouped_gemm(x, w, sizes).shape == (6, 4)
+    b, s, H, P, N = 1, 8, 2, 4, 4
+    xs = torch.randn((b, s, H, P), requires_grad=True)
+    B_, C_ = torch.randn((b, s, N)), torch.randn((b, s, N))
+    dt_ = torch.rand((b, s, H))
+    A_, D_ = torch.rand(H), torch.rand(H)
+    with pytest.raises(NotImplementedError, match="item 3c"):
+        kernels.ssd_chunk_scan(xs, B_, C_, dt_, A_, D_, None, 4)
+    xc = torch.randn((b, s, 6), requires_grad=True)
+    with pytest.raises(NotImplementedError, match="item 3c"):
+        kernels.causal_conv(xc, torch.randn((4, 6)), torch.zeros((b, 3, 6)))
+    xc.requires_grad_(False)
+    kernels.causal_conv(xc, torch.randn((4, 6)), torch.zeros((b, 3, 6)))
+    q = torch.randn((2, 1, 4, 32), requires_grad=True)
+    pool = torch.randn((4, 4, 1, 32))
+    table = torch.arange(4, dtype=torch.int32).view(2, 2)
+    lens = torch.tensor([5, 8], dtype=torch.int32)
+    with pytest.raises(NotImplementedError, match="decode kernel"):
+        kernels.paged_attention(q, pool, pool, table, lens)
+    with pytest.raises(NotImplementedError, match="decode kernel"):
+        kernels.mla_decode(torch.randn((2, 4, 16), requires_grad=True),
+                           torch.randn((2, 4, 8)), torch.randn((2, 8, 16)),
+                           torch.randn((2, 8, 8)), lens, scale=0.1)
+    assert kernels.paged_attention(q.detach(), pool, pool, table,
+                                   lens).shape == (2, 1, 4, 32)
+
+
+def test_a_gradient_cut_off_from_the_loss_raises(monkeypatch):
+    """An attention output detached from the graph leaves the attention's
+    norm and projections with no gradient: ``loss_and_grads`` names the
+    first such leaf instead of handing the optimizer zeros.  Only the
+    leaves a batch of its kind cannot reach get zeros: llava's connector
+    under token ids, its untied token table under frontend embeddings."""
+    from repro_torch.models import layers
+    toks = np.random.default_rng(0).integers(0, CFG.vocab_size, (2, 9))
+    params = init_params(CFG, seed=0, device="cpu")
+    flash = layers.flash_attention
+    with monkeypatch.context() as m:
+        m.setattr(layers, "flash_attention",
+                  lambda *a, **kw: flash(*a, **kw).detach())
+        with pytest.raises(RuntimeError,
+                           match=r"no gradient reached blocks\.0\.ln1"):
+            loss_and_grads(params, CFG, {"tokens": toks}, remat=False)
+    loss_and_grads(params, CFG, {"tokens": toks}, remat=False)
+    cfg = get_config("llava-next-34b").reduced()
+    params = init_params(cfg, seed=0, device="cpu")
+    rng = np.random.default_rng(1)
+    labels = rng.integers(0, cfg.vocab_size, (2, 8))
+    embeds = rng.standard_normal((2, 8, cfg.frontend_embed_dim))
+    for batch, zero in (({"tokens": toks}, "frontend_proj"),
+                        ({"inputs": embeds.astype(np.float32),
+                          "labels": labels}, "tok")):
+        _, grads = loss_and_grads(params, cfg, batch, remat=False)
+        for key, g in grads["embed"].items():
+            assert bool(g.eq(0).all()) == (key == zero), key
