@@ -81,8 +81,12 @@ Drives ``repro_torch`` (never the JAX package) on the card:
    gemma2's dh 256 with a 256-token window and softcap 50, s 1 and 77,
    f32, and a case built so the bf16 rounding of P shows in dV; planted
    faults (the softcap's derivative dropped, the last key tile skipped,
-   P left unrounded in dV) must fail, and SDPA's backward is timed
-   beside it;
+   P left unrounded in dV, D dropped) must fail, SDPA's backward is timed
+   beside it, and the kernel's two launches apart; the forward's log-sum-exp
+   (what the backward reads) is held against the plain one at qwen's
+   microbatch (one split) and gemma2's case (split keys: the combine
+   writes it), in bf16 and f32, and the forward is timed with and
+   without it;
 4. serves 6 agents x 3 rounds of full-width qwen1.5-0.5b (bf16, random
    weights from a seed) offline through the port's ServingSystem,
    asserting that every round finished, both read sides were used and
@@ -1902,6 +1906,10 @@ def llama4_gemm_cases():
 # ~8 put the largest ones where the softcap's derivative 1 - tanh^2(s /
 # 50) is far from 1, so dropping it must fail the tolerance
 BWD_Q_STD = 8.0
+# the forward's log-sum-exp against the plain one (atol = rtol): f32
+# scores of the same inputs summed in other orders, and exp2 / log2 in
+# the kernel against exp / log
+LSE_TOL = 1e-4
 
 
 def attention_pairs(s: int, causal: bool, window: int) -> int:
@@ -1928,12 +1936,13 @@ def grads_err(got, want, tol: float):
 
 
 def bwd_plain(q, k, v, do, *, causal=True, softcap=0.0, window=0,
-              cap_grad=True, skip_from=None, round_p=True):
+              cap_grad=True, skip_from=None, round_p=True, use_d=True):
     """flash's gradient in closed form (f32 products, P rounded to the V
     dtype for dV as the forward rounds it), to plant faults in: without
     ``cap_grad`` the softcap's derivative is dropped, with ``skip_from``
     the keys from there on leave dK, dV and dQ, without ``round_p`` dV
-    takes P unrounded."""
+    takes P unrounded, without ``use_d`` dS = P dP (D = sum(dO * o)
+    dropped)."""
     b, hq, s, dh = q.shape
     hkv = k.shape[1]
     g = hq // hkv
@@ -1957,7 +1966,8 @@ def bwd_plain(q, k, v, do, *, causal=True, softcap=0.0, window=0,
         keep[skip_from:] = 0
     pv = (p.to(v.dtype).float() if round_p else p) * keep
     dv = torch.einsum("bngqk,bngqd->bnkd", pv, dof)
-    ds = p * (torch.einsum("bngqd,bnkd->bngqk", dof, vf) - dsum) * keep
+    ds = p * (torch.einsum("bngqd,bnkd->bngqk", dof, vf)
+              - (dsum if use_d else 0)) * keep
     if softcap and cap_grad:
         ds = ds * (1 - t * t)
     dq = torch.einsum("bngqk,bnkd->bngqd", ds, kf) / np.sqrt(dh)
@@ -1997,17 +2007,25 @@ def rounded_p_inputs(b=1, h=4, s=1024, dh=64, device="cuda"):
 
 def _bwd_case(gen, *, b, hq, hkv, dh, s, dtype=torch.bfloat16, causal=True,
               softcap=0.0, window=0, q_std=1.0, planted=(), parts=False,
-              inputs=None, label=""):
+              inputs=None, label="", lse_check=False, fwd_ab=False):
     """flash's backward at the training path's layout: q, k, v and dO
-    (b, s, h, dh) passed as (b, h, s, dh) views, o from the forward kernel.
-    Held against the plain backward (autograd of the plain forward) within
-    TOLS of each output's largest |value| and bit-identical over two
-    calls; each label in ``planted`` is a fault of :func:`bwd_plain` that
-    must fail that check.  Timed beside the plain backward and SDPA's
-    backward (causal or not, no window and no softcap, K and V repeated
-    to the query heads), with the bound of its five products' flops over
-    the valid pairs (the recomputed scores included) or its bytes."""
+    (b, s, h, dh) passed as (b, h, s, dh) views, o and lse from the forward
+    kernel.  Held against the plain backward (autograd of the plain
+    forward) within TOLS of each output's largest |value| (``rel_err``:
+    the largest error over that value, which in bf16 includes dS's
+    rounding to bf16) and bit-identical over two calls; each label in
+    ``planted`` is a fault of :func:`bwd_plain` that must fail that check.
+    With ``lse_check`` the forward's lse is held against the plain lse
+    within LSE_TOL, in this dtype and in the other of bf16 and f32, and
+    the case says whether the forward's plan split its keys (then the
+    combine wrote the lse).  With ``fwd_ab`` the forward is timed with and
+    without its lse.  Timed beside the plain backward and SDPA's backward
+    (causal or not, no window and no softcap, K and V repeated to the
+    query heads), with the bound of its five products' flops over the
+    valid pairs (the recomputed scores included) or its bytes."""
     from repro_torch.kernels import flash_attention, flash_attention_bwd, ref
+    from repro_torch.kernels.build import sm_count
+    from repro_torch.kernels.flash_attention import plan
     if inputs is None:
         f = lambda h: normal(gen, (b, s, h, dh), dtype)
         q = (f(hq) * q_std).transpose(1, 2)
@@ -2021,8 +2039,33 @@ def _bwd_case(gen, *, b, hq, hkv, dh, s, dtype=torch.bfloat16, causal=True,
                    if x != dict(causal=True, softcap=0.0, window=0)[n]})
     if label:
         shapes["case"] = label
-    o = flash_attention(q, k, v, **kw)
-    call = lambda: flash_attention_bwd(q, k, v, o, do, **kw)
+    o, lse = flash_attention(q, k, v, **kw, return_lse=True)
+    lse_errs = None
+    if lse_check:
+        lse_errs = {}
+        for dt in (dtype, torch.float32 if dtype == torch.bfloat16
+                   else torch.bfloat16):
+            xs = [x.to(dt) for x in (q, k, v)]
+            _, got_l = (o, lse) if dt == dtype else flash_attention(
+                *xs, **kw, return_lse=True)
+            _, want_l = ref.flash_attention_ref(*xs, **kw, return_lse=True)
+            err_l, ok_l = max_err(got_l, want_l, LSE_TOL)
+            if not ok_l:
+                raise AssertionError(f"flash_attention's lse off by {err_l} "
+                                     f"in {dt} at {shapes}")
+            lse_errs[str(dt).replace("torch.", "")] = err_l
+        shapes["fwd_split"] = plan(
+            b, hq, hkv, s, s, sm_count(q.get_device()),
+            dtype == torch.bfloat16)[0]
+    fwd_ms = None
+    if fwd_ab:
+        fwd = lambda: flash_attention(q, k, v, **kw)
+        fwd_lse = lambda: flash_attention(q, k, v, **kw, return_lse=True)
+        fwd_ms = {}
+        for name in ("without lse", "with lse", "with lse ", "without lse "):
+            fwd_ms.setdefault(name.strip(), []).append(
+                time_ms(fwd_lse if name.startswith("with ") else fwd))
+    call = lambda: flash_attention_bwd(q, k, v, o, do, lse=lse, **kw)
     got, again = call(), call()
     if not all(torch.equal(x, y) for x, y in zip(got, again)):
         raise AssertionError(f"flash_attention_bwd: two calls gave "
@@ -2031,12 +2074,16 @@ def _bwd_case(gen, *, b, hq, hkv, dh, s, dtype=torch.bfloat16, causal=True,
     err, ok = grads_err(got, want, TOLS[dtype])
     if not ok:
         raise AssertionError(f"flash_attention_bwd off by {err} at {shapes}")
+    rel = max(float((g.float() - w.float()).abs().max())
+              / (float(w.float().abs().max()) or 1.0)
+              for g, w in zip(got, want))
     faults = None
     if planted:
         emulate = {"softcap's derivative dropped": dict(cap_grad=False),
                    "the last key tile skipped": dict(
                        skip_from=(s - 1) // 64 * 64),
-                   "P left unrounded in dV": dict(round_p=False)}
+                   "P left unrounded in dV": dict(round_p=False),
+                   "D dropped": dict(use_d=False)}
         faults = _planted("flash_attention_bwd", want, TOLS[dtype],
                           {f: bwd_plain(q, k, v, do, **kw, **emulate[f])
                            for f in planted}, check=grads_err)
@@ -2052,7 +2099,8 @@ def _bwd_case(gen, *, b, hq, hkv, dh, s, dtype=torch.bfloat16, causal=True,
     b_ms, b_by = bound(4 * (b * hq + b * hkv) * s * dh * q.element_size(),
                        10 * dh * pairs, dtype)
     return dict(
-        shapes=shapes, max_abs_err=err, planted_err=faults,
+        shapes=shapes, max_abs_err=err, rel_err=rel, planted_err=faults,
+        lse_err=lse_errs, fwd_ms=fwd_ms,
         ms=time_ms(call), ms_clean_l2=time_ms(call, clean_l2=True),
         parts_ms=kernel_parts(call) if parts else None,
         plain_ms=time_ms(lambda: ref.flash_attention_bwd_ref(q, k, v, do,
@@ -2067,8 +2115,11 @@ def flash_bwd_cases():
     frames, gemma2's dh 256 (8 over 4 heads) with a 256-token window and
     softcap 50 over 1024 tokens (q scaled by ``BWD_Q_STD``; the softcap's
     derivative dropped and the last 64-key tile skipped must fail), s 1
-    and s 77, f32 at dh 64, and :func:`rounded_p_inputs` (P left
-    unrounded in dV must fail)."""
+    and s 77 (D dropped must fail), f32 at dh 64, and
+    :func:`rounded_p_inputs` (P left unrounded in dV must fail).  The
+    forward's lse is held against the plain one at qwen's microbatch
+    (one split) and gemma2's case (split keys), in bf16 and f32, and the
+    forward is timed with and without it at qwen's microbatch."""
     from repro_torch.configs import get_config
     qw, hb, g2 = (get_config(a) for a in ("qwen1.5-0.5b", HUBERT,
                                           "gemma2-2b"))
@@ -2076,14 +2127,16 @@ def flash_bwd_cases():
     heads = lambda c: dict(hq=c.n_heads, hkv=c.n_kv_heads, dh=c.head_dim)
     case = lambda c, **kw: _bwd_case(gen, **{**heads(c), **kw})
     return [
-        case(qw, b=TRAIN_BATCH // TRAIN_MICRO, s=TRAIN_SEQ - 1, parts=True),
-        case(qw, b=2, hkv=qw.n_heads // 4, dh=128, s=1000),
-        case(hb, b=2, s=HUBERT_FRAMES, causal=False),
+        case(qw, b=TRAIN_BATCH // TRAIN_MICRO, s=TRAIN_SEQ - 1, parts=True,
+             lse_check=True, fwd_ab=True),
+        case(qw, b=2, hkv=qw.n_heads // 4, dh=128, s=1000, parts=True),
+        case(hb, b=2, s=HUBERT_FRAMES, causal=False, parts=True),
         case(g2, b=1, s=1024, window=256, softcap=50.0, q_std=BWD_Q_STD,
              planted=("softcap's derivative dropped",
-                      "the last key tile skipped")),
+                      "the last key tile skipped"), parts=True,
+             lse_check=True),
         case(qw, b=2, s=1),
-        case(qw, b=2, s=77),
+        case(qw, b=2, s=77, planted=("D dropped",)),
         case(qw, b=2, s=256, dtype=torch.float32),
         _bwd_case(gen, b=1, hq=4, hkv=4, dh=64, s=1024,
                   inputs=rounded_p_inputs(), planted=(
@@ -2226,6 +2279,16 @@ def print_cases(cases: dict) -> None:
                   + ("" if not c.get("parts_ms") else
                      "; warm " + ", ".join(f"{k} {v:.4f} ms"
                                            for k, v in c["parts_ms"].items()))
+                  + ("" if "rel_err" not in c else
+                     f"; largest error over the largest |value| "
+                     f"{c['rel_err']:.3g}")
+                  + ("" if not c.get("lse_err") else
+                     "; the forward's lse err " + ", ".join(
+                         f"{k} {v:.3g}" for k, v in c["lse_err"].items()))
+                  + ("" if not c.get("fwd_ms") else
+                     "; forward " + ", ".join(
+                         f"{k} " + " / ".join(f"{x:.4f}" for x in v) + " ms"
+                         for k, v in c["fwd_ms"].items()))
                   + ("" if not c.get("planted_err") else
                      "; planted faults fail: " + ", ".join(
                          f"{k} err {v:.3g}"

@@ -4,8 +4,9 @@ Each wrapper launches its kernel (CUDA C++, or Triton for the causal
 conv) for CUDA tensors (or raises) and computes its plain PyTorch
 version (``ref``) for CPU tensors, and counts its launches in
 ``<wrapper>.launches``.  ``flash_attention_bwd`` is flash's gradient,
-which ``flash_attention`` runs through autograd when training; the other
-wrappers have no backward and raise when their inputs require grad.
+which ``flash_attention`` runs through autograd when training, reading
+the log-sum-exp its forward kept; the other wrappers have no backward
+and raise when their inputs require grad.
 """
 from repro_torch.kernels.causal_conv import causal_conv
 from repro_torch.kernels.flash_attention import (flash_attention,

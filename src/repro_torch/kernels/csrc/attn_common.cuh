@@ -3,7 +3,8 @@
 // * dtype conversions and warp reductions;
 // * PTX wrappers for the bf16 tensor-core path and the vector loads:
 //   16-byte cp.async with zero fill, ldmatrix, mma.sync m16n8k16.
-// * combine_rows: the deterministic merge of key-split partials.
+// * combine_rows: the deterministic merge of key-split partials, and
+//   optionally each row's log-sum-exp (flash's backward reads it).
 //
 // Everywhere: scores in f32, p cast to the V dtype before P.V
 // (repro/kernels/flash_attention.py:89), rows without a valid key end
@@ -34,6 +35,7 @@ __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
 }
 
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
 // ---- PTX wrappers -------------------------------------------------------
 
@@ -48,6 +50,15 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src,
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
                    smem_u32(dst)),
                "l"(src), "r"(ok ? 16 : 0)
+               : "memory");
+}
+
+// 4 bytes global -> shared (through L1); zero-filled when ok is false
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(ok ? 4 : 0)
                : "memory");
 }
 
@@ -138,13 +149,16 @@ __device__ __forceinline__ float warp_sum(float x) {
 // does not depend on the order the blocks ran in), and writes o at the
 // row's address: row =
 // (bb * nh + hh) * ni + i, element offset bb * ob + hh * oh + i * os.
+// With lse, it also writes lse[row] = ln(sum of exp(score)) over the
+// row's valid keys (-inf without one), from the merged m and l.
 // Lane l holds elements l, l + 32, ...: at a width that is not a multiple
 // of 32 (dh 80) the last pass's lanes past DH are predicated off.
 template <typename T, int DH>
 __device__ __forceinline__ void combine_rows(
     const float* __restrict__ pm, const float* __restrict__ pl,
     const float* __restrict__ pacc, T* __restrict__ o, long long n_rows,
-    int n_split, int nh, int ni, long long ob, long long oh, long long os) {
+    int n_split, int nh, int ni, long long ob, long long oh, long long os,
+    float* __restrict__ lse = nullptr) {
   const long long row = (long long)blockIdx.x * (blockDim.x >> 5) +
                         (threadIdx.x >> 5);
   if (row >= n_rows) return;             // whole warps leave together
@@ -186,6 +200,8 @@ __device__ __forceinline__ void combine_rows(
     }
   }
   lsum = warp_sum(lsum);
+  if (lse && lane == 0)
+    lse[row] = lsum > 0.f ? (mx + log2f(lsum)) * LN2 : -INFINITY;
   const long long bb = row / ((long long)nh * ni);
   const int hh = (int)((row / ni) % nh), i = (int)(row % ni);
   T* dst = o + bb * ob + hh * oh + i * os;

@@ -75,6 +75,16 @@
 // the path trails both SDPA and the plain version (PERF.md) and serves
 // only the f32 identity check.
 //
+// The log-sum-exp: with a non-null lse (b, hq, sq) f32, each query row's
+// ln(sum of exp(score)) over its valid keys (-inf without one) is written
+// beside o, from the m and l the online softmax already holds: by the
+// split kernel with one split (m is in the log2 domain there, so lse =
+// (m + log2 l) ln 2), by the combine from the merged m and l with
+// several, and by the f32 kernel (m + ln l).  flash's backward
+// (flash_attention_bwd.cu) reads it instead of recomputing it.  Only the
+// autograd forward passes it: every serving call passes null and
+// launches what it did before.
+//
 // Each instantiation's shared-memory attribute is set once, at its first
 // launch, not per launch.  Times on the card against the bound and SDPA:
 // PERF.md.
@@ -116,8 +126,9 @@ __global__ void __launch_bounds__(THREADS)
 flash_split_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                    const bf16* __restrict__ v, bf16* __restrict__ o,
                    float* __restrict__ pm, float* __restrict__ pl,
-                   float* __restrict__ pacc, const int* __restrict__ kv_lens,
-                   int g, int bq, int sq, int skv, int chunk, int n_split,
+                   float* __restrict__ pacc, float* __restrict__ lse,
+                   const int* __restrict__ kv_lens, int g, int bq, int sq,
+                   int skv, int chunk, int n_split,
                    Strides st, float scale, float softcap, int causal,
                    int window) {
   static_assert(DV <= DK, "v no wider than q/k");
@@ -157,6 +168,11 @@ flash_split_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         if (ri < nq)
           o[b * st.ob + (long long)(h * g + gi) * st.oh +
             (long long)(i0 + ri) * st.os + d] = __float2bfloat16(0.f);
+      }
+      for (int r = tid; lse && r < rows; r += THREADS) {
+        const int gi = r / bq, ri = r % bq;
+        if (ri < nq)
+          lse[((long long)b * hq + h * g + gi) * sq + i0 + ri] = -INFINITY;
       }
     } else {
       for (int r = tid; r < rows; r += THREADS) {
@@ -349,6 +365,9 @@ flash_split_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       bf16* orow = o + b * st.ob + (long long)(h * g + gi) * st.oh +
                    (long long)(i0 + ri) * st.os;
       const float inv = l[i] > 0.f ? 1.f / l[i] : 0.f;
+      if (lse && (lane & 3) == 0)
+        lse[((long long)b * hq + h * g + gi) * sq + i0 + ri] =
+            l[i] > 0.f ? (m[i] + log2f(l[i])) * LN2 : -INFINITY;
 #pragma unroll
       for (int d = 0; d < DV / 8; ++d)
         *reinterpret_cast<__nv_bfloat162*>(orow + d * 8 + col) =
@@ -376,18 +395,18 @@ __global__ void __launch_bounds__(THREADS)
 flash_combine_kernel(const float* __restrict__ pm,
                      const float* __restrict__ pl,
                      const float* __restrict__ pacc, bf16* __restrict__ o,
-                     long long n_rows, int n_split, int hq, int sq,
-                     Strides st) {
+                     float* __restrict__ lse, long long n_rows, int n_split,
+                     int hq, int sq, Strides st) {
   combine_rows<bf16, DV>(pm, pl, pacc, o, n_rows, n_split, hq, sq, st.ob,
-                         st.oh, st.os);
+                         st.oh, st.os, lse);
 }
 
 template <int DK, int DV>
 int launch_bf16(const void* q, const void* k, const void* v, void* o,
-                float* pm, float* pl, float* pacc, const int* kv_lens, int b,
-                int hq, int hkv, int sq, int skv, int n_split, int chunk,
-                const Strides& st, float scale, float softcap, int causal,
-                int window, cudaStream_t stream) {
+                float* pm, float* pl, float* pacc, float* lse,
+                const int* kv_lens, int b, int hq, int hkv, int sq, int skv,
+                int n_split, int chunk, const Strides& st, float scale,
+                float softcap, int causal, int window, cudaStream_t stream) {
   constexpr int smem = split_smem_bytes<DK, DV>();
   static const cudaError_t attr = cudaFuncSetAttribute(
       flash_split_kernel<DK, DV>,
@@ -399,7 +418,7 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o,
   dim3 grid(n_qt * n_split, hkv, b);
   flash_split_kernel<DK, DV><<<grid, THREADS, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(o), pm, pl, pacc,
+      static_cast<const bf16*>(v), static_cast<bf16*>(o), pm, pl, pacc, lse,
       kv_lens, g, bq, sq, skv, chunk, n_split, st, scale, softcap, causal,
       window);
   cudaError_t e = cudaGetLastError();
@@ -407,7 +426,7 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o,
   const long long n_rows = (long long)b * hq * sq;
   const long long blocks = (n_rows + NWARPS - 1) / NWARPS;
   flash_combine_kernel<DV><<<(unsigned)blocks, THREADS, 0, stream>>>(
-      pm, pl, pacc, static_cast<bf16*>(o), n_rows, n_split, hq, sq, st);
+      pm, pl, pacc, static_cast<bf16*>(o), lse, n_rows, n_split, hq, sq, st);
   return (int)cudaGetLastError();
 }
 
@@ -535,9 +554,9 @@ template <typename T, int DK, int DV, int ROWS>
 __global__ void __launch_bounds__(THREADS)
 flash_f32_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o,
-                 const int* __restrict__ kv_lens, int g, int bq, int sq,
-                 int skv, Strides st, float scale, float softcap, int causal,
-                 int window) {
+                 float* __restrict__ lse, const int* __restrict__ kv_lens,
+                 int g, int bq, int sq, int skv, Strides st, float scale,
+                 float softcap, int causal, int window) {
   constexpr int RPW = ROWS / NWARPS;     // rows per warp
   extern __shared__ float smem[];
   float* qs = smem;                      // ROWS x DK
@@ -611,6 +630,9 @@ flash_f32_kernel(const T* __restrict__ q, const T* __restrict__ k,
     if (ri >= nq) continue;
     T* orow = o + b * st.ob + (long long)(h * g + gi) * st.oh +
               (long long)(i0 + ri) * st.os;
+    if (lse && lane == 0)
+      lse[((long long)b * gridDim.y * g + h * g + gi) * sq + i0 + ri] =
+          l[rr] > 0.f ? m[rr] + logf(l[rr]) : -INFINITY;
 #pragma unroll
     for (int i = 0; i < per_lane<DV>(); ++i)
       if (owns<DV>(lane, i))
@@ -622,9 +644,10 @@ flash_f32_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <int DK, int DV, int ROWS>
 int launch_f32_rows(const void* q, const void* k, const void* v, void* o,
-                    const int* kv_lens, int b, int hq, int hkv, int sq,
-                    int skv, const Strides& st, float scale, float softcap,
-                    int causal, int window, cudaStream_t stream) {
+                    float* lse, const int* kv_lens, int b, int hq, int hkv,
+                    int sq, int skv, const Strides& st, float scale,
+                    float softcap, int causal, int window,
+                    cudaStream_t stream) {
   constexpr int smem = (int)sizeof(float) * smem_floats<DK, DV, ROWS>();
   static const cudaError_t attr = cudaFuncSetAttribute(
       flash_f32_kernel<float, DK, DV, ROWS>,
@@ -635,23 +658,23 @@ int launch_f32_rows(const void* q, const void* k, const void* v, void* o,
   dim3 grid((sq + bq - 1) / bq, hkv, b);
   flash_f32_kernel<float, DK, DV, ROWS><<<grid, THREADS, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), kv_lens, g, bq,
-      sq, skv, st, scale, softcap, causal, window);
+      static_cast<const float*>(v), static_cast<float*>(o), lse, kv_lens, g,
+      bq, sq, skv, st, scale, softcap, causal, window);
   return (int)cudaGetLastError();
 }
 
 template <int DK, int DV>
 int launch_f32(const void* q, const void* k, const void* v, void* o,
-               const int* kv_lens, int b, int hq, int hkv, int sq, int skv,
-               const Strides& st, float scale, float softcap, int causal,
-               int window, cudaStream_t stream) {
+               float* lse, const int* kv_lens, int b, int hq, int hkv,
+               int sq, int skv, const Strides& st, float scale,
+               float softcap, int causal, int window, cudaStream_t stream) {
   if (hq / hkv <= 16)
-    return launch_f32_rows<DK, DV, 16>(q, k, v, o, kv_lens, b, hq, hkv, sq, skv,
-                                   st, scale, softcap, causal, window,
-                                   stream);
-  return launch_f32_rows<DK, DV, MAX_ROWS>(q, k, v, o, kv_lens, b, hq, hkv, sq,
-                                       skv, st, scale, softcap, causal,
+    return launch_f32_rows<DK, DV, 16>(q, k, v, o, lse, kv_lens, b, hq, hkv,
+                                       sq, skv, st, scale, softcap, causal,
                                        window, stream);
+  return launch_f32_rows<DK, DV, MAX_ROWS>(q, k, v, o, lse, kv_lens, b, hq,
+                                           hkv, sq, skv, st, scale, softcap,
+                                           causal, window, stream);
 }
 
 }  // namespace
@@ -664,11 +687,12 @@ int launch_f32(const void* q, const void* k, const void* v, void* o,
 // sq floats and pacc dv times as many (scratch the caller allocates),
 // keys are split in ranges of `chunk` (a multiple of 64), and the caller
 // checked that q, k, v, o are 16-byte aligned with strides that are
-// multiples of 8 elements.  Returns the first launch error (cudaError_t),
-// 0 on success.
+// multiples of 8 elements.  lse, null or (b, hq, sq) f32, gets each row's
+// log-sum-exp.  Returns the first launch error (cudaError_t), 0 on
+// success.
 extern "C" int flash_attention(int dtype, int dk, int dv, const void* q,
                                const void* k, const void* v, void* o,
-                               float* pm, float* pl, float* pacc,
+                               float* pm, float* pl, float* pacc, float* lse,
                                const int* kv_lens, int b, int hq, int hkv,
                                int sq, int skv, int n_split, int chunk,
                                const long long* strides, float scale,
@@ -682,12 +706,12 @@ extern "C" int flash_attention(int dtype, int dk, int dv, const void* q,
              strides[4], strides[5], strides[6], strides[7],
              strides[8], strides[9], strides[10], strides[11]};
 #define FLASH_F32(DK, DV)                                                    \
-  return launch_f32<DK, DV>(q, k, v, o, kv_lens, b, hq, hkv, sq, skv, st,    \
-                            scale, softcap, causal, window, stream)
+  return launch_f32<DK, DV>(q, k, v, o, lse, kv_lens, b, hq, hkv, sq, skv,   \
+                            st, scale, softcap, causal, window, stream)
 #define FLASH_BF16(DK, DV)                                                   \
-  return launch_bf16<DK, DV>(q, k, v, o, pm, pl, pacc, kv_lens, b, hq, hkv,  \
-                             sq, skv, n_split, chunk, st, scale, softcap,    \
-                             causal, window, stream)
+  return launch_bf16<DK, DV>(q, k, v, o, pm, pl, pacc, lse, kv_lens, b, hq,  \
+                             hkv, sq, skv, n_split, chunk, st, scale,        \
+                             softcap, causal, window, stream)
   const int key = dk * 1000 + dv;
   if (dtype == 0) {
     if (n_split != 1) return (int)cudaErrorInvalidValue;

@@ -31,8 +31,15 @@ through an autograd Function whose backward is ``flash_attention_bwd``,
 backward kernel: XLA differentiates its jnp attention) and
 ``ref.flash_attention_bwd_ref`` on CPU tensors.  It covers full-sequence
 attention (sq = skv, no ``kv_lens``) at dk = dv in ``HEAD_DIMS``; an
-append with ``kv_lens`` and MLA's (192, 128) raise under grad.  Without
-grad the call is the forward alone, launch for launch.
+append with ``kv_lens`` and MLA's (192, 128) raise under grad.  Its
+forward has the kernel also write each query row's log-sum-exp
+(``lse``, (b, hq, s) f32, from the online softmax's own m and l: no
+launch of its own) and saves it beside q, k, v and o; the backward
+reads it instead of recomputing it.  In bf16 the backward is two
+launches on the tensor cores (dQ with D = sum(dO * o), then dK and dV),
+in float32 three scalar ones (D, dK and dV, dQ); either counts as one
+call.  Without grad the call is the forward alone, launch for launch,
+and no ``lse`` is written.
 """
 from __future__ import annotations
 
@@ -57,7 +64,7 @@ SPLIT_BLOCKS_PER_SM = 4   # the split plan's aim, under one wave of tiles
 @functools.cache
 def _fn():
     fn = build.library("flash_attention").flash_attention
-    fn.argtypes = ([ctypes.c_int] * 3 + [ctypes.c_void_p] * 8 +
+    fn.argtypes = ([ctypes.c_int] * 3 + [ctypes.c_void_p] * 9 +
                    [ctypes.c_int] * 7 +
                    [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float,
                     ctypes.c_float, ctypes.c_int, ctypes.c_int,
@@ -72,7 +79,7 @@ def _bwd_fn():
     fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 10 +
                    [ctypes.c_int] * 4 +
                    [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float,
-                    ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                    ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                     ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
@@ -81,10 +88,13 @@ def _bwd_fn():
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, softcap: float = 0.0,
                     window: int = 0,
-                    kv_lens: Optional[torch.Tensor] = None) -> torch.Tensor:
+                    kv_lens: Optional[torch.Tensor] = None,
+                    return_lse: bool = False):
     """q (b,hq,sq,dk); k (b,hkv,skv,dk); v (b,hkv,skv,dv); kv_lens (b,)
     int32 or None.  Returns (b,hq,sq,dv), differentiable in q, k and v
-    for full-sequence attention (see the module's docstring)."""
+    for full-sequence attention (see the module's docstring).  With
+    ``return_lse``, returns (o, lse), lse (b,hq,sq) f32 each query row's
+    log-sum-exp, from the forward alone (no autograd)."""
     b, hq, sq, dh = q.shape
     _, hkv, skv, _ = k.shape
     dv = v.shape[3]
@@ -92,7 +102,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             or k.shape[3] != dh:
         raise ValueError(f"flash_attention: shapes q {tuple(q.shape)} "
                          f"k {tuple(k.shape)} v {tuple(v.shape)}")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+    grad = torch.is_grad_enabled() and any(t.requires_grad
+                                           for t in (q, k, v))
+    if return_lse:
+        if grad:
+            raise ValueError("flash_attention: return_lse is the forward "
+                             "alone; run it without grad")
+        return _forward(q, k, v, causal, softcap, window, kv_lens,
+                        return_lse=True)
+    if grad:
         if (dh, dv) not in tuple((d, d) for d in HEAD_DIMS):
             raise NotImplementedError(
                 f"flash_attention has no backward at widths {(dh, dv)} "
@@ -107,34 +125,37 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 class _Flash(torch.autograd.Function):
     """Full-sequence flash attention with ``flash_attention_bwd`` as its
-    backward; the forward's inputs and output are saved for it."""
+    backward; the forward's inputs, output and log-sum-exp are saved for
+    it (under remat the recomputed forward saves them again)."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, softcap, window):
-        o = _forward(q, k, v, causal, softcap, window, None)
-        ctx.save_for_backward(q, k, v, o)
+        o, lse = _forward(q, k, v, causal, softcap, window, None,
+                          return_lse=True)
+        ctx.save_for_backward(q, k, v, o, lse)
         ctx.mask = (causal, softcap, window)
         return o
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, o = ctx.saved_tensors
+        q, k, v, o, lse = ctx.saved_tensors
         causal, softcap, window = ctx.mask
-        dq, dk, dv = flash_attention_bwd(q, k, v, o, do, causal=causal,
-                                         softcap=softcap, window=window)
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, do, lse=lse,
+                                         causal=causal, softcap=softcap,
+                                         window=window)
         return dq, dk, dv, None, None, None
 
 
-def _forward(q, k, v, causal, softcap, window, kv_lens):
+def _forward(q, k, v, causal, softcap, window, kv_lens, return_lse=False):
     """The forward alone: the kernel on CUDA tensors, the plain version on
-    CPU tensors."""
+    CPU tensors; with ``return_lse``, (o, lse)."""
     b, hq, sq, dh = q.shape
     _, hkv, skv, _ = k.shape
     dv = v.shape[3]
     if q.device.type == "cpu":
         return ref.flash_attention_ref(q, k, v, causal=causal,
                                        softcap=softcap, window=window,
-                                       kv_lens=kv_lens)
+                                       kv_lens=kv_lens, return_lse=return_lse)
     args = (q, k, v) if kv_lens is None else (q, k, v, kv_lens)
     build.require_cuda("flash_attention", *args)
     if q.dtype not in build.ATTN_DTYPES or k.dtype != q.dtype \
@@ -152,8 +173,10 @@ def _forward(q, k, v, causal, softcap, window, kv_lens):
         kv_lens = kv_lens.contiguous()
     out = torch.empty((b, sq, hq, dv), dtype=q.dtype,
                       device=q.device).transpose(1, 2)
+    lse = torch.empty((b, hq, sq), dtype=torch.float32,
+                      device=q.device) if return_lse else None
     if b == 0 or sq == 0:
-        return out
+        return (out, lse) if return_lse else out
     n_split, chunk = plan(b, hq, hkv, sq, skv,
                           build.sm_count(q.get_device()),
                           q.dtype == torch.bfloat16)
@@ -169,12 +192,12 @@ def _forward(q, k, v, causal, softcap, window, kv_lens):
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3])
     rc = _fn()(build.ATTN_DTYPES[q.dtype], dh, dv, q.data_ptr(),
                k.data_ptr(), v.data_ptr(), out.data_ptr(), ptr(pm), ptr(pl),
-               ptr(pacc), ptr(kv_lens), b, hq, hkv, sq, skv, n_split, chunk,
-               strides, 1.0 / math.sqrt(dh), float(softcap), int(causal),
-               int(window), build.stream_of(q))
+               ptr(pacc), ptr(lse), ptr(kv_lens), b, hq, hkv, sq, skv,
+               n_split, chunk, strides, 1.0 / math.sqrt(dh), float(softcap),
+               int(causal), int(window), build.stream_of(q))
     build.check(rc, "flash_attention")
     flash_attention.launches += 1
-    return out
+    return (out, lse) if return_lse else out
 
 
 flash_attention.launches = 0
@@ -182,15 +205,19 @@ flash_attention.launches = 0
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         o: torch.Tensor, do: torch.Tensor, *,
+                        lse: Optional[torch.Tensor] = None,
                         causal: bool = True, softcap: float = 0.0,
                         window: int = 0) -> tuple:
     """The gradient of full-sequence :func:`flash_attention`: q, o and do
     (b,hq,s,dh), k and v (b,hkv,s,dh), dh in ``HEAD_DIMS``, o the forward's
-    output and do its cotangent.  Returns (dq, dk, dv) in the input dtype,
-    each allocated (b, s, h, dh) in memory and returned as its (b, h, s,
-    dh) view.  On CUDA tensors one call runs the three launches of
-    ``csrc/flash_attention_bwd.cu`` (counted once); on CPU tensors it is
-    ``ref.flash_attention_bwd_ref`` (``o`` unused)."""
+    output, do its cotangent and lse (b,hq,s) f32 the log-sum-exp the
+    forward wrote (``return_lse``).  Returns (dq, dk, dv) in the input
+    dtype, each allocated (b, s, h, dh) in memory and returned as its (b,
+    h, s, dh) view.  On CUDA tensors one call runs the launches of
+    ``csrc/flash_attention_bwd.cu`` (two in bf16, three in float32,
+    counted once) and needs ``lse``; on CPU tensors it is
+    ``ref.flash_attention_bwd_ref`` (``o`` and ``lse`` unused).  An
+    ``lse`` of another shape or dtype is refused on either device."""
     b, hq, s, dh = q.shape
     hkv = k.shape[1]
     if hq % hkv or k.shape != (b, hkv, s, dh) or v.shape != k.shape \
@@ -198,10 +225,18 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"flash_attention_bwd: shapes q {tuple(q.shape)} "
                          f"k {tuple(k.shape)} v {tuple(v.shape)} o "
                          f"{tuple(o.shape)} do {tuple(do.shape)}")
+    if lse is not None and (lse.shape != (b, hq, s)
+                            or lse.dtype != torch.float32):
+        raise ValueError(f"flash_attention_bwd: lse {tuple(lse.shape)} "
+                         f"{lse.dtype}; need {(b, hq, s)} float32")
     if q.device.type == "cpu":
         return ref.flash_attention_bwd_ref(q, k, v, do, causal=causal,
                                            softcap=softcap, window=window)
-    build.require_cuda("flash_attention_bwd", q, k, v, o, do)
+    if lse is None:
+        raise ValueError("flash_attention_bwd: CUDA tensors need the "
+                         "forward's lse (flash_attention(..., "
+                         "return_lse=True))")
+    build.require_cuda("flash_attention_bwd", q, k, v, o, do, lse)
     if q.dtype not in build.ATTN_DTYPES or any(
             t.dtype != q.dtype for t in (k, v, o, do)):
         raise ValueError(f"flash_attention_bwd: dtypes "
@@ -213,29 +248,50 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if any(t.stride(-1) != 1 for t in (q, k, v, o)):
         raise ValueError("flash_attention_bwd: the head dim must be "
                          "contiguous")
-    if do.stride(-1) != 1 or do.data_ptr() % 16:
+    per = 16 // q.element_size()
+    if do.stride(-1) != 1 or do.data_ptr() % 16 or any(
+            x % per for x in do.stride()[:3]):
         # autograd's cotangent in a layout the kernel does not read
         do = do.contiguous()
+    if q.dtype == torch.bfloat16:
+        named = (("q", q), ("k", k), ("v", v), ("o", o))
+        build.require_aligned(
+            "flash_attention_bwd",
+            {n: t.data_ptr() for n, t in named},
+            {n: t.stride()[:3] for n, t in named}, q.element_size())
     grads = [torch.empty((b, s, h, dh), dtype=q.dtype,
                          device=q.device).transpose(1, 2)
              for h in (hq, hkv, hkv)]
     if b == 0 or s == 0:
         return tuple(grads)
-    stats = torch.empty((2, b, hq, s), dtype=torch.float32, device=q.device)
+    lse = lse.contiguous()
+    dsum = torch.empty((b, hq, s), dtype=torch.float32, device=q.device)
     strides = (ctypes.c_longlong * 24)(*(
         x for t in (q, k, v, o, do, *grads) for x in t.stride()[:3]))
     rc = _bwd_fn()(build.ATTN_DTYPES[q.dtype], dh, q.data_ptr(),
                    k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
-                   *(g.data_ptr() for g in grads), stats[0].data_ptr(),
-                   stats[1].data_ptr(), b, hq, hkv, s, strides,
+                   *(g.data_ptr() for g in grads), lse.data_ptr(),
+                   dsum.data_ptr(), b, hq, hkv, s, strides,
                    1.0 / math.sqrt(dh), float(softcap), int(causal),
-                   int(window), build.stream_of(q))
+                   int(window),
+                   bwd_groups(b, hkv, s, dh, build.sm_count(q.get_device())),
+                   build.stream_of(q))
     build.check(rc, "flash_attention_bwd")
     flash_attention_bwd.launches += 1
     return tuple(grads)
 
 
 flash_attention_bwd.launches = 0
+
+
+def bwd_groups(b: int, hkv: int, s: int, dh: int, n_sm: int) -> int:
+    """Warp groups a block of the bf16 backward's dK/dV launch: 2 when its
+    ``b * hkv * ceil(s / key tile)`` blocks (key tiles of 64, 32 at dh
+    256) fit one block an SM, so the query tiles split between two groups
+    of 4 warps and each SM holds 8 warps; 1 above, where the blocks fill
+    the SMs two at a time (the timings are in PERF.md)."""
+    tile = 32 if dh > 128 else 64
+    return 2 if b * hkv * -(-s // tile) <= n_sm else 1
 
 
 def plan(b: int, hq: int, hkv: int, sq: int, skv: int, n_sm: int,

@@ -48,17 +48,24 @@ def _flash_scores(q, k, *, causal, softcap, window, kv_lens):
 
 
 def flash_attention_ref(q, k, v, *, causal=True, softcap=0.0, window=0,
-                        kv_lens=None):
+                        kv_lens=None, return_lse=False):
     """q (b,hq,sq,dk); k (b,hkv,skv,dk); v (b,hkv,skv,dv); kv_lens (b,)
     or None (= skv).  Query i of row b sits at position kv_lens[b] - sq +
-    i; scores are scaled by 1/sqrt(dk)."""
+    i; scores are scaled by 1/sqrt(dk).  With ``return_lse``, also each
+    query row's log-sum-exp (b,hq,sq) f32: ln of the sum of exp(score)
+    over its valid keys, -inf for a row without one (what the kernel
+    writes for flash's backward)."""
     b, hq, sq, _ = q.shape
     s, ok = _flash_scores(q, k, causal=causal, softcap=softcap,
                           window=window, kv_lens=kv_lens)
-    s = torch.where(ok[:, None, None], s, NEG_INF)
-    p = torch.softmax(s, dim=-1)
+    valid = ok[:, None, None]
+    p = torch.softmax(torch.where(valid, s, NEG_INF), dim=-1)
     o = torch.einsum("bngqk,bnkd->bngqd", p.to(v.dtype).float(), v.float())
-    return o.reshape(b, hq, sq, v.shape[-1]).to(q.dtype)
+    o = o.reshape(b, hq, sq, v.shape[-1]).to(q.dtype)
+    if not return_lse:
+        return o
+    lse = torch.logsumexp(torch.where(valid, s, float("-inf")), dim=-1)
+    return o, lse.reshape(b, hq, sq)
 
 
 def flash_attention_bwd_ref(q, k, v, do, *, causal=True, softcap=0.0,

@@ -552,13 +552,49 @@ def test_flash_bwd_plain_matches_jax_grad(dtype, case):
                  TOLS[dtype])
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", _BWD_CASES)
+def test_flash_lse_plain_matches_jax_logsumexp(dtype, case):
+    """The plain log-sum-exp (ref.flash_attention_ref(..., return_lse=True),
+    what the forward kernel writes for the backward) against
+    jax.nn.logsumexp of the reference's masked, scaled, softcapped scores
+    (its own _scores, _softcap and _mask_bias) on the same numpy inputs, q
+    scaled by 2 so the softcap bends: within 1e-5 (atol and rtol) in both
+    dtypes, the scores being f32 products of the same values in both
+    frameworks, summed in different orders.  The output beside it is the
+    plain forward's, bit for bit."""
+    import jax
+    from repro.models.layers import _mask_bias, _scores, _softcap
+    causal = case.get("causal", True)
+    softcap, window = case.get("softcap", 0.0), case.get("window", 0)
+    b, s, dh, hq, hkv = 2, case["s"], 32, case["hq"], case["hkv"]
+    rng = np.random.default_rng(12)
+    qj, qt = _pair(rng, (b, s, hq, dh), dtype)
+    qj, qt = qj * 2, qt * 2
+    kj, kt = _pair(rng, (b, s, hkv, dh), dtype)
+    _, vt = _pair(rng, (b, s, hkv, dh), dtype)
+    sj = _softcap(_scores(qj.reshape(b, s, hkv, hq // hkv, dh), kj,
+                          1.0 / np.sqrt(dh)), softcap)
+    ids = jnp.arange(s)
+    sj = sj + _mask_bias(ids, ids, causal=causal, window=window or None,
+                         kv_valid=None)
+    want = np.asarray(jax.nn.logsumexp(sj, axis=-1)).reshape(b, hq, s)
+    q, k, v = (x.transpose(1, 2) for x in (qt, kt, vt))
+    kw = dict(causal=causal, softcap=softcap, window=window)
+    o, lse = ref.flash_attention_ref(q, k, v, **kw, return_lse=True)
+    assert lse.dtype == torch.float32 and lse.shape == (b, hq, s)
+    np.testing.assert_allclose(lse.numpy(), want, rtol=1e-5, atol=1e-5)
+    assert torch.equal(o, ref.flash_attention_ref(q, k, v, **kw))
+
+
 @pytest.mark.parametrize("kw", [
     dict(), dict(causal=False), dict(window=7, softcap=3.0)])
 def test_flash_function_on_cpu_gives_autograd_of_the_plain_forward(kw):
     """With grad on, flash_attention on CPU tensors goes through its
     autograd Function (forward: the plain version; backward: the plain
     backward) and gives the gradients autograd takes through the plain
-    forward, and it counts no launch."""
+    forward, and it counts no launch.  Its forward saves q, k, v, o and
+    the plain log-sum-exp, which the card's backward reads."""
     kernels.reset_launch_counts()
     g = torch.Generator().manual_seed(3)
     q, k, v = (torch.randn(shape, generator=g).transpose(1, 2)
@@ -566,6 +602,12 @@ def test_flash_function_on_cpu_gives_autograd_of_the_plain_forward(kw):
                for shape in ((2, 21, 4, 32), (2, 21, 2, 32), (2, 21, 2, 32)))
     out = kernels.flash_attention(q, k, v, **kw)
     assert type(out.grad_fn).__name__ == "_FlashBackward"
+    with torch.no_grad():
+        want_o, want_lse = ref.flash_attention_ref(q, k, v, **kw,
+                                                   return_lse=True)
+    saved = out.grad_fn.saved_tensors
+    assert len(saved) == 5 and torch.equal(saved[3], want_o)
+    assert saved[4].shape == (2, 4, 21) and torch.equal(saved[4], want_lse)
     do = torch.randn(out.shape, generator=g)
     got = torch.autograd.grad(out, (q, k, v), do)
     want = torch.autograd.grad(ref.flash_attention_ref(q, k, v, **kw),
@@ -600,6 +642,62 @@ def test_flash_without_grad_is_the_forward_alone():
     with pytest.raises(NotImplementedError, match="item 3b"):
         kernels.flash_attention(q6, k6, v6)
     assert kernels.flash_attention(q6.detach(), k6, v6).shape == (1, 4, 9, 128)
+
+
+def test_flash_return_lse_is_the_forward_alone():
+    """return_lse gives the plain forward's output and log-sum-exp on CPU
+    tensors, with kv_lens too (an append's rows), and refuses inputs that
+    would need the autograd Function."""
+    g = torch.Generator().manual_seed(6)
+    q = torch.randn((2, 4, 9, 32), generator=g)
+    k, v = (torch.randn((2, 2, 30, 32), generator=g) for _ in range(2))
+    lens = torch.tensor([30, 17], dtype=torch.int32)
+    for kw in (dict(window=5, softcap=2.0), dict(kv_lens=lens)):
+        got = kernels.flash_attention(q, k, v, **kw, return_lse=True)
+        want = ref.flash_attention_ref(q, k, v, **kw, return_lse=True)
+        assert got[1].shape == (2, 4, 9)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+    with pytest.raises(ValueError, match="return_lse"):
+        kernels.flash_attention(q.clone().requires_grad_(True), k, k,
+                                return_lse=True)
+
+
+def test_flash_bwd_wrapper_refuses_a_wrong_lse_on_any_device():
+    """An lse of another shape or dtype is refused on CPU and non-CPU
+    tensors alike, before any launch; a non-CPU call without lse is
+    refused (the card's backward reads the forward's); on CPU tensors a
+    right lse is accepted and the plain backward does not need it."""
+    g = torch.Generator().manual_seed(7)
+    q, o, do = (torch.randn((2, 4, 13, 64), generator=g) for _ in range(3))
+    k, v = (torch.randn((2, 1, 13, 64), generator=g) for _ in range(2))
+    for device in ("cpu", "meta"):
+        on = [x.to(device) for x in (q, k, v, o, do)]
+        lse = torch.zeros((2, 4, 13), device=device)
+        for bad in (lse[:, :, :12], lse.transpose(1, 2), lse[:, :1],
+                    lse.double(), lse.bfloat16()):
+            with pytest.raises(ValueError, match="lse"):
+                kernels.flash_attention_bwd(*on, lse=bad)
+    with pytest.raises(ValueError, match="forward's lse"):
+        kernels.flash_attention_bwd(*on)
+    got = kernels.flash_attention_bwd(q, k, v, o, do,
+                                      lse=torch.zeros((2, 4, 13)))
+    want = ref.flash_attention_bwd_ref(q, k, v, do)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def test_flash_bwd_groups_split_only_grids_under_one_block_an_sm():
+    """The bf16 backward's dK/dV launch takes two warp groups a block
+    exactly when its blocks (b x kv heads x key tiles of 64, 32 at dh 256)
+    fit one an SM: GQA over 1000 tokens and gemma2's 1024 (128 blocks of
+    132 SMs), not qwen's training microbatch or hubert's clips."""
+    from repro_torch.kernels.flash_attention import bwd_groups
+    assert bwd_groups(2, 4, 1000, 128, 132) == 2      # 2 x 4 x 16 = 128
+    assert bwd_groups(1, 4, 1024, 256, 132) == 2      # 1 x 4 x 32 = 128
+    assert bwd_groups(4, 16, 1023, 64, 132) == 1      # 1024 blocks
+    assert bwd_groups(2, 16, 1500, 80, 132) == 1      # 768 blocks
+    assert bwd_groups(1, 2, 64 * 66, 64, 132) == 2    # 132: one each
+    assert bwd_groups(1, 2, 64 * 66 + 1, 64, 132) == 1
+    assert bwd_groups(2, 16, 1, 64, 132) == 2
 
 
 def test_flash_bwd_wrapper_on_cpu_is_the_plain_backward():
