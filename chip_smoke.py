@@ -1,6 +1,6 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA H100.
 
-    python3 chip_smoke.py                  # the smoke, phases 1-20
+    python3 chip_smoke.py                  # the smoke, phases 1-21
     python3 chip_smoke.py --persist-ab 10  # offline serving, old persist
                                            # against the scatter's
     python3 chip_smoke.py --split-sweep    # the attention kernels' split
@@ -86,7 +86,17 @@ Drives ``repro_torch`` (never the JAX package) on the card:
    (what the backward reads) is held against the plain one at qwen's
    microbatch (one split) and gemma2's case (split keys: the combine
    writes it), in bf16 and f32, and the forward is timed with and
-   without it;
+   without it; flash's backward also at granite's training microbatch
+   (2 x 1023, 24 over 8 x 64: g 3); and the grouped GEMM's backward
+   (``grouped_gemm_bwd``, MoE training's gradient: dX and dW) against
+   the plain backward and against autograd of the plain forward within
+   TOLS, bit-identical over two calls, at granite's training microbatch
+   (M 16,368 copies, gate/up and down; gate/up in f32), ds27b's
+   4096-token append, llama4's 4096-token prefill (on phase 3's own
+   weight stack) and the tile walk's edges (empty groups, all rows in
+   one group, rows past the groups, M < E, groups past M, M 0); a group
+   boundary moved by one row must fail; dX and dW timed apart beside
+   ``torch._grouped_mm``;
 4. serves 6 agents x 3 rounds of full-width qwen1.5-0.5b (bf16, random
    weights from a seed) offline through the port's ServingSystem,
    asserting that every round finished, both read sides were used and
@@ -231,7 +241,16 @@ Drives ``repro_torch`` (never the JAX package) on the card:
    2 crashing after step 3 and resumed from step 2: losses and final
    parameters equal an uninterrupted run's bit for bit (see
    :func:`train_phase`);
-20. prints the ``kernels`` JSON line, then the contract line
+20. MoE training on granite-moe-3b-a800m at published widths, phase 19's
+   three parts through the same functions: (a) f32 at depth 2, every
+   token of the first batch routed to the same experts on the card and
+   on the CPU, then the gradients and 3 AdamW steps against the CPU; (b)
+   bf16 at full depth (32 layers, 3.3 B parameters), 5 steps of 8 x 1024
+   tokens in granite's 4 microbatches with full remat, through flash,
+   the grouped GEMM and their hand-written backwards, every launch count
+   equal to its prediction; (c) crash and resume at depth 2, bit for
+   bit;
+21. prints the ``kernels`` JSON line, then the contract line
    ``{"ok": true, "device": {...}}`` last.
 
 Any failed check raises, so the script exits non-zero and prints no
@@ -424,6 +443,12 @@ TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO, TRAIN_STEPS = 8, 1024, 2, 6
 TRAIN_LR = 3e-4
 TRAIN_RESUME = dict(depth=2, batch=4, seq=129, micro=2, every=2, crash=3,
                     steps=5)
+# MoE training (phase 20): granite-moe-3b-a800m at published widths, the
+# same three parts: (a) f32 at depth 2 against the CPU, 3 AdamW steps;
+# (b) bf16 at full depth, 8 rows of 1024 tokens in granite's 4
+# microbatches (microbatches_train_4k), full remat, TRAIN_MOE_STEPS steps;
+# (c) crash and resume at depth 2 in bf16
+TRAIN_MOE_BATCH, TRAIN_MOE_STEPS = 8, 5
 # the event simulator (phase 12): (a) the reference's I/O-bound point,
 # DS 660B at 2P4D on Table 2's 64K trajectories; (b)
 # benchmarks/microbench_sim.py's saturated-link workload; (c) a traced
@@ -438,6 +463,7 @@ SIM_TRACED_AGENTS = 48
 KERNEL_ROWS = {"flash_attention": ("flash_",), "paged_attention": ("paged_",),
                "kv_layer_gather": ("gather_kernel",),
                "kv_layer_scatter": ("scatter_kernel",),
+               "grouped_gemm_bwd": ("gg_bwd_",),
                "grouped_gemm": ("gg_",), "mla_decode": ("mla_",),
                "ssd_chunk_scan": ("ssd_",),
                "ssm_step": ("ssm_step_kernel",),
@@ -1859,7 +1885,7 @@ def last_three_attention_cases(rng):
     return flash, paged
 
 
-def llama4_gemm_cases():
+def llama4_gemm_cases(fwd=True, bwd=False) -> tuple:
     """llama4's expert projections (128 experts, top-1, K 5120 -> N 8192
     gate/up and 8192 -> 5120 down), group sizes from the router: the
     4096-token prefill (4096 copies, ~32 rows a group: the append
@@ -1867,7 +1893,9 @@ def llama4_gemm_cases():
     decode regime), each projection's first case of each regime checking
     that a moved group boundary fails, and the 400-token gate/up in f32.
     Each 10.7 GB weight stack (21.5 GB in f32) is built once for its
-    cases and freed before the next."""
+    cases and freed before the next.  Returns (the forward's cases, with
+    ``fwd``; the backward's, with ``bwd``: the prefill's gate/up on the
+    same stack, :func:`_gg_bwd_case`)."""
     import importlib
     from repro_torch.configs import get_config
     gg = importlib.import_module("repro_torch.kernels.grouped_gemm")
@@ -1875,16 +1903,25 @@ def llama4_gemm_cases():
     gen = torch.Generator(device="cuda").manual_seed(27)
     d, f, e = cfg.d_model, cfg.moe.d_ff_expert, cfg.moe.n_experts
     sizes = {t: router_group_sizes(cfg, t, gen) for t in (4096, 400, 8)}
-    cases = []
+    cases, bwd_cases = [], []
     for k, n, proj in ((d, f, "gate/up"), (f, d, "down")):
+        if not fwd and proj == "down":
+            break
         w = expert_weights(gen, e, k, n, torch.bfloat16)
-        cases += [_gg_case(gen, sizes=sizes[t], k=k, n=n, w=w,
-                           planted=t != 400,
-                           label=f"llama4 {what}, {proj}")
-                  for t, what in ((4096, "prefill 4096"),
-                                  (400, "append 400"), (8, "decode"))]
+        if fwd:
+            cases += [_gg_case(gen, sizes=sizes[t], k=k, n=n, w=w,
+                               planted=t != 400,
+                               label=f"llama4 {what}, {proj}")
+                      for t, what in ((4096, "prefill 4096"),
+                                      (400, "append 400"), (8, "decode"))]
+        if bwd and proj == "gate/up":
+            bwd_cases.append(_gg_bwd_case(
+                gen, sizes=sizes[4096], k=k, n=n, w=w,
+                label="llama4 prefill 4096, gate/up"))
         del w
         torch.cuda.empty_cache()
+    if not fwd:
+        return cases, bwd_cases
     w = expert_weights(gen, e, d, f, torch.float32)
     cases.append(_gg_case(gen, sizes=sizes[400], k=d, n=f, w=w,
                           dtype=torch.float32,
@@ -1893,6 +1930,174 @@ def llama4_gemm_cases():
     torch.cuda.empty_cache()
     regimes = {c["shapes"].get("regime") for c in cases}
     assert regimes >= set(gg.REGIMES), f"llama4 regimes held: {regimes}"
+    return cases, bwd_cases
+
+
+# ---------------------------------------------------------------------------
+# phase 3, the grouped GEMM's backward: MoE training's gradient (phase 20),
+# at granite's training microbatch, ds27b's append, llama4's prefill and
+# the tile walk's edges
+# ---------------------------------------------------------------------------
+
+# granite's training microbatch in phase 20 (b): rows of 1024 tokens,
+# 1023 inputs each, TRAIN_MOE_BATCH / micro rows a microbatch
+GRANITE = "granite-moe-3b-a800m"
+# the edges of tests/test_torch_moe.py's WALK_SIZES: (group sizes, M)
+GG_BWD_EDGES = {
+    "empty groups at both ends": ([0, 0, 12, 6, 12, 0, 0, 0], 30),
+    "all rows in one group": ([0, 0, 300, 0], 300),
+    "rows past the groups": ([4, 4, 4, 4, 4, 4, 0, 0], 30),
+    "M < E": ([1, 0, 0, 2, 0, 0, 0, 0, 1, 0], 4),
+    "groups past M": ([20, 20, 20], 33),
+    "M = 0": ([0, 0, 0], 0),
+}
+
+
+def pair_err(got, want, tol: float):
+    """:func:`max_err` over the gradients (dx, dw) that ``want`` holds
+    (None and empty ones skipped), a block of leading rows at a time (so
+    a 10.7 GB dw needs no f32 copy of itself): the largest error, and
+    whether every element of each is within tol + tol * |want|."""
+    errs = []
+    for g, w in zip(got, want):
+        if w is None or not w.numel():
+            continue
+        step = max(1, (1 << 27) // max(1, w[0].numel()))
+        errs += [max_err(g[i:i + step], w[i:i + step], tol)
+                 for i in range(0, w.shape[0], step)]
+    return max((e for e, _ in errs), default=0.0), all(ok for _, ok in errs)
+
+
+def _grouped_mm_bwd_library(x, w, sizes, dy, want):
+    """One pair of PyTorch calls computing the backward, and its name:
+    ``torch._grouped_mm`` for dX (dy against w's transposed view) and for
+    dW (x's transposed view against dy, the groups along the reduction),
+    where this torch has it, for bf16, and every row is in a group; else
+    (None, why not).  It must agree with the plain backward, or it is no
+    yardstick."""
+    fn = getattr(torch, "_grouped_mm", None)
+    if fn is None or x.dtype != torch.bfloat16 or \
+            int(sizes.sum()) != x.shape[0]:
+        return None, "none (bf16 with every row in a group only)"
+    offs = torch.cumsum(sizes, 0, dtype=torch.int32)
+    call = lambda: (fn(dy, w.transpose(1, 2), offs=offs),
+                    fn(x.t(), dy, offs=offs))
+    try:
+        got = call()
+    except (RuntimeError, ValueError) as e:
+        return None, f"none (torch._grouped_mm refused: {str(e)[:100]})"
+    err, ok = pair_err(got, want, TOLS[x.dtype])
+    if not ok:
+        return None, f"none (torch._grouped_mm off by {err:.3g})"
+    return call, "torch._grouped_mm, dX and dW"
+
+
+def _gg_bwd_case(gen, *, sizes, k, n, dtype=torch.bfloat16, planted=False,
+                 label="", w=None, m=None):
+    """``grouped_gemm_bwd`` on x (M, K) and dy (M, N) ~ N(0, 1) and w (E,
+    K, N) of the schema's std 1/sqrt(K) (drawn here, or ``w`` given), M =
+    sum(sizes) unless given: held against the plain backward and against
+    ``torch.autograd`` of the plain forward within TOLS
+    (:func:`pair_err`), bit-identical over two calls; with ``planted``, a
+    group boundary moved by one row must fail.  Timed whole, dX alone
+    and dW alone, with their bounds: 2 x routed rows x K x N operations
+    each; dX's bytes dy's routed rows, the used experts' w and dx, dW's
+    x's and dy's routed rows and the E x K x N dw."""
+    from repro_torch.kernels import grouped_gemm_bwd, ref
+    e = sizes.shape[0]
+    m = int(sizes.sum()) if m is None else m
+    routed = min(int(sizes.clamp_min(0).sum()), m)
+    x = normal(gen, (m, k), dtype)
+    dy = normal(gen, (m, n), dtype)
+    if w is None:
+        w = (torch.randn((e, k, n), generator=gen, device="cuda") /
+             k ** 0.5).to(dtype)
+    assert w.shape == (e, k, n) and w.dtype == dtype, (w.shape, w.dtype)
+    used = int((sizes > 0).sum())
+    shapes = dict(x=[m, k], w=[e, k, n], dy=[m, n], groups_used=used,
+                  largest_group=int(sizes.max()),
+                  dtype=str(dtype).replace("torch.", ""),
+                  **({"case": label} if label else {}))
+    call = lambda: grouped_gemm_bwd(x, w, sizes, dy)
+    got, again = call(), call()
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError(f"grouped_gemm_bwd: two calls gave different "
+                             f"bits at {shapes}")
+    del again
+    want = ref.grouped_gemm_bwd_ref(x, w, sizes, dy)
+    err, ok = pair_err(got, want, TOLS[dtype])
+    if not ok:
+        raise AssertionError(f"grouped_gemm_bwd off by {err} at {shapes}")
+    faults = _planted("grouped_gemm_bwd", want, TOLS[dtype], {
+        "a group boundary moved by one row": ref.grouped_gemm_bwd_ref(
+            x, w, _moved_boundary(sizes), dy)},
+        check=pair_err) if planted else None
+    lib, lib_name = _grouped_mm_bwd_library(x, w, sizes, dy, want)
+    del want
+    xl, wl = (t.detach().requires_grad_(True) for t in (x, w))
+    with torch.enable_grad():
+        y = ref.grouped_gemm_ref(xl, wl, sizes)
+        # no row in a group: y is zeros that depend on nothing
+        auto = torch.autograd.grad(y, (xl, wl), dy) if y.requires_grad \
+            else (torch.zeros_like(x), torch.zeros_like(w))
+    del y
+    auto_err, ok = pair_err(got, auto, TOLS[dtype])
+    if not ok:
+        raise AssertionError(f"grouped_gemm_bwd off by {auto_err} against "
+                             f"autograd of the plain forward at {shapes}")
+    del auto, xl, wl, got
+    torch.cuda.empty_cache()
+    isz = x.element_size()
+    flops = 2 * routed * k * n
+    dx_bytes = (routed * n + used * k * n + m * k) * isz
+    dw_bytes = (routed * k + routed * n + e * k * n) * isz
+    b_ms, b_by = bound(dx_bytes + dw_bytes - routed * n * isz, 2 * flops,
+                       dtype)
+    dx_call = lambda: grouped_gemm_bwd(x, w, sizes, dy, need_dw=False)
+    dw_call = lambda: grouped_gemm_bwd(x, w, sizes, dy, need_dx=False)
+    out = dict(shapes=shapes, max_abs_err=err, autograd_err=auto_err,
+               planted_err=faults, ms=time_ms(call),
+               ms_clean_l2=time_ms(call, clean_l2=True))
+    for part, fn, nbytes in (("dx", dx_call, dx_bytes),
+                             ("dw", dw_call, dw_bytes)):
+        p_ms, p_by = bound(nbytes, flops, dtype)
+        out[part] = dict(ms=time_ms(fn), ms_clean_l2=time_ms(
+            fn, clean_l2=True), bound_ms=p_ms, bound_by=p_by)
+    out.update(
+        plain_ms=time_ms(lambda: ref.grouped_gemm_bwd_ref(x, w, sizes, dy)),
+        library_ms=None if lib is None else time_ms(lib),
+        library_name=lib_name, bound_ms=b_ms, bound_by=b_by)
+    return out
+
+
+def grouped_gemm_bwd_cases() -> list:
+    """The grouped GEMM's backward: granite's training microbatch (2 x
+    1023 tokens, top-8 of 40: M 16,368; gate/up K 1536 -> N 512, and down
+    512 -> 1536; sizes from the router; a moved group boundary must fail)
+    and the gate/up in f32, ds27b's 4096-token append (x (24576, 2560), w
+    (72, 2560, 1536)), and the tile walk's edges at granite's gate/up
+    widths (:data:`GG_BWD_EDGES`).  llama4's case comes with
+    :func:`llama4_gemm_cases`, on its stack."""
+    from repro_torch.configs import get_config
+    gr, ds = get_config(GRANITE), get_config("ds27b")
+    gen = torch.Generator(device="cuda").manual_seed(29)
+    d, f = gr.d_model, gr.moe.d_ff_expert
+    tr = router_group_sizes(gr, TRAIN_MOE_BATCH // gr.microbatches_train_4k
+                            * (TRAIN_SEQ - 1), gen)
+    case = lambda **kw: _gg_bwd_case(gen, **kw)
+    cases = [case(sizes=tr, k=d, n=f, planted=True,
+                  label="granite training 2 x 1023, gate/up"),
+             case(sizes=tr, k=f, n=d, planted=True,
+                  label="granite training 2 x 1023, down"),
+             case(sizes=tr, k=d, n=f, dtype=torch.float32,
+                  label="granite training 2 x 1023, gate/up, f32"),
+             case(sizes=router_group_sizes(ds, 4096, gen),
+                  k=ds.d_model, n=ds.moe.d_ff_expert,
+                  label="ds27b append 4096, gate/up")]
+    for label, (sizes, m) in GG_BWD_EDGES.items():
+        cases.append(case(sizes=torch.tensor(sizes, dtype=torch.int32,
+                                             device="cuda"), m=m, k=d, n=f,
+                          label=label))
     return cases
 
 
@@ -2005,6 +2210,36 @@ def rounded_p_inputs(b=1, h=4, s=1024, dh=64, device="cuda"):
     return tuple(x.transpose(1, 2) for x in (z, k, z.clone(), do))
 
 
+def forward_with_lse_row(q, k, v, kw, fwd_lse) -> dict:
+    """The forward that autograd runs (o and each row's lse, ``fwd_lse``)
+    timed with a clean L2, beside the plain forward with its lse, one
+    PyTorch call computing both (``_scaled_dot_product_flash_attention``,
+    which returns the log-sum-exp, K and V repeated to the query heads;
+    None where this torch lacks it or the mask has a window or softcap)
+    and the bound: q, k, v and o read or written once and the lse
+    written, against 4 x dh operations per valid (query, key) pair."""
+    from repro_torch.kernels import ref
+    b, hq, s, dh = q.shape
+    g = hq // k.shape[1]
+    sdpa = getattr(torch.ops.aten, "_scaled_dot_product_flash_attention",
+                   None)
+    library = None
+    if sdpa is not None and not kw["window"] and not kw["softcap"]:
+        kl, vl = k.repeat_interleave(g, 1), v.repeat_interleave(g, 1)
+        library = lambda: sdpa(q, kl, vl, 0.0, kw["causal"])
+    isz = q.element_size()
+    pairs = attention_pairs(s, kw["causal"], kw["window"]) * b * hq
+    b_ms, b_by = bound(2 * (q.numel() + k.numel()) * isz + 4 * b * hq * s,
+                       4 * dh * pairs, q.dtype)
+    return dict(ms_clean_l2=time_ms(fwd_lse, clean_l2=True),
+                plain_ms=time_ms(lambda: ref.flash_attention_ref(
+                    q, k, v, **kw, return_lse=True)),
+                library_ms=None if library is None else time_ms(library),
+                library_name="_scaled_dot_product_flash_attention (o and "
+                             "lse)" if library else None,
+                bound_ms=b_ms, bound_by=b_by)
+
+
 def _bwd_case(gen, *, b, hq, hkv, dh, s, dtype=torch.bfloat16, causal=True,
               softcap=0.0, window=0, q_std=1.0, planted=(), parts=False,
               inputs=None, label="", lse_check=False, fwd_ab=False):
@@ -2019,7 +2254,8 @@ def _bwd_case(gen, *, b, hq, hkv, dh, s, dtype=torch.bfloat16, causal=True,
     within LSE_TOL, in this dtype and in the other of bf16 and f32, and
     the case says whether the forward's plan split its keys (then the
     combine wrote the lse).  With ``fwd_ab`` the forward is timed with and
-    without its lse.  Timed beside the plain backward and SDPA's backward
+    without its lse, and with it beside its plain version, a library call
+    and its bound (:func:`forward_with_lse_row`).  Timed beside the plain backward and SDPA's backward
     (causal or not, no window and no softcap, K and V repeated to the
     query heads), with the bound of its five products' flops over the
     valid pairs (the recomputed scores included) or its bytes."""
@@ -2057,7 +2293,7 @@ def _bwd_case(gen, *, b, hq, hkv, dh, s, dtype=torch.bfloat16, causal=True,
         shapes["fwd_split"] = plan(
             b, hq, hkv, s, s, sm_count(q.get_device()),
             dtype == torch.bfloat16)[0]
-    fwd_ms = None
+    fwd_ms = fwd_lse_row = None
     if fwd_ab:
         fwd = lambda: flash_attention(q, k, v, **kw)
         fwd_lse = lambda: flash_attention(q, k, v, **kw, return_lse=True)
@@ -2065,6 +2301,7 @@ def _bwd_case(gen, *, b, hq, hkv, dh, s, dtype=torch.bfloat16, causal=True,
         for name in ("without lse", "with lse", "with lse ", "without lse "):
             fwd_ms.setdefault(name.strip(), []).append(
                 time_ms(fwd_lse if name.startswith("with ") else fwd))
+        fwd_lse_row = forward_with_lse_row(q, k, v, kw, fwd_lse)
     call = lambda: flash_attention_bwd(q, k, v, o, do, lse=lse, **kw)
     got, again = call(), call()
     if not all(torch.equal(x, y) for x, y in zip(got, again)):
@@ -2100,7 +2337,7 @@ def _bwd_case(gen, *, b, hq, hkv, dh, s, dtype=torch.bfloat16, causal=True,
                        10 * dh * pairs, dtype)
     return dict(
         shapes=shapes, max_abs_err=err, rel_err=rel, planted_err=faults,
-        lse_err=lse_errs, fwd_ms=fwd_ms,
+        lse_err=lse_errs, fwd_ms=fwd_ms, fwd_lse=fwd_lse_row,
         ms=time_ms(call), ms_clean_l2=time_ms(call, clean_l2=True),
         parts_ms=kernel_parts(call) if parts else None,
         plain_ms=time_ms(lambda: ref.flash_attention_bwd_ref(q, k, v, do,
@@ -2116,13 +2353,14 @@ def flash_bwd_cases():
     softcap 50 over 1024 tokens (q scaled by ``BWD_Q_STD``; the softcap's
     derivative dropped and the last 64-key tile skipped must fail), s 1
     and s 77 (D dropped must fail), f32 at dh 64, and
-    :func:`rounded_p_inputs` (P left unrounded in dV must fail).  The
+    :func:`rounded_p_inputs` (P left unrounded in dV must fail), and
+    granite's training microbatch (2 x 1023, 24 over 8 x 64: g 3).  The
     forward's lse is held against the plain one at qwen's microbatch
     (one split) and gemma2's case (split keys), in bf16 and f32, and the
     forward is timed with and without it at qwen's microbatch."""
     from repro_torch.configs import get_config
-    qw, hb, g2 = (get_config(a) for a in ("qwen1.5-0.5b", HUBERT,
-                                          "gemma2-2b"))
+    qw, hb, g2, gr = (get_config(a) for a in ("qwen1.5-0.5b", HUBERT,
+                                              "gemma2-2b", GRANITE))
     gen = torch.Generator(device="cuda").manual_seed(28)
     heads = lambda c: dict(hq=c.n_heads, hkv=c.n_kv_heads, dh=c.head_dim)
     case = lambda c, **kw: _bwd_case(gen, **{**heads(c), **kw})
@@ -2141,6 +2379,8 @@ def flash_bwd_cases():
         _bwd_case(gen, b=1, hq=4, hkv=4, dh=64, s=1024,
                   inputs=rounded_p_inputs(), planted=(
                       "P left unrounded in dV",), label="rounded P"),
+        case(gr, b=TRAIN_MOE_BATCH // gr.microbatches_train_4k,
+             s=TRAIN_SEQ - 1, parts=True, label="granite g 3"),
     ]
 
 
@@ -2152,7 +2392,8 @@ KERNEL_SOURCES = {"kv_layer_gather": "kv_gather",
                   "grouped_gemm": "grouped_gemm", "mla_decode": "mla_decode",
                   "ssd_chunk_scan": "ssd_scan", "ssm_step": "ssm_step",
                   "causal_conv": None,
-                  "flash_attention_bwd": "flash_attention_bwd"}
+                  "flash_attention_bwd": "flash_attention_bwd",
+                  "grouped_gemm_bwd": "grouped_gemm_bwd"}
 
 
 def kernel_cases(names=None) -> dict:
@@ -2223,6 +2464,12 @@ def kernel_cases(names=None) -> dict:
                 cases[name] += more
     if want("grouped_gemm"):
         cases["grouped_gemm"] += granite_gemm_cases()
+    if want("grouped_gemm_bwd"):
+        t1 = time.perf_counter()
+        cases["grouped_gemm_bwd"] = grouped_gemm_bwd_cases()
+        print(f"phase 3, the grouped GEMM's backward at granite's and "
+              f"ds27b's shapes and the walk's edges: "
+              f"{time.perf_counter() - t1:.1f} s")
     cfg_z2 = get_config("zamba2-2.7b")
     if want("flash_attention", "paged_attention"):
         flash_z, paged_z = zamba2_attention_cases(cfg_z2, rng)
@@ -2245,9 +2492,15 @@ def kernel_cases(names=None) -> dict:
                            ("paged_attention", paged_3)):
             if name in cases:
                 cases[name] += more
-    if want("grouped_gemm"):
-        cases["grouped_gemm"] += llama4_gemm_cases()
-    if want("flash_attention", "paged_attention", "grouped_gemm"):
+    if want("grouped_gemm", "grouped_gemm_bwd"):
+        fwd_l4, bwd_l4 = llama4_gemm_cases(fwd=want("grouped_gemm"),
+                                           bwd=want("grouped_gemm_bwd"))
+        for name, more in (("grouped_gemm", fwd_l4),
+                           ("grouped_gemm_bwd", bwd_l4)):
+            if name in cases:
+                cases[name] += more
+    if want("flash_attention", "paged_attention", "grouped_gemm",
+            "grouped_gemm_bwd"):
         print(f"phase 3, llama4's, llava's and hubert's cases: "
               f"{time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
@@ -2279,6 +2532,15 @@ def print_cases(cases: dict) -> None:
                   + ("" if not c.get("parts_ms") else
                      "; warm " + ", ".join(f"{k} {v:.4f} ms"
                                            for k, v in c["parts_ms"].items()))
+                  + ("" if "dx" not in c else "; " + ", ".join(
+                      f"{p} alone {c[p]['ms']:.4f} ms (clean L2 "
+                      f"{c[p]['ms_clean_l2']:.4f} ms, bound "
+                      f"{c[p]['bound_ms']:.4f} ms by {c[p]['bound_by']}, "
+                      f"{100 * c[p]['bound_ms'] / c[p]['ms']:.1f} % of it)"
+                      for p in ("dx", "dw")))
+                  + ("" if "autograd_err" not in c else
+                     f"; against autograd of the plain forward "
+                     f"{c['autograd_err']:.3g}")
                   + ("" if "rel_err" not in c else
                      f"; largest error over the largest |value| "
                      f"{c['rel_err']:.3g}")
@@ -2289,6 +2551,15 @@ def print_cases(cases: dict) -> None:
                      "; forward " + ", ".join(
                          f"{k} " + " / ".join(f"{x:.4f}" for x in v) + " ms"
                          for k, v in c["fwd_ms"].items()))
+                  + ("" if not c.get("fwd_lse") else
+                     "; the forward with its lse: clean L2 "
+                     f"{c['fwd_lse']['ms_clean_l2']:.4f} ms, plain "
+                     f"{c['fwd_lse']['plain_ms']:.4f} ms, library "
+                     + ("n/a" if c["fwd_lse"]["library_ms"] is None else
+                        f"{c['fwd_lse']['library_ms']:.4f} ms "
+                        f"({c['fwd_lse']['library_name']})")
+                     + f", bound {c['fwd_lse']['bound_ms']:.4f} ms "
+                     f"({c['fwd_lse']['bound_by']})")
                   + ("" if not c.get("planted_err") else
                      "; planted faults fail: " + ", ".join(
                          f"{k} err {v:.3g}"
@@ -4147,18 +4418,57 @@ def hubert_phase(cfg, device="cuda", clips=HUBERT_CLIPS,
 
 
 # ---------------------------------------------------------------------------
-# phase 19: training and checkpoints (qwen1.5-0.5b)
+# phases 19 and 20: training and checkpoints (qwen1.5-0.5b, then the MoE
+# granite-moe-3b-a800m)
 # ---------------------------------------------------------------------------
+
+
+class RouteRecorder(MethodPatch):
+    """Every ``models.moe.route`` call's expert indices, on the host, in
+    call order, while entered (one per MoE layer of a forward, again for
+    remat's recompute)."""
+
+    def __init__(self):
+        from repro_torch.models import moe
+        self.idx = []
+
+        def wrap(fn):
+            def recorded(*args, **kw):
+                vals, idx = fn(*args, **kw)
+                self.idx.append(idx.cpu())
+                return vals, idx
+            return recorded
+
+        super().__init__(moe, "route", wrap)
+
+
+def same_routes(card: list, host: list) -> int:
+    """Raise unless both devices routed every token of every MoE layer
+    call to the same experts, naming the first call and token that
+    differ; returns the number of routed (token, slot)s compared."""
+    assert len(card) == len(host), (len(card), len(host))
+    for call, (a, b) in enumerate(zip(card, host)):
+        if not torch.equal(a, b):
+            t = int((a != b).any(dim=-1).nonzero()[0])
+            raise AssertionError(
+                f"MoE route call {call} (layers in order, remat's recompute "
+                f"after the forward) sends token {t} to experts "
+                f"{a[t].tolist()} on the card, {b[t].tolist()} on the CPU")
+    return sum(a.numel() for a in card)
 
 
 def train_identity(cfg, device="cuda", depth=2, batch=2, seq=129, micro=2,
                    steps=3, lr=TRAIN_LR) -> dict:
-    """(a) f32 at ``depth`` layers from one ``init_params`` seed: the first
-    batch's gradients on ``device`` equal the port's CPU path's (the
-    kernels' plain versions) within 1e-4 of each leaf's largest |g|, and
-    ``steps`` AdamW steps give losses within 1e-4 relative.  Each step is
+    """(a) f32 at ``depth`` layers from one ``init_params`` seed: for an
+    MoE model, the first batch's every MoE layer routes every token to the
+    same experts on ``device`` as on the CPU (so that a failure below says
+    whether routing or arithmetic differs); the first batch's gradients
+    on ``device`` equal the port's CPU path's (the kernels' plain
+    versions) within 1e-4 of each leaf's largest |g|, and ``steps`` AdamW
+    steps give losses within 1e-4 relative.  Each step is
     ``make_train_step``'s composition, ``loss_and_grads`` then the
     optimizer's update, taken apart to keep the first gradients."""
+    import contextlib
     from repro_torch.models import init_params
     from repro_torch.training import (SyntheticLM, loss_and_grads,
                                       make_optimizer)
@@ -4168,19 +4478,25 @@ def train_identity(cfg, device="cuda", depth=2, batch=2, seq=129, micro=2,
     host = tree_map(lambda t: t.to("cpu", copy=True), card)
     pipe = SyntheticLM(cfg.vocab_size, batch, seq, seed=4)
     batches = [pipe.next_batch() for _ in range(steps)]
-    losses, first = {}, {}
+    losses, first, routes = {}, {}, {}
     for name, params in (("card", card), ("host", host)):
         opt_init, opt_update = make_optimizer(cfg32.optimizer,
                                               cfg32.opt_state_dtype)
         opt = opt_init(params)
         losses[name] = []
         for bt in batches:
-            loss, grads = loss_and_grads(params, cfg32, bt,
-                                         n_microbatches=micro)
+            record = RouteRecorder() if cfg.family == "moe" and \
+                name not in first else contextlib.nullcontext()
+            with record:
+                loss, grads = loss_and_grads(params, cfg32, bt,
+                                             n_microbatches=micro)
+            if isinstance(record, RouteRecorder):
+                routes[name] = record.idx
             first.setdefault(name, grads)
             params, opt = opt_update(params, grads, opt, lr=lr)
             losses[name].append(float(loss))
         del params, opt, grads
+    routed = same_routes(routes["card"], routes["host"]) if routes else 0
     worst = 0.0
     for (path, gc_), gh in zip(leaves_with_paths(first["card"]),
                                leaves(first["host"])):
@@ -4194,17 +4510,24 @@ def train_identity(cfg, device="cuda", depth=2, batch=2, seq=129, micro=2,
                                                   losses["host"]))
     assert rel <= 1e-4, f"f32 losses {losses['card']} against the CPU's " \
         f"{losses['host']}"
-    return dict(losses=losses, loss_rel_err=rel, grad_rel_err=worst)
+    return dict(losses=losses, loss_rel_err=rel, grad_rel_err=worst,
+                routed_compared=routed)
 
 
 def predicted_train_launches(cfg, steps: int, micro: int, remat) -> dict:
-    """A dense model's training launches: per layer and microbatch, flash
+    """A GQA model's training launches: per layer and microbatch, flash
     forward once, and once more when full remat recomputes the block in
-    the backward, and flash's backward once; nothing else."""
+    the backward, and flash's backward once; per MoE layer and
+    microbatch, the grouped GEMM three times (gate, up, down) and three
+    more under remat, and its backward three times (one call each for
+    the three products' dX and dW); nothing else."""
+    runs = (2 if remat else 1) * micro * steps
+    n_moe = sum(cfg.moe_layer_mask()) if cfg.family == "moe" else 0
     out = {k: 0 for k in KERNEL_SOURCES}
-    out.update(flash_attention=(2 if remat else 1) * cfg.n_layers * micro *
-               steps,
-               flash_attention_bwd=cfg.n_layers * micro * steps)
+    out.update(flash_attention=runs * cfg.n_layers,
+               flash_attention_bwd=cfg.n_layers * micro * steps,
+               grouped_gemm=3 * runs * n_moe,
+               grouped_gemm_bwd=3 * n_moe * micro * steps)
     return out
 
 
@@ -4283,10 +4606,12 @@ def train_phase(cfg, device="cuda", identity=TRAIN_IDENTITY,
                 batch=TRAIN_BATCH, seq=TRAIN_SEQ, micro=TRAIN_MICRO,
                 steps=TRAIN_STEPS, lr=TRAIN_LR, resume=TRAIN_RESUME,
                 remat="full", profile=True) -> dict:
-    """Phase 19: training and checkpoints on qwen1.5-0.5b at published
-    widths.  (a) :func:`train_identity`; (b) the slice's path at full
-    depth in bf16 (``make_train_step`` -> ``loss_fn`` -> ``forward``
-    through flash and its hand-written backward -> AdamW): finite losses,
+    """Phases 19 and 20: training and checkpoints on ``cfg`` at published
+    widths, ``micro`` microbatches a step (qwen1.5-0.5b's 2, granite's 4).
+    (a) :func:`train_identity`; (b) the slice's path at full depth in bf16
+    (``make_train_step`` -> ``loss_fn`` -> ``forward`` through flash and
+    its hand-written backward, and for an MoE model the grouped GEMM and
+    its hand-written backward -> AdamW): finite losses,
     the last below the first, and on the card every launch count equal
     to :func:`predicted_train_launches`; host seconds per step (the
     median of steps 2 on), trained tokens per real second, the peak of
@@ -4344,14 +4669,18 @@ def train_phase(cfg, device="cuda", identity=TRAIN_IDENTITY,
     return out
 
 
-def print_train_phase(r: dict) -> None:
+def print_train_phase(r: dict, label: str = "train") -> None:
     idn, rs = r["identity"], r["resume"]
-    print(f"train (a) f32 at depth {idn['depth']}, card against "
-          f"the CPU: losses {idn['losses']['card']} vs "
+    print(f"{label} (a) f32 at depth {idn['depth']}, card against "
+          f"the CPU: "
+          + (f"{idn['routed_compared']} routed (token, slot)s of the first "
+             f"batch sent to the same experts on both; "
+             if idn["routed_compared"] else "")
+          + f"losses {idn['losses']['card']} vs "
           f"{idn['losses']['host']} (max rel err {idn['loss_rel_err']:.3g}), "
           f"first-step gradients within {idn['grad_rel_err']:.3g} of each "
           f"leaf's largest |g|")
-    print(f"train (b) bf16 at full depth, {r['batch']} x {r['seq']} tokens "
+    print(f"{label} (b) bf16 at full depth, {r['batch']} x {r['seq']} tokens "
           f"in {r['micro']} microbatches: losses {r['losses']}; host s per "
           f"step {[round(w, 4) for w in r['walls_s']]}, median of steps 2-"
           f"{r['steps']} {r['step_s']:.4f} s, {r['tokens_per_s']:.1f} "
@@ -4359,8 +4688,8 @@ def print_train_phase(r: dict) -> None:
           f"memory_allocated {r['peak_allocated']} bytes over the "
           f"{r['base_allocated']} held before the phase's weights")
     if r["profile"]:
-        print_profile(*r["profile"], label="train (b) one step: ")
-    print(f"train (c) crash after step {rs['crash']}, resumed at "
+        print_profile(*r["profile"], label=f"{label} (b) one step: ")
+    print(f"{label} (c) crash after step {rs['crash']}, resumed at "
           f"step {rs['resumed_at']}, run to {rs['steps']}: losses "
           f"and final parameters equal the uninterrupted run's bit for bit "
           f"({rs['losses']}); saves (s, bytes) "
@@ -4978,7 +5307,18 @@ def main() -> int:
     print_train_phase(tr)
     lap("19")
 
-    # 20. kernels line, then the contract line
+    # 20. MoE training: granite-moe-3b-a800m through the grouped GEMM's
+    # hand-written backward
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg_gr = get_config(GRANITE)
+    trm = train_phase(cfg_gr, batch=TRAIN_MOE_BATCH,
+                      micro=cfg_gr.microbatches_train_4k,
+                      steps=TRAIN_MOE_STEPS)
+    print_train_phase(trm, "moe train")
+    lap("20")
+
+    # 21. kernels line, then the contract line
     meta = {
         "kv_layer_gather": ("src/repro_torch/kernels/csrc/kv_gather.cu",
                             "src/repro/kernels/kv_gather.py:30"),
@@ -5002,14 +5342,18 @@ def main() -> int:
         "causal_conv": ("src/repro_torch/kernels/causal_conv.py",
                         "src/repro/models/ssm.py:31"),
         # no Pallas counterpart: the reference's training differentiates
-        # its jnp attention with XLA
+        # its jnp attention with XLA, and transposes jax.lax.ragged_dot
         "flash_attention_bwd": (
             "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
             "src/repro/models/layers.py:100"),
+        "grouped_gemm_bwd": (
+            "src/repro_torch/kernels/csrc/grouped_gemm_bwd.cu",
+            "src/repro/models/moe.py:64"),
     }
     # the main path each kernel's launches are read from: the offline
     # qwen run for the four of every path, ds27b's for its own two,
-    # mamba2's for the SSM family's three, training's for flash's backward
+    # mamba2's for the SSM family's three, qwen's training for flash's
+    # backward, granite's training for the grouped GEMM's
     main_path = {name: launches[name] for name in GQA_KERNELS}
     main_path.update({name: ds["launches"][name]
                       for name in ("grouped_gemm", "mla_decode")})
@@ -5017,6 +5361,7 @@ def main() -> int:
                       for name in ("ssd_chunk_scan", "ssm_step",
                                    "causal_conv")})
     main_path["flash_attention_bwd"] = tr["launches"]["flash_attention_bwd"]
+    main_path["grouped_gemm_bwd"] = trm["launches"]["grouped_gemm_bwd"]
     short = {"granite-moe-3b-a800m": "granite", "minicpm-2b": "minicpm",
              "nemotron-4-15b": "nemotron"}
     line = []
@@ -5044,7 +5389,8 @@ def main() -> int:
                                   llava=lv["launches"][name],
                                   llava_vlm=lv["vlm"]["launches"][name],
                                   hubert=hb["launches"][name],
-                                  train=tr["launches"][name]),
+                                  train=tr["launches"][name],
+                                  train_moe=trm["launches"][name]),
             max_abs_err=max(c["max_abs_err"] for c in cs),
             ms=main_case["ms"], kernel_ms=main_case["ms"],
             ms_clean_l2=main_case.get("ms_clean_l2"),

@@ -8,8 +8,10 @@ layers this lands at ~398 B total / ~17 B active parameters, matching
 the 400b-a17b designation.
 
 The training fields (optimizer, its state dtype, microbatches) are the
-reference's, carried so the two configs compare field for field; the
-port serves this model and does not train it.
+reference's, carried so the two configs compare field for field.  The
+port serves this model and trains it (the MoE family's path, through the
+grouped GEMM's backward), tested at reduced size; at published width its
+f32 gradient accumulators alone outgrow one card (74 GB at depth 2).
 """
 from repro_torch.configs.base import ModelConfig, MoEConfig, register
 

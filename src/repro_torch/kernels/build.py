@@ -25,7 +25,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 SOURCES = ("kv_gather", "kv_scatter", "flash_attention", "paged_attention",
            "grouped_gemm", "mla_decode", "ssd_scan", "ssm_step",
-           "flash_attention_bwd")
+           "flash_attention_bwd", "grouped_gemm_bwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -115,8 +115,6 @@ def require_cuda(kernel: str, *tensors: torch.Tensor) -> None:
 
 # the later slices (ROADMAP Queue 1) that bring the backwards the port does
 # not have yet, as the guards name them
-MOE_TRAINING = ("MoE training, with a grouped_gemm backward, is ROADMAP "
-                "Queue 1 item 3a")
 MLA_TRAINING = ("MLA training, with flash's backward at (192, 128), is "
                 "ROADMAP Queue 1 item 3b")
 SSM_TRAINING = ("SSM and hybrid training, with ssd_chunk_scan and "

@@ -8,7 +8,8 @@
 // accumulation, written in x's dtype.  Rows past the groups are written
 // as 0; groups past row M are cut at M.  The host never reads the group
 // sizes: the grid is sized from the shapes, and every block derives the
-// tile list from the sizes on the device (walk_init / walk_tile).
+// tile list from the sizes on the device (walk_init / walk_tile, in
+// gg_walk.cuh, shared with the backward's dX).
 //
 // The tile walk (both bf16 regimes): each group's rows are cut into row
 // tiles of bm rows (128 in the append regime, 8 in the decode regime),
@@ -79,77 +80,15 @@
 // per row-tile slot of the same walk (column tiles on the grid's y).  TF32 tensor cores would
 // break the 2e-5 tolerance; the path serves the f32 identity check.
 #include "attn_common.cuh"
+#include "gg_walk.cuh"
 #include "hopper.cuh"
 
 namespace {
 
 using namespace attn;
+using namespace gg;
 using namespace hopper;
 using bf16 = __nv_bfloat16;
-
-// ---------------------------------------------------------------------------
-// the tile walk
-// ---------------------------------------------------------------------------
-
-constexpr int MAX_GROUPS = 512;
-
-// rt[e]: first row tile of group e (rt[E]: the first past the groups);
-// off[e]: first row of group e (off[E]: the first row past the groups)
-struct Walk {
-  int rt[MAX_GROUPS + 1];
-  int off[MAX_GROUPS + 1];
-};
-
-// the rows and columns of one tile: group e (-1: rows past the groups,
-// to be zeroed), rows [row0, row0 + rows), column tile ct
-struct Tile {
-  int e, row0, rows, ct;
-};
-
-// all threads; ends with a __syncthreads
-__device__ void walk_init(Walk& w, const int* __restrict__ gs, int n_groups,
-                          int m, int bm) {
-  for (int e = threadIdx.x; e < n_groups; e += blockDim.x)
-    w.rt[e + 1] = gs[e];
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    int off = 0, rt = 0;
-    w.rt[0] = 0;
-    w.off[0] = 0;
-    for (int e = 0; e < n_groups; ++e) {
-      const int rows = min(max(w.rt[e + 1], 0), m - off);
-      off += rows;
-      rt += (rows + bm - 1) / bm;
-      w.rt[e + 1] = rt;
-      w.off[e + 1] = off;
-    }
-  }
-  __syncthreads();
-}
-
-__device__ __forceinline__ int walk_tiles(const Walk& w, int n_groups, int m,
-                                          int bm, int n_ct) {
-  return (w.rt[n_groups] + (m - w.off[n_groups] + bm - 1) / bm) * n_ct;
-}
-
-__device__ Tile walk_tile(const Walk& w, int n_groups, int m, int bm,
-                          int n_ct, int t) {
-  const int rt = t / n_ct, ct = t - rt * n_ct;
-  if (rt >= w.rt[n_groups]) {
-    const int r0 = w.off[n_groups] + (rt - w.rt[n_groups]) * bm;
-    return {-1, r0, min(bm, m - r0), ct};
-  }
-  int lo = 0, hi = n_groups - 1;         // the last group starting at or
-  while (lo < hi) {                      // before row tile rt
-    const int mid = (lo + hi + 1) >> 1;
-    if (w.rt[mid] <= rt)
-      lo = mid;
-    else
-      hi = mid - 1;
-  }
-  const int r0 = w.off[lo] + (rt - w.rt[lo]) * bm;
-  return {lo, r0, min(bm, w.off[lo + 1] - r0), ct};
-}
 
 // rows past the groups: y[row0 .. row0 + rows, c0 .. c0 + cols) = 0
 // (cols a multiple of 8, y rows 16-byte aligned)

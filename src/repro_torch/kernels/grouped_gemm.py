@@ -15,6 +15,13 @@ on its N side) for few.  Both walk the same tile list, which every block
 derives on the device from the group sizes; :func:`tile_walk` is its
 plain-Python copy.  On CPU tensors it computes the plain version, one
 matmul per group.
+
+Training: when grad mode is on and x or w requires grad, the call goes
+through an autograd Function (:class:`_GroupedGemm`) whose forward is the
+same launch and whose backward is :func:`grouped_gemm_bwd`
+(``csrc/grouped_gemm_bwd.cu`` on CUDA tensors, ``ref.grouped_gemm_bwd_ref``
+on CPU tensors), asked only for the gradients autograd needs.  The
+reference has no backward kernel: XLA transposes ``jax.lax.ragged_dot``.
 """
 from __future__ import annotations
 
@@ -79,39 +86,89 @@ def _fn():
     return fn
 
 
-def grouped_gemm(x: torch.Tensor, w: torch.Tensor,
-                 group_sizes: torch.Tensor) -> torch.Tensor:
-    """x (M, K); w (E, K, N); group_sizes (E,) int32 -> y (M, N)."""
+@functools.cache
+def _bwd_fn():
+    fn = build.library("grouped_gemm_bwd").grouped_gemm_bwd
+    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 6 +
+                   [ctypes.c_int] * 4 + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _check_shapes(kernel, x, w, group_sizes):
     m, k = x.shape
     e, k_w, n = w.shape
     if k_w != k or group_sizes.shape != (e,):
-        raise ValueError(f"grouped_gemm: shapes x {tuple(x.shape)} w "
+        raise ValueError(f"{kernel}: shapes x {tuple(x.shape)} w "
                          f"{tuple(w.shape)} group_sizes "
                          f"{tuple(group_sizes.shape)}")
-    build.require_no_grad("grouped_gemm", build.MOE_TRAINING, x, w)
+    return m, k, e, n
+
+
+def _check_cuda(kernel, x, w, group_sizes, *more):
+    """The kernels' contract on CUDA tensors: one device, float32 or
+    bfloat16 throughout, int32 sizes, contiguous, at most ``MAX_GROUPS``
+    groups; bf16 needs K and N multiples of 8 and 16-byte aligned
+    pointers."""
+    build.require_cuda(kernel, x, w, group_sizes, *more)
+    if x.dtype not in build.ATTN_DTYPES or any(
+            t.dtype != x.dtype for t in (w, *more)) \
+            or group_sizes.dtype != torch.int32:
+        raise ValueError(f"{kernel}: dtypes "
+                         f"{[t.dtype for t in (x, w, *more)]} "
+                         f"{group_sizes.dtype}; need all float32 or all "
+                         f"bfloat16, and int32 sizes")
+    if not all(t.is_contiguous() for t in (x, w, group_sizes, *more)):
+        raise ValueError(f"{kernel}: x, w and group_sizes must be "
+                         f"contiguous")
+    e, k, n = w.shape
+    if e > MAX_GROUPS:
+        raise ValueError(f"{kernel}: at most {MAX_GROUPS} groups, got {e}")
+    if x.dtype == torch.bfloat16 and (k % 8 or n % 8):
+        raise ValueError(f"{kernel}: bf16 needs K and N multiples of 8, "
+                         f"got {k}, {n}")
+
+
+def grouped_gemm(x: torch.Tensor, w: torch.Tensor,
+                 group_sizes: torch.Tensor) -> torch.Tensor:
+    """x (M, K); w (E, K, N); group_sizes (E,) int32 -> y (M, N),
+    differentiable in x and w (see the module's docstring)."""
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        return _GroupedGemm.apply(x, w, group_sizes)
+    return _forward(x, w, group_sizes)
+
+
+class _GroupedGemm(torch.autograd.Function):
+    """The grouped GEMM with :func:`grouped_gemm_bwd` as its backward;
+    x, w and the sizes are saved for it (under remat the recomputed
+    forward saves them again)."""
+
+    @staticmethod
+    def forward(ctx, x, w, group_sizes):
+        ctx.save_for_backward(x, w, group_sizes)
+        return _forward(x, w, group_sizes)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w, group_sizes = ctx.saved_tensors
+        dx, dw = grouped_gemm_bwd(x, w, group_sizes, dy,
+                                  need_dx=ctx.needs_input_grad[0],
+                                  need_dw=ctx.needs_input_grad[1])
+        return dx, dw, None
+
+
+def _forward(x, w, group_sizes):
+    """The forward alone: the kernel on CUDA tensors, the plain version
+    on CPU tensors."""
+    m, k, e, n = _check_shapes("grouped_gemm", x, w, group_sizes)
     if x.device.type == "cpu":
         return ref.grouped_gemm_ref(x, w, group_sizes)
-    build.require_cuda("grouped_gemm", x, w, group_sizes)
-    if x.dtype not in build.ATTN_DTYPES or w.dtype != x.dtype \
-            or group_sizes.dtype != torch.int32:
-        raise ValueError(f"grouped_gemm: dtypes {x.dtype} {w.dtype} "
-                         f"{group_sizes.dtype}; need float32 or bfloat16 "
-                         f"and int32 sizes")
-    if not (x.is_contiguous() and w.is_contiguous()
-            and group_sizes.is_contiguous()):
-        raise ValueError("grouped_gemm: x, w and group_sizes must be "
-                         "contiguous")
+    _check_cuda("grouped_gemm", x, w, group_sizes)
     y = torch.empty((m, n), dtype=x.dtype, device=x.device)
     if m == 0 or n == 0:
         return y
-    if e > MAX_GROUPS:
-        raise ValueError(f"grouped_gemm: at most {MAX_GROUPS} groups, got "
-                         f"{e}")
     mode = regime(m, e, k, n)
     if x.dtype == torch.bfloat16:
-        if k % 8 or n % 8:
-            raise ValueError(f"grouped_gemm: bf16 needs K and N multiples "
-                             f"of 8, got {k}, {n}")
         build.require_aligned(
             "grouped_gemm", {"x": x.data_ptr(), "w": w.data_ptr(),
                              "y": y.data_ptr()}, {}, x.element_size())
@@ -124,3 +181,45 @@ def grouped_gemm(x: torch.Tensor, w: torch.Tensor,
 
 
 grouped_gemm.launches = 0
+
+
+def grouped_gemm_bwd(x: torch.Tensor, w: torch.Tensor,
+                     group_sizes: torch.Tensor, dy: torch.Tensor, *,
+                     need_dx: bool = True, need_dw: bool = True) -> tuple:
+    """The gradient of :func:`grouped_gemm` for the cotangent dy (M, N):
+    (dx (M, K) in x's dtype, rows past the groups 0; dw (E, K, N) in w's
+    dtype, 0 for an empty group), None for a gradient not asked for.  On
+    CUDA tensors one call runs ``csrc/grouped_gemm_bwd.cu``'s dX and dW
+    kernels (either alone when only one is asked for), counted once; on
+    CPU tensors it is ``ref.grouped_gemm_bwd_ref``."""
+    m, k, e, n = _check_shapes("grouped_gemm_bwd", x, w, group_sizes)
+    if dy.shape != (m, n):
+        raise ValueError(f"grouped_gemm_bwd: dy {tuple(dy.shape)}, need "
+                         f"{(m, n)}")
+    if 0 in (k, n, e) or not (need_dx or need_dw):
+        return (torch.zeros_like(x) if need_dx else None,
+                torch.zeros_like(w) if need_dw else None)
+    if x.device.type == "cpu":
+        return ref.grouped_gemm_bwd_ref(x, w, group_sizes, dy, need_dx,
+                                        need_dw)
+    # autograd's cotangent may arrive in another layout or dtype
+    dy = dy.to(x.dtype).contiguous()
+    _check_cuda("grouped_gemm_bwd", x, w, group_sizes, dy)
+    dx = torch.empty_like(x) if need_dx else None
+    dw = torch.empty_like(w) if need_dw else None
+    if x.dtype == torch.bfloat16:
+        build.require_aligned(
+            "grouped_gemm_bwd",
+            {nm: t.data_ptr() for nm, t in (("x", x), ("w", w), ("dy", dy),
+                                            ("dx", dx), ("dw", dw))
+             if t is not None}, {}, x.element_size())
+    ptr = lambda t: None if t is None else t.data_ptr()
+    rc = _bwd_fn()(build.ATTN_DTYPES[x.dtype], x.data_ptr(), w.data_ptr(),
+                   dy.data_ptr(), ptr(dx), ptr(dw), group_sizes.data_ptr(),
+                   e, m, k, n, build.stream_of(x))
+    build.check(rc, "grouped_gemm_bwd")
+    grouped_gemm_bwd.launches += 1
+    return dx, dw
+
+
+grouped_gemm_bwd.launches = 0

@@ -217,6 +217,30 @@ def grouped_gemm_ref(x, w, group_sizes):
     return y
 
 
+def grouped_gemm_bwd_ref(x, w, group_sizes, dy, need_dx=True,
+                         need_dw=True):
+    """The gradient of :func:`grouped_gemm_ref` for the cotangent ``dy``
+    (M, N): (dx (M, K), ``dy[r] @ w[e(r)].T``, rows past the groups 0, in
+    x's dtype; dw (E, K, N), ``x_e.T @ dy_e`` over each group's rows, 0
+    for an empty group, in w's dtype), each accumulated in f32 and
+    rounded once; None for a gradient not asked for.  One matmul per
+    group, which reads the sizes on the host."""
+    m = x.shape[0]
+    dx = torch.zeros_like(x) if need_dx else None
+    dw = torch.zeros_like(w) if need_dw else None
+    lo = 0
+    for e, n in enumerate(group_sizes.tolist()):
+        hi = min(lo + max(int(n), 0), m)
+        if hi > lo:
+            g = dy[lo:hi].float()
+            if need_dx:
+                dx[lo:hi] = (g @ w[e].float().T).to(x.dtype)
+            if need_dw:
+                dw[e] = (x[lo:hi].float().T @ g).to(w.dtype)
+        lo = hi
+    return dx, dw
+
+
 def _mla_scores(q_lat, q_rope, c, krope, lengths, scale):
     """f32 scores (b, h, S) of the absorbed decode and the mask of valid
     keys (b, S): key j counts iff j < lengths[b]."""

@@ -12,9 +12,13 @@ No step reads a device value on the host: group sizes are counted on
 the device (integer ``scatter_add_``), the grid of the grouped GEMM is
 sized by a bound, and the combine undoes the sort by indexing and sums
 each token's k slots in a fixed order, so two runs give the same bits
-(a float ``index_add_`` would add with atomics).  Ties in the router's
-top-k keep the lower expert first, as ``jax.lax.top_k`` does (a stable
-sort of the probabilities).
+(a float ``index_add_`` would add with atomics).  The dispatch's
+backward does the same in reverse (:class:`_Dispatch`): each token's
+gradient is its k copies' gradients, gathered through the inverse
+permutation and summed in slot order, where autograd's own backward of
+the gather would accumulate them with ``index_put_``.  Ties in the
+router's top-k keep the lower expert first, as ``jax.lax.top_k`` does (a
+stable sort of the probabilities).
 """
 from __future__ import annotations
 
@@ -56,14 +60,33 @@ def _sort_by_expert(idx, T: int, k: int, E: int):
     return order, token_of[order], flat_e[order], group_sizes
 
 
+class _Dispatch(torch.autograd.Function):
+    """x2d (T, d) -> its token copies in expert order, ``x2d[order //
+    k]``; the backward sums each token's k copies' gradients in slot
+    order (gathered through the inverse of ``order``), with no
+    accumulating scatter."""
+
+    @staticmethod
+    def forward(ctx, x2d, order, k):
+        ctx.save_for_backward(order)
+        ctx.k = k
+        return x2d[order // k]
+
+    @staticmethod
+    def backward(ctx, g):
+        (order,) = ctx.saved_tensors
+        inv = torch.empty_like(order)
+        inv[order] = torch.arange(order.numel(), device=order.device)
+        return g[inv].view(-1, ctx.k, g.shape[-1]).sum(dim=1), None, None
+
+
 def moe_ragged(p, cfg: ModelConfig, x2d):
     """Routed experts over x2d (T, d) -> (T, d)."""
     T, d = x2d.shape
     m = cfg.moe
     vals, idx = route(p, cfg, x2d)
-    order, tok_sorted, _, group_sizes = _sort_by_expert(
-        idx, T, m.top_k, m.n_experts)
-    xs = x2d[tok_sorted]
+    order, _, _, group_sizes = _sort_by_expert(idx, T, m.top_k, m.n_experts)
+    xs = _Dispatch.apply(x2d, order, m.top_k)
     gate = grouped_gemm(xs, p["wg"], group_sizes)
     up = grouped_gemm(xs, p["wu"], group_sizes)
     # silu with the reference's rounding (jax.nn.silu: x * sigmoid(x))

@@ -16,8 +16,8 @@ there a per-layer vector (a norm's weight, a bias) is a 2-D leaf that
 it factors over (layer, width) and a leaf's update clip sees every
 layer at once; the port's unstacked leaves are per layer.  The two agree
 on the same tree (the CPU tests hold them on shared trees); on a model
-they differ by design.  No config the port trains uses Adafactor yet
-(llama4, an MoE model, is the one that names it).
+they differ by design.  llama4 is the one config that names Adafactor
+(with bf16 state); the port trains it at reduced size in the tests.
 """
 from __future__ import annotations
 

@@ -9,8 +9,10 @@ accumulate in f32 over ``cfg.microbatches_train_4k`` microbatches (or
 update runs, in place.  Where the reference scans the microbatches under
 ``jit``, the port loops over them, each through autograd: the
 parameters' leaves are handed to the model as tensors that require grad,
-so the dense, VLM and encoder families' attention goes through flash's
-hand-written backward (``kernels.flash_attention_bwd``) on the card.
+so the dense, MoE, VLM and encoder families' attention goes through
+flash's hand-written backward (``kernels.flash_attention_bwd``) on the
+card, and the MoE family's expert products through the grouped GEMM's
+(``kernels.grouped_gemm_bwd``).
 
 The families whose forward runs a kernel without a backward yet are
 refused by :func:`require_trainable`, naming the slice that brings it.
@@ -29,12 +31,11 @@ from repro_torch.training.tree import leaves_with_paths, unflatten
 
 def require_trainable(cfg: ModelConfig) -> None:
     """Raise for an architecture whose forward runs a kernel without a
-    backward: MoE (the grouped GEMM), SSM and hybrid (the SSD scan and
-    the causal conv), MLA (flash at (192, 128)), as
-    ``params.require_ported`` refuses what the port does not serve."""
+    backward: SSM and hybrid (the SSD scan and the causal conv), MLA
+    (flash at (192, 128); ds27b, MoE over MLA, among them), as
+    ``params.require_ported`` refuses what the port does not serve.  The
+    dense, MoE (GQA), VLM and encoder families train."""
     require_ported(cfg)
-    if cfg.family == "moe":
-        raise NotImplementedError(f"{cfg.name}: {build.MOE_TRAINING}")
     if cfg.family in ("ssm", "hybrid"):
         raise NotImplementedError(f"{cfg.name}: {build.SSM_TRAINING}")
     if cfg.attn_variant == "mla":
@@ -111,9 +112,13 @@ def loss_and_grads(params, cfg: ModelConfig, batch, *,
                 raise RuntimeError(
                     f"{cfg.name}: no gradient reached {'.'.join(path)}; "
                     f"a path of the forward is cut off from the loss")
+        # the microbatch's gradients (a tree the size of the parameters)
+        # are in the f32 sums now
+        del grads
         loss_sum = loss_sum + loss.detach()
+    # divided in place: a second f32 tree would double the sums' memory
     return (loss_sum / n_microbatches,
-            unflatten(params, [a / n_microbatches for a in acc]))
+            unflatten(params, [a.div_(n_microbatches) for a in acc]))
 
 
 def make_train_step(cfg: ModelConfig, *, lr: float = 3e-4,
