@@ -2075,8 +2075,11 @@ def grouped_gemm_bwd_cases() -> list:
     1023 tokens, top-8 of 40: M 16,368; gate/up K 1536 -> N 512, and down
     512 -> 1536; sizes from the router; a moved group boundary must fail)
     and the gate/up in f32, ds27b's 4096-token append (x (24576, 2560), w
-    (72, 2560, 1536)), and the tile walk's edges at granite's gate/up
-    widths (:data:`GG_BWD_EDGES`).  llama4's case comes with
+    (72, 2560, 1536)), the same widths with every group's size 64 q + r
+    (r in 1..63, a moved boundary failing), so each of dW's units ends
+    on a slice that reaches into the next group and the kernel's tail
+    mask runs at full width, and the tile walk's edges at granite's
+    gate/up widths (:data:`GG_BWD_EDGES`).  llama4's case comes with
     :func:`llama4_gemm_cases`, on its stack."""
     from repro_torch.configs import get_config
     gr, ds = get_config(GRANITE), get_config("ds27b")
@@ -2094,6 +2097,13 @@ def grouped_gemm_bwd_cases() -> list:
              case(sizes=router_group_sizes(ds, 4096, gen),
                   k=ds.d_model, n=ds.moe.d_ff_expert,
                   label="ds27b append 4096, gate/up")]
+    rng = np.random.default_rng(30)
+    e = ds.moe.n_experts
+    mid = 64 * rng.integers(2, 8, e) + rng.integers(1, 64, e)
+    cases.append(case(sizes=torch.tensor(mid, dtype=torch.int32,
+                                         device="cuda"),
+                      k=ds.d_model, n=ds.moe.d_ff_expert, planted=True,
+                      label="ds27b widths, every group boundary mid-slice"))
     for label, (sizes, m) in GG_BWD_EDGES.items():
         cases.append(case(sizes=torch.tensor(sizes, dtype=torch.int32,
                                              device="cuda"), m=m, k=d, n=f,
@@ -2567,14 +2577,16 @@ def print_cases(cases: dict) -> None:
 
 
 def print_build_log(names) -> None:
-    """ptxas's report of each kernel: its function, registers, spills."""
+    """ptxas's report of each kernel: its function, registers, spills,
+    and any performance note (e.g. C7518/C7520: ``wgmma`` serialised)."""
     from repro_torch.kernels import build
     for name in names:
         log = build.BUILD_DIR / f"{name}.log"
         if log.exists():
             for line in log.read_text().splitlines():
                 if any(w in line for w in ("Function properties for",
-                                           "registers", "spill")):
+                                           "registers", "spill",
+                                           "Performance")):
                     print(f"  {name}: {line.strip()}")
 
 

@@ -77,6 +77,64 @@ def tile_walk(group_sizes, m: int, bm: int, n_ct: int) -> list:
     return tiles
 
 
+# the bf16 backward's tiles (csrc/grouped_gemm_bwd.cu): BWD_BM rows by
+# BWD_BN columns, reductions in slices of BWD_BK
+BWD_BM, BWD_BN, BWD_BK = 128, 256, 64
+
+
+def bwd_work(group_sizes, m: int, k: int, n: int, need_dx: bool = True,
+             need_dw: bool = True) -> list:
+    """The bf16 backward's work list (``item_at`` in
+    ``csrc/grouped_gemm_bwd.cu``), in plain Python: first dW's units, one
+    per (expert, 128 rows of K, 256 columns of N), each ``("dw", e, first
+    K row, first column, slices)``; then dX's tiles, the forward's walk
+    (:func:`tile_walk`) over dY's rows in 128-row tiles and dx's columns
+    in 256-column tiles, each ``("dx", e, first row, rows, first column,
+    reduction slices)`` (e = -1: rows past the groups, written 0, no
+    slices).  A unit's slices walk group e's rows in order, 64 at a
+    time, each ``(first row, rows taken, rows masked)``: the box the
+    kernel loads holds 64 rows from the first, cut only at M, so the
+    rows past the group's end and below M are the next groups' and are
+    zeroed before the products."""
+    items = []
+    if need_dw:
+        off = [0]
+        for size in group_sizes:
+            off.append(off[-1] + min(max(int(size), 0), m - off[-1]))
+        for e in range(len(group_sizes)):
+            rows = off[e + 1] - off[e]
+            slices = []
+            for s in range(0, rows, BWD_BK):
+                taken = min(BWD_BK, rows - s)
+                first = off[e] + s
+                slices.append((first, taken,
+                               min(first + BWD_BK, m) - first - taken))
+            for k0 in range(0, k, BWD_BM):
+                for n0 in range(0, n, BWD_BN):
+                    items.append(("dw", e, k0, n0, slices))
+    if need_dx and m > 0:
+        for e, r0, rows, ct in tile_walk(group_sizes, m, BWD_BM,
+                                         -(-k // BWD_BN)):
+            items.append(("dx", e, r0, rows, ct * BWD_BN,
+                          -(-n // BWD_BK) if e >= 0 else 0))
+    return items
+
+
+def bwd_grid(m: int, e: int, k: int, n: int, n_sm: int, need_dx: bool = True,
+             need_dw: bool = True) -> int:
+    """The bf16 backward's persistent grid, as the host sizes it from the
+    shapes alone: the dX tiles the walk can hold at most (the forward's
+    bound, ⌈M / 128⌉ + E + 1 row tiles) plus dW's units, at most one block
+    an SM; 0 when there is nothing to do.  Block b takes items b, b +
+    grid, ... of :func:`bwd_work`."""
+    slots = 0
+    if need_dx and m > 0:
+        slots += (-(-m // BWD_BM) + e + 1) * -(-k // BWD_BN)
+    if need_dw:
+        slots += e * -(-k // BWD_BM) * -(-n // BWD_BN)
+    return min(slots, n_sm)
+
+
 @functools.cache
 def _fn():
     fn = build.library("grouped_gemm").grouped_gemm
@@ -189,9 +247,10 @@ def grouped_gemm_bwd(x: torch.Tensor, w: torch.Tensor,
     """The gradient of :func:`grouped_gemm` for the cotangent dy (M, N):
     (dx (M, K) in x's dtype, rows past the groups 0; dw (E, K, N) in w's
     dtype, 0 for an empty group), None for a gradient not asked for.  On
-    CUDA tensors one call runs ``csrc/grouped_gemm_bwd.cu``'s dX and dW
-    kernels (either alone when only one is asked for), counted once; on
-    CPU tensors it is ``ref.grouped_gemm_bwd_ref``."""
+    CUDA tensors one call runs ``csrc/grouped_gemm_bwd.cu`` (bf16: one
+    persistent launch over :func:`bwd_work`; f32: a dX and a dW kernel,
+    either alone when only one is asked for), counted once; on CPU
+    tensors it is ``ref.grouped_gemm_bwd_ref``."""
     m, k, e, n = _check_shapes("grouped_gemm_bwd", x, w, group_sizes)
     if dy.shape != (m, n):
         raise ValueError(f"grouped_gemm_bwd: dy {tuple(dy.shape)}, need "

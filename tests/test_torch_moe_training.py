@@ -21,8 +21,14 @@ the dispatch's own backward (``models.moe._Dispatch``).
   then each gradient within 2e-5 of its leaf's largest |g| (llama4's
   router, top-1, in shape only: its gradient is 0 in exact arithmetic).
 * Two CPU backward runs of the layer give the same bits.
+* The bf16 backward kernel's persistent work list
+  (``grouped_gemm.bwd_work``, a plain copy of its ``item_at``) covers
+  every gradient element once, each dW unit's reduction walking exactly
+  its group's rows in order and masking only other groups' rows; the
+  gradients computed item by item from it equal the plain backward.
 """
 import dataclasses
+import importlib
 
 import jax
 import jax.numpy as jnp
@@ -37,6 +43,8 @@ from repro_torch import bridge
 from repro_torch.configs import get_config
 from repro_torch.kernels import grouped_gemm, grouped_gemm_bwd, ref
 from repro_torch.models import moe
+
+_gg_mod = importlib.import_module("repro_torch.kernels.grouped_gemm")
 
 torch.set_num_threads(1)
 
@@ -146,6 +154,106 @@ def test_only_the_gradients_autograd_needs_are_computed(monkeypatch):
         grouped_gemm(xa, wa, sizes).sum().backward()
         assert (xa.grad is not None, wa.grad is not None) == (xg, wg)
     assert asked == [(True, False), (False, True), (True, True)]
+
+
+# test_torch_moe.py's WALK_SIZES and chip_smoke.py's GG_BWD_EDGES are among
+# CASES; one more puts every group boundary inside a 64-row slice
+BWD_WORK_CASES = {**CASES,
+                  "every boundary mid-slice": ([70, 130, 1, 65, 200], 466)}
+
+
+def _bwd_from_work(items, x, w, dy, mask=True):
+    """dx and dw computed item by item as the kernel's work list says (in
+    f64): each dX tile from its rows and columns, each dW unit summing its
+    slices in order over the 64-row boxes the kernel loads, the masked
+    rows zeroed in x's box (or not, with ``mask`` False)."""
+    dx, dw = np.full(x.shape, np.nan), np.full(w.shape, np.nan)
+    for it in items:
+        if it[0] == "dx":
+            _, e, r0, rows, c0, _ = it
+            cols = slice(c0, c0 + _gg_mod.BWD_BN)
+            dx[r0:r0 + rows, cols] = 0.0 if e < 0 else \
+                dy[r0:r0 + rows] @ w[e, cols].T
+            continue
+        _, e, k0, n0, slices = it
+        ks = slice(k0, k0 + _gg_mod.BWD_BM)
+        ns = slice(n0, n0 + _gg_mod.BWD_BN)
+        acc = np.zeros(dw[e, ks, ns].shape)
+        for first, taken, masked in slices:
+            a = x[first:first + taken + masked, ks].copy()
+            if mask:
+                a[taken:] = 0.0
+            acc += a.T @ dy[first:first + taken + masked, ns]
+        dw[e, ks, ns] = acc
+    return dx, dw
+
+
+@pytest.mark.parametrize("kn", [(64, 64), (200, 520), (1536, 512)])
+@pytest.mark.parametrize("case", list(BWD_WORK_CASES))
+def test_bwd_work_list_covers_each_gradient_once(case, kn):
+    """The bf16 backward's persistent work list (bwd_work in
+    kernels/grouped_gemm.py, the kernel's item_at): dW's units first, one per (expert, K tile, N
+    tile), then dX's tiles, every (row, column tile) of dx in exactly one
+    tile of its own group; each unit's slices take exactly the group's rows,
+    once and in order, and mask only rows of other groups, boxes cut by M
+    alone; the host's grid is positive exactly when there is work, and
+    the blocks' strided walk visits every item once.  Computed item by
+    item, the list gives the plain backward; without the mask, a unit
+    whose box reaches into the next group does not."""
+    sizes, m = BWD_WORK_CASES[case]
+    k, n = kn
+    e_n = len(sizes)
+    owner, off = np.full(m, -1), [0]
+    for e, size in enumerate(sizes):
+        hi = min(off[-1] + size, m)
+        owner[off[-1]:hi] = e
+        off.append(hi)
+    rng = np.random.default_rng(len(case) + k)
+    x, dy = rng.standard_normal((m, k)), rng.standard_normal((m, n))
+    w = rng.standard_normal((e_n, k, n))
+    tt = lambda a: torch.from_numpy(a.astype(np.float32))
+    want = ref.grouped_gemm_bwd_ref(tt(x), tt(w), torch.tensor(sizes), tt(dy))
+    for need_dx, need_dw in ((True, True), (True, False), (False, True)):
+        items = _gg_mod.bwd_work(sizes, m, k, n, need_dx, need_dw)
+        dx_items = [it for it in items if it[0] == "dx"]
+        dw_items = [it for it in items if it[0] == "dw"]
+        assert items == dw_items + dx_items
+        seen = np.zeros((m, -(-k // _gg_mod.BWD_BN)), int)
+        for _, e, r0, rows, c0, n_slices in dx_items:
+            assert 0 < rows <= _gg_mod.BWD_BM
+            assert (owner[r0:r0 + rows] == e).all()
+            assert n_slices == (-(-n // _gg_mod.BWD_BK) if e >= 0 else 0)
+            seen[r0:r0 + rows, c0 // _gg_mod.BWD_BN] += 1
+        assert (seen == int(need_dx)).all()
+        units = [(e, k0, n0) for _, e, k0, n0, _ in dw_items]
+        assert sorted(units) == (sorted(
+            (e, k0, n0) for e in range(e_n)
+            for k0 in range(0, k, _gg_mod.BWD_BM)
+            for n0 in range(0, n, _gg_mod.BWD_BN)) if need_dw else [])
+        for _, e, k0, n0, slices in dw_items:
+            taken, masked = [], []
+            for first, t, mk in slices:
+                assert 0 < t <= _gg_mod.BWD_BK and mk >= 0
+                assert t + mk == min(_gg_mod.BWD_BK, m - first)
+                taken += range(first, first + t)
+                masked += range(first + t, first + t + mk)
+            assert taken == list(range(off[e], off[e + 1]))
+            assert all(owner[r] != e for r in masked)
+        grid = _gg_mod.bwd_grid(m, e_n, k, n, 132, need_dx, need_dw)
+        assert (grid > 0) == bool(items) and grid <= 132
+        walked = sorted(t for b in range(grid)
+                        for t in range(b, len(items), grid))
+        assert walked == list(range(len(items)))
+        dx, dw = _bwd_from_work(items, x, w, dy)
+        for got, exp, need in ((dx, want[0], need_dx),
+                               (dw, want[1], need_dw)):
+            if need:
+                _close(got, exp.numpy(), 1e-5)
+        leaky = any(mk and x[first + t:first + t + mk].any()
+                    for it in dw_items for first, t, mk in it[4])
+        if leaky:
+            unmasked = _bwd_from_work(dw_items, x, w, dy, mask=False)[1]
+            assert not np.allclose(unmasked, want[1].numpy(), atol=1e-3)
 
 
 # ---------------------------------------------------------------------------
