@@ -1,6 +1,6 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA H100.
 
-    python3 chip_smoke.py                  # the smoke, phases 1-21
+    python3 chip_smoke.py                  # the smoke, phases 1-22
     python3 chip_smoke.py --persist-ab 10  # offline serving, old persist
                                            # against the scatter's
     python3 chip_smoke.py --split-sweep    # the attention kernels' split
@@ -9,6 +9,7 @@
                                            # build and run phase 3's cases
                                            # of the named kernels only
     python3 chip_smoke.py --sim            # phase 12 alone
+    python3 chip_smoke.py --train-mla      # phase 21 alone
 
 Drives ``repro_torch`` (never the JAX package) on the card:
 
@@ -37,7 +38,9 @@ Drives ``repro_torch`` (never the JAX package) on the card:
    columns dropped must fail) and gather and scatter of 1152-byte rows;
    it times the kernel, the plain version and one PyTorch call
    computing the same function, with CUDA events (also with a clean L2,
-   and split into their kernels under torch.profiler); times the main
+   and split into their kernels under torch.profiler): the median of 25
+   calls for each kernel's main case and the backwards' cases, of 3 for
+   the others, which are not profiled; times the main
    gather and its indexing alternately, beside an empty kernel; then the
    round-1 persist (16 FullBlocks) the old way (layer-major bytes, a
    host slice per block) against the scatter's block-major pool, host
@@ -87,7 +90,11 @@ Drives ``repro_torch`` (never the JAX package) on the card:
    microbatch (one split) and gemma2's case (split keys: the combine
    writes it), in bf16 and f32, and the forward is timed with and
    without it; flash's backward also at granite's training microbatch
-   (2 x 1023, 24 over 8 x 64: g 3); and the grouped GEMM's backward
+   (2 x 1023, 24 over 8 x 64: g 3) and at ds27b's MLA widths, q/k 192
+   and v 128 over 32 heads (its training microbatch, 1 x 1023, the lse
+   checked; s 77, where dK's rope columns left at zero and the scale
+   taken from v's width must fail; f32 at s 256), SDPA's backward named
+   by the backend PyTorch picks; and the grouped GEMM's backward
    (``grouped_gemm_bwd``, MoE training's gradient: dX and dW) against
    the plain backward and against autograd of the plain forward within
    TOLS, bit-identical over two calls, at granite's training microbatch
@@ -250,7 +257,18 @@ Drives ``repro_torch`` (never the JAX package) on the card:
    the grouped GEMM and their hand-written backwards, every launch count
    equal to its prediction; (c) crash and resume at depth 2, bit for
    bit;
-21. prints the ``kernels`` JSON line, then the contract line
+21. MLA training on ds27b (MoE over MLA) at published widths, the same
+   three parts: (a) f32 at depth 2 with the routed experts cut to 8,
+   every routed token equal on the card and the CPU, then the gradients
+   and 2 AdamW steps against the CPU; (b) bf16 cut to depth 4 (a dense
+   layer, then 3 MoE layers of 72 experts, top-6; 3.50 B parameters), 5
+   steps of 8 x 1024 tokens in ds27b's 8 microbatches with full remat at
+   lr 1e-3,
+   through flash at q/k 192, v 128, its hand-written backward at those
+   widths, the grouped GEMM and its backward, every launch count equal
+   to its prediction; (c) crash after step 3 and resume at depth 2 with
+   8 experts, run to step 4, bit for bit (see :func:`train_mla_phase`);
+22. prints the ``kernels`` JSON line, then the contract line
    ``{"ok": true, "device": {...}}`` last.
 
 Any failed check raises, so the script exits non-zero and prints no
@@ -258,6 +276,7 @@ result.  Without a CUDA card it exits non-zero at once.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import gc
@@ -449,6 +468,28 @@ TRAIN_RESUME = dict(depth=2, batch=4, seq=129, micro=2, every=2, crash=3,
 # microbatches (microbatches_train_4k), full remat, TRAIN_MOE_STEPS steps;
 # (c) crash and resume at depth 2 in bf16
 TRAIN_MOE_BATCH, TRAIN_MOE_STEPS = 8, 5
+# MLA training (phase 21): ds27b at published widths, the same three
+# parts.  (b) bf16 cut to TRAIN_MLA_DEPTH layers (one dense, then MoE
+# layers: 3.50 B parameters at 4, ~16 bytes each with the f32 sums and
+# moments, on top of what phases 1-20 leave allocated), all 72 experts
+# and the full vocabulary, 8 rows of 1024 tokens in ds27b's 8
+# microbatches (microbatches_train_4k: one 1023-input row, 6,138 routed
+# copies each), full remat, TRAIN_MLA_STEPS steps at TRAIN_MLA_LR; (a) f32
+# and (c) bf16 at depth 2 with the routed experts cut to
+# TRAIN_MLA_EXPERTS, as phase 16's identity cuts llama4's: at 72 a
+# depth-2 checkpoint is ~17 GB and the CPU side of (a) ~34 GB.  Even so
+# (a)'s CPU steps and (c)'s 9.4 GB checkpoints (the untied 129,280-token
+# embedding and head are 70 % of them) cost ~120 s, so (a) takes 2 steps
+# and (c) runs to step 4 (three saves and a restore).  ds27b's head is
+# untied, so its loss starts near ln(vocab) (~12.26, not phases 19's and
+# 20's hundreds); at TRAIN_LR it rose over five steps on the card, at
+# 1e-3 it falls by the fifth (PERF.md, section 6)
+TRAIN_MLA_BATCH, TRAIN_MLA_STEPS, TRAIN_MLA_DEPTH = 8, 5, 4
+TRAIN_MLA_LR = 1e-3
+TRAIN_MLA_EXPERTS = 8
+TRAIN_MLA_IDENTITY = dict(TRAIN_IDENTITY, steps=2,
+                          n_experts=TRAIN_MLA_EXPERTS)
+TRAIN_MLA_RESUME = dict(TRAIN_RESUME, steps=4, n_experts=TRAIN_MLA_EXPERTS)
 # the event simulator (phase 12): (a) the reference's I/O-bound point,
 # DS 660B at 2P4D on Table 2's 64K trajectories; (b)
 # benchmarks/microbench_sim.py's saturated-link workload; (c) a traced
@@ -476,9 +517,47 @@ KERNEL_ROWS = {"flash_attention": ("flash_",), "paged_attention": ("paged_",),
 # ---------------------------------------------------------------------------
 
 
-def time_ms(fn, reps: int = 25, warmup: int = 3, clean_l2: bool = False
-            ) -> float:
-    """Median device time of one call, CUDA events around each call.
+# calls timed (after warm-up calls) for a median, and profiled for a
+# kernel's parts; phase 3 times each kernel's main case with these counts
+# and most other cases with QUICK_TIMING's, unprofiled
+# (:func:`quick_timing`), which keeps the whole smoke inside its time
+# limit
+TIMING = dict(reps=25, warmup=3, parts=20)
+QUICK_TIMING = dict(reps=3, warmup=1, parts=0)
+# host seconds spent in time_ms and kernel_parts, for the phase-3 report
+TIMING_S = [0.0]
+
+
+@contextlib.contextmanager
+def quick_timing():
+    """Time with QUICK_TIMING's counts while entered."""
+    saved = dict(TIMING)
+    TIMING.update(QUICK_TIMING)
+    try:
+        yield
+    finally:
+        TIMING.update(saved)
+
+
+def main_first(case):
+    """``case`` (a phase-3 case maker) whose first call, a kernel's main
+    case, is timed with TIMING's counts and every later call under
+    :func:`quick_timing`."""
+    made = []
+
+    def timed(*args, **kw):
+        made.append(1)
+        if len(made) == 1:
+            return case(*args, **kw)
+        with quick_timing():
+            return case(*args, **kw)
+    return timed
+
+
+def time_ms(fn, reps: int | None = None, warmup: int | None = None,
+            clean_l2: bool = False) -> float:
+    """Median device time of one call, CUDA events around each call
+    (``reps`` calls after ``warmup``; TIMING's counts by default).
     Before every timed call the 50 MB L2 is flushed (the main path finds
     its inputs cold) and the stream is kept busy for about a millisecond
     (``torch.cuda._sleep``), so the host has enqueued the whole call
@@ -488,6 +567,9 @@ def time_ms(fn, reps: int = 25, warmup: int = 3, clean_l2: bool = False
     evict and write back; with ``clean_l2`` it reads 64 MB instead, so
     the call finds L2 cold but clean, as a decode step finds it after the
     previous layer's reads."""
+    t0 = time.perf_counter()
+    reps = reps or TIMING["reps"]
+    warmup = TIMING["warmup"] if warmup is None else warmup
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
     for _ in range(warmup):
         fn()
@@ -505,6 +587,7 @@ def time_ms(fn, reps: int = 25, warmup: int = 3, clean_l2: bool = False
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
+    TIMING_S[0] += time.perf_counter() - t0
     return float(np.median(times))
 
 
@@ -514,18 +597,24 @@ def short_name(key: str) -> str:
                                              "").split("<")[0].split("(")[0]
 
 
-def kernel_parts(fn, reps: int = 20) -> dict:
+def kernel_parts(fn, reps: int | None = None) -> dict:
     """Device ms per call of each kernel that ``fn`` launches (split and
     combine kernels apart), under torch.profiler, warm: back-to-back
-    calls, so inputs that fit in L2 stay there."""
+    calls (TIMING's count by default), so inputs that fit in L2 stay
+    there; none (an empty dict) under :func:`quick_timing`."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    t0 = time.perf_counter()
+    reps = reps or TIMING["parts"]
+    if not reps:
+        return {}
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
+    TIMING_S[0] += time.perf_counter() - t0
     return {short_name(e.key): e.self_device_time_total / 1e3 / reps
             for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
 
@@ -608,8 +697,8 @@ def gather_cases(cfg, rng):
     from repro_torch.engines.kvio import kv_row_bytes
     gen = torch.Generator(device="cuda").manual_seed(1)
     L, row = cfg.n_layers, kv_row_bytes(cfg)
-    case = lambda **kw: _gather_case(rng, gen, **{**dict(
-        n=16, n_layers=L, layer=L // 2, feat=row), **kw})
+    case = main_first(lambda **kw: _gather_case(rng, gen, **{**dict(
+        n=16, n_layers=L, layer=L // 2, feat=row), **kw}))
     return [case(), case(n=19), case(n=1, layer=0),
             case(pt=4, feat=10252, layer=L - 1),
             case(n_pool=48, feat=row // 2, dtype=torch.bfloat16, layer=0),
@@ -691,8 +780,8 @@ def scatter_cases(cfg, rng):
     from repro_torch.engines.kvio import kv_row_bytes
     gen = torch.Generator(device="cuda").manual_seed(2)
     L, row = cfg.n_layers, kv_row_bytes(cfg)
-    case = lambda **kw: _scatter_case(rng, gen, **{**dict(
-        n=16, n_layers=L, layer=L // 2, feat=row), **kw})
+    case = main_first(lambda **kw: _scatter_case(rng, gen, **{**dict(
+        n=16, n_layers=L, layer=L // 2, feat=row), **kw}))
     return [case(), case(layer=range(L)), case(n=3, layer=range(L)),
             case(n=2, layer=range(L)), case(n=1, layer=0),
             case(pt=4, feat=10252, layer=range(3, L)),
@@ -942,9 +1031,9 @@ def _flash_case(rng, *, hq, hkv, dh, sq, kv_lens, S, dtype, causal=True,
 
 def flash_cases(cfg, rng):
     h, kvh, dh, bf = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, torch.bfloat16
-    case = lambda **kw: _flash_case(rng, **{**dict(
+    case = main_first(lambda **kw: _flash_case(rng, **{**dict(
         hq=h, hkv=kvh, dh=dh, sq=128, kv_lens=[1184], S=2048, dtype=bf),
-        **kw})
+        **kw}))
     return [
         case(parts=True),                # round 2 append: 128 new tokens
                                          # over a 1056-token prefix
@@ -1039,8 +1128,8 @@ def paged_cases(cfg, rng):
     # 8 slots mid-round-3: contexts of 1300..1376 tokens
     lengths = [int(x) for x in rng.integers(1300, 1377, 8)]
     edges = [1, 63, 64, 65, 2048]
-    case = lambda **kw: _paged_case(rng, **{**dict(
-        hq=h, hkv=kvh, dh=dh, S=2048, lengths=lengths, dtype=bf), **kw})
+    case = main_first(lambda **kw: _paged_case(rng, **{**dict(
+        hq=h, hkv=kvh, dh=dh, S=2048, lengths=lengths, dtype=bf), **kw}))
     return [
         case(parts=True),
         case(hkv=h // 4, parts=True),    # GQA g = 4
@@ -1243,7 +1332,8 @@ def grouped_gemm_cases(cfg, rng):
     decode = router_group_sizes(cfg, 8, gen)
     appends = {rows: router_group_sizes(cfg, rows, gen)
                for rows, _ in DS27B_APPENDS}
-    case = lambda **kw: _gg_case(gen, **{**dict(k=d, n=f), **kw})
+    case = main_first(lambda **kw: _gg_case(gen, **{**dict(k=d, n=f),
+                                                    **kw}))
     cases = [case(sizes=appends[4096], planted=True,
                   label="append 4096, gate/up"),
              case(sizes=appends[4096], k=f, n=d, label="append 4096, down")]
@@ -1332,8 +1422,8 @@ def mla_decode_cases(cfg, rng):
     row's splits merge while the others' have exited), and the main case
     in f32."""
     lengths = [int(x) for x in rng.integers(4600, 5041, 8)]
-    case = lambda **kw: _mla_case(rng, **{**dict(
-        lengths=lengths, S=DS27B_MAX_SEQ), **kw})
+    case = main_first(lambda **kw: _mla_case(rng, **{**dict(
+        lengths=lengths, S=DS27B_MAX_SEQ), **kw}))
     return [case(planted=True, parts=True),
             case(lengths=[1, 63, 64, 65, 4095, 4096, 5000, DS27B_MAX_SEQ],
                  planted=True),
@@ -1495,7 +1585,8 @@ def ssd_cases(cfg):
     the planted faults, as do the continuation and the 4 sequences; the
     main case reads its kernels' parts."""
     gen = torch.Generator(device="cuda").manual_seed(7)
-    case = lambda **kw: _ssd_case(gen, cfg, **{**dict(b=1, s=4000), **kw})
+    case = main_first(lambda **kw: _ssd_case(gen, cfg, **{
+        **dict(b=1, s=4000), **kw}))
     return [case(planted=True, label="round-1 append", parts=True),
             case(s=301, h0=True, planted=True, label="round-2 append"),
             case(s=501, h0=True, label="round-3 append"),
@@ -1637,7 +1728,8 @@ def ssm_step_cases(cfg):
     in f32 (49 KB of shared memory, past the 48 KB a launch gets without
     opting in) and bf16, and 2 heads of 1024 at N 1024 in f32 (68 KB)."""
     gen = torch.Generator(device="cuda").manual_seed(8)
-    case = lambda c=cfg, **kw: _ssm_step_case(gen, c, **{**dict(b=8), **kw})
+    case = main_first(lambda c=cfg, **kw: _ssm_step_case(
+        gen, c, **{**dict(b=8), **kw}))
     odd = ssm_config_at(cfg, 5, 32, 16)
     n132 = ssm_config_at(cfg, 3, 24, 132)
     wide = ssm_config_at(cfg, 2, 64, 1024)
@@ -1704,8 +1796,8 @@ def conv_cases(cfg):
     tails carried), 2 tokens (fewer than the tail), and f32."""
     gen = torch.Generator(device="cuda").manual_seed(9)
     c = cfg.ssm.expand * cfg.d_model + 2 * cfg.ssm.d_state
-    case = lambda **kw: _conv_case(gen, **{**dict(
-        b=1, s=4000, c=c, cw=cfg.ssm.conv_width), **kw})
+    case = main_first(lambda **kw: _conv_case(gen, **{**dict(
+        b=1, s=4000, c=c, cw=cfg.ssm.conv_width), **kw}))
     return [case(label="round-1 append"), case(s=301, label="append"),
             case(b=8, s=1, label="decode"), case(s=2),
             case(s=301, dtype=torch.float32)]
@@ -2151,20 +2243,24 @@ def grads_err(got, want, tol: float):
 
 
 def bwd_plain(q, k, v, do, *, causal=True, softcap=0.0, window=0,
-              cap_grad=True, skip_from=None, round_p=True, use_d=True):
+              cap_grad=True, skip_from=None, round_p=True, use_d=True,
+              dk_zero_from=None, scale_width=None):
     """flash's gradient in closed form (f32 products, P rounded to the V
     dtype for dV as the forward rounds it), to plant faults in: without
     ``cap_grad`` the softcap's derivative is dropped, with ``skip_from``
     the keys from there on leave dK, dV and dQ, without ``round_p`` dV
     takes P unrounded, without ``use_d`` dS = P dP (D = sum(dO * o)
-    dropped)."""
+    dropped), with ``dk_zero_from`` dK's columns from there on stay zero
+    (MLA's rope columns left out), with ``scale_width`` the scale is
+    1/sqrt(that width) (v's, not q's and k's)."""
     b, hq, s, dh = q.shape
-    hkv = k.shape[1]
+    hkv, dv = k.shape[1], v.shape[3]
     g = hq // hkv
+    scale = 1 / np.sqrt(scale_width or dh)
     qf = q.float().reshape(b, hkv, g, s, dh)
     kf, vf = k.float(), v.float()
-    dof = do.float().reshape(b, hkv, g, s, dh)
-    raw = torch.einsum("bngqd,bnkd->bngqk", qf, kf) / np.sqrt(dh)
+    dof = do.float().reshape(b, hkv, g, s, dv)
+    raw = torch.einsum("bngqd,bnkd->bngqk", qf, kf) * scale
     t = torch.tanh(raw / softcap) if softcap else None
     sc = softcap * t if softcap else raw
     rows = torch.arange(s, device=q.device)
@@ -2180,15 +2276,17 @@ def bwd_plain(q, k, v, do, *, causal=True, softcap=0.0, window=0,
     if skip_from is not None:
         keep[skip_from:] = 0
     pv = (p.to(v.dtype).float() if round_p else p) * keep
-    dv = torch.einsum("bngqk,bngqd->bnkd", pv, dof)
+    dvg = torch.einsum("bngqk,bngqd->bnkd", pv, dof)
     ds = p * (torch.einsum("bngqd,bnkd->bngqk", dof, vf)
               - (dsum if use_d else 0)) * keep
     if softcap and cap_grad:
         ds = ds * (1 - t * t)
-    dq = torch.einsum("bngqk,bnkd->bngqd", ds, kf) / np.sqrt(dh)
-    dk = torch.einsum("bngqk,bngqd->bnkd", ds, qf) / np.sqrt(dh)
+    dq = torch.einsum("bngqk,bnkd->bngqd", ds, kf) * scale
+    dk = torch.einsum("bngqk,bngqd->bnkd", ds, qf) * scale
+    if dk_zero_from is not None:
+        dk[..., dk_zero_from:] = 0
     return (dq.reshape(b, hq, s, dh).to(q.dtype), dk.to(k.dtype),
-            dv.to(v.dtype))
+            dvg.to(v.dtype))
 
 
 def rounded_p_inputs(b=1, h=4, s=1024, dh=64, device="cuda"):
@@ -2250,37 +2348,46 @@ def forward_with_lse_row(q, k, v, kw, fwd_lse) -> dict:
                 bound_ms=b_ms, bound_by=b_by)
 
 
-def _bwd_case(gen, *, b, hq, hkv, dh, s, dtype=torch.bfloat16, causal=True,
-              softcap=0.0, window=0, q_std=1.0, planted=(), parts=False,
-              inputs=None, label="", lse_check=False, fwd_ab=False):
-    """flash's backward at the training path's layout: q, k, v and dO
-    (b, s, h, dh) passed as (b, h, s, dh) views, o and lse from the forward
-    kernel.  Held against the plain backward (autograd of the plain
-    forward) within TOLS of each output's largest |value| (``rel_err``:
-    the largest error over that value, which in bf16 includes dS's
-    rounding to bf16) and bit-identical over two calls; each label in
-    ``planted`` is a fault of :func:`bwd_plain` that must fail that check.
-    With ``lse_check`` the forward's lse is held against the plain lse
-    within LSE_TOL, in this dtype and in the other of bf16 and f32, and
-    the case says whether the forward's plan split its keys (then the
-    combine wrote the lse).  With ``fwd_ab`` the forward is timed with and
-    without its lse, and with it beside its plain version, a library call
-    and its bound (:func:`forward_with_lse_row`).  Timed beside the plain backward and SDPA's backward
-    (causal or not, no window and no softcap, K and V repeated to the
-    query heads), with the bound of its five products' flops over the
-    valid pairs (the recomputed scores included) or its bytes."""
+def _bwd_case(gen, *, b, hq, hkv, dh, s, dv=None, dtype=torch.bfloat16,
+              causal=True, softcap=0.0, window=0, q_std=1.0, planted=(),
+              parts=False, inputs=None, label="", lse_check=False,
+              fwd_ab=False):
+    """flash's backward at the training path's layout: q, k (dh wide), v
+    and dO (``dv`` wide, dh by default) made (b, s, h, width) and passed as
+    (b, h, s, width) views, o and lse from the forward kernel.  Held
+    against the plain backward (autograd of the plain forward) within TOLS
+    of each output's largest |value| (``rel_err``: the largest error over
+    that value, which in bf16 includes dS's rounding to bf16) and
+    bit-identical over two calls; each label in ``planted`` is a fault of
+    :func:`bwd_plain` that must fail that check.  With ``lse_check`` the
+    forward's lse is held against the plain lse within LSE_TOL, in this
+    dtype and in the other of bf16 and f32, and the case says whether the
+    forward's plan split its keys (then the combine wrote the lse).  With
+    ``fwd_ab`` the forward is timed with and without its lse, and with it
+    beside its plain version, a library call and its bound
+    (:func:`forward_with_lse_row`).  Timed beside the plain backward and
+    SDPA's backward (causal or not, no window and no softcap, K and V
+    repeated to the query heads; at dv != dh the backend PyTorch picks is
+    named, with the kernels it launches), with the bound of its five
+    products' flops over the valid pairs (the recomputed scores included:
+    S, dK and dQ of 2 dh flops, dP and dV of 2 dv) or its bytes (q, k, v, o
+    and dO read, dq, dk and dv written)."""
     from repro_torch.kernels import flash_attention, flash_attention_bwd, ref
     from repro_torch.kernels.build import sm_count
     from repro_torch.kernels.flash_attention import plan
+    dv = dv or dh
     if inputs is None:
-        f = lambda h: normal(gen, (b, s, h, dh), dtype)
-        q = (f(hq) * q_std).transpose(1, 2)
-        k, v, do = (f(h).transpose(1, 2) for h in (hkv, hkv, hq))
+        f = lambda h, w: normal(gen, (b, s, h, w), dtype)
+        q = (f(hq, dh) * q_std).transpose(1, 2)
+        k, v, do = (f(h, w).transpose(1, 2)
+                    for h, w in ((hkv, dh), (hkv, dv), (hq, dv)))
     else:
         q, k, v, do = inputs
     kw = dict(causal=causal, softcap=softcap, window=window)
     shapes = dict(q=[b, hq, s, dh], kv=[b, hkv, s, dh],
                   dtype=str(dtype).replace("torch.", ""))
+    if dv != dh:
+        shapes["v"] = [b, hkv, s, dv]
     shapes.update({n: x for n, x in kw.items()
                    if x != dict(causal=True, softcap=0.0, window=0)[n]})
     if label:
@@ -2330,7 +2437,10 @@ def _bwd_case(gen, *, b, hq, hkv, dh, s, dtype=torch.bfloat16, causal=True,
                    "the last key tile skipped": dict(
                        skip_from=(s - 1) // 64 * 64),
                    "P left unrounded in dV": dict(round_p=False),
-                   "D dropped": dict(use_d=False)}
+                   "D dropped": dict(use_d=False),
+                   "dK's rope columns 128-191 left at zero": dict(
+                       dk_zero_from=128),
+                   "the scale taken from v's width": dict(scale_width=dv)}
         faults = _planted("flash_attention_bwd", want, TOLS[dtype],
                           {f: bwd_plain(q, k, v, do, **kw, **emulate[f])
                            for f in planted}, check=grads_err)
@@ -2342,9 +2452,12 @@ def _bwd_case(gen, *, b, hq, hkv, dh, s, dtype=torch.bfloat16, causal=True,
         ql, kl, vl, is_causal=causal)
     library = lambda: torch.autograd.grad(out, (ql, kl, vl), do,
                                           retain_graph=True)
+    backend = None if dv == dh else sdpa_backend(ql, kl, vl, causal,
+                                                 library)
     pairs = attention_pairs(s, causal, window) * b * hq
-    b_ms, b_by = bound(4 * (b * hq + b * hkv) * s * dh * q.element_size(),
-                       10 * dh * pairs, dtype)
+    b_ms, b_by = bound(2 * (b * hq + b * hkv) * s * (dh + dv)
+                       * q.element_size(), 2 * (3 * dh + 2 * dv) * pairs,
+                       dtype)
     return dict(
         shapes=shapes, max_abs_err=err, rel_err=rel, planted_err=faults,
         lse_err=lse_errs, fwd_ms=fwd_ms, fwd_lse=fwd_lse_row,
@@ -2352,7 +2465,23 @@ def _bwd_case(gen, *, b, hq, hkv, dh, s, dtype=torch.bfloat16, causal=True,
         parts_ms=kernel_parts(call) if parts else None,
         plain_ms=time_ms(lambda: ref.flash_attention_bwd_ref(q, k, v, do,
                                                              **kw)),
-        library_ms=time_ms(library), bound_ms=b_ms, bound_by=b_by)
+        library_ms=time_ms(library), bound_ms=b_ms, bound_by=b_by,
+        **({} if backend is None else dict(
+            library_name=f"SDPA backward, {backend}")))
+
+
+def sdpa_backend(q, k, v, causal: bool, fn) -> str:
+    """The backend SDPA's dispatch picks for q, k and v
+    (``torch._fused_sdp_choice``: flash, efficient, cudnn or math), with
+    the kernels ``fn`` (its backward) launches under torch.profiler."""
+    from torch.nn.attention import SDPBackend
+    kinds = {int(getattr(SDPBackend, n)): n.lower().removesuffix("_attention")
+             for n in dir(SDPBackend) if n.isupper()}
+    kind = kinds.get(int(torch._fused_sdp_choice(q, k, v, None, 0.0,
+                                                 causal)), "unknown")
+    names = sorted(kernel_parts(fn, reps=5))
+    return (f"{kind} backend ("
+            f"{', '.join(names) or 'no kernel seen by the profiler'})")
 
 
 def flash_bwd_cases():
@@ -2364,15 +2493,20 @@ def flash_bwd_cases():
     derivative dropped and the last 64-key tile skipped must fail), s 1
     and s 77 (D dropped must fail), f32 at dh 64, and
     :func:`rounded_p_inputs` (P left unrounded in dV must fail), and
-    granite's training microbatch (2 x 1023, 24 over 8 x 64: g 3).  The
-    forward's lse is held against the plain one at qwen's microbatch
-    (one split) and gemma2's case (split keys), in bf16 and f32, and the
-    forward is timed with and without it at qwen's microbatch."""
+    granite's training microbatch (2 x 1023, 24 over 8 x 64: g 3); then
+    ds27b's MLA widths, q/k 192 and v 128 over 32 heads (g 1): its
+    training microbatch (one row of 1023 inputs, phase 21's shape), s 77
+    (dK's rope columns left at zero and the scale taken from v's width
+    must fail) and f32 at s 256.  The forward's lse is held against the
+    plain one at qwen's microbatch (one split), gemma2's case (split
+    keys) and ds27b's microbatch, in bf16 and f32, and the forward is
+    timed with and without it at qwen's microbatch."""
     from repro_torch.configs import get_config
-    qw, hb, g2, gr = (get_config(a) for a in ("qwen1.5-0.5b", HUBERT,
-                                              "gemma2-2b", GRANITE))
+    qw, hb, g2, gr, ds = (get_config(a) for a in (
+        "qwen1.5-0.5b", HUBERT, "gemma2-2b", GRANITE, "ds27b"))
     gen = torch.Generator(device="cuda").manual_seed(28)
-    heads = lambda c: dict(hq=c.n_heads, hkv=c.n_kv_heads, dh=c.head_dim)
+    heads = lambda c: dict(hq=c.n_heads, hkv=c.n_kv_heads, dh=c.head_dim,
+                           dv=c.mla.v_head_dim if c.mla else None)
     case = lambda c, **kw: _bwd_case(gen, **{**heads(c), **kw})
     return [
         case(qw, b=TRAIN_BATCH // TRAIN_MICRO, s=TRAIN_SEQ - 1, parts=True,
@@ -2391,6 +2525,12 @@ def flash_bwd_cases():
                       "P left unrounded in dV",), label="rounded P"),
         case(gr, b=TRAIN_MOE_BATCH // gr.microbatches_train_4k,
              s=TRAIN_SEQ - 1, parts=True, label="granite g 3"),
+        case(ds, b=TRAIN_MLA_BATCH // ds.microbatches_train_4k,
+             s=TRAIN_SEQ - 1, parts=True, lse_check=True, label="ds27b"),
+        case(ds, b=1, s=77, planted=("dK's rope columns 128-191 left at "
+                                     "zero", "the scale taken from v's "
+                                     "width"), label="ds27b"),
+        case(ds, b=1, s=256, dtype=torch.float32, label="ds27b"),
     ]
 
 
@@ -2414,7 +2554,11 @@ def kernel_cases(names=None) -> dict:
     mamba2-1.3b's SSM kernels, the registrations' heads and experts,
     zamba2-2.7b's (head dim 80, N 64), and llama4's, llava's and hubert's
     (flash and paged at g 5 and g 7, flash bidirectional at head dim 80,
-    the grouped GEMM at 128 experts, top-1).  With
+    the grouped GEMM at 128 experts, top-1).  Each kernel's main case
+    is timed with TIMING's counts, and so are the two backwards' cases
+    (the training path's gradients, with few cases); every other case
+    with QUICK_TIMING's, unprofiled (:func:`main_first`,
+    :func:`quick_timing`).  With
     ``names``, only those kernels' cases (the random draws then differ
     from a whole run's)."""
     from repro_torch.configs import get_config
@@ -2434,18 +2578,19 @@ def kernel_cases(names=None) -> dict:
         cases["paged_attention"] = paged_cases(cfg, rng)
     print(f"phase 3, qwen's cases: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    if want("flash_attention"):
-        cases["flash_attention"] += gemma2_flash_cases(cfg_g2, rng)
-    if want("paged_attention"):
-        cases["paged_attention"] += gemma2_paged_cases(cfg_g2, rng)
-    if want("flash_attention"):
-        cases["flash_attention"] += mla_flash_cases(cfg_ds, rng)
-    if want("kv_layer_gather", "kv_layer_scatter"):
-        gather_ds, scatter_ds = ds27b_copy_cases(cfg_ds, rng)
-        for name, more in (("kv_layer_gather", gather_ds),
-                           ("kv_layer_scatter", scatter_ds)):
-            if name in cases:
-                cases[name] += more
+    with quick_timing():
+        if want("flash_attention"):
+            cases["flash_attention"] += gemma2_flash_cases(cfg_g2, rng)
+        if want("paged_attention"):
+            cases["paged_attention"] += gemma2_paged_cases(cfg_g2, rng)
+        if want("flash_attention"):
+            cases["flash_attention"] += mla_flash_cases(cfg_ds, rng)
+        if want("kv_layer_gather", "kv_layer_scatter"):
+            gather_ds, scatter_ds = ds27b_copy_cases(cfg_ds, rng)
+            for name, more in (("kv_layer_gather", gather_ds),
+                               ("kv_layer_scatter", scatter_ds)):
+                if name in cases:
+                    cases[name] += more
     if want("grouped_gemm"):
         cases["grouped_gemm"] = grouped_gemm_cases(cfg_ds, rng)
     if want("mla_decode"):
@@ -2467,13 +2612,15 @@ def kernel_cases(names=None) -> dict:
         print(f"phase 3, the SSM cases: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     if want("flash_attention", "paged_attention"):
-        flash_r, paged_r = registration_attention_cases(rng)
+        with quick_timing():
+            flash_r, paged_r = registration_attention_cases(rng)
         for name, more in (("flash_attention", flash_r),
                            ("paged_attention", paged_r)):
             if name in cases:
                 cases[name] += more
     if want("grouped_gemm"):
-        cases["grouped_gemm"] += granite_gemm_cases()
+        with quick_timing():
+            cases["grouped_gemm"] += granite_gemm_cases()
     if want("grouped_gemm_bwd"):
         t1 = time.perf_counter()
         cases["grouped_gemm_bwd"] = grouped_gemm_bwd_cases()
@@ -2482,7 +2629,8 @@ def kernel_cases(names=None) -> dict:
               f"{time.perf_counter() - t1:.1f} s")
     cfg_z2 = get_config("zamba2-2.7b")
     if want("flash_attention", "paged_attention"):
-        flash_z, paged_z = zamba2_attention_cases(cfg_z2, rng)
+        with quick_timing():
+            flash_z, paged_z = zamba2_attention_cases(cfg_z2, rng)
         for name, more in (("flash_attention", flash_z),
                            ("paged_attention", paged_z)):
             if name in cases:
@@ -2491,20 +2639,24 @@ def kernel_cases(names=None) -> dict:
           f"cases: {time.perf_counter() - t0:.1f} s")
     if want("ssd_chunk_scan", "ssm_step", "causal_conv"):
         t0 = time.perf_counter()
-        for name, more in zamba2_ssm_cases(cfg_z2, names).items():
+        with quick_timing():
+            zamba2_ssm = zamba2_ssm_cases(cfg_z2, names)
+        for name, more in zamba2_ssm.items():
             cases[name] += more
         print(f"phase 3, zamba2's SSM cases: "
               f"{time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     if want("flash_attention", "paged_attention"):
-        flash_3, paged_3 = last_three_attention_cases(rng)
+        with quick_timing():
+            flash_3, paged_3 = last_three_attention_cases(rng)
         for name, more in (("flash_attention", flash_3),
                            ("paged_attention", paged_3)):
             if name in cases:
                 cases[name] += more
     if want("grouped_gemm", "grouped_gemm_bwd"):
-        fwd_l4, bwd_l4 = llama4_gemm_cases(fwd=want("grouped_gemm"),
-                                           bwd=want("grouped_gemm_bwd"))
+        with quick_timing():
+            fwd_l4, bwd_l4 = llama4_gemm_cases(
+                fwd=want("grouped_gemm"), bwd=want("grouped_gemm_bwd"))
         for name, more in (("grouped_gemm", fwd_l4),
                            ("grouped_gemm_bwd", bwd_l4)):
             if name in cases:
@@ -2518,6 +2670,9 @@ def kernel_cases(names=None) -> dict:
         cases["flash_attention_bwd"] = flash_bwd_cases()
         print(f"phase 3, flash's backward: "
               f"{time.perf_counter() - t0:.1f} s")
+    print(f"phase 3, in time_ms and kernel_parts: {TIMING_S[0]:.1f} s "
+          f"(main cases {TIMING['reps']} calls, the others "
+          f"{QUICK_TIMING['reps']}, unprofiled)")
     return cases
 
 
@@ -4469,9 +4624,18 @@ def same_routes(card: list, host: list) -> int:
     return sum(a.numel() for a in card)
 
 
+def cut(cfg, depth: int, n_experts=None, **kw):
+    """``cfg`` at ``depth`` layers and, with ``n_experts``, that many routed
+    experts (``kw`` replaces other fields)."""
+    if n_experts:
+        kw["moe"] = dataclasses.replace(cfg.moe, n_experts=n_experts)
+    return dataclasses.replace(cfg, n_layers=depth, **kw)
+
+
 def train_identity(cfg, device="cuda", depth=2, batch=2, seq=129, micro=2,
-                   steps=3, lr=TRAIN_LR) -> dict:
-    """(a) f32 at ``depth`` layers from one ``init_params`` seed: for an
+                   steps=3, lr=TRAIN_LR, n_experts=None) -> dict:
+    """(a) f32 at ``depth`` layers (``n_experts`` routed experts, if
+    given) from one ``init_params`` seed: for an
     MoE model, the first batch's every MoE layer routes every token to the
     same experts on ``device`` as on the CPU (so that a failure below says
     whether routing or arithmetic differs); the first batch's gradients
@@ -4485,7 +4649,7 @@ def train_identity(cfg, device="cuda", depth=2, batch=2, seq=129, micro=2,
     from repro_torch.training import (SyntheticLM, loss_and_grads,
                                       make_optimizer)
     from repro_torch.training.tree import leaves, leaves_with_paths, tree_map
-    cfg32 = dataclasses.replace(cfg, n_layers=depth, param_dtype="float32")
+    cfg32 = cut(cfg, depth, n_experts, param_dtype="float32")
     card = init_params(cfg32, seed=3, device=device)
     host = tree_map(lambda t: t.to("cpu", copy=True), card)
     pipe = SyntheticLM(cfg.vocab_size, batch, seq, seed=4)
@@ -4544,8 +4708,10 @@ def predicted_train_launches(cfg, steps: int, micro: int, remat) -> dict:
 
 
 def train_resume(cfg, device="cuda", depth=2, batch=4, seq=129, micro=2,
-                 every=2, crash=3, steps=5, lr=TRAIN_LR) -> dict:
-    """(c) ``FaultTolerantRunner`` at ``depth`` layers in bf16: a run that
+                 every=2, crash=3, steps=5, lr=TRAIN_LR,
+                 n_experts=None) -> dict:
+    """(c) ``FaultTolerantRunner`` at ``depth`` layers in bf16
+    (``n_experts`` routed experts, if given): a run that
     crashes after step ``crash``, resumed from its last checkpoint and run
     to ``steps``, gives the losses of the steps after the checkpoint and
     the final parameters of an uninterrupted run bit for bit, all three
@@ -4558,7 +4724,7 @@ def train_resume(cfg, device="cuda", depth=2, batch=4, seq=129, micro=2,
     from repro_torch.models import init_params
     from repro_torch.training import SyntheticLM, make_train_step
     from repro_torch.training.tree import leaves
-    cfg_d = dataclasses.replace(cfg, n_layers=depth)
+    cfg_d = cut(cfg, depth, n_experts)
     opt_init, train_step = make_train_step(cfg_d, lr=lr, n_microbatches=micro)
     saves = []
 
@@ -4618,9 +4784,10 @@ def train_phase(cfg, device="cuda", identity=TRAIN_IDENTITY,
                 batch=TRAIN_BATCH, seq=TRAIN_SEQ, micro=TRAIN_MICRO,
                 steps=TRAIN_STEPS, lr=TRAIN_LR, resume=TRAIN_RESUME,
                 remat="full", profile=True) -> dict:
-    """Phases 19 and 20: training and checkpoints on ``cfg`` at published
-    widths, ``micro`` microbatches a step (qwen1.5-0.5b's 2, granite's 4).
-    (a) :func:`train_identity`; (b) the slice's path at full depth in bf16
+    """Phases 19-21: training and checkpoints on ``cfg`` at published
+    widths, ``micro`` microbatches a step (qwen1.5-0.5b's 2, granite's 4,
+    ds27b's 8).  (a) :func:`train_identity`; (b) the slice's path at
+    ``cfg``'s depth (full, or ds27b's cut) in bf16
     (``make_train_step`` -> ``loss_fn`` -> ``forward`` through flash and
     its hand-written backward, and for an MoE model the grouped GEMM and
     its hand-written backward -> AdamW): finite losses,
@@ -4634,7 +4801,9 @@ def train_phase(cfg, device="cuda", identity=TRAIN_IDENTITY,
     from repro_torch.models import init_params
     from repro_torch.training import SyntheticLM, make_train_step
     cuda = device != "cpu"
+    t0 = time.perf_counter()
     out = dict(identity=train_identity(cfg, device, lr=lr, **identity))
+    out["identity"]["wall_s"] = time.perf_counter() - t0
     gc.collect()
     if cuda:
         torch.cuda.empty_cache()
@@ -4664,7 +4833,8 @@ def train_phase(cfg, device="cuda", identity=TRAIN_IDENTITY,
         want = predicted_train_launches(cfg, steps, micro, remat)
         assert launches == want, f"training launches {launches}, want {want}"
     step_s = float(np.median(walls[1:]))
-    out.update(batch=batch, seq=seq, micro=micro, steps=steps,
+    out.update(depth=cfg.n_layers, params=cfg.param_count(), batch=batch,
+               seq=seq, micro=micro, steps=steps,
                losses=list(losses), walls_s=list(walls), step_s=step_s,
                tokens_per_s=batch * (seq - 1) / step_s, launches=launches,
                peak_allocated=torch.cuda.max_memory_allocated() - base
@@ -4675,24 +4845,29 @@ def train_phase(cfg, device="cuda", identity=TRAIN_IDENTITY,
     gc.collect()
     if cuda:
         torch.cuda.empty_cache()
+    t0 = time.perf_counter()
     out["resume"] = dict(train_resume(cfg, device, lr=lr, **resume),
                          **resume)
+    out["resume"]["wall_s"] = time.perf_counter() - t0
     out["identity"].update(identity)
     return out
 
 
 def print_train_phase(r: dict, label: str = "train") -> None:
     idn, rs = r["identity"], r["resume"]
-    print(f"{label} (a) f32 at depth {idn['depth']}, card against "
-          f"the CPU: "
+    experts = lambda d: "" if not d.get("n_experts") else \
+        f" with {d['n_experts']} routed experts"
+    print(f"{label} (a) f32 at depth {idn['depth']}{experts(idn)}, card "
+          f"against the CPU: "
           + (f"{idn['routed_compared']} routed (token, slot)s of the first "
              f"batch sent to the same experts on both; "
              if idn["routed_compared"] else "")
           + f"losses {idn['losses']['card']} vs "
           f"{idn['losses']['host']} (max rel err {idn['loss_rel_err']:.3g}), "
           f"first-step gradients within {idn['grad_rel_err']:.3g} of each "
-          f"leaf's largest |g|")
-    print(f"{label} (b) bf16 at full depth, {r['batch']} x {r['seq']} tokens "
+          f"leaf's largest |g|; {idn['wall_s']:.1f} s")
+    print(f"{label} (b) bf16 at depth {r['depth']} ({r['params']} "
+          f"parameters), {r['batch']} x {r['seq']} tokens "
           f"in {r['micro']} microbatches: losses {r['losses']}; host s per "
           f"step {[round(w, 4) for w in r['walls_s']]}, median of steps 2-"
           f"{r['steps']} {r['step_s']:.4f} s, {r['tokens_per_s']:.1f} "
@@ -4701,12 +4876,27 @@ def print_train_phase(r: dict, label: str = "train") -> None:
           f"{r['base_allocated']} held before the phase's weights")
     if r["profile"]:
         print_profile(*r["profile"], label=f"{label} (b) one step: ")
-    print(f"{label} (c) crash after step {rs['crash']}, resumed at "
+    print(f"{label} (c) bf16 at depth {rs['depth']}{experts(rs)}: crash "
+          f"after step {rs['crash']}, resumed at "
           f"step {rs['resumed_at']}, run to {rs['steps']}: losses "
           f"and final parameters equal the uninterrupted run's bit for bit "
           f"({rs['losses']}); saves (s, bytes) "
           f"{[(round(t, 3), n) for t, n in rs['saves']]}, restore "
-          f"{rs['restore_s']:.3f} s")
+          f"{rs['restore_s']:.3f} s; {rs['wall_s']:.1f} s")
+
+
+def train_mla_phase(device="cuda", depth=TRAIN_MLA_DEPTH) -> dict:
+    """Phase 21: ds27b, MoE over MLA, through :func:`train_phase`: (b) at
+    published widths cut to ``depth`` layers (flash at q/k 192, v 128
+    with its lse, ``flash_attention_bwd`` at the same widths, the grouped
+    GEMM and its backward), (a) and (c) at depth 2 with the routed
+    experts cut (``TRAIN_MLA_IDENTITY``, ``TRAIN_MLA_RESUME``)."""
+    from repro_torch.configs import get_config
+    cfg = get_config("ds27b")
+    return train_phase(cut(cfg, depth), device, identity=TRAIN_MLA_IDENTITY,
+                       batch=TRAIN_MLA_BATCH, micro=cfg.microbatches_train_4k,
+                       steps=TRAIN_MLA_STEPS, lr=TRAIN_MLA_LR,
+                       resume=TRAIN_MLA_RESUME)
 
 
 def print_moe_phase(r: dict, label: str) -> None:
@@ -5048,6 +5238,20 @@ def main() -> int:
         print_sim(sim_phase())
         return 0
 
+    if sys.argv[1:2] == ["--train-mla"]:
+        print(f"torch {torch.__version__} cuda {torch.version.cuda}")
+        print(subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            check=True).stdout.strip())
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        build.build()
+        t0 = time.perf_counter()
+        print_train_phase(train_mla_phase(), "mla train")
+        print(f"phase 21 wall: {time.perf_counter() - t0:.1f} s")
+        return 0
+
     if sys.argv[1:2] == ["--persist-ab"]:
         print(subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -5330,7 +5534,15 @@ def main() -> int:
     print_train_phase(trm, "moe train")
     lap("20")
 
-    # 21. kernels line, then the contract line
+    # 21. MLA training: ds27b (MoE over MLA) through flash's backward at
+    # q/k 192, v 128
+    gc.collect()
+    torch.cuda.empty_cache()
+    trl = train_mla_phase()
+    print_train_phase(trl, "mla train")
+    lap("21")
+
+    # 22. kernels line, then the contract line
     meta = {
         "kv_layer_gather": ("src/repro_torch/kernels/csrc/kv_gather.cu",
                             "src/repro/kernels/kv_gather.py:30"),
@@ -5402,7 +5614,8 @@ def main() -> int:
                                   llava_vlm=lv["vlm"]["launches"][name],
                                   hubert=hb["launches"][name],
                                   train=tr["launches"][name],
-                                  train_moe=trm["launches"][name]),
+                                  train_moe=trm["launches"][name],
+                                  train_mla=trl["launches"][name]),
             max_abs_err=max(c["max_abs_err"] for c in cs),
             ms=main_case["ms"], kernel_ms=main_case["ms"],
             ms_clean_l2=main_case.get("ms_clean_l2"),

@@ -115,8 +115,6 @@ def require_cuda(kernel: str, *tensors: torch.Tensor) -> None:
 
 # the later slices (ROADMAP Queue 1) that bring the backwards the port does
 # not have yet, as the guards name them
-MLA_TRAINING = ("MLA training, with flash's backward at (192, 128), is "
-                "ROADMAP Queue 1 item 3b")
 SSM_TRAINING = ("SSM and hybrid training, with ssd_chunk_scan and "
                 "causal_conv backwards, is ROADMAP Queue 1 item 3c")
 DECODE_ONLY = ("a decode kernel is never trained: training runs the "

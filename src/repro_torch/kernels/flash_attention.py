@@ -30,8 +30,9 @@ through an autograd Function whose backward is ``flash_attention_bwd``,
 ``csrc/flash_attention_bwd.cu`` on CUDA tensors (the reference has no
 backward kernel: XLA differentiates its jnp attention) and
 ``ref.flash_attention_bwd_ref`` on CPU tensors.  It covers full-sequence
-attention (sq = skv, no ``kv_lens``) at dk = dv in ``HEAD_DIMS``; an
-append with ``kv_lens`` and MLA's (192, 128) raise under grad.  Its
+attention (sq = skv, no ``kv_lens``) at every pair of ``WIDTHS``, MLA's
+(192, 128) included (any widths on CPU tensors); an append with
+``kv_lens`` raises under grad.  Its
 forward has the kernel also write each query row's log-sum-exp
 (``lse``, (b, hq, s) f32, from the online softmax's own m and l: no
 launch of its own) and saves it beside q, k, v and o; the backward
@@ -76,7 +77,7 @@ def _fn():
 @functools.cache
 def _bwd_fn():
     fn = build.library("flash_attention_bwd").flash_attention_bwd
-    fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 10 +
+    fn.argtypes = ([ctypes.c_int] * 3 + [ctypes.c_void_p] * 10 +
                    [ctypes.c_int] * 4 +
                    [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float,
                     ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
@@ -111,10 +112,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return _forward(q, k, v, causal, softcap, window, kv_lens,
                         return_lse=True)
     if grad:
-        if (dh, dv) not in tuple((d, d) for d in HEAD_DIMS):
-            raise NotImplementedError(
-                f"flash_attention has no backward at widths {(dh, dv)} "
-                f"yet: {build.MLA_TRAINING}")
         if kv_lens is not None or sq != skv:
             raise NotImplementedError(
                 "flash_attention's backward covers full-sequence attention "
@@ -208,20 +205,23 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         lse: Optional[torch.Tensor] = None,
                         causal: bool = True, softcap: float = 0.0,
                         window: int = 0) -> tuple:
-    """The gradient of full-sequence :func:`flash_attention`: q, o and do
-    (b,hq,s,dh), k and v (b,hkv,s,dh), dh in ``HEAD_DIMS``, o the forward's
-    output, do its cotangent and lse (b,hq,s) f32 the log-sum-exp the
-    forward wrote (``return_lse``).  Returns (dq, dk, dv) in the input
-    dtype, each allocated (b, s, h, dh) in memory and returned as its (b,
-    h, s, dh) view.  On CUDA tensors one call runs the launches of
+    """The gradient of full-sequence :func:`flash_attention`: q (b,hq,s,dk),
+    k (b,hkv,s,dk), v (b,hkv,s,dv), o and do (b,hq,s,dv), (dk, dv) in
+    ``WIDTHS`` on the card, o the forward's output, do its cotangent and
+    lse (b,hq,s) f32 the log-sum-exp the forward wrote (``return_lse``).
+    Returns (dq, dk, dv) in the input dtype, dq and dk dk wide and dv dv
+    wide, each allocated (b, s, h, width) in memory and returned as its
+    (b, h, s, width) view.  On CUDA tensors one call runs the launches of
     ``csrc/flash_attention_bwd.cu`` (two in bf16, three in float32,
     counted once) and needs ``lse``; on CPU tensors it is
-    ``ref.flash_attention_bwd_ref`` (``o`` and ``lse`` unused).  An
-    ``lse`` of another shape or dtype is refused on either device."""
+    ``ref.flash_attention_bwd_ref`` at any widths (``o`` and ``lse``
+    unused).  An ``lse`` of another shape or dtype is refused on either
+    device."""
     b, hq, s, dh = q.shape
-    hkv = k.shape[1]
-    if hq % hkv or k.shape != (b, hkv, s, dh) or v.shape != k.shape \
-            or o.shape != q.shape or do.shape != q.shape:
+    hkv, dv = k.shape[1], v.shape[3]
+    if hq % hkv or k.shape != (b, hkv, s, dh) \
+            or v.shape != (b, hkv, s, dv) or o.shape != (b, hq, s, dv) \
+            or do.shape != o.shape:
         raise ValueError(f"flash_attention_bwd: shapes q {tuple(q.shape)} "
                          f"k {tuple(k.shape)} v {tuple(v.shape)} o "
                          f"{tuple(o.shape)} do {tuple(do.shape)}")
@@ -242,9 +242,9 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"flash_attention_bwd: dtypes "
                          f"{[t.dtype for t in (q, k, v, o, do)]}; need all "
                          f"float32 or all bfloat16")
-    if dh not in HEAD_DIMS or hq // hkv > MAX_GROUP:
-        raise ValueError(f"flash_attention_bwd: head dim {dh} (need one of "
-                         f"{HEAD_DIMS}) or group {hq // hkv} > {MAX_GROUP}")
+    if (dh, dv) not in WIDTHS or hq // hkv > MAX_GROUP:
+        raise ValueError(f"flash_attention_bwd: widths {(dh, dv)} (need one "
+                         f"of {WIDTHS}) or group {hq // hkv} > {MAX_GROUP}")
     if any(t.stride(-1) != 1 for t in (q, k, v, o)):
         raise ValueError("flash_attention_bwd: the head dim must be "
                          "contiguous")
@@ -259,16 +259,16 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             "flash_attention_bwd",
             {n: t.data_ptr() for n, t in named},
             {n: t.stride()[:3] for n, t in named}, q.element_size())
-    grads = [torch.empty((b, s, h, dh), dtype=q.dtype,
+    grads = [torch.empty((b, s, h, w), dtype=q.dtype,
                          device=q.device).transpose(1, 2)
-             for h in (hq, hkv, hkv)]
+             for h, w in ((hq, dh), (hkv, dh), (hkv, dv))]
     if b == 0 or s == 0:
         return tuple(grads)
     lse = lse.contiguous()
     dsum = torch.empty((b, hq, s), dtype=torch.float32, device=q.device)
     strides = (ctypes.c_longlong * 24)(*(
         x for t in (q, k, v, o, do, *grads) for x in t.stride()[:3]))
-    rc = _bwd_fn()(build.ATTN_DTYPES[q.dtype], dh, q.data_ptr(),
+    rc = _bwd_fn()(build.ATTN_DTYPES[q.dtype], dh, dv, q.data_ptr(),
                    k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
                    *(g.data_ptr() for g in grads), lse.data_ptr(),
                    dsum.data_ptr(), b, hq, hkv, s, strides,
@@ -286,10 +286,11 @@ flash_attention_bwd.launches = 0
 
 def bwd_groups(b: int, hkv: int, s: int, dh: int, n_sm: int) -> int:
     """Warp groups a block of the bf16 backward's dK/dV launch: 2 when its
-    ``b * hkv * ceil(s / key tile)`` blocks (key tiles of 64, 32 at dh
-    256) fit one block an SM, so the query tiles split between two groups
-    of 4 warps and each SM holds 8 warps; 1 above, where the blocks fill
-    the SMs two at a time (the timings are in PERF.md)."""
+    ``b * hkv * ceil(s / key tile)`` blocks (key tiles of 64, 32 at q/k
+    widths over 128) fit one block an SM, so the query tiles split
+    between two groups of 4 warps and each SM holds 8 warps; 1 above,
+    where the blocks fill the SMs two at a time (the timings are in
+    PERF.md)."""
     tile = 32 if dh > 128 else 64
     return 2 if b * hkv * -(-s // tile) <= n_sm else 1
 

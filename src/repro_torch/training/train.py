@@ -11,8 +11,9 @@ update runs, in place.  Where the reference scans the microbatches under
 parameters' leaves are handed to the model as tensors that require grad,
 so the dense, MoE, VLM and encoder families' attention goes through
 flash's hand-written backward (``kernels.flash_attention_bwd``) on the
-card, and the MoE family's expert products through the grouped GEMM's
-(``kernels.grouped_gemm_bwd``).
+card, MLA's at q/k 192 and v 128 among them, and the MoE family's expert
+products through the grouped GEMM's (``kernels.grouped_gemm_bwd``): ds27b,
+MoE over MLA, trains through both.
 
 The families whose forward runs a kernel without a backward yet are
 refused by :func:`require_trainable`, naming the slice that brings it.
@@ -31,15 +32,13 @@ from repro_torch.training.tree import leaves_with_paths, unflatten
 
 def require_trainable(cfg: ModelConfig) -> None:
     """Raise for an architecture whose forward runs a kernel without a
-    backward: SSM and hybrid (the SSD scan and the causal conv), MLA
-    (flash at (192, 128); ds27b, MoE over MLA, among them), as
+    backward: SSM and hybrid (the SSD scan and the causal conv), as
     ``params.require_ported`` refuses what the port does not serve.  The
-    dense, MoE (GQA), VLM and encoder families train."""
+    dense, MoE (over GQA or MLA: ds27b), VLM and encoder families
+    train."""
     require_ported(cfg)
     if cfg.family in ("ssm", "hybrid"):
         raise NotImplementedError(f"{cfg.name}: {build.SSM_TRAINING}")
-    if cfg.attn_variant == "mla":
-        raise NotImplementedError(f"{cfg.name}: {build.MLA_TRAINING}")
 
 
 def _require_moe_impl(moe_impl: str) -> None:

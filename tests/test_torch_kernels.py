@@ -636,11 +636,13 @@ def test_flash_without_grad_is_the_forward_alone():
         kernels.flash_attention(qg, k, k, kv_lens=lens)
     with pytest.raises(NotImplementedError, match="full-sequence"):
         kernels.flash_attention(qg, k, k)
+    # MLA's widths serve without grad and, with it, go through the
+    # autograd Function
     q6 = torch.randn((1, 4, 9, 192), generator=g, requires_grad=True)
     k6 = torch.randn((1, 4, 9, 192), generator=g)
     v6 = torch.randn((1, 4, 9, 128), generator=g)
-    with pytest.raises(NotImplementedError, match="item 3b"):
-        kernels.flash_attention(q6, k6, v6)
+    assert type(kernels.flash_attention(q6, k6, v6).grad_fn).__name__ \
+        == "_FlashBackward"
     assert kernels.flash_attention(q6.detach(), k6, v6).shape == (1, 4, 9, 128)
 
 
@@ -709,3 +711,65 @@ def test_flash_bwd_wrapper_on_cpu_is_the_plain_backward():
     assert all(torch.equal(a, b) for a, b in zip(got, want))
     with pytest.raises(ValueError):
         kernels.flash_attention_bwd(q, k, v, o[:, :, :12], do)
+
+
+@pytest.mark.parametrize("dk,dv", [(48, 32), (192, 128)],
+                         ids=["reduced-mla", "ds27b-mla"])
+def test_flash_function_at_mla_widths_matches_jax_grad(dk, dv):
+    """flash_attention under grad at unequal widths (q and k dk wide, v dv
+    wide: reduced ds27b's and ds27b's) on CPU tensors: the gradients
+    autograd takes through the port's _Flash against jax.grad of the
+    reference's attend(..., scale=1/sqrt(dk)) on the same numpy inputs,
+    causal, f32, within 1e-5 of each gradient's largest |value|; dv's
+    width is v's, dq's and dk's q's."""
+    import jax
+    from repro.models.layers import attend
+    b, s, h = 1, 40, 2
+    rng = np.random.default_rng(13)
+    q, k = (rng.standard_normal((b, s, h, dk)).astype(np.float32)
+            for _ in range(2))
+    v, do = (rng.standard_normal((b, s, h, dv)).astype(np.float32)
+             for _ in range(2))
+
+    def loss(q, k, v):
+        o = attend(q, k, v, causal=True, scale=1.0 / np.sqrt(dk))
+        return jnp.sum(o * do)
+
+    want = jax.grad(loss, argnums=(0, 1, 2))(q, k, v)
+    qt, kt, vt = (torch.from_numpy(x).transpose(1, 2).requires_grad_(True)
+                  for x in (q, k, v))
+    out = kernels.flash_attention(qt, kt, vt, causal=True)
+    assert type(out.grad_fn).__name__ == "_FlashBackward"
+    assert out.shape == (b, h, s, dv)
+    got = torch.autograd.grad(out, (qt, kt, vt),
+                              torch.from_numpy(do).transpose(1, 2))
+    assert [g.shape[-1] for g in got] == [dk, dk, dv]
+    _grads_close([g.transpose(1, 2).numpy() for g in got],
+                 [np.asarray(w) for w in want], 1e-5)
+
+
+def test_flash_bwd_wrapper_refuses_a_v_o_or_do_of_the_wrong_width():
+    """At q/k 48 and v 32, a v, o or dO of q's width (or o and dO of a
+    width apart from v's) is refused on CPU and non-CPU tensors alike,
+    before any launch; the right widths give the plain backward, dq and
+    dk 48 wide and dv 32."""
+    g = torch.Generator().manual_seed(8)
+    q, k = (torch.randn((1, 2, 11, 48), generator=g) for _ in range(2))
+    v, o, do = (torch.randn((1, 2, 11, 32), generator=g) for _ in range(3))
+    wide = torch.randn((1, 2, 11, 48), generator=g)
+    for device in ("cpu", "meta"):
+        right = [x.to(device) for x in (q, k, v, o, do)]
+        for i in (2, 3, 4):
+            bad = list(right)
+            bad[i] = wide.to(device)
+            with pytest.raises(ValueError, match="shapes"):
+                kernels.flash_attention_bwd(
+                    *bad, lse=torch.zeros((1, 2, 11), device=device))
+        with pytest.raises(ValueError, match="shapes"):
+            kernels.flash_attention_bwd(
+                *right[:3], wide.to(device), wide.to(device),
+                lse=torch.zeros((1, 2, 11), device=device))
+    got = kernels.flash_attention_bwd(q, k, v, o, do)
+    want = ref.flash_attention_bwd_ref(q, k, v, do)
+    assert [x.shape[-1] for x in got] == [48, 48, 32]
+    assert all(torch.equal(a, b) for a, b in zip(got, want))

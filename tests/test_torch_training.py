@@ -306,6 +306,9 @@ def _batch(tcfg, b: int, s: int, seed: int):
     # router's gradient is 0 in exact arithmetic (held in shape only)
     pytest.param("llama4-maverick-400b-a17b", 16, ("router",),
                  id="llama4"),
+    # MoE over MLA: a dense layer, then 3 MoE layers of 8 experts, top-2,
+    # 2 shared; flash at q/k 48, v 32 through its autograd glue
+    pytest.param("ds27b", 16, (), id="ds27b"),
 ])
 def test_loss_and_gradients_match_reference(arch, s, residue):
     """f32, no remat on either side: loss_fn within 2e-5 relative, and
@@ -344,14 +347,17 @@ def test_remat_full_is_bit_identical_on_cpu():
 
 @pytest.fixture(scope="module", params=["float32", "bfloat16",
                                         "granite-float32",
-                                        "granite-bfloat16"])
+                                        "granite-bfloat16",
+                                        "ds27b-float32", "ds27b-bfloat16"])
 def five_steps(request):
-    """Five AdamW steps of reduced qwen (the bare dtype) and of reduced
-    granite (MoE, top-2 of 8) in both packages from one init and one
-    batch stream (4 rows of 17 tokens, 2 microbatches, full remat): each
-    train step compiled once for the module."""
+    """Five AdamW steps of reduced qwen (the bare dtype), of reduced
+    granite (MoE, top-2 of 8) and of reduced ds27b (MoE over MLA) in both
+    packages from one init and one batch stream (4 rows of 17 tokens, 2
+    microbatches, full remat): each train step compiled once for the
+    module."""
     arch, _, dt = request.param.rpartition("-")
-    arch = {"": "qwen1.5-0.5b", "granite": "granite-moe-3b-a800m"}[arch]
+    arch = {"": "qwen1.5-0.5b", "granite": "granite-moe-3b-a800m",
+            "ds27b": "ds27b"}[arch]
     jcfg, tcfg, jp, tp = _bridged(arch, dt, key=1)
     j_init, j_step = jax_make_train_step(jcfg, lr=1e-3, n_microbatches=2)
     t_init, t_step = make_train_step(tcfg, lr=1e-3, n_microbatches=2)
@@ -496,13 +502,25 @@ def test_launch_train_runs_and_resumes_an_moe_model(tmp_path, capsys):
     assert "resumed at step 2" in out and "steps 3: loss" in out
 
 
+def test_launch_train_runs_and_resumes_an_mla_model(tmp_path, capsys):
+    """The launcher trains reduced ds27b (MoE over MLA) two steps and
+    resumes from its checkpoint for a third."""
+    from repro_torch.launch import train
+    args = ["--arch", "ds27b", "--reduced", "--device", "cpu",
+            "--batch", "2", "--seq", "16", "--ckpt-dir", str(tmp_path)]
+    train.main(args + ["--steps", "2"])
+    assert "steps 2: loss" in capsys.readouterr().out
+    train.main(args + ["--steps", "3"])
+    out = capsys.readouterr().out
+    assert "resumed at step 2" in out and "steps 3: loss" in out
+
+
 # ---------------------------------------------------------------------------
 # what the port cannot train yet names its slice
 # ---------------------------------------------------------------------------
 
 
 @pytest.mark.parametrize("arch,match", [
-    ("ds27b", "item 3b"),                 # MoE over MLA: flash (192, 128)
     ("mamba2-1.3b", "item 3c"),           # SSM: the SSD scan, the conv
     ("zamba2-2.7b", "item 3c"),
 ])
@@ -515,10 +533,16 @@ def test_require_trainable_names_the_slice(arch, match):
 
 
 def test_mla_training_and_the_mesh_forms_name_their_slices():
-    ds = get_config("ds27b").reduced()
-    mla_dense = dataclasses.replace(ds, family="dense", moe=None)
-    with pytest.raises(NotImplementedError, match="item 3b"):
-        require_trainable(mla_dense)
+    """MLA trains: ds27b (MoE over MLA) and its MLA-dense variant pass
+    ``require_trainable`` and build a train step, at full size and
+    reduced; the mesh forms still name ROADMAP Queue 1 item 4."""
+    ds = get_config("ds27b")
+    for cfg in (ds, ds.reduced()):
+        mla_dense = dataclasses.replace(cfg, family="dense", moe=None)
+        for c in (cfg, mla_dense):
+            require_trainable(c)
+            opt_init, train_step = make_train_step(c)
+            assert callable(opt_init) and callable(train_step)
     for arch in ("qwen1.5-0.5b", "gemma2-2b", "minicpm-2b", "nemotron-4-15b",
                  "llava-next-34b", "hubert-xlarge", "granite-moe-3b-a800m",
                  "llama4-maverick-400b-a17b"):
