@@ -10,13 +10,15 @@
                                            # of the named kernels only
     python3 chip_smoke.py --sim            # phase 12 alone
     python3 chip_smoke.py --train-mla      # phase 21 alone
+    python3 chip_smoke.py --train-ssm      # phase 22 alone
 
 Drives ``repro_torch`` (never the JAX package) on the card:
 
 1. environment: torch version, the card's name and power limit, TF32 off;
-2. builds the nine CUDA kernels from src/repro_torch/kernels/csrc with
-   nvcc for sm_90a, one nvcc process per source, all at once (the causal
-   conv is Triton, compiled at its first launch);
+2. builds the eleven CUDA sources of ``build.SOURCES`` (the build line
+   prints their count) from src/repro_torch/kernels/csrc with nvcc for
+   sm_90a, one nvcc process per source, all at once (the causal conv and
+   its backward are Triton, compiled at their first launch);
 3. holds each kernel against its plain PyTorch version at the main
    paths' shapes plus other shapes (gather and scatter bit-exact, at the
    installs' and the persists' shapes, one page, short chunks, bf16 and
@@ -39,8 +41,8 @@ Drives ``repro_torch`` (never the JAX package) on the card:
    it times the kernel, the plain version and one PyTorch call
    computing the same function, with CUDA events (also with a clean L2,
    and split into their kernels under torch.profiler): the median of 25
-   calls for each kernel's main case and the backwards' cases, of 3 for
-   the others, which are not profiled; times the main
+   calls for each kernel's main case and ds27b's backward cases, of 3
+   for the others, which are not profiled; times the main
    gather and its indexing alternately, beside an empty kernel; then the
    round-1 persist (16 FullBlocks) the old way (layer-major bytes, a
    host slice per block) against the scatter's block-major pool, host
@@ -103,7 +105,21 @@ Drives ``repro_torch`` (never the JAX package) on the card:
    weight stack) and the tile walk's edges (empty groups, all rows in
    one group, rows past the groups, M < E, groups past M, M 0); a group
    boundary moved by one row must fail; dX and dW timed apart beside
-   ``torch._grouped_mm``;
+   ``torch._grouped_mm``; flash's backward also at zamba2's shared block
+   (2 x 1023, 32 x 80, causal); the SSD scan's backward
+   (``ssd_chunk_scan_bwd``) against autograd of the masked plain forward
+   within SSD_BWD_TOLS (BF16_GRAD_TOL for bf16 gradients) of each
+   gradient's largest |value|, bit-identical
+   over two calls, at mamba2-1.3b's training microbatch (2 x 1023, 64
+   heads, N 128, chunks of 256), zamba2-2.7b's (80 heads, N 64), 77 rows,
+   301 rows from a carried state with a cotangent on the final state
+   (dh0 checked) and f32 at 1000 rows (the reverse pass dropped, da
+   taken without the reverse cumulative sum and dB summed over one head
+   must fail), and the conv's backward (``causal_conv_bwd``) within TOLS
+   at the two models' microbatches (4352 and 5248 channels), 2 rows with
+   a cotangent on the new tail (dx's taps left unreversed and dw without
+   the tail's rows must fail) and f32, beside the backward of
+   ``F.conv1d`` + SiLU;
 4. serves 6 agents x 3 rounds of full-width qwen1.5-0.5b (bf16, random
    weights from a seed) offline through the port's ServingSystem,
    asserting that every round finished, both read sides were used and
@@ -245,9 +261,10 @@ Drives ``repro_torch`` (never the JAX package) on the card:
    finite, falling losses and every launch count equal to its
    prediction, host seconds per step, trained tokens per real second,
    peak memory and a profiled step; (c) ``FaultTolerantRunner`` at depth
-   2 crashing after step 3 and resumed from step 2: losses and final
-   parameters equal an uninterrupted run's bit for bit (see
-   :func:`train_phase`);
+   2 with the vocabulary cut to 8192 tokens, crashing after step 3 and
+   resumed from step 2: losses and final parameters equal an
+   uninterrupted run's bit for bit (see :func:`train_phase`; every (c)
+   of phases 19-22 cuts the vocabulary so);
 20. MoE training on granite-moe-3b-a800m at published widths, phase 19's
    three parts through the same functions: (a) f32 at depth 2, every
    token of the first batch routed to the same experts on the card and
@@ -258,8 +275,9 @@ Drives ``repro_torch`` (never the JAX package) on the card:
    equal to its prediction; (c) crash and resume at depth 2, bit for
    bit;
 21. MLA training on ds27b (MoE over MLA) at published widths, the same
-   three parts: (a) f32 at depth 2 with the routed experts cut to 8,
-   every routed token equal on the card and the CPU, then the gradients
+   three parts: (a) f32 at depth 2 with the routed experts cut to 8 and
+   the vocabulary to 8192, every routed token equal on the card and the
+   CPU, then the gradients
    and 2 AdamW steps against the CPU; (b) bf16 cut to depth 4 (a dense
    layer, then 3 MoE layers of 72 experts, top-6; 3.50 B parameters), 5
    steps of 8 x 1024 tokens in ds27b's 8 microbatches with full remat at
@@ -268,7 +286,17 @@ Drives ``repro_torch`` (never the JAX package) on the card:
    widths, the grouped GEMM and its backward, every launch count equal
    to its prediction; (c) crash after step 3 and resume at depth 2 with
    8 experts, run to step 4, bit for bit (see :func:`train_mla_phase`);
-22. prints the ``kernels`` JSON line, then the contract line
+22. SSM and hybrid training at published widths, through the SSD scan's
+   and the conv's hand-written backwards: (a) f32, the card against the
+   CPU, mamba2-1.3b at depth 2 and zamba2-2.7b at depth 6, 2 rows of 300
+   tokens (a 256-row chunk and a 43-row one), 2 AdamW steps; (b)
+   mamba2-1.3b at full depth (48 layers, 1.34 B parameters) in bf16, 5
+   steps of 8 x 1024 tokens in its 4 microbatches with full remat,
+   every gradient finite and every launch count equal to its prediction;
+   (c) crash and resume at depth 2, bit for bit; (d) zamba2 at depth 6
+   in bf16, 3 steps, its shared block through flash at (80, 80) and
+   flash's backward (see :func:`train_ssm_phase`);
+23. prints the ``kernels`` JSON line, then the contract line
    ``{"ok": true, "device": {...}}`` last.
 
 Any failed check raises, so the script exits non-zero and prints no
@@ -456,12 +484,17 @@ HUBERT_IDENTITY = dict(depth=2)
 # slice's path: 8 rows of 1024 tokens (1023 inputs each) in qwen's 2
 # microbatches (microbatches_train_4k), full remat, 6 steps; (c) crash and
 # resume at depth 2 in bf16, a checkpoint every 2 steps, a crash after
-# step 3, resumed from step 2 and run to 5
+# step 3, resumed from step 2 and run to 5, with the vocabulary cut to
+# TRAIN_CUT_VOCAB tokens (phases 19-22: the embedding, and the untied
+# head, were most of a depth-2 checkpoint's bytes, and of its save and
+# restore seconds; what (c) shows, a bitwise resume, is the same at any
+# vocabulary)
 TRAIN_IDENTITY = dict(depth=2, batch=2, seq=129, micro=2, steps=3)
+TRAIN_CUT_VOCAB = 8192
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO, TRAIN_STEPS = 8, 1024, 2, 6
 TRAIN_LR = 3e-4
 TRAIN_RESUME = dict(depth=2, batch=4, seq=129, micro=2, every=2, crash=3,
-                    steps=5)
+                    steps=5, vocab=TRAIN_CUT_VOCAB)
 # MoE training (phase 20): granite-moe-3b-a800m at published widths, the
 # same three parts: (a) f32 at depth 2 against the CPU, 3 AdamW steps;
 # (b) bf16 at full depth, 8 rows of 1024 tokens in granite's 4
@@ -487,9 +520,25 @@ TRAIN_MOE_BATCH, TRAIN_MOE_STEPS = 8, 5
 TRAIN_MLA_BATCH, TRAIN_MLA_STEPS, TRAIN_MLA_DEPTH = 8, 5, 4
 TRAIN_MLA_LR = 1e-3
 TRAIN_MLA_EXPERTS = 8
+# (a) also cuts the untied vocabulary to TRAIN_CUT_VOCAB tokens, as (c)
+# does (the embedding and head were ~70 % of (c)'s checkpoints and of
+# (a)'s CPU work); (b) keeps all 129,280
 TRAIN_MLA_IDENTITY = dict(TRAIN_IDENTITY, steps=2,
-                          n_experts=TRAIN_MLA_EXPERTS)
+                          n_experts=TRAIN_MLA_EXPERTS, vocab=TRAIN_CUT_VOCAB)
 TRAIN_MLA_RESUME = dict(TRAIN_RESUME, steps=4, n_experts=TRAIN_MLA_EXPERTS)
+# SSM and hybrid training (phase 22): (a) f32 at published widths, the
+# card against the CPU from one init: mamba2-1.3b at depth 2 and
+# zamba2-2.7b at depth 6 (its least depth with a shared-block
+# application), 2 rows of 300 tokens (299 inputs: a 256-row chunk and a
+# 43-row one) in 2 microbatches, 2 AdamW steps; (b) mamba2-1.3b at full
+# depth in bf16, 8 rows of 1024 tokens in its 4 microbatches
+# (microbatches_train_4k), full remat, TRAIN_SSM_STEPS steps at
+# TRAIN_LR, every gradient finite; (c) crash and resume of mamba2 at
+# depth 2 in bf16; (d) zamba2 at depth 6 in bf16, TRAIN_HYBRID_STEPS
+# steps of (b)'s batch in its 4 microbatches
+TRAIN_SSM_IDENTITY = dict(depth=2, batch=2, seq=300, micro=2, steps=2)
+TRAIN_SSM_BATCH, TRAIN_SSM_STEPS = 8, 5
+TRAIN_HYBRID_DEPTH, TRAIN_HYBRID_STEPS = 6, 3
 # the event simulator (phase 12): (a) the reference's I/O-bound point,
 # DS 660B at 2P4D on Table 2's 64K trajectories; (b)
 # benchmarks/microbench_sim.py's saturated-link workload; (c) a traced
@@ -506,8 +555,10 @@ KERNEL_ROWS = {"flash_attention": ("flash_",), "paged_attention": ("paged_",),
                "kv_layer_scatter": ("scatter_kernel",),
                "grouped_gemm_bwd": ("gg_bwd_",),
                "grouped_gemm": ("gg_",), "mla_decode": ("mla_",),
+               "ssd_chunk_scan_bwd": ("ssd_bwd_",),
                "ssd_chunk_scan": ("ssd_",),
                "ssm_step": ("ssm_step_kernel",),
+               "causal_conv_bwd": ("_conv_bwd_",),
                "causal_conv": ("_conv_kernel",),
                "flash_attention_bwd": ("bwd_",)}
 
@@ -597,12 +648,33 @@ def short_name(key: str) -> str:
                                              "").split("<")[0].split("(")[0]
 
 
+def device_times(prof) -> dict:
+    """{kernel or copy name: (device ns, launches)} over a finished
+    torch.profiler run's device events, read from its raw trace.
+    ``key_averages()`` gives the same sums but first builds a Python
+    event, with its tree of children, for every event of the trace (~2 a
+    launch): tens of seconds after a serving run or a train step."""
+    from torch.autograd import DeviceType
+    out, names = {}, {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != DeviceType.CUDA or e.is_hidden_event():
+            continue
+        raw = e.name()
+        name = names.get(raw)
+        if name is None:
+            # key_averages' names are demangled, one-letter names kept
+            name = names[raw] = torch._C._demangle(raw) if len(raw) > 1 \
+                else raw
+        ns, n = out.get(name, (0, 0))
+        out[name] = (ns + e.duration_ns(), n + 1)
+    return out
+
+
 def kernel_parts(fn, reps: int | None = None) -> dict:
     """Device ms per call of each kernel that ``fn`` launches (split and
     combine kernels apart), under torch.profiler, warm: back-to-back
     calls (TIMING's count by default), so inputs that fit in L2 stay
     there; none (an empty dict) under :func:`quick_timing`."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     t0 = time.perf_counter()
     reps = reps or TIMING["parts"]
@@ -614,9 +686,10 @@ def kernel_parts(fn, reps: int | None = None) -> dict:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
+    parts = {short_name(k): ns / 1e6 / reps
+             for k, (ns, _) in device_times(prof).items()}
     TIMING_S[0] += time.perf_counter() - t0
-    return {short_name(e.key): e.self_device_time_total / 1e3 / reps
-            for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
+    return parts
 
 
 def bound(nbytes: float, flops: float, dtype) -> tuple:
@@ -1804,6 +1877,372 @@ def conv_cases(cfg):
 
 
 # ---------------------------------------------------------------------------
+# phase 3, the SSM backwards: the SSD scan's and the conv's gradients, the
+# SSM and hybrid training path's (phase 22)
+# ---------------------------------------------------------------------------
+
+
+# each gradient of the SSD scan's backward held within this share of its
+# own largest |value| (:func:`ssd_grads_err`): the f32 ones (ddt, dA, dh0,
+# and every one with f32 inputs) by the inputs' dtype, the bf16 ones (dx,
+# dB, dC, dD with bf16 inputs) within BF16_GRAD_TOL.  On an H100 the f32
+# gradients of bf16 inputs (split TF32 products) erred by up to 1.2e-5;
+# the bf16 ones by 4.9e-3, one bf16 step at their largest values (2^-8 to
+# 2^-7 of it), where the kernel's f32 sum and the plain version's round
+# to neighbouring bf16 values
+SSD_BWD_TOLS = {torch.float32: 1e-4, torch.bfloat16: 2e-4}
+BF16_GRAD_TOL = 1e-2
+
+
+def ssd_grads_err(got, want, tol: float):
+    """:func:`grads_err` with each bf16 gradient held to BF16_GRAD_TOL and
+    each f32 one to ``tol``: (max |err|, all within)."""
+    errs, ok = [], True
+    for g, w in zip(got, want):
+        err = float((g.float() - w.float()).abs().max())
+        lim = BF16_GRAD_TOL if w.dtype == torch.bfloat16 else tol
+        ok &= err <= lim * float(w.float().abs().max())
+        errs.append(err)
+    return max(errs), ok
+
+
+def _nonnull(grads) -> tuple:
+    return tuple(g for g in grads if g is not None)
+
+
+def ssd_bwd_plain(x, B, C, dt, A, D, h0, chunk: int, dy, dh=None, *,
+                  carry: bool = True, da_cumsum: bool = True,
+                  dbc_heads: int | None = None):
+    """``ref.ssd_chunk_scan_bwd_ref`` computed as the card's backward
+    (``csrc/ssd_scan_bwd.cu``) splits it, in f32, to plant faults in
+    (tests/test_torch_ssm_training.py holds it against autograd).  Per chunk (``a = dt·A``, ``cs`` its cumulative sum,
+    f64 rounded once; ``e_ij = exp(cs_i - cs_j)`` for j <= i; ``u = dt·x``;
+    ``h_in`` the state entering the chunk, from the forward's split;
+    ``g`` the cotangent of the state leaving it):
+    (1) ``Q_c = Σ_i e^{cs_i} dy_i ⊗ C_i``, then the reverse pass over the
+    chunks, ``g_{c-1} = e^{cs_end} g_c + Q_c`` from ``g = dh``, the last
+    ``g`` being dh0; (2) per chunk, with ``M_ij = e_ij (dy_i · u_j)``,
+    ``du_j = Σ_{i>=j} (C_i·B_j) e_ij dy_i + e^{cs_end - cs_j} g B_j``, dx
+    = dt·du + D·dy, ``ddt = x · du``, ``dB_j = Σ_h [Σ_i M_ij C_i +
+    e^{cs_end - cs_j} u_j g]``, ``dC_i = Σ_h [Σ_j M_ij B_j + e^{cs_i}
+    dy_i h_in]``; (3) ``dcs`` from the quadratic term (``W = (C·B) ∘ M``:
+    row sums less column sums), the carried state's (``e^{cs_i} dy_i ·
+    h_in C_i``) and the state update's (``v_j = e^{cs_end - cs_j} u_j · g
+    B_j``: ``-v_j`` on row j, their sum and ``e^{cs_end} <g, h_in>`` on
+    the last row), then ``da_k = Σ_{i>=k} dcs_i`` (f64), ``ddt += da·A``,
+    ``dA = Σ da·dt``, ``dD = Σ dy·x``.  ``carry=False`` drops the reverse
+    pass (each chunk gets a zero ``g``, the last one ``dh``),
+    ``da_cumsum=False`` takes ``da = dcs``, ``dbc_heads`` sums dB and dC
+    over only that many heads: the faults the card's check must see
+    fail.  Returns (dx, dB, dC, ddt, dA, dD, dh0) as
+    ``ref.ssd_chunk_scan_bwd_ref`` does."""
+    b, s, H, P = x.shape
+    N = B.shape[-1]
+    L = min(chunk, s)
+    xf, Bf, Cf, dtf = x.float(), B.float(), C.float(), dt.float()
+    dyf, Af, Df = dy.float(), A.float(), D.float()
+    spans = [(r0, min(s, r0 + L)) for r0 in range(0, s, L)]
+    cs = [torch.cumsum((dtf[:, r0:r1] * Af).double(), dim=1).float()
+          for r0, r1 in spans]
+    # the forward's states entering each chunk
+    h = torch.zeros((b, H, P, N), dtype=torch.float32, device=x.device) \
+        if h0 is None else h0.float()
+    h_in = []
+    for (r0, r1), c in zip(spans, cs):
+        h_in.append(h)
+        w = torch.exp(c[:, -1:, :] - c) * dtf[:, r0:r1]
+        h = h * torch.exp(c[:, -1, :])[:, :, None, None] + torch.einsum(
+            "blh,bln,blhp->bhpn", w, Bf[:, r0:r1], xf[:, r0:r1])
+    # (1) the reverse pass
+    g = torch.zeros_like(h) if dh is None else dh.float()
+    g_out = [None] * len(spans)
+    for k in reversed(range(len(spans))):
+        r0, r1 = spans[k]
+        g_out[k] = g if carry or k == len(spans) - 1 else torch.zeros_like(g)
+        q = torch.einsum("bih,bihp,bin->bhpn", torch.exp(cs[k]),
+                         dyf[:, r0:r1], Cf[:, r0:r1])
+        g = g_out[k] * torch.exp(cs[k][:, -1, :])[:, :, None, None] + q
+    dh0 = None if h0 is None else g
+    # (2) and (3), chunk by chunk
+    dx, ddt = torch.empty_like(xf), torch.empty_like(dtf)
+    dB_h = torch.empty((b, s, H, N), dtype=torch.float32, device=x.device)
+    dC_h = torch.empty_like(dB_h)
+    dA = torch.zeros_like(Af)
+    for (r0, r1), c, hc, gc in zip(spans, cs, h_in, g_out):
+        n = r1 - r0
+        xc, dyc, Bc, Cc = xf[:, r0:r1], dyf[:, r0:r1], Bf[:, r0:r1], \
+            Cf[:, r0:r1]
+        dtc = dtf[:, r0:r1]
+        u = dtc[..., None] * xc
+        causal = torch.ones((n, n), dtype=torch.bool,
+                            device=x.device).tril()[None, :, :, None]
+        e = torch.exp(torch.where(causal, c[:, :, None, :] - c[:, None, :, :],
+                                  float("-inf")))               # (b,i,j,H)
+        cb = torch.einsum("bin,bjn->bij", Cc, Bc)[..., None]
+        M = e * torch.einsum("bihp,bjhp->bijh", dyc, u)
+        W = cb * M
+        ed = torch.exp(c[:, -1:, :] - c)                          # (b,n,H)
+        gB = torch.einsum("bhpn,bjn->bjhp", gc, Bc)
+        du = torch.einsum("bijh,bihp->bjhp", cb * e, dyc) + ed[..., None] * gB
+        dx[:, r0:r1] = dtc[..., None] * du + Df[:, None] * dyc
+        ddt[:, r0:r1] = (xc * du).sum(-1)
+        v = ed * (u * gB).sum(-1)
+        dB_h[:, r0:r1] = torch.einsum("bijh,bin->bjhn", M, Cc) + \
+            ed[..., None] * torch.einsum("bjhp,bhpn->bjhn", u, gc)
+        dyh = torch.einsum("bihp,bhpn->bihn", dyc, hc)
+        dC_h[:, r0:r1] = torch.einsum("bijh,bjn->bihn", M, Bc) + \
+            torch.exp(c)[..., None] * dyh
+        dcs = W.sum(2) - W.sum(1) + torch.exp(c) * torch.einsum(
+            "bihn,bin->bih", dyh, Cc) - v
+        dcs[:, -1] += v.sum(1) + torch.exp(c[:, -1]) * torch.einsum(
+            "bhpn,bhpn->bh", gc, hc)
+        da = dcs.double().flip(1).cumsum(1).flip(1).float() if da_cumsum \
+            else dcs
+        ddt[:, r0:r1] += da * Af
+        dA += (da * dtc).sum((0, 1))
+    heads = H if dbc_heads is None else dbc_heads
+    dD = (dyf * xf).sum((0, 1, 3))
+    return (dx.to(x.dtype), dB_h[:, :, :heads].sum(2).to(B.dtype),
+            dC_h[:, :, :heads].sum(2).to(C.dtype), ddt, dA.to(A.dtype),
+            dD.to(D.dtype), dh0)
+
+
+def ssd_bwd_fmas(b, s, H, P, N, L) -> tuple:
+    """The SSD backward's multiply-adds over this call's rows.  The
+    gradient's own, per chunk of l rows and head: 4 l P N (Q, g·B, u·g,
+    dy·h_in), 2 t P (G·dy, dy·u) and 2 t N (M·C, M·B), t = l (l + 1) / 2.
+    As the kernels issue them: dy·u again for each 64 columns of N (M is
+    recomputed beside dB's columns and dC's rows), and on the bf16 path
+    each as TF32 MMAs of split operands (an operand of f32 values in two
+    parts: two products, three when both are).  Returns (the gradient's
+    FMAs, the FMAs issued, the MMA FMAs issued in bf16)."""
+    lens = [min(L, s - c0) for c0 in range(0, s, L)]
+    tri = sum(n * (n + 1) // 2 for n in lens)
+    nh = N // 64
+    own = b * H * (4 * s * P * N + 2 * tri * P + 2 * tri * N)
+    issued = b * H * (4 * s * P * N + tri * P * (1 + 2 * nh) + 2 * tri * N)
+    mma = b * H * (9 * s * P * N + 3 * tri * P + 4 * nh * tri * P +
+                   4 * tri * N)
+    return own, issued, mma
+
+
+def _ssd_bwd_case(gen, cfg, *, b, s, dtype=torch.bfloat16, h0=False,
+                  planted=False, label=""):
+    """``ssd_chunk_scan_bwd`` on one layer's inputs (:func:`_ssm_inputs`,
+    x, B and C as views into the conv's output, as training hands them
+    over) at the config's chunk, dy ~ N(0, 1) f32, with the forward's
+    scratch kept as ``_SSDChunkScan`` keeps it; with ``h0`` a random
+    carried state and a random cotangent of the final state (dh0 is
+    checked).  Every gradient against ``ref.ssd_chunk_scan_bwd_ref``
+    (autograd of the masked plain forward) within SSD_BWD_TOLS (f32
+    gradients) or BF16_GRAD_TOL (bf16 ones) of its own largest |value|
+    (:func:`ssd_grads_err`), bit-identical over two calls;
+    with ``planted`` the faults of :func:`ssd_bwd_plain` --
+    the reverse pass dropped (when there are two chunks or more), da
+    taken as dcs without the reverse cumulative sum, dB and dC summed over
+    one head -- must fail it.  The bound is the gradient's own
+    multiply-adds (:func:`ssd_bwd_fmas`: no split copies, no recompute)
+    at the TF32 peak for bf16 inputs, the rate their products run at, and
+    at the f32 peak for f32 ones; ``bound_ms_f32_peak`` and the FMAs as
+    the kernels issue them are printed beside it.  No PyTorch call
+    computes the gradient."""
+    from repro_torch.kernels import ref, ssd_chunk_scan_bwd
+    from repro_torch.kernels.ssd_scan import _forward
+    x, B, C, dt, A, D = _ssm_inputs(gen, cfg, b, s, dtype)
+    H, P, N = x.shape[2], x.shape[3], B.shape[2]
+    dev = "cuda"
+    state = torch.randn((b, H, P, N), generator=gen, device=dev) \
+        if h0 else None
+    dh = torch.randn((b, H, P, N), generator=gen, device=dev) \
+        if h0 else None
+    dy = torch.randn((b, s, H, P), generator=gen, device=dev)
+    chunk = cfg.ssm.chunk_size
+    L = min(chunk, s)
+    shapes = dict(x=[b, s, H, P], N=N, chunk=L, h0=bool(h0),
+                  dtype=str(dtype).replace("torch.", ""),
+                  **({"case": label} if label else {}))
+    _, _, saved = _forward(x, B, C, dt, A, D, state, chunk)
+    call = lambda: _nonnull(ssd_chunk_scan_bwd(x, B, C, dt, A, D, state,
+                                               chunk, dy, dh, saved=saved))
+    got = _twice(call)
+    want = _nonnull(ref.ssd_chunk_scan_bwd_ref(x, B, C, dt, A, D, state,
+                                               chunk, dy, dh))
+    tol = SSD_BWD_TOLS[dtype]
+    err, ok = ssd_grads_err(got, want, tol)
+    rel = {nm: float((g.float() - w.float()).abs().max() /
+                     w.float().abs().max())
+           for nm, g, w in zip(("dx", "dB", "dC", "ddt", "dA", "dD", "dh0"),
+                               got, want)}
+    if not ok:
+        raise AssertionError(f"ssd_chunk_scan_bwd off at {shapes}: each "
+                             f"gradient's error over its largest |value| "
+                             f"{rel}")
+    faults = None
+    if planted:
+        plant = lambda **kw: _nonnull(ssd_bwd_plain(
+            x, B, C, dt, A, D, state, chunk, dy, dh, **kw))
+        faults = _planted("ssd_chunk_scan_bwd", want, tol, {
+            **({"the reverse pass dropped": plant(carry=False)}
+               if s > L else {}),
+            "da taken as dcs (no reverse cumulative sum)":
+                plant(da_cumsum=False),
+            "dB and dC summed over one head": plant(dbc_heads=1)},
+            check=ssd_grads_err)
+    fma, issued, mma = ssd_bwd_fmas(b, s, H, P, N, L)
+    isz, nc = x.element_size(), -(-s // L)
+    lt = -(-L // 64) * 64
+    states = (3 if h0 else 1) * b * H * P * N * 4
+    nbytes = 2 * b * s * (H * P + 2 * N) * isz + 2 * b * s * H * 4 + \
+        b * s * H * P * 4 + states + b * nc * (lt * lt + H * lt) * 4 + \
+        b * nc * H * P * N * 4
+    f32_ms, f32_by = bound(nbytes, 2 * fma, torch.float32)
+    b_ms, b_by = bound(nbytes, 2 * fma, "tf32") \
+        if dtype == torch.bfloat16 else (f32_ms, f32_by)
+    return dict(
+        shapes=shapes, max_abs_err=err, rel_err=max(rel.values()),
+        rel_err_by_grad=rel, planted_err=faults, tol=tol,
+        ms=time_ms(call), ms_clean_l2=time_ms(call, clean_l2=True),
+        parts_ms=kernel_parts(call),
+        plain_ms=time_ms(lambda: ref.ssd_chunk_scan_bwd_ref(
+            x, B, C, dt, A, D, state, chunk, dy, dh)),
+        library_ms=None,
+        library_name="none (no PyTorch call computes the scan's gradient)",
+        fmas=fma, fmas_issued=issued,
+        mma_fmas_issued=mma if dtype == torch.bfloat16 else None,
+        bound_ms=b_ms, bound_by=b_by, bound_ms_f32_peak=f32_ms)
+
+
+def ssd_bwd_cases(cfg_m2, cfg_z2):
+    """The SSD scan's backward: mamba2-1.3b's training microbatch (2 rows
+    of 1023 inputs: chunks of 256, the last 255 rows; 64 heads of 64, N
+    128; the main case, with the planted faults), zamba2-2.7b's (80 heads,
+    N 64), 77 rows (under one chunk), 301 rows from a carried state with
+    a cotangent on the final state (the append's form, dh0 checked, the
+    planted faults), and f32 at 1000 rows.  The main case is timed with
+    TIMING's counts, the others with QUICK_TIMING's."""
+    gen = torch.Generator(device="cuda").manual_seed(32)
+    mb = TRAIN_SSM_BATCH // cfg_m2.microbatches_train_4k
+    case = main_first(lambda c=cfg_m2, **kw: _ssd_bwd_case(
+        gen, c, **{**dict(b=mb, s=TRAIN_SEQ - 1), **kw}))
+    return [case(planted=True, label="mamba2 training microbatch"),
+            case(cfg_z2, label="zamba2 training microbatch"),
+            case(b=2, s=77),
+            case(b=1, s=301, h0=True, planted=True, label="append"),
+            case(b=1, s=1000, dtype=torch.float32)]
+
+
+def conv_bwd_plain(x, w, tail, dout, dnew_tail=None, *, taps_reversed=True,
+                   tail_in_dw=True):
+    """The conv's gradient in closed form, f32 (the forward summed as the
+    kernel sums it), to plant faults in: without ``taps_reversed`` dx
+    takes the taps in the forward's order, without ``tail_in_dw`` dw
+    leaves out the tail's rows.  Returns (dx, dw, dtail) in f32."""
+    cw, s = w.shape[0], x.shape[1]
+    xp, wf = torch.cat([tail, x], dim=1).float(), w.float()
+    pre = xp[:, :s] * wf[0]
+    for i in range(1, cw):
+        pre = pre + xp[:, i:i + s] * wf[i]
+    sg = torch.sigmoid(pre)
+    dp = dout.float() * sg * (1 + pre * (1 - sg))
+    dxp = torch.zeros_like(xp)
+    for i in range(cw):
+        dxp[:, i:i + s] += dp * wf[i if taps_reversed else cw - 1 - i]
+    if dnew_tail is not None:
+        dxp[:, s:] += dnew_tail.float()
+    xw = xp.clone()
+    if not tail_in_dw:
+        xw[:, :cw - 1] = 0
+    dw = torch.stack([(dp * xw[:, i:i + s]).sum((0, 1)) for i in range(cw)])
+    return dxp[:, cw - 1:], dw, dxp[:, :cw - 1]
+
+
+def _conv_bwd_case(gen, *, b, s, c, cw, dtype=torch.bfloat16, dnew=False,
+                   planted=False, label=""):
+    """``causal_conv_bwd`` on x (b, s, c) ~ N(0, 1), weights of the schema's
+    std 1/sqrt(cw), a random tail, dout ~ N(0, 1) and, with ``dnew``, a
+    cotangent of the new tail: dx, dw and dtail against
+    ``ref.causal_conv_bwd_ref(..., f32_sum=True)`` (autograd of the plain
+    forward summed as the kernel sums it) within TOLS of each one's
+    largest |value|, bit-identical over two calls; with ``planted``, dx's
+    taps left unreversed and dw without the tail's rows
+    (:func:`conv_bwd_plain`) must fail.  The library call is the backward
+    of ``F.conv1d`` (groups = c) + SiLU over tail ‖ x laid out as it
+    wants, its graph kept; the bound is bytes (x, dout, dx, the tails, w
+    and dw once)."""
+    from repro_torch.kernels import causal_conv_bwd, ref
+    F = torch.nn.functional
+    dev = "cuda"
+    x = torch.randn((b, s, c), generator=gen, device=dev).to(dtype)
+    w = (torch.randn((cw, c), generator=gen, device=dev) /
+         cw ** 0.5).to(dtype)
+    tail = torch.randn((b, cw - 1, c), generator=gen, device=dev).to(dtype)
+    dout = torch.randn((b, s, c), generator=gen, device=dev).to(dtype)
+    dnt = torch.randn((b, cw - 1, c), generator=gen, device=dev).to(dtype) \
+        if dnew else None
+    shapes = dict(x=[b, s, c], cw=cw, dtype=str(dtype).replace("torch.", ""),
+                  dnew_tail=bool(dnew), **({"case": label} if label else {}))
+    call = lambda: causal_conv_bwd(x, w, tail, dout, dnt)
+    got = _twice(call)
+    want = ref.causal_conv_bwd_ref(x, w, tail, dout, dnt, f32_sum=True)
+    tol = TOLS[dtype]
+    err, ok = grads_err(got, want, tol)
+    rel = {nm: float((g.float() - w_.float()).abs().max() /
+                     w_.float().abs().max())
+           for nm, g, w_ in zip(("dx", "dw", "dtail"), got, want)}
+    if not ok:
+        raise AssertionError(f"causal_conv_bwd off at {shapes}: each "
+                             f"gradient's error over its largest |value| "
+                             f"{rel}")
+    faults = _planted("causal_conv_bwd", want, tol, {
+        "dx's taps not reversed": conv_bwd_plain(
+            x, w, tail, dout, dnt, taps_reversed=False),
+        "dw without the tail's rows": conv_bwd_plain(
+            x, w, tail, dout, dnt, tail_in_dw=False)},
+        check=grads_err) if planted else None
+    xp = torch.cat([tail, x], dim=1).transpose(1, 2).contiguous() \
+        .requires_grad_(True)
+    wt = w.t().contiguous().view(c, 1, cw).requires_grad_(True)
+    with torch.enable_grad():
+        lib_out = F.silu(F.conv1d(xp, wt, groups=c))
+    dout_t = dout.transpose(1, 2).contiguous()
+    lib = lambda: torch.autograd.grad(lib_out, (xp, wt), dout_t,
+                                      retain_graph=True)
+    isz = x.element_size()
+    b_ms, b_by = bound((3 * b * s * c + (3 if dnew else 2) * b * (cw - 1) * c
+                        + 2 * cw * c) * isz, (4 * cw + 10) * b * s * c,
+                       torch.float32)
+    return dict(
+        shapes=shapes, max_abs_err=err, rel_err=max(rel.values()),
+        rel_err_by_grad=rel, planted_err=faults, tol=tol,
+        ms=time_ms(call), ms_clean_l2=time_ms(call, clean_l2=True),
+        parts_ms=kernel_parts(call),
+        plain_ms=time_ms(lambda: ref.causal_conv_bwd_ref(
+            x, w, tail, dout, dnt, f32_sum=True)),
+        library_ms=time_ms(lib),
+        library_name="backward of F.conv1d (groups = c) + F.silu",
+        bound_ms=b_ms, bound_by=b_by)
+
+
+def conv_bwd_cases(cfg_m2, cfg_z2):
+    """The conv's backward over mamba2-1.3b's 4352 channels (x, B and C
+    concatenated) at its training microbatch, 2 x 1023 (the main case,
+    with the planted faults), zamba2-2.7b's 5248, 2 rows (under cw - 1:
+    rows of the tail reach the new tail) with a cotangent of the new
+    tail (the planted faults), and f32.  The main case is timed with
+    TIMING's counts, the others with QUICK_TIMING's."""
+    gen = torch.Generator(device="cuda").manual_seed(33)
+    width = lambda c: c.ssm.expand * c.d_model + 2 * c.ssm.d_state
+    mb = TRAIN_SSM_BATCH // cfg_m2.microbatches_train_4k
+    case = main_first(lambda **kw: _conv_bwd_case(gen, **{**dict(
+        b=mb, s=TRAIN_SEQ - 1, c=width(cfg_m2),
+        cw=cfg_m2.ssm.conv_width), **kw}))
+    return [case(planted=True, label="mamba2 training microbatch"),
+            case(c=width(cfg_z2), label="zamba2 training microbatch"),
+            case(s=2, dnew=True, planted=True),
+            case(dtype=torch.float32)]
+
+
+# ---------------------------------------------------------------------------
 # phase 3 at the registrations' shapes: flash and paged at nemotron-4-15b's
 # group of 6 (48 heads over 8 x 128) and minicpm-2b's 36 heads of 64 (g 1),
 # the grouped GEMM at granite-moe-3b-a800m's 40 experts, top-8
@@ -2172,7 +2611,9 @@ def grouped_gemm_bwd_cases() -> list:
     on a slice that reaches into the next group and the kernel's tail
     mask runs at full width, and the tile walk's edges at granite's
     gate/up widths (:data:`GG_BWD_EDGES`).  llama4's case comes with
-    :func:`llama4_gemm_cases`, on its stack."""
+    :func:`llama4_gemm_cases`, on its stack.  granite's gate/up and
+    ds27b's two cases are timed with TIMING's counts, the others with
+    QUICK_TIMING's."""
     from repro_torch.configs import get_config
     gr, ds = get_config(GRANITE), get_config("ds27b")
     gen = torch.Generator(device="cuda").manual_seed(29)
@@ -2181,12 +2622,13 @@ def grouped_gemm_bwd_cases() -> list:
                             * (TRAIN_SEQ - 1), gen)
     case = lambda **kw: _gg_bwd_case(gen, **kw)
     cases = [case(sizes=tr, k=d, n=f, planted=True,
-                  label="granite training 2 x 1023, gate/up"),
-             case(sizes=tr, k=f, n=d, planted=True,
-                  label="granite training 2 x 1023, down"),
-             case(sizes=tr, k=d, n=f, dtype=torch.float32,
-                  label="granite training 2 x 1023, gate/up, f32"),
-             case(sizes=router_group_sizes(ds, 4096, gen),
+                  label="granite training 2 x 1023, gate/up")]
+    with quick_timing():
+        cases += [case(sizes=tr, k=f, n=d, planted=True,
+                       label="granite training 2 x 1023, down"),
+                  case(sizes=tr, k=d, n=f, dtype=torch.float32,
+                       label="granite training 2 x 1023, gate/up, f32")]
+    cases += [case(sizes=router_group_sizes(ds, 4096, gen),
                   k=ds.d_model, n=ds.moe.d_ff_expert,
                   label="ds27b append 4096, gate/up")]
     rng = np.random.default_rng(30)
@@ -2196,10 +2638,11 @@ def grouped_gemm_bwd_cases() -> list:
                                          device="cuda"),
                       k=ds.d_model, n=ds.moe.d_ff_expert, planted=True,
                       label="ds27b widths, every group boundary mid-slice"))
-    for label, (sizes, m) in GG_BWD_EDGES.items():
-        cases.append(case(sizes=torch.tensor(sizes, dtype=torch.int32,
-                                             device="cuda"), m=m, k=d, n=f,
-                          label=label))
+    with quick_timing():
+        for label, (sizes, m) in GG_BWD_EDGES.items():
+            cases.append(case(sizes=torch.tensor(sizes, dtype=torch.int32,
+                                                 device="cuda"), m=m, k=d,
+                              n=f, label=label))
     return cases
 
 
@@ -2493,38 +2936,47 @@ def flash_bwd_cases():
     derivative dropped and the last 64-key tile skipped must fail), s 1
     and s 77 (D dropped must fail), f32 at dh 64, and
     :func:`rounded_p_inputs` (P left unrounded in dV must fail), and
-    granite's training microbatch (2 x 1023, 24 over 8 x 64: g 3); then
+    granite's training microbatch (2 x 1023, 24 over 8 x 64: g 3),
+    zamba2's shared block at its training microbatch (2 x 1023, 32 x 80,
+    causal: hubert's (80, 80) case is bidirectional); then
     ds27b's MLA widths, q/k 192 and v 128 over 32 heads (g 1): its
     training microbatch (one row of 1023 inputs, phase 21's shape), s 77
     (dK's rope columns left at zero and the scale taken from v's width
     must fail) and f32 at s 256.  The forward's lse is held against the
     plain one at qwen's microbatch (one split), gemma2's case (split
     keys) and ds27b's microbatch, in bf16 and f32, and the forward is
-    timed with and without it at qwen's microbatch."""
+    timed with and without it at qwen's microbatch.  qwen's microbatch
+    and ds27b's cases are timed with TIMING's counts (the first with its
+    parts), every other case with QUICK_TIMING's."""
     from repro_torch.configs import get_config
-    qw, hb, g2, gr, ds = (get_config(a) for a in (
-        "qwen1.5-0.5b", HUBERT, "gemma2-2b", GRANITE, "ds27b"))
+    qw, hb, g2, gr, ds, z2 = (get_config(a) for a in (
+        "qwen1.5-0.5b", HUBERT, "gemma2-2b", GRANITE, "ds27b",
+        "zamba2-2.7b"))
     gen = torch.Generator(device="cuda").manual_seed(28)
     heads = lambda c: dict(hq=c.n_heads, hkv=c.n_kv_heads, dh=c.head_dim,
                            dv=c.mla.v_head_dim if c.mla else None)
     case = lambda c, **kw: _bwd_case(gen, **{**heads(c), **kw})
-    return [
-        case(qw, b=TRAIN_BATCH // TRAIN_MICRO, s=TRAIN_SEQ - 1, parts=True,
-             lse_check=True, fwd_ab=True),
-        case(qw, b=2, hkv=qw.n_heads // 4, dh=128, s=1000, parts=True),
-        case(hb, b=2, s=HUBERT_FRAMES, causal=False, parts=True),
-        case(g2, b=1, s=1024, window=256, softcap=50.0, q_std=BWD_Q_STD,
-             planted=("softcap's derivative dropped",
-                      "the last key tile skipped"), parts=True,
-             lse_check=True),
-        case(qw, b=2, s=1),
-        case(qw, b=2, s=77, planted=("D dropped",)),
-        case(qw, b=2, s=256, dtype=torch.float32),
-        _bwd_case(gen, b=1, hq=4, hkv=4, dh=64, s=1024,
-                  inputs=rounded_p_inputs(), planted=(
-                      "P left unrounded in dV",), label="rounded P"),
-        case(gr, b=TRAIN_MOE_BATCH // gr.microbatches_train_4k,
-             s=TRAIN_SEQ - 1, parts=True, label="granite g 3"),
+    main = case(qw, b=TRAIN_BATCH // TRAIN_MICRO, s=TRAIN_SEQ - 1,
+                parts=True, lse_check=True, fwd_ab=True)
+    with quick_timing():
+        older = [
+            case(qw, b=2, hkv=qw.n_heads // 4, dh=128, s=1000),
+            case(hb, b=2, s=HUBERT_FRAMES, causal=False),
+            case(g2, b=1, s=1024, window=256, softcap=50.0,
+                 q_std=BWD_Q_STD, planted=("softcap's derivative dropped",
+                                           "the last key tile skipped"),
+                 lse_check=True),
+            case(qw, b=2, s=1),
+            case(qw, b=2, s=77, planted=("D dropped",)),
+            case(qw, b=2, s=256, dtype=torch.float32),
+            _bwd_case(gen, b=1, hq=4, hkv=4, dh=64, s=1024,
+                      inputs=rounded_p_inputs(), planted=(
+                          "P left unrounded in dV",), label="rounded P"),
+            case(gr, b=TRAIN_MOE_BATCH // gr.microbatches_train_4k,
+                 s=TRAIN_SEQ - 1, label="granite g 3"),
+            case(z2, b=TRAIN_SSM_BATCH // z2.microbatches_train_4k,
+                 s=TRAIN_SEQ - 1, label="zamba2's shared block")]
+    return [main] + older + [
         case(ds, b=TRAIN_MLA_BATCH // ds.microbatches_train_4k,
              s=TRAIN_SEQ - 1, parts=True, lse_check=True, label="ds27b"),
         case(ds, b=1, s=77, planted=("dK's rope columns 128-191 left at "
@@ -2543,7 +2995,9 @@ KERNEL_SOURCES = {"kv_layer_gather": "kv_gather",
                   "ssd_chunk_scan": "ssd_scan", "ssm_step": "ssm_step",
                   "causal_conv": None,
                   "flash_attention_bwd": "flash_attention_bwd",
-                  "grouped_gemm_bwd": "grouped_gemm_bwd"}
+                  "grouped_gemm_bwd": "grouped_gemm_bwd",
+                  "ssd_chunk_scan_bwd": "ssd_scan_bwd",
+                  "causal_conv_bwd": None}
 
 
 def kernel_cases(names=None) -> dict:
@@ -2670,6 +3124,14 @@ def kernel_cases(names=None) -> dict:
         cases["flash_attention_bwd"] = flash_bwd_cases()
         print(f"phase 3, flash's backward: "
               f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    if want("ssd_chunk_scan_bwd"):
+        cases["ssd_chunk_scan_bwd"] = ssd_bwd_cases(cfg_m2, cfg_z2)
+    if want("causal_conv_bwd"):
+        cases["causal_conv_bwd"] = conv_bwd_cases(cfg_m2, cfg_z2)
+    if want("ssd_chunk_scan_bwd", "causal_conv_bwd"):
+        print(f"phase 3, the SSM backwards: "
+              f"{time.perf_counter() - t0:.1f} s")
     print(f"phase 3, in time_ms and kernel_parts: {TIMING_S[0]:.1f} s "
           f"(main cases {TIMING['reps']} calls, the others "
           f"{QUICK_TIMING['reps']}, unprofiled)")
@@ -2709,6 +3171,9 @@ def print_cases(cases: dict) -> None:
                   + ("" if "rel_err" not in c else
                      f"; largest error over the largest |value| "
                      f"{c['rel_err']:.3g}")
+                  + ("" if "rel_err_by_grad" not in c else " (" + ", ".join(
+                      f"{k} {v:.3g}" for k, v in c["rel_err_by_grad"].items())
+                     + ")")
                   + ("" if not c.get("lse_err") else
                      "; the forward's lse err " + ", ".join(
                          f"{k} {v:.3g}" for k, v in c["lse_err"].items()))
@@ -2725,6 +3190,13 @@ def print_cases(cases: dict) -> None:
                         f"({c['fwd_lse']['library_name']})")
                      + f", bound {c['fwd_lse']['bound_ms']:.4f} ms "
                      f"({c['fwd_lse']['bound_by']})")
+                  + ("" if "fmas_issued" not in c else
+                     f"; the gradient's FMAs {c['fmas']}, issued "
+                     f"{c['fmas_issued']}"
+                     + ("" if c["mma_fmas_issued"] is None else
+                        f" ({c['mma_fmas_issued']} as split TF32 MMAs)")
+                     + f", bound at the f32 peak "
+                     f"{c['bound_ms_f32_peak']:.4f} ms")
                   + ("" if not c.get("planted_err") else
                      "; planted faults fail: " + ", ".join(
                          f"{k} err {v:.3g}"
@@ -2872,15 +3344,12 @@ def profiled(run, top=8):
     over kernels and copies, [(name, device ms, calls, [(kernel,
     launches, device ms)])] of the top entries and the port's
     kernels)."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         wall = run()
     rows = {}
-    for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA:
-            continue
-        name = short_name(e.key)[:60]
+    for key, (ns, count) in device_times(prof).items():
+        name = short_name(key)[:60]
         # a port kernel's launches (split + combine kernels, or one
         # kernel per regime) read as one row under its wrapper's name,
         # calls counting its most launched kernel's launches (one per
@@ -2888,12 +3357,12 @@ def profiled(run, top=8):
         # combine; the parts give each kernel's own); any other kernel is
         # a row of its own, by its full name
         group = next((w for w, prefixes in KERNEL_ROWS.items()
-                      if name.startswith(prefixes)), e.key)
+                      if name.startswith(prefixes)), key)
         _, ms, calls, parts = rows.get(group, (name, 0.0, 0, []))
-        own_ms = e.self_device_time_total / 1e3
+        own_ms = ns / 1e6
         rows[group] = (group if group in KERNEL_ROWS else name,
-                       ms + own_ms, max(calls, e.count),
-                       parts + [(name, e.count, own_ms)])
+                       ms + own_ms, max(calls, count),
+                       parts + [(name, count, own_ms)])
     rows = sorted(rows.values(), key=lambda r: -r[1])
     busy = sum(r[1] for r in rows) / 1e3
     # the top entries, and every port kernel's row wherever it ranks
@@ -4624,18 +5093,22 @@ def same_routes(card: list, host: list) -> int:
     return sum(a.numel() for a in card)
 
 
-def cut(cfg, depth: int, n_experts=None, **kw):
+def cut(cfg, depth: int, n_experts=None, vocab=None, **kw):
     """``cfg`` at ``depth`` layers and, with ``n_experts``, that many routed
-    experts (``kw`` replaces other fields)."""
+    experts, with ``vocab`` that many tokens (``kw`` replaces other
+    fields)."""
     if n_experts:
         kw["moe"] = dataclasses.replace(cfg.moe, n_experts=n_experts)
+    if vocab:
+        kw["vocab_size"] = vocab
     return dataclasses.replace(cfg, n_layers=depth, **kw)
 
 
 def train_identity(cfg, device="cuda", depth=2, batch=2, seq=129, micro=2,
-                   steps=3, lr=TRAIN_LR, n_experts=None) -> dict:
-    """(a) f32 at ``depth`` layers (``n_experts`` routed experts, if
-    given) from one ``init_params`` seed: for an
+                   steps=3, lr=TRAIN_LR, n_experts=None, vocab=None) -> dict:
+    """(a) f32 at ``depth`` layers (``n_experts`` routed experts and a
+    ``vocab``-token vocabulary, if given) from one ``init_params`` seed:
+    for an
     MoE model, the first batch's every MoE layer routes every token to the
     same experts on ``device`` as on the CPU (so that a failure below says
     whether routing or arithmetic differs); the first batch's gradients
@@ -4649,10 +5122,10 @@ def train_identity(cfg, device="cuda", depth=2, batch=2, seq=129, micro=2,
     from repro_torch.training import (SyntheticLM, loss_and_grads,
                                       make_optimizer)
     from repro_torch.training.tree import leaves, leaves_with_paths, tree_map
-    cfg32 = cut(cfg, depth, n_experts, param_dtype="float32")
+    cfg32 = cut(cfg, depth, n_experts, vocab, param_dtype="float32")
     card = init_params(cfg32, seed=3, device=device)
     host = tree_map(lambda t: t.to("cpu", copy=True), card)
-    pipe = SyntheticLM(cfg.vocab_size, batch, seq, seed=4)
+    pipe = SyntheticLM(cfg32.vocab_size, batch, seq, seed=4)
     batches = [pipe.next_batch() for _ in range(steps)]
     losses, first, routes = {}, {}, {}
     for name, params in (("card", card), ("host", host)):
@@ -4691,27 +5164,37 @@ def train_identity(cfg, device="cuda", depth=2, batch=2, seq=129, micro=2,
 
 
 def predicted_train_launches(cfg, steps: int, micro: int, remat) -> dict:
-    """A GQA model's training launches: per layer and microbatch, flash
-    forward once, and once more when full remat recomputes the block in
-    the backward, and flash's backward once; per MoE layer and
-    microbatch, the grouped GEMM three times (gate, up, down) and three
-    more under remat, and its backward three times (one call each for
-    the three products' dX and dW); nothing else."""
+    """A model's training launches: per attention block (every layer of
+    a GQA or MLA model, each of the hybrid's shared-block applications)
+    and microbatch, flash forward once, and once more when full remat
+    recomputes the block in the backward, and flash's backward once; per
+    MoE layer and microbatch, the grouped GEMM three times (gate, up,
+    down) and three more under remat, and its backward three times (one
+    call each for the three products' dX and dW); per Mamba2 layer and
+    microbatch, the conv and the SSD scan once each, again under remat,
+    and each one's backward once; nothing else (the decode step never)."""
     runs = (2 if remat else 1) * micro * steps
     n_moe = sum(cfg.moe_layer_mask()) if cfg.family == "moe" else 0
+    n_mamba = cfg.n_layers if cfg.family in ("ssm", "hybrid") else 0
+    n_attn = {"ssm": 0, "hybrid": cfg.n_layers // (cfg.hybrid_period or 1)
+              }.get(cfg.family, cfg.n_layers)
     out = {k: 0 for k in KERNEL_SOURCES}
-    out.update(flash_attention=runs * cfg.n_layers,
-               flash_attention_bwd=cfg.n_layers * micro * steps,
+    out.update(flash_attention=runs * n_attn,
+               flash_attention_bwd=n_attn * micro * steps,
                grouped_gemm=3 * runs * n_moe,
-               grouped_gemm_bwd=3 * n_moe * micro * steps)
+               grouped_gemm_bwd=3 * n_moe * micro * steps,
+               ssd_chunk_scan=runs * n_mamba, causal_conv=runs * n_mamba,
+               ssd_chunk_scan_bwd=n_mamba * micro * steps,
+               causal_conv_bwd=n_mamba * micro * steps)
     return out
 
 
 def train_resume(cfg, device="cuda", depth=2, batch=4, seq=129, micro=2,
                  every=2, crash=3, steps=5, lr=TRAIN_LR,
-                 n_experts=None) -> dict:
+                 n_experts=None, vocab=None) -> dict:
     """(c) ``FaultTolerantRunner`` at ``depth`` layers in bf16
-    (``n_experts`` routed experts, if given): a run that
+    (``n_experts`` routed experts and a ``vocab``-token vocabulary, if
+    given): a run that
     crashes after step ``crash``, resumed from its last checkpoint and run
     to ``steps``, gives the losses of the steps after the checkpoint and
     the final parameters of an uninterrupted run bit for bit, all three
@@ -4724,7 +5207,7 @@ def train_resume(cfg, device="cuda", depth=2, batch=4, seq=129, micro=2,
     from repro_torch.models import init_params
     from repro_torch.training import SyntheticLM, make_train_step
     from repro_torch.training.tree import leaves
-    cfg_d = cut(cfg, depth, n_experts)
+    cfg_d = cut(cfg, depth, n_experts, vocab)
     opt_init, train_step = make_train_step(cfg_d, lr=lr, n_microbatches=micro)
     saves = []
 
@@ -4740,7 +5223,7 @@ def train_resume(cfg, device="cuda", depth=2, batch=4, seq=129, micro=2,
         params = init_params(cfg_d, seed=2, device=device)
         return FaultTolerantRunner(
             path, train_step, params, opt_init(params),
-            SyntheticLM(cfg.vocab_size, batch, seq, seed=3),
+            SyntheticLM(cfg_d.vocab_size, batch, seq, seed=3),
             ckpt_every=ckpt_every)
 
     root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
@@ -4780,30 +5263,65 @@ def train_resume(cfg, device="cuda", depth=2, batch=4, seq=129, micro=2,
                 restore_s=restore_s)
 
 
-def train_phase(cfg, device="cuda", identity=TRAIN_IDENTITY,
-                batch=TRAIN_BATCH, seq=TRAIN_SEQ, micro=TRAIN_MICRO,
-                steps=TRAIN_STEPS, lr=TRAIN_LR, resume=TRAIN_RESUME,
-                remat="full", profile=True) -> dict:
-    """Phases 19-21: training and checkpoints on ``cfg`` at published
-    widths, ``micro`` microbatches a step (qwen1.5-0.5b's 2, granite's 4,
-    ds27b's 8).  (a) :func:`train_identity`; (b) the slice's path at
-    ``cfg``'s depth (full, or ds27b's cut) in bf16
-    (``make_train_step`` -> ``loss_fn`` -> ``forward`` through flash and
-    its hand-written backward, and for an MoE model the grouped GEMM and
-    its hand-written backward -> AdamW): finite losses,
-    the last below the first, and on the card every launch count equal
-    to :func:`predicted_train_launches`; host seconds per step (the
-    median of steps 2 on), trained tokens per real second, the peak of
-    ``memory_allocated`` over what the process held before the phase,
-    and one more step profiled; (c)
-    :func:`train_resume`."""
+class GradFinite(MethodPatch):
+    """While entered, every ``loss_and_grads`` of a train step keeps each
+    gradient's L2 norm on the device (``torch._foreach_norm``: a few
+    launches for the whole tree, no host read in the step).  A norm is
+    non-finite when its leaf holds a NaN or an inf (or when its sum of
+    squares passes f32's range, |g| ~ 1e19, a failure too).
+    :meth:`check`, after the timed steps, reads them once and names the
+    leaves of the first step with a non-finite gradient; ``steps``
+    counts the steps checked."""
+
+    def __init__(self):
+        from repro_torch.training import train
+        from repro_torch.training.tree import leaves_with_paths
+        self.paths, self.norms = None, []
+
+        def wrap(fn):
+            def checked(*args, **kw):
+                loss, grads = fn(*args, **kw)
+                paths, flat = zip(*leaves_with_paths(grads))
+                self.paths = [".".join(p) for p in paths]
+                self.norms.append(torch.stack(torch._foreach_norm(
+                    list(flat))))
+                return loss, grads
+            return checked
+
+        super().__init__(train, "loss_and_grads", wrap)
+
+    @property
+    def steps(self) -> int:
+        return len(self.norms)
+
+    def check(self) -> None:
+        ok = torch.stack(self.norms).isfinite().cpu()
+        for k, row in enumerate(ok):
+            if not bool(row.all()):
+                bad = [p for p, o in zip(self.paths, row.tolist()) if not o]
+                raise AssertionError(f"non-finite gradients in step {k + 1}: "
+                                     f"{bad[:8]}")
+
+
+def train_steps(cfg, device="cuda", batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                micro=TRAIN_MICRO, steps=TRAIN_STEPS, lr=TRAIN_LR,
+                remat="full", profile=True, falling=True,
+                grad_check=False) -> dict:
+    """``steps`` bf16 train steps of ``cfg`` at its depth
+    (``make_train_step`` -> ``loss_fn`` -> ``forward`` through the
+    kernels and their hand-written backwards -> AdamW), ``micro``
+    microbatches a step: finite losses, with ``falling`` the last below
+    the first, with ``grad_check`` every gradient of every step finite
+    (:class:`GradFinite`: kept on the device, read after the timed
+    steps), and on the card every launch count equal to
+    :func:`predicted_train_launches`; host seconds per step (the median
+    of steps 2 on), trained tokens per real second, the peak of
+    ``memory_allocated`` over what the process held before, and with
+    ``profile`` one more step profiled."""
     from repro_torch import kernels
     from repro_torch.models import init_params
     from repro_torch.training import SyntheticLM, make_train_step
     cuda = device != "cpu"
-    t0 = time.perf_counter()
-    out = dict(identity=train_identity(cfg, device, lr=lr, **identity))
-    out["identity"]["wall_s"] = time.perf_counter() - t0
     gc.collect()
     if cuda:
         torch.cuda.empty_cache()
@@ -4824,19 +5342,24 @@ def train_phase(cfg, device="cuda", identity=TRAIN_IDENTITY,
         loss = float(loss)
         return time.perf_counter() - t0, loss
 
+    checked = GradFinite() if grad_check else contextlib.nullcontext()
     kernels.reset_launch_counts()
-    walls, losses = zip(*(step() for _ in range(steps)))
+    with checked:
+        walls, losses = zip(*(step() for _ in range(steps)))
     launches = kernels.launch_counts()
+    if grad_check:
+        checked.check()
     assert all(np.isfinite(losses)), losses
-    assert losses[-1] < losses[0], losses
+    assert not falling or losses[-1] < losses[0], losses
     if cuda:
         want = predicted_train_launches(cfg, steps, micro, remat)
         assert launches == want, f"training launches {launches}, want {want}"
     step_s = float(np.median(walls[1:]))
-    out.update(depth=cfg.n_layers, params=cfg.param_count(), batch=batch,
+    out = dict(depth=cfg.n_layers, params=cfg.param_count(), batch=batch,
                seq=seq, micro=micro, steps=steps,
                losses=list(losses), walls_s=list(walls), step_s=step_s,
                tokens_per_s=batch * (seq - 1) / step_s, launches=launches,
+               grads_checked=checked.steps if grad_check else None,
                peak_allocated=torch.cuda.max_memory_allocated() - base
                if cuda else None, base_allocated=base if cuda else None,
                profile=profiled(lambda: step()[0]) if profile and cuda
@@ -4845,6 +5368,23 @@ def train_phase(cfg, device="cuda", identity=TRAIN_IDENTITY,
     gc.collect()
     if cuda:
         torch.cuda.empty_cache()
+    return out
+
+
+def train_phase(cfg, device="cuda", identity=TRAIN_IDENTITY,
+                batch=TRAIN_BATCH, seq=TRAIN_SEQ, micro=TRAIN_MICRO,
+                steps=TRAIN_STEPS, lr=TRAIN_LR, resume=TRAIN_RESUME,
+                remat="full", profile=True, grad_check=False) -> dict:
+    """Phases 19-22: training and checkpoints on ``cfg`` at published
+    widths, ``micro`` microbatches a step (qwen1.5-0.5b's 2, granite's 4,
+    ds27b's 8, mamba2's 4).  (a) :func:`train_identity`; (b) the slice's
+    path at ``cfg``'s depth (full, or ds27b's cut) in bf16,
+    :func:`train_steps`; (c) :func:`train_resume`."""
+    t0 = time.perf_counter()
+    out = dict(identity=train_identity(cfg, device, lr=lr, **identity))
+    out["identity"]["wall_s"] = time.perf_counter() - t0
+    out.update(train_steps(cfg, device, batch, seq, micro, steps, lr, remat,
+                           profile, grad_check=grad_check))
     t0 = time.perf_counter()
     out["resume"] = dict(train_resume(cfg, device, lr=lr, **resume),
                          **resume)
@@ -4855,8 +5395,11 @@ def train_phase(cfg, device="cuda", identity=TRAIN_IDENTITY,
 
 def print_train_phase(r: dict, label: str = "train") -> None:
     idn, rs = r["identity"], r["resume"]
-    experts = lambda d: "" if not d.get("n_experts") else \
-        f" with {d['n_experts']} routed experts"
+    def experts(d):
+        cuts = ([f"{d['n_experts']} routed experts"] if d.get("n_experts")
+                else []) + ([f"{d['vocab']} tokens"] if d.get("vocab")
+                            else [])
+        return " with " + " and ".join(cuts) if cuts else ""
     print(f"{label} (a) f32 at depth {idn['depth']}{experts(idn)}, card "
           f"against the CPU: "
           + (f"{idn['routed_compared']} routed (token, slot)s of the first "
@@ -4871,7 +5414,10 @@ def print_train_phase(r: dict, label: str = "train") -> None:
           f"in {r['micro']} microbatches: losses {r['losses']}; host s per "
           f"step {[round(w, 4) for w in r['walls_s']]}, median of steps 2-"
           f"{r['steps']} {r['step_s']:.4f} s, {r['tokens_per_s']:.1f} "
-          f"trained tokens per real second; launches {r['launches']}; peak "
+          f"trained tokens per real second; launches {r['launches']}; "
+          + ("" if not r.get("grads_checked") else
+             f"every gradient of {r['grads_checked']} steps finite; ")
+          + f"peak "
           f"memory_allocated {r['peak_allocated']} bytes over the "
           f"{r['base_allocated']} held before the phase's weights")
     if r["profile"]:
@@ -4890,13 +5436,74 @@ def train_mla_phase(device="cuda", depth=TRAIN_MLA_DEPTH) -> dict:
     published widths cut to ``depth`` layers (flash at q/k 192, v 128
     with its lse, ``flash_attention_bwd`` at the same widths, the grouped
     GEMM and its backward), (a) and (c) at depth 2 with the routed
-    experts cut (``TRAIN_MLA_IDENTITY``, ``TRAIN_MLA_RESUME``)."""
+    experts and the vocabulary cut (``TRAIN_MLA_IDENTITY``,
+    ``TRAIN_MLA_RESUME``)."""
     from repro_torch.configs import get_config
     cfg = get_config("ds27b")
     return train_phase(cut(cfg, depth), device, identity=TRAIN_MLA_IDENTITY,
                        batch=TRAIN_MLA_BATCH, micro=cfg.microbatches_train_4k,
                        steps=TRAIN_MLA_STEPS, lr=TRAIN_MLA_LR,
                        resume=TRAIN_MLA_RESUME)
+
+
+def train_ssm_phase(device="cuda", profile=True, reduce=False) -> dict:
+    """Phase 22: SSM and hybrid training at published widths.  (a)
+    :func:`train_identity` on mamba2-1.3b at depth 2 and zamba2-2.7b at
+    depth 6 (``TRAIN_SSM_IDENTITY``; the SSD scan's chunk of 256 and a
+    43-row chunk, whose plain gradient is finite only because its mask
+    exponentiates the kept entries alone); (b) mamba2-1.3b at full depth
+    through the SSD scan, the conv and their hand-written backwards, every
+    gradient finite (:class:`GradFinite`); (c) its crash and resume at
+    depth 2 (``TRAIN_RESUME``); (d) zamba2 at
+    depth 6 in bf16 (:func:`train_steps`), its
+    shared block through flash at (80, 80) and flash's backward, launches
+    as predicted.  ``reduce`` takes both models' reduced configs and
+    65-token rows in (b) and (d): a rehearsal on the CPU."""
+    from repro_torch.configs import get_config
+    m2, z2 = get_config("mamba2-1.3b"), get_config("zamba2-2.7b")
+    if reduce:
+        m2, z2 = m2.reduced(), z2.reduced()
+    seq = 65 if reduce else TRAIN_SEQ
+    out = {}
+    for key, cfg, depth in (("identity", m2, TRAIN_SSM_IDENTITY["depth"]),
+                            ("identity_hybrid", z2, TRAIN_HYBRID_DEPTH)):
+        t0 = time.perf_counter()
+        kw = dict(TRAIN_SSM_IDENTITY, depth=depth)
+        out[key] = dict(train_identity(cfg, device, **kw), **kw)
+        out[key]["wall_s"] = time.perf_counter() - t0
+    out.update(train_steps(m2, device, TRAIN_SSM_BATCH, seq,
+                           m2.microbatches_train_4k, TRAIN_SSM_STEPS,
+                           profile=profile, grad_check=True))
+    t0 = time.perf_counter()
+    out["resume"] = dict(train_resume(m2, device, **TRAIN_RESUME),
+                         **TRAIN_RESUME)
+    out["resume"]["wall_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["hybrid"] = train_steps(
+        cut(z2, TRAIN_HYBRID_DEPTH), device, TRAIN_SSM_BATCH, seq,
+        z2.microbatches_train_4k, TRAIN_HYBRID_STEPS, profile=False,
+        falling=False, grad_check=True)
+    out["hybrid"]["wall_s"] = time.perf_counter() - t0
+    return out
+
+
+def print_train_ssm_phase(r: dict) -> None:
+    print_train_phase(r, "ssm train")
+    z = r["identity_hybrid"]
+    print(f"ssm train (a) zamba2 f32 at depth {z['depth']}, card against "
+          f"the CPU: losses {z['losses']['card']} vs {z['losses']['host']} "
+          f"(max rel err {z['loss_rel_err']:.3g}), first-step gradients "
+          f"within {z['grad_rel_err']:.3g} of each leaf's largest |g|; "
+          f"{z['wall_s']:.1f} s")
+    h = r["hybrid"]
+    print(f"ssm train (d) zamba2 bf16 at depth {h['depth']} ({h['params']} "
+          f"parameters), {h['batch']} x {h['seq']} tokens in {h['micro']} "
+          f"microbatches: losses {h['losses']}; every gradient of "
+          f"{h['grads_checked']} steps finite; host s per step "
+          f"{[round(w, 4) for w in h['walls_s']]}, "
+          f"{h['tokens_per_s']:.1f} trained tokens per real second; "
+          f"launches {h['launches']}; peak memory_allocated "
+          f"{h['peak_allocated']} bytes; {h['wall_s']:.1f} s")
 
 
 def print_moe_phase(r: dict, label: str) -> None:
@@ -5252,6 +5859,20 @@ def main() -> int:
         print(f"phase 21 wall: {time.perf_counter() - t0:.1f} s")
         return 0
 
+    if sys.argv[1:2] == ["--train-ssm"]:
+        print(f"torch {torch.__version__} cuda {torch.version.cuda}")
+        print(subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            check=True).stdout.strip())
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        build.build()
+        t0 = time.perf_counter()
+        print_train_ssm_phase(train_ssm_phase())
+        print(f"phase 22 wall: {time.perf_counter() - t0:.1f} s")
+        return 0
+
     if sys.argv[1:2] == ["--persist-ab"]:
         print(subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -5285,7 +5906,8 @@ def main() -> int:
     # 2. build
     t0 = time.perf_counter()
     build.build()
-    print(f"build: {time.perf_counter() - t0:.1f} s")
+    print(f"build of {len(build.SOURCES)} sources: "
+          f"{time.perf_counter() - t0:.1f} s")
     print_build_log(build.SOURCES)
     lap("1-2")
 
@@ -5542,7 +6164,15 @@ def main() -> int:
     print_train_phase(trl, "mla train")
     lap("21")
 
-    # 22. kernels line, then the contract line
+    # 22. SSM and hybrid training: mamba2-1.3b and zamba2-2.7b through the
+    # SSD scan's and the conv's hand-written backwards
+    gc.collect()
+    torch.cuda.empty_cache()
+    trs = train_ssm_phase()
+    print_train_ssm_phase(trs)
+    lap("22")
+
+    # 23. kernels line, then the contract line
     meta = {
         "kv_layer_gather": ("src/repro_torch/kernels/csrc/kv_gather.cu",
                             "src/repro/kernels/kv_gather.py:30"),
@@ -5573,11 +6203,17 @@ def main() -> int:
         "grouped_gemm_bwd": (
             "src/repro_torch/kernels/csrc/grouped_gemm_bwd.cu",
             "src/repro/models/moe.py:64"),
+        # jax.grad of the scan's lax.scan and of the jnp conv
+        "ssd_chunk_scan_bwd": ("src/repro_torch/kernels/csrc/ssd_scan_bwd.cu",
+                               "src/repro/models/ssm.py:59"),
+        "causal_conv_bwd": ("src/repro_torch/kernels/causal_conv.py",
+                            "src/repro/models/ssm.py:31"),
     }
     # the main path each kernel's launches are read from: the offline
     # qwen run for the four of every path, ds27b's for its own two,
     # mamba2's for the SSM family's three, qwen's training for flash's
-    # backward, granite's training for the grouped GEMM's
+    # backward, granite's training for the grouped GEMM's, mamba2's
+    # training for the SSD scan's and the conv's
     main_path = {name: launches[name] for name in GQA_KERNELS}
     main_path.update({name: ds["launches"][name]
                       for name in ("grouped_gemm", "mla_decode")})
@@ -5586,6 +6222,8 @@ def main() -> int:
                                    "causal_conv")})
     main_path["flash_attention_bwd"] = tr["launches"]["flash_attention_bwd"]
     main_path["grouped_gemm_bwd"] = trm["launches"]["grouped_gemm_bwd"]
+    for name in ("ssd_chunk_scan_bwd", "causal_conv_bwd"):
+        main_path[name] = trs["launches"][name]
     short = {"granite-moe-3b-a800m": "granite", "minicpm-2b": "minicpm",
              "nemotron-4-15b": "nemotron"}
     line = []
@@ -5615,7 +6253,10 @@ def main() -> int:
                                   hubert=hb["launches"][name],
                                   train=tr["launches"][name],
                                   train_moe=trm["launches"][name],
-                                  train_mla=trl["launches"][name]),
+                                  train_mla=trl["launches"][name],
+                                  train_ssm=trs["launches"][name],
+                                  train_hybrid=trs["hybrid"]["launches"][
+                                      name]),
             max_abs_err=max(c["max_abs_err"] for c in cs),
             ms=main_case["ms"], kernel_ms=main_case["ms"],
             ms_clean_l2=main_case.get("ms_clean_l2"),

@@ -25,7 +25,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 SOURCES = ("kv_gather", "kv_scatter", "flash_attention", "paged_attention",
            "grouped_gemm", "mla_decode", "ssd_scan", "ssm_step",
-           "flash_attention_bwd", "grouped_gemm_bwd")
+           "flash_attention_bwd", "grouped_gemm_bwd", "ssd_scan_bwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -113,10 +113,7 @@ def require_cuda(kernel: str, *tensors: torch.Tensor) -> None:
                              f"device, got {[x.device for x in tensors]}")
 
 
-# the later slices (ROADMAP Queue 1) that bring the backwards the port does
-# not have yet, as the guards name them
-SSM_TRAINING = ("SSM and hybrid training, with ssd_chunk_scan and "
-                "causal_conv backwards, is ROADMAP Queue 1 item 3c")
+# why the decode kernels have no backward, as their guards say
 DECODE_ONLY = ("a decode kernel is never trained: training runs the "
                "full-sequence forward")
 
@@ -124,9 +121,10 @@ DECODE_ONLY = ("a decode kernel is never trained: training runs the "
 def require_no_grad(kernel: str, later: str, *tensors) -> None:
     """Raise ``NotImplementedError`` when autograd would need ``kernel``'s
     gradient: grad mode on and any of ``tensors`` requiring grad.  The
-    kernel has no backward yet, and ``later`` names the slice that brings
-    it; on both devices, so the CPU trains exactly what the card can.
-    Serving never trips it: its tensors do not require grad."""
+    kernel has no backward, and ``later`` says why (the decode kernels:
+    training runs the full-sequence forward); on both devices, so the CPU
+    trains exactly what the card can.  Serving never trips it: its
+    tensors do not require grad."""
     if torch.is_grad_enabled() and any(
             isinstance(t, torch.Tensor) and t.requires_grad for t in tensors):
         raise NotImplementedError(f"{kernel} has no backward yet: {later}")

@@ -27,6 +27,17 @@ CPU tensors the wrapper computes the plain version.  Triton is imported,
 and the kernel compiled, at the first launch: the CPU has no ``triton``.
 The decode's conv rides in the recurrent step's launch (``ssm_step``);
 this wrapper still takes s = 1.
+
+Training differentiates it (:class:`_CausalConv`): the backward,
+:func:`causal_conv_bwd`, is Triton too, over the forward's grid of runs
+and strips.  A program recomputes each row's ``pre`` as the forward sums
+it, ``dpre = dout σ(pre) (1 + pre (1 - σ(pre)))``, and writes ``dx[r] =
+Σ_k dpre[r + k] w[cw - 1 - k]`` (plus the new tail's cotangent on the
+rows the tail copied) once the three rows after r are known, recomputing
+the first three rows of the next run; the first run writes the old
+tail's gradient.  dw's per-program partials (f32) are summed in program
+order by a second kernel, so the gradient is bit-reproducible without
+atomics.  Bound: bytes, as the forward's.
 """
 from __future__ import annotations
 
@@ -144,6 +155,121 @@ def _conv_kernel(x_ptr, w_ptr, tail_ptr, out_ptr, new_tail_ptr, S, C, RUN,
                  mask=qmask[:, None] & cmask[None, :])
 
 
+def _conv_bwd_kernel(x_ptr, w_ptr, tail_ptr, dout_ptr, dnt_ptr, dx_ptr,
+                     dtail_ptr, dwp_ptr, S, C, RUN, RUNS, CW: tl.constexpr,
+                     HAS_DNT: tl.constexpr, BLOCK_C: tl.constexpr):
+    """dx, dtail and the per-program partials of dw for rows [r0, r0 +
+    RUN) of one strip: row t's ``pre`` recomputed as the forward sums it,
+    ``dpre = dout σ(pre) (1 + pre (1 - σ(pre)))``, a window of the last
+    three rows' x and dpre in registers; ``dx[r] = Σ_k dpre[r + k] wk``
+    once dpre[r + 3] is known (rows before the run's first are finished by
+    the run before, whose last rows this one recomputes), plus the new
+    tail's cotangent on the rows it copied; the first run writes dtail."""
+    b = tl.program_id(0)
+    run = tl.program_id(1)
+    cols = tl.program_id(2) * BLOCK_C + tl.arange(0, BLOCK_C)
+    cmask = cols < C
+    r0 = run * RUN
+    r_end = tl.minimum(r0 + RUN, S)
+    # wk multiplies row r - k: w[CW - 1 - k], zero past the conv's width
+    w0 = tl.load(w_ptr + (CW - 1) * C + cols, mask=cmask,
+                 other=0.0).to(tl.float32)
+    w1 = tl.load(w_ptr + (CW - 2) * C + cols, mask=cmask,
+                 other=0.0).to(tl.float32)
+    w2 = tl.zeros((BLOCK_C,), dtype=tl.float32)
+    if CW >= 3:
+        w2 = tl.load(w_ptr + (CW - 3) * C + cols, mask=cmask,
+                     other=0.0).to(tl.float32)
+    w3 = tl.zeros((BLOCK_C,), dtype=tl.float32)
+    if CW >= 4:
+        w3 = tl.load(w_ptr + (CW - 4) * C + cols, mask=cmask,
+                     other=0.0).to(tl.float32)
+    src = r0 - 3
+    p3 = tl.load(x_ptr + (b * S + src) * C + cols,
+                 mask=cmask & (src >= 0), other=0.0).to(tl.float32) + \
+        tl.load(tail_ptr + (b * (CW - 1) + src + CW - 1) * C + cols,
+                mask=cmask & (src < 0) & (src + CW - 1 >= 0),
+                other=0.0).to(tl.float32)
+    src = r0 - 2
+    p2 = tl.load(x_ptr + (b * S + src) * C + cols,
+                 mask=cmask & (src >= 0), other=0.0).to(tl.float32) + \
+        tl.load(tail_ptr + (b * (CW - 1) + src + CW - 1) * C + cols,
+                mask=cmask & (src < 0) & (src + CW - 1 >= 0),
+                other=0.0).to(tl.float32)
+    src = r0 - 1
+    p1 = tl.load(x_ptr + (b * S + src) * C + cols,
+                 mask=cmask & (src >= 0), other=0.0).to(tl.float32) + \
+        tl.load(tail_ptr + (b * (CW - 1) + src + CW - 1) * C + cols,
+                mask=cmask & (src < 0) & (src + CW - 1 >= 0),
+                other=0.0).to(tl.float32)
+    # dpre of rows t - 3, t - 2, t - 1 (rows before the run: 0)
+    q3 = tl.zeros((BLOCK_C,), dtype=tl.float32)
+    q2 = tl.zeros((BLOCK_C,), dtype=tl.float32)
+    q1 = tl.zeros((BLOCK_C,), dtype=tl.float32)
+    a0 = tl.zeros((BLOCK_C,), dtype=tl.float32)
+    a1 = tl.zeros((BLOCK_C,), dtype=tl.float32)
+    a2 = tl.zeros((BLOCK_C,), dtype=tl.float32)
+    a3 = tl.zeros((BLOCK_C,), dtype=tl.float32)
+    ty = dx_ptr.dtype.element_ty
+    for t in range(r0, r_end + 3):
+        live = t < S
+        x0 = tl.load(x_ptr + (b * S + t) * C + cols, mask=cmask & live,
+                     other=0.0).to(tl.float32)
+        pre = p3 * w3 + p2 * w2 + p1 * w1 + x0 * w0
+        sg = tl.sigmoid(pre)
+        g = tl.load(dout_ptr + (b * S + t) * C + cols, mask=cmask & live,
+                    other=0.0).to(tl.float32)
+        dp = g * sg * (1.0 + pre * (1.0 - sg))
+        # dw's partials over this run's own rows
+        own = (t < r_end).to(tl.float32)
+        a0 += own * dp * x0
+        a1 += own * dp * p1
+        a2 += own * dp * p2
+        a3 += own * dp * p3
+        # row r = t - 3 is complete: its x, or a tail row (x-row -CW+1..-1)
+        r = t - 3
+        d = q3 * w0 + q2 * w1 + q1 * w2 + dp * w3
+        if HAS_DNT:
+            # tail ‖ x row r + CW - 1 is row r + CW - 1 - S of the new tail
+            m = r + CW - 1 - S
+            d += tl.load(dnt_ptr + (b * (CW - 1) + m) * C + cols,
+                         mask=cmask & (m >= 0) & (m < CW - 1),
+                         other=0.0).to(tl.float32)
+        tl.store(dx_ptr + (b * S + r) * C + cols, d.to(ty),
+                 mask=cmask & (r >= r0) & (r < r_end))
+        tl.store(dtail_ptr + (b * (CW - 1) + r + CW - 1) * C + cols,
+                 d.to(ty), mask=cmask & (run == 0) & (r < 0) &
+                 (r + CW - 1 >= 0))
+        p3 = p2
+        p2 = p1
+        p1 = x0
+        q3 = q2
+        q2 = q1
+        q1 = dp
+    part = dwp_ptr + ((b * RUNS + run) * 4) * C + cols
+    tl.store(part, a0, mask=cmask)
+    tl.store(part + C, a1, mask=cmask)
+    tl.store(part + 2 * C, a2, mask=cmask)
+    tl.store(part + 3 * C, a3, mask=cmask)
+
+
+def _conv_bwd_dw_kernel(dwp_ptr, dw_ptr, NPART, C, CW: tl.constexpr,
+                        BLOCK_C: tl.constexpr):
+    """dw[CW - 1 - k] = the programs' partials of tap k summed in program
+    order, rounded once to dw's dtype."""
+    cols = tl.program_id(0) * BLOCK_C + tl.arange(0, BLOCK_C)
+    cmask = cols < C
+    ty = dw_ptr.dtype.element_ty
+    for k in tl.static_range(4):
+        if k < CW:
+            acc = tl.zeros((BLOCK_C,), dtype=tl.float32)
+            for part in range(NPART):
+                acc += tl.load(dwp_ptr + (part * 4 + k) * C + cols,
+                               mask=cmask, other=0.0)
+            tl.store(dw_ptr + (CW - 1 - k) * C + cols, acc.to(ty),
+                     mask=cmask)
+
+
 def run_length(b: int, s: int, c: int) -> int:
     """Rows of one program's run: a multiple of ``ROWS``, cut so that the
     grid (b, ceil(s / run), ceil(c / BLOCK_C)) holds about
@@ -155,51 +281,138 @@ def run_length(b: int, s: int, c: int) -> int:
 
 
 @functools.cache
-def _kernel():
+def _kernels():
+    """The three kernels, jitted at the first launch: (forward, backward,
+    the backward's dw reduction)."""
     global tl
     import triton
     import triton.language
     tl = triton.language
-    return triton.jit(_conv_kernel)
+    return tuple(triton.jit(k) for k in (_conv_kernel, _conv_bwd_kernel,
+                                         _conv_bwd_dw_kernel))
 
 
-def causal_conv(x: torch.Tensor, w: torch.Tensor, tail: torch.Tensor):
-    """x (b,s,c); w (cw,c); tail (b,cw-1,c) -> (out (b,s,c), new_tail)."""
+def _check(kernel, x, w, tail):
     b, s, c = x.shape
     cw = w.shape[0]
     if w.shape != (cw, c) or tail.shape != (b, cw - 1, c) or cw < 2:
-        raise ValueError(f"causal_conv: shapes x {tuple(x.shape)} w "
+        raise ValueError(f"{kernel}: shapes x {tuple(x.shape)} w "
                          f"{tuple(w.shape)} tail {tuple(tail.shape)}")
-    build.require_no_grad("causal_conv", build.SSM_TRAINING, x, w, tail)
+    return b, s, c, cw
+
+
+def _check_cuda(kernel, *tensors):
+    x = tensors[0]
+    if x.device.type != "cuda" or any(t.device != x.device
+                                      for t in tensors):
+        raise ValueError(f"{kernel}: tensors must share one CUDA device, "
+                         f"got {[t.device for t in tensors]}")
+    if x.dtype not in (torch.float32, torch.bfloat16) or \
+            any(t.dtype != x.dtype for t in tensors):
+        raise ValueError(f"{kernel}: dtypes {[t.dtype for t in tensors]}; "
+                         f"need one of float32, bfloat16")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{kernel}: x, w and tail must be contiguous")
+    if x.numel() >= 2 ** 31:
+        raise ValueError(f"{kernel}: the kernel's offsets are 32-bit")
+    if tensors[1].shape[0] > MAX_CW:
+        raise ValueError(f"{kernel}: the kernel takes cw up to {MAX_CW}, "
+                         f"got {tensors[1].shape[0]}")
+
+
+def causal_conv(x: torch.Tensor, w: torch.Tensor, tail: torch.Tensor):
+    """x (b,s,c); w (cw,c); tail (b,cw-1,c) -> (out (b,s,c), new_tail).
+    Under grad (grad mode on, an input requiring grad) it goes through
+    :class:`_CausalConv`, whose backward is :func:`causal_conv_bwd`."""
+    _check("causal_conv", x, w, tail)
+    if torch.is_grad_enabled() and any(t.requires_grad
+                                       for t in (x, w, tail)):
+        return _CausalConv.apply(x, w, tail)
+    return _forward(x, w, tail)
+
+
+class _CausalConv(torch.autograd.Function):
+    """The conv with :func:`causal_conv_bwd` as its backward; x, w and the
+    tail are saved for it (under remat the recomputed forward saves them
+    again)."""
+
+    @staticmethod
+    def forward(ctx, x, w, tail):
+        ctx.save_for_backward(x, w, tail)
+        return _forward(x, w, tail)
+
+    @staticmethod
+    def backward(ctx, dout, dnew_tail):
+        x, w, tail = ctx.saved_tensors
+        return causal_conv_bwd(x, w, tail, dout, dnew_tail)
+
+
+def _forward(x, w, tail):
+    """The forward alone: the kernel on CUDA tensors, the plain version on
+    CPU tensors."""
+    b, s, c, cw = _check("causal_conv", x, w, tail)
     if x.device.type == "cpu":
         return ref.causal_conv_ref(x, w, tail)
-    if x.device.type != "cuda" or w.device != x.device or \
-            tail.device != x.device:
-        raise ValueError(f"causal_conv: tensors must share one CUDA device, "
-                         f"got {[t.device for t in (x, w, tail)]}")
-    if x.dtype not in (torch.float32, torch.bfloat16) or \
-            w.dtype != x.dtype or tail.dtype != x.dtype:
-        raise ValueError(f"causal_conv: dtypes {x.dtype} {w.dtype} "
-                         f"{tail.dtype}; need one of float32, bfloat16")
-    if not (x.is_contiguous() and w.is_contiguous()
-            and tail.is_contiguous()):
-        raise ValueError("causal_conv: x, w and tail must be contiguous")
-    if x.numel() >= 2 ** 31:
-        raise ValueError("causal_conv: the kernel's offsets are 32-bit")
-    if cw > MAX_CW:
-        raise ValueError(f"causal_conv: the kernel takes cw up to {MAX_CW}, "
-                         f"got {cw}")
+    _check_cuda("causal_conv", x, w, tail)
     out = torch.empty_like(x)
     new_tail = torch.empty_like(tail)
     if b == 0 or s == 0:
         return out, new_tail.copy_(tail)
     run = run_length(b, s, c)
     grid = (b, -(-s // run), -(-c // BLOCK_C))
-    _kernel()[grid](x, w, tail, out, new_tail, s, c, run, CW=cw,
-                    TAIL_ROWS=max(2, 1 << (cw - 2).bit_length()),
-                    BLOCK_C=BLOCK_C, num_warps=1)
+    _kernels()[0][grid](x, w, tail, out, new_tail, s, c, run, CW=cw,
+                        TAIL_ROWS=max(2, 1 << (cw - 2).bit_length()),
+                        BLOCK_C=BLOCK_C, num_warps=1)
     causal_conv.launches += 1
     return out, new_tail
 
 
 causal_conv.launches = 0
+
+
+def causal_conv_bwd(x: torch.Tensor, w: torch.Tensor, tail: torch.Tensor,
+                    dout: torch.Tensor,
+                    dnew_tail: torch.Tensor | None = None) -> tuple:
+    """The gradient of :func:`causal_conv` for the cotangents dout (b, s,
+    c) of the output and dnew_tail (b, cw - 1, c) of the new tail (None:
+    zeros): (dx, dw, dtail) in the input dtype.  On CUDA tensors one call
+    runs the backward kernel over the forward's grid (dx, dtail and
+    per-program partials of dw, no atomics) and the reduction of the
+    partials in program order, counted once; on CPU tensors it is
+    ``ref.causal_conv_bwd_ref`` (the reference's rounding order)."""
+    b, s, c, cw = _check("causal_conv_bwd", x, w, tail)
+    if dout.shape != x.shape or (dnew_tail is not None and
+                                 dnew_tail.shape != tail.shape):
+        raise ValueError(f"causal_conv_bwd: dout {tuple(dout.shape)}, "
+                         f"dnew_tail "
+                         f"{None if dnew_tail is None else tuple(dnew_tail.shape)}")
+    if x.device.type == "cpu":
+        return ref.causal_conv_bwd_ref(x, w, tail, dout, dnew_tail)
+    # autograd's cotangents may arrive in another layout or dtype
+    dout = dout.to(x.dtype).contiguous()
+    dnt = None if dnew_tail is None else dnew_tail.to(x.dtype).contiguous()
+    _check_cuda("causal_conv_bwd", x, w, tail, dout,
+                *([] if dnt is None else [dnt]))
+    dx = torch.empty_like(x)
+    dtail = torch.empty_like(tail)
+    dw = torch.empty_like(w)
+    if b == 0 or s == 0:
+        dtail.copy_(torch.zeros_like(tail) if dnt is None else dnt)
+        return dx, dw.zero_(), dtail
+    run = run_length(b, s, c)
+    runs = -(-s // run)
+    strips = -(-c // BLOCK_C)
+    parts = torch.empty((b * runs * 4, c), dtype=torch.float32,
+                        device=x.device)
+    _, bwd, dw_sum = _kernels()
+    bwd[(b, runs, strips)](x, w, tail, dout, x if dnt is None else dnt, dx,
+                           dtail, parts, s, c, run, runs, CW=cw,
+                           HAS_DNT=dnt is not None, BLOCK_C=BLOCK_C,
+                           num_warps=1)
+    dw_sum[(strips,)](parts, dw, b * runs, c, CW=cw, BLOCK_C=BLOCK_C,
+                      num_warps=1)
+    causal_conv_bwd.launches += 1
+    return dx, dw, dtail
+
+
+causal_conv_bwd.launches = 0

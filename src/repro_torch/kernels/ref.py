@@ -4,7 +4,8 @@ in ``repro.models.moe``), the absorbed MLA decode's
 (``repro.models.mla.mla_decode``), the Mamba2 block's three pieces of
 device work (``repro.models.ssm``: the causal conv, the chunked SSD scan,
 also split as the card's kernel set splits it, and the decode step, the
-token's conv folded into the recurrence), and the key-split arithmetic
+token's conv folded into the recurrence), the gradients of the conv and
+the scan (autograd of their plain forwards), and the key-split arithmetic
 of the attention kernels (partials per key range, then the merge that
 their combine kernels compute).
 
@@ -312,6 +313,44 @@ def ssd_chunk_scan_ref(x, B, C, dt, A, D, h0, chunk: int):
     return _ssd_scan(x, B, C, dt, A, D, h0, chunk)
 
 
+def ssd_chunk_scan_bwd_ref(x, B, C, dt, A, D, h0, chunk: int, dy, dh=None):
+    """The gradient of :func:`ssd_chunk_scan_ref` for the cotangents ``dy``
+    (b, s, H, P) of y and ``dh`` (b, H, P, N) of the final state (None:
+    zeros), by ``torch.autograd.grad`` of the masked plain forward: (dx,
+    dB, dC, ddt, dA, dD, dh0), each in its input's dtype; dh0 is None when
+    h0 is."""
+    with torch.enable_grad():
+        ins = [t.detach().requires_grad_(True) for t in (x, B, C, dt, A, D)]
+        h = None if h0 is None else h0.detach().requires_grad_(True)
+        y, h_final = ssd_chunk_scan_ref(*ins, h, chunk)
+        outs, cots = [y], [dy]
+        if dh is not None:
+            outs.append(h_final)
+            cots.append(dh)
+        wrt = ins + ([] if h is None else [h])
+        got = torch.autograd.grad(outs, wrt, cots, allow_unused=True)
+    got = [torch.zeros_like(t) if g is None else g for g, t in zip(got, wrt)]
+    return (*got[:6], None if h is None else got[6])
+
+
+def causal_conv_bwd_ref(x, w, tail, dout, dnew_tail=None, *,
+                        f32_sum: bool = False):
+    """The gradient of :func:`causal_conv_ref` (with its ``f32_sum``) for
+    the cotangents ``dout`` (b, s, c) of the output and ``dnew_tail`` (b,
+    cw-1, c) of the new tail (None: zeros), by ``torch.autograd.grad``:
+    (dx, dw, dtail) in the input dtype."""
+    with torch.enable_grad():
+        ins = [t.detach().requires_grad_(True) for t in (x, w, tail)]
+        out, new_tail = causal_conv_ref(*ins, f32_sum=f32_sum)
+        outs, cots = [out], [dout]
+        if dnew_tail is not None:
+            outs.append(new_tail)
+            cots.append(dnew_tail)
+        got = torch.autograd.grad(outs, ins, cots, allow_unused=True)
+    return tuple(torch.zeros_like(t) if g is None else g
+                 for g, t in zip(got, ins))
+
+
 def _tf32(t):
     """f32 values rounded to TF32 (10 mantissa bits, to nearest, ties away
     from zero: ``cvt.rna.tf32.f32``)."""
@@ -356,7 +395,9 @@ def _ssd_scan(x, B, C, dt, A, D, h0, chunk: int, *, carry: bool = True,
             cs = torch.cat([torch.zeros_like(cs[:, :shift]),
                             cs[:, :-shift]], dim=1)
         seg = cs[:, :, None, :] - cs[:, None, :, :]               # (b,i,j,H)
-        Lmat = torch.where(causal[None], torch.exp(seg), 0.0)
+        # exponentiate the kept entries only: seg for j > i may pass 88,
+        # and exp(inf) masked by where would make its gradient 0 * inf
+        Lmat = torch.exp(torch.where(causal[None], seg, float("-inf")))
         CB = torch.einsum("bin,bjn->bij", Ci, Bj)
         rnd = _tf32 if tf32 else (lambda t: t)
         w = rnd(CB[..., None] * Lmat * dtj[:, None, :, :])
@@ -420,7 +461,7 @@ def ssd_chunk_parallel_ref(x, B, C, dt, A, D, h0, chunk: int,
         causal = torch.ones((n, n), dtype=torch.bool,
                             device=x.device).tril()[None, :, :, None]
         seg = c[:, :, None, :] - c[:, None, :, :]                # (b,i,j,H)
-        Lmat = torch.where(causal, torch.exp(seg), 0.0)
+        Lmat = torch.exp(torch.where(causal, seg, float("-inf")))
         w = cb[..., None] * Lmat * dtf[:, r0:r1][:, None, :, :]
         y = torch.einsum("bijh,bjhp->bihp", w, xf[:, r0:r1])
         ys.append(y + torch.einsum("bin,bhpn,bih->bihp", Cf[:, r0:r1], hc,

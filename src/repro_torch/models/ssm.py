@@ -16,7 +16,10 @@ reference's ``sharding.constrain`` (:21, :125) does nothing on one card
 and is left out.  :func:`ssd_scan_with_tails` and
 :func:`ssm_decode_step` update the state they are given in place (the
 reference returns a new one), so the engines' stacked state is never
-copied per step.
+copied per step.  Training differentiates :func:`ssd_scan` (no state in
+place): the conv and the scan go through their wrappers' autograd
+Functions, whose backwards are ``causal_conv_bwd`` and
+``ssd_chunk_scan_bwd``.
 """
 from __future__ import annotations
 

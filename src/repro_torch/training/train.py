@@ -13,17 +13,17 @@ so the dense, MoE, VLM and encoder families' attention goes through
 flash's hand-written backward (``kernels.flash_attention_bwd``) on the
 card, MLA's at q/k 192 and v 128 among them, and the MoE family's expert
 products through the grouped GEMM's (``kernels.grouped_gemm_bwd``): ds27b,
-MoE over MLA, trains through both.
-
-The families whose forward runs a kernel without a backward yet are
-refused by :func:`require_trainable`, naming the slice that brings it.
+MoE over MLA, trains through both.  The SSM family's Mamba2 blocks go
+through the SSD scan's and the causal conv's backwards
+(``kernels.ssd_chunk_scan_bwd``, ``kernels.causal_conv_bwd``), and the
+hybrid's through those and flash's, its shared block's gradients summed
+over its applications.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.kernels import build
 from repro_torch.models import forward, lm_loss
 from repro_torch.models.params import require_ported
 from repro_torch.training.optimizer import make_optimizer
@@ -31,14 +31,10 @@ from repro_torch.training.tree import leaves_with_paths, unflatten
 
 
 def require_trainable(cfg: ModelConfig) -> None:
-    """Raise for an architecture whose forward runs a kernel without a
-    backward: SSM and hybrid (the SSD scan and the causal conv), as
-    ``params.require_ported`` refuses what the port does not serve.  The
-    dense, MoE (over GQA or MLA: ds27b), VLM and encoder families
-    train."""
+    """Raise for an architecture the port does not serve
+    (``params.require_ported``).  Every family it serves trains: dense,
+    MoE (over GQA or MLA: ds27b), VLM, encoder, SSM and hybrid."""
     require_ported(cfg)
-    if cfg.family in ("ssm", "hybrid"):
-        raise NotImplementedError(f"{cfg.name}: {build.SSM_TRAINING}")
 
 
 def _require_moe_impl(moe_impl: str) -> None:
