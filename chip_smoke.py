@@ -114,8 +114,10 @@ Drives ``repro_torch`` (never the JAX package) on the card:
    heads, N 128, chunks of 256), zamba2-2.7b's (80 heads, N 64), 77 rows,
    301 rows from a carried state with a cotangent on the final state
    (dh0 checked) and f32 at 1000 rows (the reverse pass dropped, da
-   taken without the reverse cumulative sum and dB summed over one head
-   must fail), and the conv's backward (``causal_conv_bwd``) within TOLS
+   taken without the reverse cumulative sum, and dCB and the carried
+   contractions over one head must fail; the kernel's head groups equal
+   ``ssd_scan.bwd_plan``'s, its scratch in MB printed), and the conv's
+   backward (``causal_conv_bwd``) within TOLS
    at the two models' microbatches (4352 and 5248 channels), 2 rows with
    a cotangent on the new tail (dx's taps left unreversed and dw without
    the tail's rows must fail) and f32, beside the backward of
@@ -1912,33 +1914,44 @@ def _nonnull(grads) -> tuple:
 
 def ssd_bwd_plain(x, B, C, dt, A, D, h0, chunk: int, dy, dh=None, *,
                   carry: bool = True, da_cumsum: bool = True,
-                  dbc_heads: int | None = None):
+                  dbc_heads: int | None = None, head_group: int | None = None,
+                  tile: int = 64):
     """``ref.ssd_chunk_scan_bwd_ref`` computed as the card's backward
     (``csrc/ssd_scan_bwd.cu``) splits it, in f32, to plant faults in
-    (tests/test_torch_ssm_training.py holds it against autograd).  Per chunk (``a = dt·A``, ``cs`` its cumulative sum,
-    f64 rounded once; ``e_ij = exp(cs_i - cs_j)`` for j <= i; ``u = dt·x``;
-    ``h_in`` the state entering the chunk, from the forward's split;
-    ``g`` the cotangent of the state leaving it):
+    (tests/test_torch_ssm_training.py holds it against autograd).  Per
+    chunk (``a = dt·A``, ``cs`` its cumulative sum, f64 rounded once;
+    ``e_ij = exp(cs_i - cs_j)`` for j <= i; ``u = dt·x``; ``h_in`` the
+    state entering the chunk, from the forward's split; ``g`` the
+    cotangent of the state leaving it):
     (1) ``Q_c = Σ_i e^{cs_i} dy_i ⊗ C_i``, then the reverse pass over the
     chunks, ``g_{c-1} = e^{cs_end} g_c + Q_c`` from ``g = dh``, the last
-    ``g`` being dh0; (2) per chunk, with ``M_ij = e_ij (dy_i · u_j)``,
-    ``du_j = Σ_{i>=j} (C_i·B_j) e_ij dy_i + e^{cs_end - cs_j} g B_j``, dx
-    = dt·du + D·dy, ``ddt = x · du``, ``dB_j = Σ_h [Σ_i M_ij C_i +
-    e^{cs_end - cs_j} u_j g]``, ``dC_i = Σ_h [Σ_j M_ij B_j + e^{cs_i}
-    dy_i h_in]``; (3) ``dcs`` from the quadratic term (``W = (C·B) ∘ M``:
-    row sums less column sums), the carried state's (``e^{cs_i} dy_i ·
-    h_in C_i``) and the state update's (``v_j = e^{cs_end - cs_j} u_j · g
-    B_j``: ``-v_j`` on row j, their sum and ``e^{cs_end} <g, h_in>`` on
-    the last row), then ``da_k = Σ_{i>=k} dcs_i`` (f64), ``ddt += da·A``,
-    ``dA = Σ da·dt``, ``dD = Σ dy·x``.  ``carry=False`` drops the reverse
-    pass (each chunk gets a zero ``g``, the last one ``dh``),
-    ``da_cumsum=False`` takes ``da = dcs``, ``dbc_heads`` sums dB and dC
-    over only that many heads: the faults the card's check must see
-    fail.  Returns (dx, dB, dC, ddt, dA, dD, dh0) as
-    ``ref.ssd_chunk_scan_bwd_ref`` does."""
+    ``g`` being dh0; (2) per chunk and head, with ``M_ij = e_ij (dy_i ·
+    u_j)``, ``du_j = Σ_{i>=j} (C_i·B_j) e_ij dy_i + e^{cs_end - cs_j} g
+    B_j``, dx = dt·du + D·dy, ``ddt = x · du``; (3) ``dCB = Σ_h M``, the
+    cotangent of C·Bᵀ, summed as the chunk kernel sums it (each group of
+    ``head_group`` heads in index order, then the groups in order;
+    ``ssd_scan.bwd_plan`` by default), then ``dB_j = Σ_i dCB_ij C_i +
+    Σ_{h,p} e^{cs_end - cs_j} u_j g`` and ``dC_i = Σ_j dCB_ij B_j +
+    Σ_{h,p} e^{cs_i} dy_i h_in``, the carried terms one contraction over
+    H·P; (4) ``dcs`` from the quadratic term (``W = (C·B) ∘ M`` per head:
+    its row sums taken a column tile of ``tile`` rows at a time, summed
+    in tile order, less its column sums), the carried state's (``e^{cs_i}
+    C_i · dy_i h_in``, per head) and the state update's (``v_j =
+    e^{cs_end - cs_j} u_j · g B_j``: ``-v_j`` on row j, their sum and
+    ``e^{cs_end} <g, h_in>`` on the last row), then ``da_k = Σ_{i>=k}
+    dcs_i`` (f64), ``ddt += da·A``, ``dA = Σ da·dt``, ``dD = Σ dy·x``.
+    ``carry=False`` drops the reverse pass (each chunk gets a zero ``g``,
+    the last one ``dh``), ``da_cumsum=False`` takes ``da = dcs``,
+    ``dbc_heads`` keeps only that many heads in dCB and in the carried
+    contractions: the faults the card's check must see fail.  Returns
+    (dx, dB, dC, ddt, dA, dD, dh0) as ``ref.ssd_chunk_scan_bwd_ref``
+    does."""
+    from repro_torch.kernels.ssd_scan import bwd_plan
     b, s, H, P = x.shape
     N = B.shape[-1]
     L = min(chunk, s)
+    hpg = bwd_plan(b, s, H, L)[0] if head_group is None else head_group
+    heads = H if dbc_heads is None else dbc_heads
     xf, Bf, Cf, dtf = x.float(), B.float(), C.float(), dt.float()
     dyf, Af, Df = dy.float(), A.float(), D.float()
     spans = [(r0, min(s, r0 + L)) for r0 in range(0, s, L)]
@@ -1963,10 +1976,10 @@ def ssd_bwd_plain(x, B, C, dt, A, D, h0, chunk: int, dy, dh=None, *,
                          dyf[:, r0:r1], Cf[:, r0:r1])
         g = g_out[k] * torch.exp(cs[k][:, -1, :])[:, :, None, None] + q
     dh0 = None if h0 is None else g
-    # (2) and (3), chunk by chunk
+    # (2) - (4), chunk by chunk
     dx, ddt = torch.empty_like(xf), torch.empty_like(dtf)
-    dB_h = torch.empty((b, s, H, N), dtype=torch.float32, device=x.device)
-    dC_h = torch.empty_like(dB_h)
+    dB = torch.empty((b, s, N), dtype=torch.float32, device=x.device)
+    dC = torch.empty_like(dB)
     dA = torch.zeros_like(Af)
     for (r0, r1), c, hc, gc in zip(spans, cs, h_in, g_out):
         n = r1 - r0
@@ -1987,12 +2000,26 @@ def ssd_bwd_plain(x, B, C, dt, A, D, h0, chunk: int, dy, dh=None, *,
         dx[:, r0:r1] = dtc[..., None] * du + Df[:, None] * dyc
         ddt[:, r0:r1] = (xc * du).sum(-1)
         v = ed * (u * gB).sum(-1)
-        dB_h[:, r0:r1] = torch.einsum("bijh,bin->bjhn", M, Cc) + \
-            ed[..., None] * torch.einsum("bjhp,bhpn->bjhn", u, gc)
+        # (3) dCB, each group's heads in order, then the groups in order
+        dcb = torch.zeros((b, n, n), dtype=torch.float32, device=x.device)
+        for g0 in range(0, heads, hpg):
+            part = M[..., g0]
+            for hh in range(g0 + 1, min(g0 + hpg, heads)):
+                part = part + M[..., hh]
+            dcb = dcb + part
+        ue = (ed[..., None] * u)[:, :, :heads].reshape(b, n, heads * P)
+        ye = (torch.exp(c)[..., None] * dyc)[:, :, :heads].reshape(
+            b, n, heads * P)
+        dB[:, r0:r1] = torch.einsum("bij,bin->bjn", dcb, Cc) + \
+            ue @ gc[:, :heads].reshape(b, heads * P, N)
+        dC[:, r0:r1] = torch.einsum("bij,bjn->bin", dcb, Bc) + \
+            ye @ hc[:, :heads].reshape(b, heads * P, N)
+        # (4) dcs: W's row sums a column tile at a time, in tile order
+        rows = torch.zeros_like(c)
+        for j0 in range(0, n, tile):
+            rows = rows + W[:, :, j0:j0 + tile].sum(2)
         dyh = torch.einsum("bihp,bhpn->bihn", dyc, hc)
-        dC_h[:, r0:r1] = torch.einsum("bijh,bjn->bihn", M, Bc) + \
-            torch.exp(c)[..., None] * dyh
-        dcs = W.sum(2) - W.sum(1) + torch.exp(c) * torch.einsum(
+        dcs = rows - W.sum(1) + torch.exp(c) * torch.einsum(
             "bihn,bin->bih", dyh, Cc) - v
         dcs[:, -1] += v.sum(1) + torch.exp(c[:, -1]) * torch.einsum(
             "bhpn,bhpn->bh", gc, hc)
@@ -2000,30 +2027,43 @@ def ssd_bwd_plain(x, B, C, dt, A, D, h0, chunk: int, dy, dh=None, *,
             else dcs
         ddt[:, r0:r1] += da * Af
         dA += (da * dtc).sum((0, 1))
-    heads = H if dbc_heads is None else dbc_heads
     dD = (dyf * xf).sum((0, 1, 3))
-    return (dx.to(x.dtype), dB_h[:, :, :heads].sum(2).to(B.dtype),
-            dC_h[:, :, :heads].sum(2).to(C.dtype), ddt, dA.to(A.dtype),
-            dD.to(D.dtype), dh0)
+    return (dx.to(x.dtype), dB.to(B.dtype), dC.to(C.dtype), ddt,
+            dA.to(A.dtype), dD.to(D.dtype), dh0)
 
 
-def ssd_bwd_fmas(b, s, H, P, N, L) -> tuple:
-    """The SSD backward's multiply-adds over this call's rows.  The
-    gradient's own, per chunk of l rows and head: 4 l P N (Q, g·B, u·g,
-    dy·h_in), 2 t P (G·dy, dy·u) and 2 t N (M·C, M·B), t = l (l + 1) / 2.
-    As the kernels issue them: dy·u again for each 64 columns of N (M is
-    recomputed beside dB's columns and dC's rows), and on the bf16 path
-    each as TF32 MMAs of split operands (an operand of f32 values in two
-    parts: two products, three when both are).  Returns (the gradient's
-    FMAs, the FMAs issued, the MMA FMAs issued in bf16)."""
+def ssd_bwd_fmas(b, s, H, P, N, L) -> dict:
+    """The SSD backward's multiply-adds over this call's rows, with t =
+    l (l + 1) / 2 pairs j <= i in a chunk of l rows.  The gradient's own
+    (the least): b H (4 s P N + 2 t P) + b 2 t N (Q, g·B, u·g, dy·h_in;
+    M and G·dy, once per head; dCB·C and dCB·B, once: B and C carry no
+    head index).  As the kernels issue them: every product over whole
+    64-row tiles and tile pairs; on the bf16 path each on ``wgmma`` from
+    bf16 parts (an f32 operand in two, lo·lo dropped: two products for
+    an f32 operand against a bf16 one, three for two f32 operands).
+    Beside them the counts of the earlier per-head dB/dC design (M·C
+    and M·B once per head, M again for each 64 columns of N, every
+    product as split TF32).  Returns a dict of these counts."""
     lens = [min(L, s - c0) for c0 in range(0, s, L)]
     tri = sum(n * (n + 1) // 2 for n in lens)
+    tiles = sum(-(-n // 64) for n in lens)
+    pairs = sum(-(-n // 64) * (-(-n // 64) + 1) // 2 for n in lens)
     nh = N // 64
-    own = b * H * (4 * s * P * N + 2 * tri * P + 2 * tri * N)
-    issued = b * H * (4 * s * P * N + tri * P * (1 + 2 * nh) + 2 * tri * N)
-    mma = b * H * (9 * s * P * N + 3 * tri * P + 4 * nh * tri * P +
-                   4 * tri * N)
-    return own, issued, mma
+    own = b * H * (4 * s * P * N + 2 * tri * P) + b * 2 * tri * N
+    rows = 64 * tiles                    # rows as the tiles cover them
+    tile2 = 64 * 64 * pairs              # products of 64 x 64 tile pairs
+    # Q; g·B; M and G·dy; x·g and dy·h_in; dCB·C and dCB·B
+    q, gb, m, gdy = H * P * N * rows, H * N * P * rows, H * P * tile2, \
+        H * P * tile2
+    xg, yh, dcb = H * P * N * rows, H * P * N * rows, 2 * N * tile2
+    issued = b * (q + gb + m + gdy + xg + yh + dcb)
+    wgmma = b * (2 * q + 2 * gb + 2 * m + 3 * gdy + 2 * xg + 3 * yh +
+                 2 * dcb)
+    pr32 = b * H * (4 * s * P * N + tri * P * (1 + 2 * nh) + 2 * tri * N)
+    pr32_mma = b * H * (9 * s * P * N + 3 * tri * P + 4 * nh * tri * P +
+                        4 * tri * N)
+    return dict(own=own, issued=issued, wgmma=wgmma, pr32_issued=pr32,
+                pr32_mma=pr32_mma)
 
 
 def _ssd_bwd_case(gen, cfg, *, b, s, dtype=torch.bfloat16, h0=False,
@@ -2039,15 +2079,17 @@ def _ssd_bwd_case(gen, cfg, *, b, s, dtype=torch.bfloat16, h0=False,
     (:func:`ssd_grads_err`), bit-identical over two calls;
     with ``planted`` the faults of :func:`ssd_bwd_plain` --
     the reverse pass dropped (when there are two chunks or more), da
-    taken as dcs without the reverse cumulative sum, dB and dC summed over
-    one head -- must fail it.  The bound is the gradient's own
-    multiply-adds (:func:`ssd_bwd_fmas`: no split copies, no recompute)
-    at the TF32 peak for bf16 inputs, the rate their products run at, and
-    at the f32 peak for f32 ones; ``bound_ms_f32_peak`` and the FMAs as
-    the kernels issue them are printed beside it.  No PyTorch call
-    computes the gradient."""
+    taken as dcs without the reverse cumulative sum, dCB and the carried
+    contractions over one head -- must fail it.  The kernel's head groups
+    (``ssd_scan.bwd_plan``'s, which the CPU mirror follows too) and its
+    scratch in MB are reported.  The bound is the gradient's least
+    multiply-adds (:func:`ssd_bwd_fmas`: dCB once, no split copies) at
+    the TF32 peak for bf16 inputs, the rate their products run at, and
+    at the f32 peak for f32 ones; ``bound_ms_f32_peak``, the FMAs as the
+    kernels issue them and as the earlier per-head dB/dC design issued them
+    are printed beside it.  No PyTorch call computes the gradient."""
     from repro_torch.kernels import ref, ssd_chunk_scan_bwd
-    from repro_torch.kernels.ssd_scan import _forward
+    from repro_torch.kernels.ssd_scan import _bwd_fn, _forward, bwd_plan
     x, B, C, dt, A, D = _ssm_inputs(gen, cfg, b, s, dtype)
     H, P, N = x.shape[2], x.shape[3], B.shape[2]
     dev = "cuda"
@@ -2062,6 +2104,8 @@ def _ssd_bwd_case(gen, cfg, *, b, s, dtype=torch.bfloat16, h0=False,
                   dtype=str(dtype).replace("torch.", ""),
                   **({"case": label} if label else {}))
     _, _, saved = _forward(x, B, C, dt, A, D, state, chunk)
+    hpg = bwd_plan(b, s, H, L)[0]
+    workspace_mb = _bwd_fn()[1](N, b, s, H, L, hpg) * 4 / 1e6
     call = lambda: _nonnull(ssd_chunk_scan_bwd(x, B, C, dt, A, D, state,
                                                chunk, dy, dh, saved=saved))
     got = _twice(call)
@@ -2086,9 +2130,11 @@ def _ssd_bwd_case(gen, cfg, *, b, s, dtype=torch.bfloat16, h0=False,
                if s > L else {}),
             "da taken as dcs (no reverse cumulative sum)":
                 plant(da_cumsum=False),
-            "dB and dC summed over one head": plant(dbc_heads=1)},
+            "dCB and the carried contractions over one head":
+                plant(dbc_heads=1)},
             check=ssd_grads_err)
-    fma, issued, mma = ssd_bwd_fmas(b, s, H, P, N, L)
+    fmas = ssd_bwd_fmas(b, s, H, P, N, L)
+    fma = fmas["own"]
     isz, nc = x.element_size(), -(-s // L)
     lt = -(-L // 64) * 64
     states = (3 if h0 else 1) * b * H * P * N * 4
@@ -2107,8 +2153,12 @@ def _ssd_bwd_case(gen, cfg, *, b, s, dtype=torch.bfloat16, h0=False,
             x, B, C, dt, A, D, state, chunk, dy, dh)),
         library_ms=None,
         library_name="none (no PyTorch call computes the scan's gradient)",
-        fmas=fma, fmas_issued=issued,
-        mma_fmas_issued=mma if dtype == torch.bfloat16 else None,
+        fmas=fma, fmas_issued=fmas["issued"],
+        wgmma_fmas_issued=fmas["wgmma"] if dtype == torch.bfloat16
+        else None,
+        fmas_pr32=fmas["pr32_issued"],
+        mma_fmas_pr32=fmas["pr32_mma"] if dtype == torch.bfloat16 else None,
+        heads_per_group=hpg, workspace_mb=workspace_mb,
         bound_ms=b_ms, bound_by=b_by, bound_ms_f32_peak=f32_ms)
 
 
@@ -3193,10 +3243,18 @@ def print_cases(cases: dict) -> None:
                   + ("" if "fmas_issued" not in c else
                      f"; the gradient's FMAs {c['fmas']}, issued "
                      f"{c['fmas_issued']}"
-                     + ("" if c["mma_fmas_issued"] is None else
-                        f" ({c['mma_fmas_issued']} as split TF32 MMAs)")
+                     + ("" if c["wgmma_fmas_issued"] is None else
+                        f" ({c['wgmma_fmas_issued']} on wgmma as bf16 "
+                        f"parts)")
+                     + ("" if "fmas_pr32" not in c else
+                        f", per-head dB/dC (PR 32) {c['fmas_pr32']}"
+                        + ("" if c["mma_fmas_pr32"] is None else
+                           f" ({c['mma_fmas_pr32']} as split TF32 MMAs)"))
                      + f", bound at the f32 peak "
                      f"{c['bound_ms_f32_peak']:.4f} ms")
+                  + ("" if "workspace_mb" not in c else
+                     f"; {c['heads_per_group']} heads a group, scratch "
+                     f"{c['workspace_mb']:.1f} MB")
                   + ("" if not c.get("planted_err") else
                      "; planted faults fail: " + ", ".join(
                          f"{k} err {v:.3g}"

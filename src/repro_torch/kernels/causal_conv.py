@@ -30,14 +30,16 @@ this wrapper still takes s = 1.
 
 Training differentiates it (:class:`_CausalConv`): the backward,
 :func:`causal_conv_bwd`, is Triton too, over the forward's grid of runs
-and strips.  A program recomputes each row's ``pre`` as the forward sums
-it, ``dpre = dout σ(pre) (1 + pre (1 - σ(pre)))``, and writes ``dx[r] =
-Σ_k dpre[r + k] w[cw - 1 - k]`` (plus the new tail's cotangent on the
-rows the tail copied) once the three rows after r are known, recomputing
-the first three rows of the next run; the first run writes the old
-tail's gradient.  dw's per-program partials (f32) are summed in program
-order by a second kernel, so the gradient is bit-reproducible without
-atomics.  Bound: bytes, as the forward's.
+and strips, ``ROWS`` rows a step with the next step's loads in flight as
+the forward does.  A program recomputes each row's ``pre`` as the
+forward sums it, ``dpre = dout σ(pre) (1 + pre (1 - σ(pre)))``, and
+writes ``dx[r] = Σ_k dpre[r + k] w[cw - 1 - k]`` (plus the new tail's
+cotangent on the rows the tail copied) once the three rows after r are
+known, recomputing the first three rows of the next run; the first run
+writes the old tail's gradient.  dw's per-program partials (f32) are
+summed in program order by a second kernel spread over strips of
+``DW_BLOCK`` columns and the taps, so the gradient is bit-reproducible
+without atomics.  Bound: bytes, as the forward's.
 """
 from __future__ import annotations
 
@@ -51,6 +53,7 @@ BLOCK_C = 256              # channels of a strip: one warp, 16 B a thread
 ROWS = 4                   # rows loaded together in a step of a run
 TARGET_PROGRAMS = 2048     # programs (one warp each) the runs aim at
 MAX_CW = 4                 # taps the kernel holds (w0..w3); ssm_step's too
+DW_BLOCK = 64              # columns of a program of dw's reduction
 tl = None                  # triton.language, bound at the first launch
 
 
@@ -159,12 +162,14 @@ def _conv_bwd_kernel(x_ptr, w_ptr, tail_ptr, dout_ptr, dnt_ptr, dx_ptr,
                      dtail_ptr, dwp_ptr, S, C, RUN, RUNS, CW: tl.constexpr,
                      HAS_DNT: tl.constexpr, BLOCK_C: tl.constexpr):
     """dx, dtail and the per-program partials of dw for rows [r0, r0 +
-    RUN) of one strip: row t's ``pre`` recomputed as the forward sums it,
-    ``dpre = dout σ(pre) (1 + pre (1 - σ(pre)))``, a window of the last
-    three rows' x and dpre in registers; ``dx[r] = Σ_k dpre[r + k] wk``
-    once dpre[r + 3] is known (rows before the run's first are finished by
-    the run before, whose last rows this one recomputes), plus the new
-    tail's cotangent on the rows it copied; the first run writes dtail."""
+    RUN) of one strip, ``ROWS`` (4) rows a step with the next step's x
+    and dout loaded before this step's arithmetic: row t's ``pre``
+    recomputed as the forward sums it, ``dpre = dout σ(pre) (1 + pre (1 -
+    σ(pre)))``, the last three rows' x and dpre carried in registers;
+    ``dx[r] = Σ_k dpre[r + k] wk`` once dpre[r + 3] is known (rows before
+    the run's first are finished by the run before, whose last rows this
+    one recomputes), plus the new tail's cotangent on the rows it copied;
+    the first run writes dtail."""
     b = tl.program_id(0)
     run = tl.program_id(1)
     cols = tl.program_id(2) * BLOCK_C + tl.arange(0, BLOCK_C)
@@ -211,41 +216,129 @@ def _conv_bwd_kernel(x_ptr, w_ptr, tail_ptr, dout_ptr, dnt_ptr, dx_ptr,
     a2 = tl.zeros((BLOCK_C,), dtype=tl.float32)
     a3 = tl.zeros((BLOCK_C,), dtype=tl.float32)
     ty = dx_ptr.dtype.element_ty
-    for t in range(r0, r_end + 3):
-        live = t < S
-        x0 = tl.load(x_ptr + (b * S + t) * C + cols, mask=cmask & live,
+    # this step's rows t .. t + 3 (zeros past the sequence)
+    row = (b * S + r0) * C + cols
+    x0 = tl.load(x_ptr + row, mask=cmask & (r0 < S), other=0.0).to(tl.float32)
+    x1 = tl.load(x_ptr + row + C, mask=cmask & (r0 + 1 < S),
+                 other=0.0).to(tl.float32)
+    x2 = tl.load(x_ptr + row + 2 * C, mask=cmask & (r0 + 2 < S),
+                 other=0.0).to(tl.float32)
+    x3 = tl.load(x_ptr + row + 3 * C, mask=cmask & (r0 + 3 < S),
+                 other=0.0).to(tl.float32)
+    g0 = tl.load(dout_ptr + row, mask=cmask & (r0 < S),
+                 other=0.0).to(tl.float32)
+    g1 = tl.load(dout_ptr + row + C, mask=cmask & (r0 + 1 < S),
+                 other=0.0).to(tl.float32)
+    g2 = tl.load(dout_ptr + row + 2 * C, mask=cmask & (r0 + 2 < S),
+                 other=0.0).to(tl.float32)
+    g3 = tl.load(dout_ptr + row + 3 * C, mask=cmask & (r0 + 3 < S),
+                 other=0.0).to(tl.float32)
+    for t in range(r0, r_end + 3, 4):
+        # the next step's rows, in flight during this step's arithmetic
+        row = (b * S + t) * C + cols
+        n0 = tl.load(x_ptr + row + 4 * C, mask=cmask & (t + 4 < S),
                      other=0.0).to(tl.float32)
-        pre = p3 * w3 + p2 * w2 + p1 * w1 + x0 * w0
-        sg = tl.sigmoid(pre)
-        g = tl.load(dout_ptr + (b * S + t) * C + cols, mask=cmask & live,
-                    other=0.0).to(tl.float32)
-        dp = g * sg * (1.0 + pre * (1.0 - sg))
-        # dw's partials over this run's own rows
-        own = (t < r_end).to(tl.float32)
-        a0 += own * dp * x0
-        a1 += own * dp * p1
-        a2 += own * dp * p2
-        a3 += own * dp * p3
-        # row r = t - 3 is complete: its x, or a tail row (x-row -CW+1..-1)
+        n1 = tl.load(x_ptr + row + 5 * C, mask=cmask & (t + 5 < S),
+                     other=0.0).to(tl.float32)
+        n2 = tl.load(x_ptr + row + 6 * C, mask=cmask & (t + 6 < S),
+                     other=0.0).to(tl.float32)
+        n3 = tl.load(x_ptr + row + 7 * C, mask=cmask & (t + 7 < S),
+                     other=0.0).to(tl.float32)
+        m0 = tl.load(dout_ptr + row + 4 * C, mask=cmask & (t + 4 < S),
+                     other=0.0).to(tl.float32)
+        m1 = tl.load(dout_ptr + row + 5 * C, mask=cmask & (t + 5 < S),
+                     other=0.0).to(tl.float32)
+        m2 = tl.load(dout_ptr + row + 6 * C, mask=cmask & (t + 6 < S),
+                     other=0.0).to(tl.float32)
+        m3 = tl.load(dout_ptr + row + 7 * C, mask=cmask & (t + 7 < S),
+                     other=0.0).to(tl.float32)
+        # oldest row first, as the forward sums the taps
+        e0 = p3 * w3 + p2 * w2 + p1 * w1 + x0 * w0
+        e1 = p2 * w3 + p1 * w2 + x0 * w1 + x1 * w0
+        e2 = p1 * w3 + x0 * w2 + x1 * w1 + x2 * w0
+        e3 = x0 * w3 + x1 * w2 + x2 * w1 + x3 * w0
+        s0 = tl.sigmoid(e0)
+        s1 = tl.sigmoid(e1)
+        s2 = tl.sigmoid(e2)
+        s3 = tl.sigmoid(e3)
+        d0 = g0 * s0 * (1.0 + e0 * (1.0 - s0))
+        d1 = g1 * s1 * (1.0 + e1 * (1.0 - s1))
+        d2 = g2 * s2 * (1.0 + e2 * (1.0 - s2))
+        d3 = g3 * s3 * (1.0 + e3 * (1.0 - s3))
+        # dw's partials over this run's own rows, row by row in order
+        o0 = (t < r_end).to(tl.float32)
+        o1 = (t + 1 < r_end).to(tl.float32)
+        o2 = (t + 2 < r_end).to(tl.float32)
+        o3 = (t + 3 < r_end).to(tl.float32)
+        a0 += o0 * d0 * x0
+        a1 += o0 * d0 * p1
+        a2 += o0 * d0 * p2
+        a3 += o0 * d0 * p3
+        a0 += o1 * d1 * x1
+        a1 += o1 * d1 * x0
+        a2 += o1 * d1 * p1
+        a3 += o1 * d1 * p2
+        a0 += o2 * d2 * x2
+        a1 += o2 * d2 * x1
+        a2 += o2 * d2 * x0
+        a3 += o2 * d2 * p1
+        a0 += o3 * d3 * x3
+        a1 += o3 * d3 * x2
+        a2 += o3 * d3 * x1
+        a3 += o3 * d3 * x0
+        # rows t - 3 .. t are complete: each its x, or a tail row
+        # (x-row -CW+1..-1)
+        f0 = q3 * w0 + q2 * w1 + q1 * w2 + d0 * w3
+        f1 = q2 * w0 + q1 * w1 + d0 * w2 + d1 * w3
+        f2 = q1 * w0 + d0 * w1 + d1 * w2 + d2 * w3
+        f3 = d0 * w0 + d1 * w1 + d2 * w2 + d3 * w3
         r = t - 3
-        d = q3 * w0 + q2 * w1 + q1 * w2 + dp * w3
         if HAS_DNT:
             # tail ‖ x row r + CW - 1 is row r + CW - 1 - S of the new tail
             m = r + CW - 1 - S
-            d += tl.load(dnt_ptr + (b * (CW - 1) + m) * C + cols,
-                         mask=cmask & (m >= 0) & (m < CW - 1),
-                         other=0.0).to(tl.float32)
-        tl.store(dx_ptr + (b * S + r) * C + cols, d.to(ty),
+            f0 += tl.load(dnt_ptr + (b * (CW - 1) + m) * C + cols,
+                          mask=cmask & (m >= 0) & (m < CW - 1),
+                          other=0.0).to(tl.float32)
+            f1 += tl.load(dnt_ptr + (b * (CW - 1) + m + 1) * C + cols,
+                          mask=cmask & (m + 1 >= 0) & (m + 1 < CW - 1),
+                          other=0.0).to(tl.float32)
+            f2 += tl.load(dnt_ptr + (b * (CW - 1) + m + 2) * C + cols,
+                          mask=cmask & (m + 2 >= 0) & (m + 2 < CW - 1),
+                          other=0.0).to(tl.float32)
+            f3 += tl.load(dnt_ptr + (b * (CW - 1) + m + 3) * C + cols,
+                          mask=cmask & (m + 3 >= 0) & (m + 3 < CW - 1),
+                          other=0.0).to(tl.float32)
+        out = (b * S + r) * C + cols
+        tl.store(dx_ptr + out, f0.to(ty),
                  mask=cmask & (r >= r0) & (r < r_end))
-        tl.store(dtail_ptr + (b * (CW - 1) + r + CW - 1) * C + cols,
-                 d.to(ty), mask=cmask & (run == 0) & (r < 0) &
+        tl.store(dx_ptr + out + C, f1.to(ty),
+                 mask=cmask & (r + 1 >= r0) & (r + 1 < r_end))
+        tl.store(dx_ptr + out + 2 * C, f2.to(ty),
+                 mask=cmask & (r + 2 >= r0) & (r + 2 < r_end))
+        tl.store(dx_ptr + out + 3 * C, f3.to(ty),
+                 mask=cmask & (r + 3 >= r0) & (r + 3 < r_end))
+        tail = (b * (CW - 1) + r + CW - 1) * C + cols
+        first = run == 0
+        tl.store(dtail_ptr + tail, f0.to(ty), mask=cmask & first & (r < 0) &
                  (r + CW - 1 >= 0))
-        p3 = p2
-        p2 = p1
-        p1 = x0
-        q3 = q2
-        q2 = q1
-        q1 = dp
+        tl.store(dtail_ptr + tail + C, f1.to(ty), mask=cmask & first &
+                 (r + 1 < 0) & (r + CW >= 0))
+        tl.store(dtail_ptr + tail + 2 * C, f2.to(ty), mask=cmask & first &
+                 (r + 2 < 0) & (r + CW + 1 >= 0))
+        p3 = x1
+        p2 = x2
+        p1 = x3
+        q3 = d1
+        q2 = d2
+        q1 = d3
+        x0 = n0
+        x1 = n1
+        x2 = n2
+        x3 = n3
+        g0 = m0
+        g1 = m1
+        g2 = m2
+        g3 = m3
     part = dwp_ptr + ((b * RUNS + run) * 4) * C + cols
     tl.store(part, a0, mask=cmask)
     tl.store(part + C, a1, mask=cmask)
@@ -254,20 +347,66 @@ def _conv_bwd_kernel(x_ptr, w_ptr, tail_ptr, dout_ptr, dnt_ptr, dx_ptr,
 
 
 def _conv_bwd_dw_kernel(dwp_ptr, dw_ptr, NPART, C, CW: tl.constexpr,
-                        BLOCK_C: tl.constexpr):
-    """dw[CW - 1 - k] = the programs' partials of tap k summed in program
-    order, rounded once to dw's dtype."""
-    cols = tl.program_id(0) * BLOCK_C + tl.arange(0, BLOCK_C)
+                        BLOCK: tl.constexpr):
+    """dw[CW - 1 - k] for tap k (program_id(1)) over ``BLOCK`` columns
+    (program_id(0)): the programs' partials summed in program order, the
+    loads of sixteen partials issued together (a missing partial adds
+    0.0), rounded once to dw's dtype."""
+    k = tl.program_id(1)
+    cols = tl.program_id(0) * BLOCK + tl.arange(0, BLOCK)
     cmask = cols < C
-    ty = dw_ptr.dtype.element_ty
-    for k in tl.static_range(4):
-        if k < CW:
-            acc = tl.zeros((BLOCK_C,), dtype=tl.float32)
-            for part in range(NPART):
-                acc += tl.load(dwp_ptr + (part * 4 + k) * C + cols,
-                               mask=cmask, other=0.0)
-            tl.store(dw_ptr + (CW - 1 - k) * C + cols, acc.to(ty),
-                     mask=cmask)
+    acc = tl.zeros((BLOCK,), dtype=tl.float32)
+    for p0 in range(0, NPART, 16):
+        src = dwp_ptr + (p0 * 4 + k) * C + cols
+        v0 = tl.load(src, mask=cmask, other=0.0)
+        v1 = tl.load(src + 4 * C,
+                      mask=cmask & (p0 + 1 < NPART), other=0.0)
+        v2 = tl.load(src + 8 * C,
+                      mask=cmask & (p0 + 2 < NPART), other=0.0)
+        v3 = tl.load(src + 12 * C,
+                      mask=cmask & (p0 + 3 < NPART), other=0.0)
+        v4 = tl.load(src + 16 * C,
+                      mask=cmask & (p0 + 4 < NPART), other=0.0)
+        v5 = tl.load(src + 20 * C,
+                      mask=cmask & (p0 + 5 < NPART), other=0.0)
+        v6 = tl.load(src + 24 * C,
+                      mask=cmask & (p0 + 6 < NPART), other=0.0)
+        v7 = tl.load(src + 28 * C,
+                      mask=cmask & (p0 + 7 < NPART), other=0.0)
+        v8 = tl.load(src + 32 * C,
+                      mask=cmask & (p0 + 8 < NPART), other=0.0)
+        v9 = tl.load(src + 36 * C,
+                      mask=cmask & (p0 + 9 < NPART), other=0.0)
+        v10 = tl.load(src + 40 * C,
+                      mask=cmask & (p0 + 10 < NPART), other=0.0)
+        v11 = tl.load(src + 44 * C,
+                      mask=cmask & (p0 + 11 < NPART), other=0.0)
+        v12 = tl.load(src + 48 * C,
+                      mask=cmask & (p0 + 12 < NPART), other=0.0)
+        v13 = tl.load(src + 52 * C,
+                      mask=cmask & (p0 + 13 < NPART), other=0.0)
+        v14 = tl.load(src + 56 * C,
+                      mask=cmask & (p0 + 14 < NPART), other=0.0)
+        v15 = tl.load(src + 60 * C,
+                      mask=cmask & (p0 + 15 < NPART), other=0.0)
+        acc += v0
+        acc += v1
+        acc += v2
+        acc += v3
+        acc += v4
+        acc += v5
+        acc += v6
+        acc += v7
+        acc += v8
+        acc += v9
+        acc += v10
+        acc += v11
+        acc += v12
+        acc += v13
+        acc += v14
+        acc += v15
+    tl.store(dw_ptr + (CW - 1 - k) * C + cols,
+             acc.to(dw_ptr.dtype.element_ty), mask=cmask)
 
 
 def run_length(b: int, s: int, c: int) -> int:
@@ -409,8 +548,8 @@ def causal_conv_bwd(x: torch.Tensor, w: torch.Tensor, tail: torch.Tensor,
                            dtail, parts, s, c, run, runs, CW=cw,
                            HAS_DNT=dnt is not None, BLOCK_C=BLOCK_C,
                            num_warps=1)
-    dw_sum[(strips,)](parts, dw, b * runs, c, CW=cw, BLOCK_C=BLOCK_C,
-                      num_warps=1)
+    dw_sum[(-(-c // DW_BLOCK), cw)](parts, dw, b * runs, c, CW=cw,
+                                    BLOCK=DW_BLOCK, num_warps=1)
     causal_conv_bwd.launches += 1
     return dx, dw, dtail
 

@@ -1,6 +1,7 @@
 // Tile helpers of the SSD scan's kernels, forward (ssd_scan.cu) and
-// backward (ssd_scan_bwd.cu): the constants of their 64 x 64 output tiles
-// of 4 warps, the loads of 32-row slices of f32 into shared memory, and the
+// backward (ssd_scan_bwd.cu): the constants of their 64 x 64 output tiles,
+// the TF32 split and the MMA both use, and the forward's own: its tiles of
+// 4 warps, the loads of 32-row slices of f32 into shared memory, and the
 // products over a slice (split TF32 on the tensor cores for bf16 inputs,
 // f32 FMAs for f32 ones).  Each source includes it once; an anonymous
 // namespace keeps every helper internal to that source.

@@ -22,10 +22,11 @@ caching allocator.  On CPU tensors it computes the plain version.
 
 Training differentiates it: under grad the wrapper goes through
 :class:`_SSDChunkScan`, whose backward :func:`ssd_chunk_scan_bwd` runs
-the five kernels of ``csrc/ssd_scan_bwd.cu`` (the reverse state pass
-over the chunks, then each chunk's gradients against the states the
-forward kept) on the card and the autograd of the plain version on the
-CPU.
+the eight kernels of ``csrc/ssd_scan_bwd.cu`` on the card (the reverse
+state pass over the chunks; each chunk's per-head gradients against the
+states the forward kept, with the cotangent of C·Bᵀ summed over the heads
+in groups; dB and dC as products of it and of the carried terms over H·P)
+and the autograd of the plain version on the CPU.
 """
 from __future__ import annotations
 
@@ -40,6 +41,7 @@ from repro_torch.kernels import build, ref
 HEAD_DIM, STATES = 64, (64, 128)   # the widths the kernel is built for
 MAX_CHUNK = 256
 TILE = 64                          # rows of the kernels' tiles
+GRID_AIM, MAX_GROUPS = 264, 16     # the backward's head groups (bwd_plan)
 
 
 @functools.cache
@@ -57,14 +59,28 @@ def _bwd_fn():
     """(the backward's entry, its workspace size in floats)."""
     lib = build.library("ssd_scan_bwd")
     ws = lib.ssd_chunk_scan_bwd_workspace
-    ws.argtypes = [ctypes.c_int] * 5
+    ws.argtypes = [ctypes.c_int] * 6
     ws.restype = ctypes.c_longlong
     fn = lib.ssd_chunk_scan_bwd
     fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 19 +
-                   [ctypes.c_int] * 4 + [ctypes.c_longlong] * 4 +
+                   [ctypes.c_int] * 5 + [ctypes.c_longlong] * 4 +
                    [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn, ws
+
+
+def bwd_plan(b: int, s: int, H: int, L: int) -> tuple:
+    """(heads a group takes, groups) of the backward's chunk kernel, which
+    takes the first from here: enough groups that its blocks (one per
+    64-row tile of every chunk and sequence, times the groups) reach
+    ``GRID_AIM``, at most ``MAX_GROUPS``.  The cotangent of C·Bᵀ sums
+    each group's heads in index order, then the groups in order (so does
+    ``chip_smoke.ssd_bwd_plain``)."""
+    tpc, rem = -(-L // TILE), s % L
+    cols = b * ((s // L) * tpc + (-(-rem // TILE) if rem else 0))
+    want = min(MAX_GROUPS, max(1, -(-GRID_AIM // cols)))
+    hpg = -(-H // want)
+    return hpg, -(-H // hpg)
 
 
 def _check_shapes(kernel, x, B, C, dt, A, D, h0, chunk, out_state=None):
@@ -217,7 +233,7 @@ def ssd_chunk_scan_bwd(x: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
     h0 is.  On CUDA tensors ``saved`` is the forward's scratch (cb, cs,
     the states entering the chunks) as :class:`_SSDChunkScan` keeps it
     (:func:`_check_saved` refuses one that does not fit), and one call
-    runs the five kernels of ``csrc/ssd_scan_bwd.cu``, counted once; on
+    runs the eight kernels of ``csrc/ssd_scan_bwd.cu``, counted once; on
     CPU tensors it is ``ref.ssd_chunk_scan_bwd_ref``."""
     b, s, H, P, N = _check_shapes("ssd_chunk_scan_bwd", x, B, C, dt, A, D,
                                   h0, chunk)
@@ -250,11 +266,18 @@ def ssd_chunk_scan_bwd(x: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
         return dx, dB, dC, ddt, dA.to(A.dtype), dD.to(D.dtype), dh0
     L = min(chunk, s)
     cb, cs, chunk_states = _check_saved(saved, x, b, s, H, P, N, L)
+    # the kernels copy x's, B's and C's rows 16 bytes at a time
+    build.require_aligned(
+        "ssd_chunk_scan_bwd",
+        {"x": x.data_ptr(), "B": B.data_ptr(), "C": C.data_ptr()},
+        {"x": x.stride()[:2], "B": B.stride()[:2]}, x.element_size())
     fn, workspace = _bwd_fn()
-    # the cotangents of the chunk states, the rows' dcs, the partials of
-    # dA and dD, and dB's and dC's per-head partials (134 MB at
-    # mamba2-1.3b's microbatch)
-    work = torch.empty(workspace(N, b, s, H, L), **f32)
+    hpg = bwd_plan(b, s, H, L)[0]
+    # the cotangents of the chunk states, dcs's partials, the partials of
+    # dA and dD, the cotangent of C·Bᵀ (the groups' partials and their
+    # sum), dB's and dC's f32 sums per share of the heads: 49.9 MB at
+    # mamba2-1.3b's microbatch
+    work = torch.empty(workspace(N, b, s, H, L, hpg), **f32)
     Af, Df = A.float().contiguous(), D.float().contiguous()
     ptr = lambda t: None if t is None else t.data_ptr()
     rc = fn(build.ATTN_DTYPES[x.dtype], N, x.data_ptr(), B.data_ptr(),
@@ -262,8 +285,8 @@ def ssd_chunk_scan_bwd(x: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
             dy.data_ptr(), ptr(dh), cb.data_ptr(), cs.data_ptr(),
             chunk_states.data_ptr(), dx.data_ptr(), dB.data_ptr(),
             dC.data_ptr(), ddt.data_ptr(), dA.data_ptr(), dD.data_ptr(),
-            ptr(dh0), work.data_ptr(), b, s, H, L, x.stride(0), x.stride(1),
-            B.stride(0), B.stride(1), build.stream_of(x))
+            ptr(dh0), work.data_ptr(), b, s, H, L, hpg, x.stride(0),
+            x.stride(1), B.stride(0), B.stride(1), build.stream_of(x))
     build.check(rc, "ssd_chunk_scan_bwd")
     ssd_chunk_scan_bwd.launches += 1
     return dx, dB, dC, ddt, dA.to(A.dtype), dD.to(D.dtype), dh0

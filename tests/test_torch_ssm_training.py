@@ -163,26 +163,46 @@ def test_plain_backward_is_finite_where_the_old_mask_gave_nan():
     assert not all(bool(g.isfinite().all()) for g in old)
 
 
-# (b, s, chunk, carried state, cotangent on the final state)
-BWD_CASES = [(1, 64, 32, False, False), (2, 70, 32, True, True),
-             (1, 20, 32, True, True), (2, 96, 32, False, True)]
+# (b, s, chunk, carried state, cotangent on the final state, heads, heads
+# a group of the card's chunk kernel (None: ssd_scan.bwd_plan's), rows of
+# its column tiles)
+_BWD = lambda *c: pytest.param(*c, id="-".join(map(str, c[:5])) + (
+    "" if c[5:] == (3, None, 64) else "-" + "-".join(map(str, c[5:]))))
+BWD_CASES = [_BWD(1, 64, 32, False, False, 3, None, 64),
+             _BWD(2, 70, 32, True, True, 3, None, 64),
+             _BWD(1, 20, 32, True, True, 3, None, 64),
+             _BWD(2, 96, 32, False, True, 3, None, 64),
+             # 5 heads in groups of 2 (2, 2, 1); chunks of 20 rows in
+             # column tiles of 8 (8, 8, 4)
+             _BWD(2, 50, 20, True, True, 5, 2, 8),
+             # 7 heads in groups of 3 (3, 3, 1), one short chunk in tiles
+             # of 16 over 37 rows
+             _BWD(1, 37, 40, False, True, 7, 3, 16),
+             # 4 heads in groups of 3; the last chunk of 5 rows under one
+             # tile of 8
+             _BWD(2, 29, 24, True, False, 4, 3, 8)]
 
 
-@pytest.mark.parametrize("b,s,chunk,h0,dh", BWD_CASES)
-def test_chunk_parallel_backward_matches_autograd(b, s, chunk, h0, dh):
+@pytest.mark.parametrize("b,s,chunk,h0,dh,heads,group,tile", BWD_CASES)
+def test_chunk_parallel_backward_matches_autograd(b, s, chunk, h0, dh,
+                                                  heads, group, tile):
     """The card's backward as it splits the work (the reverse state pass
-    over the chunks, then each chunk's gradients, the reverse cumulative
-    sum of dcs, the sums over heads) against autograd of the plain
-    forward: every gradient within 2e-5 of its own largest |value|.  Its
-    planted faults move the gradients they touch past 1e-2 of theirs."""
+    over the chunks, then each chunk's per-head gradients, the cotangent
+    of C·Bᵀ summed over each group's heads and then over the groups, dB
+    and dC from it and from the carried terms contracted over H·P, W's
+    row sums a column tile at a time, the reverse cumulative sum of dcs)
+    against autograd of the plain forward: every gradient within 2e-5 of
+    its own largest |value|.  Its planted faults move the gradients they
+    touch past 1e-2 of theirs."""
     rng = np.random.default_rng(s + 10 * b)
-    args = _scan_inputs(rng, b, s, 3, 8, 16, h0)
-    dy = torch.from_numpy(rng.standard_normal((b, s, 3, 8)).astype(
+    args = _scan_inputs(rng, b, s, heads, 8, 16, h0)
+    dy = torch.from_numpy(rng.standard_normal((b, s, heads, 8)).astype(
         np.float32))
-    dhv = torch.from_numpy(rng.standard_normal((b, 3, 8, 16)).astype(
+    dhv = torch.from_numpy(rng.standard_normal((b, heads, 8, 16)).astype(
         np.float32)) if dh else None
+    split = dict(head_group=group, tile=tile)
     want = ref.ssd_chunk_scan_bwd_ref(*args, chunk, dy, dhv)
-    got = chip_smoke.ssd_bwd_plain(*args, chunk, dy, dhv)
+    got = chip_smoke.ssd_bwd_plain(*args, chunk, dy, dhv, **split)
     assert (got[6] is None) == (want[6] is None) == (not h0)
     for g, w in zip(got, want):
         if w is not None:
@@ -192,10 +212,27 @@ def test_chunk_parallel_backward_matches_autograd(b, s, chunk, h0, dh):
     if s > chunk:
         faults["carry"] = (0, 1, 3)
     for knob, touched in faults.items():
-        bad = chip_smoke.ssd_bwd_plain(*args, chunk, dy, dhv,
+        bad = chip_smoke.ssd_bwd_plain(*args, chunk, dy, dhv, **split,
                                        **{knob: 1 if knob == "dbc_heads"
                                           else False})
         assert max(_rel_err(bad[i], want[i]) for i in touched) > 1e-2, knob
+
+
+@pytest.mark.parametrize("b,s,H,L,want", [
+    (2, 1023, 64, 256, (8, 8)),    # mamba2-1.3b's microbatch: 32 tiles
+    (2, 1023, 80, 256, (9, 9)),    # zamba2-2.7b's: groups of 9, the last 8
+    (2, 77, 64, 77, (4, 16)),      # 4 tiles: MAX_GROUPS
+    (1, 301, 64, 256, (4, 16)),    # the append: 4 + 1 tiles
+    (8, 4096, 3, 256, (3, 1))])    # 512 tiles: one group of all heads
+def test_ssd_bwd_plan(b, s, H, L, want):
+    """The chunk kernel's head groups as ``ssd_scan.bwd_plan`` computes
+    them (the card checks that its ``Plan`` agrees): enough groups that
+    the column tiles times the groups reach GRID_AIM blocks, at most
+    MAX_GROUPS, every group non-empty."""
+    from repro_torch.kernels.ssd_scan import bwd_plan
+    hpg, groups = bwd_plan(b, s, H, L)
+    assert (hpg, groups) == want
+    assert (groups - 1) * hpg < H <= groups * hpg
 
 
 @pytest.mark.parametrize("dt", ["float32", "bfloat16"])
